@@ -50,7 +50,8 @@ def test_port_entry_points_import_nothing_of_jax():
             + "".join(f"import {m}\n" for m in mods)
             + f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n"
-            "assert 'tpurec_torch.serve' in sys.modules\n")
+            "assert 'tpurec_torch.serve' in sys.modules\n"
+            "assert 'tpurec_torch.train.hybrid' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
 
@@ -102,7 +103,8 @@ def test_bf16_compute_is_refused():
 def test_build_is_keyed_by_source(tmp_path, monkeypatch):
     from tpurec_torch.ops import _build
 
-    assert set(_build.sources()) == {"embedding_gather", "field_attention"}
+    assert set(_build.sources()) == {"embedding_gather", "field_attention",
+                                     "fused_adam"}
     a, b = tmp_path / "k.cu", tmp_path / "k2.cu"
     a.write_text("// one\n")
     b.write_text("// two\n")

@@ -46,7 +46,7 @@ def jax_and_port(field_dims, kw, n_tower, X_init, rng):
     variables = {"params": v["params"],
                  "batch_stats": random_batch_stats(v["batch_stats"], rng)}
     pm = build_model("mmoe", field_dims, n_tower, DOMAIN_IDX,
-                     ModelConfig(**kw)).eval()
+                     ModelConfig(**kw), device="cpu").eval()
     pm.load_state_dict(state_dict_from_flax(
         variables["params"], {"batch_stats": variables["batch_stats"]}),
         strict=True)
@@ -120,7 +120,7 @@ def test_state_dict_keys_are_the_flax_paths():
         jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes["params"]),
         {"batch_stats": jax.tree.map(lambda s: np.zeros(s.shape, s.dtype),
                                      shapes["batch_stats"])}).items()}
-    pm = build_model("mmoe", dims, 3, DOMAIN_IDX, cfg)
+    pm = build_model("mmoe", dims, 3, DOMAIN_IDX, cfg, device="cpu")
     assert {k: tuple(v.shape) for k, v in pm.state_dict().items()} == want
 
 
@@ -129,9 +129,9 @@ def test_port_init_is_seeded_and_torch_default(rng):
     cfg = ModelConfig(model="mmoe", embed_dim=8, mmoe_expert_dims=(16,),
                       mmoe_tower_dims=(8,), atten_embed_dim=8,
                       att_layer_num=1)
-    a = build_model("mmoe", dims, 2, 2, cfg,
+    a = build_model("mmoe", dims, 2, 2, cfg, device="cpu",
                     generator=torch.Generator().manual_seed(5)).state_dict()
-    b = build_model("mmoe", dims, 2, 2, cfg,
+    b = build_model("mmoe", dims, 2, 2, cfg, device="cpu",
                     generator=torch.Generator().manual_seed(5)).state_dict()
     for k in a:
         assert torch.equal(a[k], b[k]), k
@@ -149,12 +149,19 @@ def test_port_init_is_seeded_and_torch_default(rng):
 def test_unported_paths_raise():
     dims = (30, 7, 5, 9)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("deepfm", dims, 1, 2, ModelConfig(model="deepfm"))
+        build_model("deepfm", dims, 1, 2, ModelConfig(model="deepfm"),
+                    device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
-        build_model("nope", dims, 1, 2, ModelConfig())
+        build_model("nope", dims, 1, 2, ModelConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="DCN"):
         build_model("mmoe", dims, 1, 2, ModelConfig(model="mmoe",
-                                                    use_dcn=True))
-    pm = build_model("mmoe", dims, 1, 2, ModelConfig(model="mmoe"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pm(torch.zeros(2, 4, dtype=torch.int32), train=True)
+                                                    use_dcn=True),
+                    device="cpu")
+
+
+def test_build_model_defaults_to_the_card():
+    dims = (30, 7, 5, 9)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("mmoe", dims, 1, 2, ModelConfig(model="mmoe"))

@@ -42,5 +42,53 @@ def state_dict_from_flax(params: Mapping,
         for key, leaf in _leaves(tree):
             if key in out:
                 raise ValueError(f"two leaves map to {key!r}")
-            out[key] = torch.from_numpy(np.array(leaf))
+            out[key] = _tensor(leaf)
     return out
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """numpy (or ml_dtypes bfloat16) array -> a torch tensor of its dtype."""
+    a = np.array(leaf)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
+                          model_state: Optional[Mapping], adam_mu: Mapping,
+                          adam_nu: Mapping, adam_count, emb_m, emb_v,
+                          step, device=None):
+    """The JAX package's hybrid ``TrainState`` pieces, as numpy arrays, ->
+    the port's :class:`tpurec_torch.train.step.TrainState` on ``device``
+    (the card unless the caller asks for the CPU).
+
+    ``params``/``model_state`` load into ``model``; ``adam_mu``,
+    ``adam_nu`` and ``adam_count`` are optax's ``ScaleByAdamState`` of the
+    parameters other than the table (trees of the same paths), which
+    become the dense ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq``
+    and ``step``; ``emb_m``/``emb_v`` are the table's moments
+    (``SparseEmbedState``, float32 or bfloat16); ``step`` the step
+    count."""
+    from tpurec_torch.train.hybrid import init_train_state
+
+    model.load_state_dict(state_dict_from_flax(params, model_state),
+                          strict=True)
+    ts = init_train_state(model, tcfg, device)
+    dev = ts.model.get_parameter("embedding.table").device
+    mu = dict(_leaves(adam_mu))
+    nu = dict(_leaves(adam_nu))
+    names = {id(p): n for n, p in ts.model.named_parameters()}
+    count = float(np.asarray(adam_count))
+    for group in ts.optimizer.param_groups:
+        for p in group["params"]:
+            n = names[id(p)]
+            ts.optimizer.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": _tensor(mu[n]).to(dev, torch.float32),
+                "exp_avg_sq": _tensor(nu[n]).to(dev, torch.float32),
+            }
+    for name, src in (("m", emb_m), ("v", emb_v)):
+        dst = getattr(ts.emb_opt, name)
+        dst.copy_(_tensor(src).to(dev, dst.dtype))
+    ts.step = int(np.asarray(step))
+    return ts

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpurec_torch.config import ModelConfig
+from tpurec_torch.device import resolve_device
 from tpurec_torch.models.base import AuxLogits, CTRModel
 from tpurec_torch.models.mmoe import MMoE
 from tpurec_torch.nn.initializers import init_module
@@ -34,8 +35,10 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
                 generator: Optional[torch.Generator] = None) -> CTRModel:
     """Build model ``name`` with torch-default inits drawn from
     ``generator`` (a fresh CPU generator seeded 0 when None) and move it to
-    ``device`` (default CPU).  ``device="meta"`` builds shapes only, for a
-    caller that loads every weight itself."""
+    ``device``: the card by default (raises when there is none), ``"cpu"``
+    when asked.  The inits are drawn on the CPU, so one seed gives one set
+    of weights on either device.  ``device="meta"`` builds shapes only,
+    for a caller that loads every weight itself."""
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported to tpurec_torch yet: see "
@@ -45,9 +48,9 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
     kw = dict(field_dims=tuple(int(d) for d in field_dims),
               embed_dim=cfg.embed_dim, cfg=cfg, n_tower=n_tower,
               domain_idx=domain_idx)
-    device = torch.device("cpu" if device is None else device)
-    if device.type == "meta":
-        return MODEL_REGISTRY[name](**kw, device=device)
+    if device is not None and torch.device(device).type == "meta":
+        return MODEL_REGISTRY[name](**kw, device=torch.device("meta"))
+    device = resolve_device(device)
     model = MODEL_REGISTRY[name](**kw)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -6,8 +6,9 @@ Output contract, as in the JAX package: multi-tower models return logits
 
 :class:`AuxLogits` is the auxiliary logit of every tower model: the
 first-order linear term plus, when ``use_atten`` (the default), the
-field-attention head.  This slice serves; ``forward`` computes the eval
-function only.
+field-attention head.  ``train=True`` runs the training forward
+(``tpurec/models/base.py:50-66``): attention dropout with draws from the
+caller's generator.
 """
 
 from __future__ import annotations
@@ -37,16 +38,19 @@ class AuxLogits(nn.Module):
         if cfg.use_atten:
             self.atten = FieldAttention(
                 embed_dim, cfg.atten_embed_dim, cfg.att_layer_num,
-                cfg.att_head_num, cfg.att_res, device=device)
+                cfg.att_head_num, cfg.att_res, dropout=cfg.dropout,
+                device=device)
             self.atten_linear = Linear(field_num * cfg.atten_embed_dim, 1,
                                        use_bias=False, device=device)
         else:
             self.atten = None
 
-    def forward(self, embed_flat, embed_3d):
+    def forward(self, embed_flat, embed_3d, train: bool = False,
+                generator=None):
         out = self.linear(embed_flat)
         if self.atten is not None:
-            out = out + self.atten_linear(self.atten(embed_3d))
+            out = out + self.atten_linear(
+                self.atten(embed_3d, train=train, generator=generator))
         return out  # [B, 1]
 
 
@@ -54,7 +58,9 @@ class CTRModel(nn.Module):
     """Base of the zoo models: the fused embedding and shared attributes.
 
     Subclasses implement ``forward(x, group=None, train=False,
-    embed_rows=None)``.
+    row_mask=None, embed_rows=None, generator=None)``; ``row_mask`` ([B]
+    0/1) marks padding rows, which then take no part in the BatchNorm
+    statistics.
     """
 
     def __init__(self, field_dims: Tuple[int, ...], embed_dim: int,
@@ -82,8 +88,9 @@ class CTRModel(nn.Module):
         """-> ([B, F*D] flat, [B, F, D]).
 
         ``embed_rows`` ([B*F, D] or [B, F, D]) are rows gathered already
-        (the Predictor gathers from its quantised table); without them the
-        model's own table is looked up.
+        (the Predictor gathers from its quantised table; the training step
+        gathers outside autograd and differentiates with respect to the
+        rows); without them the model's own table is looked up.
         """
         if embed_rows is not None:
             emb = embed_rows.reshape(x.shape[0], self.field_num,

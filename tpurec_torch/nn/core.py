@@ -9,8 +9,10 @@ parameter tree maps onto a ``state_dict`` by joining its path with dots
 - :class:`StackedLinear` is a bank of ``n_stack`` Linears, weight
   [T, in, out], computed as one batched product.
 - :class:`BatchNorm` holds ``scale``/``bias`` parameters and ``mean``/
-  ``var``/``num_batches_tracked`` buffers of the JAX module's shapes.  This
-  slice serves, so it normalises with the running statistics only.
+  ``var``/``num_batches_tracked`` buffers of the JAX module's shapes; it
+  normalises with the running statistics in eval and with masked batch
+  statistics in training.
+- :func:`dropout` is flax's, with its draws from an explicit generator.
 - :class:`EmbeddingLayout` is the same row layout of the fused table
   (small-vocab fields first, rows padded to 8), so tables copy verbatim.
 - :func:`mixed_table_lookup` is one launch of the gather kernel.
@@ -86,13 +88,20 @@ class StackedLinear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm1d with the JAX module's layout, normalising with its
-    running statistics (``tpurec/nn/core.py:159-160``).
+    """BatchNorm1d with the JAX module's layout and torch semantics
+    (``tpurec/nn/core.py:96-160``).
 
     Statistics have shape ``stat_shape`` (x.shape[1:]: a stacked input
-    [B, T, C] keeps one BN per tower).  A batch of one row passes through
-    unchanged, as the JAX module skips BN at batch size 1.
+    [B, T, C] keeps one BN per tower).  Eval normalises with the running
+    statistics.  Training normalises with the batch statistics over axis 0
+    (biased variance), weighted by ``mask`` ([B], 0/1) when given, and
+    updates the running ones with momentum 0.1 and the unbiased variance —
+    with a mask, only where at least one row contributed — and counts
+    ``num_batches_tracked``.  A batch of one row with no mask passes
+    through unchanged, as the JAX module skips BN at batch size 1.
     """
+
+    momentum = 0.1
 
     def __init__(self, stat_shape: Tuple[int, ...], eps: float = 1e-5,
                  device=None):
@@ -112,20 +121,64 @@ class BatchNorm(nn.Module):
             self.scale.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x):
-        if x.shape[0] == 1:
+    def forward(self, x, train: bool = False, mask=None):
+        if x.shape[0] == 1 and mask is None:
             return x
-        return (x - self.mean) * torch.rsqrt(self.var + self.eps) \
-            * self.scale + self.bias
+        if not train:
+            mean, var = self.mean, self.var
+        else:
+            if mask is None:
+                n = torch.tensor(float(x.shape[0]), dtype=x.dtype,
+                                 device=x.device)
+                mean = x.mean(dim=0)
+                var = torch.square(x - mean).mean(dim=0)
+            else:
+                m = mask.to(x.dtype)
+                w = m.reshape(m.shape + (1,) * (x.dim() - m.dim())) \
+                    .expand_as(x)
+                n = w.sum(dim=0)
+                n_safe = torch.clamp(n, min=1.0)
+                mean = (w * x).sum(dim=0) / n_safe
+                var = (w * torch.square(x - mean)).sum(dim=0) / n_safe
+            with torch.no_grad():
+                mo = self.momentum
+                unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+                if mask is None:
+                    self.mean.copy_((1 - mo) * self.mean + mo * mean)
+                    self.var.copy_((1 - mo) * self.var + mo * unbiased)
+                else:
+                    has_rows = (n > 0).to(x.dtype)
+                    self.mean.add_(mo * has_rows * (mean - self.mean))
+                    self.var.add_(mo * has_rows * (unbiased - self.var))
+                self.num_batches_tracked.add_(1)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
+            + self.bias
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout``: keep each value with probability 1 - rate and
+    scale kept values by 1/(1 - rate); the uniform draws come from
+    ``generator`` (on ``x``'s device)."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                             device=x.device))
 
 
 class MLP(nn.Module):
-    """[Linear -> BN -> ReLU]* [+ Linear(1)] (eval; dropout is identity)."""
+    """[Linear -> BN -> ReLU -> Dropout]* [+ Linear(1)]
+    (``tpurec/nn/core.py:163-185``); dropout acts in training only."""
 
     def __init__(self, in_dim: int, layer_dims: Sequence[int],
-                 output_layer: bool = True, device=None):
+                 output_layer: bool = True, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         self.n_layers = len(layer_dims)
+        self.dropout = dropout
         for i, dim in enumerate(layer_dims):
             setattr(self, f"linear_{i}", Linear(in_dim, dim, device=device))
             setattr(self, f"bn_{i}", BatchNorm((dim,), device=device))
@@ -133,24 +186,29 @@ class MLP(nn.Module):
         self.linear_out = (Linear(in_dim, 1, device=device)
                            if output_layer else None)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, mask=None, generator=None):
         for i in range(self.n_layers):
             x = getattr(self, f"linear_{i}")(x)
-            x = torch.relu(getattr(self, f"bn_{i}")(x))
+            x = torch.relu(getattr(self, f"bn_{i}")(x, train, mask))
+            if train:
+                x = dropout(x, self.dropout, generator)
         return x if self.linear_out is None else self.linear_out(x)
 
 
 class StackedMLP(nn.Module):
-    """A bank of per-tower/per-expert MLPs computed as batched products.
+    """A bank of per-tower/per-expert MLPs computed as batched products
+    (``tpurec/nn/core.py:188-215``).
 
     Input [B, in] or [B, T, in]; output [B, T, out_dim] (out_dim=1 if
-    ``output_layer``).
+    ``output_layer``).  ``mask`` [B] weights the BN statistics.
     """
 
     def __init__(self, n_stack: int, in_dim: int, layer_dims: Sequence[int],
-                 output_layer: bool = True, device=None):
+                 output_layer: bool = True, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         self.n_layers = len(layer_dims)
+        self.dropout = dropout
         for i, dim in enumerate(layer_dims):
             setattr(self, f"linear_{i}",
                     StackedLinear(n_stack, in_dim, dim, device=device))
@@ -159,10 +217,12 @@ class StackedMLP(nn.Module):
         self.linear_out = (StackedLinear(n_stack, in_dim, 1, device=device)
                            if output_layer else None)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, mask=None, generator=None):
         for i in range(self.n_layers):
             x = getattr(self, f"linear_{i}")(x)
-            x = torch.relu(getattr(self, f"bn_{i}")(x))
+            x = torch.relu(getattr(self, f"bn_{i}")(x, train, mask))
+            if train:
+                x = dropout(x, self.dropout, generator)
         return x if self.linear_out is None else self.linear_out(x)
 
 

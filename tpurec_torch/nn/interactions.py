@@ -5,9 +5,10 @@ Parameter names and shapes are those of the JAX modules (and of their
 ``_LinearParams``/``_MHAParams`` holders): ``atten_embedding``,
 ``V_res_embedding``, ``self_attn_{i}.{in_proj,out_proj}_{weight,bias}``,
 weights [in, out].  :class:`FieldAttention` runs the whole stack as one
-call of :func:`tpurec_torch.ops.attention.field_attention`, the kernel on
-the card.  The interaction ops of the other zoo models come with their
-slices.
+call of :func:`tpurec_torch.ops.attention.field_attention`, the kernels on
+the card: in training with attention-weight dropout and a gradient
+through kernel 3.  The interaction ops of the other zoo models come with
+their slices.
 """
 
 from __future__ import annotations
@@ -17,14 +18,16 @@ from torch import nn
 
 from tpurec_torch.nn import initializers as tinit
 from tpurec_torch.nn.core import Linear
-from tpurec_torch.ops.attention import attention_layer, field_attention
+from tpurec_torch.ops.attention import (attention_layer, draw_seed,
+                                        field_attention)
 
 
 class FieldMultiHeadAttention(nn.Module):
     """Self-attention over the field axis (torch nn.MultiheadAttention
-    semantics, eval): [B, F, A] -> [B, F, A].  in_proj is one [A, 3A]
-    xavier-uniform weight with zero bias; out_proj has torch-Linear init
-    and zero bias."""
+    semantics): [B, F, A] -> [B, F, A]; ``keep`` [B, H, F, F] drops
+    attention weights at ``rate`` (``tpurec/nn/interactions.py:190-206``).
+    in_proj is one [A, 3A] xavier-uniform weight with zero bias; out_proj
+    has torch-Linear init and zero bias."""
 
     def __init__(self, atten_dim: int, num_heads: int, device=None):
         super().__init__()
@@ -50,8 +53,9 @@ class FieldMultiHeadAttention(nn.Module):
         return [self.in_proj_weight, self.in_proj_bias,
                 self.out_proj_weight, self.out_proj_bias]
 
-    def forward(self, x):
-        return attention_layer(x, *self.weights(), self.num_heads)
+    def forward(self, x, keep=None, rate: float = 0.0):
+        return attention_layer(x, *self.weights(), self.num_heads, keep,
+                               rate)
 
 
 class FieldAttention(nn.Module):
@@ -59,15 +63,18 @@ class FieldAttention(nn.Module):
     layers, optional V_res residual, ReLU, flatten.
 
     Input: field embeddings [B, F, D]; output [B, F*atten_embed_dim].
+    In training, attention weights drop at ``dropout`` with a seed drawn
+    per call from the caller's generator.
     """
 
     def __init__(self, embed_dim: int, atten_embed_dim: int,
                  att_layer_num: int = 3, att_head_num: int = 2,
-                 att_res: bool = True, device=None):
+                 att_res: bool = True, dropout: float = 0.2, device=None):
         super().__init__()
         A = atten_embed_dim
         self.att_layer_num = att_layer_num
         self.att_head_num = att_head_num
+        self.dropout = dropout
         self.atten_embedding = Linear(embed_dim, A, device=device)
         for i in range(att_layer_num):
             setattr(self, f"self_attn_{i}",
@@ -85,8 +92,12 @@ class FieldAttention(nn.Module):
             flat += getattr(self, f"self_attn_{i}").weights()
         return flat
 
-    def forward(self, embed_x):
+    def forward(self, embed_x, train: bool = False, generator=None):
         B = embed_x.shape[0]
+        rate = self.dropout if train else 0.0
+        seed = (draw_seed(generator, embed_x.device) if rate > 0.0
+                else None)
         out = field_attention(embed_x, self.flat_weights(),
-                              self.att_layer_num, self.att_head_num)
+                              self.att_layer_num, self.att_head_num,
+                              train=train, rate=rate, seed=seed)
         return out.reshape(B, -1)

@@ -30,6 +30,7 @@ import torch
 from tpurec_torch.config import Config
 from tpurec_torch.convert import state_dict_from_flax
 from tpurec_torch.data.hashing import hash_ids
+from tpurec_torch.device import resolve_device
 from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
 from tpurec_torch.nn.core import EmbeddingLayout, mixed_table_lookup
 from tpurec_torch.nn.precision import check_compute_dtype
@@ -39,18 +40,6 @@ from tpurec_torch.train.checkpoint import (check_embed_layout_version,
 from tpurec_torch.train.step import select_tower
 
 _TABLE_DTYPES = ("float32", "bfloat16", "int8")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` or, when None, ``cuda``; raises if that card is absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: tpurec_torch serves on the card; pass "
-            "device='cpu' to run the kernels' plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    return dev
 
 
 def quantize_table(table, dtype: str):
