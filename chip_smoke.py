@@ -39,7 +39,27 @@ Phases (any failure exits non-zero and prints no result line):
 10. training timings: each training kernel beside its bound, its plain
     version and a library yardstick; the step's host-clock phases, peak
     memory and a profile (device busy share, launches per step, device
-    time by kernel and by launching op, host time by op).
+    time by kernel and by launching op, host time by op);
+11. the DCN and layered-attention kernels against their plain versions:
+    the cross network forward (#8) and backward (#9, bitwise repeatable,
+    a NaN row spreading into dw/db as in the plain version) at B = 1,
+    512, 513, 4096, 4097 with D=368, L=3; one attention layer forward
+    (#4) and backward (#5, bitwise repeatable) at B = 1, 512, 513 with
+    dropout 0 and 0.2; the layered path against the stack (#2, #3) in
+    training with one dropout seed;
+12. the DCN serving path: a Predictor of the full-width DCN (the same 23
+    fields and table, mlp (256, 128, 64), 3 cross layers) scores 5,000
+    rows against the CPU's plain path within 1e-4 at float32, bfloat16
+    and int8 tables, with the gather and #8 counters risen; /predict for
+    1 and 5,000 rows; rows/s and a profile per chunk;
+13. the DCN training path: the hybrid step at full width as a K=8 loop
+    (8 warm-up, 16 timed steps) with gather, #8, #9, #7 and #6 once per
+    step, a step profile, and 3 steps against the CPU's plain path;
+14. the layered attention path as scripts/profile_attn_layered.py drives
+    it (the gradient of sum(y**2) at B=512) against the plain version,
+    #4 and #5 launching 3 times each;
+15. timings of #4, #5, #8 and #9 beside their bounds, plain versions and
+    library yardsticks.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -131,20 +151,49 @@ def attn_flops_per_row(F, D, A, H, L):
 def sdpa_stack(emb, flat, L, H, dropout_p=0.0):
     """The attention stack from PyTorch library calls (timed as a
     yardstick only; the port never calls it)."""
-    import torch.nn.functional as Fn
-
     B, F, _ = emb.shape
     w_emb, b_emb, w_res, b_res = flat[:4]
     A = w_emb.shape[1]
-    x = torch.addmm(b_emb, emb.reshape(B * F, -1), w_emb)
+    x = torch.addmm(b_emb, emb.reshape(B * F, -1), w_emb).reshape(B, F, A)
     for l in range(L):
-        w_in, b_in, w_out, b_out = flat[4 + 4 * l: 8 + 4 * l]
-        qkv = torch.addmm(b_in, x, w_in).reshape(B, F, 3, H, A // H)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        o = Fn.scaled_dot_product_attention(q, k, v, dropout_p=dropout_p)
-        x = torch.addmm(b_out, o.transpose(1, 2).reshape(B * F, A), w_out)
+        x = sdpa_layer(x, *flat[4 + 4 * l: 8 + 4 * l], H, dropout_p)
     res = torch.addmm(b_res, emb.reshape(B * F, -1), w_res)
-    return torch.relu(x + res).reshape(B, F, A)
+    return torch.relu(x.reshape(B * F, A) + res).reshape(B, F, A)
+
+
+def sdpa_layer(x, w_in, b_in, w_out, b_out, H, dropout_p=0.0):
+    """One attention layer [B, F, A] from PyTorch library calls (a
+    yardstick only; the port never calls it)."""
+    import torch.nn.functional as Fn
+
+    B, F, A = x.shape
+    qkv = torch.addmm(b_in, x.reshape(B * F, A), w_in).reshape(
+        B, F, 3, H, A // H)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    o = Fn.scaled_dot_product_attention(q, k, v, dropout_p=dropout_p)
+    return torch.addmm(b_out, o.transpose(1, 2).reshape(B * F, A),
+                       w_out).reshape(B, F, A)
+
+
+def serving_weights(name, mcfg, gen):
+    """Seeded weights of model ``name`` with random BatchNorm statistics,
+    as a CPU state_dict.  -> (state_dict, number of parameters)."""
+    from tpurec_torch.models import build_model
+    from tpurec_torch.nn.core import BatchNorm
+
+    model = build_model(name, FIELD_DIMS, N_TOWER, DOMAIN_IDX, mcfg,
+                        device="cpu", generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.normal_(0.0, 0.3, generator=gen)
+                m.var.uniform_(0.5, 1.5, generator=gen)
+                m.scale.uniform_(0.8, 1.2, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    sd = model.state_dict()
+    return sd, sum(v.numel() for k, v in sd.items()
+                   if "mean" not in k and "var" not in k
+                   and "num_batches" not in k)
 
 
 # -- training (phases 7-10) -------------------------------------------------
@@ -381,45 +430,58 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
     return errs
 
 
-def train_main_path(dev, rng, tag):
-    """Phase 8: the flagship training step at full width, driven as
-    bench.py drives the JAX one.  -> (state, single-step fn, batches,
-    generator, launches, timings)."""
-    from tpurec_torch.config import ModelConfig, TrainConfig
-    from tpurec_torch.models import build_model
+def train_counters(name):
+    """The launch counters that model ``name``'s training step must raise
+    once per step, by kernel name."""
     from tpurec_torch.ops.attention import field_attention, \
         field_attention_bwd
+    from tpurec_torch.ops.cross_network import cross_network, \
+        cross_network_bwd
     from tpurec_torch.ops.embedding import embedding_gather
     from tpurec_torch.ops.fused_adam import (adam_rows, fused_decay_adam,
                                              write_rows)
+
+    dense = ({"field_attention_train": field_attention,
+              "field_attention_bwd": field_attention_bwd} if name == "mmoe"
+             else {"cross_network": cross_network,
+                   "cross_network_bwd": cross_network_bwd})
+    return {"embedding_gather": embedding_gather, **dense,
+            "fused_decay_adam": fused_decay_adam,
+            "sparse_adam_rows": adam_rows, "sparse_write_rows": write_rows}
+
+
+def train_main_path(dev, rng, tag, name="mmoe", model_kw=MODEL):
+    """Phase 8 (phase 13 for DCN): the flagship training step of model
+    ``name`` at full width, driven as bench.py drives the JAX one.  ->
+    (state, single-step fn, batches, generator, launches, timings)."""
+    from tpurec_torch.config import ModelConfig, TrainConfig
+    from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
     from tpurec_torch.train.hybrid import (init_train_state,
                                            make_hybrid_train_step)
     from tpurec_torch.train.reg import reg_coef_tree
 
     tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16")
     t0 = time.perf_counter()
-    model = build_model("mmoe", FIELD_DIMS, N_TOWER, DOMAIN_IDX,
-                        ModelConfig(**MODEL, dropout=DROPOUT),
+    model = build_model(name, FIELD_DIMS, N_TOWER, DOMAIN_IDX,
+                        ModelConfig(**model_kw, dropout=DROPOUT),
                         generator=torch.Generator().manual_seed(SEED + 1))
     ts = init_train_state(model, tcfg)
     check(next(model.parameters()).device.type == "cuda",
           "the model was not built on the card")
-    reg = reg_coef_tree([n for n, _ in model.named_parameters()], "mmoe",
+    reg = reg_coef_tree([n for n, _ in model.named_parameters()], name,
                         L2, L2, L2)
-    scan = make_hybrid_train_step(model, tcfg, reg, True, L2, scan_k=TRAIN_K)
-    single = make_hybrid_train_step(model, tcfg, reg, True, L2)
+    multi = name in MULTI_TOWER_OUTPUT
+    scan = make_hybrid_train_step(model, tcfg, reg, multi, L2,
+                                  scan_k=TRAIN_K)
+    single = make_hybrid_train_step(model, tcfg, reg, multi, L2)
     batches = train_batches(rng, TRAIN_K, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     torch.cuda.synchronize()
-    print(f"train state: {sum(p.numel() for p in model.parameters())} "
-          f"params on {dev}, bf16 table moments, built in "
+    print(f"{name} train state: {sum(p.numel() for p in model.parameters())}"
+          f" params on {dev}, bf16 table moments, built in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    counters = {"embedding_gather": embedding_gather,
-                "field_attention_train": field_attention,
-                "field_attention_bwd": field_attention_bwd,
-                "fused_decay_adam": fused_decay_adam,
-                "sparse_adam_rows": adam_rows, "sparse_write_rows": write_rows}
+    counters = train_counters(name)
     for fn in counters.values():
         fn.launches = 0
     losses = []
@@ -437,7 +499,7 @@ def train_main_path(dev, rng, tag):
     host_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     n_steps = (TRAIN_WARMUP_CALLS + TRAIN_TIMED_CALLS) * TRAIN_K
-    print(f"train main path: {n_steps} steps, launches {launches}")
+    print(f"{name} train main path: {n_steps} steps, launches {launches}")
     check(all(n > 0 for n in launches.values()),
           f"a kernel was not launched on the training path: {launches}")
     check(all(n == n_steps for n in launches.values()),
@@ -451,7 +513,8 @@ def train_main_path(dev, rng, tag):
               "examples_per_s_host": 512 / (step_ms / 1e3),
               "examples_per_s_events": 512 / (event_ms / 1e3),
               "loss_first": float(loss[0]), "loss_last": float(loss[-1])}
-    print(f"{tag} train step (B=512, K={TRAIN_K}, {timed} timed steps): "
+    print(f"{tag} {name} train step (B=512, K={TRAIN_K}, {timed} timed "
+          f"steps): "
           f"{step_ms:.3f} ms host clock = {timing['examples_per_s_host']:.0f}"
           f" examples/s; {event_ms:.3f} ms by CUDA events = "
           f"{timing['examples_per_s_events']:.0f} examples/s; loss "
@@ -459,14 +522,14 @@ def train_main_path(dev, rng, tag):
     return ts, single, batches, gen, launches, timing
 
 
-def train_vs_cpu(dev, rng):
-    """Phase 9: 3 full-width steps with dropout 0 on the card and on the
-    CPU's plain path, from the same seeded weights and batches.  The table
-    is scaled to N(0, 0.01**2), so that the reported loss's L2 term
-    (l2 * sum(table**2), 260 at the N(0, 1) init) does not hide the data
-    loss."""
+def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL):
+    """Phase 9 (phase 13 for DCN): 3 full-width steps of model ``name``
+    with dropout 0 on the card and on the CPU's plain path, from the same
+    seeded weights and batches.  The table is scaled to N(0, 0.01**2), so
+    that the reported loss's L2 term (l2 * sum(table**2), 260 at the
+    N(0, 1) init) does not hide the data loss."""
     from tpurec_torch.config import ModelConfig, TrainConfig
-    from tpurec_torch.models import build_model
+    from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
     from tpurec_torch.train.hybrid import (init_train_state,
                                            make_hybrid_train_step)
     from tpurec_torch.train.reg import reg_coef_tree
@@ -476,15 +539,17 @@ def train_vs_cpu(dev, rng):
     out = {}
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        model = build_model("mmoe", FIELD_DIMS, N_TOWER, DOMAIN_IDX,
-                            ModelConfig(**MODEL, dropout=0.0), device=where,
+        model = build_model(name, FIELD_DIMS, N_TOWER, DOMAIN_IDX,
+                            ModelConfig(**model_kw, dropout=0.0),
+                            device=where,
                             generator=torch.Generator().manual_seed(SEED + 3))
         with torch.no_grad():
             model.embedding.table.mul_(0.01)
         ts = init_train_state(model, tcfg, device=where)
         reg = reg_coef_tree([n for n, _ in model.named_parameters()],
-                            "mmoe", L2, L2, L2)
-        step = make_hybrid_train_step(model, tcfg, reg, True, L2)
+                            name, L2, L2, L2)
+        step = make_hybrid_train_step(model, tcfg, reg,
+                                      name in MULTI_TOWER_OUTPUT, L2)
         losses, table1 = [], None
         for i in range(3):
             losses.append(float(step(ts, {k: v[i] for k, v in
@@ -492,25 +557,119 @@ def train_vs_cpu(dev, rng):
             if i == 0:
                 table1 = model.embedding.table.detach().cpu().clone()
         out[where] = (losses, table1)
-        print(f"3 steps on {where}: losses {losses} "
+        print(f"{name}: 3 steps on {where}: losses {losses} "
               f"({time.perf_counter() - t0:.1f} s)")
         del model, ts
     (lg, tg), (lc, tc) = out["cuda"], out["cpu"]
     rel = max(abs(a / b - 1) for a, b in zip(lg, lc))
-    check(rel <= CPU_LOSS_RTOL, f"train cuda vs cpu: loss rel err {rel}")
+    check(rel <= CPU_LOSS_RTOL,
+          f"{name} train cuda vs cpu: loss rel err {rel}")
     diff = (tg - tc).abs()
     share = (diff > 1e-6).float().mean().item()
     check(diff.max().item() <= 2 * tcfg.lr + 1e-6 and
           share <= CPU_TABLE_SHARE,
-          f"train cuda vs cpu: table after step 1 max abs err "
+          f"{name} train cuda vs cpu: table after step 1 max abs err "
           f"{diff.max().item()}, share beyond 1e-6 {share}")
-    print(f"train cuda vs cpu plain path, 3 full-width steps (dropout 0): "
+    print(f"{name} train cuda vs cpu plain path, 3 full-width steps "
+          f"(dropout 0): "
           f"loss max rel err {rel:.3g} (tol {CPU_LOSS_RTOL}); table after "
           f"step 1 max abs err {diff.max().item():.3g} (tol 2 lr: Adam's "
           f"first step is +-lr whatever a gradient's size), share beyond "
           f"1e-6 {share:.3g} (tol {CPU_TABLE_SHARE})")
     return {"loss_rel_err": rel, "table_max_abs_err": diff.max().item(),
             "table_share_beyond_1e-6": share}
+
+
+def step_profile(dev, ts, single, batches, gen, tag, step_ms):
+    """Where a training step's time goes: host-clock phases (each ended by
+    a synchronize), peak memory, and a profile of single steps (device busy
+    share, launches per step, device time by kernel and by launching op,
+    host time by op).  -> (device us by kernel name, summary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    upd = single.upd
+    table = ts.model.embedding.table.detach()
+    b0 = {k: v[0] for k, v in batches.items()}
+    single(ts, b0, gen)
+    torch.cuda.synchronize()
+    # host clock per phase of a step, each phase ended by a synchronize
+    phase_ms = {"forward+backward": 0.0, "dense Adam": 0.0,
+                "table update": 0.0}
+    n_ph = 10
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(n_ph):
+        t0 = time.perf_counter()
+        _, _, g_rows_b = single.loss_and_grads(ts, b0, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ts.optimizer.step()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        upd.update(table, ts.emb_opt, b0["x"], g_rows_b, ts.step + 1)
+        ts.step += 1
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(phase_ms, (t1 - t0, t2 - t1, t3 - t2)):
+            phase_ms[k] += dt * 1e3 / n_ph
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"{tag} train step phases (host clock, synchronized, mean of "
+          f"{n_ph}): " + ", ".join(f"{k} {v:.3f} ms"
+                                   for k, v in phase_ms.items())
+          + f"; peak device memory {peak_gb:.2f} GB")
+
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n_prof):
+            single(ts, b0, gen)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    # which host op launched the device time (by op and input shapes)
+    op_top = sorted(((f"{e.key} {e.input_shapes}",
+                      e.self_device_time_total / n_prof)
+                     for e in prof.key_averages(group_by_input_shape=True)
+                     if not str(e.device_type).endswith("CUDA")
+                     and not getattr(e, "is_user_annotation", False)
+                     and e.self_device_time_total > 0),
+                    key=lambda kv: -kv[1])[:8]
+    # kernels only: a user annotation's device time is the span of the
+    # kernels under it, gaps included
+    dev_us = {e.key: e.self_device_time_total / n_prof for e in evs
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)}
+    launches = sum(e.count for e in evs if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx")) / n_prof
+    host_top = sorted(((e.key, e.self_cpu_time_total / n_prof) for e in evs
+                       if not str(e.device_type).endswith("CUDA")),
+                      key=lambda kv: -kv[1])[:10]
+    busy = sum(dev_us.values())
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:14]
+    print(f"{tag} profile of one train step: device busy {busy:.1f} us, "
+          f"{100 * busy / (step_ms * 1e3):.1f}% of the {step_ms * 1e3:.1f} "
+          f"us host-clock step; {len(dev_us)} kernel kinds, {launches:.0f} "
+          f"kernel launches"
+          + "".join(f"\n    {us:9.1f} us  {name[:90]}"
+                    for name, us in top)
+          + "\n  device time by the host op that launched it:"
+          + "".join(f"\n    {us:9.1f} us  {name[:160]}"
+                    for name, us in op_top)
+          + "\n  host, self CPU time per step (profiled):"
+          + "".join(f"\n    {us:9.1f} us  {name[:90]}"
+                    for name, us in host_top))
+    gather_us = [v for k, v in dev_us.items()
+                 if port_kernel(k, "gather_kernel")]
+    profile_summary = {"busy_us": busy, "step_us": step_ms * 1e3,
+                       "busy_share": busy / (step_ms * 1e3),
+                       "launches_per_step": launches,
+                       "phase_ms": phase_ms, "peak_memory_gb": peak_gb,
+                       "gather_device_ms": sum(gather_us) / 1e3
+                       if gather_us else None,
+                       "top": [[n[:90], us] for n, us in top],
+                       "op_top": [[n[:160], us] for n, us in op_top],
+                       "host_top": [[n[:90], us] for n, us in host_top]}
+    return dev_us, profile_summary
 
 
 def train_timings(dev, ts, single, batches, gen, tag, step_ms):
@@ -651,77 +810,8 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
 
     # where a step's time goes (profiler device time against the main
     # path's host-clock step time)
-    from torch.profiler import ProfilerActivity, profile
-
-    b0 = {k: v[0] for k, v in batches.items()}
-    single(ts, b0, gen)
-    torch.cuda.synchronize()
-    # host clock per phase of a step, each phase ended by a synchronize
-    phase_ms = {"forward+backward": 0.0, "dense Adam": 0.0,
-                "table update": 0.0}
-    n_ph = 10
-    torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(n_ph):
-        t0 = time.perf_counter()
-        _, _, g_rows_b = single.loss_and_grads(ts, b0, gen)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ts.optimizer.step()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        upd.update(table, ts.emb_opt, b0["x"], g_rows_b, ts.step + 1)
-        ts.step += 1
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, dt in zip(phase_ms, (t1 - t0, t2 - t1, t3 - t2)):
-            phase_ms[k] += dt * 1e3 / n_ph
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    print(f"{tag} train step phases (host clock, synchronized, mean of "
-          f"{n_ph}): " + ", ".join(f"{k} {v:.3f} ms"
-                                   for k, v in phase_ms.items())
-          + f"; peak device memory {peak_gb:.2f} GB")
-
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for _ in range(n_prof):
-            single(ts, b0, gen)
-        torch.cuda.synchronize()
-    evs = prof.key_averages()
-    # which host op launched the device time (by op and input shapes)
-    op_top = sorted(((f"{e.key} {e.input_shapes}",
-                      e.self_device_time_total / n_prof)
-                     for e in prof.key_averages(group_by_input_shape=True)
-                     if not str(e.device_type).endswith("CUDA")
-                     and not getattr(e, "is_user_annotation", False)
-                     and e.self_device_time_total > 0),
-                    key=lambda kv: -kv[1])[:8]
-    # kernels only: a user annotation's device time is the span of the
-    # kernels under it, gaps included
-    dev_us = {e.key: e.self_device_time_total / n_prof for e in evs
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0
-              and not getattr(e, "is_user_annotation", False)}
-    launches = sum(e.count for e in evs if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-        "cuLaunchKernelEx")) / n_prof
-    host_top = sorted(((e.key, e.self_cpu_time_total / n_prof) for e in evs
-                       if not str(e.device_type).endswith("CUDA")),
-                      key=lambda kv: -kv[1])[:10]
-    busy = sum(dev_us.values())
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:14]
-    print(f"{tag} profile of one train step: device busy {busy:.1f} us, "
-          f"{100 * busy / (step_ms * 1e3):.1f}% of the {step_ms * 1e3:.1f} "
-          f"us host-clock step; {len(dev_us)} kernel kinds, {launches:.0f} "
-          f"kernel launches"
-          + "".join(f"\n    {us:9.1f} us  {name[:90]}"
-                    for name, us in top)
-          + "\n  device time by the host op that launched it:"
-          + "".join(f"\n    {us:9.1f} us  {name[:160]}"
-                    for name, us in op_top)
-          + "\n  host, self CPU time per step (profiled):"
-          + "".join(f"\n    {us:9.1f} us  {name[:90]}"
-                    for name, us in host_top))
+    dev_us, profile_summary = step_profile(dev, ts, single, batches, gen,
+                                           tag, step_ms)
     for name, syms in (
             ("field_attention_train", ("field_attention_kernel",)),
             ("field_attention_bwd", ("field_attention_bwd_kernel",
@@ -732,18 +822,484 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
         us = [v for k, v in dev_us.items()
               if any(port_kernel(k, s) for s in syms)]
         rows[name]["device_ms"] = sum(us) / 1e3 if us else None
-    gather_us = [v for k, v in dev_us.items()
-                 if port_kernel(k, "gather_kernel")]
-    profile_summary = {"busy_us": busy, "step_us": step_ms * 1e3,
-                       "busy_share": busy / (step_ms * 1e3),
-                       "launches_per_step": launches,
-                       "phase_ms": phase_ms, "peak_memory_gb": peak_gb,
-                       "gather_device_ms": sum(gather_us) / 1e3
-                       if gather_us else None,
-                       "top": [[n[:90], us] for n, us in top],
-                       "op_top": [[n[:160], us] for n, us in op_top],
-                       "host_top": [[n[:90], us] for n, us in host_top]}
     return rows, profile_summary
+
+
+# -- the DCN family and the layered attention (phases 11-15) -----------------
+
+DCN_MODEL = dict(model="dcn", embed_dim=16, mlp_dims=(256, 128, 64),
+                 n_cross_layers=3)          # config.py:18, run.py:321
+CROSS_TOL = 1e-5        # #8's output and #9's dx, of the output's scale
+CROSS_WGRAD_TOL = 1e-4  # #9's dw, db, of each one's scale
+LAYER_TOL = 1e-4        # #4, #5 abs; a weight gradient: x max(1, max|g|)
+
+
+def layer_flops_per_row(F, A, H, bwd=False):
+    """Float32 operations of kernel 4 (or 5) per batch row, counted from
+    the code: the in-projection, scores and weighted sum, out-projection;
+    the backward recomputes the first two and adds the out- and
+    in-projection backward (weight and input gradients) and the four
+    [F, F] x [F, hd] products per head."""
+    hd = A // H
+    fwd = 2 * F * A * 3 * A + 4 * H * F * F * hd + 2 * F * A * A
+    if not bwd:
+        return fwd
+    return (2 * F * A * 3 * A + 4 * H * F * F * hd + 2 * 2 * F * A * A
+            + 4 * 2 * H * F * F * hd + 2 * 2 * F * A * 3 * A)
+
+
+def nan_rel_err(got, want, what):
+    """max |got - want| over max |want|, where want is not NaN; the NaN
+    positions must agree."""
+    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+          f"{what}: NaN positions differ from the plain version")
+    ok = ~torch.isnan(want)
+    if not bool(ok.any()):
+        return 0.0
+    scale = max(want[ok].abs().max().item(), 1e-30)
+    return (got[ok] - want[ok]).abs().max().item() / scale
+
+
+def cross_inputs(dev, emb_of, B, seed):
+    """The cross network's inputs at the DCN shapes: x [B, 368] gathered
+    rows, w and b [3, 368] (w at the torch-Linear scale), g [B, 368]."""
+    L = DCN_MODEL["n_cross_layers"]
+    D = len(FIELD_DIMS) * DCN_MODEL["embed_dim"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.rand(L, D, device=dev, generator=g) * 2 - 1) / D ** 0.5
+    b = torch.randn(L, D, device=dev, generator=g) * 0.1
+    return (emb_of(B).reshape(B, D), w, b,
+            torch.randn(B, D, device=dev, generator=g))
+
+
+def cross_kernel_checks(dev, emb_of):
+    """Phase 11 (a): kernels 8 and 9 against their plain versions at the
+    DCN shapes, #9 bitwise repeatable, a NaN row spreading as in the plain
+    version.  -> max errors by kernel name."""
+    from tpurec_torch.ops.cross_network import (cross_network_bwd,
+                                                cross_network_bwd_reference,
+                                                cross_network_fwd,
+                                                cross_network_reference)
+
+    err_f = err_b = 0.0
+    for B, nan_row in ((1, False), (512, False), (513, False), (4096, False),
+                       (4097, False), (513, True)):
+        x, w, b, g = cross_inputs(dev, emb_of, B, SEED + B)
+        if nan_row:
+            x[200, 7] = float("nan")
+        y = cross_network_fwd(x, w, b)
+        got = cross_network_bwd(x, w, b, g)
+        again = cross_network_bwd(x, w, b, g)
+        want_y = cross_network_reference(x, w, b)
+        want = cross_network_bwd_reference(x, w, b, g)
+        torch.cuda.synchronize()
+        what = f"cross B={B}{' (NaN row)' if nan_row else ''}"
+        check(all(nan_equal(p, q) for p, q in zip(got, again)),
+              f"{what}: two calls of kernel 9 differ")
+        e = nan_rel_err(y, want_y, f"{what} fwd")
+        check(e <= CROSS_TOL, f"{what} fwd: rel err {e}")
+        err_f = max(err_f, e)
+        e = nan_rel_err(got[0], want[0], f"{what} dx")
+        check(e <= CROSS_TOL, f"{what} dx: rel err {e}")
+        ew = max(nan_rel_err(got[i], want[i], f"{what} d{n}")
+                 for i, n in ((1, "w"), (2, "b")))
+        check(ew <= CROSS_WGRAD_TOL, f"{what} dw/db: rel err {ew}")
+        err_b = max(err_b, e, ew)
+        if nan_row:
+            check(bool(torch.isnan(got[1]).any() and torch.isnan(got[2])
+                       .any()), f"{what}: the NaN row left dw/db finite")
+    print(f"cross network: #8 rel err {err_f:.3g} (tol {CROSS_TOL}), #9 "
+          f"rel err {err_b:.3g} (dx tol {CROSS_TOL}, dw/db "
+          f"{CROSS_WGRAD_TOL}) vs plain at B=1,512,513,4096,4097, D=368, "
+          f"L=3; #9 bitwise repeatable; a NaN row reaches dw/db as in the "
+          f"plain version")
+    return {"cross_network": err_f, "cross_network_bwd": err_b}
+
+
+def layer_kernel_checks(dev, flat, emb_of):
+    """Phase 11 (a): kernels 4 and 5 against their plain versions with
+    dropout 0 and 0.2, #5 bitwise repeatable, then the layered path
+    against the stack (kernels 2, 3) in training with one seed.  -> max
+    errors by kernel name."""
+    from tpurec_torch.ops.attention import (attention_layer,
+                                            attention_layer_bwd,
+                                            attention_layer_bwd_reference,
+                                            attention_layer_fwd,
+                                            field_attention,
+                                            field_attention_layered,
+                                            keep_mask)
+
+    L, H = MODEL["att_layer_num"], MODEL["att_head_num"]
+    F = len(FIELD_DIMS)
+    seed = torch.tensor(4242, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    ws = flat[8:12]                            # layer 1's weights
+    err_f = err_b = 0.0
+    for rate in (0.0, DROPOUT):
+        for B in (1, 512, 513):
+            x = torch.matmul(emb_of(B), flat[0]) + flat[1]
+            dy = torch.randn(x.shape, device=dev, generator=g)
+            y = attention_layer_fwd(x, *ws, H, 1, rate, seed)
+            keep = keep_mask(seed, B, 1, H, F, rate) if rate else None
+            want = attention_layer(x, *ws, H, keep, rate)
+            dx, grads = attention_layer_bwd(x, dy, *ws, H, 1, rate, seed)
+            dx2, grads2 = attention_layer_bwd(x, dy, *ws, H, 1, rate, seed)
+            dx_r, grads_r = attention_layer_bwd_reference(x, dy, *ws, H, 1,
+                                                          rate, seed)
+            torch.cuda.synchronize()
+            what = f"attention layer B={B} rate={rate}"
+            check(torch.equal(dx, dx2) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads2)),
+                f"{what}: two calls of kernel 5 differ")
+            e = (y - want).abs().max().item()
+            check(e <= LAYER_TOL, f"{what} fwd: max abs err {e}")
+            err_f = max(err_f, e)
+            e = (dx - dx_r).abs().max().item()
+            check(e <= LAYER_TOL, f"{what} dx: max abs err {e}")
+            err_b = max(err_b, e)
+            for i, (a, r) in enumerate(zip(grads, grads_r)):
+                s = max(1.0, r.abs().max().item())
+                e = (a - r).abs().max().item()
+                check(e <= LAYER_TOL * s, f"{what} weight {i}: err {e}")
+                err_b = max(err_b, e / s)
+    print(f"attention layer: #4 max abs err {err_f:.3g}, #5 {err_b:.3g} "
+          f"(tol {LAYER_TOL}; weight grads relative to max(1, max|g|)) vs "
+          f"plain at B=1,512,513, dropout 0 and {DROPOUT}; #5 bitwise "
+          f"repeatable")
+
+    # the layered path with seed s drops what the stack drops with seed s
+    emb = emb_of(512)
+    dy = torch.randn(512, F, flat[0].shape[1], device=dev, generator=g)
+
+    def run(fn):
+        e = emb.clone().requires_grad_(True)
+        leaves = [w.clone().requires_grad_(True) for w in flat]
+        y = fn(e, leaves, L, H, train=True, rate=DROPOUT, seed=seed)
+        y.backward(dy)
+        return [y.detach(), e.grad] + [w.grad for w in leaves]
+
+    layered, stack = run(field_attention_layered), run(field_attention)
+    torch.cuda.synchronize()
+    e_ls = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+               for a, b in zip(layered, stack))
+    check(e_ls <= LAYER_TOL, f"layered vs stack (dropout {DROPOUT}, one "
+          f"seed): err {e_ls}")
+    print(f"layered path (#4, #5) vs the stack (#2, #3), training, dropout "
+          f"{DROPOUT}, one seed, B=512: output and all 17 gradients within "
+          f"{e_ls:.3g} of max(1, scale) (tol {LAYER_TOL})")
+    return {"attention_layer": err_f, "attention_layer_bwd": err_b,
+            "layered_vs_stack": e_ls}
+
+
+def dcn_serving(dev, rng, tag):
+    """Phase 12: the full-width DCN Predictor (23 fields, the 1.63M-row
+    table, mlp (256, 128, 64), 3 cross layers, seeded weights and random
+    BN statistics) scores 5,000 rows on the card against the CPU's plain
+    path at float32, bfloat16 and int8 tables; /predict for 1 and 5,000
+    rows; rows/s and a profile per chunk.  -> a summary dict."""
+    import http.client
+
+    from tpurec_torch.config import Config, ModelConfig
+    from tpurec_torch.ops.cross_network import cross_network
+    from tpurec_torch.ops.embedding import embedding_gather
+    from tpurec_torch.serve import Predictor
+    from tpurec_torch.server import make_server
+
+    cfg = Config(model=ModelConfig(**DCN_MODEL))
+    sd, n_params = serving_weights("dcn", cfg.model,
+                                   torch.Generator().manual_seed(SEED + 12))
+    preds = {w: Predictor(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                          batch_sizes=BATCH_SIZES, device=w).load_state_dict(sd)
+             for w in ("cuda", "cpu")}
+    pred = preds["cuda"].warm()
+    check(not pred.multi_tower, "DCN should serve single-head")
+    X = random_ids(rng, N_ROWS)
+    embedding_gather.launches = cross_network.launches = 0
+    p_gpu = pred(X)
+    launches = {"embedding_gather": embedding_gather.launches,
+                "cross_network": cross_network.launches}
+    print(f"dcn main path: {n_params} params, {N_ROWS} rows scored, "
+          f"launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was not launched on the DCN serving path: {launches}")
+    p_cpu = preds["cpu"](X)
+    errs = {"float32": float(np.max(np.abs(p_gpu - p_cpu)))}
+    check(p_gpu.shape == (N_ROWS,) and np.all(np.isfinite(p_gpu))
+          and np.all((p_gpu > 0) & (p_gpu < 1)), "DCN predictions malformed")
+    del preds["cpu"]
+    for dtype in ("bfloat16", "int8"):
+        pq = {w: Predictor(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                           batch_sizes=BATCH_SIZES, table_dtype=dtype,
+                           device=w).load_state_dict(sd)
+              for w in ("cuda", "cpu")}
+        errs[dtype] = float(np.max(np.abs(pq["cuda"](X[:1000])
+                                          - pq["cpu"](X[:1000]))))
+        del pq
+    check(max(errs.values()) <= PRED_TOL,
+          f"DCN Predictor cuda vs cpu: max abs errs {errs}")
+    print(f"DCN Predictor cuda vs cpu plain path: max abs err by table "
+          f"{errs} (tol {PRED_TOL}); mean prob {p_gpu.mean():.4f}")
+
+    srv = make_server(pred, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                          timeout=120)
+        for n in (1, N_ROWS):
+            conn.request("POST", "/predict",
+                         body=json.dumps({"instances": X[:n].tolist()}))
+            r = conn.getresponse()
+            body = r.read()
+            check(r.status == 200, f"DCN /predict {r.status}: {body[:200]!r}")
+            got = np.asarray(json.loads(body)["predictions"], np.float32)
+            check(np.array_equal(got, pred(X[:n])),
+                  f"DCN HTTP predictions for {n} rows differ from direct ones")
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    print("DCN HTTP: /predict 1/5000 rows == direct predictions")
+
+    chunk_s, chunk_dev, busy = chunk_timings(
+        pred, rng, tag, {"embedding_gather": "gather_kernel",
+                         "cross_network": "cross_fwd_kernel"})
+    return {"launches": launches, "max_abs_err": errs,
+            "rows_per_s": {str(B): B / s for B, s in chunk_s.items()},
+            "chunk_ms": {str(B): s * 1e3 for B, s in chunk_s.items()},
+            "busy_us": {str(B): v for B, v in busy.items()},
+            "device_ms": {k: {str(B): v for B, v in d.items()}
+                          for k, d in chunk_dev.items()}}
+
+
+def layered_main_path(dev):
+    """Phase 14: the layered attention path as scripts/profile_attn_
+    layered.py drives it: the gradient of sum(y**2) with respect to emb
+    and every weight at B=512, F=23, D=16, A=64, H=2, L=3 (weights
+    N(0, 0.2**2), emb N(0, 1), from numpy seed 0), against the plain
+    version; kernels 4 and 5 launch L times each.  -> (launches, max
+    errors, ms per call by form)."""
+    from tpurec_torch.ops.attention import (attention_layer_bwd,
+                                            field_attention,
+                                            field_attention_layered,
+                                            field_attention_reference,
+                                            fused_attention_layer)
+
+    B, F, D, A, H, L = 512, 23, 16, 64, 2, 3
+    rng = np.random.default_rng(0)
+
+    def mk(*s):
+        return torch.from_numpy((rng.normal(size=s) * 0.2).astype(
+            np.float32)).to(dev)
+
+    flat = [mk(D, A), mk(A), mk(D, A), mk(A)]
+    for _ in range(L):
+        flat += [mk(A, 3 * A), mk(3 * A), mk(A, A), mk(A)]
+    emb = torch.from_numpy(rng.normal(size=(B, F, D)).astype(
+        np.float32)).to(dev)
+
+    def grads(fn):
+        e = emb.clone().requires_grad_(True)
+        leaves = [w.clone().requires_grad_(True) for w in flat]
+        (fn(e, leaves, L, H) ** 2).sum().backward()
+        return [e.grad] + [w.grad for w in leaves]
+
+    fused_attention_layer.launches = attention_layer_bwd.launches = 0
+    got = grads(field_attention_layered)
+    torch.cuda.synchronize()
+    launches = {"attention_layer": fused_attention_layer.launches,
+                "attention_layer_bwd": attention_layer_bwd.launches}
+    print(f"layered main path: launches {launches}")
+    check(launches == {"attention_layer": L, "attention_layer_bwd": L},
+          f"kernels 4 and 5 should launch {L} times each: {launches}")
+    want = grads(field_attention_reference)
+    e_emb = (got[0] - want[0]).abs().max().item() / max(
+        1.0, want[0].abs().max().item())
+    e_w = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+              for a, b in zip(got[1:], want[1:]))
+    check(max(e_emb, e_w) <= LAYER_TOL, f"layered gradients vs plain: "
+          f"demb {e_emb}, weights {e_w} (of max(1, scale))")
+    ms = {name: cuda_ms(lambda: grads(fn), iters=20, warmup=3)
+          for name, fn in (("layered", field_attention_layered),
+                           ("stack", lambda *a: field_attention(
+                               *a, train=True)),
+                           ("plain", field_attention_reference))}
+    print(f"layered path: gradient of sum(y**2) at B=512 vs plain: demb "
+          f"{e_emb:.3g}, weights {e_w:.3g} of max(1, scale) (tol "
+          f"{LAYER_TOL}); fwd+bwd per call: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return launches, {"demb": e_emb, "weights": e_w}, ms, emb, flat
+
+
+def new_kernel_timings(dev, emb_of, emb, flat, tag):
+    """Phase 15 (e): kernels 4, 5, 8 and 9 at the main paths' shapes
+    (B=512; #8 also at 4096): wrapper time (CUDA events), plain version,
+    library yardstick, bound; device time of #4 and #5 from a profile of
+    one layered call.  -> rows by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurec_torch.ops.attention import (attention_layer,
+                                            attention_layer_bwd,
+                                            attention_layer_bwd_reference,
+                                            attention_layer_fwd,
+                                            field_attention_layered)
+    from tpurec_torch.ops.cross_network import (cross_network_bwd,
+                                                cross_network_bwd_reference,
+                                                cross_network_fwd,
+                                                cross_network_reference)
+
+    rows = {}
+    none = ("none: no single PyTorch call computes the cross stack (each "
+            "layer's row dot product and rank-1 update are separate calls)")
+    by_b = {}
+    for B in BATCH_SIZES:
+        x, w, b, g = cross_inputs(dev, emb_of, B, SEED + 31)
+        L, D = w.shape
+        nbytes = 2 * B * D * 4 + 2 * L * D * 4
+        flops = B * L * 5 * D
+        t_ops, t_b = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        by_b[B] = dict(
+            ms=cuda_ms(lambda: cross_network_fwd(x, w, b)),
+            plain_ms=cuda_ms(lambda: cross_network_reference(x, w, b)),
+            library_ms=None, bytes=nbytes, flops=flops,
+            bound_ms=max(t_ops, t_b) * 1e3,
+            bound_by="operations" if t_ops > t_b else "bytes")
+        if B == BATCH_SIZES[0]:               # the training batch, 512
+            nbytes = 3 * B * D * 4 + 4 * L * D * 4
+            # the states recomputed (5 D a layer), per layer three dot
+            # products or updates of 2 D and the sums into dw and db
+            flops = B * (5 * D * L * (L - 1) // 2 + 11 * D * L + D)
+            t_ops, t_b = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+            rows["cross_network_bwd"] = dict(
+                ms=cuda_ms(lambda: cross_network_bwd(x, w, b, g)),
+                plain_ms=cuda_ms(lambda: cross_network_bwd_reference(
+                    x, w, b, g)),
+                library_ms=None, library=none, bytes=nbytes, flops=flops,
+                bound_ms=max(t_ops, t_b) * 1e3,
+                bound_by="operations" if t_ops > t_b else "bytes")
+    rows["cross_network"] = dict(by_b[BATCH_SIZES[-1]], library=none,
+                                 by_batch={str(k): v for k, v in by_b.items()})
+
+    F, A, H = emb.shape[1], flat[0].shape[1], 2
+    x = (torch.matmul(emb, flat[0]) + flat[1]).detach()
+    ws = flat[4:8]
+    dy = torch.randn(x.shape, device=dev)
+    B = x.shape[0]
+    w_bytes = sum(t.numel() * 4 for t in ws)
+    for name, bwd in (("attention_layer", False),
+                      ("attention_layer_bwd", True)):
+        flops = B * layer_flops_per_row(F, A, H, bwd)
+        nbytes = (3 if bwd else 2) * B * F * A * 4 + (2 if bwd else 1) * w_bytes
+        t_ops, t_b = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        rows[name] = dict(flops=flops, bytes=nbytes,
+                          bound_ms=max(t_ops, t_b) * 1e3,
+                          bound_by="operations" if t_ops >= t_b else "bytes")
+    rows["attention_layer"].update(
+        ms=cuda_ms(lambda: attention_layer_fwd(x, *ws, H)),
+        plain_ms=cuda_ms(lambda: attention_layer(x, *ws, H)),
+        library_ms=cuda_ms(lambda: sdpa_layer(x, *ws, H)),
+        library="addmm + F.scaled_dot_product_attention + addmm, one layer")
+    leaves = [t.clone().requires_grad_(True) for t in [x] + list(ws)]
+    y_lib = sdpa_layer(*leaves, H)
+    rows["attention_layer_bwd"].update(
+        ms=cuda_ms(lambda: attention_layer_bwd(x, dy, *ws, H)),
+        plain_ms=cuda_ms(lambda: attention_layer_bwd_reference(
+            x, dy, *ws, H)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            y_lib, leaves, dy, retain_graph=True)),
+        library="torch.autograd.grad through the one-layer SDPA form")
+    del y_lib, leaves
+
+    # device time of kernels 4 and 5 in the layered path (3 each a call)
+    e = emb.clone().requires_grad_(True)
+    leaves = [w.clone().requires_grad_(True) for w in flat]
+    (field_attention_layered(e, leaves, 3, H) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            (field_attention_layered(e, leaves, 3, H) ** 2).sum().backward()
+        torch.cuda.synchronize()
+    dev_us = {ev.key: ev.self_device_time_total / 5
+              for ev in prof.key_averages()
+              if str(ev.device_type).endswith("CUDA")
+              and ev.self_device_time_total > 0}
+    for name, syms in (("attention_layer", ("attention_layer_kernel",)),
+                       ("attention_layer_bwd", ("attention_layer_bwd_kernel",
+                                                "reduce_partials_kernel"))):
+        us = [v for k, v in dev_us.items()
+              if any(port_kernel(k, s) for s in syms)]
+        # three launches a call: the device time of one
+        rows[name]["device_ms"] = sum(us) / 3e3 if us else None
+    busy = sum(dev_us.values())
+    print(f"{tag} profile of one layered fwd+bwd call (B=512): device busy "
+          f"{busy:.1f} us" + "".join(
+              f"\n    {us:9.1f} us  {k[:90]}" for k, us in sorted(
+                  dev_us.items(), key=lambda kv: -kv[1])[:8]))
+    for name, r in rows.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        dms = r.get("device_ms")
+        print(f"{tag} {name}: kernel {r['ms']:.4f} ms"
+              + ("" if dms is None else f" (device {dms:.4f} ms)")
+              + f", plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    r = rows["cross_network"]["by_batch"][str(BATCH_SIZES[0])]
+    print(f"{tag} cross_network B={BATCH_SIZES[0]}: kernel {r['ms']:.4f} ms, "
+          f"plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms")
+    return rows
+
+
+def chunk_timings(pred, rng, tag, syms):
+    """A Predictor's rows/s at each batch size (host clock, median of 20
+    calls, copies included), then where a chunk's time goes: a profile of
+    10 chunks at each size, device time by kernel against the chunk's
+    unprofiled host-clock time.  ``syms`` maps a port kernel's name to its
+    symbol; each launches once per chunk.  -> (seconds per chunk by B,
+    device ms by kernel name and B (None when the profiler saw no device
+    activity), device busy us per chunk by B)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk_s, busy_us = {}, {}
+    device_ms = {name: {} for name in syms}
+    for B in BATCH_SIZES:
+        Xb = random_ids(rng, B)
+        for _ in range(3):
+            pred(Xb)
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pred(Xb)
+            ts.append(time.perf_counter() - t0)
+        med = chunk_s[B] = float(np.median(ts))
+        print(f"{tag} Predictor({pred.model_name}) B={B}: {B / med:.0f} "
+              f"rows/s (median {med * 1e3:.3f} ms per call, host clock, "
+              f"incl. copies)")
+    for B in BATCH_SIZES:
+        Xb = random_ids(rng, B)
+        pred(Xb)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                pred(Xb)
+        dev_us = {e.key: e.self_device_time_total / 10
+                  for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0}
+        busy, wall = sum(dev_us.values()), chunk_s[B] * 1e6
+        busy_us[B] = busy
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        print(f"{tag} profile {pred.model_name} B={B}: device busy "
+              f"{busy:.1f} us per chunk, {100 * busy / wall:.1f}% of its "
+              f"{wall:.1f} us; {len(dev_us)} kernel kinds"
+              + "".join(f"\n    {us:9.1f} us  {name[:90]}"
+                        for name, us in top))
+        for name, sym in syms.items():
+            us = [v for k, v in dev_us.items() if port_kernel(k, sym)]
+            device_ms[name][B] = sum(us) / 1e3 if us else None
+    return chunk_s, device_ms, busy_us
 
 
 def main() -> int:
@@ -755,8 +1311,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from tpurec_torch.config import Config, ModelConfig
-    from tpurec_torch.models import build_model
-    from tpurec_torch.nn.core import BatchNorm, EmbeddingLayout
+    from tpurec_torch.nn.core import EmbeddingLayout
     from tpurec_torch.nn.initializers import init_module
     from tpurec_torch.nn.interactions import FieldAttention
     from tpurec_torch.ops import _build
@@ -845,20 +1400,7 @@ def main() -> int:
 
     # -- 4. the main path: Predictor at full width ----------------------
     cfg = Config(model=ModelConfig(**MODEL))
-    model = build_model("mmoe", FIELD_DIMS, N_TOWER, DOMAIN_IDX, cfg.model,
-                        device="cpu", generator=gen)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, BatchNorm):
-                m.mean.normal_(0.0, 0.3, generator=gen)
-                m.var.uniform_(0.5, 1.5, generator=gen)
-                m.scale.uniform_(0.8, 1.2, generator=gen)
-                m.bias.normal_(0.0, 0.1, generator=gen)
-    sd = model.state_dict()
-    n_params = sum(v.numel() for k, v in sd.items()
-                   if "mean" not in k and "var" not in k
-                   and "num_batches" not in k)
-    del model
+    sd, n_params = serving_weights("mmoe", cfg.model, gen)
     d2g = np.arange(N_DOMAIN) % N_TOWER
     preds = {}
     for where in ("cuda", "cpu"):
@@ -989,51 +1531,14 @@ def main() -> int:
         print(f"{tag} attention library stack vs plain: max abs err "
               f"{lib_err:.3g}")
 
-    chunk_s = {}
-    for B in BATCH_SIZES:
-        Xb = random_ids(rng, B)
-        for _ in range(3):
-            pred(Xb)
-        ts = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            pred(Xb)
-            ts.append(time.perf_counter() - t0)
-        med = chunk_s[B] = float(np.median(ts))
-        print(f"{tag} Predictor B={B}: {B / med:.0f} rows/s "
-              f"(median {med * 1e3:.3f} ms per call, host clock, "
-              f"incl. copies)")
+    _, chunk_dev, _ = chunk_timings(
+        pred, rng, tag, {"embedding_gather": "gather_kernel",
+                         "field_attention": "field_attention_kernel"})
     print(f"{tag} HTTP 1-row /predict p50: {http_p50:.3f} ms "
           f"(50 requests, keep-alive)")
-
-    # where a chunk's time goes: device time by kernel (profiler) against
-    # the chunk's unprofiled host-clock time above
-    from torch.profiler import ProfilerActivity, profile
-
-    for B in BATCH_SIZES:
-        Xb = random_ids(rng, B)
-        pred(Xb)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                pred(Xb)
-        dev_us = {e.key: e.self_device_time_total / 10
-                  for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")
-                  and e.self_device_time_total > 0}
-        busy, wall = sum(dev_us.values()), chunk_s[B] * 1e6
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-        print(f"{tag} profile B={B}: device busy {busy:.1f} us per chunk, "
-              f"{100 * busy / wall:.1f}% of its {wall:.1f} us; "
-              f"{len(dev_us)} kernel kinds"
-              + "".join(f"\n    {us:9.1f} us  {name[:90]}"
-                        for name, us in top))
-        # one launch of each port kernel per chunk: its device time (None
-        # when the profiler saw no device activity)
-        for name, sym in (("embedding_gather", "gather_kernel"),
-                          ("field_attention", "field_attention_kernel")):
-            us = [v for k, v in dev_us.items() if port_kernel(k, sym)]
-            rows[name][B]["device_ms"] = sum(us) / 1e3 if us else None
+    for name, by_b in chunk_dev.items():
+        for B, ms in by_b.items():
+            rows[name][B]["device_ms"] = ms
 
     # -- 7-10. training ----------------------------------------------------
     def emb_of(B):
@@ -1048,6 +1553,29 @@ def main() -> int:
     del ts, single, batches
     torch.cuda.empty_cache()
     cpu_match = train_vs_cpu(dev, rng)
+
+    # -- 11-15. the DCN family and the layered attention --------------------
+    errs11 = {**cross_kernel_checks(dev, emb_of),
+              **layer_kernel_checks(dev, flat, emb_of)}
+    dcn = dcn_serving(dev, rng, tag)
+    ts, single, batches, tgen, dcn_launches, dcn_timing = train_main_path(
+        dev, rng, tag, "dcn", DCN_MODEL)
+    dcn_dev_us, dcn_profile = step_profile(
+        dev, ts, single, batches, tgen, f"{tag} dcn",
+        dcn_timing["step_ms_host"])
+    dcn_step_dev = {}
+    for name, syms in (("cross_network", ("cross_fwd_kernel",)),
+                       ("cross_network_bwd", ("cross_bwd_kernel",
+                                              "sum_partials_kernel"))):
+        us = [v for k, v in dcn_dev_us.items()
+              if any(port_kernel(k, s) for s in syms)]
+        dcn_step_dev[name] = sum(us) / 1e3 if us else None
+    del ts, single, batches
+    torch.cuda.empty_cache()
+    dcn_cpu = train_vs_cpu(dev, rng, "dcn", DCN_MODEL)
+    layered_launches, layered_errs, layered_ms, l_emb, l_flat = \
+        layered_main_path(dev)
+    new_rows = new_kernel_timings(dev, emb_of, l_emb, l_flat, tag)
 
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
@@ -1094,9 +1622,53 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library", "device_ms")}})
+    new_meta = {
+        "cross_network": dict(
+            replaces="tpurec/ops/crossnet_pallas.py:133",
+            source="cross_network", batch=BATCH_SIZES[-1],
+            launches=dcn["launches"]["cross_network"],
+            launches_train=dcn_launches["cross_network"],
+            device_ms=dcn["device_ms"]["cross_network"][
+                str(BATCH_SIZES[-1])],
+            device_ms_by_batch=dcn["device_ms"]["cross_network"],
+            device_ms_train=dcn_step_dev["cross_network"]),
+        "cross_network_bwd": dict(
+            replaces="tpurec/ops/crossnet_pallas.py:101",
+            source="cross_network", batch=512,
+            launches=dcn_launches["cross_network_bwd"],
+            device_ms=dcn_step_dev["cross_network_bwd"]),
+        "attention_layer": dict(
+            replaces="tpurec/ops/attention_pallas.py:505",
+            source="field_attention", batch=512,
+            launches=layered_launches["attention_layer"]),
+        "attention_layer_bwd": dict(
+            replaces="tpurec/ops/attention_pallas.py:470",
+            source="field_attention", batch=512,
+            launches=layered_launches["attention_layer_bwd"])}
+    for name, meta in new_meta.items():
+        r = {**new_rows[name], **meta}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpurec_torch/csrc/{meta['source']}.cu",
+            "replaces": meta["replaces"], "launches": meta["launches"],
+            "max_abs_err": errs11[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: v for k, v in r.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "launches", "replaces", "source")}})
     print(json.dumps({"train": {**train_timing, "launches": train_launches,
                                 "vs_cpu": cpu_match,
                                 "profile": train_profile}}))
+    print(json.dumps({"dcn": {"serving": dcn,
+                              "train": {**dcn_timing,
+                                        "launches": dcn_launches,
+                                        "vs_cpu": dcn_cpu,
+                                        "profile": dcn_profile}},
+                      "layered": {"launches": layered_launches,
+                                  "errors": layered_errs,
+                                  "fwd_bwd_ms": layered_ms,
+                                  "vs_stack": errs11["layered_vs_stack"]}}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -103,8 +103,8 @@ def test_bf16_compute_is_refused():
 def test_build_is_keyed_by_source(tmp_path, monkeypatch):
     from tpurec_torch.ops import _build
 
-    assert set(_build.sources()) == {"embedding_gather", "field_attention",
-                                     "fused_adam"}
+    assert set(_build.sources()) == {"cross_network", "embedding_gather",
+                                     "field_attention", "fused_adam"}
     a, b = tmp_path / "k.cu", tmp_path / "k2.cu"
     a.write_text("// one\n")
     b.write_text("// two\n")

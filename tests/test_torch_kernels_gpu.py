@@ -251,3 +251,139 @@ def test_sparse_rows_match_plain(cuda):
     torch.cuda.synchronize()
     changed = (t2.cpu() != p).any(1).nonzero().flatten().tolist()
     assert changed == [4]
+
+
+# -- the cross network (kernels 8, 9) and one attention layer (4, 5) --------
+
+def _cross_inputs(cuda, B, D, L=3, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, D, generator=g)
+    w = torch.randn(L, D, generator=g) * 0.05
+    b = torch.randn(L, D, generator=g) * 0.1
+    gy = torch.randn(B, D, generator=g)
+    return [t.to(cuda) for t in (x, w, b, gy)]
+
+
+@pytest.mark.parametrize("B,D", [(1, 368), (513, 368), (4097, 368),
+                                 (37, 13), (513, 13)])
+def test_cross_kernels_match_plain(cuda, B, D):
+    from tpurec_torch.ops.cross_network import (cross_network,
+                                                cross_network_bwd,
+                                                cross_network_bwd_reference,
+                                                cross_network_fwd,
+                                                cross_network_reference)
+
+    x, w, b, gy = _cross_inputs(cuda, B, D)
+    x[0, 3] = float("nan")                  # a real row holding NaN
+    before = (cross_network.launches, cross_network_bwd.launches)
+    y = cross_network_fwd(x, w, b)
+    got = cross_network_bwd(x, w, b, gy)
+    again = cross_network_bwd(x, w, b, gy)
+    torch.cuda.synchronize()
+    assert (cross_network.launches, cross_network_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    want_y = cross_network_reference(x, w, b)
+    want = cross_network_bwd_reference(x, w, b, gy)
+    # bitwise repeatable, NaN for NaN
+    assert all(torch.equal(p.nan_to_num(7.0), q.nan_to_num(7.0))
+               and torch.equal(p.isnan(), q.isnan())
+               for p, q in zip(got, again))
+    for a, e, rel in zip((y,) + got, (want_y,) + want,
+                         (1e-5, 1e-5, 1e-4, 1e-4)):
+        assert torch.equal(torch.isnan(a), torch.isnan(e))
+        ok = ~torch.isnan(e)
+        scale = e[ok].abs().max().item() if ok.any() else 1.0
+        if ok.any():
+            assert (a[ok] - e[ok]).abs().max().item() <= rel * scale
+    assert torch.isnan(got[1]).any() and torch.isnan(got[2]).any()
+
+
+def test_cross_autograd_runs_both_kernels(cuda):
+    from tpurec_torch.ops.cross_network import (cross_network,
+                                                cross_network_bwd,
+                                                cross_network_reference)
+
+    x, w, b, gy = _cross_inputs(cuda, 512, 368, seed=6)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        fn(*leaves).backward(gy)
+        return [t.grad for t in leaves]
+
+    before = (cross_network.launches, cross_network_bwd.launches)
+    got = grads(cross_network)
+    torch.cuda.synchronize()
+    assert (cross_network.launches, cross_network_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, e in zip(got, grads(cross_network_reference)):
+        assert (a - e).abs().max().item() <= 1e-4 * max(
+            1.0, e.abs().max().item())
+
+
+@pytest.mark.parametrize("B,rate", [(1, 0.0), (513, 0.0), (1, 0.2),
+                                    (513, 0.2)])
+def test_attention_layer_kernels_match_plain(cuda, B, rate):
+    from tpurec_torch.ops.attention import (attention_layer,
+                                            attention_layer_bwd,
+                                            attention_layer_bwd_reference,
+                                            attention_layer_fwd,
+                                            fused_attention_layer, keep_mask)
+
+    rng = np.random.default_rng(7)
+    F, A, H = 23, 64, 2
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * 0.2).astype(np.float32)).to(cuda)
+    x, dy = mk(B, F, A), mk(B, F, A)
+    ws = [mk(A, 3 * A), mk(3 * A), mk(A, A), mk(A)]
+    seed = torch.tensor(21, device=cuda)
+    before = (fused_attention_layer.launches, attention_layer_bwd.launches)
+    y = attention_layer_fwd(x, *ws, H, 2, rate, seed)
+    dx, grads = attention_layer_bwd(x, dy, *ws, H, 2, rate, seed)
+    dx2, grads2 = attention_layer_bwd(x, dy, *ws, H, 2, rate, seed)
+    torch.cuda.synchronize()
+    assert (fused_attention_layer.launches, attention_layer_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert torch.equal(dx, dx2) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    keep = keep_mask(seed, B, 2, H, F, rate) if rate else None
+    assert (y - attention_layer(x, *ws, H, keep, rate)).abs().max() <= 1e-4
+    dx_r, grads_r = attention_layer_bwd_reference(x, dy, *ws, H, 2, rate,
+                                                  seed)
+    assert (dx - dx_r).abs().max().item() <= 1e-4
+    for g, e in zip(grads, grads_r):
+        assert (g - e).abs().max().item() <= 1e-4 * max(
+            1.0, e.abs().max().item())
+
+
+def test_layered_equals_stack_on_the_card(cuda):
+    """field_attention_layered (kernels 4, 5) in training with seed s and
+    field_attention (kernels 2, 3) with seed s: one output, one gradient."""
+    from tpurec_torch.ops.attention import (attention_layer_bwd,
+                                            field_attention_bwd,
+                                            field_attention_layered,
+                                            fused_attention_layer)
+
+    rng = np.random.default_rng(8)
+    emb, flat = _attn_inputs(rng, cuda, 96)
+    seed = torch.tensor(77, device=cuda)
+    dy = torch.from_numpy(rng.normal(size=(96, 23, 64)).astype(
+        np.float32)).to(cuda)
+
+    def run(fn):
+        leaves = [w.clone().requires_grad_(True) for w in flat]
+        e = emb.clone().requires_grad_(True)
+        y = fn(e, leaves, 3, 2, train=True, rate=0.2, seed=seed)
+        y.backward(dy)
+        return [y.detach(), e.grad] + [w.grad for w in leaves]
+
+    before = [f.launches for f in (fused_attention_layer,
+                                   attention_layer_bwd, field_attention,
+                                   field_attention_bwd)]
+    layered, stack = run(field_attention_layered), run(field_attention)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (fused_attention_layer, attention_layer_bwd,
+                                  field_attention, field_attention_bwd)]
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 1, 1]
+    for a, b in zip(layered, stack):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            1.0, b.abs().max().item())

@@ -153,10 +153,14 @@ def test_unported_paths_raise():
                     device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         build_model("nope", dims, 1, 2, ModelConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="DCN"):
-        build_model("mmoe", dims, 1, 2, ModelConfig(model="mmoe",
-                                                    use_dcn=True),
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model("dcnv2", dims, 1, 2, ModelConfig(model="dcnv2"),
                     device="cpu")
+    # the DCN family is ported: the model and MMoE's cross-network aux head
+    names = dict(build_model("mmoe", dims, 1, 2, ModelConfig(
+        model="mmoe", use_dcn=True), device="cpu").named_parameters())
+    assert {"aux.cn.w_0", "aux.cn.b_2", "aux.cn_linear.weight"} <= set(names)
+    build_model("dcn", dims, 1, 2, ModelConfig(model="dcn"), device="cpu")
 
 
 def test_build_model_defaults_to_the_card():

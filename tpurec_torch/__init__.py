@@ -2,9 +2,10 @@
 
 A package of its own beside the JAX package ``tpurec`` (the reference it is
 tested against); it imports torch, numpy and the standard library only.
-This slice carries the serving path of the MMoE model:
-:mod:`tpurec_torch.serve` (Predictor) and :mod:`tpurec_torch.server`
-(HTTP host), with hand-written CUDA kernels in ``tpurec_torch/csrc``.
+It carries the serving path (:mod:`tpurec_torch.serve`, the Predictor,
+and :mod:`tpurec_torch.server`, the HTTP host) and the hybrid training
+step (:mod:`tpurec_torch.train.hybrid`) of the MMoE and DCN models, with
+hand-written CUDA kernels in ``tpurec_torch/csrc``.
 """
 
 __version__ = "0.1.0"

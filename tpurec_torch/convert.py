@@ -68,7 +68,8 @@ def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
     become the dense ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq``
     and ``step``; ``emb_m``/``emb_v`` are the table's moments
     (``SparseEmbedState``, float32 or bfloat16); ``step`` the step
-    count."""
+    count.  A leaf the model lacks, or one it has and the trees do not,
+    raises."""
     from tpurec_torch.train.hybrid import init_train_state
 
     model.load_state_dict(state_dict_from_flax(params, model_state),
@@ -78,6 +79,14 @@ def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
     mu = dict(_leaves(adam_mu))
     nu = dict(_leaves(adam_nu))
     names = {id(p): n for n, p in ts.model.named_parameters()}
+    stepped = {names[id(p)] for group in ts.optimizer.param_groups
+               for p in group["params"]}
+    for what, tree in (("adam_mu", mu), ("adam_nu", nu)):
+        if set(tree) != stepped:
+            raise ValueError(
+                f"{what} does not fit the model's dense parameters: missing "
+                f"{sorted(stepped - set(tree))}, unexpected "
+                f"{sorted(set(tree) - stepped)}")
     count = float(np.asarray(adam_count))
     for group in ts.optimizer.param_groups:
         for p in group["params"]:

@@ -1,5 +1,6 @@
 // Field-attention stack: forward (kernel 2, eval and training) and its
-// backward (kernel 3).
+// backward (kernel 3); one attention layer: forward (kernel 4) and its
+// backward (kernel 5), described where they are defined below.
 //
 // Replaces tpurec/ops/attention_pallas.py::fused_field_attention: the
 // forward _fwd_kernel (run by _run_fwd) and the backward _bwd_kernel (run
@@ -426,6 +427,102 @@ __host__ __device__ long long bwd_smem_floats(int F, int D, int A, int H) {
   return 2 * fd + 4 * fa + 2 * fa3 + 3 * hff;
 }
 
+// One attention layer's backward, in shared memory, for one batch row.  In:
+// dx [F, A], the gradient at the layer's output; the layer's input xin
+// [F, A] and its internals recomputed by dense + attend (qkv [F, 3A],
+// softmax as and dropped weights ad [H, F, F], o [F, A]).  Adds the
+// layer's weight gradients into this block's partial slices g_w_in [A,
+// 3A], g_b_in [3A], g_w_out [A, A], g_b_out [A] (`first` writes instead)
+// and leaves the gradient at the layer's input in dx.  dO [F, A], dqkv
+// [F, 3A] and ds [H, F, F] are scratch.  Starts and ends synced.
+__device__ void layer_backward(const float* xin, const float* qkv,
+                               const float* as, const float* ad,
+                               const float* o, float* dx, float* dO,
+                               float* dqkv, float* ds, int F, int A, int H,
+                               int l, float sqrt_hd, const Dropout& dp,
+                               uint32_t key, const float* __restrict__ w_in,
+                               const float* __restrict__ w_out,
+                               float* g_w_in, float* g_b_in, float* g_w_out,
+                               float* g_b_out, bool first) {
+  const int hd = A / H;
+  const int ld = 3 * A;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  // out-projection backward
+  wgrad(o, dx, F, A, A, g_w_out, g_b_out, first);
+  dense_t(dx, F, A, w_out, A, dO, false);
+  __syncthreads();
+  // d_adrop[h, f, g] = do_h[f] . v_h[g]  -> ds
+  const int g_groups = (F + 3) / 4;
+  for (int i = threadIdx.x; i < H * F * g_groups; i += blockDim.x) {
+    const int g0 = (i % g_groups) * 4;
+    const int f = (i / g_groups) % F;
+    const int h = i / (g_groups * F);
+    const float* dor = dO + f * A + h * hd;
+    const float* vr[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      vr[t] = qkv + min(g0 + t, F - 1) * ld + 2 * A + h * hd;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < hd; d += 4) {
+      const float4 dv = ld4(dor + d);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[t] = dot4(dv, ld4(vr[t] + d), acc[t]);
+    }
+    float* sr = ds + (h * F + f) * F;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (g0 + t < F) sr[g0 + t] = acc[t];
+  }
+  // d_v[g, c] = sum_f ad[h, f, g] * do[f, c]  -> dqkv[g, 2A + c]
+  for (int i = threadIdx.x; i < F * (A / 4); i += blockDim.x) {
+    const int g = i / (A / 4), c0 = (i % (A / 4)) * 4;
+    const float* p = ad + (c0 / hd) * F * F + g;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int f = 0; f < F; ++f) fma4(acc, p[f * F], ld4(dO + f * A + c0));
+    st4(dqkv + g * ld + 2 * A + c0, acc);
+  }
+  __syncthreads();
+  // d_s = (d_a - sum_g d_a * a) * a / sqrt(hd), d_a = keep ? d_adrop /
+  // (1 - rate) : 0; one warp per (h, f) row
+  for (int r = warp; r < H * F; r += n_warps) {
+    float* dr = ds + r * F;
+    const float* ar = as + r * F;
+    const uint32_t ctr0 = static_cast<uint32_t>((l * H * F + r) * F);
+    float sum = 0.f;
+    for (int g = lane; g < F; g += 32) {
+      float da = dr[g];
+      if (dp.on) da = kept(key, ctr0 + g, dp.thresh) ? da / dp.keep : 0.f;
+      dr[g] = da;
+      sum = fmaf(da, ar[g], sum);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    for (int g = lane; g < F; g += 32)
+      dr[g] = (dr[g] - sum) * ar[g] / sqrt_hd;
+  }
+  __syncthreads();
+  // dq[f, c] = sum_g ds[h, f, g] k[g, c];  dk[g, c] = sum_f ds[h, f, g]
+  // q[f, c]  -> dqkv[:, c] and dqkv[:, A + c]
+  for (int i = threadIdx.x; i < F * (A / 4); i += blockDim.x) {
+    const int f = i / (A / 4), c0 = (i % (A / 4)) * 4;
+    const float* dsh = ds + (c0 / hd) * F * F;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < F; ++g)
+      fma4(acc, dsh[f * F + g], ld4(qkv + g * ld + A + c0));
+    st4(dqkv + f * ld + c0, acc);
+    acc = make_float4(0.f, 0.f, 0.f, 0.f);   // f plays g here
+    for (int f2 = 0; f2 < F; ++f2)
+      fma4(acc, dsh[f2 * F + f], ld4(qkv + f2 * ld + c0));
+    st4(dqkv + f * ld + A + c0, acc);
+  }
+  __syncthreads();
+  // in-projection backward
+  wgrad(xin, dqkv, F, A, 3 * A, g_w_in, g_b_in, first);
+  dense_t(dqkv, F, 3 * A, w_in, A, dx, false);
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kThreads)
     field_attention_bwd_kernel(const float* __restrict__ emb,
                                const float* __restrict__ dy,
@@ -435,8 +532,6 @@ __global__ void __launch_bounds__(kThreads)
                                float* __restrict__ demb,
                                float* __restrict__ partial, long long n_w) {
   extern __shared__ float4 smem4[];
-  const int hd = A / H;
-  const int ld = 3 * A;
   const bool res = w.w_res != nullptr;
   float* e = reinterpret_cast<float*>(smem4);   // [F, D] this row's emb
   float* de = e + pad4(F * D);                  // [F, D] its gradient
@@ -449,8 +544,6 @@ __global__ void __launch_bounds__(kThreads)
   float* as = dqkv + pad4(3 * F * A);           // [H, F, F] softmax
   float* ad = as + pad4(H * F * F);             // [H, F, F] after dropout
   float* ds = ad + pad4(H * F * F);             // [H, F, F] score grads
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
   const long long FA = static_cast<long long>(F) * A;
   const GradOffsets go(D, A, res);
   float* part = partial + blockIdx.x * n_w;
@@ -497,82 +590,10 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();
         attend(qkv, as, ad, o, F, A, H, l, sqrt_hd, dp, key);
       }
-      // out-projection backward
-      wgrad(o, dx, F, A, A, part + go.w_out(l, A), part + go.b_out(l, A),
-            first);
-      dense_t(dx, F, A, w.w_out[l], A, dO, false);
-      __syncthreads();
-      // d_adrop[h, f, g] = do_h[f] . v_h[g]  -> ds
-      const int g_groups = (F + 3) / 4;
-      for (int i = threadIdx.x; i < H * F * g_groups; i += blockDim.x) {
-        const int g0 = (i % g_groups) * 4;
-        const int f = (i / g_groups) % F;
-        const int h = i / (g_groups * F);
-        const float* dor = dO + f * A + h * hd;
-        const float* vr[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          vr[t] = qkv + min(g0 + t, F - 1) * ld + 2 * A + h * hd;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int d = 0; d < hd; d += 4) {
-          const float4 dv = ld4(dor + d);
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            acc[t] = dot4(dv, ld4(vr[t] + d), acc[t]);
-        }
-        float* sr = ds + (h * F + f) * F;
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          if (g0 + t < F) sr[g0 + t] = acc[t];
-      }
-      // d_v[g, c] = sum_f ad[h, f, g] * do[f, c]  -> dqkv[g, 2A + c]
-      for (int i = threadIdx.x; i < F * (A / 4); i += blockDim.x) {
-        const int g = i / (A / 4), c0 = (i % (A / 4)) * 4;
-        const float* p = ad + (c0 / hd) * F * F + g;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int f = 0; f < F; ++f) fma4(acc, p[f * F], ld4(dO + f * A + c0));
-        st4(dqkv + g * ld + 2 * A + c0, acc);
-      }
-      __syncthreads();
-      // d_s = (d_a - sum_g d_a * a) * a / sqrt(hd), d_a = keep ? d_adrop /
-      // (1 - rate) : 0; one warp per (h, f) row
-      for (int r = warp; r < H * F; r += n_warps) {
-        float* dr = ds + r * F;
-        const float* ar = as + r * F;
-        const uint32_t ctr0 = static_cast<uint32_t>((l * H * F + r) * F);
-        float sum = 0.f;
-        for (int g = lane; g < F; g += 32) {
-          float da = dr[g];
-          if (dp.on) da = kept(key, ctr0 + g, dp.thresh) ? da / dp.keep : 0.f;
-          dr[g] = da;
-          sum = fmaf(da, ar[g], sum);
-        }
-        for (int off = 16; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        for (int g = lane; g < F; g += 32)
-          dr[g] = (dr[g] - sum) * ar[g] / sqrt_hd;
-      }
-      __syncthreads();
-      // dq[f, c] = sum_g ds[h, f, g] k[g, c];  dk[g, c] = sum_f ds[h, f, g]
-      // q[f, c]  -> dqkv[:, c] and dqkv[:, A + c]
-      for (int i = threadIdx.x; i < F * (A / 4); i += blockDim.x) {
-        const int f = i / (A / 4), c0 = (i % (A / 4)) * 4;
-        const float* dsh = ds + (c0 / hd) * F * F;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int g = 0; g < F; ++g)
-          fma4(acc, dsh[f * F + g], ld4(qkv + g * ld + A + c0));
-        st4(dqkv + f * ld + c0, acc);
-        acc = make_float4(0.f, 0.f, 0.f, 0.f);   // f plays g here
-        for (int f2 = 0; f2 < F; ++f2)
-          fma4(acc, dsh[f2 * F + f], ld4(qkv + f2 * ld + c0));
-        st4(dqkv + f * ld + A + c0, acc);
-      }
-      __syncthreads();
-      // in-projection backward
-      wgrad(xin, dqkv, F, A, 3 * A, part + go.w_in(l, A),
-            part + go.b_in(l, A), first);
-      dense_t(dqkv, F, 3 * A, w.w_in[l], A, dx, false);
-      __syncthreads();
+      layer_backward(xin, qkv, as, ad, o, dx, dO, dqkv, ds, F, A, H, l,
+                     sqrt_hd, dp, key, w.w_in[l], w.w_out[l],
+                     part + go.w_in(l, A), part + go.b_in(l, A),
+                     part + go.w_out(l, A), part + go.b_out(l, A), first);
     }
 
     // embedding projection backward
@@ -598,9 +619,127 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   }
 }
 
+// -- one attention layer (kernels 4 and 5) ---------------------------------
+//
+// Replace tpurec/ops/attention_pallas.py::fused_attention_layer: the
+// forward _layer_only_fwd_kernel (run by _run_layer_fwd) and the backward
+// _layer_only_bwd_kernel (run by _run_layer_bwd through _fal_bwd), which
+// fused_field_attention_layered calls once per layer.  They are the body
+// of the stack kernels' layer loop as kernels of their own: x [B, F, A] ->
+// y = attention(x) @ w_out + b_out, and back.  The layer index selects
+// the dropout counters, so layer l drops the weights that the stack drops
+// in its layer l for the same seed.  Weight gradients go through the
+// partials and the ordered reduction of the stack's backward.
+//
+// Bound on the H100: float32 operations.  At F=23, A=64, H=2 the forward
+// does 2*F*A*3A + 4*F*F*A + 2*F*A*A = 889,088 flops per row against 11.8
+// KB of row input and output (B=512: 6.8 us of operations, 1.8 us of
+// bytes); the backward, which recomputes the forward's attention, does
+// 2,478,848 per row against 17.7 KB (B=512: 18.9 us, 2.7 us).
+
+// Offsets of a layer's gradients in its flat vector: w_in [A, 3A], b_in
+// [3A], w_out [A, A], b_out [A] (GradOffsets' layer block).
+struct LayerGradOffsets {
+  long long w_in, b_in, w_out, b_out, size;
+  __host__ __device__ explicit LayerGradOffsets(int A) {
+    w_in = 0;
+    b_in = 3LL * A * A;
+    w_out = b_in + 3LL * A;
+    b_out = w_out + 1LL * A * A;
+    size = b_out + A;
+  }
+};
+
+// Floats of shared memory the layer backward needs per block.
+__host__ __device__ long long layer_bwd_smem_floats(int F, int A, int H) {
+  const long long fa = (F * A + 3) & ~3, fa3 = (3 * F * A + 3) & ~3;
+  const long long hff = (H * F * F + 3) & ~3;
+  return 4 * fa + 2 * fa3 + 3 * hff;
+}
+
+// One block per batch row: x, qkv, scores and o in shared memory, y
+// written straight from the out-projection.  64 registers at most, as the
+// stack forward.
+__global__ void __launch_bounds__(kThreads, 4)
+    attention_layer_kernel(const float* __restrict__ x,
+                           const float* __restrict__ w_in,
+                           const float* __restrict__ b_in,
+                           const float* __restrict__ w_out,
+                           const float* __restrict__ b_out, int F, int A,
+                           int H, int layer, float sqrt_hd, Dropout dp,
+                           float* __restrict__ y) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // [F, A]
+  float* qkv = xs + F * A;                      // [F, 3A]
+  float* o = qkv + F * 3 * A;                   // [F, A]
+  float* s = o + F * A;                         // [H, F, F]
+  const long long row = blockIdx.x;
+  const long long FA = static_cast<long long>(F) * A;
+  const uint32_t key = row_key(dp, row);
+  for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x)
+    st4(xs + 4 * i, ld4(x + row * FA + 4 * i));
+  __syncthreads();
+  dense(xs, F, A, w_in, b_in, 3 * A, qkv);
+  __syncthreads();
+  attend(qkv, s, s, o, F, A, H, layer, sqrt_hd, dp, key);
+  dense(o, F, A, w_out, b_out, A, y + row * FA);
+}
+
+// A block walks the rows blockIdx.x, +gridDim.x, ...: recomputes the
+// layer from x (qkv, softmax, dropped weights, o), then layer_backward
+// from dy; dx is written per row, the weight gradients into the block's
+// slice of partial [grid, n_w].
+__global__ void __launch_bounds__(kThreads)
+    attention_layer_bwd_kernel(const float* __restrict__ x,
+                               const float* __restrict__ dy,
+                               const float* __restrict__ w_in,
+                               const float* __restrict__ b_in,
+                               const float* __restrict__ w_out,
+                               int B, int F, int A, int H, int layer,
+                               float sqrt_hd, Dropout dp,
+                               float* __restrict__ dx_out,
+                               float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  float* xin = reinterpret_cast<float*>(smem4);  // [F, A] layer input
+  float* o = xin + pad4(F * A);                   // [F, A] attention out
+  float* dx = o + pad4(F * A);                    // [F, A] dy, then dx
+  float* dO = dx + pad4(F * A);                   // [F, A] grad at o
+  float* qkv = dO + pad4(F * A);                  // [F, 3A]
+  float* dqkv = qkv + pad4(3 * F * A);            // [F, 3A]
+  float* as = dqkv + pad4(3 * F * A);             // [H, F, F] softmax
+  float* ad = as + pad4(H * F * F);               // [H, F, F] after dropout
+  float* ds = ad + pad4(H * F * F);               // [H, F, F] score grads
+  const long long FA = static_cast<long long>(F) * A;
+  const LayerGradOffsets go(A);
+  float* part = partial + blockIdx.x * go.size;
+
+  for (long long row = blockIdx.x; row < B; row += gridDim.x) {
+    const bool first = row == blockIdx.x;
+    const uint32_t key = row_key(dp, row);
+    for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x) {
+      st4(xin + 4 * i, ld4(x + row * FA + 4 * i));
+      st4(dx + 4 * i, ld4(dy + row * FA + 4 * i));
+    }
+    __syncthreads();
+    dense(xin, F, A, w_in, b_in, 3 * A, qkv);
+    __syncthreads();
+    attend(qkv, as, ad, o, F, A, H, layer, sqrt_hd, dp, key);
+    layer_backward(xin, qkv, as, ad, o, dx, dO, dqkv, ds, F, A, H, layer,
+                   sqrt_hd, dp, key, w_in, w_out, part + go.w_in,
+                   part + go.b_in, part + go.w_out, part + go.b_out, first);
+    for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x)
+      st4(dx_out + row * FA + 4 * i, ld4(dx + 4 * i));
+    __syncthreads();
+  }
+}
+
+bool bad_heads(int H, int A) {
+  return H <= 0 || A % H != 0 || A % 4 != 0 || (A / H) % 4 != 0;
+}
+
 bool bad_shape(int L, int H, int D, int A) {
-  return L < 1 || L > TPUREC_ATTN_MAX_LAYERS || H <= 0 || A % H != 0 ||
-         D % 4 != 0 || A % 4 != 0 || (A / H) % 4 != 0;
+  return L < 1 || L > TPUREC_ATTN_MAX_LAYERS || D % 4 != 0 ||
+         bad_heads(H, A);
 }
 
 Weights unpack(const float* const* weights, int L) {
@@ -697,6 +836,74 @@ extern "C" int tpurec_field_attention_bwd(
   field_attention_bwd_kernel<<<grid, kThreads, smem, s>>>(
       emb, dy, saved, w, B, F, D, A, H, L, sqrt_hd,
       make_dropout(seed, thresh, keep, dropout), demb, partial, n_w);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((n_w + 255) / 256);
+  reduce_partials_kernel<<<blocks, 256, 0, s>>>(partial, grid, n_w, wgrad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory one layer-forward block needs, in bytes.
+extern "C" long long tpurec_attention_layer_smem_bytes(int F, int A, int H) {
+  return sizeof(float) * (5LL * F * A + 1LL * H * F * F);
+}
+
+// Shared memory one layer-backward block needs, in bytes.
+extern "C" long long tpurec_attention_layer_bwd_smem_bytes(int F, int A,
+                                                           int H) {
+  return sizeof(float) * layer_bwd_smem_floats(F, A, H);
+}
+
+// Kernel 4: one attention layer, x [B, F, A] -> y [B, F, A].  weights: host
+// array of the 4 device pointers [w_in, b_in, w_out, b_out]; layer is the
+// layer's index in the stack (it selects the dropout counters);
+// seed/thresh/keep/dropout as in the stack's forward.
+extern "C" int tpurec_attention_layer_fwd(
+    const float* x, const float* const* weights, int B, int F, int A, int H,
+    int layer, const long long* seed, unsigned thresh, float keep,
+    int dropout, float* y, void* stream) {
+  if (bad_heads(H, A) || layer < 0 || (dropout && seed == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const long long smem = tpurec_attention_layer_smem_bytes(F, A, H);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const float sqrt_hd = sqrtf(static_cast<float>(A / H));
+  attention_layer_kernel<<<B, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x, weights[0], weights[1], weights[2], weights[3], F, A, H, layer,
+      sqrt_hd, make_dropout(seed, thresh, keep, dropout), y);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 5: its backward, dy [B, F, A] -> dx [B, F, A] and the layer's
+// weight gradients flat [w_in, b_in, w_out, b_out] into wgrad, recomputing
+// the layer from its input x.  partial is [grid, n_w] scratch, grid <= B.
+extern "C" int tpurec_attention_layer_bwd(
+    const float* x, const float* dy, const float* const* weights, int B,
+    int F, int A, int H, int layer, const long long* seed, unsigned thresh,
+    float keep, int dropout, int grid, float* dx, float* partial,
+    float* wgrad, void* stream) {
+  if (bad_heads(H, A) || layer < 0 || (dropout && seed == nullptr) ||
+      grid < 1 || grid > B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_w = LayerGradOffsets(A).size;
+  const long long smem = tpurec_attention_layer_bwd_smem_bytes(F, A, H);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_layer_bwd_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const float sqrt_hd = sqrtf(static_cast<float>(A / H));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  attention_layer_bwd_kernel<<<grid, kThreads, smem, s>>>(
+      x, dy, weights[0], weights[1], weights[2], B, F, A, H, layer, sqrt_hd,
+      make_dropout(seed, thresh, keep, dropout), dx, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = static_cast<int>((n_w + 255) / 256);

@@ -1,7 +1,7 @@
 """Model registry of the port (counterpart of ``tpurec/models/__init__.py``).
 
-Only ``mmoe`` is ported in this slice; the JAX package's other model names
-raise ``NotImplementedError`` and ``ROADMAP.md`` lists when they come.
+Ported: ``mmoe`` and ``dcn``; the JAX package's other model names raise
+``NotImplementedError`` and ``ROADMAP.md`` lists when they come.
 """
 
 from __future__ import annotations
@@ -13,14 +13,15 @@ import torch
 from tpurec_torch.config import ModelConfig
 from tpurec_torch.device import resolve_device
 from tpurec_torch.models.base import AuxLogits, CTRModel
+from tpurec_torch.models.dcn import DCN
 from tpurec_torch.models.mmoe import MMoE
 from tpurec_torch.nn.initializers import init_module
 
-MODEL_REGISTRY = {"mmoe": MMoE}
+MODEL_REGISTRY = {"mmoe": MMoE, "dcn": DCN}
 
 # the JAX package's zoo, still to be ported
 _NOT_PORTED = {
-    "deepfm", "dcn", "dcnv2", "autoint", "ple", "pepnet", "epnet",
+    "deepfm", "dcnv2", "autoint", "ple", "pepnet", "epnet",
     "pepnet-single", "epnet-single", "star", "adl", "adl-split", "hinet",
     "adasparse", "xdeepfm", "ipnn", "opnn", "afm",
 }
@@ -58,5 +59,5 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
     return model.to(device)
 
 
-__all__ = ["AuxLogits", "CTRModel", "MMoE", "MODEL_REGISTRY",
+__all__ = ["AuxLogits", "CTRModel", "DCN", "MMoE", "MODEL_REGISTRY",
            "MULTI_TOWER_OUTPUT", "build_model"]

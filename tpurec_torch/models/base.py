@@ -5,10 +5,10 @@ Output contract, as in the JAX package: multi-tower models return logits
 (:func:`tpurec_torch.train.step.select_tower`).  Models emit logits.
 
 :class:`AuxLogits` is the auxiliary logit of every tower model: the
-first-order linear term plus, when ``use_atten`` (the default), the
-field-attention head.  ``train=True`` runs the training forward
-(``tpurec/models/base.py:50-66``): attention dropout with draws from the
-caller's generator.
+first-order linear term plus, when ``use_dcn``, the cross network, and,
+when ``use_atten`` (the default), the field-attention head.
+``train=True`` runs the training forward (``tpurec/models/base.py:50-66``):
+attention dropout with draws from the caller's generator.
 """
 
 from __future__ import annotations
@@ -19,22 +19,26 @@ from torch import nn
 
 from tpurec_torch.config import ModelConfig
 from tpurec_torch.nn.core import FusedEmbedding, Linear
-from tpurec_torch.nn.interactions import FieldAttention
+from tpurec_torch.nn.interactions import CrossNetwork, FieldAttention
 
 
 class AuxLogits(nn.Module):
     """Sum of the auxiliary scalar logit heads shared by the tower models:
-    ``linear`` on the flattened embeddings, and ``atten`` (field-attention
-    stack) -> ``atten_linear`` (no bias) when ``cfg.use_atten``."""
+    ``linear`` on the flattened embeddings; ``cn`` (cross network) ->
+    ``cn_linear`` (no bias) when ``cfg.use_dcn``; ``atten``
+    (field-attention stack) -> ``atten_linear`` (no bias) when
+    ``cfg.use_atten``."""
 
     def __init__(self, cfg: ModelConfig, field_num: int, embed_dim: int,
                  device=None):
         super().__init__()
+        in_dim = field_num * embed_dim
+        self.linear = Linear(in_dim, 1, device=device)
         if cfg.use_dcn:
-            raise NotImplementedError(
-                "use_dcn=True needs the cross-network kernel, which comes "
-                "with the DCN slice: see ROADMAP.md")
-        self.linear = Linear(field_num * embed_dim, 1, device=device)
+            self.cn = CrossNetwork(in_dim, cfg.n_cross_layers, device=device)
+            self.cn_linear = Linear(in_dim, 1, use_bias=False, device=device)
+        else:
+            self.cn = None
         if cfg.use_atten:
             self.atten = FieldAttention(
                 embed_dim, cfg.atten_embed_dim, cfg.att_layer_num,
@@ -48,6 +52,8 @@ class AuxLogits(nn.Module):
     def forward(self, embed_flat, embed_3d, train: bool = False,
                 generator=None):
         out = self.linear(embed_flat)
+        if self.cn is not None:
+            out = out + self.cn_linear(self.cn(embed_flat))
         if self.atten is not None:
             out = out + self.atten_linear(
                 self.atten(embed_3d, train=train, generator=generator))

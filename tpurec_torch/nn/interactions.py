@@ -1,5 +1,6 @@
-"""Field attention of the port (counterpart of ``tpurec/nn/interactions.py``
-:class:`FieldMultiHeadAttention` and :class:`FieldAttention`).
+"""Interactions of the port (counterpart of ``tpurec/nn/interactions.py``
+:class:`CrossNetwork`, :class:`FieldMultiHeadAttention` and
+:class:`FieldAttention`).
 
 Parameter names and shapes are those of the JAX modules (and of their
 ``_LinearParams``/``_MHAParams`` holders): ``atten_embedding``,
@@ -7,8 +8,11 @@ Parameter names and shapes are those of the JAX modules (and of their
 weights [in, out].  :class:`FieldAttention` runs the whole stack as one
 call of :func:`tpurec_torch.ops.attention.field_attention`, the kernels on
 the card: in training with attention-weight dropout and a gradient
-through kernel 3.  The interaction ops of the other zoo models come with
-their slices.
+through kernel 3.  :class:`CrossNetwork` keeps the JAX module's ``w_{i}``
+[D, 1] and ``b_{i}`` [D] and runs the stack as one call of
+:func:`tpurec_torch.ops.cross_network.cross_network` (kernels 8 and 9 on
+the card).  The interaction ops of the other zoo models come with their
+slices.
 """
 
 from __future__ import annotations
@@ -20,6 +24,39 @@ from tpurec_torch.nn import initializers as tinit
 from tpurec_torch.nn.core import Linear
 from tpurec_torch.ops.attention import (attention_layer, draw_seed,
                                         field_attention)
+from tpurec_torch.ops.cross_network import cross_network
+
+
+class CrossNetwork(nn.Module):
+    """DCN-v1 cross stack, x_{l+1} = x0 * (x_l . w_l) + b_l + x_l
+    (``tpurec/nn/interactions.py:48-85``): [..., D] -> [..., D].  ``w_{i}``
+    [D, 1] has torch-Linear init (fan-in D), ``b_{i}`` [D] is zero; the
+    layers are stacked into [L, D] for one call of the fused stack."""
+
+    def __init__(self, in_dim: int, num_layers: int, device=None):
+        super().__init__()
+        self.in_dim = in_dim
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            setattr(self, f"w_{i}", nn.Parameter(torch.empty(
+                in_dim, 1, device=device)))
+            setattr(self, f"b_{i}", nn.Parameter(torch.empty(
+                in_dim, device=device)))
+
+    def reset_parameters(self, generator):
+        for i in range(self.num_layers):
+            tinit.linear_uniform_(getattr(self, f"w_{i}"), self.in_dim,
+                                  generator)
+            with torch.no_grad():
+                getattr(self, f"b_{i}").zero_()
+
+    def forward(self, x):
+        w = torch.stack([getattr(self, f"w_{i}")[:, 0]
+                         for i in range(self.num_layers)])
+        b = torch.stack([getattr(self, f"b_{i}")
+                         for i in range(self.num_layers)])
+        shape = x.shape
+        return cross_network(x.reshape(-1, shape[-1]), w, b).reshape(shape)
 
 
 class FieldMultiHeadAttention(nn.Module):

@@ -1,5 +1,6 @@
 """Field-attention stack: kernel 2 (forward, eval and training) and kernel 3
-(its backward) of the port, and their plain versions.
+(its backward) of the port; one attention layer: kernel 4 (forward) and
+kernel 5 (its backward); and their plain versions.
 
 Replaces ``tpurec/ops/attention_pallas.py::fused_field_attention``: the
 forward ``_fwd_kernel`` (run by ``_run_fwd``) and the backward
@@ -29,6 +30,15 @@ seed is an int64 scalar tensor on the card, drawn per step
 :func:`field_attention` launches the kernels for CUDA tensors (through
 :class:`FieldAttentionFn` when training) and runs the plain version
 (autograd gives its backward) for CPU tensors only.
+
+:func:`field_attention_layered` is the same head with one kernel per
+attention layer (``attention_pallas.py::fused_field_attention_layered``):
+the embedding projection and the V_res residual + ReLU are plain
+products, each layer is :func:`fused_attention_layer` (kernel 4 forward,
+kernel 5 backward, through :class:`AttentionLayerFn`).  Layer ``l`` draws
+the stack's hash of layer ``l``, so the two forms drop the same weights
+for one seed.  Bound on the H100: float32 operations, 0.89 MFLOP per row
+forward and 2.48 backward at F=23, A=64, H=2 (B=512: 6.8 and 18.9 us).
 """
 
 from __future__ import annotations
@@ -53,6 +63,12 @@ _SIGNATURES = {
     "tpurec_field_attention_bwd": (_I, [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
         ctypes.c_float, _I, _I, _P, _P, _P, _P]),
+    "tpurec_attention_layer_fwd": (_I, [
+        _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, ctypes.c_float, _I,
+        _P, _P]),
+    "tpurec_attention_layer_bwd": (_I, [
+        _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, ctypes.c_float,
+        _I, _I, _P, _P, _P, _P]),
 }
 _M32 = 0xFFFFFFFF
 
@@ -69,6 +85,17 @@ def bwd_smem_bytes(F: int, D: int, A: int, H: int) -> int:
         return (n + 3) // 4 * 4
     return 4 * (2 * pad(F * D) + 4 * pad(F * A) + 2 * pad(3 * F * A)
                 + 3 * pad(H * F * F))
+
+
+def layer_smem_bytes(F: int, A: int, H: int) -> int:
+    """Shared memory of one layer-forward block (x, qkv, o, scores)."""
+    return 4 * (5 * F * A + H * F * F)
+
+
+def layer_bwd_smem_bytes(F: int, A: int, H: int) -> int:
+    """Shared memory of one layer-backward block (the source's
+    ``layer_bwd_smem_floats``)."""
+    return bwd_smem_bytes(F, 0, A, H)
 
 
 def keep_threshold(rate: float) -> int:
@@ -341,6 +368,193 @@ def field_attention(emb: torch.Tensor,
 field_attention.launches = 0
 
 
+# -- one attention layer (kernels 4 and 5) ----------------------------------
+
+def _check_layer(x, layer_w, n_heads: int) -> None:
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"x must be [B, F, A] float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    A = x.shape[-1]
+    if n_heads <= 0 or A % n_heads != 0:
+        raise ValueError(f"atten dim {A} must divide into {n_heads} heads")
+    for name, w, shape in zip(("w_in", "b_in", "w_out", "b_out"), layer_w,
+                              ((A, 3 * A), (3 * A,), (A, A), (A,))):
+        if (tuple(w.shape) != shape or w.dtype != torch.float32
+                or w.device != x.device):
+            raise ValueError(f"{name} must be float32 {shape} on "
+                             f"{x.device}, got {tuple(w.shape)} {w.dtype} "
+                             f"{w.device}")
+
+
+def _check_layer_kernel(x, n_heads: int, layer: int, smem: int) -> None:
+    """What kernels 4 and 5 do not take, refused before a launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the attention layer runs on cuda or cpu, not "
+                         f"{x.device}")
+    _, F, A = x.shape
+    if A % 4 or (A // n_heads) % 4:
+        raise ValueError(f"the kernel needs A and A/H to be multiples of 4, "
+                         f"got A={A}, H={n_heads}")
+    if layer < 0:
+        raise ValueError(f"layer index must be >= 0, got {layer}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"F={F}, A={A}, H={n_heads} needs {smem} B of "
+                         f"shared memory per row, over {SMEM_LIMIT}")
+
+
+def attention_layer_fwd(x: torch.Tensor, w_in: torch.Tensor,
+                        b_in: torch.Tensor, w_out: torch.Tensor,
+                        b_out: torch.Tensor, n_heads: int, layer: int = 0,
+                        rate: float = 0.0,
+                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 4: one attention layer, x [B, F, A] -> [B, F, A], dropping
+    attention weights at ``rate`` > 0 with the hash of layer ``layer``
+    seeded by ``seed``.  CPU tensors run :func:`attention_layer`."""
+    layer_w = (w_in, b_in, w_out, b_out)
+    _check_layer(x, layer_w, n_heads)
+    _check_rate(rate, seed)
+    B, F, A = x.shape
+    if x.device.type == "cpu":
+        keep = (keep_mask(seed, B, layer, n_heads, F, rate) if rate > 0.0
+                else None)
+        return attention_layer(x, *layer_w, n_heads, keep, rate)
+    _check_layer_kernel(x, n_heads, layer, layer_smem_bytes(F, A, n_heads))
+    lib = _build.load("field_attention", _SIGNATURES)
+    x = _aligned(x)
+    layer_w = [_aligned(w) for w in layer_w]
+    y = torch.empty((B, F, A), dtype=torch.float32, device=x.device)
+    seed_ptr, seed_t = _seed_arg(seed, rate, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpurec_attention_layer_fwd(
+            x.data_ptr(), _ptrs(layer_w), B, F, A, n_heads, layer, seed_ptr,
+            keep_threshold(rate), 1.0 - rate, int(rate > 0.0), y.data_ptr(),
+            stream)
+    del seed_t
+    _build.check(lib, rc, "attention_layer")
+    fused_attention_layer.launches += 1
+    return y
+
+
+def attention_layer_bwd(x: torch.Tensor, dy: torch.Tensor,
+                        w_in: torch.Tensor, b_in: torch.Tensor,
+                        w_out: torch.Tensor, b_out: torch.Tensor,
+                        n_heads: int, layer: int = 0, rate: float = 0.0,
+                        seed: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Kernel 5: dy [B, F, A] -> (dx [B, F, A], [gw_in, gb_in, gw_out,
+    gb_out]), recomputing the layer from its input ``x`` with the
+    forward's dropout mask.  CPU tensors run
+    :func:`attention_layer_bwd_reference`."""
+    layer_w = (w_in, b_in, w_out, b_out)
+    _check_layer(x, layer_w, n_heads)
+    _check_rate(rate, seed)
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy must be {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    if x.device.type == "cpu":
+        return attention_layer_bwd_reference(x, dy, *layer_w, n_heads,
+                                             layer, rate, seed)
+    B, F, A = x.shape
+    _check_layer_kernel(x, n_heads, layer,
+                        layer_bwd_smem_bytes(F, A, n_heads))
+    lib = _build.load("field_attention", _SIGNATURES)
+    x, dy = (_aligned(t.to(torch.float32)) for t in (x, dy))
+    layer_w = [_aligned(w) for w in layer_w]
+    dev = x.device
+    n_w = 4 * A * A + 4 * A
+    dx = torch.empty((B, F, A), dtype=torch.float32, device=dev)
+    wgrad = torch.zeros((n_w,), dtype=torch.float32, device=dev)
+    if B:
+        grid = min(B, BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        partial = torch.empty((grid, n_w), dtype=torch.float32, device=dev)
+        seed_ptr, seed_t = _seed_arg(seed, rate, dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.tpurec_attention_layer_bwd(
+                x.data_ptr(), dy.data_ptr(), _ptrs(layer_w), B, F, A,
+                n_heads, layer, seed_ptr, keep_threshold(rate), 1.0 - rate,
+                int(rate > 0.0), grid, dx.data_ptr(), partial.data_ptr(),
+                wgrad.data_ptr(), stream)
+        del seed_t
+        _build.check(lib, rc, "attention_layer_bwd")
+        attention_layer_bwd.launches += 1
+    sizes = (3 * A * A, 3 * A, A * A, A)
+    return dx, [g.view(w.shape) for g, w in zip(wgrad.split(sizes), layer_w)]
+
+
+attention_layer_bwd.launches = 0
+
+
+class AttentionLayerFn(torch.autograd.Function):
+    """Kernel 4 forward, kernel 5 backward from the saved layer input."""
+
+    @staticmethod
+    def forward(ctx, x, seed, n_heads, layer, rate, w_in, b_in, w_out,
+                b_out):
+        ctx.meta = (n_heads, layer, rate)
+        ctx.save_for_backward(x, seed, w_in, b_in, w_out, b_out)
+        return attention_layer_fwd(x, w_in, b_in, w_out, b_out, n_heads,
+                                   layer, rate, seed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        n_heads, layer, rate = ctx.meta
+        x, seed, *layer_w = ctx.saved_tensors
+        dx, grads = attention_layer_bwd(x, dy, *layer_w, n_heads, layer,
+                                        rate, seed)
+        return (dx, None, None, None, None, *grads)
+
+
+def fused_attention_layer(x: torch.Tensor, w_in: torch.Tensor,
+                          b_in: torch.Tensor, w_out: torch.Tensor,
+                          b_out: torch.Tensor, n_heads: int, layer: int = 0,
+                          train: bool = False, rate: float = 0.0,
+                          seed: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """One attention layer [B, F, A] -> [B, F, A] (``attention_pallas.py::
+    fused_attention_layer``), differentiable in x and the weights (kernel 5
+    on the card).  ``train`` drops attention weights at ``rate`` with the
+    hash of layer ``layer`` seeded by ``seed``; eval ignores ``rate``."""
+    rate = float(rate) if train else 0.0
+    layer_w = (w_in, b_in, w_out, b_out)
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *layer_w))
+    if x.device.type == "cpu" or not wants_grad:
+        # the plain version on the CPU is differentiable by autograd
+        return attention_layer_fwd(x, *layer_w, n_heads, layer, rate, seed)
+    if seed is None and rate == 0.0:
+        seed = torch.zeros((), dtype=torch.int64, device=x.device)
+    return AttentionLayerFn.apply(x, seed, n_heads, layer, rate, *layer_w)
+
+
+fused_attention_layer.launches = 0
+
+
+def field_attention_layered(emb: torch.Tensor,
+                            flat_w: Sequence[Optional[torch.Tensor]],
+                            n_layers: int, n_heads: int, train: bool = False,
+                            rate: float = 0.0,
+                            seed: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The attention head with one kernel per layer (``attention_pallas.py::
+    fused_field_attention_layered``): [B, F, D] -> [B, F, A], the same
+    function as :func:`field_attention`.  The embedding projection and the
+    V_res residual + ReLU are plain products, as JAX leaves them to XLA."""
+    _check(emb, flat_w, n_layers, n_heads)
+    rate = float(rate) if train else 0.0
+    _check_rate(rate, seed)
+    w_emb, b_emb, w_res, b_res = flat_w[:4]
+    x = torch.matmul(emb, w_emb) + b_emb
+    for l in range(n_layers):
+        x = fused_attention_layer(x, *flat_w[4 + 4 * l: 8 + 4 * l], n_heads,
+                                  l, train, rate, seed)
+    if w_res is not None:
+        x = x + (torch.matmul(emb, w_res) + b_res)
+    return torch.relu(x)
+
+
 # -- plain versions --------------------------------------------------------
 
 def _heads(qkv, A: int, H: int):
@@ -367,6 +581,22 @@ def attention_layer(x, w_in, b_in, w_out, b_out, n_heads: int,
             a = torch.where(keep[:, h], a / (1.0 - rate), torch.zeros_like(a))
         outs.append(torch.matmul(a, v))
     return torch.matmul(torch.cat(outs, dim=-1), w_out) + b_out
+
+
+def attention_layer_bwd_reference(x, dy, w_in, b_in, w_out, b_out,
+                                  n_heads: int, layer: int = 0,
+                                  rate: float = 0.0, seed=None):
+    """Plain PyTorch version of kernel 5: autograd through
+    :func:`attention_layer` with the layer's keep mask.  -> (dx, [gw_in,
+    gb_in, gw_out, gb_out])."""
+    B, F, _ = x.shape
+    keep = keep_mask(seed, B, layer, n_heads, F, rate) if rate > 0.0 else None
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, w_in, b_in, w_out, b_out)]
+        y = attention_layer(*leaves, n_heads, keep, rate)
+        grads = torch.autograd.grad(y, leaves, dy)
+    return grads[0], list(grads[1:])
 
 
 def field_attention_reference(emb, flat_w, n_layers: int, n_heads: int,

@@ -1,0 +1,208 @@
+"""DCN-v1 cross network: kernel 8 (forward) and kernel 9 (backward) of the
+port, and their plain versions.
+
+Replaces ``tpurec/ops/crossnet_pallas.py::cross_network_fused``: the
+forward ``_fwd_kernel`` (run by ``_pallas_fwd``) and the backward
+``_bwd_kernel`` (``_pallas_bwd``, through the custom VJP ``_fused_bwd``).
+x [B, D], w and b [L, D]:
+
+    x_{l+1} = x0 * (x_l . w_l) + b_l + x_l,   out = x_L
+
+The CUDA source is ``tpurec_torch/csrc/cross_network.cu``; its header gives
+the design.  Bound on the H100: bytes (the rows read and written, about
+1.5 MB forward and 2.3 MB backward at B=512, D=368), well under a
+microsecond, so the launch bounds both kernels at the models' batch sizes.
+
+:func:`cross_network` launches the kernels for CUDA tensors (through
+:class:`CrossNetworkFn` when a gradient is wanted) and runs the plain
+recurrence (autograd gives its backward) for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from tpurec_torch.ops import _build
+
+SMEM_LIMIT = 232448             # bytes of shared memory a block may use
+MAX_CHUNKS = 8                  # kMaxChunks in the source
+FWD_WARPS = 4                   # rows per forward block
+BWD_WARPS = 4                   # rows per backward block (fewer when w is big)
+BWD_BLOCKS_PER_SM = 2           # backward grid: at most this many per SM
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "tpurec_cross_network_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                      _P]),
+    "tpurec_cross_network_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _P, _P, _P, _P]),
+}
+
+
+def _check(x, w, b) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"x must be [B, D] float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    D = x.shape[1]
+    if (w.dim() != 2 or w.shape[1] != D or tuple(b.shape) != tuple(w.shape)
+            or w.dtype != torch.float32 or b.dtype != torch.float32):
+        raise ValueError(f"w and b must be [L, {D}] float32, got "
+                         f"{tuple(w.shape)} {w.dtype} and {tuple(b.shape)} "
+                         f"{b.dtype}")
+    if w.shape[0] < 1:
+        raise ValueError("the cross network needs at least one layer")
+    if not x.device == w.device == b.device:
+        raise ValueError("x, w and b must share one device")
+
+
+def _kernel_args(*ts: torch.Tensor) -> Tuple[int, Tuple[torch.Tensor, ...]]:
+    """-> (vec, the tensors made contiguous): 16-byte loads (vec 4) when D
+    is a multiple of 4 and every tensor is 16-byte aligned, else 1."""
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"cross_network runs on cuda or cpu, not {dev}")
+    ts = tuple(t.contiguous() for t in ts)
+    D = ts[0].shape[-1]
+    vec = 4 if D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts) else 1
+    if D > 32 * MAX_CHUNKS * vec:
+        raise ValueError(f"the cross-network kernels take D <= "
+                         f"{32 * MAX_CHUNKS * vec} (at {vec}-float loads), "
+                         f"got D={D}")
+    return vec, ts
+
+
+def cross_network_fwd(x: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """Kernel 8: x [B, D], w and b [L, D] -> the stack's output [B, D].
+    CPU tensors run :func:`cross_network_reference`."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return cross_network_reference(x, w, b)
+    vec, (x, w, b) = _kernel_args(x, w, b)
+    (B, D), L = x.shape, w.shape[0]
+    if 2 * L * D * 4 > SMEM_LIMIT:
+        raise ValueError(f"L={L}, D={D}: w and b need {2 * L * D * 4} B of "
+                         f"shared memory, over {SMEM_LIMIT}")
+    lib = _build.load("cross_network", _SIGNATURES)
+    out = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpurec_cross_network_fwd(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), B, D, L, vec,
+            FWD_WARPS, out.data_ptr(), stream)
+    _build.check(lib, rc, "cross_network")
+    cross_network.launches += 1
+    return out
+
+
+def cross_network_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      g: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 9: the forward's input x [B, D], w, b [L, D] and the output's
+    gradient g [B, D] -> (dx [B, D], dw [L, D], db [L, D]), recomputing
+    the layer states from x.  CPU tensors run
+    :func:`cross_network_bwd_reference`."""
+    _check(x, w, b)
+    if tuple(g.shape) != tuple(x.shape):
+        raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
+    g = g.to(torch.float32)
+    if x.device.type == "cpu":
+        return cross_network_bwd_reference(x, w, b, g)
+    vec, (x, w, b, g) = _kernel_args(x, w, b, g)
+    (B, D), L = x.shape, w.shape[0]
+    dev = x.device
+    dw_db = torch.zeros((2, L, D), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return dx, dw_db[0], dw_db[1]
+    warps = next((k for k in (BWD_WARPS, 2, 1)
+                  if (2 + 2 * k) * L * D * 4 <= SMEM_LIMIT), None)
+    if warps is None:
+        raise ValueError(f"L={L}, D={D}: the backward needs "
+                         f"{4 * L * D * 4} B of shared memory, over "
+                         f"{SMEM_LIMIT}")
+    grid = min(-(-B // warps), BWD_BLOCKS_PER_SM * torch.cuda.
+               get_device_properties(dev).multi_processor_count)
+    partial = torch.empty((grid, 2, L, D), dtype=torch.float32, device=dev)
+    lib = _build.load("cross_network", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tpurec_cross_network_bwd(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), B, D, L,
+            vec, warps, grid, dx.data_ptr(), partial.data_ptr(),
+            dw_db.data_ptr(), stream)
+    _build.check(lib, rc, "cross_network_bwd")
+    cross_network_bwd.launches += 1
+    return dx, dw_db[0], dw_db[1]
+
+
+cross_network_bwd.launches = 0
+
+
+class CrossNetworkFn(torch.autograd.Function):
+    """Kernel 8 forward, kernel 9 backward from the saved x, w, b."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return cross_network_fwd(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        # kernel 9 computes dx, dw and db together; autograd drops the ones
+        # no input asked for
+        return cross_network_bwd(*ctx.saved_tensors, g)
+
+
+def cross_network(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """The cross stack, x [B, D], w and b [L, D] -> [B, D], differentiable
+    in x, w and b (kernel 9 on the card)."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        # the plain version on the CPU is differentiable by autograd
+        return cross_network_reference(x, w, b)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
+        return CrossNetworkFn.apply(x, w, b)
+    return cross_network_fwd(x, w, b)
+
+
+cross_network.launches = 0
+
+
+# -- plain versions --------------------------------------------------------
+
+def cross_network_reference(x, w, b):
+    """Plain PyTorch version: the recurrence of ``crossnet_pallas.py::
+    cross_network_reference``."""
+    x0 = x
+    for l in range(w.shape[0]):
+        xw = torch.matmul(x, w[l])
+        x = x0 * xw[:, None] + b[l][None, :] + x
+    return x
+
+
+def cross_network_bwd_reference(x, w, b, g):
+    """Plain PyTorch version of kernel 9, in the steps of ``crossnet_pallas.
+    py::_bwd_kernel``: the states recomputed, then the layers walked
+    backwards.  -> (dx, dw, db)."""
+    x0 = x
+    xs = [x0]
+    for l in range(w.shape[0]):
+        x = x0 * torch.matmul(x, w[l])[:, None] + b[l][None, :] + x
+        xs.append(x)
+    dw = torch.empty_like(w)
+    db = torch.empty_like(b)
+    extra = torch.zeros_like(x0)
+    for l in range(w.shape[0] - 1, -1, -1):
+        xw = torch.matmul(xs[l], w[l])[:, None]
+        dxw = (g * x0).sum(1, keepdim=True)
+        db[l] = g.sum(0)
+        dw[l] = (dxw * xs[l]).sum(0)
+        extra = extra + g * xw
+        g = g + dxw * w[l][None, :]
+    return g + extra, dw, db

@@ -65,8 +65,9 @@ def quantize_table(table, dtype: str):
 
 
 class Predictor:
-    """Batch predictor for an MMoE model or a CDC checkpoint on its MMoE
-    base.
+    """Batch predictor for a ported model (MMoE and DCN) or a CDC
+    checkpoint on its MMoE base.  Multi-tower models select each row's
+    tower; single-head models (DCN) return their one logit.
 
     ``cfg`` must be the TRAINING config; for ``cfg.model.model == "cdc"``
     the served network is the CDC base model with ``n_tower = n_cluster``.
