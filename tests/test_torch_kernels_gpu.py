@@ -387,3 +387,138 @@ def test_layered_equals_stack_on_the_card(cuda):
     for a, b in zip(layered, stack):
         assert (a - b).abs().max().item() <= 1e-4 * max(
             1.0, b.abs().max().item())
+
+
+# -- kernel 2 in blocks of R batch rows; the prepared gather ----------------
+
+def _flagship_rows(cuda):
+    from tpurec_torch.ops.attention import _sm_count, fwd_config
+
+    return fwd_config(4096, 23, 16, 64, 2, _sm_count(cuda))[0]
+
+
+@pytest.mark.parametrize("shape", [(23, 16, 64, 3), (12, 4, 8, 1),
+                                   (100, 16, 64, 1)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_forward_in_row_blocks_matches_plain(cuda, shape, rate):
+    """Kernel 2 (eval, and training with its saved layer inputs) against
+    the plain version at B = 1, R - 1, R, R + 1, 513 and 4097 (the last
+    block partly past B), bitwise repeatable over two calls.  F=100 is
+    too wide to stage the weights in shared memory: its products read
+    them from device memory."""
+    from tpurec_torch.ops.attention import field_attention_fwd
+
+    from tpurec_torch.ops.attention import _sm_count, fwd_config
+
+    F, D, A, L = shape
+    R = _flagship_rows(cuda)
+    assert fwd_config(4096, F, D, A, 2, _sm_count(cuda))[1] == (F < 100)
+    rng = np.random.default_rng(12)
+    seed = torch.tensor(17, device=cuda)
+    worst = 0.0
+    for B in sorted({1, max(1, R - 1), R, R + 1, 513, 4097}):
+        emb, flat = _attn_inputs(rng, cuda, B, F=F, D=D, A=A, L=L)
+        saved_plain = []
+        want = field_attention_reference(emb, flat, L, 2, rate, seed,
+                                         saved=saved_plain)
+        y, saved = field_attention_fwd(emb, flat, L, 2, rate, seed,
+                                       save=rate > 0)
+        y2, saved2 = field_attention_fwd(emb, flat, L, 2, rate, seed,
+                                         save=rate > 0)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2)
+        err = (y - want).abs().max().item()
+        if rate > 0:
+            assert torch.equal(saved, saved2)
+            err = max(err, (saved - torch.stack(saved_plain)).abs().max()
+                      .item())
+        assert err <= 1e-4, (B, err)
+        worst = max(worst, err)
+    print(f"kernel 2 {shape} rate {rate}: max abs err {worst:.3g} vs plain")
+
+
+def test_attention_nan_stays_in_its_batch_row(cuda):
+    """A NaN in one batch row's embeddings reaches that row's output and
+    leaves its block-mates' bit for bit."""
+    rng = np.random.default_rng(13)
+    emb, flat = _attn_inputs(rng, cuda, 512)
+    assert _flagship_rows(cuda) > 1
+    y0 = field_attention(emb, flat, 3, 2)
+    bad = emb.clone()
+    bad[5, 3, 0] = float("nan")
+    y1 = field_attention(bad, flat, 3, 2)
+    torch.cuda.synchronize()
+    others = [r for r in range(512) if r != 5]
+    assert bool(torch.isnan(y1[5]).any())
+    assert torch.equal(y0[others], y1[others])
+
+
+def test_attention_dropout_mask_across_row_blocks(cuda):
+    """decoded_keep_masks at a batch that the wrapper stacks R > 1 rows a
+    block for: the kernel's mask is still the plain hash of the global
+    batch row."""
+    from tpurec_torch.ops.attention import _sm_count, keep_mask, \
+        rows_per_block
+
+    assert rows_per_block(600, 12, 4, 8, 2, _sm_count(cuda)) > 1
+    seed = torch.tensor(4711, device=cuda)
+    got = decoded_keep_masks(cuda, 600, 12, 2, seed, 0.2)
+    want = keep_mask(seed.cpu(), 600, 0, 2, 12, 0.2)
+    assert torch.equal(got, want)
+
+
+def test_attention_backward_from_kernel_saved_inputs(cuda):
+    """Kernel 3 fed by kernel 2's saved layer inputs against autograd
+    through the plain version, one dropout seed."""
+    from tpurec_torch.ops.attention import (field_attention_bwd,
+                                            field_attention_fwd)
+
+    rng = np.random.default_rng(14)
+    emb, flat = _attn_inputs(rng, cuda, 513)
+    seed = torch.tensor(23, device=cuda)
+    dy = torch.from_numpy(rng.normal(size=(513, 23, 64)).astype(
+        np.float32)).to(cuda)
+    _, saved = field_attention_fwd(emb, flat, 3, 2, 0.2, seed, save=True)
+    demb, grads = field_attention_bwd(emb, dy, saved, flat, 3, 2, 0.2, seed)
+    leaves = [w.clone().requires_grad_(True) for w in flat]
+    e = emb.clone().requires_grad_(True)
+    field_attention_reference(e, leaves, 3, 2, 0.2, seed).backward(dy)
+    torch.cuda.synchronize()
+    assert (demb - e.grad).abs().max().item() <= 1e-4
+    for g, w in zip(grads, leaves):
+        scale = max(1.0, w.grad.abs().max().item())
+        assert (g - w.grad).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+def test_prepared_gather_bit_exact(cuda, table_dtype):
+    """EmbeddingGather on the card: bit-exact against the plain version at
+    N = 1, 97, 4097 with out-of-range ids, one launch a call, and an
+    update of the table in place seen by the next call."""
+    from tpurec_torch.ops.embedding import EmbeddingGather
+
+    rng = np.random.default_rng(15)
+    V, F, D = 5000, 5, 16
+    q, s = quantize_table(rng.normal(size=(V, D)).astype(np.float32),
+                          table_dtype)
+    ids = rng.integers(-1200, 1200, (4097, F)).astype(np.int32)
+    ids[0, 0] = np.iinfo(np.int32).max
+    offsets = torch.tensor([0, 1000, 2000, 3000, 4000], dtype=torch.int32)
+    limits = torch.tensor([1000, 3000, V, V, 2 * V], dtype=torch.int32)
+    table = q.to(cuda)
+    scales = None if s is None else s.to(cuda)
+    g = EmbeddingGather(table, offsets.to(cuda), limits.to(cuda), scales)
+    before = embedding_gather.launches
+    for n in (1, 97, 4097):
+        x = torch.from_numpy(ids[:n].copy())
+        got = g(x.to(cuda))
+        want = embedding_gather_reference(q, x, offsets, limits, s)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert embedding_gather.launches == before + 3
+    if table_dtype == "float32":
+        table.mul_(2.0)
+        x = torch.from_numpy(ids[:97].copy())
+        got = g(x.to(cuda))
+        want = embedding_gather_reference(q * 2.0, x, offsets, limits)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -34,20 +34,35 @@
 // (plus L*F*A*4 = 17.7 KB of saved layer inputs when training); the
 // backward does about 2.5x that (it recomputes each layer's internals,
 // as the Pallas kernel does).  The weights (about 210 KB) are shared by
-// all rows and stay in L2.
+// all rows and stay in L2.  The forward runs its products on the tensor
+// cores in three TF32 passes: the work it issues is bounded by 3 x its
+// flops at the TF32 peak (2.46x less time than the float32 bound).
 //
-// Forward design: one block per batch row keeps all of that row's
-// intermediates in shared memory (emb [F,D], x [F,A], qkv [F,3A], o [F,A],
-// scores [H,F,F]: about 35 KB at the shapes above), so nothing but emb,
-// y and the saved inputs touches device memory; the L layers loop inside
-// the block.  Without tensor cores the work is float32 FMAs, and what
-// holds them back is the loads that feed them: each projection gives a
-// thread a 4x4 tile of outputs (four rows of the field stack by four
-// columns) and walks k four at a time with 16-byte loads, so one load
-// feeds four FMAs; the score and attention-weighted sums tile the same
-// way over 4 keys or 4 columns.  Softmax subtracts the row maximum, as
-// jax.nn.softmax does.
-//
+// Forward design (field_attention_kernel): a block of 512 threads takes R
+// batch rows (the wrapper picks R from B, F and the card) and stacks their
+// fields into one [M = R*F padded to 48, .] matrix in shared memory, so
+// the four projections (emb @ w_emb, x @ w_in, o @ w_out, emb @ w_res)
+// are each one product over M rows.  Each projection's weights are staged
+// in shared memory once per block by cp.async, the next one's while the
+// current step runs, so a batch row costs 1/R of the weight traffic of
+// one row per block (about 1.2 MB a row before, from L2).  The products
+// run on the tensor cores as mma.sync m16n8k8 TF32 with the 3xTF32 split
+// (a = a_hi + a_lo; a_lo*b_hi + a_hi*b_lo + a_hi*b_hi summed in float32),
+// which keeps float32 accuracy; single-pass TF32 would not.  Rows of one
+// batch row never mix with another's: the products are row by row, and
+// the attention (scores, softmax, dropout, ad @ v) runs per batch row on
+// SIMT FMAs over that row's F x F block, with the row maximum subtracted
+// as jax.nn.softmax does.  Shared memory holds x [M, A] (the scores [R, H,
+// F, F] reuse it while x is dead), qkv [M, 3A] (o overwrites q; emb is
+// staged there before the first layer and again for the residual) and two
+// weight buffers: about 171 KB at R=4 and the flagship shapes (where the
+// weights do not fit beside a block's activations, the products read them
+// from device memory instead).  Strides keep a warp's MMA fragment loads
+// on 32 distinct banks.  The attention of one (batch row, head, 16-field
+// tile) is one warp's work from scores to ad @ v, with no block barrier;
+// the three TF32 passes of a k step are issued tile by tile so that no
+// product waits on the one before it.
+
 // Backward design: a block walks the batch rows blockIdx.x, +gridDim.x,
 // ...; for each it holds the row's recomputed qkv, softmax, dropped
 // weights, o and the gradients dx, do, dqkv, ds in shared memory (about
@@ -340,53 +355,466 @@ __device__ void attend(const float* qkv, float* a, float* ad, float* o,
 
 __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
-// saved: null, or [L, B, F, A] for the layer inputs (training).  At most
-// 64 registers a thread, so that 4 blocks fit an SM and B=512 rows run in
-// one wave on 132 SMs (at 66 registers only 3 fit, and B=512 took two).
-__global__ void __launch_bounds__(kThreads, 4)
+// -- the stack forward (kernel 2): R batch rows a block ---------------------
+
+constexpr int kFwdThreads = 512;  // 16 warps a block
+constexpr int kFwdMTiles = 3;     // m16 row tiles of a warp's unit of work
+
+// x = hi + lo for the 3xTF32 products: hi is x rounded to TF32 (10
+// mantissa bits, half away from zero), lo = x - hi exactly, of which the
+// tensor core reads the top 10 mantissa bits; three instructions, where
+// cvt.rna.tf32.f32 takes several for each half
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b: one m16n8k8 TF32 tensor-core product, float32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy w [K, N] (16-byte aligned, N % 4 == 0) into shared memory at row
+// stride ldw with cp.async, committed as one group
+__device__ __forceinline__ void stage_weight(float* dst, int ldw,
+                                             const float* __restrict__ src,
+                                             int K, int N) {
+  const int nq = N / 4;
+  for (int i = threadIdx.x; i < K * nq; i += blockDim.x) {
+    const int k = i / nq, c = (i - k * nq) * 4;
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + k * ldw + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                 "l"(src + static_cast<long long>(k) * N + c)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void commit_nothing() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's copy groups are in flight
+template <int pending>
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+// out[m, n] = sum_{k < K} a[m, k] * ws[k, n] + b[n] for m < M (a multiple
+// of 16 * kFwdMTiles) and n < N (a multiple of 4), handed over as epi(m,
+// n, out[m, n], out[m, n + 1]).  a and ws are in shared memory, a at row
+// stride lda (lda % 8 == 4) and ws at ldw (= 8 or 24 mod 32), so that a
+// warp's A and B fragment loads each hit all 32 banks; b [N] is in device
+// memory.  A unit of work is kFwdMTiles m16 row tiles by NG n8 column
+// tiles; the block's warps take the units in turn.  A k step loads all
+// its fragments first and then issues the 3xTF32 products pass by pass
+// (a_lo*b_hi, a_hi*b_lo, a_hi*b_hi over all tiles), so that no product
+// waits on the one before it.  Columns k >= K read as 0 on both sides.
+template <int NG, typename Epi>
+__device__ __forceinline__ void mma_dense(const float* a, int lda, int M,
+                                          int K, const float* ws, int ldw,
+                                          const float* __restrict__ b, int N,
+                                          Epi epi) {
+  constexpr int MT = kFwdMTiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_groups = ((N + 7) / 8 + NG - 1) / NG;
+  const int m_groups = M / (16 * MT);
+  for (int u = warp; u < m_groups * n_groups; u += n_warps) {
+    const int m_base = (u / n_groups) * 16 * MT;
+    const int n0 = (u % n_groups) * NG * 8;
+    float bias[NG][2];
+    bool n_ok[NG];
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int n = n0 + j * 8 + 2 * t;
+      n_ok[j] = n < N;
+      bias[j][0] = n_ok[j] ? __ldg(b + n) : 0.f;
+      bias[j][1] = n_ok[j] ? __ldg(b + n + 1) : 0.f;
+    }
+    float acc[MT][NG][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+    const float* a0 = a + (m_base + g) * lda;
+#pragma unroll 2
+    for (int k0 = t; k0 < K + t; k0 += 8) {
+      const int k1 = k0 + 4;
+      const bool ok0 = k0 < K, ok1 = k1 < K;
+      float av[MT][4], bv[NG][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* r0 = a0 + mt * 16 * lda;
+        av[mt][0] = ok0 ? r0[k0] : 0.f;
+        av[mt][1] = ok0 ? r0[8 * lda + k0] : 0.f;
+        av[mt][2] = ok1 ? r0[k1] : 0.f;
+        av[mt][3] = ok1 ? r0[8 * lda + k1] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const int n = n0 + j * 8 + g;
+        bv[j][0] = n < N && ok0 ? ws[k0 * ldw + n] : 0.f;
+        bv[j][1] = n < N && ok1 ? ws[k1 * ldw + n] : 0.f;
+      }
+      uint32_t ah[MT][4], al[MT][4], bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split_tf32(av[mt][c], ah[mt][c], al[mt][c]);
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) split_tf32(bv[j][c], bh[j][c], bl[j][c]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+          mma_tf32(acc[mt][j], al[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+          mma_tf32(acc[mt][j], ah[mt], bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+          mma_tf32(acc[mt][j], ah[mt], bh[j][0], bh[j][1]);
+    }
+    // d[g][2t, 2t+1] and d[g + 8][2t, 2t+1] of each tile, plus the bias
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      if (!n_ok[j]) continue;
+      const int n = n0 + j * 8 + 2 * t;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = m_base + mt * 16 + g;
+        epi(m, n, acc[mt][j][0] + bias[j][0], acc[mt][j][1] + bias[j][1]);
+        epi(m + 8, n, acc[mt][j][2] + bias[j][0], acc[mt][j][3] + bias[j][1]);
+      }
+    }
+  }
+}
+
+// acc[j] += a b_j for four n8 tiles: one k step of 3xTF32 products from
+// raw fragments (a: rows g, g + 8 by columns t, t + 4; b_j: rows t, t + 4
+// by column g of tile j), the passes interleaved over the tiles
+__device__ __forceinline__ void mma_k_step4(float (&acc)[4][4],
+                                            const float (&av)[4],
+                                            const float (&bv)[4][2]) {
+  uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) split_tf32(av[c], ah[c], al[c]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split_tf32(bv[j][0], bh[j][0], bl[j][0]);
+    split_tf32(bv[j][1], bh[j][1], bl[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+}
+
+// One layer's attention for the R batch rows stacked in qkv [R*F, ldq]
+// (row r*F + f; q at column h*hd, k at A + h*hd, v at 2A + h*hd).  A warp
+// takes one unit, 16 fields f of one batch row r and head h, through all
+// three steps with no block barrier: the scores q_h[f] k_h^T / sqrt(hd)
+// into its rows of s [R*H*F, lds], their softmax over the row (the row
+// maximum subtracted), dropped in place, then o_h[f] = ad_h[f] @ v_h
+// written over its q (only its own rows and head's columns: no other unit
+// reads them).  Both products run on the tensor cores in 3xTF32; fields
+// past F read as 0 and are not stored, so batch rows never mix.  row0 is
+// the first batch row (it keys the dropout hash).  Ends synced.
+__device__ void attend_rows(float* qkv, int ldq, float* s, int lds, int R,
+                            int F, int A, int H, int l, float sqrt_hd,
+                            const Dropout& dp, long long row0) {
+  const int hd = A / H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int f_tiles = (F + 15) / 16;
+  const float inv_sqrt_hd = 1.f / sqrt_hd, inv_keep = 1.f / dp.keep;
+  for (int u = warp; u < R * H * f_tiles; u += n_warps) {
+    const int rh = u / f_tiles, r = rh / H, h = rh - r * H;
+    const int ft = (u - rh * f_tiles) * 16;
+    const int f0 = ft + g, f1 = f0 + 8;
+    float* q = qkv + r * F * ldq + h * hd;   // row f; o goes here
+    const float* k = q + A;
+    const float* v = q + 2 * A;
+    float* p = s + rh * F * lds;             // row f of this (r, h)
+    // scores s[f, gk] = q[f] . k[gk] / sqrt(hd), 32 keys at a time
+    for (int n0 = 0; n0 < F; n0 += 32) {
+      float acc[4][4] = {};
+      for (int d0 = t; d0 < hd + t; d0 += 8) {
+        const int d1 = d0 + 4;
+        const bool ok0 = d0 < hd, ok1 = d1 < hd;
+        float av[4], bv[4][2];
+        av[0] = f0 < F && ok0 ? q[f0 * ldq + d0] : 0.f;
+        av[1] = f1 < F && ok0 ? q[f1 * ldq + d0] : 0.f;
+        av[2] = f0 < F && ok1 ? q[f0 * ldq + d1] : 0.f;
+        av[3] = f1 < F && ok1 ? q[f1 * ldq + d1] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gk = n0 + j * 8 + g;
+          bv[j][0] = gk < F && ok0 ? k[gk * ldq + d0] : 0.f;
+          bv[j][1] = gk < F && ok1 ? k[gk * ldq + d1] : 0.f;
+        }
+        mma_k_step4(acc, av, bv);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gk = n0 + j * 8 + 2 * t;
+        if (gk >= F) continue;
+        float* s0 = p + f0 * lds + gk;
+        float* s1 = s0 + 8 * lds;
+        if (f0 < F) s0[0] = acc[j][0] * inv_sqrt_hd;
+        if (f1 < F) s1[0] = acc[j][2] * inv_sqrt_hd;
+        if (gk + 1 < F) {
+          if (f0 < F) s0[1] = acc[j][1] * inv_sqrt_hd;
+          if (f1 < F) s1[1] = acc[j][3] * inv_sqrt_hd;
+        }
+      }
+    }
+    __syncwarp();
+    // softmax over gk, two lanes per row, then dropout
+    {
+      const int f = ft + (lane >> 1), half = lane & 1;
+      const bool live = f < F;
+      float* sr = p + (live ? f : 0) * lds;
+      float m = -INFINITY;
+      if (live)
+        for (int gk = half; gk < F; gk += 2) m = fmaxf(m, sr[gk]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      float sum = 0.f;
+      if (live)
+        for (int gk = half; gk < F; gk += 2) {
+          const float ex = expf(sr[gk] - m);
+          sr[gk] = ex;
+          sum += ex;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (live) {
+        const float inv_sum = 1.f / sum;
+        const uint32_t key = row_key(dp, row0 + r);
+        const uint32_t ctr0 =
+            static_cast<uint32_t>(((l * H + h) * F + f) * F);
+        for (int gk = half; gk < F; gk += 2) {
+          const float pv = sr[gk] * inv_sum;
+          if (dp.on)
+            sr[gk] = kept(key, ctr0 + gk, dp.thresh) ? pv * inv_keep : 0.f;
+          else
+            sr[gk] = pv;
+        }
+      }
+    }
+    __syncwarp();
+    // o[f, c] = sum_gk ad[f, gk] * v[gk, c], over q[f, c], 32 columns at
+    // a time
+    for (int n0 = 0; n0 < hd; n0 += 32) {
+      float acc[4][4] = {};
+      for (int k0 = t; k0 < F + t; k0 += 8) {
+        const int k1 = k0 + 4;
+        const bool ok0 = k0 < F, ok1 = k1 < F;
+        float av[4], bv[4][2];
+        av[0] = f0 < F && ok0 ? p[f0 * lds + k0] : 0.f;
+        av[1] = f1 < F && ok0 ? p[f1 * lds + k0] : 0.f;
+        av[2] = f0 < F && ok1 ? p[f0 * lds + k1] : 0.f;
+        av[3] = f1 < F && ok1 ? p[f1 * lds + k1] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + j * 8 + g;
+          bv[j][0] = c < hd && ok0 ? v[k0 * ldq + c] : 0.f;
+          bv[j][1] = c < hd && ok1 ? v[k1 * ldq + c] : 0.f;
+        }
+        mma_k_step4(acc, av, bv);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + j * 8 + 2 * t;
+        if (c >= hd) continue;
+        if (f0 < F)
+          *reinterpret_cast<float2*>(q + f0 * ldq + c) =
+              make_float2(acc[j][0], acc[j][1]);
+        if (f1 < F)
+          *reinterpret_cast<float2*>(q + f1 * ldq + c) =
+              make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Row stride of a [., k] operand in shared memory: room for k rounded up
+// to 8 columns, and = 4 (mod 8)
+__host__ __device__ inline int fwd_stride(int k) { return ((k + 7) & ~7) + 4; }
+
+// Row stride of a [., n] weight in shared memory: n rounded up to 8, and
+// = 8 or 24 (mod 32)
+__host__ __device__ inline int fwd_wstride(int n) {
+  const int c = (n + 7) & ~7;
+  return c % 16 == 0 ? c + 8 : c;
+}
+
+// The forward's shared memory, in floats: x [M, A], or the scores [R*H*F,
+// F] while x is dead; qkv [M, 3A], or emb [M, D] before the first layer
+// and for the residual; weight buffer a (w_in [A, 3A], then w_res [D, A])
+// and b (w_emb [D, A], then w_out [A, A]), when `stage` (else the
+// products read each weight from device memory).  M = R*F padded to whole
+// units of kFwdMTiles m16 tiles.
+struct FwdLayout {
+  int M, lde, ldx, ldq, lds, lwa, lwb;
+  long long xs_floats, q_floats, wa_floats, wb_floats;
+  __host__ __device__ FwdLayout(int R, int F, int D, int A, int H,
+                                bool stage) {
+    M = (R * F + 16 * kFwdMTiles - 1) / (16 * kFwdMTiles) * 16 * kFwdMTiles;
+    lde = fwd_stride(D);
+    ldx = fwd_stride(A);
+    ldq = fwd_stride(3 * A);
+    lwa = fwd_wstride(3 * A);
+    lwb = fwd_wstride(A);
+    const long long x_floats = static_cast<long long>(M) * ldx;
+    lds = fwd_stride(F);
+    const long long s_floats = static_cast<long long>(R) * H * F * lds;
+    xs_floats = ((x_floats > s_floats ? x_floats : s_floats) + 3) & ~3LL;
+    q_floats = static_cast<long long>(M) * (ldq > lde ? ldq : lde);
+    const long long w_in = static_cast<long long>(A) * lwa;
+    const long long w_res = static_cast<long long>(D) * lwb;
+    wa_floats = stage ? (w_in > w_res ? w_in : w_res) : 0;
+    wb_floats = stage ? static_cast<long long>(A > D ? A : D) * lwb : 0;
+  }
+  __host__ __device__ long long bytes() const {
+    return 4 * (xs_floats + q_floats + wa_floats + wb_floats);
+  }
+};
+
+// Blocks of R batch rows (the last one may reach past B; its missing rows
+// are zeros and are not stored).  saved: null, or [L, B, F, A] for the
+// layer inputs (training).  With `stage`, each projection's weights are
+// staged by cp.async into their buffer while the step before it runs:
+// w_in of layer l + 1 (or w_res) during layer l's attention and
+// out-projection, w_out of layer l during its in-projection and attention.
+// Without (shapes whose weights do not fit beside the activations), the
+// products read the weights from device memory.
+__global__ void __launch_bounds__(kFwdThreads, 1)
     field_attention_kernel(const float* __restrict__ emb, Weights w, int B,
-                           int F, int D, int A, int H, int L, float sqrt_hd,
-                           Dropout dp, float* __restrict__ y,
-                           float* __restrict__ saved) {
+                           int R, int F, int D, int A, int H, int L,
+                           int stage, float sqrt_hd, Dropout dp,
+                           float* __restrict__ y, float* __restrict__ saved) {
   extern __shared__ float4 smem4[];
-  float* e = reinterpret_cast<float*>(smem4);  // [F, D]
-  float* x = e + F * D;                        // [F, A]
-  float* qkv = x + F * A;                      // [F, 3A]
-  float* o = qkv + F * 3 * A;                  // [F, A]
-  float* s = o + F * A;                        // [H, F, F]
-  const long long row = blockIdx.x;
-  const uint32_t key = row_key(dp, row);
+  const FwdLayout lay(R, F, D, A, H, stage != 0);
+  const int M = lay.M, lde = lay.lde, ldx = lay.ldx, ldq = lay.ldq;
+  float* xs = reinterpret_cast<float*>(smem4);  // x; the scores
+  float* qkv = xs + lay.xs_floats;              // qkv (o over q); emb
+  float* wa = qkv + lay.q_floats;               // w_in; w_res
+  float* wb = wa + lay.wa_floats;               // w_emb; w_out
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int n_real = static_cast<int>(min(static_cast<long long>(R),
+                                          B - row0)) * F;  // stacked rows
   const long long FA = static_cast<long long>(F) * A;
 
-  for (int i = threadIdx.x; i < F * D; i += blockDim.x)
-    e[i] = emb[row * F * D + i];
-  __syncthreads();
-  dense(e, F, D, w.w_emb, w.b_emb, A, x);
-  __syncthreads();
+  auto stage_emb = [&]() {
+    const int dq = D / 4;
+    for (int i = threadIdx.x; i < M * dq; i += blockDim.x) {
+      const int m = i / dq, c = (i - m * dq) * 4;
+      st4(qkv + m * lde + c,
+          m < n_real ? ldg4(emb + (row0 * F + m) * D + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+  };
+  auto to_x = [&](int m, int n, float v0, float v1) {
+    *reinterpret_cast<float2*>(xs + m * ldx + n) = make_float2(v0, v1);
+  };
+  auto to_qkv = [&](int m, int n, float v0, float v1) {
+    *reinterpret_cast<float2*>(qkv + m * ldq + n) = make_float2(v0, v1);
+  };
 
+  // the B operand of each projection, and its row stride
+  const int lwa = stage ? lay.lwa : 3 * A, lwr = stage ? lay.lwb : A;
+  const int lwb = stage ? lay.lwb : A;
+  if (stage) {
+    stage_weight(wb, lwb, w.w_emb, D, A);
+    stage_weight(wa, lwa, w.w_in[0], A, 3 * A);
+  }
+  stage_emb();
+  wait_staged<1>();                                   // w_emb
+  __syncthreads();
+  mma_dense<1>(qkv, lde, M, D, stage ? wb : w.w_emb, lwb, w.b_emb, A, to_x);
+  __syncthreads();
+  if (stage) stage_weight(wb, lwb, w.w_out[0], A, A);
   for (int l = 0; l < L; ++l) {
     if (saved != nullptr) {
-      float* sv = saved + (l * static_cast<long long>(B) + row) * FA;
-      for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x)
-        st4(sv + 4 * i, ld4(x + 4 * i));
+      float* sv = saved + (l * static_cast<long long>(B) + row0) * FA;
+      const int aq = A / 4;
+      for (int i = threadIdx.x; i < n_real * aq; i += blockDim.x) {
+        const int m = i / aq, c = (i - m * aq) * 4;
+        st4(sv + static_cast<long long>(m) * A + c, ld4(xs + m * ldx + c));
+      }
     }
-    dense(x, F, A, w.w_in[l], w.b_in[l], 3 * A, qkv);
+    wait_staged<1>();                                 // w_in[l]
     __syncthreads();
-    attend(qkv, s, s, o, F, A, H, l, sqrt_hd, dp, key);
-    dense(o, F, A, w.w_out[l], w.b_out[l], A, x);
+    mma_dense<3>(xs, ldx, M, A, stage ? wa : w.w_in[l], lwa, w.b_in[l],
+                 3 * A, to_qkv);
     __syncthreads();
+    if (stage) {
+      if (l + 1 < L)
+        stage_weight(wa, lwa, w.w_in[l + 1], A, 3 * A);
+      else if (w.w_res != nullptr)
+        stage_weight(wa, lwr, w.w_res, D, A);
+      else
+        commit_nothing();
+    }
+    attend_rows(qkv, ldq, xs, lay.lds, R, F, A, H, l, sqrt_hd, dp, row0);
+    wait_staged<1>();                                 // w_out[l]
+    __syncthreads();
+    mma_dense<1>(qkv, ldq, M, A, stage ? wb : w.w_out[l], lwb, w.b_out[l],
+                 A, to_x);
+    __syncthreads();
+    if (stage) {
+      if (l + 1 < L)
+        stage_weight(wb, lwb, w.w_out[l + 1], A, A);
+      else
+        commit_nothing();
+    }
   }
 
-  // y = relu(x + (emb @ w_res + b_res)), the residual staged in o
+  // y = relu(x + (emb @ w_res + b_res)), the residual added in the
+  // projection's epilogue
+  float* yb = y + row0 * FA;
   if (w.w_res != nullptr) {
-    dense(e, F, D, w.w_res, w.b_res, A, o);
+    stage_emb();
+    wait_staged<0>();                                 // w_res
     __syncthreads();
-  }
-  float4* yr = reinterpret_cast<float4*>(y + row * FA);
-  for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x) {
-    float4 v = reinterpret_cast<const float4*>(x)[i];
-    if (w.w_res != nullptr) v = add4(v, reinterpret_cast<const float4*>(o)[i]);
-    yr[i] = make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
+    mma_dense<1>(qkv, lde, M, D, stage ? wa : w.w_res, lwr, w.b_res, A,
+                 [&](int m, int n, float v0, float v1) {
+                   if (m >= n_real) return;
+                   const float2 x =
+                       *reinterpret_cast<const float2*>(xs + m * ldx + n);
+                   *reinterpret_cast<float2*>(
+                       yb + static_cast<long long>(m) * A + n) =
+                       make_float2(relu(x.x + v0), relu(x.y + v1));
+                 });
+  } else {
+    const int aq = A / 4;
+    for (int i = threadIdx.x; i < n_real * aq; i += blockDim.x) {
+      const int m = i / aq, c = (i - m * aq) * 4;
+      const float4 v = ld4(xs + m * ldx + c);
+      st4(yb + static_cast<long long>(m) * A + c,
+          make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w)));
+    }
   }
 }
 
@@ -769,11 +1197,12 @@ Dropout make_dropout(const long long* seed, unsigned thresh, float keep,
 
 }  // namespace
 
-// Shared memory one forward block needs, in bytes.
-extern "C" long long tpurec_field_attention_smem_bytes(int F, int D, int A,
-                                                       int H) {
-  return sizeof(float) *
-         (static_cast<long long>(F) * D + 5LL * F * A + 1LL * H * F * F);
+// Shared memory one forward block of R batch rows needs, in bytes (stage:
+// with the weight buffers).
+extern "C" long long tpurec_field_attention_smem_bytes(int R, int F, int D,
+                                                       int A, int H,
+                                                       int stage) {
+  return FwdLayout(R, F, D, A, H, stage != 0).bytes();
 }
 
 // Shared memory one backward block needs, in bytes.
@@ -786,16 +1215,19 @@ extern "C" long long tpurec_field_attention_bwd_smem_bytes(int F, int D,
 // order [w_emb, b_emb, w_res, b_res, (w_in, b_in, w_out, b_out) x L];
 // w_res and b_res may be null.  dropout != 0 drops attention weights with
 // the hash of the header (seed: device scalar; keep = 1 - rate); saved is
-// null (eval) or [L, B, F, A] for the layer inputs.  Returns the
+// null (eval) or [L, B, F, A] for the layer inputs.  R batch rows go to
+// a block; stage: weights staged in shared memory.  Returns the
 // cudaError_t of the launch.
 extern "C" int tpurec_field_attention_fwd(
-    const float* emb, const float* const* weights, int B, int F, int D,
-    int A, int H, int L, const long long* seed, unsigned thresh, float keep,
-    int dropout, float* y, float* saved, void* stream) {
-  if (bad_shape(L, H, D, A) || (dropout && seed == nullptr))
+    const float* emb, const float* const* weights, int B, int R, int stage,
+    int F, int D, int A, int H, int L, const long long* seed,
+    unsigned thresh, float keep, int dropout, float* y, float* saved,
+    void* stream) {
+  if (bad_shape(L, H, D, A) || R < 1 || (dropout && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const long long smem = tpurec_field_attention_smem_bytes(F, D, A, H);
+  const long long smem =
+      tpurec_field_attention_smem_bytes(R, F, D, A, H, stage);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         field_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -803,9 +1235,9 @@ extern "C" int tpurec_field_attention_fwd(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float sqrt_hd = sqrtf(static_cast<float>(A / H));
-  field_attention_kernel<<<B, kThreads, smem,
+  field_attention_kernel<<<(B + R - 1) / R, kFwdThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      emb, unpack(weights, L), B, F, D, A, H, L, sqrt_hd,
+      emb, unpack(weights, L), B, R, F, D, A, H, L, stage, sqrt_hd,
       make_dropout(seed, thresh, keep, dropout), y, saved);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,8 @@ parameter tree maps onto a ``state_dict`` by joining its path with dots
 - :func:`dropout` is flax's, with its draws from an explicit generator.
 - :class:`EmbeddingLayout` is the same row layout of the fused table
   (small-vocab fields first, rows padded to 8), so tables copy verbatim.
-- :func:`mixed_table_lookup` is one launch of the gather kernel.
+- :func:`mixed_table_lookup` is one launch of the gather kernel;
+  :meth:`EmbeddingLayout.gather` prepares it once for a table.
 
 Modules are built with ``torch.empty`` parameters; ``reset_parameters``
 draws the torch-default inits from an explicit generator
@@ -31,7 +32,7 @@ import torch
 from torch import nn
 
 from tpurec_torch.nn import initializers as tinit
-from tpurec_torch.ops.embedding import embedding_gather
+from tpurec_torch.ops.embedding import EmbeddingGather
 
 
 class Linear(nn.Module):
@@ -273,6 +274,13 @@ class EmbeddingLayout:
                 torch.as_tensor(self.row_limits(n_table_rows), device=device))
         return self._device_arrays[key]
 
+    def gather(self, table: torch.Tensor,
+               scales: Optional[torch.Tensor] = None) -> EmbeddingGather:
+        """The lookup of :func:`mixed_table_lookup` prepared for ``table``
+        (and its int8 ``scales``): call it with int32 ids [B, F]."""
+        offsets, limits = self.device_arrays(table.device, table.shape[0])
+        return EmbeddingGather(table, offsets, limits, scales)
+
 
 def mixed_table_lookup(table: torch.Tensor, ids: torch.Tensor,
                        layout: EmbeddingLayout,
@@ -283,11 +291,21 @@ def mixed_table_lookup(table: torch.Tensor, ids: torch.Tensor,
     gather (a TPU speed trick); the rows are the same, so here it is one
     launch of the gather kernel, with per-field row limits that keep
     ``jnp.take``'s out-of-range results.  ``scales`` dequantises an int8
-    table.
+    table.  One-shot: a caller that looks up the same table again holds
+    ``layout.gather(table, scales)`` instead.
     """
-    offsets, limits = layout.device_arrays(table.device, table.shape[0])
-    return embedding_gather(table, ids.to(torch.int32).contiguous(),
-                            offsets, limits, scales)
+    return layout.gather(table, scales)(ids.to(torch.int32).contiguous())
+
+
+def prepared_gather(holder, table: torch.Tensor,
+                    layout: EmbeddingLayout) -> EmbeddingGather:
+    """``holder``'s gather of ``table``, prepared at the first call and
+    again only when the table is another tensor or has moved to another
+    device, shape or type (:meth:`EmbeddingGather.serves`)."""
+    g = getattr(holder, "_gather", None)
+    if g is None or not g.serves(table):
+        g = holder._gather = layout.gather(table)
+    return g
 
 
 class FusedEmbedding(nn.Module):
@@ -312,4 +330,5 @@ class FusedEmbedding(nn.Module):
 
     def forward(self, ids):
         """ids [B, F] -> rows [B, F, D]."""
-        return mixed_table_lookup(self.table, ids, self.layout)
+        return prepared_gather(self, self.table, self.layout)(
+            ids.to(torch.int32).contiguous())

@@ -14,7 +14,9 @@ forward at the flagship shapes (F=23, D=16, A=64, H=2, L=3): 1.41 GFLOP at
 B=512, about 21 us at 67 TFLOP/s; the backward about 2.5x that.  The
 kernels keep every intermediate of a row in shared memory, so the memory
 traffic is the inputs, the outputs and (training) the layer inputs saved
-for the backward.
+for the backward.  The forward stacks R batch rows in a block
+(:func:`rows_per_block`), reads each weight once per block and runs the
+projections on the tensor cores in 3xTF32 (float32 accuracy).
 
 ``flat_w`` is the Pallas kernel's weight list, [w_emb, b_emb, w_res, b_res,
 (w_in, b_in, w_out, b_out) x L], weights [in, out]; ``w_res``/``b_res``
@@ -54,12 +56,18 @@ from tpurec_torch.ops import _build
 MAX_LAYERS = 8                  # TPUREC_ATTN_MAX_LAYERS in the source
 SMEM_LIMIT = 232448             # bytes of shared memory a block may use
 BWD_BLOCKS_PER_SM = 2           # backward grid: this many blocks per SM
+FWD_THREADS = 512               # threads of a forward block (kFwdThreads)
+FWD_ROWS = 96                   # stacked field rows a forward block holds
+FWD_UNIT_ROWS = 48              # rows of a forward warp's unit (kFwdMTiles)
+FWD_FILL = 0.95                 # share of SMs the forward's grid must fill
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "tpurec_field_attention_fwd": (_I, [
-        _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint, ctypes.c_float,
-        _I, _P, _P, _P]),
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
+        ctypes.c_float, _I, _P, _P, _P]),
+    "tpurec_field_attention_smem_bytes": (ctypes.c_longlong,
+                                          [_I, _I, _I, _I, _I, _I]),
     "tpurec_field_attention_bwd": (_I, [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
         ctypes.c_float, _I, _I, _P, _P, _P, _P]),
@@ -73,9 +81,62 @@ _SIGNATURES = {
 _M32 = 0xFFFFFFFF
 
 
-def smem_bytes(F: int, D: int, A: int, H: int) -> int:
-    """Shared memory of one forward block (emb, x, qkv, scores, o)."""
-    return 4 * (F * D + 5 * F * A + H * F * F)
+def _fwd_stride(k: int) -> int:
+    """The source's ``fwd_stride``: k rounded up to 8, plus 4."""
+    return (k + 7) // 8 * 8 + 4
+
+
+def _fwd_wstride(n: int) -> int:
+    """The source's ``fwd_wstride``: n rounded up to 8, = 8 or 24 mod 32."""
+    c = (n + 7) // 8 * 8
+    return c + 8 if c % 16 == 0 else c
+
+
+def smem_bytes(F: int, D: int, A: int, H: int, R: int = 1,
+               stage: bool = True) -> int:
+    """Shared memory of one forward block of R batch rows (the source's
+    ``FwdLayout``): x [M, .] or the scores [R*H*F, .]; qkv [M, .] or emb
+    [M, .]; with ``stage``, the two weight buffers.  M = R*F padded to
+    whole row units."""
+    M = (R * F + FWD_UNIT_ROWS - 1) // FWD_UNIT_ROWS * FWD_UNIT_ROWS
+    xs = (max(M * _fwd_stride(A), R * H * F * _fwd_stride(F)) + 3) // 4 * 4
+    q = M * max(_fwd_stride(3 * A), _fwd_stride(D))
+    if not stage:
+        return 4 * (xs + q)
+    wa = max(A * _fwd_wstride(3 * A), D * _fwd_wstride(A))
+    wb = max(A, D) * _fwd_wstride(A)
+    return 4 * (xs + q + wa + wb)
+
+
+def rows_per_block(B: int, F: int, D: int, A: int, H: int,
+                   n_sm: int = 132, stage: bool = True) -> int:
+    """R, the batch rows kernel 2 stacks in a block: as many as fit
+    ``FWD_ROWS`` stacked field rows (at F=23, R=4: the fastest R on the
+    H100 at B=4096) and the shared memory, but no more than leave
+    ``FWD_FILL`` of the card's ``n_sm`` SMs a block (B=512 at F=23: R=4,
+    128 blocks on 132 SMs); 1 when even R=2 would leave SMs idle."""
+    r = max(1, FWD_ROWS // F)
+    while r > 1 and smem_bytes(F, D, A, H, r, stage) > SMEM_LIMIT:
+        r -= 1
+    while r > 1 and -(-B // r) < FWD_FILL * n_sm:
+        r -= 1
+    return r
+
+
+def fwd_config(B: int, F: int, D: int, A: int, H: int,
+               n_sm: int = 132) -> Tuple[int, bool, int]:
+    """(R, stage, shared memory bytes of a block) of kernel 2's launch at
+    batch size B: the weights staged in shared memory where they fit
+    beside a block's activations, else read from device memory;
+    ValueError when even a block of one batch row does not fit
+    ``SMEM_LIMIT``."""
+    for stage in (True, False):
+        R = rows_per_block(B, F, D, A, H, n_sm, stage)
+        smem = smem_bytes(F, D, A, H, R, stage)
+        if smem <= SMEM_LIMIT:
+            return R, stage, smem
+    raise ValueError(f"F={F}, D={D}, A={A}, H={H} needs {smem} B of "
+                     f"shared memory per block, over {SMEM_LIMIT}")
 
 
 def bwd_smem_bytes(F: int, D: int, A: int, H: int) -> int:
@@ -193,9 +254,22 @@ def _check_kernel(emb, flat_w, n_layers: int, n_heads: int,
                          f"4, got D={D}, A={A}, H={n_heads}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"F={F}, D={D}, A={A}, H={n_heads} needs {smem} B "
-                         f"of shared memory per row, over {SMEM_LIMIT}")
+                         f"of shared memory per block, over {SMEM_LIMIT}")
     if any(w is not None and w.data_ptr() % 16 for w in flat_w):
         raise ValueError("the kernel needs 16-byte aligned weights")
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device) -> int:
+    """The SM count of a CUDA device (cached)."""
+    i = torch.device(device).index
+    i = torch.cuda.current_device() if i is None else i
+    if i not in _SM_COUNT:
+        props = torch.cuda.get_device_properties(i)
+        _SM_COUNT[i] = props.multi_processor_count
+    return _SM_COUNT[i]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -235,10 +309,13 @@ def field_attention_fwd(emb: torch.Tensor,
         y = field_attention_reference(emb, flat_w, n_layers, n_heads, rate,
                                       seed, saved=saved)
         return y, (torch.stack(saved) if save else None)
+    if emb.device.type != "cuda":
+        raise ValueError(f"field_attention runs on cuda or cpu, not "
+                         f"{emb.device}")
     B, F, D = emb.shape
     A = flat_w[0].shape[1]
-    _check_kernel(emb, flat_w, n_layers, n_heads,
-                  smem_bytes(F, D, A, n_heads))
+    R, stage, smem = fwd_config(B, F, D, A, n_heads, _sm_count(emb.device))
+    _check_kernel(emb, flat_w, n_layers, n_heads, smem)
     lib = _build.load("field_attention", _SIGNATURES)
     emb = _aligned(emb)
     y = torch.empty((B, F, A), dtype=torch.float32, device=emb.device)
@@ -248,7 +325,8 @@ def field_attention_fwd(emb: torch.Tensor,
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tpurec_field_attention_fwd(
-            emb.data_ptr(), _ptrs(flat_w), B, F, D, A, n_heads, n_layers,
+            emb.data_ptr(), _ptrs(flat_w), B, R, int(stage), F, D, A,
+            n_heads, n_layers,
             seed_ptr, keep_threshold(rate), 1.0 - rate, int(rate > 0.0),
             y.data_ptr(), None if saved is None else saved.data_ptr(),
             stream)

@@ -9,10 +9,14 @@ is laid out.
 
 Bound on the H100: bytes (ids in, rows read, float32 rows out; about
 1.5 MB at 512 rows of 23 fields).  That is well under a microsecond of
-memory time, so at serving batch sizes the launch bounds it.
+memory time, so at serving batch sizes the host's cost of a call bounds
+it.  So the gather is prepared once per table (:class:`EmbeddingGather`):
+the table, offsets, limits and scales are checked at construction, and a
+call checks only the ids, allocates the output and launches.
 
-:func:`embedding_gather` launches the kernel for CUDA tensors and runs
-:func:`embedding_gather_reference` for CPU tensors only.
+:class:`EmbeddingGather` and :func:`embedding_gather` (one-shot) launch
+the kernel for CUDA tensors and run :func:`embedding_gather_reference`
+for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -25,22 +29,34 @@ import torch
 from tpurec_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+class _Plan(ctypes.Structure):
+    """The source's ``GatherPlan``."""
+    _fields_ = [("scales", ctypes.c_void_p), ("offsets", ctypes.c_void_p),
+                ("limits", ctypes.c_void_p), ("dtype", ctypes.c_int),
+                ("n_fields", ctypes.c_int), ("d", ctypes.c_int),
+                ("n_table_rows", ctypes.c_int)]
+
+
 _SIGNATURES = {
     "tpurec_embedding_gather": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.POINTER(_Plan), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
 }
+_MAX_PIECES = 2**31 - 1         # the kernel's 32-bit piece index
 
 
-def _check(table, ids, offsets, limits, scales) -> None:
+def _check_table(table, offsets, limits, scales,
+                 n_fields: Optional[int] = None) -> None:
+    """Refuse a table/offsets/limits/scales set that does not fit
+    (``n_fields``: the ids' width, when known; else offsets' length)."""
     if table.dtype not in _DTYPE_CODES or table.dim() != 2:
         raise ValueError(f"table must be [V, D] float32/bfloat16/int8, got "
                          f"{tuple(table.shape)} {table.dtype}")
-    if ids.dtype != torch.int32 or ids.dim() != 2:
-        raise ValueError(f"ids must be [N, F] int32, got "
-                         f"{tuple(ids.shape)} {ids.dtype}")
-    F = ids.shape[1]
+    if n_fields is None:
+        n_fields = offsets.shape[0] if offsets.dim() == 1 else -1
+    F = n_fields
     for name, t in (("offsets", offsets), ("limits", limits)):
         if t.dtype != torch.int32 or tuple(t.shape) != (F,):
             raise ValueError(f"{name} must be [{F}] int32, got "
@@ -50,47 +66,108 @@ def _check(table, ids, offsets, limits, scales) -> None:
     if scales is not None and (scales.dtype != torch.float32
                                or tuple(scales.shape) != (table.shape[0],)):
         raise ValueError(f"scales must be [{table.shape[0]}] float32")
-    tensors = [table, ids, offsets, limits] + ([scales] if scales is not None
-                                               else [])
+    tensors = [table, offsets, limits] + ([scales] if scales is not None
+                                          else [])
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("table, ids, offsets, limits and scales must share "
-                         "one device")
+        raise ValueError("table, offsets, limits and scales must share one "
+                         "device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("embedding_gather needs contiguous tensors")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"embedding_gather runs on cuda or cpu, not "
+                         f"{table.device}")
+
+
+class EmbeddingGather:
+    """A gather prepared for one table: ``g(ids)`` maps ids [N, F] int32
+    to float32 rows [N, F, D] of ``table`` [V, D].
+
+    Row ``ids[n, f] + offsets[f]`` with ``jnp.take``'s out-of-range rule
+    over ``limits[f]`` rows (see the CUDA source); an int8 table is
+    dequantised with its per-row ``scales`` [V].  The table, offsets,
+    limits and scales are checked here, once, and kept referenced; a call
+    checks only the ids.  The table may change in place between calls
+    (its pointer is read at each call).
+    """
+
+    def __init__(self, table: torch.Tensor, offsets: torch.Tensor,
+                 limits: torch.Tensor,
+                 scales: Optional[torch.Tensor] = None):
+        _check_table(table, offsets, limits, scales)
+        self.table, self.offsets, self.limits, self.scales = (
+            table, offsets, limits, scales)
+        self.n_fields = offsets.shape[0]
+        self.V, self.D = table.shape
+        self.dtype = table.dtype
+        self.device = table.device
+        self.device_index = table.get_device()       # -1 on the CPU
+        if self.device.type == "cuda":
+            self._lib = _build.load("embedding_gather", _SIGNATURES)
+            self._fn = self._lib.tpurec_embedding_gather
+            self._plan = ctypes.pointer(_Plan(
+                None if scales is None else scales.data_ptr(),
+                offsets.data_ptr(), limits.data_ptr(),
+                _DTYPE_CODES[table.dtype], self.n_fields, self.D, self.V))
+
+    def serves(self, table: torch.Tensor) -> bool:
+        """Whether this gather still fits ``table``: the same tensor, on
+        the same device, of the same shape and type (its storage may have
+        been replaced: a call reads the pointer)."""
+        return (self.table is table
+                and table.get_device() == self.device_index
+                and table.dtype == self.dtype
+                and tuple(table.shape) == (self.V, self.D))
+
+    def _check_ids(self, ids: torch.Tensor) -> None:
+        if (ids.dtype is not torch.int32 or ids.dim() != 2
+                or ids.shape[1] != self.n_fields):
+            raise ValueError(f"ids must be [N, {self.n_fields}] int32, got "
+                             f"{tuple(ids.shape)} {ids.dtype}")
+        if not (ids.is_cuda and ids.get_device() == self.device_index
+                if self.device_index >= 0 else ids.is_cpu):
+            raise ValueError(f"ids are on {ids.device}, the table on "
+                             f"{self.device}")
+        if not ids.is_contiguous():
+            raise ValueError("embedding_gather needs contiguous ids")
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        self._check_ids(ids)
+        if self.device_index < 0:
+            return embedding_gather_reference(self.table, ids, self.offsets,
+                                              self.limits, self.scales)
+        N = ids.shape[0]
+        if N * self.n_fields * self.D > _MAX_PIECES:
+            raise ValueError(f"{N} rows of {self.n_fields} fields x "
+                             f"{self.D} is over the kernel's 2^31 pieces")
+        out = torch.empty((N, self.n_fields, self.D), dtype=torch.float32,
+                          device=self.device)
+        dev = self.device_index
+        if torch._C._cuda_getDevice() == dev:
+            rc = self._fn(self._plan, self.table.data_ptr(), ids.data_ptr(),
+                          N, out.data_ptr(),
+                          torch._C._cuda_getCurrentRawStream(dev))
+        else:
+            with torch.cuda.device(dev):
+                rc = self._fn(self._plan, self.table.data_ptr(),
+                              ids.data_ptr(), N, out.data_ptr(),
+                              torch._C._cuda_getCurrentRawStream(dev))
+        if rc:
+            _build.check(self._lib, rc, "embedding_gather")
+        embedding_gather.launches += 1
+        return out
 
 
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor,
                      offsets: torch.Tensor, limits: torch.Tensor,
                      scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """ids [N, F] int32 -> float32 rows [N, F, D] of ``table`` [V, D].
-
-    Row ``ids[n, f] + offsets[f]`` with ``jnp.take``'s out-of-range rule
-    over ``limits[f]`` rows (see the CUDA source); an int8 table is
-    dequantised with its per-row ``scales`` [V].
-    """
-    _check(table, ids, offsets, limits, scales)
-    if table.device.type == "cpu":
-        return embedding_gather_reference(table, ids, offsets, limits, scales)
-    if table.device.type != "cuda":
-        raise ValueError(f"embedding_gather runs on cuda or cpu, not "
-                         f"{table.device}")
-    lib = _build.load("embedding_gather", _SIGNATURES)
-    N, F = ids.shape
-    V, D = table.shape
-    out = torch.empty((N, F, D), dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tpurec_embedding_gather(
-            table.data_ptr(), _DTYPE_CODES[table.dtype],
-            None if scales is None else scales.data_ptr(),
-            ids.data_ptr(), offsets.data_ptr(), limits.data_ptr(),
-            N * F, F, D, V, out.data_ptr(), stream)
-    _build.check(lib, rc, "embedding_gather")
-    embedding_gather.launches += 1
-    return out
+    """One-shot :class:`EmbeddingGather`: ids [N, F] int32 -> float32 rows
+    [N, F, D] of ``table`` [V, D] (the same rules and results)."""
+    _check_table(table, offsets, limits, scales,
+                 ids.shape[1] if ids.dim() == 2 else None)
+    return EmbeddingGather(table, offsets, limits, scales)(ids)
 
 
-embedding_gather.launches = 0
+embedding_gather.launches = 0   # kernel 1's launches, from either form
 
 
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ from tpurec_torch.convert import state_dict_from_flax
 from tpurec_torch.data.hashing import hash_ids
 from tpurec_torch.device import resolve_device
 from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
-from tpurec_torch.nn.core import EmbeddingLayout, mixed_table_lookup
+from tpurec_torch.nn.core import EmbeddingLayout
 from tpurec_torch.nn.precision import check_compute_dtype
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.train.checkpoint import (check_embed_layout_version,
@@ -123,6 +123,7 @@ class Predictor:
         self.layout = EmbeddingLayout(self.field_dims)
         self._qtable = None
         self._scales = None
+        self._gather = None
         self._d2g = None
 
     # -- loading -------------------------------------------------------
@@ -138,6 +139,7 @@ class Predictor:
                              f"{missing}, unexpected {unexpected}")
         self._qtable = q.to(dev)
         self._scales = None if s is None else s.to(dev)
+        self._gather = self.layout.gather(self._qtable, self._scales)
         self._d2g = torch.as_tensor(self.domain2group, device=dev)
         return self
 
@@ -173,7 +175,7 @@ class Predictor:
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, F] int32 on the device -> probabilities [B]."""
-        rows = mixed_table_lookup(self._qtable, x, self.layout, self._scales)
+        rows = self._gather(x)
         group = take_rows(self._d2g, x[:, self.domain_idx])
         out = self.model(x, group=group, embed_rows=rows)
         logit = select_tower(out, group) if self.multi_tower else out

@@ -4,7 +4,8 @@ table (counterpart of ``tpurec/train/hybrid.py``).
 Per step (``hybrid.py:405-431``):
 
 1. the batch's table rows are gathered outside autograd (kernel 1,
-   :func:`tpurec_torch.nn.core.mixed_table_lookup`);
+   prepared once for the table: :func:`tpurec_torch.nn.core.
+   prepared_gather`);
 2. the model runs its training forward on those rows (attention through
    kernels 2 and 3), and the loss (masked BCE + L2 of the dense weights)
    is differentiated with respect to the rows and the dense parameters;
@@ -40,7 +41,7 @@ import torch
 
 from tpurec_torch.config import TrainConfig
 from tpurec_torch.device import resolve_device
-from tpurec_torch.nn.core import EmbeddingLayout, mixed_table_lookup
+from tpurec_torch.nn.core import EmbeddingLayout, prepared_gather
 from tpurec_torch.nn.precision import check_compute_dtype
 from tpurec_torch.ops.fused_adam import fused_sparse_adam
 from tpurec_torch.train.reg import regularization_loss
@@ -103,8 +104,8 @@ class EmbeddingUpdater:
     def gather_rows(self, table: torch.Tensor, x: torch.Tensor
                     ) -> torch.Tensor:
         """x [B, F] -> the batch's table rows [B*F, D] (kernel 1)."""
-        return mixed_table_lookup(table, x, self.layout).reshape(
-            -1, table.shape[1])
+        return prepared_gather(self, table, self.layout)(
+            x.to(torch.int32).contiguous()).reshape(-1, table.shape[1])
 
     def small_field_grads(self, x, g_rows) -> Optional[torch.Tensor]:
         """[S, D] gradient of the small-field prefix (None when S = 0):
