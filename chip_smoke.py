@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
    power limit;
 2. build every kernel in tpurec_torch/csrc with nvcc (one process per
    source, in parallel) and print ptxas' register/spill report, then the
-   attention stack's launch at each batch size (batch rows a block,
-   weights staged or not, dynamic shared memory, the source's layout
-   held against the wrapper's);
+   launches of the attention stack's forward and of both backward kernels
+   (3, 5) at each batch size (batch rows a block or group, weights staged
+   or not, dynamic shared memory, the backward's persistent grid; the
+   source's layout held against the wrapper's);
 3. hold each serving kernel against its plain PyTorch version on the card,
    at the flagship shapes and ragged batch sizes: the prepared gather
    (EmbeddingGather) bit-exact for float32, bfloat16 and int8 tables
@@ -34,9 +35,12 @@ Phases (any failure exits non-zero and prints no result line):
    rows a block; Predictor rows/s and the 1-row HTTP p50 (host clock); a
    profile of one chunk at each batch size;
 7. the training kernels against their plain versions: the attention
-   forward with dropout 0.2 (same keep mask, read back through the
-   output) and its backward against autograd at B = 1, 513, 512
-   (bitwise repeatable), the table sweep at float32 and bfloat16 moments,
+   forward (same keep mask, read back through the output) and its
+   backward against autograd at B = 1, R - 1, R, R + 1, 512, 513, 4097 (R
+   the rows a backward group stacks) with dropout 0 and 0.2, and once
+   without the residual (bitwise repeatable; dy zeroed where the plain
+   pre-ReLU value lies within 1e-4 of 0, where rounding alone sets the
+   mask), the table sweep at float32 and bfloat16 moments,
    the training step's table update (row step, sweep with the small-field
    gradient, write-back) with duplicate ids, and sentinel ids; a swept
    table value may differ by 1e-6 (2e-6 for the update against the CPU)
@@ -49,16 +53,20 @@ Phases (any failure exits non-zero and prints no result line):
 9. 3 full-width steps with dropout 0 on the card against the CPU's plain
    path: the loss and the table after step 1;
 10. training timings: each training kernel beside its bound, its plain
-    version and a library yardstick; the step's host-clock phases, peak
-    memory and a profile (device busy share, launches per step, device
-    time by kernel and by launching op, host time by op);
+    version and a library yardstick (kernel 3 also beside its 3xTF32
+    tensor-core bound, launched alone at R = 1, 2, 3 rows a group, staged
+    or not); the step's host-clock phases, peak memory and a profile
+    (device busy share, launches per step, device time by kernel, kernel
+    3's apart from its reduction's, and by launching op, host time by
+    op);
 11. the DCN and layered-attention kernels against their plain versions:
     the cross network forward (#8) and backward (#9, bitwise repeatable,
     a NaN row spreading into dw/db as in the plain version) at B = 1,
     512, 513, 4096, 4097 with D=368, L=3; one attention layer forward
-    (#4) and backward (#5, bitwise repeatable) at B = 1, 512, 513 with
-    dropout 0 and 0.2; the layered path against the stack (#2, #3) in
-    training with one dropout seed;
+    (#4) and backward (#5, bitwise repeatable) at phase 7's batch sizes
+    with dropout 0 and 0.2; the layered path against the stack (#2, #3) in
+    training with one dropout seed (dy zeroed near the ReLU's kink, as in
+    phase 7);
 12. the DCN serving path: a Predictor of the full-width DCN (the same 23
     fields and table, mlp (256, 128, 64), 3 cross layers) scores 5,000
     rows against the CPU's plain path within 1e-4 at float32, bfloat16
@@ -71,7 +79,9 @@ Phases (any failure exits non-zero and prints no result line):
     it (the gradient of sum(y**2) at B=512) against the plain version,
     #4 and #5 launching 3 times each;
 15. timings of #4, #5, #8 and #9 beside their bounds, plain versions and
-    library yardsticks.
+    library yardsticks; #5 also beside its 3xTF32 bound, at R = 1, 2, 3
+    rows a group, staged or not, and its device time apart from its
+    reduction's.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -100,6 +110,7 @@ MODEL = dict(model="mmoe", embed_dim=16, mmoe_expert_dims=(256, 128, 64),
              mmoe_tower_dims=(64, 32), use_atten=True, atten_embed_dim=64,
              att_layer_num=3, att_head_num=2)
 BATCH_SIZES = (512, 4096)
+BATCHES_BWD = (512, 4096)       # the backward launches printed in phase 2
 N_ROWS = 5000
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -193,6 +204,31 @@ def rows_sweep(dev, emb, flat, L, H, iters=20):
     return out
 
 
+def bwd_rows_sweep(launch, F, D, A, H, iters=20):
+    """Kernel 3 (D > 0) or 5 (D = 0) launched through its C entry point
+    (``launch(R, stage)`` -> its return code) at R = 1, 2, 3 batch
+    rows a group, w_in/w_out staged or read from device memory, on the
+    persistent grid bwd_grid gives; CUDA events over back-to-back launches,
+    the ordered reduction included: what the wrapper's choice of R and
+    staging buys.  -> {"R=r staged|unstaged": ms, or None where the block
+    does not fit}."""
+    from tpurec_torch.ops import attention as att
+
+    out = {}
+    for R in (1, 2, 3):
+        for stage in (True, False):
+            key = f"R={R} {'staged' if stage else 'unstaged'}"
+            if att.bwd_smem_bytes(F, D, A, H, R, stage) > att.SMEM_LIMIT:
+                out[key] = None
+                continue
+
+            def run(R=R, stage=stage):
+                rc = launch(R, stage)
+                check(rc == 0, f"backward sweep {key}: CUDA error {rc}")
+            out[key] = cuda_ms(run, iters=iters, warmup=2)
+    return out
+
+
 def port_kernel(key: str, name: str) -> bool:
     """Whether a profiler kernel name is the port's kernel ``name`` (its
     kernels live in an anonymous namespace at the top level; PyTorch has
@@ -223,6 +259,26 @@ def attention_launch(dev):
               f"{-(-B // R)} blocks of {att.FWD_THREADS} threads, weights "
               f"{'staged' if stage else 'from device memory'}, {smem} B of "
               f"dynamic shared memory ({n_sm} SMs)")
+    # the backward kernels (3: the stack, 5: one layer)
+    for name, cfg, src in (
+            ("field_attention_bwd_kernel",
+             lambda B: att.bwd_config(B, F, D, A, H, n_sm),
+             lambda R, st: lib.tpurec_field_attention_bwd_smem_bytes(
+                 R, F, D, A, H, st)),
+            ("attention_layer_bwd_kernel",
+             lambda B: att.layer_bwd_config(B, F, A, H, n_sm),
+             lambda R, st: lib.tpurec_attention_layer_bwd_smem_bytes(
+                 R, F, A, H, st))):
+        for B in (1,) + BATCHES_BWD:
+            R, stage, smem, grid = cfg(B)
+            c = src(R, int(stage))
+            check(c == smem, f"{name} layout: source {c} B, wrapper {smem} B")
+            out[(name, B)] = (R, stage, smem, grid)
+            print(f"  {name} B={B}: {R} batch rows a group, {-(-B // R)} "
+                  f"groups on a persistent grid of {grid} blocks of "
+                  f"{att.FWD_THREADS} threads, w_in/w_out "
+                  f"{'staged' if stage else 'from device memory'}, {smem} B "
+                  f"of dynamic shared memory")
     return out
 
 
@@ -397,6 +453,48 @@ def sweep_step(p, m, v, g_small, t, *, lr, coef, b1=0.9, b2=0.99,
     return lr * (terms / bc1) / (torch.sqrt(v2 / bc2) + eps)
 
 
+RELU_MARGIN = 1e-4      # |pre-ReLU value| below which rounding sets the mask
+
+
+def away_from_relu_kink(emb, flat, L, H, rate, seed, dy):
+    """dy with zeros where the plain forward's pre-ReLU value (in float64)
+    lies within RELU_MARGIN of 0.  There float32 rounding alone decides the
+    ReLU's mask: the kernel's recomputed value and the plain version's may
+    fall on either side, each gradient right for its own rounding, and one
+    such element moves its batch row's demb by about |dy|.  -> (dy, share
+    of elements zeroed)."""
+    from tpurec_torch.ops.attention import (attention_layer,
+                                            field_attention_reference,
+                                            keep_mask)
+
+    e = emb.double()
+    f = [None if w is None else w.double() for w in flat]
+    saved = []
+    field_attention_reference(e, f, L, H, rate, seed, saved=saved)
+    B, F, _ = emb.shape
+    keep = keep_mask(seed, B, L - 1, H, F, rate) if rate > 0 else None
+    z = attention_layer(saved[-1], *f[4 + 4 * (L - 1):8 + 4 * (L - 1)], H,
+                        keep, rate)
+    if f[2] is not None:
+        z = z + (e @ f[2] + f[3])
+    near = z.abs() < RELU_MARGIN
+    return (torch.where(near, torch.zeros_like(dy), dy),
+            near.float().mean().item())
+
+
+def bwd_batches(dev):
+    """The batch sizes at which phases 7 and 11 check kernels 3 and 5: 1,
+    R - 1, R, R + 1 (R the rows a group stacks at B=512), 512, 513 and
+    4097 (the last group partly past B, the persistent grid walking more
+    than one group a block)."""
+    from tpurec_torch.ops.attention import _sm_count, bwd_config
+
+    F, D = len(FIELD_DIMS), MODEL["embed_dim"]
+    R = bwd_config(512, F, D, MODEL["atten_embed_dim"], MODEL["att_head_num"],
+                   _sm_count(dev))[0]
+    return sorted({1, max(1, R - 1), R, R + 1, 512, 513, 4097})
+
+
 def train_kernel_checks(dev, rng, flat, table, emb_of):
     """Phase 7: the training kernels against their plain versions on the
     card.  -> max abs errors by kernel name."""
@@ -424,46 +522,63 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
           f"{1 - want.float().mean().item():.4f} at rate {DROPOUT})")
 
     err_f = err_b = 0.0
-    for B in (1, 513, 512):
+    no_res = flat[:2] + [None, None] + flat[4:]
+    bs = bwd_batches(dev)
+    cases = [(B, rate, flat) for rate in (0.0, DROPOUT) for B in bs]
+    cases.append((513, DROPOUT, no_res))
+    zeroed = 0.0
+    for B, rate, fl in cases:
+        what = (f"B={B} dropout {rate}"
+                + ("" if fl[2] is not None else " no residual"))
         emb = emb_of(B)
         saved_p = []
-        want = field_attention_reference(emb, flat, L, H, DROPOUT, seed,
+        want = field_attention_reference(emb, fl, L, H, rate, seed,
                                          saved=saved_p)
-        y, saved = field_attention_fwd(emb, flat, L, H, DROPOUT, seed, True)
+        y, saved = field_attention_fwd(emb, fl, L, H, rate, seed, True)
         torch.cuda.synchronize()
         e = max((y - want).abs().max().item(),
                 (saved - torch.stack(saved_p)).abs().max().item())
-        check(e <= ATTN_TOL, f"attention train fwd B={B}: max abs err {e}")
+        check(e <= ATTN_TOL, f"attention train fwd {what}: max abs err {e}")
         err_f = max(err_f, e)
         # backward against autograd of the plain version, same seed
-        leaves = [w.clone().requires_grad_(True) for w in flat]
+        leaves = [None if w is None else w.clone().requires_grad_(True)
+                  for w in fl]
         e_leaf = emb.clone().requires_grad_(True)
-        dy = torch.randn(y.shape, device=dev)
-        field_attention_reference(e_leaf, leaves, L, H, DROPOUT,
+        dy, share = away_from_relu_kink(emb, fl, L, H, rate, seed,
+                                        torch.randn(y.shape, device=dev))
+        zeroed = max(zeroed, share)
+        field_attention_reference(e_leaf, leaves, L, H, rate,
                                   seed).backward(dy)
-        demb, grads = field_attention_bwd(emb, dy, saved, flat, L, H,
-                                          DROPOUT, seed)
-        demb2, grads2 = field_attention_bwd(emb, dy, saved, flat, L, H,
-                                            DROPOUT, seed)
+        demb, grads = field_attention_bwd(emb, dy, saved, fl, L, H, rate,
+                                          seed)
+        demb2, grads2 = field_attention_bwd(emb, dy, saved, fl, L, H, rate,
+                                            seed)
         torch.cuda.synchronize()
         check(torch.equal(demb, demb2) and all(
-            torch.equal(a, b) for a, b in zip(grads, grads2)),
-            f"attention bwd B={B}: two calls differ (the partial sums "
+            a is None or torch.equal(a, b) for a, b in zip(grads, grads2)),
+            f"attention bwd {what}: two calls differ (the partial sums "
             f"should be deterministic)")
         e = (demb - e_leaf.grad).abs().max().item()
-        check(e <= BWD_TOL, f"attention bwd B={B}: demb max abs err {e}")
+        check(e <= BWD_TOL, f"attention bwd {what}: demb max abs err {e}")
         err_b = max(err_b, e)
         for i, (g, w) in enumerate(zip(grads, leaves)):
+            if w is None:
+                check(g is None, f"attention bwd {what}: gradient {i} of a "
+                      f"missing weight")
+                continue
             e = (g - w.grad).abs().max().item()
             scale = max(1.0, w.grad.abs().max().item())
-            check(e <= BWD_TOL * scale, f"attention bwd B={B}: weight {i} "
+            check(e <= BWD_TOL * scale, f"attention bwd {what}: weight {i} "
                   f"max abs err {e} (scale {scale:.3g})")
             err_b = max(err_b, e / scale)
     errs["field_attention_train"], errs["field_attention_bwd"] = err_f, err_b
-    print(f"attention train fwd (dropout {DROPOUT}): max abs err {err_f:.3g} "
-          f"vs plain (tol {ATTN_TOL}); bwd vs autograd of plain: max err "
-          f"{err_b:.3g} (tol {BWD_TOL}, weight grads relative to "
-          f"max(1, max|g|)) at B=1,513,512; bwd bitwise repeatable")
+    print(f"attention train fwd (dropout 0 and {DROPOUT}): max abs err "
+          f"{err_f:.3g} vs plain (tol {ATTN_TOL}); bwd vs autograd of plain: "
+          f"max err {err_b:.3g} (tol {BWD_TOL}, weight grads relative to "
+          f"max(1, max|g|)) at B={','.join(map(str, bs))}, dropout 0 and "
+          f"{DROPOUT}, and B=513 without the residual; bwd bitwise "
+          f"repeatable; dy zeroed where |pre-ReLU| < {RELU_MARGIN} (at most "
+          f"{zeroed:.2e} of the elements)")
 
     layout = EmbeddingLayout(FIELD_DIMS)
     V, D = table.shape
@@ -806,12 +921,15 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
     """Phase 10: each training kernel's time beside its bound, its plain
     version and a library yardstick, at the main path's shapes; then a
     profile of single steps."""
-    from tpurec_torch.ops.attention import (_sm_count,
+    from tpurec_torch.ops import _build
+    from tpurec_torch.ops.attention import _SIGNATURES as att_signatures
+    from tpurec_torch.ops.attention import _ptrs as att_ptrs
+    from tpurec_torch.ops.attention import (_sm_count, bwd_config, bwd_grid,
                                             field_attention_bwd,
                                             field_attention_bwd_reference,
                                             field_attention_fwd,
                                             field_attention_reference,
-                                            fwd_config)
+                                            fwd_config, keep_threshold)
     from tpurec_torch.ops.fused_adam import (adam_rows, adam_rows_reference,
                                              dedup_sorted, fused_decay_adam,
                                              fused_decay_adam_reference,
@@ -867,8 +985,36 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
         library="torch.autograd.grad through the SDPA + addmm stack "
                 "(dropout_p=0.2)",
         bound_ms=max(t_ops, t_b) * 1e3, flops=bwd_flops, bytes=bwd_bytes,
-        bound_by="operations" if t_ops >= t_b else "bytes")
+        bound_by="operations" if t_ops >= t_b else "bytes",
+        tc_bound_ms=tc_bound_ms(bwd_flops, bwd_bytes))
     del y_lib, leaves, e_leaf
+    # kernel 3 at R rows a group, staged or not, through its C entry point
+    R, stage, smem, grid = bwd_config(512, F, D, A, H, _sm_count(dev))
+    lib = _build.load("field_attention", att_signatures)
+    n_w = sum(w.numel() for w in flat)
+    demb_s = torch.empty_like(emb)
+    wgrad_s = torch.empty(n_w, device=dev)
+    partial_s = torch.empty(_sm_count(dev), n_w, device=dev)
+    seed_s = seed.reshape(1).contiguous()
+    ptrs = att_ptrs(flat)
+    stream = torch.cuda.current_stream().cuda_stream
+    by_r = bwd_rows_sweep(
+        lambda r, st: lib.tpurec_field_attention_bwd(
+            emb.data_ptr(), dy.data_ptr(), saved.data_ptr(), ptrs, 512, r,
+            int(st), F, D, A, H, L, seed_s.data_ptr(),
+            keep_threshold(DROPOUT), 1.0 - DROPOUT, 1,
+            bwd_grid(512, r, _sm_count(dev)), demb_s.data_ptr(),
+            partial_s.data_ptr(), wgrad_s.data_ptr(), stream),
+        F, D, A, H)
+    rows["field_attention_bwd"].update(
+        rows_per_block=R, weights_staged=stage, smem_bytes=smem, grid=grid,
+        ms_by_rows_per_block=by_r)
+    print(f"{tag} field_attention_bwd B=512: launched alone (CUDA events, 20 "
+          f"launches, reduction included): " + ", ".join(
+              f"{k} " + ("does not fit" if v is None else f"{v:.4f} ms")
+              for k, v in by_r.items()) + f"; the wrapper takes R={R} "
+          f"{'staged' if stage else 'unstaged'}")
+    del demb_s, wgrad_s, partial_s
 
     kw = dict(lr=1e-3, coef=2 * L2 + 1e-8)
     S = upd.S
@@ -957,6 +1103,13 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
         us = [v for k, v in dev_us.items()
               if any(port_kernel(k, s) for s in syms)]
         rows[name]["device_ms"] = sum(us) / 1e3 if us else None
+    split_device_ms(rows["field_attention_bwd"], dev_us,
+                    "field_attention_bwd_kernel", 1)
+    r = rows["field_attention_bwd"]
+    print(f"{tag} field_attention_bwd in the step: device "
+          f"{r['device_ms_kernel']} ms + reduction {r['device_ms_reduce']} "
+          f"ms; bound {r['bound_ms']:.4f} ms (f32), {r['tc_bound_ms']:.4f} "
+          f"ms (3xTF32 on the tensor cores)")
     return rows, profile_summary
 
 
@@ -1070,8 +1223,9 @@ def layer_kernel_checks(dev, flat, emb_of):
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     ws = flat[8:12]                            # layer 1's weights
     err_f = err_b = 0.0
+    bs = bwd_batches(dev)
     for rate in (0.0, DROPOUT):
-        for B in (1, 512, 513):
+        for B in bs:
             x = torch.matmul(emb_of(B), flat[0]) + flat[1]
             dy = torch.randn(x.shape, device=dev, generator=g)
             y = attention_layer_fwd(x, *ws, H, 1, rate, seed)
@@ -1099,12 +1253,16 @@ def layer_kernel_checks(dev, flat, emb_of):
                 err_b = max(err_b, e / s)
     print(f"attention layer: #4 max abs err {err_f:.3g}, #5 {err_b:.3g} "
           f"(tol {LAYER_TOL}; weight grads relative to max(1, max|g|)) vs "
-          f"plain at B=1,512,513, dropout 0 and {DROPOUT}; #5 bitwise "
-          f"repeatable")
+          f"plain at B={','.join(map(str, bs))}, dropout 0 and {DROPOUT}; "
+          f"#5 bitwise repeatable")
 
     # the layered path with seed s drops what the stack drops with seed s
+    # (dy zeroed where rounding decides the final ReLU: the stack's kernel
+    # 3 recomputes it, the layered path takes torch.relu's)
     emb = emb_of(512)
-    dy = torch.randn(512, F, flat[0].shape[1], device=dev, generator=g)
+    dy, _ = away_from_relu_kink(
+        emb, flat, L, H, DROPOUT, seed,
+        torch.randn(512, F, flat[0].shape[1], device=dev, generator=g))
 
     def run(fn):
         e = emb.clone().requires_grad_(True)
@@ -1274,11 +1432,15 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
     one layered call.  -> rows by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpurec_torch.ops.attention import (attention_layer,
+    from tpurec_torch.ops import _build
+    from tpurec_torch.ops.attention import _SIGNATURES as att_signatures
+    from tpurec_torch.ops.attention import _ptrs as att_ptrs
+    from tpurec_torch.ops.attention import (_sm_count, attention_layer,
                                             attention_layer_bwd,
                                             attention_layer_bwd_reference,
-                                            attention_layer_fwd,
-                                            field_attention_layered)
+                                            attention_layer_fwd, bwd_grid,
+                                            field_attention_layered,
+                                            keep_threshold, layer_bwd_config)
     from tpurec_torch.ops.cross_network import (cross_network_bwd,
                                                 cross_network_bwd_reference,
                                                 cross_network_fwd,
@@ -1329,7 +1491,8 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
         t_ops, t_b = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
         rows[name] = dict(flops=flops, bytes=nbytes,
                           bound_ms=max(t_ops, t_b) * 1e3,
-                          bound_by="operations" if t_ops >= t_b else "bytes")
+                          bound_by="operations" if t_ops >= t_b else "bytes",
+                          tc_bound_ms=tc_bound_ms(flops, nbytes))
     rows["attention_layer"].update(
         ms=cuda_ms(lambda: attention_layer_fwd(x, *ws, H)),
         plain_ms=cuda_ms(lambda: attention_layer(x, *ws, H)),
@@ -1345,6 +1508,32 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
             y_lib, leaves, dy, retain_graph=True)),
         library="torch.autograd.grad through the one-layer SDPA form")
     del y_lib, leaves
+    # kernel 5 at R rows a group, staged or not, through its C entry point
+    n_sm = _sm_count(dev)
+    R, stage, smem, grid = layer_bwd_config(B, F, A, H, n_sm)
+    lib = _build.load("field_attention", att_signatures)
+    dx_s = torch.empty_like(x)
+    n_w = sum(t.numel() for t in ws)
+    wgrad_s = torch.empty(n_w, device=dev)
+    partial_s = torch.empty(n_sm, n_w, device=dev)
+    ptrs = att_ptrs(ws)
+    stream = torch.cuda.current_stream().cuda_stream
+    by_r = bwd_rows_sweep(
+        lambda r, st: lib.tpurec_attention_layer_bwd(
+            x.data_ptr(), dy.data_ptr(), ptrs, B, r, int(st), F, A, H, 0,
+            None, keep_threshold(0.0), 1.0, 0, bwd_grid(B, r, n_sm),
+            dx_s.data_ptr(), partial_s.data_ptr(), wgrad_s.data_ptr(),
+            stream),
+        F, 0, A, H)
+    rows["attention_layer_bwd"].update(
+        rows_per_block=R, weights_staged=stage, smem_bytes=smem, grid=grid,
+        ms_by_rows_per_block=by_r)
+    print(f"{tag} attention_layer_bwd B={B}: launched alone (CUDA events, 20 "
+          f"launches, reduction included): " + ", ".join(
+              f"{k} " + ("does not fit" if v is None else f"{v:.4f} ms")
+              for k, v in by_r.items()) + f"; the wrapper takes R={R} "
+          f"{'staged' if stage else 'unstaged'}")
+    del dx_s, wgrad_s, partial_s
 
     # device time of kernels 4 and 5 in the layered path (3 each a call)
     e = emb.clone().requires_grad_(True)
@@ -1367,6 +1556,13 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
               if any(port_kernel(k, s) for s in syms)]
         # three launches a call: the device time of one
         rows[name]["device_ms"] = sum(us) / 3e3 if us else None
+    split_device_ms(rows["attention_layer_bwd"], dev_us,
+                    "attention_layer_bwd_kernel", 3)
+    r = rows["attention_layer_bwd"]
+    print(f"{tag} attention_layer_bwd in the layered call: device "
+          f"{r['device_ms_kernel']} ms + reduction {r['device_ms_reduce']} "
+          f"ms a launch; bound {r['bound_ms']:.4f} ms (f32), "
+          f"{r['tc_bound_ms']:.4f} ms (3xTF32 on the tensor cores)")
     busy = sum(dev_us.values())
     print(f"{tag} profile of one layered fwd+bwd call (B=512): device busy "
           f"{busy:.1f} us" + "".join(
@@ -1385,6 +1581,16 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
           f"plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms")
     return rows
+
+
+def split_device_ms(row, dev_us, sym, per):
+    """Record a backward kernel's device time apart from its ordered
+    reduction's (reduce_partials_kernel), each per launch (``per``
+    launches in the profiled window's average)."""
+    for key, name in (("device_ms_kernel", sym),
+                      ("device_ms_reduce", "reduce_partials_kernel")):
+        us = [v for k, v in dev_us.items() if port_kernel(k, name)]
+        row[key] = sum(us) / per / 1e3 if us else None
 
 
 def kernel_alone_ms(fn, sym, n=50):

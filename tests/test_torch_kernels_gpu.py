@@ -522,3 +522,225 @@ def test_prepared_gather_bit_exact(cuda, table_dtype):
         got = g(x.to(cuda))
         want = embedding_gather_reference(q * 2.0, x, offsets, limits)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# -- kernels 3 and 5 in groups of R batch rows on a persistent grid ---------
+
+RAGGED = ["1", "R-1", "R", "R+1", "512", "513", "4097"]
+
+
+def _ragged_batch(cuda, which):
+    """A batch size of the list above, R the rows a backward group stacks
+    at the flagship shapes."""
+    from tpurec_torch.ops.attention import _sm_count, bwd_config
+
+    R = bwd_config(512, 23, 16, 64, 2, _sm_count(cuda))[0]
+    by_r = {"R-1": R - 1, "R": R, "R+1": R + 1}
+    return max(1, by_r[which] if which in by_r else int(which))
+
+
+def _away_from_relu_kink(emb, flat, rate, seed, dy, L=3, H=2):
+    """dy with zeros where the plain forward's pre-ReLU value (float64)
+    lies within 1e-4 of 0: there rounding alone sets the ReLU's mask, and
+    the kernel's recomputed value and the plain version's may fall on
+    either side, each gradient right for its own rounding."""
+    from tpurec_torch.ops.attention import attention_layer, keep_mask
+
+    e = emb.double()
+    f = [None if w is None else w.double() for w in flat]
+    saved = []
+    field_attention_reference(e, f, L, H, rate, seed, saved=saved)
+    keep = (keep_mask(seed, emb.shape[0], L - 1, H, emb.shape[1], rate)
+            if rate else None)
+    z = attention_layer(saved[-1], *f[4 + 4 * (L - 1):], H, keep, rate)
+    if f[2] is not None:
+        z = z + (e @ f[2] + f[3])
+    return torch.where(z.abs() < 1e-4, torch.zeros_like(dy), dy)
+
+
+def _stack_bwd_vs_autograd(cuda, emb, flat, dy, rate, seed):
+    """Kernel 3 twice and autograd through the plain version: -> (demb,
+    grads, the plain demb, the plain grads), the two calls bitwise equal."""
+    from tpurec_torch.ops.attention import field_attention_bwd
+
+    leaves = [None if w is None else w.clone().requires_grad_(True)
+              for w in flat]
+    e = emb.clone().requires_grad_(True)
+    saved = []
+    field_attention_reference(e, leaves, 3, 2, rate, seed,
+                              saved=saved).backward(dy)
+    saved = torch.stack(saved).detach()
+    before = field_attention_bwd.launches
+    demb, grads = field_attention_bwd(emb, dy, saved, flat, 3, 2, rate, seed)
+    demb2, grads2 = field_attention_bwd(emb, dy, saved, flat, 3, 2, rate,
+                                        seed)
+    torch.cuda.synchronize()
+    assert field_attention_bwd.launches == before + 2
+    assert torch.equal(demb.nan_to_num(7.0), demb2.nan_to_num(7.0))
+    for g, g2 in zip(grads, grads2):
+        assert g is None or torch.equal(g.nan_to_num(7.0), g2.nan_to_num(7.0))
+    return demb, grads, e.grad, [None if w is None else w.grad
+                                 for w in leaves]
+
+
+@pytest.mark.parametrize("which", RAGGED)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_stack_backward_at_ragged_batches(cuda, which, rate):
+    """Kernel 3 against autograd of the plain version at B = 1, R - 1, R,
+    R + 1, 512, 513, 4097, with and without the residual: demb within
+    1e-4, weight gradients within 1e-4 x max(1, max|g|), bitwise
+    repeatable."""
+    B = _ragged_batch(cuda, which)
+    rng = np.random.default_rng(30 + B)
+    seed = torch.tensor(41, device=cuda)
+    for res in (True, False):
+        emb, flat = _attn_inputs(rng, cuda, B, res)
+        dy = torch.from_numpy(rng.normal(size=(B, 23, 64)).astype(
+            np.float32)).to(cuda)
+        dy = _away_from_relu_kink(emb, flat, rate, seed, dy)
+        demb, grads, want, want_g = _stack_bwd_vs_autograd(
+            cuda, emb, flat, dy, rate, seed)
+        assert (demb - want).abs().max().item() <= 1e-4, (B, res)
+        for g, w in zip(grads, want_g):
+            if w is None:
+                assert g is None
+                continue
+            assert (g - w).abs().max().item() <= 1e-4 * max(
+                1.0, w.abs().max().item()), (B, res)
+
+
+@pytest.mark.parametrize("which", RAGGED)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_layer_backward_at_ragged_batches(cuda, which, rate):
+    """Kernel 5 against the plain version at the same batch sizes, bitwise
+    repeatable."""
+    from tpurec_torch.ops.attention import (attention_layer_bwd,
+                                            attention_layer_bwd_reference)
+
+    B = _ragged_batch(cuda, which)
+    rng = np.random.default_rng(50 + B)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * 0.2).astype(np.float32)).to(cuda)
+    x, dy = mk(B, 23, 64) * 5, mk(B, 23, 64) * 5
+    ws = [mk(64, 192), mk(192), mk(64, 64), mk(64)]
+    seed = torch.tensor(43, device=cuda)
+    dx, grads = attention_layer_bwd(x, dy, *ws, 2, 1, rate, seed)
+    dx2, grads2 = attention_layer_bwd(x, dy, *ws, 2, 1, rate, seed)
+    want, want_g = attention_layer_bwd_reference(x, dy, *ws, 2, 1, rate,
+                                                 seed)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert (dx - want).abs().max().item() <= 1e-4
+    for g, w in zip(grads, want_g):
+        assert (g - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
+
+
+def test_backward_nan_stays_in_its_batch_row(cuda):
+    """A NaN in one batch row's input: its group-mates' demb (kernel 3) and
+    dx (kernel 5) still equal the plain version's, while the weight
+    gradients, sums over every row, go NaN as the plain version's do."""
+    from tpurec_torch.ops.attention import (attention_layer_bwd,
+                                            attention_layer_bwd_reference)
+
+    rng = np.random.default_rng(60)
+    B, bad = 512, 5
+    emb, flat = _attn_inputs(rng, cuda, B)
+    seed = torch.tensor(47, device=cuda)
+    dy = torch.from_numpy(rng.normal(size=(B, 23, 64)).astype(
+        np.float32)).to(cuda)
+    dy = _away_from_relu_kink(emb, flat, 0.2, seed, dy)
+    emb[bad, 3, 0] = float("nan")
+    demb, grads, want, want_g = _stack_bwd_vs_autograd(
+        cuda, emb, flat, dy, 0.2, seed)
+    others = [r for r in range(B) if r != bad]
+    assert bool(torch.isnan(demb[bad]).any())
+    assert (demb[others] - want[others]).abs().max().item() <= 1e-4
+    for g, w in zip(grads, want_g):
+        assert bool(torch.isnan(g).any()) == bool(torch.isnan(w).any())
+    assert any(bool(torch.isnan(g).any()) for g in grads)
+
+    x = torch.from_numpy(rng.normal(size=(B, 23, 64)).astype(
+        np.float32)).to(cuda)
+    x[bad, 7, 1] = float("nan")
+    ws = flat[4:8]
+    dx, lg = attention_layer_bwd(x, dy, *ws, 2, 0, 0.2, seed)
+    want, want_g = attention_layer_bwd_reference(x, dy, *ws, 2, 0, 0.2,
+                                                 seed)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(dx[bad]).any())
+    assert (dx[others] - want[others]).abs().max().item() <= 1e-4
+    for g, w in zip(lg, want_g):
+        assert bool(torch.isnan(g).any()) == bool(torch.isnan(w).any())
+
+
+def test_backward_dropout_mask_across_row_groups(cuda):
+    """Kernel 5's dropout mask read back through dx: with q = k = 0 the
+    softmax is 1/F, the in-projection passes v = x and dx = dv, and dy's
+    channel h*hd of field f is 2**f, so dx's channel h*hd of key field g
+    is c * sum_f keep[h, f, g] * 2**f.  At B=600 (many groups of R rows,
+    several a block) the kernel's mask is the plain hash of the global
+    batch row."""
+    from tpurec_torch.ops.attention import (_sm_count, attention_layer_bwd,
+                                            keep_mask, layer_bwd_config)
+
+    B, F, H, rate = 600, 12, 2, 0.2
+    A = 4 * H
+    hd = A // H
+    R, _, _, grid = layer_bwd_config(B, F, A, H, _sm_count(cuda))
+    assert R > 1 and -(-B // R) > grid
+    w_in = torch.zeros(A, 3 * A)
+    w_in[:, 2 * A:] = torch.eye(A)
+    ws = [w.to(cuda) for w in (w_in, torch.zeros(3 * A), torch.eye(A),
+                               torch.zeros(A))]
+    x = torch.zeros(B, F, A, device=cuda)
+    dy = torch.zeros(B, F, A)
+    for h in range(H):
+        dy[:, :, h * hd] = 2.0 ** torch.arange(F)
+    seed = torch.tensor(4711, device=cuda)
+    dx, _ = attention_layer_bwd(x, dy.to(cuda), *ws, H, 1, rate, seed)
+    c = np.float32(np.float32(1.0) / np.float32(F)) / np.float32(1.0 - rate)
+    ints = torch.round(dx[..., ::hd].double().cpu() / float(c)).long()
+    bits = (ints[..., None] >> torch.arange(F)) & 1        # [B, g, H, f]
+    got = bits.permute(0, 2, 3, 1).bool()                  # [B, H, f, g]
+    assert torch.equal(got, keep_mask(seed.cpu(), B, 1, H, F, rate))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_backward_unstaged_and_one_row_groups(cuda, rate):
+    """A=128: w_in and w_out do not fit beside a group's activations, so
+    kernels 3 and 5 read them from device memory and stack one batch row
+    a group; both against autograd of the plain version."""
+    from tpurec_torch.ops.attention import (_sm_count, attention_layer_bwd,
+                                            attention_layer_bwd_reference,
+                                            bwd_config, layer_bwd_config)
+
+    n_sm = _sm_count(cuda)
+    assert bwd_config(37, 23, 16, 128, 2, n_sm)[:2] == (1, False)
+    assert layer_bwd_config(37, 23, 128, 2, n_sm)[1] is False
+    rng = np.random.default_rng(70)
+    emb, flat = _attn_inputs(rng, cuda, 37, A=128)
+    # weights scaled by sqrt(64 / A): activations and gradients at the
+    # flagship's scale (unscaled, demb reaches about 1.6e3)
+    flat = [w * 0.5 ** 0.5 for w in flat]
+    seed = torch.tensor(53, device=cuda)
+    dy = torch.from_numpy(rng.normal(size=(37, 23, 128)).astype(
+        np.float32)).to(cuda)
+    dy = _away_from_relu_kink(emb, flat, rate, seed, dy)
+    demb, grads, want, want_g = _stack_bwd_vs_autograd(
+        cuda, emb, flat, dy, rate, seed)
+    assert (demb - want).abs().max().item() <= 1e-4
+    for g, w in zip(grads, want_g):
+        assert (g - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
+    x = torch.from_numpy(rng.normal(size=(37, 23, 128)).astype(
+        np.float32)).to(cuda)
+    dx, lg = attention_layer_bwd(x, dy, *flat[4:8], 2, 0, rate, seed)
+    want, want_g = attention_layer_bwd_reference(x, dy, *flat[4:8], 2, 0,
+                                                 rate, seed)
+    torch.cuda.synchronize()
+    assert (dx - want).abs().max().item() <= 1e-4
+    for g, w in zip(lg, want_g):
+        assert (g - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())

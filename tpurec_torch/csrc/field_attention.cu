@@ -63,20 +63,45 @@
 // the three TF32 passes of a k step are issued tile by tile so that no
 // product waits on the one before it.
 
-// Backward design: a block walks the batch rows blockIdx.x, +gridDim.x,
-// ...; for each it holds the row's recomputed qkv, softmax, dropped
-// weights, o and the gradients dx, do, dqkv, ds in shared memory (about
-// 75 KB at the flagship shapes, over the 48 KB default: the launch opts
-// in).  demb is written per row.  The weight gradients are sums over all
-// rows: a block adds its rows' contributions into its own slice of a
-// [grid, n_w] partial buffer in device memory (one thread always owns the
-// same elements, so there are no races; the block's first row writes
-// instead of adding, so nothing needs zeroing), and a second kernel sums
-// the grid slices in a fixed order.  That is deterministic, unlike float
-// atomics, whose order changes from run to run; the partials cost a
-// read-modify-write of the weight gradients (about 210 KB) per row, held
-// in L2 at grid = 2 blocks per SM.
+// Backward design (field_attention_bwd_kernel, kernel 3, and
+// attention_layer_bwd_kernel, kernel 5): the forward's layout run
+// backwards.  A block of 512 threads stacks R batch rows (the wrapper
+// picks R: 2 at the flagship shapes) into M = R*F rows padded to 16, and
+// every projection of the backward is one 3xTF32 tensor-core product over
+// them: the recomputed x @ w_in, the last layer's o @ w_out and emb @
+// w_res (one product over the concatenated [o | emb]), dx @ w_out^T, dqkv
+// @ w_in^T, dx @ w_res^T, dx @ w_emb^T, and the weight gradients o^T @ dx,
+// x^T @ dqkv, emb^T @ dx, whose reduction runs over the M stacked rows.
+// w_in and w_out of a layer are staged in shared memory by cp.async, the
+// next layer's once the current one's are read, so each weight crosses L2
+// once per block of R rows (before, 6 times per row per product).  The
+// attention of one (batch row, head, 16-field tile) is one warp's work:
+// the recomputed softmax with row maxima and sums across the four lanes
+// of a fragment row, kept with its dropout decision in the sign bit (a
+// dropped weight is stored negated, so no buffer of dropped weights is
+// needed); d_adrop = dO_h v_h^T, the mask and the softmax backward in
+// registers, then dq = ds k; dk = ds^T q and dv = adrop^T dO reduce over
+// the query fields, so they take units keyed by key-field tile after a
+// barrier.  Warps the attention leaves idle take the out-projection's
+// weight gradient meanwhile, and the bias gradients are column sums by
+// the warps a phase's products leave without a unit.  Each k step's big
+// and small 3xTF32 passes start from zero and are added in float32, and
+// the backward rounds the low part to TF32 too: the tensor core's own
+// truncated sums, accumulated, flipped ReLU masks and cost demb 1e-4.
+// Shared memory at the flagship shapes and R=2: 225,408 B (220 KB).
+// Shapes whose weights do not fit read them from device memory, or stack
+// one row a group (BwdLayout).
 //
+// The weight gradients are sums over all rows.  The grid is persistent,
+// at most one block per SM; a block walks its groups of R rows and adds
+// each group's contribution into its own slice of a [grid, n_w] partial
+// buffer (one thread always owns the same elements; the block's first
+// group writes instead of adding, so nothing needs zeroing), 27.5 MB for
+// kernel 3 at most, inside the 50 MB L2.  reduce_partials_kernel then sums
+// the slices in a fixed order: deterministic, unlike float atomics.
+// Batch rows never mix outside those sums: rows past the last batch row
+// are zeros, and fields past F read as 0 and are not stored.
+
 // The 16-byte loads need D, A and A/H to be multiples of 4 and 16-byte
 // aligned tensors; the wrapper checks both.
 
@@ -205,82 +230,6 @@ __device__ void dense(const float* x, int M, int K,
   }
 }
 
-// y[m, k] (+)= sum_n x[m, n] * w[k, n] (x @ w^T) for m < M, k < K; x [M, N]
-// in shared memory, w [K, N] in device memory, K and N multiples of 4.
-// A thread owns rows m0..m0+3 by columns k0..k0+3.
-__device__ void dense_t(const float* x, int M, int N,
-                        const float* __restrict__ w, int K, float* y,
-                        bool accumulate) {
-  const int k_groups = K / 4;
-  const int tiles = (M + 3) / 4 * k_groups;
-  for (int i = threadIdx.x; i < tiles; i += blockDim.x) {
-    const int k0 = (i % k_groups) * 4;
-    const int m0 = (i / k_groups) * 4;
-    const float* xr[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) xr[t] = x + min(m0 + t, M - 1) * N;
-    float acc[4][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[t][u] = 0.f;
-    for (int n = 0; n < N; n += 4) {
-      float4 wv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) wv[u] = ldg4(w + (k0 + u) * N + n);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float4 xv = ld4(xr[t] + n);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[t][u] = dot4(xv, wv[u], acc[t][u]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (m0 + t >= M) continue;
-      float* yr = y + (m0 + t) * K + k0;
-      float4 v = make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
-      if (accumulate) v = add4(ld4(yr), v);
-      st4(yr, v);
-    }
-  }
-}
-
-// g[k, n] (+)= sum_m x[m, k] * y[m, n] (x^T @ y) and gb[n] (+)= sum_m
-// y[m, n]; x [M, K] and y [M, N] in shared memory, g [K, N] and gb [N] this
-// block's slices of the partial sums in device memory.  `first` writes
-// instead of adding.  K and N multiples of 4; a thread owns a 4x4 tile.
-__device__ void wgrad(const float* x, const float* y, int M, int K, int N,
-                      float* g, float* gb, bool first) {
-  const int n_groups = N / 4;
-  const int tiles = K / 4 * n_groups;
-  for (int i = threadIdx.x; i < tiles; i += blockDim.x) {
-    const int n0 = (i % n_groups) * 4;
-    const int k0 = (i / n_groups) * 4;
-    float4 acc[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int m = 0; m < M; ++m) {
-      const float4 xv = ld4(x + m * K + k0);
-      const float4 yv = ld4(y + m * N + n0);
-      fma4(acc[0], xv.x, yv);
-      fma4(acc[1], xv.y, yv);
-      fma4(acc[2], xv.z, yv);
-      fma4(acc[3], xv.w, yv);
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      float* p = g + (k0 + t) * N + n0;
-      st4(p, first ? acc[t] : add4(ld4(p), acc[t]));
-    }
-  }
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float s = 0.f;
-    for (int m = 0; m < M; ++m) s += y[m * N + n];
-    gb[n] = first ? s : gb[n] + s;
-  }
-}
-
 // One layer's attention internals from its qkv [F, 3A]: per head h the
 // softmax a [H, F, F] of q_h k_h^T / sqrt(hd), the dropped weights ad
 // (ad may alias a), and o [F, A] = concat_h(ad_h @ v_h).  Ends synced.
@@ -352,8 +301,6 @@ __device__ void attend(const float* qkv, float* a, float* ad, float* o,
   }
   __syncthreads();
 }
-
-__device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
 // -- the stack forward (kernel 2): R batch rows a block ---------------------
 
@@ -848,188 +795,687 @@ struct GradOffsets {
   }
 };
 
-// Floats of shared memory the backward needs per block.
-__host__ __device__ long long bwd_smem_floats(int F, int D, int A, int H) {
-  const long long fd = (F * D + 3) & ~3, fa = (F * A + 3) & ~3;
-  const long long fa3 = (3 * F * A + 3) & ~3, hff = (H * F * F + 3) & ~3;
-  return 2 * fd + 4 * fa + 2 * fa3 + 3 * hff;
+// -- the backward (kernels 3 and 5): R batch rows a block --------------------
+
+// split_tf32 with lo rounded to TF32 as well: the tensor core drops the
+// low 13 bits of an operand, which for an unrounded lo costs up to 2^-21
+// of |x|; rounded, 2^-22, about float32's own rounding of a product.  lo
+// is rounded in floating point (Veltkamp's split by 2^13 + 1), not by the
+// integer add hi uses: that add carries a NaN's payload into the sign and
+// makes it -0, and lo is what carries a NaN (hi's add already lost it)
+__device__ __forceinline__ void split_tf32_rn(float x, uint32_t& hi,
+                                              uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  const float r = x - __uint_as_float(hi);
+  const float c = __fmul_rn(r, 8193.f);
+  lo = __float_as_uint(__fsub_rn(c, __fsub_rn(c, r)));
 }
 
-// One attention layer's backward, in shared memory, for one batch row.  In:
-// dx [F, A], the gradient at the layer's output; the layer's input xin
-// [F, A] and its internals recomputed by dense + attend (qkv [F, 3A],
-// softmax as and dropped weights ad [H, F, F], o [F, A]).  Adds the
-// layer's weight gradients into this block's partial slices g_w_in [A,
-// 3A], g_b_in [3A], g_w_out [A, A], g_b_out [A] (`first` writes instead)
-// and leaves the gradient at the layer's input in dx.  dO [F, A], dqkv
-// [F, 3A] and ds [H, F, F] are scratch.  Starts and ends synced.
-__device__ void layer_backward(const float* xin, const float* qkv,
-                               const float* as, const float* ad,
-                               const float* o, float* dx, float* dO,
-                               float* dqkv, float* ds, int F, int A, int H,
-                               int l, float sqrt_hd, const Dropout& dp,
-                               uint32_t key, const float* __restrict__ w_in,
-                               const float* __restrict__ w_out,
-                               float* g_w_in, float* g_b_in, float* g_w_out,
-                               float* g_b_out, bool first) {
-  const int hd = A / H;
-  const int ld = 3 * A;
+// d = a b: one m16n8k8 TF32 product into a fresh accumulator
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// acc[mt][j] += a_mt b_j: one k step of 3xTF32 products from raw fragments
+// (a: rows g, g + 8 by columns t, t + 4; b_j: rows t, t + 4 by column g of
+// tile j).  The tensor core truncates its sum to the larger addend's
+// precision, so accumulating every pass into acc would lose about 2^-23
+// of |acc| a pass, which the backward's long chains of products turn
+// into ReLU-mask flips and demb errors near 1e-4.  So the step's small
+// passes (a_lo b_hi + a_hi b_lo) and its big one (a_hi b_hi) each start
+// from zero, two independent chains, and are added to acc in float32.
+template <int MT, int NG>
+__device__ __forceinline__ void mma_step(float (&acc)[MT][NG][4],
+                                         const float (&av)[MT][4],
+                                         const float (&bv)[NG][2]) {
+  uint32_t ah[MT][4], al[MT][4], bh[NG][2], bl[NG][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      split_tf32_rn(av[mt][c], ah[mt][c], al[mt][c]);
+#pragma unroll
+  for (int j = 0; j < NG; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) split_tf32_rn(bv[j][c], bh[j][c], bl[j][c]);
+  float sm[MT][NG][4], bg[MT][NG][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      mma_tf32_fresh(sm[mt][j], al[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      mma_tf32_fresh(bg[mt][j], ah[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      mma_tf32(sm[mt][j], ah[mt], bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][j][c] += bg[mt][j][c] + sm[mt][j][c];
+}
+
+// out[m, n] = sum_{k < K} a(m, k) b(k, n) for m < M and n < N (N even),
+// handed over as epi(m, n, out[m, n], out[m, n + 1]).  The operands come
+// from loaders, so one routine serves plain, transposed and concatenated
+// operands in shared or device memory; a loader is called only inside the
+// bounds, and what lies past them reads as 0.  A unit of work is MT m16
+// row tiles by NG n8 column tiles; the warps take the units in turn,
+// starting at warp `first`, so that two products of one phase share the
+// warps out.  The k loop is not unrolled: unrolled, the backward kernels
+// spill.  -> the number of units.
+template <int MT, int NG, typename LA, typename LB, typename Epi>
+__device__ __forceinline__ int mma_gemm(int M, int N, int K, LA la, LB lb,
+                                        Epi epi, int first = 0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
-  // out-projection backward
-  wgrad(o, dx, F, A, A, g_w_out, g_b_out, first);
-  dense_t(dx, F, A, w_out, A, dO, false);
-  __syncthreads();
-  // d_adrop[h, f, g] = do_h[f] . v_h[g]  -> ds
-  const int g_groups = (F + 3) / 4;
-  for (int i = threadIdx.x; i < H * F * g_groups; i += blockDim.x) {
-    const int g0 = (i % g_groups) * 4;
-    const int f = (i / g_groups) % F;
-    const int h = i / (g_groups * F);
-    const float* dor = dO + f * A + h * hd;
-    const float* vr[4];
+  const int g = lane >> 2, t = lane & 3;
+  const int n_groups = ((N + 7) / 8 + NG - 1) / NG;
+  const int units = ((M + 15) / 16 + MT - 1) / MT * n_groups;
+  for (int u = (warp + n_warps - first % n_warps) % n_warps; u < units;
+       u += n_warps) {
+    const int m0 = (u / n_groups) * 16 * MT + g;
+    const int n0 = (u % n_groups) * NG * 8;
+    float acc[MT][NG][4];
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
-      vr[t] = qkv + min(g0 + t, F - 1) * ld + 2 * A + h * hd;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < hd; d += 4) {
-      const float4 dv = ld4(dor + d);
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int t = 0; t < 4; ++t) acc[t] = dot4(dv, ld4(vr[t] + d), acc[t]);
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][j][c] = 0.f;
+#pragma unroll 1
+    for (int k0 = t; k0 < K + t; k0 += 8) {
+      const int k1 = k0 + 4;
+      const bool ok0 = k0 < K, ok1 = k1 < K;
+      float av[MT][4], bv[NG][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r0 = m0 + mt * 16, r1 = r0 + 8;
+        av[mt][0] = ok0 && r0 < M ? la(r0, k0) : 0.f;
+        av[mt][1] = ok0 && r1 < M ? la(r1, k0) : 0.f;
+        av[mt][2] = ok1 && r0 < M ? la(r0, k1) : 0.f;
+        av[mt][3] = ok1 && r1 < M ? la(r1, k1) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const int c = n0 + j * 8 + g;
+        bv[j][0] = ok0 && c < N ? lb(k0, c) : 0.f;
+        bv[j][1] = ok1 && c < N ? lb(k1, c) : 0.f;
+      }
+      mma_step<MT, NG>(acc, av, bv);
     }
-    float* sr = ds + (h * F + f) * F;
+    // d[g][2t, 2t+1] and d[g + 8][2t, 2t+1] of each tile
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
-      if (g0 + t < F) sr[g0 + t] = acc[t];
-  }
-  // d_v[g, c] = sum_f ad[h, f, g] * do[f, c]  -> dqkv[g, 2A + c]
-  for (int i = threadIdx.x; i < F * (A / 4); i += blockDim.x) {
-    const int g = i / (A / 4), c0 = (i % (A / 4)) * 4;
-    const float* p = ad + (c0 / hd) * F * F + g;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int f = 0; f < F; ++f) fma4(acc, p[f * F], ld4(dO + f * A + c0));
-    st4(dqkv + g * ld + 2 * A + c0, acc);
-  }
-  __syncthreads();
-  // d_s = (d_a - sum_g d_a * a) * a / sqrt(hd), d_a = keep ? d_adrop /
-  // (1 - rate) : 0; one warp per (h, f) row
-  for (int r = warp; r < H * F; r += n_warps) {
-    float* dr = ds + r * F;
-    const float* ar = as + r * F;
-    const uint32_t ctr0 = static_cast<uint32_t>((l * H * F + r) * F);
-    float sum = 0.f;
-    for (int g = lane; g < F; g += 32) {
-      float da = dr[g];
-      if (dp.on) da = kept(key, ctr0 + g, dp.thresh) ? da / dp.keep : 0.f;
-      dr[g] = da;
-      sum = fmaf(da, ar[g], sum);
+    for (int j = 0; j < NG; ++j) {
+      const int n = n0 + j * 8 + 2 * t;
+      if (n >= N) continue;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* v = acc[mt][j];
+        const int m = m0 + mt * 16;
+        if (m < M) epi(m, n, v[0], v[1]);
+        if (m + 8 < M) epi(m + 8, n, v[2], v[3]);
+      }
     }
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int g = lane; g < F; g += 32)
-      dr[g] = (dr[g] - sum) * ar[g] / sqrt_hd;
   }
-  __syncthreads();
-  // dq[f, c] = sum_g ds[h, f, g] k[g, c];  dk[g, c] = sum_f ds[h, f, g]
-  // q[f, c]  -> dqkv[:, c] and dqkv[:, A + c]
-  for (int i = threadIdx.x; i < F * (A / 4); i += blockDim.x) {
-    const int f = i / (A / 4), c0 = (i % (A / 4)) * 4;
-    const float* dsh = ds + (c0 / hd) * F * F;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int g = 0; g < F; ++g)
-      fma4(acc, dsh[f * F + g], ld4(qkv + g * ld + A + c0));
-    st4(dqkv + f * ld + c0, acc);
-    acc = make_float4(0.f, 0.f, 0.f, 0.f);   // f plays g here
-    for (int f2 = 0; f2 < F; ++f2)
-      fma4(acc, dsh[f2 * F + f], ld4(qkv + f2 * ld + c0));
-    st4(dqkv + f * ld + A + c0, acc);
-  }
-  __syncthreads();
-  // in-projection backward
-  wgrad(xin, dqkv, F, A, 3 * A, g_w_in, g_b_in, first);
-  dense_t(dqkv, F, 3 * A, w_in, A, dx, false);
-  __syncthreads();
+  return units;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One warp's [16, 32] tile: acc = sum_{k < K} la(i, k) lb(k, j) for the
+// fragment rows i (g, g + 8) and the tile's columns j (0..31); the loaders
+// return 0 past their rows and columns.  acc[0][j][c] is row (c < 2 ? g :
+// g + 8), column 8j + 2t + (c & 1).
+template <typename LA, typename LB>
+__device__ __forceinline__ void warp_tile(float (&acc)[1][4][4], int K, LA la,
+                                          LB lb) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[0][j][c] = 0.f;
+  for (int k0 = t; k0 < K + t; k0 += 8) {
+    const int k1 = k0 + 4;
+    const bool ok0 = k0 < K, ok1 = k1 < K;
+    float av[1][4], bv[4][2];
+    av[0][0] = ok0 ? la(g, k0) : 0.f;
+    av[0][1] = ok0 ? la(g + 8, k0) : 0.f;
+    av[0][2] = ok1 ? la(g, k1) : 0.f;
+    av[0][3] = ok1 ? la(g + 8, k1) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bv[j][0] = ok0 ? lb(k0, j * 8 + g) : 0.f;
+      bv[j][1] = ok1 ? lb(k1, j * 8 + g) : 0.f;
+    }
+    mma_step<1, 4>(acc, av, bv);
+  }
+}
+
+// Calls fn(i, col, j, c) for the positions of a warp_tile fragment that
+// lie inside rows < rows and columns < cols: tile row i and column col,
+// held in acc[0][j][c]
+template <typename Fn>
+__device__ __forceinline__ void for_fragment(int rows, int cols, Fn fn) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = c < 2 ? g : g + 8, col = j * 8 + 2 * t + (c & 1);
+      if (i < rows && col < cols) fn(i, col, j, c);
+    }
+}
+
+// Sum (or max) of v over the four lanes that hold one fragment row
+__device__ __forceinline__ float row_sum4(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float row_max4(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ void st2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// A dropped weight from the softmax kept with its dropout decision in the
+// sign bit (see BwdRows::attend)
+__device__ __forceinline__ float dropped(float p, float inv_keep) {
+  return __float_as_uint(p) >> 31 ? 0.f : p * inv_keep;
+}
+
+// The weight gradient of a projection y = x @ w + b over the block's
+// stacked rows, added into this block's partial slice: g[k, n] (+)= sum_m
+// x[m, k] y[m, n] for k < K, n < N, as an MMA whose reduction runs over
+// the M rows (x read transposed).  x and y rows past the batch rows are
+// zeros.  `first` writes instead of adding.  -> units, as mma_gemm.
+template <int MT, int NG>
+__device__ __forceinline__ int wgrad(const float* x, int ldx, const float* y,
+                                     int ldy, int M, int K, int N, float* g,
+                                     bool first, int first_warp) {
+  return mma_gemm<MT, NG>(
+      K, N, M, [&](int k, int m) { return x[m * ldx + k]; },
+      [&](int m, int n) { return y[m * ldy + n]; },
+      [&](int k, int n, float v0, float v1) {
+        float* p = g + k * N + n;
+        if (!first) {
+          const float2 o = *reinterpret_cast<const float2*>(p);
+          v0 = o.x + v0;
+          v1 = o.y + v1;
+        }
+        st2(p, v0, v1);
+      },
+      first_warp);
+}
+
+// The backward's shared memory, in floats: w_in [A, 3A] and w_out [A, A]
+// staged (with `stage`; else the products read them from device memory),
+// qkv and dqkv [M, 3A], the layer input xin, o, dO and dx [M, A],
+// the softmax with its dropout signs s and the score gradients ds [R*H*F,
+// F], and for the stack (D > 0) emb and demb's residual part [M, D].  M =
+// R*F padded to whole m16 tiles.  Row strides as the forward's.
+constexpr int kBwdRowUnit = 16;
+
+struct BwdLayout {
+  int M, lde, ldx, ldq, lds, lwa, lwb;
+  long long wa_floats, wb_floats, q_floats, x_floats, s_floats, e_floats;
+  __host__ __device__ BwdLayout(int R, int F, int D, int A, int H,
+                                bool stage) {
+    M = (R * F + kBwdRowUnit - 1) / kBwdRowUnit * kBwdRowUnit;
+    lde = fwd_stride(D);
+    ldx = fwd_stride(A);
+    ldq = fwd_stride(3 * A);
+    lds = fwd_stride(F);
+    lwa = fwd_wstride(3 * A);
+    lwb = fwd_wstride(A);
+    wa_floats = stage ? static_cast<long long>(A) * lwa : 0;
+    wb_floats = stage ? static_cast<long long>(A) * lwb : 0;
+    q_floats = static_cast<long long>(M) * ldq;
+    x_floats = static_cast<long long>(M) * ldx;
+    s_floats = static_cast<long long>(R) * H * F * lds;
+    e_floats = D > 0 ? static_cast<long long>(M) * lde : 0;
+  }
+  __host__ __device__ long long bytes() const {
+    return 4 * (wa_floats + wb_floats + 2 * q_floats + 4 * x_floats +
+                2 * s_floats + 2 * e_floats);
+  }
+};
+
+// The bias gradient beside a weight gradient: gb[n] (+)= sum_{m < rows}
+// y[m, n] for n < N, one thread a column in a fixed order.  The threads
+// are counted from warp `first_warp` on, the first that the phase's
+// products left without a unit, so that idle warps take the sums.
+// `first` writes instead of adding.
+__device__ __forceinline__ void col_sums(const float* y, int ldy, int rows,
+                                         int N, float* gb, bool first,
+                                         int first_warp) {
+  const int n_threads = blockDim.x;
+  const int i = (threadIdx.x + n_threads -
+                 32 * (first_warp % (n_threads >> 5))) % n_threads;
+  for (int n = i; n < N; n += n_threads) {
+    float s = 0.f;
+    for (int m = 0; m < rows; ++m) s += y[m * ldy + n];
+    gb[n] = first ? s : gb[n] + s;
+  }
+}
+
+// One backward block's buffers in shared memory and its current group of
+// R batch rows (from row0; n_real stacked rows of them lie before B).
+struct BwdRows {
+  float *wa, *wb, *qkv, *dqkv, *xin, *o, *dO, *dx, *s, *ds, *e, *de;
+  int M, lde, ldx, ldq, lds, lwa, lwb;
+  int R, F, A, H, n_real;
+  long long row0;
+
+  __device__ BwdRows(float4* smem, int R_, int F_, int D, int A_, int H_,
+                     bool stage)
+      : R(R_), F(F_), A(A_), H(H_), n_real(0), row0(0) {
+    const BwdLayout lay(R, F, D, A, H, stage);
+    M = lay.M;
+    lde = lay.lde;
+    ldx = lay.ldx;
+    ldq = lay.ldq;
+    lds = lay.lds;
+    lwa = lay.lwa;
+    lwb = lay.lwb;
+    wa = reinterpret_cast<float*>(smem);
+    wb = wa + lay.wa_floats;
+    qkv = wb + lay.wb_floats;
+    dqkv = qkv + lay.q_floats;
+    xin = dqkv + lay.q_floats;
+    o = xin + lay.x_floats;
+    dO = o + lay.x_floats;
+    dx = dO + lay.x_floats;
+    s = dx + lay.x_floats;
+    ds = s + lay.s_floats;
+    e = ds + lay.s_floats;
+    de = e + lay.e_floats;
+    // rows R*F.. of o and dqkv: written by no attention unit, zero for
+    // good
+    const int tail = (M - R * F) * ldx, tailq = (M - R * F) * ldq;
+    for (int i = threadIdx.x; i < tailq; i += blockDim.x) {
+      if (i < tail) o[R * F * ldx + i] = 0.f;
+      dqkv[R * F * ldq + i] = 0.f;
+    }
+  }
+
+  // Starts group `grp`: its first batch row and its stacked rows before B
+  __device__ void start(long long grp, int B) {
+    row0 = grp * R;
+    n_real = static_cast<int>(min(static_cast<long long>(R), B - row0)) * F;
+  }
+
+  // dst [M, ld] = this group's rows of src [., width], zeros past B, by
+  // cp.async (a zero-filled copy past B), committed as one group: the
+  // caller's wait_staged<0> and barrier make it visible
+  __device__ void load(float* dst, int ld, const float* __restrict__ src,
+                       int width) const {
+    const int wq = width / 4;
+    const float* base = src + row0 * F * width;
+    for (int i = threadIdx.x; i < M * wq; i += blockDim.x) {
+      const int m = i / wq, c = (i - m * wq) * 4;
+      const unsigned d = static_cast<unsigned>(
+          __cvta_generic_to_shared(dst + m * ld + c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                   "l"(m < n_real ? base + static_cast<long long>(m) * width + c
+                                  : src),
+                   "r"(m < n_real ? 16 : 0)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  // The layer's internals from xin: qkv = xin @ w_in + b_in, then attend.
+  // Starts and ends synced.
+  __device__ void recompute(const float* w_in, int lw,
+                            const float* __restrict__ b_in, int l,
+                            float sqrt_hd, const Dropout& dp) const {
+    mma_gemm<3, 2>(
+        M, 3 * A, A, [&](int m, int k) { return xin[m * ldx + k]; },
+        [&](int k, int n) { return w_in[k * lw + n]; },
+        [&](int m, int n, float v0, float v1) {
+          st2(qkv + m * ldq + n, v0 + __ldg(b_in + n),
+              v1 + __ldg(b_in + n + 1));
+        });
+    __syncthreads();
+    attend(l, sqrt_hd, dp);
+  }
+
+  // The attention of one (batch row r, head h, 16 fields f) per warp: the
+  // scores q_h[f] k_h^T / sqrt(hd) into s, their softmax over the row (the
+  // row maximum subtracted; maxima and sums across the four lanes of a
+  // row), kept in s with each dropped weight negated (its sign bit is the
+  // dropout decision, -0 for a dropped 0), then o_h[f] = adrop_h[f] @ v_h.
+  // Ends synced.
+  __device__ void attend(int l, float sqrt_hd, const Dropout& dp) const {
+    const int hd = A / H;
+    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const int f_tiles = (F + 15) / 16;
+    const float inv_sqrt_hd = 1.f / sqrt_hd, inv_keep = 1.f / dp.keep;
+    for (int u = warp; u < R * H * f_tiles; u += n_warps) {
+      const int rh = u / f_tiles, r = rh / H, h = rh - r * H;
+      const int ft = (u - rh * f_tiles) * 16, rows = min(16, F - ft);
+      const float* q = qkv + (r * F + ft) * ldq + h * hd;
+      const float* k = qkv + r * F * ldq + A + h * hd;
+      const float* v = k + A;
+      float* p = s + (rh * F + ft) * lds;
+      float mx[2] = {-INFINITY, -INFINITY};
+      for (int n0 = 0; n0 < F; n0 += 32) {
+        float acc[1][4][4];
+        warp_tile(
+            acc, hd, [&](int i, int d) { return i < rows ? q[i * ldq + d] : 0.f; },
+            [&](int d, int j) {
+              return n0 + j < F ? k[(n0 + j) * ldq + d] : 0.f;
+            });
+        for_fragment(rows, F - n0, [&](int i, int col, int j, int c) {
+          const float x = acc[0][j][c] * inv_sqrt_hd;
+          p[i * lds + n0 + col] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        });
+      }
+      mx[0] = row_max4(mx[0]);
+      mx[1] = row_max4(mx[1]);
+      float sum[2] = {0.f, 0.f};
+      for (int n0 = 0; n0 < F; n0 += 32)
+        for_fragment(rows, F - n0, [&](int i, int col, int, int c) {
+          float* x = p + i * lds + n0 + col;
+          *x = expf(*x - mx[c >> 1]);
+          sum[c >> 1] += *x;
+        });
+      const float inv_sum[2] = {1.f / row_sum4(sum[0]),
+                                1.f / row_sum4(sum[1])};
+      const uint32_t key = row_key(dp, row0 + r);
+      for (int n0 = 0; n0 < F; n0 += 32)
+        for_fragment(rows, F - n0, [&](int i, int col, int, int c) {
+          float* x = p + i * lds + n0 + col;
+          const float pv = *x * inv_sum[c >> 1];
+          const uint32_t ctr = static_cast<uint32_t>(
+              ((l * H + h) * F + ft + i) * F + n0 + col);
+          *x = dp.on && !kept(key, ctr, dp.thresh) ? -pv : pv;
+        });
+      __syncwarp();
+      float* ob = o + (r * F + ft) * ldx + h * hd;
+      for (int n0 = 0; n0 < hd; n0 += 32) {
+        float acc[1][4][4];
+        warp_tile(
+            acc, F,
+            [&](int i, int gk) {
+              return i < rows ? dropped(p[i * lds + gk], inv_keep) : 0.f;
+            },
+            [&](int gk, int j) {
+              return n0 + j < hd ? v[gk * ldq + n0 + j] : 0.f;
+            });
+        for_fragment(rows, hd - n0, [&](int i, int col, int j, int c) {
+          ob[i * ldx + n0 + col] = acc[0][j][c];
+        });
+      }
+    }
+    __syncthreads();
+  }
+
+  // The attention backward by query tile: for one (batch row, head, 16
+  // fields f) a warp takes d_adrop = dO_h v_h^T, d_a = keep ? d_adrop /
+  // (1 - rate) : 0 into ds with its row sums sum_g d_a * a, ds = (d_a -
+  // row sum) * a / sqrt(hd) in place, then dq = ds k into dqkv.  -> the
+  // number of units.
+  __device__ int attn_bwd_queries(float sqrt_hd, const Dropout& dp) const {
+    const int hd = A / H;
+    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const int f_tiles = (F + 15) / 16;
+    const float inv_sqrt_hd = 1.f / sqrt_hd, inv_keep = 1.f / dp.keep;
+    for (int u = warp; u < R * H * f_tiles; u += n_warps) {
+      const int rh = u / f_tiles, r = rh / H, h = rh - r * H;
+      const int ft = (u - rh * f_tiles) * 16, rows = min(16, F - ft);
+      const float* dOh = dO + (r * F + ft) * ldx + h * hd;
+      const float* k = qkv + r * F * ldq + A + h * hd;
+      const float* v = k + A;
+      const float* p = s + (rh * F + ft) * lds;
+      float* d = ds + (rh * F + ft) * lds;
+      float sum[2] = {0.f, 0.f};
+      for (int n0 = 0; n0 < F; n0 += 32) {
+        float acc[1][4][4];
+        warp_tile(
+            acc, hd, [&](int i, int c) { return i < rows ? dOh[i * ldx + c] : 0.f; },
+            [&](int c, int j) {
+              return n0 + j < F ? v[(n0 + j) * ldq + c] : 0.f;
+            });
+        for_fragment(rows, F - n0, [&](int i, int col, int j, int c) {
+          const float pv = p[i * lds + n0 + col];
+          const float da = __float_as_uint(pv) >> 31 ? 0.f
+                                                      : acc[0][j][c] * inv_keep;
+          d[i * lds + n0 + col] = da;
+          sum[c >> 1] = fmaf(da, fabsf(pv), sum[c >> 1]);
+        });
+      }
+      sum[0] = row_sum4(sum[0]);
+      sum[1] = row_sum4(sum[1]);
+      for (int n0 = 0; n0 < F; n0 += 32)
+        for_fragment(rows, F - n0, [&](int i, int col, int, int c) {
+          float* x = d + i * lds + n0 + col;
+          *x = (*x - sum[c >> 1]) * fabsf(p[i * lds + n0 + col]) * inv_sqrt_hd;
+        });
+      __syncwarp();
+      float* dq = dqkv + (r * F + ft) * ldq + h * hd;
+      for (int n0 = 0; n0 < hd; n0 += 32) {
+        float acc[1][4][4];
+        warp_tile(
+            acc, F, [&](int i, int gk) { return i < rows ? d[i * lds + gk] : 0.f; },
+            [&](int gk, int j) {
+              return n0 + j < hd ? k[gk * ldq + n0 + j] : 0.f;
+            });
+        for_fragment(rows, hd - n0, [&](int i, int col, int j, int c) {
+          dq[i * ldq + n0 + col] = acc[0][j][c];
+        });
+      }
+    }
+    return R * H * f_tiles;
+  }
+
+  // The attention backward by key tile: for one (batch row, head, 16
+  // fields gk) a warp takes dk = ds^T q or (the next unit) dv = adrop^T
+  // dO, each a sum over the query fields, into dqkv.
+  __device__ void attn_bwd_keys(const Dropout& dp) const {
+    const int hd = A / H;
+    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const int f_tiles = (F + 15) / 16;
+    const float inv_keep = 1.f / dp.keep;
+    for (int u = warp; u < 2 * R * H * f_tiles; u += n_warps) {
+      const bool dv = u & 1;
+      const int w = u >> 1, rh = w / f_tiles, r = rh / H, h = rh - r * H;
+      const int gt = (w - rh * f_tiles) * 16, rows = min(16, F - gt);
+      // A [gk, f]: ds or the dropped weights, read transposed
+      const float* at = (dv ? s : ds) + rh * F * lds + gt;
+      const float* b = dv ? dO + r * F * ldx + h * hd
+                          : qkv + r * F * ldq + h * hd;
+      const int ldb = dv ? ldx : ldq;
+      float* out = dqkv + (r * F + gt) * ldq + (dv ? 2 * A : A) + h * hd;
+      for (int n0 = 0; n0 < hd; n0 += 32) {
+        float acc[1][4][4];
+        warp_tile(
+            acc, F,
+            [&](int i, int f) {
+              if (i >= rows) return 0.f;
+              const float x = at[f * lds + i];
+              return dv ? dropped(x, inv_keep) : x;
+            },
+            [&](int f, int j) {
+              return n0 + j < hd ? b[f * ldb + n0 + j] : 0.f;
+            });
+        for_fragment(rows, hd - n0, [&](int i, int col, int j, int c) {
+          out[i * ldq + n0 + col] = acc[0][j][c];
+        });
+      }
+    }
+  }
+
+  // One layer's backward from dx (the gradient at its output) and its
+  // recomputed internals: dO = dx @ w_out^T; the attention backward into
+  // dqkv, its query units on the first warps while the others take the
+  // out-projection's weight gradients (and extra_a(units), a product of
+  // the caller's); the in-projection's weight gradients and dqkv @ w_in^T
+  // handed to dx_epi.  The next weights (null: none) are staged once the
+  // current ones are read.  Starts and ends synced.
+  template <typename ExtraA, typename DxEpi>
+  __device__ void layer(const float* w_in, int lwi, const float* w_out,
+                        int lwo, float sqrt_hd, const Dropout& dp,
+                        float* g_w_in, float* g_b_in, float* g_w_out,
+                        float* g_b_out, bool first,
+                        const float* __restrict__ next_w_in,
+                        const float* __restrict__ next_w_out, ExtraA extra_a,
+                        DxEpi dx_epi) const {
+    col_sums(dx, ldx, n_real, A, g_b_out, first,
+             mma_gemm<1, 2>(
+                 M, A, A, [&](int m, int k) { return dx[m * ldx + k]; },
+                 [&](int k, int n) { return w_out[n * lwo + k]; },
+                 [&](int m, int n, float v0, float v1) {
+                   st2(dO + m * ldx + n, v0, v1);
+                 }));
+    __syncthreads();
+    if (next_w_out != nullptr) stage_weight(wb, lwb, next_w_out, A, A);
+    const int q_units = attn_bwd_queries(sqrt_hd, dp);
+    extra_a(wgrad<1, 2>(o, ldx, dx, ldx, M, A, A, g_w_out, first, q_units) +
+            q_units);
+    __syncthreads();
+    attn_bwd_keys(dp);
+    __syncthreads();
+    int u = wgrad<1, 4>(xin, ldx, dqkv, ldq, M, A, 3 * A, g_w_in, first, 0);
+    u += mma_gemm<1, 2>(
+        M, A, 3 * A, [&](int m, int k) { return dqkv[m * ldq + k]; },
+        [&](int k, int n) { return w_in[n * lwi + k]; }, dx_epi, u);
+    col_sums(dqkv, ldq, n_real, 3 * A, g_b_in, first, u);
+    __syncthreads();
+    if (next_w_in != nullptr) stage_weight(wa, lwa, next_w_in, A, 3 * A);
+  }
+};
+
+// Kernel 3.  A persistent grid: block b takes the groups of R batch rows
+// b, b + gridDim.x, ...  Per group: the last layer recomputed from its
+// saved input, the ReLU's mask from the recomputed output (dx = dy where
+// it passed), then layer by layer backwards (each layer's internals
+// recomputed from its saved input), the residual's and the embedding
+// projection's gradients, and demb written per row.  The weight gradients
+// go into the block's slice of partial [grid, n_w].  kStage: w_in and
+// w_out staged in shared memory, else read from device memory.
+template <bool kStage>
+__global__ void __launch_bounds__(kFwdThreads, 1)
     field_attention_bwd_kernel(const float* __restrict__ emb,
                                const float* __restrict__ dy,
                                const float* __restrict__ saved, Weights w,
-                               int B, int F, int D, int A, int H, int L,
+                               int B, int R, int F, int D, int A, int H, int L,
                                float sqrt_hd, Dropout dp,
                                float* __restrict__ demb,
                                float* __restrict__ partial, long long n_w) {
   extern __shared__ float4 smem4[];
+  BwdRows b(smem4, R, F, D, A, H, kStage);
   const bool res = w.w_res != nullptr;
-  float* e = reinterpret_cast<float*>(smem4);   // [F, D] this row's emb
-  float* de = e + pad4(F * D);                  // [F, D] its gradient
-  float* xin = de + pad4(F * D);                // [F, A] layer input
-  float* o = xin + pad4(F * A);                 // [F, A] attention out
-  float* dx = o + pad4(F * A);                  // [F, A] grad at layer out
-  float* dO = dx + pad4(F * A);                 // [F, A] grad at o
-  float* qkv = dO + pad4(F * A);                // [F, 3A]
-  float* dqkv = qkv + pad4(3 * F * A);          // [F, 3A]
-  float* as = dqkv + pad4(3 * F * A);           // [H, F, F] softmax
-  float* ad = as + pad4(H * F * F);             // [H, F, F] after dropout
-  float* ds = ad + pad4(H * F * F);             // [H, F, F] score grads
-  const long long FA = static_cast<long long>(F) * A;
   const GradOffsets go(D, A, res);
   float* part = partial + blockIdx.x * n_w;
-
-  for (long long row = blockIdx.x; row < B; row += gridDim.x) {
-    const bool first = row == blockIdx.x;
-    const uint32_t key = row_key(dp, row);
-    for (int i = threadIdx.x; i < F * D; i += blockDim.x)
-      e[i] = emb[row * F * D + i];
-    const float* sv = saved + ((L - 1) * static_cast<long long>(B) + row) * FA;
-    for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x)
-      st4(xin + 4 * i, ld4(sv + 4 * i));
-    __syncthreads();
-
-    // the last layer's output, for the ReLU's mask (its internals stay
-    // for the first step of the layer loop)
-    dense(xin, F, A, w.w_in[L - 1], w.b_in[L - 1], 3 * A, qkv);
-    __syncthreads();
-    attend(qkv, as, ad, o, F, A, H, L - 1, sqrt_hd, dp, key);
-    dense(o, F, A, w.w_out[L - 1], w.b_out[L - 1], A, dO);
-    if (res) dense(e, F, D, w.w_res, w.b_res, A, dx);
-    __syncthreads();
-    // dz = dy where x_out + res > 0, else 0 (torch.relu's backward)
-    for (int i = threadIdx.x; i < F * A; i += blockDim.x) {
-      const float z = res ? dO[i] + dx[i] : dO[i];
-      dx[i] = z > 0.f ? dy[row * FA + i] : 0.f;
-    }
-    __syncthreads();
-    if (res) {
-      wgrad(e, dx, F, D, A, part + go.w_res, part + go.b_res, first);
-      dense_t(dx, F, A, w.w_res, D, de, false);
-    } else {
-      for (int i = threadIdx.x; i < F * D; i += blockDim.x) de[i] = 0.f;
-    }
-    __syncthreads();
-
+  const long long groups = (B + R - 1) / R;
+  const long long FA = static_cast<long long>(F) * A;
+  if (kStage) {
+    stage_weight(b.wa, b.lwa, w.w_in[L - 1], A, 3 * A);
+    stage_weight(b.wb, b.lwb, w.w_out[L - 1], A, A);
+  }
+  const int lwi = kStage ? b.lwa : 3 * A, lwo = kStage ? b.lwb : A;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const bool first = grp == blockIdx.x;
+    const bool more = grp + gridDim.x < groups;
+    b.start(grp, B);
+    b.load(b.e, b.lde, emb, D);
+    b.load(b.dx, b.ldx, dy, A);
     for (int l = L - 1; l >= 0; --l) {
-      if (l != L - 1) {
-        sv = saved + (l * static_cast<long long>(B) + row) * FA;
-        for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x)
-          st4(xin + 4 * i, ld4(sv + 4 * i));
+      b.load(b.xin, b.ldx, saved + static_cast<long long>(l) * B * FA, A);
+      wait_staged<0>();
+      __syncthreads();
+      const float* w_in = kStage ? b.wa : w.w_in[l];
+      const float* w_out = kStage ? b.wb : w.w_out[l];
+      b.recompute(w_in, lwi, w.b_in[l], l, sqrt_hd, dp);
+      const bool last = l == L - 1;
+      if (last) {
+        // z = o @ w_out + emb @ w_res + (b_out + b_res), one product over
+        // [o | emb]; dx = dy where z > 0, else 0 (torch.relu's backward)
+        const float* b_out = w.b_out[l];
+        mma_gemm<1, 2>(
+            b.M, A, A + (res ? D : 0),
+            [&](int m, int k) {
+              return k < A ? b.o[m * b.ldx + k] : b.e[m * b.lde + k - A];
+            },
+            [&](int k, int n) {
+              return k < A ? w_out[k * lwo + n]
+                           : __ldg(w.w_res + (k - A) * A + n);
+            },
+            [&](int m, int n, float v0, float v1) {
+              float z0 = v0 + __ldg(b_out + n), z1 = v1 + __ldg(b_out + n + 1);
+              if (res) {
+                z0 += __ldg(w.b_res + n);
+                z1 += __ldg(w.b_res + n + 1);
+              }
+              float* p = b.dx + m * b.ldx + n;
+              st2(p, z0 > 0.f ? p[0] : 0.f, z1 > 0.f ? p[1] : 0.f);
+            });
         __syncthreads();
-        dense(xin, F, A, w.w_in[l], w.b_in[l], 3 * A, qkv);
-        __syncthreads();
-        attend(qkv, as, ad, o, F, A, H, l, sqrt_hd, dp, key);
       }
-      layer_backward(xin, qkv, as, ad, o, dx, dO, dqkv, ds, F, A, H, l,
-                     sqrt_hd, dp, key, w.w_in[l], w.w_out[l],
-                     part + go.w_in(l, A), part + go.b_in(l, A),
-                     part + go.w_out(l, A), part + go.b_out(l, A), first);
+      const int nl = l > 0 ? l - 1 : L - 1;
+      const bool next = kStage && (l > 0 || more);
+      b.layer(
+          w_in, lwi, w_out, lwo, sqrt_hd, dp, part + go.w_in(l, A),
+          part + go.b_in(l, A), part + go.w_out(l, A), part + go.b_out(l, A),
+          first, next ? w.w_in[nl] : nullptr, next ? w.w_out[nl] : nullptr,
+          [&](int u) {
+            if (!(last && res)) return;
+            // the residual: its weight gradients and dz @ w_res^T
+            u += wgrad<1, 2>(b.e, b.lde, b.dx, b.ldx, b.M, D, A,
+                             part + go.w_res, first, u);
+            u += mma_gemm<1, 2>(
+                b.M, D, A, [&](int m, int k) { return b.dx[m * b.ldx + k]; },
+                [&](int k, int n) { return __ldg(w.w_res + n * A + k); },
+                [&](int m, int n, float v0, float v1) {
+                  st2(b.de + m * b.lde + n, v0, v1);
+                },
+                u);
+            col_sums(b.dx, b.ldx, b.n_real, A, part + go.b_res, first, u);
+          },
+          [&](int m, int n, float v0, float v1) {
+            st2(b.dx + m * b.ldx + n, v0, v1);
+          });
     }
-
-    // embedding projection backward
-    wgrad(e, dx, F, D, A, part + go.w_emb, part + go.b_emb, first);
-    dense_t(dx, F, A, w.w_emb, D, de, true);
-    __syncthreads();
-    for (int i = threadIdx.x; i < F * D; i += blockDim.x)
-      demb[row * F * D + i] = de[i];
+    // the embedding projection: its weight gradients, demb = (dz @
+    // w_res^T) + dx @ w_emb^T
+    int u = wgrad<1, 2>(b.e, b.lde, b.dx, b.ldx, b.M, D, A, part + go.w_emb,
+                        first, 0);
+    float* de_out = demb + b.row0 * F * D;
+    u += mma_gemm<1, 2>(
+        b.M, D, A, [&](int m, int k) { return b.dx[m * b.ldx + k]; },
+        [&](int k, int n) { return __ldg(w.w_emb + n * A + k); },
+        [&](int m, int n, float v0, float v1) {
+          if (m >= b.n_real) return;
+          if (res) {
+            const float2 r =
+                *reinterpret_cast<const float2*>(b.de + m * b.lde + n);
+            v0 = r.x + v0;
+            v1 = r.y + v1;
+          }
+          st2(de_out + static_cast<long long>(m) * D + n, v0, v1);
+        },
+        u);
+    col_sums(b.dx, b.ldx, b.n_real, A, part + go.b_emb, first, u);
     __syncthreads();
   }
 }
@@ -1078,13 +1524,6 @@ struct LayerGradOffsets {
   }
 };
 
-// Floats of shared memory the layer backward needs per block.
-__host__ __device__ long long layer_bwd_smem_floats(int F, int A, int H) {
-  const long long fa = (F * A + 3) & ~3, fa3 = (3 * F * A + 3) & ~3;
-  const long long hff = (H * F * F + 3) & ~3;
-  return 4 * fa + 2 * fa3 + 3 * hff;
-}
-
 // One block per batch row: x, qkv, scores and o in shared memory, y
 // written straight from the out-projection.  64 registers at most, as the
 // stack forward.
@@ -1113,51 +1552,50 @@ __global__ void __launch_bounds__(kThreads, 4)
   dense(o, F, A, w_out, b_out, A, y + row * FA);
 }
 
-// A block walks the rows blockIdx.x, +gridDim.x, ...: recomputes the
-// layer from x (qkv, softmax, dropped weights, o), then layer_backward
-// from dy; dx is written per row, the weight gradients into the block's
-// slice of partial [grid, n_w].
-__global__ void __launch_bounds__(kThreads)
+// Kernel 5: the backward's layout for one layer.  A persistent grid: block
+// b takes the groups of R batch rows b, b + gridDim.x, ...; per group it
+// recomputes the layer from x and runs BwdRows::layer from dy; dx is
+// written per row, the weight gradients into the block's slice of partial
+// [grid, n_w].  kStage as kernel 3's.
+template <bool kStage>
+__global__ void __launch_bounds__(kFwdThreads, 1)
     attention_layer_bwd_kernel(const float* __restrict__ x,
                                const float* __restrict__ dy,
                                const float* __restrict__ w_in,
                                const float* __restrict__ b_in,
-                               const float* __restrict__ w_out,
-                               int B, int F, int A, int H, int layer,
-                               float sqrt_hd, Dropout dp,
-                               float* __restrict__ dx_out,
+                               const float* __restrict__ w_out, int B, int R,
+                               int F, int A, int H, int layer, float sqrt_hd,
+                               Dropout dp, float* __restrict__ dx_out,
                                float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
-  float* xin = reinterpret_cast<float*>(smem4);  // [F, A] layer input
-  float* o = xin + pad4(F * A);                   // [F, A] attention out
-  float* dx = o + pad4(F * A);                    // [F, A] dy, then dx
-  float* dO = dx + pad4(F * A);                   // [F, A] grad at o
-  float* qkv = dO + pad4(F * A);                  // [F, 3A]
-  float* dqkv = qkv + pad4(3 * F * A);            // [F, 3A]
-  float* as = dqkv + pad4(3 * F * A);             // [H, F, F] softmax
-  float* ad = as + pad4(H * F * F);               // [H, F, F] after dropout
-  float* ds = ad + pad4(H * F * F);               // [H, F, F] score grads
-  const long long FA = static_cast<long long>(F) * A;
+  BwdRows b(smem4, R, F, 0, A, H, kStage);
   const LayerGradOffsets go(A);
   float* part = partial + blockIdx.x * go.size;
-
-  for (long long row = blockIdx.x; row < B; row += gridDim.x) {
-    const bool first = row == blockIdx.x;
-    const uint32_t key = row_key(dp, row);
-    for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x) {
-      st4(xin + 4 * i, ld4(x + row * FA + 4 * i));
-      st4(dx + 4 * i, ld4(dy + row * FA + 4 * i));
-    }
+  const long long groups = (B + R - 1) / R;
+  if (kStage) {
+    stage_weight(b.wa, b.lwa, w_in, A, 3 * A);
+    stage_weight(b.wb, b.lwb, w_out, A, A);
+  }
+  const float* wi = kStage ? b.wa : w_in;
+  const float* wo = kStage ? b.wb : w_out;
+  const int lwi = kStage ? b.lwa : 3 * A, lwo = kStage ? b.lwb : A;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const bool first = grp == blockIdx.x;
+    const bool next = kStage && grp + gridDim.x < groups;
+    b.start(grp, B);
+    b.load(b.xin, b.ldx, x, A);
+    b.load(b.dx, b.ldx, dy, A);
+    wait_staged<0>();
     __syncthreads();
-    dense(xin, F, A, w_in, b_in, 3 * A, qkv);
-    __syncthreads();
-    attend(qkv, as, ad, o, F, A, H, layer, sqrt_hd, dp, key);
-    layer_backward(xin, qkv, as, ad, o, dx, dO, dqkv, ds, F, A, H, layer,
-                   sqrt_hd, dp, key, w_in, w_out, part + go.w_in,
-                   part + go.b_in, part + go.w_out, part + go.b_out, first);
-    for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x)
-      st4(dx_out + row * FA + 4 * i, ld4(dx + 4 * i));
-    __syncthreads();
+    b.recompute(wi, lwi, b_in, layer, sqrt_hd, dp);
+    float* out = dx_out + b.row0 * F * A;
+    b.layer(wi, lwi, wo, lwo, sqrt_hd, dp, part + go.w_in, part + go.b_in,
+            part + go.w_out, part + go.b_out, first,
+            next ? w_in : nullptr, next ? w_out : nullptr, [](int) {},
+            [&](int m, int n, float v0, float v1) {
+              if (m < b.n_real)
+                st2(out + static_cast<long long>(m) * A + n, v0, v1);
+            });
   }
 }
 
@@ -1205,10 +1643,12 @@ extern "C" long long tpurec_field_attention_smem_bytes(int R, int F, int D,
   return FwdLayout(R, F, D, A, H, stage != 0).bytes();
 }
 
-// Shared memory one backward block needs, in bytes.
-extern "C" long long tpurec_field_attention_bwd_smem_bytes(int F, int D,
-                                                           int A, int H) {
-  return sizeof(float) * bwd_smem_floats(F, D, A, H);
+// Shared memory one backward block of R batch rows needs, in bytes
+// (stage: with the weight buffers).
+extern "C" long long tpurec_field_attention_bwd_smem_bytes(int R, int F,
+                                                           int D, int A,
+                                                           int H, int stage) {
+  return BwdLayout(R, F, D, A, H, stage != 0).bytes();
 }
 
 // weights: host array of 4 + 4*L device pointers in the Pallas kernel's
@@ -1245,28 +1685,33 @@ extern "C" int tpurec_field_attention_fwd(
 // The backward: dy [B, F, A] -> demb [B, F, D] and the weight gradients,
 // flat in the weights' order, into wgrad [n_w].  saved [L, B, F, A] are
 // the forward's layer inputs; seed/thresh/keep/dropout as in the forward.
-// partial is [grid, n_w] scratch, grid <= B blocks.
+// R batch rows go to a block (stage: weights staged in shared memory);
+// partial is [grid, n_w] scratch, grid <= the B / R groups of rows.
 extern "C" int tpurec_field_attention_bwd(
     const float* emb, const float* dy, const float* saved,
-    const float* const* weights, int B, int F, int D, int A, int H, int L,
-    const long long* seed, unsigned thresh, float keep, int dropout,
-    int grid, float* demb, float* partial, float* wgrad, void* stream) {
-  if (bad_shape(L, H, D, A) || (dropout && seed == nullptr) || grid < 1 ||
-      grid > B)
+    const float* const* weights, int B, int R, int stage, int F, int D,
+    int A, int H, int L, const long long* seed, unsigned thresh, float keep,
+    int dropout, int grid, float* demb, float* partial, float* wgrad,
+    void* stream) {
+  if (bad_shape(L, H, D, A) || R < 1 || (dropout && seed == nullptr) ||
+      grid < 1 || grid > (B + R - 1) / R)
     return static_cast<int>(cudaErrorInvalidValue);
   const Weights w = unpack(weights, L);
   const long long n_w = GradOffsets(D, A, w.w_res != nullptr).size(L);
-  const long long smem = tpurec_field_attention_bwd_smem_bytes(F, D, A, H);
+  const long long smem =
+      tpurec_field_attention_bwd_smem_bytes(R, F, D, A, H, stage);
+  auto kernel = stage ? field_attention_bwd_kernel<true>
+                      : field_attention_bwd_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        field_attention_bwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float sqrt_hd = sqrtf(static_cast<float>(A / H));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  field_attention_bwd_kernel<<<grid, kThreads, smem, s>>>(
-      emb, dy, saved, w, B, F, D, A, H, L, sqrt_hd,
+  kernel<<<grid, kFwdThreads, smem, s>>>(
+      emb, dy, saved, w, B, R, F, D, A, H, L, sqrt_hd,
       make_dropout(seed, thresh, keep, dropout), demb, partial, n_w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1280,10 +1725,11 @@ extern "C" long long tpurec_attention_layer_smem_bytes(int F, int A, int H) {
   return sizeof(float) * (5LL * F * A + 1LL * H * F * F);
 }
 
-// Shared memory one layer-backward block needs, in bytes.
-extern "C" long long tpurec_attention_layer_bwd_smem_bytes(int F, int A,
-                                                           int H) {
-  return sizeof(float) * layer_bwd_smem_floats(F, A, H);
+// Shared memory one layer-backward block of R batch rows needs, in bytes.
+extern "C" long long tpurec_attention_layer_bwd_smem_bytes(int R, int F,
+                                                           int A, int H,
+                                                           int stage) {
+  return BwdLayout(R, F, 0, A, H, stage != 0).bytes();
 }
 
 // Kernel 4: one attention layer, x [B, F, A] -> y [B, F, A].  weights: host
@@ -1314,28 +1760,32 @@ extern "C" int tpurec_attention_layer_fwd(
 
 // Kernel 5: its backward, dy [B, F, A] -> dx [B, F, A] and the layer's
 // weight gradients flat [w_in, b_in, w_out, b_out] into wgrad, recomputing
-// the layer from its input x.  partial is [grid, n_w] scratch, grid <= B.
+// the layer from its input x.  R batch rows go to a block (stage: weights
+// staged); partial is [grid, n_w] scratch, grid <= the B / R groups.
 extern "C" int tpurec_attention_layer_bwd(
     const float* x, const float* dy, const float* const* weights, int B,
-    int F, int A, int H, int layer, const long long* seed, unsigned thresh,
-    float keep, int dropout, int grid, float* dx, float* partial,
-    float* wgrad, void* stream) {
-  if (bad_heads(H, A) || layer < 0 || (dropout && seed == nullptr) ||
-      grid < 1 || grid > B)
+    int R, int stage, int F, int A, int H, int layer, const long long* seed,
+    unsigned thresh, float keep, int dropout, int grid, float* dx,
+    float* partial, float* wgrad, void* stream) {
+  if (bad_heads(H, A) || R < 1 || layer < 0 ||
+      (dropout && seed == nullptr) || grid < 1 || grid > (B + R - 1) / R)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_w = LayerGradOffsets(A).size;
-  const long long smem = tpurec_attention_layer_bwd_smem_bytes(F, A, H);
+  const long long smem =
+      tpurec_attention_layer_bwd_smem_bytes(R, F, A, H, stage);
+  auto kernel = stage ? attention_layer_bwd_kernel<true>
+                      : attention_layer_bwd_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_layer_bwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float sqrt_hd = sqrtf(static_cast<float>(A / H));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  attention_layer_bwd_kernel<<<grid, kThreads, smem, s>>>(
-      x, dy, weights[0], weights[1], weights[2], B, F, A, H, layer, sqrt_hd,
-      make_dropout(seed, thresh, keep, dropout), dx, partial);
+  kernel<<<grid, kFwdThreads, smem, s>>>(
+      x, dy, weights[0], weights[1], weights[2], B, R, F, A, H, layer,
+      sqrt_hd, make_dropout(seed, thresh, keep, dropout), dx, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = static_cast<int>((n_w + 255) / 256);

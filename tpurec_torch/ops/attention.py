@@ -16,7 +16,9 @@ kernels keep every intermediate of a row in shared memory, so the memory
 traffic is the inputs, the outputs and (training) the layer inputs saved
 for the backward.  The forward stacks R batch rows in a block
 (:func:`rows_per_block`), reads each weight once per block and runs the
-projections on the tensor cores in 3xTF32 (float32 accuracy).
+projections on the tensor cores in 3xTF32 (float32 accuracy); so do the
+backward kernels 3 and 5 (:func:`bwd_config`, :func:`layer_bwd_config`),
+on a persistent grid of at most one block per SM.
 
 ``flat_w`` is the Pallas kernel's weight list, [w_emb, b_emb, w_res, b_res,
 (w_in, b_in, w_out, b_out) x L], weights [in, out]; ``w_res``/``b_res``
@@ -55,10 +57,11 @@ from tpurec_torch.ops import _build
 
 MAX_LAYERS = 8                  # TPUREC_ATTN_MAX_LAYERS in the source
 SMEM_LIMIT = 232448             # bytes of shared memory a block may use
-BWD_BLOCKS_PER_SM = 2           # backward grid: this many blocks per SM
+BWD_ROWS = 2                    # batch rows a backward block stacks, at most
 FWD_THREADS = 512               # threads of a forward block (kFwdThreads)
 FWD_ROWS = 96                   # stacked field rows a forward block holds
 FWD_UNIT_ROWS = 48              # rows of a forward warp's unit (kFwdMTiles)
+BWD_UNIT_ROWS = 16              # the backward pads stacked rows to this
 FWD_FILL = 0.95                 # share of SMs the forward's grid must fill
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,14 +72,18 @@ _SIGNATURES = {
     "tpurec_field_attention_smem_bytes": (ctypes.c_longlong,
                                           [_I, _I, _I, _I, _I, _I]),
     "tpurec_field_attention_bwd": (_I, [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
         ctypes.c_float, _I, _I, _P, _P, _P, _P]),
+    "tpurec_field_attention_bwd_smem_bytes": (ctypes.c_longlong,
+                                              [_I, _I, _I, _I, _I, _I]),
     "tpurec_attention_layer_fwd": (_I, [
         _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, ctypes.c_float, _I,
         _P, _P]),
     "tpurec_attention_layer_bwd": (_I, [
-        _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, ctypes.c_float,
-        _I, _I, _P, _P, _P, _P]),
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
+        ctypes.c_float, _I, _I, _P, _P, _P, _P]),
+    "tpurec_attention_layer_bwd_smem_bytes": (ctypes.c_longlong,
+                                              [_I, _I, _I, _I, _I]),
 }
 _M32 = 0xFFFFFFFF
 
@@ -139,24 +146,60 @@ def fwd_config(B: int, F: int, D: int, A: int, H: int,
                      f"shared memory per block, over {SMEM_LIMIT}")
 
 
-def bwd_smem_bytes(F: int, D: int, A: int, H: int) -> int:
-    """Shared memory of one backward block (the source's
-    ``bwd_smem_floats``: each buffer padded to 4 floats)."""
-    def pad(n):
-        return (n + 3) // 4 * 4
-    return 4 * (2 * pad(F * D) + 4 * pad(F * A) + 2 * pad(3 * F * A)
-                + 3 * pad(H * F * F))
+def bwd_smem_bytes(F: int, D: int, A: int, H: int, R: int = 1,
+                   stage: bool = True) -> int:
+    """Shared memory of one backward block of R batch rows (the source's
+    ``BwdLayout``; D = 0 for kernel 5): with ``stage``, w_in and w_out;
+    qkv and dqkv [M, .]; the layer input, o, dO and dx [M, .]; the softmax and
+    the score gradients [R*H*F, .]; for kernel 3, emb and demb's residual
+    part [M, .].  M = R*F padded to whole m16 tiles."""
+    M = (R * F + BWD_UNIT_ROWS - 1) // BWD_UNIT_ROWS * BWD_UNIT_ROWS
+    floats = (2 * M * _fwd_stride(3 * A) + 4 * M * _fwd_stride(A)
+              + 2 * R * H * F * _fwd_stride(F)
+              + (2 * M * _fwd_stride(D) if D else 0))
+    if stage:
+        floats += A * (_fwd_wstride(3 * A) + _fwd_wstride(A))
+    return 4 * floats
+
+
+def bwd_grid(B: int, R: int, n_sm: int = 132) -> int:
+    """Blocks of a backward launch: at most one per SM (the partial sums
+    stay in L2), each walking the same number of groups of R batch rows
+    within one, so the grid has no tail wave."""
+    groups = -(-B // R)
+    if groups == 0:
+        return 0
+    return -(-groups // -(-groups // n_sm))
+
+
+def bwd_config(B: int, F: int, D: int, A: int, H: int,
+               n_sm: int = 132) -> Tuple[int, bool, int, int]:
+    """(R, stage, shared memory bytes of a block, grid) of kernel 3's
+    launch at batch size B: ``BWD_ROWS`` batch rows a block (R=2 at F=23:
+    the fastest at B=512 in chip_smoke.py's sweep), fewer where they do
+    not fit, and the weights staged in shared memory unless even one row
+    a block does not fit beside them; ValueError when nothing fits
+    ``SMEM_LIMIT``."""
+    smem = 0
+    for stage in (True, False):
+        for R in range(BWD_ROWS, 0, -1):
+            smem = bwd_smem_bytes(F, D, A, H, R, stage)
+            if smem <= SMEM_LIMIT:
+                return R, stage, smem, bwd_grid(B, R, n_sm)
+    raise ValueError(f"F={F}, D={D}, A={A}, H={H} needs {smem} B of "
+                     f"shared memory per block, over {SMEM_LIMIT}")
+
+
+def layer_bwd_config(B: int, F: int, A: int, H: int,
+                     n_sm: int = 132) -> Tuple[int, bool, int, int]:
+    """(R, stage, shared memory bytes, grid) of kernel 5's launch, chosen
+    as :func:`bwd_config` chooses kernel 3's."""
+    return bwd_config(B, F, 0, A, H, n_sm)
 
 
 def layer_smem_bytes(F: int, A: int, H: int) -> int:
     """Shared memory of one layer-forward block (x, qkv, o, scores)."""
     return 4 * (5 * F * A + H * F * F)
-
-
-def layer_bwd_smem_bytes(F: int, A: int, H: int) -> int:
-    """Shared memory of one layer-backward block (the source's
-    ``layer_bwd_smem_floats``)."""
-    return bwd_smem_bytes(F, 0, A, H)
 
 
 def keep_threshold(rate: float) -> int:
@@ -357,27 +400,28 @@ def field_attention_bwd(emb: torch.Tensor, dy: torch.Tensor,
     if emb.device.type == "cpu":
         return field_attention_bwd_reference(emb, dy, saved, flat_w,
                                              n_layers, n_heads, rate, seed)
-    _check_kernel(emb, flat_w, n_layers, n_heads,
-                  bwd_smem_bytes(F, D, A, n_heads))
+    if emb.device.type != "cuda":
+        raise ValueError(f"field_attention runs on cuda or cpu, not "
+                         f"{emb.device}")
+    dev = emb.device
+    R, stage, smem, grid = bwd_config(B, F, D, A, n_heads, _sm_count(dev))
+    _check_kernel(emb, flat_w, n_layers, n_heads, smem)
     lib = _build.load("field_attention", _SIGNATURES)
     emb, dy, saved = (_aligned(t.to(torch.float32)) for t in (emb, dy, saved))
     shapes = [None if w is None else tuple(w.shape) for w in flat_w]
     n_w = sum(math.prod(s) for s in shapes if s is not None)
-    dev = emb.device
-    grid = max(1, min(B, BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(
-        dev).multi_processor_count))
     demb = torch.empty((B, F, D), dtype=torch.float32, device=dev)
     wgrad = torch.empty((n_w,), dtype=torch.float32, device=dev)
-    partial = torch.empty((grid, n_w), dtype=torch.float32, device=dev)
     seed_ptr, seed_t = _seed_arg(seed, rate, dev)
     if B:
+        partial = torch.empty((grid, n_w), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.tpurec_field_attention_bwd(
                 emb.data_ptr(), dy.data_ptr(), saved.data_ptr(),
-                _ptrs(flat_w), B, F, D, A, n_heads, n_layers, seed_ptr,
-                keep_threshold(rate), 1.0 - rate, int(rate > 0.0), grid,
-                demb.data_ptr(), partial.data_ptr(), wgrad.data_ptr(),
+                _ptrs(flat_w), B, R, int(stage), F, D, A, n_heads, n_layers,
+                seed_ptr, keep_threshold(rate), 1.0 - rate, int(rate > 0.0),
+                grid, demb.data_ptr(), partial.data_ptr(), wgrad.data_ptr(),
                 stream)
         _build.check(lib, rc, "field_attention_bwd")
         field_attention_bwd.launches += 1
@@ -534,27 +578,30 @@ def attention_layer_bwd(x: torch.Tensor, dy: torch.Tensor,
         return attention_layer_bwd_reference(x, dy, *layer_w, n_heads,
                                              layer, rate, seed)
     B, F, A = x.shape
-    _check_layer_kernel(x, n_heads, layer,
-                        layer_bwd_smem_bytes(F, A, n_heads))
+    if x.device.type != "cuda":
+        raise ValueError(f"the attention layer runs on cuda or cpu, not "
+                         f"{x.device}")
+    dev = x.device
+    R, stage, smem, grid = layer_bwd_config(B, F, A, n_heads, _sm_count(dev))
+    _check_layer_kernel(x, n_heads, layer, smem)
     lib = _build.load("field_attention", _SIGNATURES)
     x, dy = (_aligned(t.to(torch.float32)) for t in (x, dy))
     layer_w = [_aligned(w) for w in layer_w]
-    dev = x.device
     n_w = 4 * A * A + 4 * A
     dx = torch.empty((B, F, A), dtype=torch.float32, device=dev)
-    wgrad = torch.zeros((n_w,), dtype=torch.float32, device=dev)
+    # the ordered reduction writes every element; zeros only for B = 0
+    wgrad = (torch.empty if B else torch.zeros)((n_w,), dtype=torch.float32,
+                                                device=dev)
     if B:
-        grid = min(B, BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(
-            dev).multi_processor_count)
         partial = torch.empty((grid, n_w), dtype=torch.float32, device=dev)
         seed_ptr, seed_t = _seed_arg(seed, rate, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.tpurec_attention_layer_bwd(
-                x.data_ptr(), dy.data_ptr(), _ptrs(layer_w), B, F, A,
-                n_heads, layer, seed_ptr, keep_threshold(rate), 1.0 - rate,
-                int(rate > 0.0), grid, dx.data_ptr(), partial.data_ptr(),
-                wgrad.data_ptr(), stream)
+                x.data_ptr(), dy.data_ptr(), _ptrs(layer_w), B, R,
+                int(stage), F, A, n_heads, layer, seed_ptr,
+                keep_threshold(rate), 1.0 - rate, int(rate > 0.0), grid,
+                dx.data_ptr(), partial.data_ptr(), wgrad.data_ptr(), stream)
         del seed_t
         _build.check(lib, rc, "attention_layer_bwd")
         attention_layer_bwd.launches += 1
