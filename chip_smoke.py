@@ -9,10 +9,12 @@ Phases (any failure exits non-zero and prints no result line):
    power limit;
 2. build every kernel in tpurec_torch/csrc with nvcc (one process per
    source, in parallel) and print ptxas' register/spill report, then the
-   launches of the attention stack's forward and of both backward kernels
-   (3, 5) at each batch size (batch rows a block or group, weights staged
-   or not, dynamic shared memory, the backward's persistent grid; the
-   source's layout held against the wrapper's);
+   launches of the attention stack's forward, one layer's forward (4) and
+   both backward kernels (3, 5) at each batch size (batch rows a block or
+   group, weights staged or not, dynamic shared memory, the backward's
+   persistent grid) and of the cross network's backward (9: grid of
+   clusters, rows a warp, warps a block); the source's layout held
+   against the wrapper's;
 3. hold each serving kernel against its plain PyTorch version on the card,
    at the flagship shapes and ragged batch sizes: the prepared gather
    (EmbeddingGather) bit-exact for float32, bfloat16 and int8 tables
@@ -62,11 +64,12 @@ Phases (any failure exits non-zero and prints no result line):
 11. the DCN and layered-attention kernels against their plain versions:
     the cross network forward (#8) and backward (#9, bitwise repeatable,
     a NaN row spreading into dw/db as in the plain version) at B = 1,
-    512, 513, 4096, 4097 with D=368, L=3; one attention layer forward
-    (#4) and backward (#5, bitwise repeatable) at phase 7's batch sizes
-    with dropout 0 and 0.2; the layered path against the stack (#2, #3) in
-    training with one dropout seed (dy zeroed near the ReLU's kink, as in
-    phase 7);
+    each side of #9's launch boundaries, 512, 513, 4096, 4097 with D=368,
+    L=3; one attention layer forward (#4) and backward (#5), both bitwise
+    repeatable, at phase 7's batch sizes and R - 1, R, R + 1, 511 of #4's
+    launch with dropout 0 and 0.2, a NaN in one batch row kept out of #4's
+    block-mates; the layered path against the stack (#2, #3) in training
+    with one dropout seed (dy zeroed near the ReLU's kink, as in phase 7);
 12. the DCN serving path: a Predictor of the full-width DCN (the same 23
     fields and table, mlp (256, 128, 64), 3 cross layers) scores 5,000
     rows against the CPU's plain path within 1e-4 at float32, bfloat16
@@ -79,9 +82,12 @@ Phases (any failure exits non-zero and prints no result line):
     it (the gradient of sum(y**2) at B=512) against the plain version,
     #4 and #5 launching 3 times each;
 15. timings of #4, #5, #8 and #9 beside their bounds, plain versions and
-    library yardsticks; #5 also beside its 3xTF32 bound, at R = 1, 2, 3
-    rows a group, staged or not, and its device time apart from its
-    reduction's.
+    library yardsticks; #4 and #5 also beside their 3xTF32 bounds, #4 at
+    R = 1 .. 4 rows a block, #5 at R = 1, 2, 3 rows a group, staged or
+    not, and its device time apart from its reduction's; #9 launched alone
+    at 2, 4 and 8 warps a block with its rows summed in registers or in
+    shared memory, beside the floor of an empty kernel launched as it is.
+    A kernel of a path that a profile does not see fails its phase.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -259,6 +265,16 @@ def attention_launch(dev):
               f"{-(-B // R)} blocks of {att.FWD_THREADS} threads, weights "
               f"{'staged' if stage else 'from device memory'}, {smem} B of "
               f"dynamic shared memory ({n_sm} SMs)")
+    # kernel 4: one layer, kernel 2's launch without the embedding operands
+    for B in (1,) + BATCH_SIZES:
+        R, stage, smem = att.layer_fwd_config(B, F, A, H, n_sm)
+        c = lib.tpurec_attention_layer_smem_bytes(R, F, A, H, int(stage))
+        check(c == smem, f"kernel 4 layout: source {c} B, wrapper {smem} B")
+        out[("attention_layer_kernel", B)] = (R, stage, smem)
+        print(f"  attention_layer_kernel B={B}: {R} batch rows a block, "
+              f"{-(-B // R)} blocks of {att.FWD_THREADS} threads, w_in/w_out "
+              f"{'staged' if stage else 'from device memory'}, {smem} B of "
+              f"dynamic shared memory")
     # the backward kernels (3: the stack, 5: one layer)
     for name, cfg, src in (
             ("field_attention_bwd_kernel",
@@ -279,6 +295,35 @@ def attention_launch(dev):
                   f"{att.FWD_THREADS} threads, w_in/w_out "
                   f"{'staged' if stage else 'from device memory'}, {smem} B "
                   f"of dynamic shared memory")
+    return out
+
+
+def cross_launch(dev):
+    """Phase 2: kernel 9's launch at the DCN shapes (D=368, L=3) per batch
+    size (grid of clusters, rows a warp, warps a block, dynamic shared
+    memory, partial sums), the source's layout held against the
+    wrapper's.  -> {B: (warps, rows a warp, grid, smem)}."""
+    from tpurec_torch.ops import _build
+    from tpurec_torch.ops import attention as att
+    from tpurec_torch.ops import cross_network as cn
+
+    lib = _build.load("cross_network", cn._SIGNATURES)
+    L = DCN_MODEL["n_cross_layers"]
+    D = len(FIELD_DIMS) * DCN_MODEL["embed_dim"]
+    n_sm = att._sm_count(dev)
+    out = {}
+    for B in (1,) + BATCH_SIZES:
+        W, K, grid, smem = cn.bwd_config(B, D, L, 4, n_sm)
+        c = lib.tpurec_cross_network_bwd_smem_bytes(D, L, 4, W)
+        k = lib.tpurec_cross_network_bwd_rows_per_warp(D, 4)
+        check(c == smem and k == K, f"kernel 9 layout: source {c} B, {k} "
+              f"rows a warp; wrapper {smem} B, {K}")
+        out[B] = (W, K, grid, smem)
+        print(f"  cross_bwd_kernel B={B}: grid {grid} ({grid // cn.CLUSTER} "
+              f"clusters of {cn.CLUSTER}), {W} warps a block, {K} rows a "
+              f"warp at a time, {-(-B // (grid * W * K))} pass(es), {smem} B "
+              f"of dynamic shared memory, partial sums "
+              f"{grid // cn.CLUSTER * 2 * L * D * 4} B")
     return out
 
 
@@ -903,14 +948,12 @@ def step_profile(dev, ts, single, batches, gen, tag, step_ms):
           + "\n  host, self CPU time per step (profiled):"
           + "".join(f"\n    {us:9.1f} us  {name[:90]}"
                     for name, us in host_top))
-    gather_us = [v for k, v in dev_us.items()
-                 if port_kernel(k, "gather_kernel")]
     profile_summary = {"busy_us": busy, "step_us": step_ms * 1e3,
                        "busy_share": busy / (step_ms * 1e3),
                        "launches_per_step": launches,
                        "phase_ms": phase_ms, "peak_memory_gb": peak_gb,
-                       "gather_device_ms": sum(gather_us) / 1e3
-                       if gather_us else None,
+                       "gather_device_ms": path_device_ms(
+                           dev_us, ("gather_kernel",), 1, f"{tag} step"),
                        "top": [[n[:90], us] for n, us in top],
                        "op_top": [[n[:160], us] for n, us in op_top],
                        "host_top": [[n[:90], us] for n, us in host_top]}
@@ -1100,9 +1143,8 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
             ("fused_decay_adam", ("decay_adam_kernel",
                                   "finish_sumsq_kernel")),
             ("sparse_adam_rows", ("adam_rows_kernel", "write_rows_kernel"))):
-        us = [v for k, v in dev_us.items()
-              if any(port_kernel(k, s) for s in syms)]
-        rows[name]["device_ms"] = sum(us) / 1e3 if us else None
+        rows[name]["device_ms"] = path_device_ms(dev_us, syms, 1,
+                                                 f"{tag} step")
     split_device_ms(rows["field_attention_bwd"], dev_us,
                     "field_attention_bwd_kernel", 1)
     r = rows["field_attention_bwd"]
@@ -1170,8 +1212,10 @@ def cross_kernel_checks(dev, emb_of):
                                                 cross_network_reference)
 
     err_f = err_b = 0.0
-    for B, nan_row in ((1, False), (512, False), (513, False), (4096, False),
-                       (4097, False), (513, True)):
+    # B = 1, each side of #9's launch boundaries (2 rows a warp, 8 a block,
+    # 64 a cluster, 1024 a full grid's pass), the serving sizes, a NaN row
+    bs = (1, 2, 3, 8, 9, 64, 65, 512, 513, 1024, 1025, 4096, 4097)
+    for B, nan_row in [(B, False) for B in bs] + [(513, True)]:
         x, w, b, g = cross_inputs(dev, emb_of, B, SEED + B)
         if nan_row:
             x[200, 7] = float("nan")
@@ -1198,24 +1242,25 @@ def cross_kernel_checks(dev, emb_of):
                        .any()), f"{what}: the NaN row left dw/db finite")
     print(f"cross network: #8 rel err {err_f:.3g} (tol {CROSS_TOL}), #9 "
           f"rel err {err_b:.3g} (dx tol {CROSS_TOL}, dw/db "
-          f"{CROSS_WGRAD_TOL}) vs plain at B=1,512,513,4096,4097, D=368, "
-          f"L=3; #9 bitwise repeatable; a NaN row reaches dw/db as in the "
-          f"plain version")
+          f"{CROSS_WGRAD_TOL}) vs plain at B={','.join(map(str, bs))}, "
+          f"D=368, L=3; #9 bitwise repeatable; a NaN row reaches dw/db as "
+          f"in the plain version")
     return {"cross_network": err_f, "cross_network_bwd": err_b}
 
 
 def layer_kernel_checks(dev, flat, emb_of):
     """Phase 11 (a): kernels 4 and 5 against their plain versions with
-    dropout 0 and 0.2, #5 bitwise repeatable, then the layered path
-    against the stack (kernels 2, 3) in training with one seed.  -> max
-    errors by kernel name."""
-    from tpurec_torch.ops.attention import (attention_layer,
+    dropout 0 and 0.2 at both kernels' ragged batch sizes (R - 1, R, R + 1
+    of each), bitwise repeatable, a NaN in one batch row kept out of #4's
+    block-mates; then the layered path against the stack (kernels 2, 3) in
+    training with one seed.  -> max errors by kernel name."""
+    from tpurec_torch.ops.attention import (_sm_count, attention_layer,
                                             attention_layer_bwd,
                                             attention_layer_bwd_reference,
                                             attention_layer_fwd,
                                             field_attention,
                                             field_attention_layered,
-                                            keep_mask)
+                                            keep_mask, layer_fwd_config)
 
     L, H = MODEL["att_layer_num"], MODEL["att_head_num"]
     F = len(FIELD_DIMS)
@@ -1223,12 +1268,14 @@ def layer_kernel_checks(dev, flat, emb_of):
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     ws = flat[8:12]                            # layer 1's weights
     err_f = err_b = 0.0
-    bs = bwd_batches(dev)
+    R4 = layer_fwd_config(512, F, flat[0].shape[1], H, _sm_count(dev))[0]
+    bs = sorted(set(bwd_batches(dev)) | {max(1, R4 - 1), R4, R4 + 1, 511})
     for rate in (0.0, DROPOUT):
         for B in bs:
             x = torch.matmul(emb_of(B), flat[0]) + flat[1]
             dy = torch.randn(x.shape, device=dev, generator=g)
             y = attention_layer_fwd(x, *ws, H, 1, rate, seed)
+            y2 = attention_layer_fwd(x, *ws, H, 1, rate, seed)
             keep = keep_mask(seed, B, 1, H, F, rate) if rate else None
             want = attention_layer(x, *ws, H, keep, rate)
             dx, grads = attention_layer_bwd(x, dy, *ws, H, 1, rate, seed)
@@ -1237,6 +1284,7 @@ def layer_kernel_checks(dev, flat, emb_of):
                                                           rate, seed)
             torch.cuda.synchronize()
             what = f"attention layer B={B} rate={rate}"
+            check(torch.equal(y, y2), f"{what}: two calls of kernel 4 differ")
             check(torch.equal(dx, dx2) and all(
                 torch.equal(a, b) for a, b in zip(grads, grads2)),
                 f"{what}: two calls of kernel 5 differ")
@@ -1251,10 +1299,20 @@ def layer_kernel_checks(dev, flat, emb_of):
                 e = (a - r).abs().max().item()
                 check(e <= LAYER_TOL * s, f"{what} weight {i}: err {e}")
                 err_b = max(err_b, e / s)
+    # a NaN in one batch row stays out of #4's block-mates' rows
+    x = torch.matmul(emb_of(512), flat[0]) + flat[1]
+    bad = x.clone()
+    bad[5, 3, 0] = float("nan")
+    y0, y1 = attention_layer_fwd(x, *ws, H), attention_layer_fwd(bad, *ws, H)
+    others = [r for r in range(512) if r != 5]
+    check(bool(torch.isnan(y1[5]).any())
+          and torch.equal(y0[others], y1[others]),
+          "attention layer: a NaN row reached another batch row")
     print(f"attention layer: #4 max abs err {err_f:.3g}, #5 {err_b:.3g} "
           f"(tol {LAYER_TOL}; weight grads relative to max(1, max|g|)) vs "
-          f"plain at B={','.join(map(str, bs))}, dropout 0 and {DROPOUT}; "
-          f"#5 bitwise repeatable")
+          f"plain at B={','.join(map(str, bs))} (#4 {R4} rows a block), "
+          f"dropout 0 and {DROPOUT}; both bitwise repeatable; a NaN in "
+          f"batch row 5 stays in it")
 
     # the layered path with seed s drops what the stack drops with seed s
     # (dy zeroed where rounding decides the final ReLU: the stack's kernel
@@ -1425,10 +1483,86 @@ def layered_main_path(dev):
     return launches, {"demb": e_emb, "weights": e_w}, ms, emb, flat
 
 
+def layer_rows_sweep(x, ws, H, iters=20):
+    """Kernel 4 launched through its C entry point at R = 1 .. 4 batch rows
+    a block (w_in and w_out staged, eval), CUDA events over back-to-back
+    launches, as rows_sweep does for kernel 2; each R's output held to the
+    plain version.  -> {R: ms}."""
+    from tpurec_torch.ops import _build
+    from tpurec_torch.ops import attention as att
+
+    lib = _build.load("field_attention", att._SIGNATURES)
+    B, F, A = x.shape
+    y = torch.empty_like(x)
+    ptrs = att._ptrs(ws)
+    stream = torch.cuda.current_stream().cuda_stream
+    want = att.attention_layer(x, *ws, H)
+    out = {}
+    for R in range(1, 5):
+        if att.layer_smem_bytes(F, A, H, R) > att.SMEM_LIMIT:
+            break
+
+        def run(R=R):
+            rc = lib.tpurec_attention_layer_fwd(
+                x.data_ptr(), ptrs, B, R, 1, F, A, H, 0, None,
+                att.keep_threshold(0.0), 1.0, 0, y.data_ptr(), stream)
+            check(rc == 0, f"kernel 4 at R={R}: CUDA error {rc}")
+        out[R] = cuda_ms(run, iters=iters, warmup=2)
+        e = (y - want).abs().max().item()
+        check(e <= LAYER_TOL, f"kernel 4 at R={R}: max abs err {e}")
+    return out
+
+
+def cross_bwd_sweep(dev, x, w, b, g, iters=50):
+    """Kernel 9 launched through its C entry point at 2, 4 and 8 warps a
+    block (the grid follows: clusters of 8 blocks enough for one pass);
+    device ms a launch from torch.profiler, back to back, each variant's
+    result held to the plain version.  Then the floor: an empty kernel
+    launched as the wrapper launches kernel 9 (its grid, cluster, block
+    and shared memory).  -> ({variant: ms}, floor ms)."""
+    from tpurec_torch.ops import _build
+    from tpurec_torch.ops import attention as att
+    from tpurec_torch.ops import cross_network as cn
+
+    lib = _build.load("cross_network", cn._SIGNATURES)
+    (B, D), L = x.shape, w.shape[0]
+    n_sm = att._sm_count(dev)
+    dx = torch.empty_like(x)
+    wgrad = torch.empty(2, L, D, device=dev)
+    partial = torch.empty(cn.BWD_MAX_CLUSTERS, 2, L, D, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    want = cn.cross_network_bwd_reference(x, w, b, g)
+    out = {}
+    for W in (2, 4, 8):
+        _, _, grid, _ = cn.bwd_config(B, D, L, 4, n_sm, warps=W)
+        key = f"warps={W} grid={grid}"
+
+        def run(W=W, grid=grid, key=key):
+            rc = lib.tpurec_cross_network_bwd(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), B, D,
+                L, 4, W, grid, dx.data_ptr(), partial.data_ptr(),
+                counter.data_ptr(), wgrad.data_ptr(), stream)
+            check(rc == 0, f"kernel 9 {key}: CUDA error {rc}")
+        out[key] = kernel_alone_ms(run, "cross_bwd_kernel", n=iters)
+        e = max(nan_rel_err(dx, want[0], key) / CROSS_TOL,
+                nan_rel_err(wgrad[0], want[1], key) / CROSS_WGRAD_TOL,
+                nan_rel_err(wgrad[1], want[2], key) / CROSS_WGRAD_TOL)
+        check(e <= 1.0, f"kernel 9 {key}: error {e} of its tolerance")
+    W, _, grid, smem = cn.bwd_config(B, D, L, 4, n_sm)
+    floor = kernel_alone_ms(
+        lambda: check(lib.tpurec_cross_network_empty(
+            grid, 32 * W, smem, stream) == 0, "empty kernel: CUDA error"),
+        "empty_cluster_kernel", n=iters)
+    return out, floor
+
+
 def new_kernel_timings(dev, emb_of, emb, flat, tag):
     """Phase 15 (e): kernels 4, 5, 8 and 9 at the main paths' shapes
     (B=512; #8 also at 4096): wrapper time (CUDA events), plain version,
-    library yardstick, bound; device time of #4 and #5 from a profile of
+    library yardstick, bound; #4 at R = 1 .. 4 rows a block; #9 launched
+    alone at each variant of its launch, beside the floor of an empty
+    kernel launched as it is; device time of #4 and #5 from a profile of
     one layered call.  -> rows by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1440,7 +1574,10 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
                                             attention_layer_bwd_reference,
                                             attention_layer_fwd, bwd_grid,
                                             field_attention_layered,
-                                            keep_threshold, layer_bwd_config)
+                                            keep_threshold, layer_bwd_config,
+                                            layer_fwd_config)
+    from tpurec_torch.ops.cross_network import bwd_config as \
+        cross_network_bwd_config
     from tpurec_torch.ops.cross_network import (cross_network_bwd,
                                                 cross_network_bwd_reference,
                                                 cross_network_fwd,
@@ -1464,11 +1601,24 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
             bound_by="operations" if t_ops > t_b else "bytes")
         if B == BATCH_SIZES[0]:               # the training batch, 512
             nbytes = 3 * B * D * 4 + 4 * L * D * 4
-            # the states recomputed (5 D a layer), per layer three dot
-            # products or updates of 2 D and the sums into dw and db
-            flops = B * (5 * D * L * (L - 1) // 2 + 11 * D * L + D)
+            # per row: the dot products c_l and q (2 D each), x_l for l >
+            # 0 (2 D), per layer the sums into dw and db and the updates
+            # of dx0_extra and g (7 D), dx (D); once: e_l (2 D each)
+            flops = (B * (2 * D * (L + 1) + 2 * D * (L - 1) + 7 * D * L + D)
+                     + 2 * D * (L - 1))
             t_ops, t_b = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+            by_cfg, floor = cross_bwd_sweep(dev, x, w, b, g)
+            W, K, grid, smem = cross_network_bwd_config(
+                B, D, L, 4, _sm_count(dev))
+            print(f"{tag} cross_network_bwd B={B}: launched alone (device "
+                  f"ms, torch.profiler, 50 launches): " + ", ".join(
+                      f"{k} {v:.5f}" for k, v in by_cfg.items())
+                  + f"; the wrapper takes warps={W}; an empty kernel "
+                  f"launched as it is (grid {grid}, clusters of 8, {32 * W} "
+                  f"threads, {smem} B): {floor:.5f} ms")
             rows["cross_network_bwd"] = dict(
+                ms_by_config=by_cfg, floor_ms=floor, warps=W,
+                rows_per_warp=K, grid=grid, smem_bytes=smem,
                 ms=cuda_ms(lambda: cross_network_bwd(x, w, b, g)),
                 plain_ms=cuda_ms(lambda: cross_network_bwd_reference(
                     x, w, b, g)),
@@ -1498,6 +1648,16 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
         plain_ms=cuda_ms(lambda: attention_layer(x, *ws, H)),
         library_ms=cuda_ms(lambda: sdpa_layer(x, *ws, H)),
         library="addmm + F.scaled_dot_product_attention + addmm, one layer")
+    R, stage, smem = layer_fwd_config(B, F, A, H, _sm_count(dev))
+    by_r = layer_rows_sweep(x, ws, H)
+    rows["attention_layer"].update(
+        rows_per_block=R, weights_staged=stage, smem_bytes=smem,
+        ms_by_rows_per_block=by_r)
+    print(f"{tag} attention_layer B={B}: launched alone at R rows a block "
+          f"(CUDA events, 20 launches): " + ", ".join(
+              f"R={r} {v:.4f} ms" for r, v in by_r.items())
+          + f"; the wrapper takes R={R} "
+          f"{'staged' if stage else 'unstaged'}")
     leaves = [t.clone().requires_grad_(True) for t in [x] + list(ws)]
     y_lib = sdpa_layer(*leaves, H)
     rows["attention_layer_bwd"].update(
@@ -1552,10 +1712,9 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
     for name, syms in (("attention_layer", ("attention_layer_kernel",)),
                        ("attention_layer_bwd", ("attention_layer_bwd_kernel",
                                                 "reduce_partials_kernel"))):
-        us = [v for k, v in dev_us.items()
-              if any(port_kernel(k, s) for s in syms)]
         # three launches a call: the device time of one
-        rows[name]["device_ms"] = sum(us) / 3e3 if us else None
+        rows[name]["device_ms"] = path_device_ms(dev_us, syms, 3,
+                                                 f"{tag} layered call")
     split_device_ms(rows["attention_layer_bwd"], dev_us,
                     "attention_layer_bwd_kernel", 3)
     r = rows["attention_layer_bwd"]
@@ -1583,14 +1742,26 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
     return rows
 
 
+def path_device_ms(dev_us, syms, per, what):
+    """Device ms a launch of the port kernels ``syms`` took in a profile
+    (``per`` launches of each in its averaged window).  Fails when one of
+    them shows no device time: a kernel of the path that was renamed, or
+    did not run, must not vanish from the record."""
+    found = {s: [v for k, v in dev_us.items() if port_kernel(k, s)]
+             for s in syms}
+    missing = [s for s, us in found.items() if not us]
+    check(not missing, f"{what}: the profile shows no device time for "
+          f"{missing}")
+    return sum(sum(us) for us in found.values()) / per / 1e3
+
+
 def split_device_ms(row, dev_us, sym, per):
     """Record a backward kernel's device time apart from its ordered
     reduction's (reduce_partials_kernel), each per launch (``per``
     launches in the profiled window's average)."""
     for key, name in (("device_ms_kernel", sym),
                       ("device_ms_reduce", "reduce_partials_kernel")):
-        us = [v for k, v in dev_us.items() if port_kernel(k, name)]
-        row[key] = sum(us) / per / 1e3 if us else None
+        row[key] = path_device_ms(dev_us, (name,), per, sym)
 
 
 def kernel_alone_ms(fn, sym, n=50):
@@ -1606,9 +1777,9 @@ def kernel_alone_ms(fn, sym, n=50):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA") and port_kernel(e.key, sym)]
-    return sum(us) / n / 1e3 if us else None
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")}
+    return path_device_ms(dev_us, (sym,), n, f"{sym} launched alone")
 
 
 def chunk_timings(pred, rng, tag, syms):
@@ -1616,9 +1787,9 @@ def chunk_timings(pred, rng, tag, syms):
     calls, copies included), then where a chunk's time goes: a profile of
     10 chunks at each size, device time by kernel against the chunk's
     unprofiled host-clock time.  ``syms`` maps a port kernel's name to its
-    symbol; each launches once per chunk.  -> (seconds per chunk by B,
-    device ms by kernel name and B (None when the profiler saw no device
-    activity), device busy us per chunk by B)."""
+    symbol; each launches once per chunk (a kernel the profile does not see
+    fails the phase).  -> (seconds per chunk by B, device ms by kernel name
+    and B, device busy us per chunk by B)."""
     from torch.profiler import ProfilerActivity, profile
 
     chunk_s, busy_us = {}, {}
@@ -1656,8 +1827,8 @@ def chunk_timings(pred, rng, tag, syms):
               + "".join(f"\n    {us:9.1f} us  {name[:90]}"
                         for name, us in top))
         for name, sym in syms.items():
-            us = [v for k, v in dev_us.items() if port_kernel(k, sym)]
-            device_ms[name][B] = sum(us) / 1e3 if us else None
+            device_ms[name][B] = path_device_ms(
+                dev_us, (sym,), 1, f"{pred.model_name} chunk B={B}")
     return chunk_s, device_ms, busy_us
 
 
@@ -1710,6 +1881,7 @@ def main() -> int:
                     or "spill" in line):
                 print("    ptxas " + line.split("ptxas info    :")[-1].strip())
     fwd_launch = attention_launch(dev)
+    cross_launches = cross_launch(dev)
 
     # -- 3. kernels against their plain versions -----------------------
     torch.manual_seed(SEED)     # draws without a generator repeat too
@@ -1971,18 +2143,24 @@ def main() -> int:
         dev, ts, single, batches, tgen, f"{tag} dcn",
         dcn_timing["step_ms_host"])
     dcn_step_dev = {}
-    for name, syms in (("cross_network", ("cross_fwd_kernel",)),
-                       ("cross_network_bwd", ("cross_bwd_kernel",
-                                              "sum_partials_kernel"))):
-        us = [v for k, v in dcn_dev_us.items()
-              if any(port_kernel(k, s) for s in syms)]
-        dcn_step_dev[name] = sum(us) / 1e3 if us else None
+    for name, sym in (("cross_network", "cross_fwd_kernel"),
+                      ("cross_network_bwd", "cross_bwd_kernel")):
+        dcn_step_dev[name] = path_device_ms(dcn_dev_us, (sym,), 1,
+                                            f"{tag} dcn step")
+    print(f"{tag} dcn step: #8 device {dcn_step_dev['cross_network']:.5f} "
+          f"ms, #9 device {dcn_step_dev['cross_network_bwd']:.5f} ms (one "
+          f"launch a step)")
     del ts, single, batches
     torch.cuda.empty_cache()
     dcn_cpu = train_vs_cpu(dev, rng, "dcn", DCN_MODEL)
     layered_launches, layered_errs, layered_ms, l_emb, l_flat = \
         layered_main_path(dev)
     new_rows = new_kernel_timings(dev, emb_of, l_emb, l_flat, tag)
+    r = new_rows["cross_network_bwd"]
+    print(f"{tag} cross_network_bwd in the DCN step: device "
+          f"{dcn_step_dev['cross_network_bwd']:.5f} ms (one launch), floor "
+          f"{r['floor_ms']:.5f} ms (an empty kernel launched as it is), "
+          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",

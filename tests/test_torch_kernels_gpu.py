@@ -744,3 +744,137 @@ def test_backward_unstaged_and_one_row_groups(cuda, rate):
     for g, w in zip(lg, want_g):
         assert (g - w).abs().max().item() <= 1e-4 * max(
             1.0, w.abs().max().item())
+
+
+# -- kernel 4 in blocks of R batch rows; kernel 9 in one launch -------------
+
+def _layer_batch(cuda, which):
+    """A batch size of LAYER_RAGGED, R the rows a kernel-4 block stacks at
+    the flagship shapes."""
+    from tpurec_torch.ops.attention import _sm_count, layer_fwd_config
+
+    R = layer_fwd_config(512, 23, 64, 2, _sm_count(cuda))[0]
+    by_r = {"R-1": R - 1, "R": R, "R+1": R + 1}
+    return max(1, by_r[which] if which in by_r else int(which))
+
+
+LAYER_RAGGED = ["1", "R-1", "R", "R+1", "511", "512", "513", "4097"]
+
+
+@pytest.mark.parametrize("which", LAYER_RAGGED)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_layer_forward_in_row_blocks_matches_plain(cuda, which, rate):
+    """Kernel 4 against its plain version at B = 1, R - 1, R, R + 1, 511,
+    512, 513 and 4097 (the last block partly past B where R does not
+    divide B), with dropout 0 and 0.2: within 1e-4, bitwise repeatable,
+    one launch a call."""
+    from tpurec_torch.ops.attention import (attention_layer,
+                                            attention_layer_fwd,
+                                            fused_attention_layer, keep_mask)
+
+    B = _layer_batch(cuda, which)
+    rng = np.random.default_rng(80 + B)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * 0.2).astype(np.float32)).to(cuda)
+    x = mk(B, 23, 64) * 5
+    ws = [mk(64, 192), mk(192), mk(64, 64), mk(64)]
+    seed = torch.tensor(61, device=cuda)
+    before = fused_attention_layer.launches
+    y = attention_layer_fwd(x, *ws, 2, 1, rate, seed)
+    y2 = attention_layer_fwd(x, *ws, 2, 1, rate, seed)
+    torch.cuda.synchronize()
+    assert fused_attention_layer.launches == before + 2
+    assert torch.equal(y, y2)
+    keep = keep_mask(seed, B, 1, 2, 23, rate) if rate else None
+    want = attention_layer(x, *ws, 2, keep, rate)
+    assert (y - want).abs().max().item() <= 1e-4, B
+
+
+def test_layer_forward_nan_stays_in_its_batch_row(cuda):
+    """A NaN in one batch row's input reaches that row's output and leaves
+    its block-mates' bit for bit."""
+    from tpurec_torch.ops.attention import (_sm_count, attention_layer_fwd,
+                                            layer_fwd_config)
+
+    assert layer_fwd_config(512, 23, 64, 2, _sm_count(cuda))[0] > 1
+    rng = np.random.default_rng(90)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * 0.2).astype(np.float32)).to(cuda)
+    x = mk(512, 23, 64) * 5
+    ws = [mk(64, 192), mk(192), mk(64, 64), mk(64)]
+    y0 = attention_layer_fwd(x, *ws, 2)
+    bad = x.clone()
+    bad[5, 3, 0] = float("nan")
+    y1 = attention_layer_fwd(bad, *ws, 2)
+    torch.cuda.synchronize()
+    others = [r for r in range(512) if r != 5]
+    assert bool(torch.isnan(y1[5]).any())
+    assert torch.equal(y0[others], y1[others])
+
+
+# B = 1, then each side of the boundaries of kernel 9's launch at D=368: 2
+# rows a warp, 8 a block, 64 a cluster, 1024 a full grid's pass
+CROSS_BATCHES = [1, 2, 3, 7, 8, 9, 63, 64, 65, 1023, 1024, 1025, 4097]
+
+
+def _cross_bwd_vs_plain(cuda, x, w, b, gy):
+    """Kernel 9 twice against its plain version: the two calls bitwise
+    equal, NaN for NaN; dx within 1e-5 and dw, db within 1e-4 of their
+    scales where the plain value is not NaN.  -> the kernel's result."""
+    from tpurec_torch.ops.cross_network import (cross_network_bwd,
+                                                cross_network_bwd_reference)
+
+    got = cross_network_bwd(x, w, b, gy)
+    again = cross_network_bwd(x, w, b, gy)
+    want = cross_network_bwd_reference(x, w, b, gy)
+    torch.cuda.synchronize()
+    for p, q in zip(got, again):
+        assert torch.equal(p.nan_to_num(7.0), q.nan_to_num(7.0))
+        assert torch.equal(p.isnan(), q.isnan())
+    for a, e, rel in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        assert torch.equal(torch.isnan(a), torch.isnan(e))
+        ok = ~torch.isnan(e)
+        if ok.any():
+            scale = e[ok].abs().max().item()
+            assert (a[ok] - e[ok]).abs().max().item() <= rel * scale
+    return got
+
+
+@pytest.mark.parametrize("B", CROSS_BATCHES)
+def test_cross_backward_at_launch_boundaries(cuda, B):
+    from tpurec_torch.ops.cross_network import bwd_config
+
+    assert bwd_config(512, 368, 3, 4)[:3] == (4, 2, 64)
+    _cross_bwd_vs_plain(cuda, *_cross_inputs(cuda, B, 368, seed=B))
+
+
+def test_cross_backward_nan_row_reaches_weight_gradients(cuda):
+    """A real row holding NaN, in a warp's second row slot and a later
+    cluster's block: dw and db go NaN as the plain version's do, and the
+    other rows' dx stay finite."""
+    x, w, b, gy = _cross_inputs(cuda, 1025, 368, seed=9)
+    x[601, 11] = float("nan")
+    dx, dw, db = _cross_bwd_vs_plain(cuda, x, w, b, gy)
+    assert bool(torch.isnan(dw).any() and torch.isnan(db).any())
+    others = [r for r in range(1025) if r != 601]
+    assert bool(torch.isfinite(dx[others]).all())
+
+
+def test_cross_backward_is_one_launch(cuda):
+    """One call of kernel 9's wrapper launches one kernel on the card (the
+    ordered cross-block sum runs inside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurec_torch.ops.cross_network import cross_network_bwd
+
+    x, w, b, gy = _cross_inputs(cuda, 512, 368, seed=10)
+    cross_network_bwd(x, w, b, gy)                 # the stream's counter
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cross_network_bwd(x, w, b, gy)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "cross_bwd_kernel" in kernels[0][0]

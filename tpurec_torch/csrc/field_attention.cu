@@ -50,18 +50,20 @@
 // (a = a_hi + a_lo; a_lo*b_hi + a_hi*b_lo + a_hi*b_hi summed in float32),
 // which keeps float32 accuracy; single-pass TF32 would not.  Rows of one
 // batch row never mix with another's: the products are row by row, and
-// the attention (scores, softmax, dropout, ad @ v) runs per batch row on
-// SIMT FMAs over that row's F x F block, with the row maximum subtracted
-// as jax.nn.softmax does.  Shared memory holds x [M, A] (the scores [R, H,
-// F, F] reuse it while x is dead), qkv [M, 3A] (o overwrites q; emb is
-// staged there before the first layer and again for the residual) and two
-// weight buffers: about 171 KB at R=4 and the flagship shapes (where the
-// weights do not fit beside a block's activations, the products read them
-// from device memory instead).  Strides keep a warp's MMA fragment loads
+// the attention (scores, softmax, dropout, ad @ v) runs per batch row
+// over that row's F x F block (its products in 3xTF32 too), with the row
+// maximum subtracted as jax.nn.softmax does.  Shared memory holds x [M,
+// A] (the scores [R, H, F, F] reuse it while x is dead), qkv [M, 3A] (o
+// overwrites q; emb is staged there before the first layer and again for
+// the residual) and two weight buffers: about 171 KB at R=4 and the
+// flagship shapes (where the weights do not fit beside a block's
+// activations, the products read them from device memory instead).
+// Strides keep a warp's MMA fragment loads
 // on 32 distinct banks.  The attention of one (batch row, head, 16-field
 // tile) is one warp's work from scores to ad @ v, with no block barrier;
 // the three TF32 passes of a k step are issued tile by tile so that no
-// product waits on the one before it.
+// product waits on the one before it.  Kernel 4, one layer, is this
+// kernel's layer body (layer_rows) with the same layout and launch.
 
 // Backward design (field_attention_bwd_kernel, kernel 3, and
 // attention_layer_bwd_kernel, kernel 5): the forward's layout run
@@ -113,8 +115,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 // max(v, 0) that keeps NaN, as jnp.maximum and torch.relu do
 __device__ __forceinline__ float relu(float v) {
   return (v > 0.f || v != v) ? v : 0.f;
@@ -130,26 +130,6 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-// acc += s * v, component-wise
-__device__ __forceinline__ void fma4(float4& acc, float s, float4 v) {
-  acc.x = fmaf(s, v.x, acc.x);
-  acc.y = fmaf(s, v.y, acc.y);
-  acc.z = fmaf(s, v.z, acc.z);
-  acc.w = fmaf(s, v.w, acc.w);
-}
-
-// acc + a . b, summed in order x, y, z, w
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // "lowbias32" (Chris Wellons' integer hash): a bijection of uint32
@@ -191,116 +171,6 @@ struct Weights {
   const float* w_out[TPUREC_ATTN_MAX_LAYERS];
   const float* b_out[TPUREC_ATTN_MAX_LAYERS];
 };
-
-// y[m, n] = sum_k x[m, k] * w[k, n] + b[n] for m < M, n < N, K and N
-// multiples of 4.  x and y are in shared memory, w and b in device memory.
-// A thread owns rows m0..m0+3 by columns n0..n0+3.
-__device__ void dense(const float* x, int M, int K,
-                      const float* __restrict__ w,
-                      const float* __restrict__ b, int N, float* y) {
-  const int n_groups = N / 4;
-  const int tiles = (M + 3) / 4 * n_groups;
-  for (int i = threadIdx.x; i < tiles; i += blockDim.x) {
-    const int n0 = (i % n_groups) * 4;
-    const int m0 = (i / n_groups) * 4;
-    const float* xr[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) xr[t] = x + min(m0 + t, M - 1) * K;
-    float4 acc[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < K; k += 4) {
-      const float4 w0 = ldg4(w + (k + 0) * N + n0);
-      const float4 w1 = ldg4(w + (k + 1) * N + n0);
-      const float4 w2 = ldg4(w + (k + 2) * N + n0);
-      const float4 w3 = ldg4(w + (k + 3) * N + n0);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float4 xv = ld4(xr[t] + k);
-        fma4(acc[t], xv.x, w0);
-        fma4(acc[t], xv.y, w1);
-        fma4(acc[t], xv.z, w2);
-        fma4(acc[t], xv.w, w3);
-      }
-    }
-    const float4 bn = ldg4(b + n0);
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      if (m0 + t < M) st4(y + (m0 + t) * N + n0, add4(acc[t], bn));
-  }
-}
-
-// One layer's attention internals from its qkv [F, 3A]: per head h the
-// softmax a [H, F, F] of q_h k_h^T / sqrt(hd), the dropped weights ad
-// (ad may alias a), and o [F, A] = concat_h(ad_h @ v_h).  Ends synced.
-__device__ void attend(const float* qkv, float* a, float* ad, float* o,
-                       int F, int A, int H, int l, float sqrt_hd,
-                       const Dropout& dp, uint32_t key) {
-  const int hd = A / H;
-  const int ld = 3 * A;  // row stride of qkv
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  // scores[h, f, g0..g0+3] = q_h[f] . k_h[g] / sqrt(hd)
-  const int g_groups = (F + 3) / 4;
-  for (int i = threadIdx.x; i < H * F * g_groups; i += blockDim.x) {
-    const int g0 = (i % g_groups) * 4;
-    const int f = (i / g_groups) % F;
-    const int h = i / (g_groups * F);
-    const float* q = qkv + f * ld + h * hd;
-    const float* kr[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      kr[t] = qkv + min(g0 + t, F - 1) * ld + A + h * hd;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < hd; d += 4) {
-      const float4 qv = ld4(q + d);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[t] = dot4(qv, ld4(kr[t] + d), acc[t]);
-    }
-    float* sr = a + (h * F + f) * F;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      if (g0 + t < F) sr[g0 + t] = acc[t] / sqrt_hd;
-  }
-  __syncthreads();
-  // softmax over g, one warp per (h, f) row, then dropout
-  for (int r = warp; r < H * F; r += n_warps) {
-    float* sr = a + r * F;
-    float* dr = ad + r * F;
-    const uint32_t ctr0 = static_cast<uint32_t>((l * H * F + r) * F);
-    float m = -INFINITY;
-    for (int g = lane; g < F; g += 32) m = fmaxf(m, sr[g]);
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-    for (int g = lane; g < F; g += 32) {
-      const float ex = expf(sr[g] - m);
-      sr[g] = ex;
-      sum += ex;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int g = lane; g < F; g += 32) {
-      const float p = sr[g] / sum;
-      sr[g] = p;
-      if (dp.on)
-        dr[g] = kept(key, ctr0 + g, dp.thresh) ? p / dp.keep : 0.f;
-      else
-        dr[g] = p;
-    }
-  }
-  __syncthreads();
-  // o[f, c0..c0+3] = sum_g ad[h, f, g] * v[g, c0..c0+3]  (h = c0 / hd)
-  for (int i = threadIdx.x; i < F * (A / 4); i += blockDim.x) {
-    const int f = i / (A / 4), c0 = (i % (A / 4)) * 4;
-    const float* p = ad + ((c0 / hd) * F + f) * F;
-    const float* v = qkv + 2 * A + c0;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int g = 0; g < F; ++g) fma4(acc, p[g], ld4(v + g * ld));
-    st4(o + f * A + c0, acc);
-  }
-  __syncthreads();
-}
 
 // -- the stack forward (kernel 2): R batch rows a block ---------------------
 
@@ -352,6 +222,25 @@ __device__ __forceinline__ void commit_nothing() {
 template <int pending>
 __device__ __forceinline__ void wait_staged() {
   asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+// dst [M, ld] in shared memory = rows 0..n-1 of src [., width] (16-byte
+// aligned, width % 4 == 0), zeros from row n on, by cp.async (a
+// zero-filled copy past n); not committed: the caller's next commit takes
+// these copies into its group
+__device__ __forceinline__ void copy_rows(float* dst, int ld,
+                                          const float* __restrict__ src,
+                                          int width, int M, int n) {
+  const int wq = width / 4;
+  for (int i = threadIdx.x; i < M * wq; i += blockDim.x) {
+    const int m = i / wq, c = (i - m * wq) * 4;
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + m * ld + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(m < n ? src + static_cast<long long>(m) * width + c : src),
+                 "r"(m < n ? 16 : 0)
+                 : "memory");
+  }
 }
 
 // out[m, n] = sum_{k < K} a[m, k] * ws[k, n] + b[n] for m < M (a multiple
@@ -648,6 +537,46 @@ struct FwdLayout {
   }
 };
 
+// One attention layer on R stacked batch rows, the body of kernel 2's
+// layer loop and the whole of kernel 4: qkv = x @ w_in + b_in (x in xs,
+// [M, ldx]), the attention of each batch row (o over q, the scores in xs
+// while x is dead), then o @ w_out + b_out handed to out(m, n, v0, v1).
+// The weights come from ops(): {w_in, b_in} before the in-projection and
+// {w_out, b_out} before the out-projection, each weight in shared memory
+// (or in device memory when not staged) at row stride lwi or lwo; asked
+// for only where a product starts, so that no pointer stays live across
+// the steps before it.  Copy groups: the one before the most recent
+// holds what the in-projection reads (w_in, or kernel 4's x), the most
+// recent w_out; after_in() commits one more group (the next weights, or
+// none) between the two products.  Ends synced.
+struct LayerOperands {
+  const float* w;
+  const float* b;
+};
+
+template <typename In, typename AfterIn, typename OutW, typename Out>
+__device__ __forceinline__ void layer_rows(
+    float* xs, int ldx, float* qkv, int ldq, int lds, int M, int R, int F,
+    int A, int H, int l, float sqrt_hd, const Dropout& dp, long long row0,
+    In in_ops, int lwi, AfterIn after_in, OutW out_ops, int lwo, Out out) {
+  wait_staged<1>();                                   // w_in (and x)
+  __syncthreads();
+  const LayerOperands wi = in_ops();
+  mma_dense<3>(xs, ldx, M, A, wi.w, lwi, wi.b, 3 * A,
+               [&](int m, int n, float v0, float v1) {
+                 *reinterpret_cast<float2*>(qkv + m * ldq + n) =
+                     make_float2(v0, v1);
+               });
+  __syncthreads();
+  after_in();
+  attend_rows(qkv, ldq, xs, lds, R, F, A, H, l, sqrt_hd, dp, row0);
+  wait_staged<1>();                                   // w_out
+  __syncthreads();
+  const LayerOperands wo = out_ops();
+  mma_dense<1>(qkv, ldq, M, A, wo.w, lwo, wo.b, A, out);
+  __syncthreads();
+}
+
 // Blocks of R batch rows (the last one may reach past B; its missing rows
 // are zeros and are not stored).  saved: null, or [L, B, F, A] for the
 // layer inputs (training).  With `stage`, each projection's weights are
@@ -685,9 +614,6 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   auto to_x = [&](int m, int n, float v0, float v1) {
     *reinterpret_cast<float2*>(xs + m * ldx + n) = make_float2(v0, v1);
   };
-  auto to_qkv = [&](int m, int n, float v0, float v1) {
-    *reinterpret_cast<float2*>(qkv + m * ldq + n) = make_float2(v0, v1);
-  };
 
   // the B operand of each projection, and its row stride
   const int lwa = stage ? lay.lwa : 3 * A, lwr = stage ? lay.lwb : A;
@@ -711,25 +637,23 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         st4(sv + static_cast<long long>(m) * A + c, ld4(xs + m * ldx + c));
       }
     }
-    wait_staged<1>();                                 // w_in[l]
-    __syncthreads();
-    mma_dense<3>(xs, ldx, M, A, stage ? wa : w.w_in[l], lwa, w.b_in[l],
-                 3 * A, to_qkv);
-    __syncthreads();
-    if (stage) {
-      if (l + 1 < L)
-        stage_weight(wa, lwa, w.w_in[l + 1], A, 3 * A);
-      else if (w.w_res != nullptr)
-        stage_weight(wa, lwr, w.w_res, D, A);
-      else
-        commit_nothing();
-    }
-    attend_rows(qkv, ldq, xs, lay.lds, R, F, A, H, l, sqrt_hd, dp, row0);
-    wait_staged<1>();                                 // w_out[l]
-    __syncthreads();
-    mma_dense<1>(qkv, ldq, M, A, stage ? wb : w.w_out[l], lwb, w.b_out[l],
-                 A, to_x);
-    __syncthreads();
+    layer_rows(xs, ldx, qkv, ldq, lay.lds, M, R, F, A, H, l, sqrt_hd, dp,
+               row0,
+               [&] { return LayerOperands{stage ? wa : w.w_in[l], w.b_in[l]}; },
+               lwa,
+               [&]() {
+                 if (!stage) return;
+                 if (l + 1 < L)
+                   stage_weight(wa, lwa, w.w_in[l + 1], A, 3 * A);
+                 else if (w.w_res != nullptr)
+                   stage_weight(wa, lwr, w.w_res, D, A);
+                 else
+                   commit_nothing();
+               },
+               [&] {
+                 return LayerOperands{stage ? wb : w.w_out[l], w.b_out[l]};
+               },
+               lwb, to_x);
     if (stage) {
       if (l + 1 < L)
         stage_weight(wb, lwb, w.w_out[l + 1], A, A);
@@ -1509,7 +1433,11 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 // does 2*F*A*3A + 4*F*F*A + 2*F*A*A = 889,088 flops per row against 11.8
 // KB of row input and output (B=512: 6.8 us of operations, 1.8 us of
 // bytes); the backward, which recomputes the forward's attention, does
-// 2,478,848 per row against 17.7 KB (B=512: 18.9 us, 2.7 us).
+// 2,478,848 per row against 17.7 KB (B=512: 18.9 us, 2.7 us).  Both issue
+// their products in 3xTF32 on the tensor cores: 3 x the flops at the TF32
+// peak is 2.8 us (forward) and 7.7 us (backward) at B=512.  Unlike the
+// stack's layers, kernel 4 cannot hide its first weights' staging behind
+// an earlier layer.
 
 // Offsets of a layer's gradients in its flat vector: w_in [A, 3A], b_in
 // [3A], w_out [A, A], b_out [A] (GradOffsets' layer block).
@@ -1524,32 +1452,51 @@ struct LayerGradOffsets {
   }
 };
 
-// One block per batch row: x, qkv, scores and o in shared memory, y
-// written straight from the out-projection.  64 registers at most, as the
-// stack forward.
-__global__ void __launch_bounds__(kThreads, 4)
+// Kernel 4: layer_rows as a kernel of its own, with kernel 2's layout
+// (FwdLayout without the embedding operands) and launch: R batch rows a
+// block stacked into M rows (the last block's rows past B are zeros and
+// are not stored).  x arrives by cp.async with w_in, w_out in the next
+// copy group while the in-projection runs (or both products read their
+// weights from device memory, without `stage`); y is written from the
+// out-projection's epilogue, real rows only.
+__global__ void __launch_bounds__(kFwdThreads, 1)
     attention_layer_kernel(const float* __restrict__ x,
                            const float* __restrict__ w_in,
                            const float* __restrict__ b_in,
                            const float* __restrict__ w_out,
-                           const float* __restrict__ b_out, int F, int A,
-                           int H, int layer, float sqrt_hd, Dropout dp,
-                           float* __restrict__ y) {
+                           const float* __restrict__ b_out, int B, int R,
+                           int F, int A, int H, int layer, int stage,
+                           float sqrt_hd, Dropout dp, float* __restrict__ y) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [F, A]
-  float* qkv = xs + F * A;                      // [F, 3A]
-  float* o = qkv + F * 3 * A;                   // [F, A]
-  float* s = o + F * A;                         // [H, F, F]
-  const long long row = blockIdx.x;
+  const FwdLayout lay(R, F, 0, A, H, stage != 0);
+  float* xs = reinterpret_cast<float*>(smem4);  // x; the scores
+  float* qkv = xs + lay.xs_floats;              // qkv (o over q)
+  float* wa = qkv + lay.q_floats;               // w_in
+  float* wb = wa + lay.wa_floats;               // w_out
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int n_real = static_cast<int>(min(static_cast<long long>(R),
+                                          B - row0)) * F;  // stacked rows
   const long long FA = static_cast<long long>(F) * A;
-  const uint32_t key = row_key(dp, row);
-  for (int i = threadIdx.x; i < F * A / 4; i += blockDim.x)
-    st4(xs + 4 * i, ld4(x + row * FA + 4 * i));
-  __syncthreads();
-  dense(xs, F, A, w_in, b_in, 3 * A, qkv);
-  __syncthreads();
-  attend(qkv, s, s, o, F, A, H, layer, sqrt_hd, dp, key);
-  dense(o, F, A, w_out, b_out, A, y + row * FA);
+  copy_rows(xs, lay.ldx, x + row0 * FA, A, lay.M, n_real);
+  if (stage)
+    stage_weight(wa, lay.lwa, w_in, A, 3 * A);        // with x
+  else
+    commit_nothing();                                 // x alone
+  if (stage)
+    stage_weight(wb, lay.lwb, w_out, A, A);
+  else
+    commit_nothing();
+  float* yb = y + row0 * FA;
+  layer_rows(xs, lay.ldx, qkv, lay.ldq, lay.lds, lay.M, R, F, A, H, layer,
+             sqrt_hd, dp, row0,
+             [&] { return LayerOperands{stage ? wa : w_in, b_in}; },
+             stage ? lay.lwa : 3 * A, [] { commit_nothing(); },
+             [&] { return LayerOperands{stage ? wb : w_out, b_out}; },
+             stage ? lay.lwb : A,
+             [&](int m, int n, float v0, float v1) {
+               if (m < n_real)
+                 st2(yb + static_cast<long long>(m) * A + n, v0, v1);
+             });
 }
 
 // Kernel 5: the backward's layout for one layer.  A persistent grid: block
@@ -1720,9 +1667,11 @@ extern "C" int tpurec_field_attention_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory one layer-forward block needs, in bytes.
-extern "C" long long tpurec_attention_layer_smem_bytes(int F, int A, int H) {
-  return sizeof(float) * (5LL * F * A + 1LL * H * F * F);
+// Shared memory one layer-forward block of R batch rows needs, in bytes
+// (stage: with the weight buffers).
+extern "C" long long tpurec_attention_layer_smem_bytes(int R, int F, int A,
+                                                       int H, int stage) {
+  return FwdLayout(R, F, 0, A, H, stage != 0).bytes();
 }
 
 // Shared memory one layer-backward block of R batch rows needs, in bytes.
@@ -1735,15 +1684,16 @@ extern "C" long long tpurec_attention_layer_bwd_smem_bytes(int R, int F,
 // Kernel 4: one attention layer, x [B, F, A] -> y [B, F, A].  weights: host
 // array of the 4 device pointers [w_in, b_in, w_out, b_out]; layer is the
 // layer's index in the stack (it selects the dropout counters);
-// seed/thresh/keep/dropout as in the stack's forward.
+// seed/thresh/keep/dropout as in the stack's forward.  R batch rows go to
+// a block; stage: w_in and w_out staged in shared memory.
 extern "C" int tpurec_attention_layer_fwd(
-    const float* x, const float* const* weights, int B, int F, int A, int H,
-    int layer, const long long* seed, unsigned thresh, float keep,
-    int dropout, float* y, void* stream) {
-  if (bad_heads(H, A) || layer < 0 || (dropout && seed == nullptr))
+    const float* x, const float* const* weights, int B, int R, int stage,
+    int F, int A, int H, int layer, const long long* seed, unsigned thresh,
+    float keep, int dropout, float* y, void* stream) {
+  if (bad_heads(H, A) || R < 1 || layer < 0 || (dropout && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const long long smem = tpurec_attention_layer_smem_bytes(F, A, H);
+  const long long smem = tpurec_attention_layer_smem_bytes(R, F, A, H, stage);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         attention_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1751,10 +1701,10 @@ extern "C" int tpurec_attention_layer_fwd(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const float sqrt_hd = sqrtf(static_cast<float>(A / H));
-  attention_layer_kernel<<<B, kThreads, smem,
+  attention_layer_kernel<<<(B + R - 1) / R, kFwdThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      x, weights[0], weights[1], weights[2], weights[3], F, A, H, layer,
-      sqrt_hd, make_dropout(seed, thresh, keep, dropout), y);
+      x, weights[0], weights[1], weights[2], weights[3], B, R, F, A, H, layer,
+      stage, sqrt_hd, make_dropout(seed, thresh, keep, dropout), y);
   return static_cast<int>(cudaGetLastError());
 }
 

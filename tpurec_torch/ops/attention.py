@@ -43,6 +43,8 @@ kernel 5 backward, through :class:`AttentionLayerFn`).  Layer ``l`` draws
 the stack's hash of layer ``l``, so the two forms drop the same weights
 for one seed.  Bound on the H100: float32 operations, 0.89 MFLOP per row
 forward and 2.48 backward at F=23, A=64, H=2 (B=512: 6.8 and 18.9 us).
+Kernel 4 is kernel 2's layer body with its launch (:func:`layer_fwd_config`:
+R rows a block, w_in and w_out staged, 3xTF32 products).
 """
 
 from __future__ import annotations
@@ -77,8 +79,10 @@ _SIGNATURES = {
     "tpurec_field_attention_bwd_smem_bytes": (ctypes.c_longlong,
                                               [_I, _I, _I, _I, _I, _I]),
     "tpurec_attention_layer_fwd": (_I, [
-        _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, ctypes.c_float, _I,
-        _P, _P]),
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
+        ctypes.c_float, _I, _P, _P]),
+    "tpurec_attention_layer_smem_bytes": (ctypes.c_longlong,
+                                          [_I, _I, _I, _I, _I]),
     "tpurec_attention_layer_bwd": (_I, [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
         ctypes.c_float, _I, _I, _P, _P, _P, _P]),
@@ -197,9 +201,20 @@ def layer_bwd_config(B: int, F: int, A: int, H: int,
     return bwd_config(B, F, 0, A, H, n_sm)
 
 
-def layer_smem_bytes(F: int, A: int, H: int) -> int:
-    """Shared memory of one layer-forward block (x, qkv, o, scores)."""
-    return 4 * (5 * F * A + H * F * F)
+def layer_smem_bytes(F: int, A: int, H: int, R: int = 1,
+                     stage: bool = True) -> int:
+    """Shared memory of one kernel-4 block of R batch rows: kernel 2's
+    layout without the embedding operands (x or the scores, qkv, and with
+    ``stage`` w_in and w_out)."""
+    return smem_bytes(F, 0, A, H, R, stage)
+
+
+def layer_fwd_config(B: int, F: int, A: int, H: int,
+                     n_sm: int = 132) -> Tuple[int, bool, int]:
+    """(R, stage, shared memory bytes of a block) of kernel 4's launch,
+    chosen as :func:`fwd_config` chooses kernel 2's (B=512 at F=23: R=4,
+    128 blocks, w_in and w_out staged)."""
+    return fwd_config(B, F, 0, A, H, n_sm)
 
 
 def keep_threshold(rate: float) -> int:
@@ -521,7 +536,7 @@ def _check_layer_kernel(x, n_heads: int, layer: int, smem: int) -> None:
         raise ValueError(f"layer index must be >= 0, got {layer}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"F={F}, A={A}, H={n_heads} needs {smem} B of "
-                         f"shared memory per row, over {SMEM_LIMIT}")
+                         f"shared memory per block, over {SMEM_LIMIT}")
 
 
 def attention_layer_fwd(x: torch.Tensor, w_in: torch.Tensor,
@@ -540,7 +555,11 @@ def attention_layer_fwd(x: torch.Tensor, w_in: torch.Tensor,
         keep = (keep_mask(seed, B, layer, n_heads, F, rate) if rate > 0.0
                 else None)
         return attention_layer(x, *layer_w, n_heads, keep, rate)
-    _check_layer_kernel(x, n_heads, layer, layer_smem_bytes(F, A, n_heads))
+    if x.device.type != "cuda":
+        raise ValueError(f"the attention layer runs on cuda or cpu, not "
+                         f"{x.device}")
+    R, stage, smem = layer_fwd_config(B, F, A, n_heads, _sm_count(x.device))
+    _check_layer_kernel(x, n_heads, layer, smem)
     lib = _build.load("field_attention", _SIGNATURES)
     x = _aligned(x)
     layer_w = [_aligned(w) for w in layer_w]
@@ -549,9 +568,9 @@ def attention_layer_fwd(x: torch.Tensor, w_in: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tpurec_attention_layer_fwd(
-            x.data_ptr(), _ptrs(layer_w), B, F, A, n_heads, layer, seed_ptr,
-            keep_threshold(rate), 1.0 - rate, int(rate > 0.0), y.data_ptr(),
-            stream)
+            x.data_ptr(), _ptrs(layer_w), B, R, int(stage), F, A, n_heads,
+            layer, seed_ptr, keep_threshold(rate), 1.0 - rate,
+            int(rate > 0.0), y.data_ptr(), stream)
     del seed_t
     _build.check(lib, rc, "attention_layer")
     fused_attention_layer.launches += 1

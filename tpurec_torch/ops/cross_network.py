@@ -12,6 +12,10 @@ The CUDA source is ``tpurec_torch/csrc/cross_network.cu``; its header gives
 the design.  Bound on the H100: bytes (the rows read and written, about
 1.5 MB forward and 2.3 MB backward at B=512, D=368), well under a
 microsecond, so the launch bounds both kernels at the models' batch sizes.
+Kernel 9 is one launch (:func:`bwd_config`): clusters of ``CLUSTER``
+blocks, each warp carrying its rows two at a time with one warp reduction
+a row, the weight gradients summed in a fixed order across warps, blocks,
+a cluster's blocks and, by the last block to finish, across clusters.
 
 :func:`cross_network` launches the kernels for CUDA tensors (through
 :class:`CrossNetworkFn` when a gradient is wanted) and runs the plain
@@ -26,20 +30,83 @@ from typing import Tuple
 import torch
 
 from tpurec_torch.ops import _build
+from tpurec_torch.ops.attention import _sm_count
 
 SMEM_LIMIT = 232448             # bytes of shared memory a block may use
 MAX_CHUNKS = 8                  # kMaxChunks in the source
 FWD_WARPS = 4                   # rows per forward block
-BWD_WARPS = 4                   # rows per backward block (fewer when w is big)
-BWD_BLOCKS_PER_SM = 2           # backward grid: at most this many per SM
+CLUSTER = 8                     # blocks of a backward cluster (kCluster)
+BWD_WARPS = 4                   # warps of a backward block (fewer if D is big)
+BWD_MAX_WARPS = 8               # kMaxBwdWarps in the source
+BWD_MAX_LAYERS = 8              # kMaxLayers in the source
+BWD_MAX_CLUSTERS = 16           # kMaxClusters in the source
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "tpurec_cross_network_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P,
                                       _P]),
     "tpurec_cross_network_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _P, _P, _P, _P]),
+                                      _I, _P, _P, _P, _P, _P]),
+    "tpurec_cross_network_bwd_smem_bytes": (ctypes.c_longlong,
+                                            [_I, _I, _I, _I]),
+    "tpurec_cross_network_bwd_rows_per_warp": (_I, [_I, _I]),
+    "tpurec_cross_network_empty": (_I, [_I, _I, ctypes.c_longlong, _P]),
 }
+_COUNTERS = {}
+
+
+def bwd_rows_per_warp(D: int, vec: int) -> int:
+    """Rows a backward warp carries at a time (the source's
+    ``rows_per_warp``): 2 while a lane's share of a row is at most 4
+    chunks of ``vec`` floats, else 1."""
+    return 2 if -(-D // (32 * vec)) <= 4 else 1
+
+
+def bwd_smem_bytes(D: int, L: int, vec: int, warps: int) -> int:
+    """Shared memory of one backward block (the source's ``BwdLayout``): w
+    and the running sums of b [L, D]; each warp's dw/db slice [2, L, D];
+    32 dot products a warp; 3 scalars a layer of each of a warp's rows
+    (room for 8 layers)."""
+    K = bwd_rows_per_warp(D, vec)
+    return 4 * (2 * L * D + warps * 2 * L * D + 32 * warps
+                + warps * K * 3 * BWD_MAX_LAYERS)
+
+
+def bwd_config(B: int, D: int, L: int, vec: int, n_sm: int = 132,
+               warps: int = BWD_WARPS) -> Tuple[int, int, int, int]:
+    """(warps a block, rows a warp carries at a time, grid, shared memory
+    bytes of a block) of kernel 9's launch: ``warps`` warps a block
+    (fewer where the slices do not fit), and clusters of ``CLUSTER``
+    blocks, as many as give every warp its rows in one pass, up to one
+    block per SM (B=512 at D=368: 4 warps of 2 rows, 64 blocks, 8
+    clusters whose partial sums take 70 KB); ValueError for more than
+    ``BWD_MAX_LAYERS`` layers, a lane's share of a row over
+    ``MAX_CHUNKS`` chunks, or a block that does not fit even one warp."""
+    if L > BWD_MAX_LAYERS:
+        raise ValueError(f"the backward kernel takes 1 to "
+                         f"{BWD_MAX_LAYERS} layers, got {L}")
+    if -(-D // (32 * vec)) > MAX_CHUNKS:
+        raise ValueError(f"D={D} is over {MAX_CHUNKS} chunks of {vec} "
+                         f"floats a lane")
+    K = bwd_rows_per_warp(D, vec)
+    for W in range(warps, 0, -1):
+        smem = bwd_smem_bytes(D, L, vec, W)
+        if smem <= SMEM_LIMIT:
+            clusters = -(-B // (CLUSTER * W * K))
+            clusters = max(1, min(clusters, n_sm // CLUSTER,
+                                  BWD_MAX_CLUSTERS))
+            return W, K, CLUSTER * clusters, smem
+    raise ValueError(f"L={L}, D={D}: the backward needs {smem} B of shared "
+                     f"memory per block, over {SMEM_LIMIT}")
+
+
+def _counter(device, stream: int) -> torch.Tensor:
+    """Kernel 9's finishing counter for one stream of a device: zero
+    between launches (each launch's last block resets it)."""
+    key = (device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
 
 
 def _check(x, w, b) -> None:
@@ -114,25 +181,22 @@ def cross_network_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     vec, (x, w, b, g) = _kernel_args(x, w, b, g)
     (B, D), L = x.shape, w.shape[0]
     dev = x.device
-    dw_db = torch.zeros((2, L, D), dtype=torch.float32, device=dev)
     dx = torch.empty((B, D), dtype=torch.float32, device=dev)
+    # the launch writes every element of dw and db; zeros only for B = 0
+    dw_db = (torch.empty if B else torch.zeros)(
+        (2, L, D), dtype=torch.float32, device=dev)
     if B == 0:
         return dx, dw_db[0], dw_db[1]
-    warps = next((k for k in (BWD_WARPS, 2, 1)
-                  if (2 + 2 * k) * L * D * 4 <= SMEM_LIMIT), None)
-    if warps is None:
-        raise ValueError(f"L={L}, D={D}: the backward needs "
-                         f"{4 * L * D * 4} B of shared memory, over "
-                         f"{SMEM_LIMIT}")
-    grid = min(-(-B // warps), BWD_BLOCKS_PER_SM * torch.cuda.
-               get_device_properties(dev).multi_processor_count)
-    partial = torch.empty((grid, 2, L, D), dtype=torch.float32, device=dev)
+    warps, _, grid, _ = bwd_config(B, D, L, vec, _sm_count(dev))
+    partial = torch.empty((grid // CLUSTER, 2, L, D), dtype=torch.float32,
+                          device=dev)           # unused with one cluster
     lib = _build.load("cross_network", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tpurec_cross_network_bwd(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), B, D, L,
-            vec, warps, grid, dx.data_ptr(), partial.data_ptr(),
+            vec, warps, grid, dx.data_ptr(),
+            partial.data_ptr(), _counter(dev, stream).data_ptr(),
             dw_db.data_ptr(), stream)
     _build.check(lib, rc, "cross_network_bwd")
     cross_network_bwd.launches += 1
