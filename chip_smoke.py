@@ -12,9 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
    launches of the attention stack's forward, one layer's forward (4) and
    both backward kernels (3, 5) at each batch size (batch rows a block or
    group, weights staged or not, dynamic shared memory, the backward's
-   persistent grid) and of the cross network's backward (9: grid of
-   clusters, rows a warp, warps a block); the source's layout held
-   against the wrapper's;
+   persistent grid) and of the cross network's forward (8: rows a warp,
+   warps a block) and backward (9: grid of clusters, rows a warp, warps a
+   block); the source's layout held against the wrapper's;
 3. hold each serving kernel against its plain PyTorch version on the card,
    at the flagship shapes and ragged batch sizes: the prepared gather
    (EmbeddingGather) bit-exact for float32, bfloat16 and int8 tables
@@ -43,11 +43,14 @@ Phases (any failure exits non-zero and prints no result line):
    without the residual (bitwise repeatable; dy zeroed where the plain
    pre-ReLU value lies within 1e-4 of 0, where rounding alone sets the
    mask), the table sweep at float32 and bfloat16 moments,
-   the training step's table update (row step, sweep with the small-field
-   gradient, write-back) with duplicate ids, and sentinel ids; a swept
-   table value may differ by 1e-6 (2e-6 for the update against the CPU)
-   of the larger of 1, its value and its step, which FMA contraction
-   scales where a second moment near 0 makes the step large;
+   the training step's table update (one sweep carrying the touched rows
+   and the small-field gradient, and its sum's finish: no other port
+   kernel) with duplicate ids against the CPU, and at the flagship table
+   against the plain version with ids in the small-field prefix, 1,024
+   equal ids and ids outside the table, bitwise repeatable; sentinel ids
+   write nothing; a swept table value may differ by 1e-6 (2e-6 for the
+   update) of the larger of 1, its value and its step, which FMA
+   contraction scales where a second moment near 0 makes the step large;
 8. the training path: the flagship MMoE's hybrid training step at full
    width (B=512, dropout 0.2, bfloat16 table moments, L2 1e-5) as a K=8
    loop, 8 warm-up and 16 timed steps; all five training kernels must
@@ -57,15 +60,19 @@ Phases (any failure exits non-zero and prints no result line):
 10. training timings: each training kernel beside its bound, its plain
     version and a library yardstick (kernel 3 also beside its 3xTF32
     tensor-core bound, launched alone at R = 1, 2, 3 rows a group, staged
-    or not); the step's host-clock phases, peak memory and a profile
-    (device busy share, launches per step, device time by kernel, kernel
-    3's apart from its reduction's, and by launching op, host time by
-    op);
+    or not; the sweep carrying kernel 6's rows launched alone with the
+    batch's ids and with every id on one row, beside the sweep without
+    ids); the step's host-clock phases, peak memory, the table update's
+    own profile (launches a step, device time by kernel) and a profile
+    of the step (device busy share, launches per step, device time by
+    kernel, kernel 3's apart from its reduction's, and by launching op,
+    host time by op);
 11. the DCN and layered-attention kernels against their plain versions:
     the cross network forward (#8) and backward (#9, bitwise repeatable,
     a NaN row spreading into dw/db as in the plain version) at B = 1,
     each side of #9's launch boundaries, 512, 513, 4096, 4097 with D=368,
-    L=3; one attention layer forward (#4) and backward (#5), both bitwise
+    L=3, and what #8 and its plain version give for a row holding +inf;
+    one attention layer forward (#4) and backward (#5), both bitwise
     repeatable, at phase 7's batch sizes and R - 1, R, R + 1, 511 of #4's
     launch with dropout 0 and 0.2, a NaN in one batch row kept out of #4's
     block-mates; the layered path against the stack (#2, #3) in training
@@ -76,17 +83,19 @@ Phases (any failure exits non-zero and prints no result line):
     and int8 tables, with the gather and #8 counters risen; /predict for
     1 and 5,000 rows; rows/s and a profile per chunk;
 13. the DCN training path: the hybrid step at full width as a K=8 loop
-    (8 warm-up, 16 timed steps) with gather, #8, #9, #7 and #6 once per
-    step, a step profile, and 3 steps against the CPU's plain path;
+    (8 warm-up, 16 timed steps) with gather, #8, #9 and the sweep carrying
+    #6's rows once per step, a step profile with the table update's own,
+    and 3 steps against the CPU's plain path;
 14. the layered attention path as scripts/profile_attn_layered.py drives
     it (the gradient of sum(y**2) at B=512) against the plain version,
     #4 and #5 launching 3 times each;
 15. timings of #4, #5, #8 and #9 beside their bounds, plain versions and
     library yardsticks; #4 and #5 also beside their 3xTF32 bounds, #4 at
     R = 1 .. 4 rows a block, #5 at R = 1, 2, 3 rows a group, staged or
-    not, and its device time apart from its reduction's; #9 launched alone
-    at 2, 4 and 8 warps a block with its rows summed in registers or in
-    shared memory, beside the floor of an empty kernel launched as it is.
+    not, and its device time apart from its reduction's; #8 launched alone
+    at 1 and 2 rows a warp and 1, 2, 4, 8 warps a block, at B = 512 and
+    4096; #9 launched alone at 2, 4 and 8 warps a block; each beside the
+    floor of an empty kernel launched as it is.
     A kernel of a path that a profile does not see fails its phase.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -95,6 +104,7 @@ is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -299,10 +309,11 @@ def attention_launch(dev):
 
 
 def cross_launch(dev):
-    """Phase 2: kernel 9's launch at the DCN shapes (D=368, L=3) per batch
-    size (grid of clusters, rows a warp, warps a block, dynamic shared
-    memory, partial sums), the source's layout held against the
-    wrapper's.  -> {B: (warps, rows a warp, grid, smem)}."""
+    """Phase 2: kernel 8's launch (rows a warp, warps a block, grid) and
+    kernel 9's (grid of clusters, rows a warp, warps a block, dynamic
+    shared memory, partial sums) at the DCN shapes (D=368, L=3) per batch
+    size, the source's layout held against the wrapper's.  -> {B: (warps,
+    rows a warp, grid, smem)} of kernel 9."""
     from tpurec_torch.ops import _build
     from tpurec_torch.ops import attention as att
     from tpurec_torch.ops import cross_network as cn
@@ -315,7 +326,7 @@ def cross_launch(dev):
     for B in (1,) + BATCH_SIZES:
         W, K, grid, smem = cn.bwd_config(B, D, L, 4, n_sm)
         c = lib.tpurec_cross_network_bwd_smem_bytes(D, L, 4, W)
-        k = lib.tpurec_cross_network_bwd_rows_per_warp(D, 4)
+        k = lib.tpurec_cross_network_rows_per_warp(D, 4)
         check(c == smem and k == K, f"kernel 9 layout: source {c} B, {k} "
               f"rows a warp; wrapper {smem} B, {K}")
         out[B] = (W, K, grid, smem)
@@ -324,6 +335,10 @@ def cross_launch(dev):
               f"warp at a time, {-(-B // (grid * W * K))} pass(es), {smem} B "
               f"of dynamic shared memory, partial sums "
               f"{grid // cn.CLUSTER * 2 * L * D * 4} B")
+        K, W, grid = cn.fwd_config(B, D, L, 4, n_sm)
+        check(K in (1, k), f"kernel 8: source {k} rows a warp, wrapper {K}")
+        print(f"  cross_fwd_kernel B={B}: {K} rows a warp, {W} warps a "
+              f"block, grid {grid}, no shared memory")
     return out
 
 
@@ -399,6 +414,9 @@ BF16_MOMENT_TOL = 1e-2  # one bfloat16 ulp (2**-8) when FMA flips a rounding
 SUMSQ_RTOL = 1e-5
 ROWS_TOL = 2e-6         # the table update vs the CPU, as SWEEP_TOL for p
 CPU_LOSS_RTOL = 1e-4
+SWEEP_SYMS = ("decay_adam_kernel", "finish_sumsq_kernel")   # kernels 6, 7
+LAUNCH_KEYS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
 # share of table values allowed beyond 1e-6 after step 1: about 26 of
 # the 26M (runs on the H100 have measured 1 and 3 such values)
 CPU_TABLE_SHARE = 1e-6
@@ -548,9 +566,10 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
                                             field_attention_reference,
                                             keep_mask)
     from tpurec_torch.config import TrainConfig
-    from tpurec_torch.ops.fused_adam import (adam_rows, fused_decay_adam,
+    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
                                              fused_decay_adam_reference,
-                                             write_rows)
+                                             fused_sparse_adam,
+                                             fused_sparse_adam_reference)
     from tpurec_torch.nn.core import EmbeddingLayout
     from tpurec_torch.train.hybrid import EmbeddingUpdater
     from tpurec_torch.train.sparse import SparseEmbedState
@@ -657,9 +676,9 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
         del p, m, v, got, want, step, diff, scale
     errs["fused_decay_adam"] = err7
 
-    # kernel 6 as the training step runs it: EmbeddingUpdater.update (the
-    # row step, the sweep with the small-field gradient, the write-back)
-    # at a batch's ids with duplicate big-field ids, against the CPU
+    # kernel 6 as the training step runs it: EmbeddingUpdater.update (one
+    # sweep carrying the rows, with the small-field gradient) at a batch's
+    # ids with duplicate big-field ids, against the CPU
     upd = EmbeddingUpdater(FIELD_DIMS, TrainConfig(
         bs=512, embedding_moments_dtype="bfloat16"), L2)
     X = random_ids(rng, 512)
@@ -673,51 +692,145 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
     for where in ("cuda", "cpu"):
         st = SparseEmbedState(m=m0.clone().to(where), v=v0.clone().to(where))
         p = table.clone().to(where)
-        before = (adam_rows.launches, fused_decay_adam.launches,
-                  write_rows.launches)
+        before = (fused_sparse_adam.launches, fused_decay_adam.launches)
         sq = upd.update(p, st, x.to(where), gr.to(where), 5)
         if where == "cuda":
             torch.cuda.synchronize()
-            after = (adam_rows.launches, fused_decay_adam.launches,
-                     write_rows.launches)
-            check([b - a for a, b in zip(before, after)] == [1, 1, 1],
-                  f"table update: launches {before} -> {after}")
+            after = (fused_sparse_adam.launches, fused_decay_adam.launches)
+            check([b - a for a, b in zip(before, after)] == [1, 1],
+                  f"table update: launches (rows, sweep) {before} -> {after}")
         res[where] = [p.cpu(), st.m.cpu(), st.v.cpu(), sq.cpu()]
+        if where == "cuda":
+            kernels = update_port_kernels(
+                lambda: upd.update(p, st, x.to(where), gr.to(where), 5))
         del p, st
+    check(kernels == dict.fromkeys(SWEEP_SYMS, 1),
+          f"table update: port kernels launched {kernels}, want the sweep "
+          f"carrying the rows and its sum's finish once each")
     got, want = res["cuda"], res["cpu"]
     tc = upd.tcfg
     step = sweep_step(table, m0, v0, upd.small_field_grads(
         x, gr.reshape(512, len(FIELD_DIMS), D)), 5, lr=tc.lr,
         coef=upd.coef, b1=tc.adam_b1, b2=tc.adam_b2, eps=tc.adam_eps)
-    diff = (got[0] - want[0]).abs()
-    err6 = diff.max().item()
-    worst6 = (diff / torch.maximum(want[0].abs(), step).clamp(min=1.0)
-              ).max().item()
-    check(worst6 <= ROWS_TOL, f"table update: table error {worst6} x max(1, "
-          f"|p'|, step) (largest abs err {err6})")
-    del step, diff
-    check_moments(got, want, "table update")
-    r6 = abs(got[3].item() / want[3].item() - 1)
-    check(r6 <= SUMSQ_RTOL, f"table update: sumsq rel err {r6}")
-    del res, got, want
-    # sentinels (>= V) and negative ids are skipped
+    err6, worst6, r6 = held_to_plain(got, want, step, "table update")
+    del res, got, want, step
+    # the rows' cases at the flagship table, against the plain version on
+    # the card: ids inside g_small's prefix (their rows' step replaces
+    # g_small's), 1,024 equal ids, ids outside [0, V); bitwise repeatable
+    S = layout.small_rows
+    g6 = torch.Generator(device=dev).manual_seed(SEED + 61)
+    gs = torch.randn(S, D, device=dev, generator=g6)
+    outside = torch.tensor([-1, -7, V, V + 5, 10**9, -10**9] * 4, device=dev)
+    cases = {
+        "prefix": torch.randint(0, 2 * S, (1024,), device=dev, generator=g6),
+        "all_equal": torch.full((1024,), S + 77, device=dev),
+        "outside": torch.cat([torch.randint(0, V, (1000,), device=dev,
+                                            generator=g6), outside])}
+    # each case with bfloat16 moments (the flagship's) and float32 ones
+    # (TrainConfig's default)
+    moments = {torch.bfloat16: (m0.to(dev), v0.to(dev)),
+               torch.float32: (torch.randn(V, D, device=dev, generator=g6)
+                               * 0.01,
+                               torch.rand(V, D, device=dev, generator=g6)
+                               * 1e-4)}
+    worst6c = 0.0
+    for (name, ids), (mdt, (m0c, v0c)) in itertools.product(
+            cases.items(), moments.items()):
+        what = f"rows {name} ({str(mdt)[6:]} moments)"
+        g_ids = torch.randn(len(ids), D, device=dev, generator=g6)
+        outs = []
+        for _ in range(2):
+            out = fused_sparse_adam(table.to(dev), m0c.clone(), v0c.clone(),
+                                    ids, g_ids, 5, g_small=gs, **kw)
+            torch.cuda.synchronize()
+            outs.append([t.cpu() for t in out])
+        check(all(torch.equal(a, b) for a, b in zip(*outs)),
+              f"{what}: two calls differ")
+        want = [t.cpu() for t in fused_sparse_adam_reference(
+            table.to(dev), m0c.clone(), v0c.clone(), ids, g_ids, 5,
+            g_small=gs, **kw)]
+        step = sweep_step(table.to(dev), m0c, v0c,
+                          dense_grad(V, ids, g_ids, gs), 5, **kw).cpu()
+        e, worst, _ = held_to_plain(outs[0], want, step, what)
+        err6, worst6c = max(err6, e), max(worst6c, worst)
+        del outs, want, step
+    del moments
+    # ids outside [0, V) touch nothing: with zero moments and no weight
+    # decay, only row 4 moves
     t2 = table[:64].clone().to(dev)
     z = torch.zeros(64, D, device=dev, dtype=torch.bfloat16)
-    ids2 = torch.tensor([4, 64, 70, -1], device=dev)
-    rows = adam_rows(t2, z, z.clone(), ids2, torch.ones(4, D, device=dev), 1,
-                     **kw)
-    write_rows(t2, z, z.clone(), ids2, *rows)
+    fused_sparse_adam(t2, z, z.clone(), torch.tensor([4, 64, 70, -1],
+                                                     device=dev),
+                      torch.ones(4, D, device=dev), 1, lr=1e-3)
     torch.cuda.synchronize()
     changed = (t2.cpu() != table[:64]).any(1).nonzero().flatten().tolist()
     check(changed == [4], f"sparse rows: sentinel ids wrote rows {changed}")
-    errs["sparse_adam_rows"] = err6
+    errs["fused_sparse_adam"] = err6
     print(f"table update as the training step runs it (1,024 big-field ids "
-          f"with duplicates, small-field gradient, bf16 moments): table max "
-          f"abs err {err6:.3g}, {worst6:.3g} x max(1, |p'|, step) vs the CPU "
-          f"plain path (tol {ROWS_TOL}), m/v "
-          f"within rel {BF16_MOMENT_TOL}, sumsq rel err {r6:.3g}; sentinel "
-          f"ids write nothing")
+          f"with duplicates, small-field gradient, bf16 moments): one launch "
+          f"of the sweep carrying the rows and its sum's finish, no other "
+          f"port kernel; "
+          f"table {worst6:.3g} x max(1, |p'|, step) vs the CPU plain path "
+          f"(tol {ROWS_TOL}), m/v within rel {BF16_MOMENT_TOL}, sumsq rel "
+          f"err {r6:.3g}; at {V} x {D} against the plain version on the "
+          f"card, ids in g_small's prefix, 1,024 equal ids, ids outside "
+          f"[0, V), each with bf16 and f32 moments (m/v within rel "
+          f"{SWEEP_TOL} at f32): {worst6c:.3g} (tol {ROWS_TOL}), bitwise "
+          f"repeatable; "
+          f"max abs err {err6:.3g}; sentinel ids write nothing")
     return errs
+
+
+def dense_grad(V, ids, g_rows, g_small):
+    """The gradient the table update adds to coef * p on each row:
+    g_small on [0, S), replaced on each touched row by the sum of its
+    entries."""
+    g = torch.zeros(V, g_rows.shape[1], device=g_rows.device)
+    g[:g_small.shape[0]] = g_small
+    ok = (ids >= 0) & (ids < V)
+    g[ids[ok]] = 0.0
+    return g.index_add_(0, ids[ok], g_rows[ok])
+
+
+def held_to_plain(got, want, step, what):
+    """Hold a table update's (table, m, v, sumsq) to the plain version's:
+    the table within ROWS_TOL x max(1, |p'|, step), the moments as
+    check_moments does, sumsq within SUMSQ_RTOL.  -> (max abs err of the
+    table, its largest share of the limit's scale, sumsq rel err)."""
+    diff = (got[0] - want[0]).abs()
+    worst = (diff / torch.maximum(want[0].abs(), step).clamp(min=1.0)
+             ).max().item()
+    check(worst <= ROWS_TOL, f"{what}: table error {worst} x max(1, |p'|, "
+          f"step) (largest abs err {diff.max().item()})")
+    check_moments(got, want, what)
+    r = abs(got[3].item() / want[3].item() - 1)
+    check(r <= SUMSQ_RTOL, f"{what}: sumsq rel err {r}")
+    return diff.max().item(), worst, r
+
+
+def update_port_kernels(fn):
+    """The port's kernels (every __global__ function of tpurec_torch/csrc)
+    one call of ``fn`` launches, by name, with their launch counts (from
+    torch.profiler)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurec_torch.ops import _build
+
+    names = {m for src in _build.sources().values() for m in re.findall(
+        r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(",
+        src.read_text())}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if str(e.device_type).endswith("CUDA") and port_kernel(e.key,
+                                                                   name):
+                out[name] = out.get(name, 0) + e.count
+    return out
 
 
 def train_counters(name):
@@ -728,8 +841,8 @@ def train_counters(name):
     from tpurec_torch.ops.cross_network import cross_network, \
         cross_network_bwd
     from tpurec_torch.ops.embedding import embedding_gather
-    from tpurec_torch.ops.fused_adam import (adam_rows, fused_decay_adam,
-                                             write_rows)
+    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
+                                             fused_sparse_adam)
 
     dense = ({"field_attention_train": field_attention,
               "field_attention_bwd": field_attention_bwd} if name == "mmoe"
@@ -737,7 +850,7 @@ def train_counters(name):
                    "cross_network_bwd": cross_network_bwd})
     return {"embedding_gather": embedding_gather, **dense,
             "fused_decay_adam": fused_decay_adam,
-            "sparse_adam_rows": adam_rows, "sparse_write_rows": write_rows}
+            "fused_sparse_adam": fused_sparse_adam}
 
 
 def train_main_path(dev, rng, tag, name="mmoe", model_kw=MODEL):
@@ -906,6 +1019,8 @@ def step_profile(dev, ts, single, batches, gen, tag, step_ms):
           f"{n_ph}): " + ", ".join(f"{k} {v:.3f} ms"
                                    for k, v in phase_ms.items())
           + f"; peak device memory {peak_gb:.2f} GB")
+    table_update = update_profile(upd, table, ts.emb_opt, b0["x"], g_rows_b,
+                                  ts.step + 1, tag)
 
     n_prof = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -928,9 +1043,7 @@ def step_profile(dev, ts, single, batches, gen, tag, step_ms):
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0
               and not getattr(e, "is_user_annotation", False)}
-    launches = sum(e.count for e in evs if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-        "cuLaunchKernelEx")) / n_prof
+    launches = sum(e.count for e in evs if e.key in LAUNCH_KEYS) / n_prof
     host_top = sorted(((e.key, e.self_cpu_time_total / n_prof) for e in evs
                        if not str(e.device_type).endswith("CUDA")),
                       key=lambda kv: -kv[1])[:10]
@@ -952,12 +1065,60 @@ def step_profile(dev, ts, single, batches, gen, tag, step_ms):
                        "busy_share": busy / (step_ms * 1e3),
                        "launches_per_step": launches,
                        "phase_ms": phase_ms, "peak_memory_gb": peak_gb,
+                       "table_update": table_update,
                        "gather_device_ms": path_device_ms(
                            dev_us, ("gather_kernel",), 1, f"{tag} step"),
                        "top": [[n[:90], us] for n, us in top],
                        "op_top": [[n[:160], us] for n, us in op_top],
                        "host_top": [[n[:90], us] for n, us in host_top]}
     return dev_us, profile_summary
+
+
+def update_profile(upd, table, st, x, g_rows, t, tag, n=5):
+    """The table update of a training step on its own (kernels 6 and 7 in
+    one pass): its launches a step and device time by kernel, from
+    torch.profiler over ``n`` updates, beside the sweep without ids
+    launched alone; no other port kernel may launch.  -> a summary
+    dict."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurec_torch.ops.fused_adam import fused_decay_adam
+
+    def update():
+        upd.update(table, st, x, g_rows, t)
+
+    update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            update()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    launches = sum(e.count for e in evs if e.key in LAUNCH_KEYS) / n
+    dev_us = {e.key: e.self_device_time_total / n for e in evs
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0}
+    kernels = update_port_kernels(update)
+    check(kernels == dict.fromkeys(SWEEP_SYMS, 1),
+          f"{tag} table update: port kernels {kernels}")
+    pass_ms = path_device_ms(dev_us, SWEEP_SYMS, 1, f"{tag} table update")
+    B, F = x.shape
+    tc = upd.tcfg
+    g_small = upd.small_field_grads(x, g_rows.reshape(B, F, -1))
+    sweep_ms = kernel_alone_ms(lambda: fused_decay_adam(
+        table, st.m, st.v, g_small, t, lr=tc.lr, b1=tc.adam_b1,
+        b2=tc.adam_b2, eps=tc.adam_eps, coef=upd.coef), *SWEEP_SYMS, n=10)
+    busy = sum(dev_us.values())
+    print(f"{tag} table update (kernel 6 in the sweep's pass): {launches:.0f} "
+          f"launches a step; device busy {busy:.1f} us, the pass "
+          f"{pass_ms:.4f} ms beside the sweep without ids launched alone "
+          f"{sweep_ms:.4f} ms" + "".join(
+              f"\n    {us:9.2f} us  {k[:90]}" for k, us in sorted(
+                  dev_us.items(), key=lambda kv: -kv[1])))
+    return {"launches": launches, "busy_us": busy, "pass_ms": pass_ms,
+            "sweep_alone_ms": sweep_ms,
+            "device_us": {k[:90]: us for k, us in dev_us.items()}}
 
 
 def train_timings(dev, ts, single, batches, gen, tag, step_ms):
@@ -973,10 +1134,10 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
                                             field_attention_fwd,
                                             field_attention_reference,
                                             fwd_config, keep_threshold)
-    from tpurec_torch.ops.fused_adam import (adam_rows, adam_rows_reference,
-                                             dedup_sorted, fused_decay_adam,
+    from tpurec_torch.ops.fused_adam import (TILE, fused_decay_adam,
                                              fused_decay_adam_reference,
-                                             write_rows, write_rows_reference)
+                                             fused_sparse_adam,
+                                             fused_sparse_adam_reference)
 
     L, H = MODEL["att_layer_num"], MODEL["att_head_num"]
     A = MODEL["atten_embed_dim"]
@@ -1091,35 +1252,45 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
         library=by_moments["f32"]["library"] + " (at f32; bf16: none)",
         by_moments=by_moments)
 
+    # kernel 6: the table update's one pass with the batch's big-field ids
+    # (its sort and searchsorted included in the wrapper's time), and with
+    # every one of them on one row
     g_rows = torch.randn(512 * F, D, device=dev).reshape(512, F, D)
-
-    def combine():
-        return dedup_sorted(*upd.big_rows(x, g_rows), V)[:2]
-
-    id_u, g_u = combine()
-    n_u = int((id_u < V).sum())
+    ids, g_ids = upd.big_rows(x, g_rows)
+    same = torch.full_like(ids, S + 77)
+    N = ids.shape[0]
     p = table.clone()
     m = torch.zeros(V, D, device=dev, dtype=torch.bfloat16)
     v = torch.zeros_like(m)
 
-    def rows_kernel():
-        write_rows(p, m, v, id_u, *adam_rows(p, m, v, id_u, g_u, 5, **kw))
+    def fused(i=ids):
+        return fused_sparse_adam(p, m, v, i, g_ids, 5, g_small=g_small, **kw)
 
-    def rows_plain():
-        write_rows_reference(p, m, v, id_u, *adam_rows_reference(
-            p, m, v, id_u, g_u, 5, **kw))
-
-    N = id_u.shape[0]
-    nbytes = N * 8 + N * D * 4 + n_u * D * (4 + 2 + 2) * 2
-    rows["sparse_adam_rows"] = dict(
-        ms=cuda_ms(rows_kernel), plain_ms=cuda_ms(rows_plain),
+    nbytes = (V * D * (4 + 2 + 2) * 2 + S * D * 4 + N * (8 + 8 + D * 4)
+              + 2 * -(-V * D // TILE) * 4)
+    rows["fused_sparse_adam"] = dict(
+        ms=cuda_ms(fused),
+        plain_ms=cuda_ms(lambda: fused_sparse_adam_reference(
+            p, m, v, ids, g_ids, 5, g_small=g_small, **kw), iters=10,
+            warmup=2),
         library_ms=None,
-        library="none: torch.optim.SparseAdam steps a set of rows but has "
-                "no coef * p_old (L2 / weight decay) term and keeps float32 "
+        library="none: torch.optim.SparseAdam steps only the touched rows, "
+                "with no coef * p (L2 / weight decay) term and float32 "
                 "moments, so it computes another function",
         bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-        bound_by="bytes", n_ids=N, n_unique=n_u,
-        combine_ms=cuda_ms(combine))
+        bound_by="bytes", n_ids=N,
+        pass_alone_ms=kernel_alone_ms(fused, *SWEEP_SYMS, n=20),
+        all_equal_alone_ms=kernel_alone_ms(lambda: fused(same), *SWEEP_SYMS,
+                                           n=20),
+        sweep_alone_ms=kernel_alone_ms(lambda: fused_decay_adam(
+            p, m, v, g_small, 5, **kw), *SWEEP_SYMS, n=20))
+    r = rows["fused_sparse_adam"]
+    print(f"{tag} fused_sparse_adam (kernel 6 in the sweep's pass, {N} ids): "
+          f"the pass launched alone (torch.profiler, 20 launches) "
+          f"{r['pass_alone_ms']:.4f} ms, with every id on one row "
+          f"{r['all_equal_alone_ms']:.4f} ms; the sweep alone without ids "
+          f"{r['sweep_alone_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms")
+    rows["fused_decay_adam"]["device_ms"] = r["sweep_alone_ms"]
     del p, m, v
     for name, r in rows.items():
         lib = ("none" if r["library_ms"] is None
@@ -1140,9 +1311,7 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
             ("field_attention_train", ("field_attention_kernel",)),
             ("field_attention_bwd", ("field_attention_bwd_kernel",
                                      "reduce_partials_kernel")),
-            ("fused_decay_adam", ("decay_adam_kernel",
-                                  "finish_sumsq_kernel")),
-            ("sparse_adam_rows", ("adam_rows_kernel", "write_rows_kernel"))):
+            ("fused_sparse_adam", SWEEP_SYMS)):
         rows[name]["device_ms"] = path_device_ms(dev_us, syms, 1,
                                                  f"{tag} step")
     split_device_ms(rows["field_attention_bwd"], dev_us,
@@ -1205,7 +1374,8 @@ def cross_inputs(dev, emb_of, B, seed):
 def cross_kernel_checks(dev, emb_of):
     """Phase 11 (a): kernels 8 and 9 against their plain versions at the
     DCN shapes, #9 bitwise repeatable, a NaN row spreading as in the plain
-    version.  -> max errors by kernel name."""
+    version; #8 at other depths, and rows holding +inf where the rewrite
+    parts from the recurrence.  -> max errors by kernel name."""
     from tpurec_torch.ops.cross_network import (cross_network_bwd,
                                                 cross_network_bwd_reference,
                                                 cross_network_fwd,
@@ -1245,7 +1415,68 @@ def cross_kernel_checks(dev, emb_of):
           f"{CROSS_WGRAD_TOL}) vs plain at B={','.join(map(str, bs))}, "
           f"D=368, L=3; #9 bitwise repeatable; a NaN row reaches dw/db as "
           f"in the plain version")
-    return {"cross_network": err_f, "cross_network_bwd": err_b}
+    # any depth: the forward takes the layers three at a time (a partial
+    # group at 1 and 5, more than the backward's 8 at 11)
+    depth_err = 0.0
+    for L in (1, 5, 11):
+        x, _, _, _ = cross_inputs(dev, emb_of, 513, SEED + L)
+        gd = torch.Generator(device=dev).manual_seed(SEED + 100 + L)
+        w = (torch.rand(L, x.shape[1], device=dev, generator=gd) * 2 - 1
+             ) / x.shape[1] ** 0.5
+        b = torch.randn(L, x.shape[1], device=dev, generator=gd) * 0.1
+        e = nan_rel_err(cross_network_fwd(x, w, b),
+                        cross_network_reference(x, w, b), f"cross L={L}")
+        check(e <= CROSS_TOL, f"cross fwd L={L}: rel err {e}")
+        depth_err = max(depth_err, e)
+    print(f"cross network: #8 at L = 1, 5, 11, B=513, rel err "
+          f"{depth_err:.3g} (tol {CROSS_TOL})")
+
+    # rows holding +inf, where the rewrite and the recurrence part: with
+    # x0[j] = +inf, c_l is inf with w_l[j]'s sign, so where w_l[j] > 0 for
+    # every l >= 1 the kernel's S_L and row are +-inf; the recurrence's
+    # mixed-sign dot products make the row NaN.  One row for each kind of
+    # column, at 1 and 2 rows a warp; the other rows must not notice.
+    def kinds(row):
+        return {"nan": int(torch.isnan(row).sum()),
+                "+inf": int(torch.isposinf(row).sum()),
+                "-inf": int(torch.isneginf(row).sum()),
+                "finite": int(torch.isfinite(row).sum())}
+
+    inf_row = {}
+    for B in (513, 4096):
+        x, w, b, _ = cross_inputs(dev, emb_of, B, SEED + 5)
+        pos = (w[1:] > 0).all(0)
+        cols = {"w_l[j] > 0 for all l": pos & (w[0] > 0),
+                "w_0[j] < 0, w_l[j] > 0 for l >= 1": pos & (w[0] < 0),
+                "some w_l[j] < 0, l >= 1": ~pos}
+        cols = {k: int(torch.nonzero(v)[0]) for k, v in cols.items()}
+        for r, j in enumerate(cols.values()):
+            x[300 + r, j] = float("inf")
+        y, want_y = cross_network_fwd(x, w, b), cross_network_reference(x, w,
+                                                                        b)
+        torch.cuda.synchronize()
+        others = [i for i in range(B) if not 300 <= i < 303]
+        e = nan_rel_err(y[others], want_y[others], "cross +inf rows, others")
+        check(e <= CROSS_TOL, f"cross +inf rows B={B}: other rows rel err "
+              f"{e}")
+        for r, (what, j) in enumerate(cols.items()):
+            got = {"kernel": kinds(y[300 + r]),
+                   "plain": kinds(want_y[300 + r])}
+            inf_row[f"B={B} {what}"] = got
+            D = y.shape[1]
+            want_kernel = "nan" if what.startswith("some") else "inf"
+            n_kernel = (got["kernel"]["nan"] if want_kernel == "nan"
+                        else got["kernel"]["+inf"] + got["kernel"]["-inf"])
+            check(n_kernel == D and got["plain"]["nan"] == D,
+                  f"cross +inf row B={B}, column {j} ({what}): kernel "
+                  f"{got['kernel']}, plain {got['plain']}; want kernel all "
+                  f"{want_kernel}, plain all nan")
+            print(f"cross network: B={B}, +inf at column {j} ({what}): of "
+                  f"368 outputs, kernel {got['kernel']}, plain "
+                  f"{got['plain']}")
+        print(f"cross network: B={B}, the other rows within {e:.3g}")
+    return {"cross_network": err_f, "cross_network_bwd": err_b,
+            "cross_network_inf_row": inf_row}
 
 
 def layer_kernel_checks(dev, flat, emb_of):
@@ -1557,6 +1788,42 @@ def cross_bwd_sweep(dev, x, w, b, g, iters=50):
     return out, floor
 
 
+def cross_fwd_sweep(dev, x, w, b, iters=50):
+    """Kernel 8 launched through its C entry point at each rows-a-warp (1,
+    2) and warps-a-block (1, 2, 4, 8) setting; device ms a launch from
+    torch.profiler, back to back, each setting's result held to the plain
+    version.  Then the floor: an empty kernel launched with the wrapper's
+    grid and block.  -> ({setting: ms}, floor ms)."""
+    from tpurec_torch.ops import _build
+    from tpurec_torch.ops import attention as att
+    from tpurec_torch.ops import cross_network as cn
+
+    lib = _build.load("cross_network", cn._SIGNATURES)
+    (B, D), L = x.shape, w.shape[0]
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    want = cn.cross_network_reference(x, w, b)
+    res = {}
+    for K in (1, 2):
+        for W in (1, 2, 4, 8):
+            key = f"rows={K} warps={W}"
+
+            def run(K=K, W=W, key=key):
+                rc = lib.tpurec_cross_network_fwd(
+                    x.data_ptr(), w.data_ptr(), b.data_ptr(), B, D, L, 4, W,
+                    K, out.data_ptr(), stream)
+                check(rc == 0, f"kernel 8 {key}: CUDA error {rc}")
+            res[key] = kernel_alone_ms(run, "cross_fwd_kernel", n=iters)
+            e = nan_rel_err(out, want, key)
+            check(e <= CROSS_TOL, f"kernel 8 {key}: rel err {e}")
+    _, W, grid = cn.fwd_config(B, D, L, 4, att._sm_count(dev))
+    floor = kernel_alone_ms(
+        lambda: check(lib.tpurec_cross_network_empty_fwd(
+            grid, 32 * W, stream) == 0, "empty kernel: CUDA error"),
+        "empty_kernel", n=iters)
+    return res, floor
+
+
 def new_kernel_timings(dev, emb_of, emb, flat, tag):
     """Phase 15 (e): kernels 4, 5, 8 and 9 at the main paths' shapes
     (B=512; #8 also at 4096): wrapper time (CUDA events), plain version,
@@ -1578,6 +1845,8 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
                                             layer_fwd_config)
     from tpurec_torch.ops.cross_network import bwd_config as \
         cross_network_bwd_config
+    from tpurec_torch.ops.cross_network import fwd_config as \
+        cross_network_fwd_config
     from tpurec_torch.ops.cross_network import (cross_network_bwd,
                                                 cross_network_bwd_reference,
                                                 cross_network_fwd,
@@ -1593,12 +1862,22 @@ def new_kernel_timings(dev, emb_of, emb, flat, tag):
         nbytes = 2 * B * D * 4 + 2 * L * D * 4
         flops = B * L * 5 * D
         t_ops, t_b = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        by_cfg, floor = cross_fwd_sweep(dev, x, w, b)
+        K, W, grid = cross_network_fwd_config(B, D, L, 4, _sm_count(dev))
         by_b[B] = dict(
             ms=cuda_ms(lambda: cross_network_fwd(x, w, b)),
             plain_ms=cuda_ms(lambda: cross_network_reference(x, w, b)),
             library_ms=None, bytes=nbytes, flops=flops,
             bound_ms=max(t_ops, t_b) * 1e3,
-            bound_by="operations" if t_ops > t_b else "bytes")
+            bound_by="operations" if t_ops > t_b else "bytes",
+            ms_by_config=by_cfg, floor_ms=floor, rows_per_warp=K, warps=W,
+            grid=grid)
+        print(f"{tag} cross_network B={B}: launched alone (device ms, "
+              f"torch.profiler, 50 launches): " + ", ".join(
+                  f"{k} {v:.5f}" for k, v in by_cfg.items())
+              + f"; the wrapper takes rows={K} warps={W} (grid {grid}); an "
+              f"empty kernel launched as it is: {floor:.5f} ms; bound "
+              f"{by_b[B]['bound_ms']:.5f} ms")
         if B == BATCH_SIZES[0]:               # the training batch, 512
             nbytes = 3 * B * D * 4 + 4 * L * D * 4
             # per row: the dot products c_l and q (2 D each), x_l for l >
@@ -1764,10 +2043,11 @@ def split_device_ms(row, dev_us, sym, per):
         row[key] = path_device_ms(dev_us, (name,), per, sym)
 
 
-def kernel_alone_ms(fn, sym, n=50):
-    """Device ms of the port kernel ``sym`` when ``fn`` (one launch of it)
-    runs ``n`` times back to back, from torch.profiler: the kernel with
-    its data warm in L2, beside its time inside the main path."""
+def kernel_alone_ms(fn, *syms, n=50):
+    """Device ms of the port kernels ``syms`` when ``fn`` (one launch of
+    each) runs ``n`` times back to back, from torch.profiler: the kernels
+    with their data warm in L2 where it fits, beside their time inside the
+    main path."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
@@ -1779,7 +2059,7 @@ def kernel_alone_ms(fn, sym, n=50):
         torch.cuda.synchronize()
     dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")}
-    return path_device_ms(dev_us, (sym,), n, f"{sym} launched alone")
+    return path_device_ms(dev_us, syms, n, f"{syms[0]} launched alone")
 
 
 def chunk_timings(pred, rng, tag, syms):
@@ -2168,11 +2448,11 @@ def main() -> int:
         "field_attention_train": "tpurec/ops/attention_pallas.py:243",
         "field_attention_bwd": "tpurec/ops/attention_pallas.py:273",
         "fused_decay_adam": "tpurec/ops/fused_adam_pallas.py:246",
-        "sparse_adam_rows": "tpurec/ops/fused_adam_pallas.py:131"}
+        "fused_sparse_adam": "tpurec/ops/fused_adam_pallas.py:131"}
     sources = {"field_attention_train": "field_attention",
                "field_attention_bwd": "field_attention",
                "fused_decay_adam": "fused_adam",
-               "sparse_adam_rows": "fused_adam"}
+               "fused_sparse_adam": "fused_adam"}
     errs = {"embedding_gather": gather_err, "field_attention": attn_err,
             **train_errs}
     library = {"embedding_gather": "torch.index_select on global ids",

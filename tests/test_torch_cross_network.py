@@ -149,3 +149,36 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="g must be"):
         cross_network_bwd(x, torch.zeros(2, 6), torch.zeros(2, 6),
                           torch.zeros(3, 6))
+
+
+def _one_reduction(x, w, b):
+    """The algebra kernels 8 and 9 run, in float64 numpy: c_l = x0 . w_l,
+    e_l = bsum_l . w_l, s_l = (1 + S_l) c_l + e_l, out = x0 (1 + S_L) +
+    bsum_L."""
+    x, w, b = (a.astype(np.float64) for a in (x, w, b))
+    L = w.shape[0]
+    c = x @ w.T                                               # [B, L]
+    bsum = np.concatenate([np.zeros((1, w.shape[1])), np.cumsum(b, 0)])
+    e = np.einsum("ld,ld->l", bsum[:L], w)                    # e_0 = 0
+    S = np.zeros(x.shape[0])
+    for l in range(L):
+        S = S + (1.0 + S) * c[:, l] + e[l]
+    return x * (1.0 + S)[:, None] + bsum[L]
+
+
+@pytest.mark.parametrize("B,D,L", SHAPES + [(9, 368, 3), (5, 16, 1),
+                                            (6, 20, 8), (4, 24, 11)])
+def test_one_reduction_algebra_equals_the_recurrence(B, D, L):
+    """The one-reduction rewrite equals tpurec's cross_network_reference
+    (the recurrence, in float32) to float32 rounding, and the recurrence
+    in float64 to float64 rounding."""
+    x, w, b = _inputs(B, D, L, seed=7)
+    got = _one_reduction(x, w, b)
+    want = np.asarray(jax_cross_reference(jnp.asarray(x), jnp.asarray(w),
+                                          jnp.asarray(b)))
+    _close(got, want, 1e-5, "vs tpurec's reference")
+    x64, w64, b64 = (a.astype(np.float64) for a in (x, w, b))
+    r = x64
+    for l in range(L):
+        r = x64 * (r @ w64[l])[:, None] + b64[l] + r
+    _close(got, r, 1e-12, "vs the float64 recurrence")

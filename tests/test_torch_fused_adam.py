@@ -1,5 +1,5 @@
 """The port's table update (tpurec_torch.ops.fused_adam, plain versions on
-the CPU: kernel 7's sweep, kernel 6's row step and write-back) against the
+the CPU: kernel 7's sweep and kernel 6's rows in it) against the
 JAX package's oracles and Pallas kernels (interpret mode), at the shapes of
 tests/test_fused_adam_pallas.py, and its EmbeddingUpdater against the JAX
 one with float32 and bfloat16 moment storage.
@@ -20,12 +20,10 @@ from tpurec.ops.fused_adam_pallas import \
     fused_sparse_adam_reference as jax_sparse_ref
 from tpurec.train.hybrid import EmbeddingUpdater as JaxUpdater
 from tpurec.train.sparse import SparseEmbedState as JaxEmbState
-from tpurec.train.sparse import combine_duplicate_rows as jax_combine
 from tpurec_torch.config import TrainConfig
-from tpurec_torch.ops.fused_adam import (adam_rows, fused_decay_adam,
-                                         fused_sparse_adam, write_rows)
+from tpurec_torch.ops.fused_adam import fused_decay_adam, fused_sparse_adam
 from tpurec_torch.train.hybrid import EmbeddingUpdater
-from tpurec_torch.train.sparse import SparseEmbedState, combine_duplicate_rows
+from tpurec_torch.train.sparse import SparseEmbedState
 
 KW = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, coef=2e-5)
 
@@ -104,38 +102,6 @@ def test_sparse_adam_duplicate_ids(rng):
                           lr=1e-2, coef=0.0)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                atol=2e-5)
-
-
-def test_row_step_skips_sentinels_and_reads_the_old_rows(rng):
-    """adam_rows reads the table before the sweep and write_rows puts its
-    rows over the swept ones; ids outside [0, V) touch nothing."""
-    V, D = 64, 8
-    p, m, v = _state(rng, V, D)
-    ids = torch.tensor([3, 9, 40, V, V + 7, -1])
-    g = torch.from_numpy(rng.normal(size=(6, D)).astype(np.float32))
-    tp, tm, tv = _t(p, m, v)
-    rows = adam_rows(tp, tm, tv, ids, g, 2, **KW)
-    fused_decay_adam(tp, tm, tv, None, 2, **KW)
-    write_rows(tp, tm, tv, ids, *rows)
-    gd = np.zeros((V, D), np.float32)
-    gd[[3, 9, 40]] = g[:3].numpy()
-    want = jax_sparse_ref(*[jnp.asarray(a) for a in (p, m, v)],
-                          jnp.asarray([3, 9, 40], jnp.int32),
-                          jnp.asarray(g[:3].numpy()), 2, **KW)
-    for a, b in zip((tp, tm, tv), want[:3]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-6)
-
-
-def test_combine_duplicate_rows_matches_jax(rng):
-    N, D, V = 200, 4, 50
-    ids = rng.integers(0, V, N)
-    g = rng.normal(size=(N, D)).astype(np.float32)
-    id_u, g_u, valid = combine_duplicate_rows(*_t(ids, g), V)
-    jid, jg, jvalid = jax_combine(jnp.asarray(ids, jnp.int32),
-                                  jnp.asarray(g), V)
-    np.testing.assert_array_equal(id_u.numpy(), np.asarray(jid))
-    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
-    np.testing.assert_allclose(g_u.numpy(), np.asarray(jg), atol=1e-6)
 
 
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])

@@ -216,40 +216,85 @@ def test_decay_sweep_matches_plain(cuda, moments):
     assert float(got[3]) == pytest.approx(float(want[3]), rel=1e-5)
 
 
-def test_sparse_rows_match_plain(cuda):
-    from tpurec_torch.ops.fused_adam import (adam_rows, fused_sparse_adam,
-                                             write_rows)
-
-    g = torch.Generator().manual_seed(1)
-    V, D, N = 5000, 16, 1024
+def _sparse_case(V, D, ids, seed, moments, S=64):
+    g = torch.Generator().manual_seed(seed)
     p = torch.randn(V, D, generator=g)
-    m = torch.randn(V, D, generator=g) * 0.01
-    v = torch.rand(V, D, generator=g) * 0.01
-    # heavy duplicates past a small-field prefix [0, 64), as the hybrid
-    # step calls it
-    ids = 100 + torch.randint(0, 50, (N,), generator=g)
-    gr = torch.randn(N, D, generator=g)
-    gs = torch.randn(64, D, generator=g)
+    m = (torch.randn(V, D, generator=g) * 0.01).to(moments)
+    v = (torch.rand(V, D, generator=g) * 0.01).to(moments)
+    gr = torch.randn(len(ids), D, generator=g)
+    gs = torch.randn(S, D, generator=g)
+    return p, m, v, torch.as_tensor(ids, dtype=torch.int64), gr, gs
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 8, 24, 12])
+@pytest.mark.parametrize("case", ["duplicates", "sentinels", "prefix",
+                                  "all_equal"])
+def test_sparse_rows_match_plain(cuda, D, case, moments):
+    """Kernel 6 in the sweep's pass: one launch of the sweep with rows
+    (fused_sparse_adam's count and the sweep's rise by one), equal to the
+    plain version with duplicate ids, ids outside [0, V) (which touch
+    nothing), touched rows inside g_small's prefix (which take their
+    rows' step in its place) and 1,024 equal ids; bitwise repeatable.
+    float32 moments: p, m and v within 2e-6; bfloat16: p within 2e-6 of
+    max(1, |p'|), m and v within a bfloat16 rounding.  D = 24 and 12 put
+    rows across the 256-value tiles, 12 also a lane's 8 values across two
+    rows."""
+    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
+                                             fused_sparse_adam,
+                                             fused_sparse_adam_reference)
+
+    V, N = 5008, 1024
+    rng = np.random.default_rng(D)
+    ids = {"duplicates": 100 + rng.integers(0, 50, N),
+           "sentinels": np.where(rng.random(N) < 0.3,
+                                 rng.choice([-1, -7, V, V + 9], N),
+                                 rng.integers(0, V, N)),
+           "prefix": rng.integers(0, 128, N),
+           "all_equal": np.full(N, 70)}[case]
+    p, m, v, ids, gr, gs = _sparse_case(V, D, ids, D, moments)
     kw = dict(lr=1e-3, coef=2e-5)
-    want = fused_sparse_adam(p.clone(), m.clone(), v.clone(), ids, gr, 3,
-                             g_small=gs, **kw)
-    before = (adam_rows.launches, write_rows.launches)
-    got = fused_sparse_adam(*(t.to(cuda) for t in (p, m, v, ids, gr)), 3,
-                            g_small=gs.to(cuda), **kw)
+    want = fused_sparse_adam_reference(p.clone(), m.clone(), v.clone(), ids,
+                                       gr, 3, g_small=gs, **kw)
+    outs = []
+    for _ in range(2):
+        before = (fused_sparse_adam.launches, fused_decay_adam.launches)
+        got = fused_sparse_adam(*(t.to(cuda) for t in (p, m, v, ids, gr)),
+                                3, g_small=gs.to(cuda), **kw)
+        torch.cuda.synchronize()
+        assert (fused_sparse_adam.launches, fused_decay_adam.launches) == (
+            before[0] + 1, before[1] + 1)
+        outs.append([t.cpu() for t in got])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    got = outs[0]
+    if moments == torch.float32:
+        for a, b in zip(got[:3], want[:3]):
+            assert (a - b).abs().max().item() <= 2e-6
+    else:
+        scale = torch.maximum(want[0].abs(), torch.ones(()))
+        assert ((got[0] - want[0]).abs() / scale).max().item() <= 2e-6
+        for a, b in zip(got[1:3], want[1:3]):
+            a, b = a.float(), b.float()
+            assert ((a - b).abs() <= 1e-2 * b.abs()
+                    + 1e-6 * b.abs().max()).all()
+    assert float(got[3]) == pytest.approx(float(want[3]), rel=1e-5)
+
+
+def test_sparse_rows_sentinels_touch_nothing(cuda):
+    """Ids >= V and negative ids leave their neighbours as the sweep
+    leaves them: with zero moments, lr 1e-2 and no weight decay, only the
+    one real id's row moves."""
+    from tpurec_torch.ops.fused_adam import fused_sparse_adam
+
+    D = 16
+    t = torch.randn(64, D, device=cuda)
+    z = torch.zeros(64, D, device=cuda, dtype=torch.bfloat16)
+    before = t.clone()
+    fused_sparse_adam(t, z, z.clone(), torch.tensor([4, 64, 70, -1],
+                                                    device=cuda),
+                      torch.ones(4, D, device=cuda), 1, lr=1e-2)
     torch.cuda.synchronize()
-    assert (adam_rows.launches, write_rows.launches) == (before[0] + 1,
-                                                         before[1] + 1)
-    for a, b in zip(got[:3], want[:3]):
-        assert (a.cpu() - b).abs().max().item() <= 2e-6
-    # sentinels (>= V) and negative ids touch nothing
-    ids2 = torch.tensor([4, V, V + 3, -1], device=cuda)
-    t2 = p.to(cuda)
-    m2, v2 = m.to(cuda), v.to(cuda)
-    rows = adam_rows(t2, m2, v2, ids2, torch.ones(4, D, device=cuda), 1,
-                     **kw)
-    write_rows(t2, m2, v2, ids2, *rows)
-    torch.cuda.synchronize()
-    changed = (t2.cpu() != p).any(1).nonzero().flatten().tolist()
+    changed = (t != before).any(1).nonzero().flatten().tolist()
     assert changed == [4]
 
 
@@ -878,3 +923,123 @@ def test_cross_backward_is_one_launch(cuda):
                and e.self_device_time_total > 0]
     assert len(kernels) == 1 and kernels[0][1] == 1, kernels
     assert "cross_bwd_kernel" in kernels[0][0]
+
+
+def _cross_fwd_launch(cuda, x, w, b, warps, rows):
+    """Kernel 8 through its C entry point at `warps` warps a block and
+    `rows` rows a warp (16-byte loads)."""
+    from tpurec_torch.ops import _build
+    from tpurec_torch.ops import cross_network as cn
+
+    lib = _build.load("cross_network", cn._SIGNATURES)
+    (B, D), L = x.shape, w.shape[0]
+    out = torch.full_like(x, float("nan"))
+    rc = lib.tpurec_cross_network_fwd(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), B, D, L, 4, warps, rows,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+def _cross_fwd_close(got, want):
+    """Within 1e-5 of the output's scale where the plain value is not NaN,
+    NaN where it is."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    scale = want[ok].abs().max().item()
+    assert (got[ok] - want[ok]).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("B", CROSS_BATCHES + [512, 4096])
+def test_cross_forward_at_ragged_batches(cuda, B):
+    """Kernel 8's wrapper at each side of its launch's boundaries (1 or 2
+    rows a warp, 4 warps a block), bitwise repeatable, one launch a
+    call."""
+    from tpurec_torch.ops.cross_network import (cross_network,
+                                                cross_network_fwd,
+                                                cross_network_reference)
+
+    x, w, b, _ = _cross_inputs(cuda, B, 368, seed=B + 1)
+    before = cross_network.launches
+    y = cross_network_fwd(x, w, b)
+    again = cross_network_fwd(x, w, b)
+    torch.cuda.synchronize()
+    assert cross_network.launches == before + 2
+    assert torch.equal(y, again)
+    _cross_fwd_close(y, cross_network_reference(x, w, b))
+
+
+@pytest.mark.parametrize("warps", range(1, 9))
+@pytest.mark.parametrize("rows", [1, 2])
+def test_cross_forward_at_each_launch_setting(cuda, warps, rows):
+    """Every rows-a-block and rows-a-warp setting phase 15 times gives the
+    plain version's output, at a ragged batch."""
+    from tpurec_torch.ops.cross_network import cross_network_reference
+
+    x, w, b, _ = _cross_inputs(cuda, 1037, 368, seed=warps)
+    got = _cross_fwd_launch(cuda, x, w, b, warps, rows)
+    torch.cuda.synchronize()
+    _cross_fwd_close(got, cross_network_reference(x, w, b))
+
+
+def test_cross_forward_nan_row_stays_in_its_row(cuda):
+    """A row holding NaN is NaN throughout, as the recurrence makes it;
+    its warp-mate (the other row of its warp) is untouched."""
+    from tpurec_torch.ops.cross_network import (cross_network_fwd,
+                                                cross_network_reference)
+
+    x, w, b, _ = _cross_inputs(cuda, 513, 368, seed=11)
+    clean = cross_network_fwd(x, w, b)
+    x[200, 7] = float("nan")
+    y = cross_network_fwd(x, w, b)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(y[200]).all())
+    others = [r for r in range(513) if r != 200]
+    assert torch.equal(y[others], clean[others])
+    _cross_fwd_close(y, cross_network_reference(x, w, b))
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 5, 11])
+@pytest.mark.parametrize("B", [513, 4096])
+def test_cross_forward_at_any_depth(cuda, L, B):
+    """Kernel 8 takes the layers three at a time: a depth that leaves a
+    partial group, and one over the backward's 8, give the plain
+    version's output (1 and 2 rows a warp)."""
+    from tpurec_torch.ops.cross_network import (cross_network_fwd,
+                                                cross_network_reference)
+
+    x, w, b, _ = _cross_inputs(cuda, B, 368, L=L, seed=L)
+    y = cross_network_fwd(x, w, b)
+    torch.cuda.synchronize()
+    _cross_fwd_close(y, cross_network_reference(x, w, b))
+
+
+def test_cross_forward_inf_row(cuda):
+    """The kept difference of kernel 8's rewrite: with x0[j] = +inf, c_l
+    is inf with w_l[j]'s sign, and where w_l[j] > 0 for every l >= 1 the
+    row's S_L is +-inf and its outputs +-inf, where the recurrence's dot
+    products of mixed-sign infinities make it NaN; elsewhere both are NaN
+    throughout.  No other row is touched."""
+    from tpurec_torch.ops.cross_network import (cross_network_fwd,
+                                                cross_network_reference)
+
+    x, w, b, _ = _cross_inputs(cuda, 513, 368, seed=12)
+    pos = (w[1:] > 0).all(0)
+    cols = {"w0>0": int(torch.nonzero(pos & (w[0] > 0))[0]),
+            "w0<0": int(torch.nonzero(pos & (w[0] < 0))[0]),
+            "mixed": int(torch.nonzero(~pos)[0])}
+    clean = cross_network_fwd(x, w, b)
+    for r, j in enumerate(cols.values()):
+        x[300 + r, j] = float("inf")
+    y = cross_network_fwd(x, w, b)
+    want = cross_network_reference(x, w, b)
+    torch.cuda.synchronize()
+    for r, (what, j) in enumerate(cols.items()):
+        row, plain = y[300 + r], want[300 + r]
+        assert bool(torch.isnan(plain).all()), what
+        if what == "mixed":
+            assert bool(torch.isnan(row).all()), what
+        else:
+            assert bool(torch.isinf(row).all()), what
+    others = [i for i in range(513) if not 300 <= i < 303]
+    assert torch.equal(y[others], clean[others])

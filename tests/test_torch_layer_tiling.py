@@ -1,4 +1,4 @@
-"""Kernel 4's and kernel 9's launch shapes, decided on the host.
+"""Kernel 4's, kernel 8's and kernel 9's launch shapes, decided on the host.
 
 Kernel 4 (one attention layer's forward) stacks R batch rows a block as
 kernel 2 does: here its choice is held to the card's limits, as
@@ -6,13 +6,18 @@ tests/test_torch_attention_tiling.py holds kernel 2's (under 232,448
 bytes of shared memory a block, staging dropped only where it does not
 fit, every batch row in exactly one block, R=4 and 128 blocks at B=512).
 
-Kernel 9 (the cross network's backward) runs as one launch of clusters of
-8 blocks, each warp carrying its rows two at a time: every row is visited
-once, a block's shared memory fits, the grid is whole clusters at most
-one block an SM, the flagship's rows take one pass and its partial sums
-stay tens of KB, and shapes the kernel does not take (over 8 layers, over
-MAX_CHUNKS chunks a lane) are refused.  The
-kernels themselves run only on the card (tests/test_torch_kernels_gpu.py).
+Kernel 8 (the cross network's forward) gives each block FWD_WARPS warps
+and each warp 2 rows where a lane's share of a row is at most 4 chunks
+and the blocks still fill the card, else 1: every row is visited once at
+every batch size that phase 11 of chip_smoke.py checks, and B=512 at the
+DCN's D=368 is one wave of 128 blocks; it takes any number of layers.
+Kernel 9 (the cross network's backward) runs as one launch of clusters
+of 8 blocks, each warp carrying its rows two at a time: every row is
+visited once, a block's shared memory fits, the grid is whole clusters
+at most one block an SM, the flagship's rows take one pass and its
+partial sums stay tens of KB, and shapes the kernel does not take (over
+8 layers, over MAX_CHUNKS chunks a lane) are refused.  The kernels
+themselves run only on the card (tests/test_torch_kernels_gpu.py).
 """
 
 import pytest
@@ -21,11 +26,14 @@ import torch
 from tpurec_torch.ops.attention import (FWD_FILL, SMEM_LIMIT,
                                         attention_layer_fwd,
                                         layer_fwd_config, layer_smem_bytes)
-from tpurec_torch.ops.cross_network import (BWD_MAX_LAYERS, BWD_MAX_WARPS,
-                                            CLUSTER, MAX_CHUNKS, bwd_config,
-                                            bwd_rows_per_warp,
+from tpurec_torch.ops.cross_network import (BWD_MAX_WARPS, CLUSTER,
+                                            FWD_MAX_WARPS, FWD_WARPS,
+                                            MAX_CHUNKS,
+                                            BWD_MAX_LAYERS, bwd_config,
                                             bwd_smem_bytes,
-                                            cross_network_bwd)
+                                            cross_network_bwd,
+                                            cross_network_fwd, fwd_config,
+                                            rows_per_warp)
 
 N_SM = 132                       # the H100's streaming multiprocessors
 FLAGSHIP = (23, 64, 2)           # F, A, H of the flagship attention head
@@ -124,7 +132,7 @@ def test_cross_bwd_visits_every_row_once(shape, B):
 def test_cross_bwd_launch_fits(shape, B):
     D, L, vec = shape
     W, K, grid, smem = bwd_config(B, D, L, vec, N_SM)
-    assert 1 <= W <= BWD_MAX_WARPS and K == bwd_rows_per_warp(D, vec)
+    assert 1 <= W <= BWD_MAX_WARPS and K == rows_per_warp(D, vec)
     assert K == (2 if -(-D // (32 * vec)) <= 4 else 1)
     assert smem == bwd_smem_bytes(D, L, vec, W) <= SMEM_LIMIT
     # whole clusters, at most one block an SM
@@ -163,3 +171,64 @@ def test_cross_bwd_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="cuda or cpu"):
         cross_network_bwd(x, torch.zeros(2, 6, device="meta"),
                           torch.zeros(2, 6, device="meta"), x)
+
+
+# -- kernel 8 ----------------------------------------------------------------
+
+# the batch sizes at which phase 11 of chip_smoke.py checks kernels 8 and 9
+PHASE11_BATCHES = [1, 2, 3, 8, 9, 64, 65, 512, 513, 1024, 1025, 4096, 4097]
+
+
+def fwd_visits(B, D, L, vec, warps=None):
+    """Rows in the order kernel 8's warps take them: block b's warp w
+    takes rows (b*W + w)*K .. + K - 1 that are < B."""
+    K, W, grid = (fwd_config(B, D, L, vec, N_SM) if warps is None
+                  else fwd_config(B, D, L, vec, N_SM, warps=warps))
+    return [(b * W + w) * K + k for b in range(grid) for w in range(W)
+            for k in range(K) if (b * W + w) * K + k < B]
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+@pytest.mark.parametrize("B", PHASE11_BATCHES)
+def test_cross_fwd_visits_every_row_once(shape, B):
+    assert fwd_visits(B, *shape) == list(range(B))
+    D, _, vec = shape
+    K, W, grid = fwd_config(B, *shape, N_SM)
+    assert W == FWD_WARPS <= FWD_MAX_WARPS
+    # rows_per_warp rows a warp where the blocks still fill the card
+    full = -(-B // (rows_per_warp(D, vec) * W)) >= N_SM
+    assert K == (rows_per_warp(D, vec) if full else 1)
+    # no block without a row
+    assert (grid - 1) * W * K < B
+
+
+@pytest.mark.parametrize("warps", range(1, FWD_MAX_WARPS + 1))
+def test_cross_fwd_visits_every_row_at_each_block_size(warps):
+    """The rows-a-block settings phase 15 sweeps, at the DCN's shape."""
+    for B in PHASE11_BATCHES:
+        assert fwd_visits(B, 368, 3, 4, warps) == list(range(B)), B
+
+
+def test_cross_fwd_flagship_launch():
+    """The DCN's D=368 at 16-byte loads is 3 chunks a lane.  B=512 takes
+    1 row a warp, 128 blocks of 4 warps, one wave on 132 SMs (2 rows a
+    warp would leave half the SMs idle); B=4096 2 rows a warp, 512
+    blocks."""
+    assert fwd_config(512, 368, 3, 4, N_SM) == (1, 4, 128)
+    assert fwd_config(4096, 368, 3, 4, N_SM) == (2, 4, 512)
+    assert rows_per_warp(368, 4) == 2 and rows_per_warp(368, 1) == 1
+    # a row of 13 at scalar loads is one chunk a lane
+    assert fwd_config(37, 13, 3, 1, N_SM) == (1, 4, 10)
+    assert fwd_config(37 * 64, 13, 3, 1, N_SM)[0] == 2
+
+
+def test_cross_fwd_refuses_what_the_kernel_does_not_take():
+    # any number of layers: the forward takes them three at a time
+    for L in (1, BWD_MAX_LAYERS, BWD_MAX_LAYERS + 1, 20):
+        assert fwd_config(512, 368, L, 4) == (1, 4, 128)
+    with pytest.raises(ValueError, match="chunks"):
+        fwd_config(512, 32 * MAX_CHUNKS * 4 + 4, 3, 4)
+    x = torch.zeros(4, 6, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cross_network_fwd(x, torch.zeros(2, 6, device="meta"),
+                          torch.zeros(2, 6, device="meta"))

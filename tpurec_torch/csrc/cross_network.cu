@@ -19,42 +19,72 @@
 // arithmetic is a few FMAs per byte, so the launch, not the memory,
 // bounds both at the batch sizes the models use.
 //
-// Forward design (cross_fwd_kernel, kernel 8): one warp per batch row.  A
-// lane holds its share of the row in registers (C chunks of VEC floats:
-// 16-byte loads when D % 4 == 0 and the tensors are 16-byte aligned,
-// scalar loads otherwise), so each layer is one warp-shuffle dot product
-// and one register update; w and b sit in shared memory.
-//
-// Backward design (cross_bwd_kernel, kernel 9), one launch.  A warp
-// carries K rows at a time (2 where a lane's share of a row is at most 4
-// chunks, else 1).  The backward's L dot products g_l . x0 and the
-// forward's s_l = x_l . w_l are not taken one after another: with c_l =
-// x0 . w_l, q = g . x0 and e_l = bsum_l . w_l (bsum_l = b_0 + ... +
-// b_{l-1}),
+// The rewrite both kernels run on: with c_l = x0 . w_l, e_l = bsum_l .
+// w_l and bsum_l = b_0 + ... + b_{l-1} (bsum_0 = 0),
 //
 //   x_l = x0 (1 + S_l) + bsum_l,  S_l = s_0 + ... + s_{l-1}
-//   s_l = (1 + S_l) c_l + e_l
+//   s_l = x_l . w_l = (1 + S_l) c_l + e_l
+//
+// so a row's L dot products s_l follow by a scalar recurrence from the L
+// dot products c_l of the row itself and L - 1 row-independent e_l.  This
+// rounds differently from the recurrence (the checks hold the forward to
+// 1e-5 of the output's scale).  A row holding NaN is NaN throughout, as
+// in the recurrence.  A row holding +inf may part from it, a difference
+// kept on purpose: with x0[j] = +inf, c_l is inf with the sign of w_l[j],
+// and where w_l[j] > 0 for every l >= 1, S_L stays +-inf and the forward
+// gives the row +-inf (NaN only where x0 is 0), where the recurrence's
+// dot products of mixed-sign infinities give NaN throughout; elsewhere
+// both give NaN throughout.  No other row is touched.
+//
+// Forward design (cross_fwd_kernel, kernel 8): a warp takes K rows (1,
+// or 2 where a lane's share of a row is at most 4 chunks: the host takes
+// 2 only where the blocks still fill the card), W warps a block.  A lane
+// holds its share of each row in registers (C chunks of VEC floats:
+// 16-byte loads when D % 4 == 0 and the tensors are 16-byte aligned,
+// scalar loads otherwise) and owns the same elements of every row, so
+// it reads its elements of w_l and b_l straight into registers
+// through the read-only path, with no shared memory and no barrier, a
+// group of layers at a time: a group's loads are all in flight at once,
+// issued after the rows', and one butterfly reduces the group's K G sums
+// c_l and its e_l together; the lane then carries the scalar recurrence
+// on.  After the last group it writes
+//
+//   out = x0 (1 + S_L) + bsum_L
+//
+// elementwise.  At L = kFixedLayers (3, the models' n_cross_layers) a
+// variant of its own takes all the layers in one group, unguarded; any
+// other L runs with L a runtime argument, kLayerGroup (3) layers a group
+// (the backward takes at most kMaxLayers).  The runtime-L variant at L =
+// 3 took 0.0030 ms against the fixed one's 0.0025 at B=512 and 0.0047
+// against 0.0045 at B=4096 (scripts/time_kernels.py, in turns, H100 80GB
+// HBM3 at 700 W), so the fixed variant stays; a template parameter for
+// every L from 1 to 8 doubled the build time.
+
+// Backward design (cross_bwd_kernel, kernel 9), one launch.  A warp
+// carries K = 2 rows at a time where a lane's share of a row is at most
+// 4 chunks, else 1.  The backward's L dot
+// products g_l . x0 and the forward's s_l are not taken one after
+// another: with q = g . x0, besides the rewrite above,
+//
 //   dxw_{L-1} = q,  dxw_{l-1} = dxw_l (1 + c_l)   (g_{l-1} . x0 =
 //                                                  dxw_l + dxw_l c_l)
 //
 // so a row needs one warp reduction, of its L + 1 dot products (the K
 // rows' and the L - 1 e_l in one butterfly), and scalar recurrences; the
-// rest is elementwise.  This rounds differently from the forward's
-// recurrence (measured within 1e-6 of the scale on the card; the checks
-// hold dx to 1e-5 and dw, db to 1e-4 of their scales).  A lane always
-// owns the same elements of every row, so it adds its rows' dw and db
-// terms (summed over its K rows in registers) into its warp's [2, L, D]
-// slice of shared memory with no race.  The block sums its warps' slices
-// in order; the blocks of a thread-block cluster (kCluster of them) sum
-// those over distributed shared memory in rank order, each block a share
-// of the elements, into the cluster's slice of a [clusters, 2, L, D]
-// partial buffer (70 KB at the DCN step's B=512); the block whose count
-// completes the grid (a counter it resets itself, after __threadfence)
-// marks its cluster, whose blocks then sum the clusters' slices in order
-// into dw and db.  No float atomics: two calls give the same bits, and a
-// launch keeps no state between calls (it may be captured in a CUDA
-// graph).  Only rows < B are read; a real row that holds NaN puts NaN
-// into dw and db, as JAX's masked `where` does.
+// rest is elementwise (the checks hold dx to 1e-5 and dw, db to 1e-4 of
+// their scales).  A lane always owns the same elements of every row, so it
+// adds its rows' dw and db terms (summed over its K rows in registers)
+// into its warp's [2, L, D] slice of shared memory with no race.  The
+// block sums its warps' slices in order; the blocks of a thread-block
+// cluster (kCluster of them) sum those over distributed shared memory in
+// rank order, each block a share of the elements, into the cluster's slice
+// of a [clusters, 2, L, D] partial buffer (70 KB at the DCN step's B=512);
+// the block whose count completes the grid (a counter it resets itself,
+// after __threadfence) marks its cluster, whose blocks then sum the
+// clusters' slices in order into dw and db.  No float atomics: two calls
+// give the same bits, and a launch keeps no state between calls (it may be
+// captured in a CUDA graph).  Only rows < B are read; a real row that
+// holds NaN puts NaN into dw and db, as JAX's masked `where` does.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,6 +96,9 @@ namespace {
 
 constexpr int kMaxChunks = 8;   // C <= 8: D <= 32 * 8 * VEC
 constexpr int kMaxLayers = 8;   // layers the backward takes, at most
+constexpr int kLayerGroup = 3;  // layers a forward butterfly takes, any L
+constexpr int kFixedLayers = 3; // the models' L, a forward variant of its own
+constexpr int kMaxFwdWarps = 8; // warps of a forward block, at most
 constexpr int kMaxBwdWarps = 8; // warps of a backward block, at most
 constexpr int kCluster = 8;     // blocks of a backward cluster (portable)
 constexpr int kMaxClusters = 16; // backward clusters, at most
@@ -79,6 +112,9 @@ struct Vec<4> {
   __device__ static T load(const float* p) {
     return *reinterpret_cast<const float4*>(p);
   }
+  __device__ static T ldg(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
   __device__ static void store(float* p, T v) {
     *reinterpret_cast<float4*>(p) = v;
   }
@@ -88,6 +124,7 @@ template <>
 struct Vec<1> {
   using T = float;
   __device__ static T load(const float* p) { return *p; }
+  __device__ static T ldg(const float* p) { return __ldg(p); }
   __device__ static void store(float* p, T v) { *p = v; }
 };
 
@@ -111,16 +148,6 @@ __device__ __forceinline__ float dot(float4 a, float4 b, float acc) {
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-
-// x0 * s + b + x, component-wise
-__device__ __forceinline__ float cross(float x0, float s, float b, float x) {
-  return fmaf(x0, s, b) + x;
-}
-__device__ __forceinline__ float4 cross(float4 x0, float s, float4 b,
-                                        float4 x) {
-  return make_float4(cross(x0.x, s, b.x, x.x), cross(x0.y, s, b.y, x.y),
-                     cross(x0.z, s, b.z, x.z), cross(x0.w, s, b.w, x.w));
 }
 
 // x * s + b, component-wise
@@ -168,46 +195,10 @@ __device__ __forceinline__ int elem(int c, int lane, int D) {
   return i < D ? i : -1;
 }
 
-// s = sum over the row of a . v (v in shared memory), across the warp
-template <int VEC, int C>
-__device__ __forceinline__ float row_dot(const typename Vec<VEC>::T (&a)[C],
-                                         const float* v, int lane, int D) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int i = elem<VEC>(c, lane, D);
-    if (i >= 0) s = dot(a[c], Vec<VEC>::load(v + i), s);
-  }
-  return warp_sum(s);
-}
-
-// x = x0, then layers 0 .. n-1 of the recurrence, in registers
-template <int VEC, int C>
-__device__ __forceinline__ void run_layers(const typename Vec<VEC>::T (&x0)[C],
-                                           typename Vec<VEC>::T (&x)[C],
-                                           const float* w, const float* b,
-                                           int n, int lane, int D) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) x[c] = x0[c];
-  for (int l = 0; l < n; ++l) {
-    const float s = row_dot<VEC, C>(x, w + l * D, lane, D);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int i = elem<VEC>(c, lane, D);
-      if (i >= 0) x[c] = cross(x0[c], s, Vec<VEC>::load(b + l * D + i), x[c]);
-    }
-  }
-}
-
-// Copy w and b [L, D] into shared memory (w then b); ends synced.
-__device__ void stage_weights(const float* __restrict__ w,
-                              const float* __restrict__ b, int n,
-                              float* sw) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sw[i] = w[i];
-    sw[n + i] = b[i];
-  }
-  __syncthreads();
+// Rows a warp carries at a time: 2 while a lane's share of a row is at
+// most 4 chunks (its registers then hold both rows), else 1
+__host__ __device__ constexpr int rows_per_warp(int C) {
+  return C <= 4 ? 2 : 1;
 }
 
 // Start copying src [n] into shared memory by cp.async, VEC floats a copy
@@ -235,41 +226,110 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-template <int VEC, int C>
-__global__ void cross_fwd_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ b, int B, int D,
-                                 int L, float* __restrict__ out) {
+// Kernel 8's layers l0 .. l0 + G - 1 (those < L) for a lane's K rows x0:
+// loads the lane's elements of their w_l and b_l (after the rows'), one
+// butterfly for the rows' sums c_l and the layers' e_l, then the scalar
+// recurrence, carrying bs (the lane's elements of bsum_l) and each row's
+// S on.  EXACT: the group is all the layers (l0 = 0, L = G), so e_0 = 0
+// takes no slot and nothing is guarded.
+template <int VEC, int C, int K, int G, bool EXACT>
+__device__ __forceinline__ void fwd_layers(
+    const typename Vec<VEC>::T (&x0)[K][C], const float* __restrict__ w,
+    const float* __restrict__ b, int D, int l0, int L,
+    typename Vec<VEC>::T (&bs)[C], float (&S)[K]) {
   using T = typename Vec<VEC>::T;
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);   // w [L, D], then b [L, D]
-  stage_weights(w, b, L * D, sw);
+  constexpr int E0 = EXACT ? 1 : 0;     // the first layer with an e slot
+  constexpr int NV = K * G + G - E0;    // the rows' c_l, then the e_l
   const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
-      (threadIdx.x >> 5);
-  if (row >= B) return;
-  const float* xr = x + row * D;
-  T x0[C], xl[C];
+  T wl[G][C], bl[G][C];
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = elem<VEC>(c, lane, D);
+      const bool ok = i >= 0 && (EXACT || l0 + j < L);
+      wl[j][c] = ok ? Vec<VEC>::ldg(w + (l0 + j) * D + i) : zero<T>();
+      bl[j][c] = ok ? Vec<VEC>::ldg(b + (l0 + j) * D + i) : zero<T>();
+    }
+  float v[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) v[j] = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int i = elem<VEC>(c, lane, D);
-    x0[c] = i >= 0 ? Vec<VEC>::load(xr + i) : zero<T>();
-  }
-  run_layers<VEC, C>(x0, xl, sw, sw + L * D, L, lane, D);
-  float* orow = out + row * D;
+    T s = bs[c];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int i = elem<VEC>(c, lane, D);
-    if (i >= 0) Vec<VEC>::store(orow + i, xl[c]);
+    for (int j = 0; j < G; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        v[k * G + j] = dot(x0[k][c], wl[j][c], v[k * G + j]);
+      if (j >= E0) v[K * G + j - E0] = dot(s, wl[j][c], v[K * G + j - E0]);
+      if (EXACT || l0 + j < L) s = add(s, bl[j][c]);
+    }
+    bs[c] = s;
   }
+  // one butterfly for all of them, each sum in the same order on every
+  // lane
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    if (EXACT || l0 + j < L)
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        S[k] += fmaf(1.f + S[k], v[k * G + j],
+                     j >= E0 && l0 + j > 0 ? v[K * G + j - E0] : 0.f);
 }
 
-// Rows a backward warp carries at a time: 2 while a lane's share of a row
-// is at most 4 chunks (its registers then hold both rows' x0, g and
-// dx0_extra), else 1
-__host__ __device__ constexpr int rows_per_warp(int C) {
-  return C <= 4 ? 2 : 1;
+// Kernel 8.  Warp w of block b takes rows (b W + w) K .. + K - 1 (those
+// < B), W = blockDim.x / 32.  LF > 0: L == LF, all the layers in one
+// butterfly; LF == 0: any L, kLayerGroup layers a butterfly.
+template <int VEC, int C, int K, int LF>
+__global__ void __launch_bounds__(32 * kMaxFwdWarps)
+    cross_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ b, int B, int D, int L,
+                     float* __restrict__ out) {
+  using T = typename Vec<VEC>::T;
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+       (threadIdx.x >> 5)) * K;
+  if (row0 >= B) return;
+  T x0[K][C];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = elem<VEC>(c, lane, D);
+      x0[k][c] = row0 + k < B && i >= 0
+                     ? Vec<VEC>::load(x + (row0 + k) * D + i)
+                     : zero<T>();
+    }
+  T bs[C];                              // the lane's elements of bsum_l
+  float S[K];                           // each row's S_l, then S_L
+#pragma unroll
+  for (int c = 0; c < C; ++c) bs[c] = zero<T>();
+#pragma unroll
+  for (int k = 0; k < K; ++k) S[k] = 0.f;
+  if constexpr (LF > 0) {
+    fwd_layers<VEC, C, K, LF, true>(x0, w, b, D, 0, LF, bs, S);
+  } else {
+#pragma unroll 1
+    for (int l0 = 0; l0 < L; l0 += kLayerGroup)
+      fwd_layers<VEC, C, K, kLayerGroup, false>(x0, w, b, D, l0, L, bs, S);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float* orow = out + (row0 + k) * D;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = elem<VEC>(c, lane, D);
+      if (row0 + k < B && i >= 0)
+        Vec<VEC>::store(orow + i, fma_vec(x0[k][c], 1.f + S[k], bs[c]));
+    }
+  }
 }
 
 // The backward block's shared memory, in floats: w [L, D]; bsum [L, D]
@@ -548,8 +608,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   }
 }
 
-// The launch floor beside kernel 9: an empty kernel launched as it is (its
-// grid, cluster, block and dynamic shared memory)
+// The launch floors beside kernels 8 and 9: empty kernels launched as
+// they are (kernel 9's: its grid, cluster, block and dynamic shared
+// memory)
+__global__ void empty_kernel() {}
 __global__ void __cluster_dims__(kCluster, 1, 1) empty_cluster_kernel() {}
 
 typedef void (*FwdKernel)(const float*, const float*, const float*, int, int,
@@ -558,17 +620,31 @@ typedef void (*BwdKernel)(const float*, const float*, const float*,
                           const float*, int, int, int, float*, float*,
                           unsigned*, float*);
 
+// K is 1 or rows_per_warp(C); L of kFixedLayers takes its own variant
+template <int VEC, int C, int K>
+FwdKernel fwd_kernel_l(int L) {
+  return L == kFixedLayers ? cross_fwd_kernel<VEC, C, K, kFixedLayers>
+                           : cross_fwd_kernel<VEC, C, K, 0>;
+}
+
+template <int VEC, int C>
+FwdKernel fwd_kernel_k(int K, int L) {
+  if (K == 1) return fwd_kernel_l<VEC, C, 1>(L);
+  if (K == rows_per_warp(C)) return fwd_kernel_l<VEC, C, rows_per_warp(C)>(L);
+  return nullptr;
+}
+
 template <int VEC>
-FwdKernel fwd_kernel(int C) {
+FwdKernel fwd_kernel(int C, int K, int L) {
   switch (C) {
-    case 1: return cross_fwd_kernel<VEC, 1>;
-    case 2: return cross_fwd_kernel<VEC, 2>;
-    case 3: return cross_fwd_kernel<VEC, 3>;
-    case 4: return cross_fwd_kernel<VEC, 4>;
-    case 5: return cross_fwd_kernel<VEC, 5>;
-    case 6: return cross_fwd_kernel<VEC, 6>;
-    case 7: return cross_fwd_kernel<VEC, 7>;
-    case 8: return cross_fwd_kernel<VEC, 8>;
+    case 1: return fwd_kernel_k<VEC, 1>(K, L);
+    case 2: return fwd_kernel_k<VEC, 2>(K, L);
+    case 3: return fwd_kernel_k<VEC, 3>(K, L);
+    case 4: return fwd_kernel_k<VEC, 4>(K, L);
+    case 5: return fwd_kernel_k<VEC, 5>(K, L);
+    case 6: return fwd_kernel_k<VEC, 6>(K, L);
+    case 7: return fwd_kernel_k<VEC, 7>(K, L);
+    case 8: return fwd_kernel_k<VEC, 8>(K, L);
   }
   return nullptr;
 }
@@ -603,31 +679,32 @@ cudaError_t allow_smem(const void* kernel, long long bytes) {
 
 }  // namespace
 
-// x [B, D], w and b [L, D] -> out [B, D].  vec is 4 (D % 4 == 0, 16-byte
-// aligned tensors) or 1; warps is the rows per block.  Returns the
-// cudaError_t of the launch.
+// x [B, D], w and b [L, D] -> out [B, D].  vec is 4 (D % 4 ==
+// 0, 16-byte aligned tensors) or 1; a block is `warps` warps, a warp
+// takes `rows` rows (1, or tpurec_cross_network_rows_per_warp).  Returns
+// the cudaError_t of the launch.
 extern "C" int tpurec_cross_network_fwd(const float* x, const float* w,
                                         const float* b, int B, int D, int L,
-                                        int vec, int warps, float* out,
-                                        void* stream) {
+                                        int vec, int warps, int rows,
+                                        float* out, void* stream) {
   const int C = chunks(D, vec);
-  if (B < 0 || D < 1 || L < 1 || C == 0 || warps < 1 || warps > 32 ||
-      (vec != 4 && vec != 1) || (vec == 4 && D % 4 != 0))
+  if (B < 0 || D < 1 || L < 1 || C == 0 || warps < 1 ||
+      warps > kMaxFwdWarps || (vec != 4 && vec != 1) ||
+      (vec == 4 && D % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
+  const FwdKernel k =
+      vec == 4 ? fwd_kernel<4>(C, rows, L) : fwd_kernel<1>(C, rows, L);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const FwdKernel k = vec == 4 ? fwd_kernel<4>(C) : fwd_kernel<1>(C);
-  const long long smem = 2LL * L * D * sizeof(float);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(k), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + warps - 1) / warps;
-  k<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, B, D, L, out);
+  const int per_block = warps * rows;
+  k<<<(B + per_block - 1) / per_block, 32 * warps, 0,
+      static_cast<cudaStream_t>(stream)>>>(x, w, b, B, D, L, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows a backward warp carries at a time for a row of D at vec-float
-// loads (0 when D is over kMaxChunks chunks a lane)
-extern "C" int tpurec_cross_network_bwd_rows_per_warp(int D, int vec) {
+// Rows a warp of either kernel carries at a time for a row of D at
+// vec-float loads (0 when D is over kMaxChunks chunks a lane)
+extern "C" int tpurec_cross_network_rows_per_warp(int D, int vec) {
   const int C = chunks(D, vec);
   return C == 0 ? 0 : rows_per_warp(C);
 }
@@ -636,7 +713,7 @@ extern "C" int tpurec_cross_network_bwd_rows_per_warp(int D, int vec) {
 extern "C" long long tpurec_cross_network_bwd_smem_bytes(int D, int L,
                                                          int vec, int warps) {
   return BwdLayout(D, L, warps,
-                   tpurec_cross_network_bwd_rows_per_warp(D, vec)).bytes();
+                   tpurec_cross_network_rows_per_warp(D, vec)).bytes();
 }
 
 // The backward, one launch: x [B, D] (the forward's input), w, b [L, D]
@@ -678,6 +755,16 @@ extern "C" int tpurec_cross_network_empty(int grid, int threads,
   if (err != cudaSuccess) return static_cast<int>(err);
   empty_cluster_kernel<<<grid, threads, smem,
                          static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel launched as kernel 8 is (`grid` blocks of `threads`
+// threads, no shared memory): the floor under kernel 8's device time.
+extern "C" int tpurec_cross_network_empty_fwd(int grid, int threads,
+                                              void* stream) {
+  if (grid < 1 || threads < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  empty_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

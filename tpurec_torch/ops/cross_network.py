@@ -11,11 +11,17 @@ x [B, D], w and b [L, D]:
 The CUDA source is ``tpurec_torch/csrc/cross_network.cu``; its header gives
 the design.  Bound on the H100: bytes (the rows read and written, about
 1.5 MB forward and 2.3 MB backward at B=512, D=368), well under a
-microsecond, so the launch bounds both kernels at the models' batch sizes.
-Kernel 9 is one launch (:func:`bwd_config`): clusters of ``CLUSTER``
-blocks, each warp carrying its rows two at a time with one warp reduction
-a row, the weight gradients summed in a fixed order across warps, blocks,
-a cluster's blocks and, by the last block to finish, across clusters.
+microsecond, so the launch and the loads' latency bound both kernels at
+the models' batch sizes.  Both take one warp reduction a row: with c_l =
+x0 . w_l, the layers' dot products follow from a scalar recurrence.
+Kernel 8 (:func:`fwd_config`) gives a block ``FWD_WARPS`` warps and a
+warp 1 or 2 rows (:func:`rows_per_warp`, where the blocks still fill the
+card), with w and b read straight into registers three layers at a time
+(any number of layers).  Kernel 9 is one launch (:func:`bwd_config`):
+clusters of ``CLUSTER`` blocks, each warp carrying its rows K at a time,
+the weight gradients summed in a fixed order across warps, blocks, a
+cluster's blocks and, by the last block to finish, across clusters; it
+takes at most ``BWD_MAX_LAYERS`` layers.
 
 :func:`cross_network` launches the kernels for CUDA tensors (through
 :class:`CrossNetworkFn` when a gradient is wanted) and runs the plain
@@ -34,32 +40,55 @@ from tpurec_torch.ops.attention import _sm_count
 
 SMEM_LIMIT = 232448             # bytes of shared memory a block may use
 MAX_CHUNKS = 8                  # kMaxChunks in the source
-FWD_WARPS = 4                   # rows per forward block
+BWD_MAX_LAYERS = 8              # kMaxLayers in the source
+FWD_WARPS = 4                   # warps of a forward block
+FWD_MAX_WARPS = 8               # kMaxFwdWarps in the source
 CLUSTER = 8                     # blocks of a backward cluster (kCluster)
 BWD_WARPS = 4                   # warps of a backward block (fewer if D is big)
 BWD_MAX_WARPS = 8               # kMaxBwdWarps in the source
-BWD_MAX_LAYERS = 8              # kMaxLayers in the source
 BWD_MAX_CLUSTERS = 16           # kMaxClusters in the source
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "tpurec_cross_network_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P,
-                                      _P]),
+    "tpurec_cross_network_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _P, _P]),
     "tpurec_cross_network_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _P, _P, _P, _P, _P]),
     "tpurec_cross_network_bwd_smem_bytes": (ctypes.c_longlong,
                                             [_I, _I, _I, _I]),
-    "tpurec_cross_network_bwd_rows_per_warp": (_I, [_I, _I]),
+    "tpurec_cross_network_rows_per_warp": (_I, [_I, _I]),
     "tpurec_cross_network_empty": (_I, [_I, _I, ctypes.c_longlong, _P]),
+    "tpurec_cross_network_empty_fwd": (_I, [_I, _I, _P]),
 }
 _COUNTERS = {}
 
 
-def bwd_rows_per_warp(D: int, vec: int) -> int:
-    """Rows a backward warp carries at a time (the source's
+def rows_per_warp(D: int, vec: int) -> int:
+    """Rows a warp of either kernel carries at a time (the source's
     ``rows_per_warp``): 2 while a lane's share of a row is at most 4
     chunks of ``vec`` floats, else 1."""
     return 2 if -(-D // (32 * vec)) <= 4 else 1
+
+
+def _check_chunks(D: int, vec: int) -> None:
+    if -(-D // (32 * vec)) > MAX_CHUNKS:
+        raise ValueError(f"D={D} is over {MAX_CHUNKS} chunks of {vec} "
+                         f"floats a lane")
+
+
+def fwd_config(B: int, D: int, L: int, vec: int, n_sm: int = 132,
+               warps: int = FWD_WARPS) -> Tuple[int, int, int]:
+    """(rows a warp, warps a block, grid) of kernel 8's launch: ``warps``
+    warps a block, each taking :func:`rows_per_warp` rows where that still
+    gives every SM a block, else 1 (B=512 at D=368: 1 row a warp, 128
+    blocks of 4 warps, one wave; B=4096: 2 rows a warp, 512 blocks), at
+    any number of layers L; ValueError for a lane's share of a row over
+    ``MAX_CHUNKS`` chunks."""
+    _check_chunks(D, vec)
+    K = rows_per_warp(D, vec)
+    if -(-B // (K * warps)) < n_sm:
+        K = 1
+    return K, warps, max(1, -(-B // (K * warps)))
 
 
 def bwd_smem_bytes(D: int, L: int, vec: int, warps: int) -> int:
@@ -67,7 +96,7 @@ def bwd_smem_bytes(D: int, L: int, vec: int, warps: int) -> int:
     and the running sums of b [L, D]; each warp's dw/db slice [2, L, D];
     32 dot products a warp; 3 scalars a layer of each of a warp's rows
     (room for 8 layers)."""
-    K = bwd_rows_per_warp(D, vec)
+    K = rows_per_warp(D, vec)
     return 4 * (2 * L * D + warps * 2 * L * D + 32 * warps
                 + warps * K * 3 * BWD_MAX_LAYERS)
 
@@ -83,12 +112,10 @@ def bwd_config(B: int, D: int, L: int, vec: int, n_sm: int = 132,
     ``BWD_MAX_LAYERS`` layers, a lane's share of a row over
     ``MAX_CHUNKS`` chunks, or a block that does not fit even one warp."""
     if L > BWD_MAX_LAYERS:
-        raise ValueError(f"the backward kernel takes 1 to "
+        raise ValueError(f"the cross-network backward takes 1 to "
                          f"{BWD_MAX_LAYERS} layers, got {L}")
-    if -(-D // (32 * vec)) > MAX_CHUNKS:
-        raise ValueError(f"D={D} is over {MAX_CHUNKS} chunks of {vec} "
-                         f"floats a lane")
-    K = bwd_rows_per_warp(D, vec)
+    _check_chunks(D, vec)
+    K = rows_per_warp(D, vec)
     for W in range(warps, 0, -1):
         smem = bwd_smem_bytes(D, L, vec, W)
         if smem <= SMEM_LIMIT:
@@ -150,16 +177,14 @@ def cross_network_fwd(x: torch.Tensor, w: torch.Tensor,
         return cross_network_reference(x, w, b)
     vec, (x, w, b) = _kernel_args(x, w, b)
     (B, D), L = x.shape, w.shape[0]
-    if 2 * L * D * 4 > SMEM_LIMIT:
-        raise ValueError(f"L={L}, D={D}: w and b need {2 * L * D * 4} B of "
-                         f"shared memory, over {SMEM_LIMIT}")
+    K, warps, _ = fwd_config(B, D, L, vec, _sm_count(x.device))
     lib = _build.load("cross_network", _SIGNATURES)
     out = torch.empty((B, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tpurec_cross_network_fwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), B, D, L, vec,
-            FWD_WARPS, out.data_ptr(), stream)
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), B, D, L, vec, warps, K,
+            out.data_ptr(), stream)
     _build.check(lib, rc, "cross_network")
     cross_network.launches += 1
     return out

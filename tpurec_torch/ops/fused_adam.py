@@ -1,29 +1,32 @@
 """Exact dense-Adam update of the embedding table: kernel 7 (the full-table
-sweep) and kernel 6 (the sparse row step) of the port, and their plain
-versions.
+sweep) and kernel 6 (the sparse row step, carried by the sweep's pass) of
+the port, and their plain versions.
 
 Kernel 7 replaces ``tpurec/ops/fused_adam_pallas.py::fused_decay_adam``
 (``_decay_kernel``): one pass over the table computing the zero-gradient
 Adam step ``u = coef * p``, with the small-field prefix gradient added on
 rows [0, S), and ``sum(p**2)`` of the table before the step.  Kernel 6
-replaces the function of ``fused_sparse_adam`` (``_kernel``) in the form
-the hybrid update uses (``train/hybrid.py:249-263``): the exact Adam step
-of sorted, unique touched rows, ``u = g_u + coef * p_old``, computed from
-the table before the sweep into compact buffers (:func:`adam_rows`) and
-written over the swept rows after it (:func:`write_rows`).  The CUDA source
-is ``tpurec_torch/csrc/fused_adam.cu``; its header gives the design and the
-bounds (bytes: 16 B per element with bfloat16 moments, 24 B with float32;
-the row step is launch-bound).
+replaces ``fused_sparse_adam`` (``_kernel``): the same pass, in which each
+touched row's gradients, summed in the order of a stable sort of the ids,
+give ``u = coef * p + g_row`` in place of ``coef * p + g_small`` (the
+hybrid update sets the row correction over the swept row,
+``tpurec/train/hybrid.py:122-129``).  As the TPU function keeps its sort
+and ``searchsorted`` outside ``pallas_call``, :func:`fused_sparse_adam`
+runs one stable ``torch.sort`` of the ids and one ``torch.searchsorted``
+of the tiles' row bounds, then one launch of the sweep that reads each
+tile's entries.  The CUDA source is ``tpurec_torch/csrc/fused_adam.cu``;
+its header gives the design and the bounds (bytes: 16 B per element with
+bfloat16 moments, 24 B with float32).
 
-All three update the table and moments **in place**; the moments are
-float32 or bfloat16 (stored rounded to nearest even, math in float32).
-:func:`fused_sparse_adam` composes them into the TPU function's whole
-contract: duplicates summed (:func:`dedup_sorted`, torch ops), the row
-step, the sweep, the write-back.  It is the one place that orders them:
-the hybrid training step calls it with the small-field prefix gradient.
+Both update the table and moments **in place**; the moments are float32
+or bfloat16 (stored rounded to nearest even, math in float32).  The
+hybrid training step's table update is :func:`fused_sparse_adam` with the
+small-field prefix gradient.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
-version for CPU tensors only.
+version for CPU tensors only.  ``fused_decay_adam.launches`` counts the
+sweep's launches, with or without rows; ``fused_sparse_adam.launches``
+those that carried rows.
 """
 
 from __future__ import annotations
@@ -35,20 +38,19 @@ import numpy as np
 import torch
 
 from tpurec_torch.ops import _build
+from tpurec_torch.ops.attention import _sm_count
 
 SWEEP_GRID_PER_SM = 16          # decay sweep: blocks per SM (grid stride)
+TILE = 256                      # values a warp moves a step (kTile)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "tpurec_decay_adam": (_I, [_P, _P, _P, _I, _P, _L, _L] + [_F] * 9
-                          + [_I, _P, _P, _P]),
-    "tpurec_adam_rows": (_I, [_P, _P, _P, _I, _P, _P, _I, _I, _L]
-                         + [_F] * 9 + [_P, _P, _P, _P]),
-    "tpurec_write_rows": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _L,
-                               _P]),
+                          + [_I, _P, _P, _P, _P, _P, _P, _I, _P]),
 }
+_TILE_QUERIES = {}
 _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -88,6 +90,19 @@ def _on_card(table, what: str) -> None:
 
 # -- kernel 7: the sweep ---------------------------------------------------
 
+def _check_g_small(table, g_small) -> torch.Tensor:
+    V, D = table.shape
+    if g_small is None:
+        return torch.zeros((0, D), dtype=torch.float32, device=table.device)
+    if (g_small.dtype != torch.float32 or g_small.dim() != 2
+            or g_small.shape[1] != D or g_small.shape[0] > V
+            or g_small.device != table.device):
+        raise ValueError(f"g_small must be [S <= {V}, {D}] float32 on "
+                         f"{table.device}, got {tuple(g_small.shape)} "
+                         f"{g_small.dtype}")
+    return g_small
+
+
 def fused_decay_adam(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                      g_small: Optional[torch.Tensor], t: int, *, lr: float,
                      b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
@@ -100,31 +115,35 @@ def fused_decay_adam(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     -> (table, m, v, sumsq) with sumsq = sum(table**2) before the step (a
     float32 scalar tensor on the table's device)."""
     _check_table(table, m, v)
-    V, D = table.shape
-    if g_small is None:
-        g_small = torch.zeros((0, D), dtype=torch.float32,
-                              device=table.device)
-    if (g_small.dtype != torch.float32 or g_small.dim() != 2
-            or g_small.shape[1] != D or g_small.shape[0] > V
-            or g_small.device != table.device):
-        raise ValueError(f"g_small must be [S <= {V}, {D}] float32 on "
-                         f"{table.device}, got {tuple(g_small.shape)} "
-                         f"{g_small.dtype}")
+    g_small = _check_g_small(table, g_small)
     if table.device.type == "cpu":
         return fused_decay_adam_reference(table, m, v, g_small, t, lr=lr,
                                           b1=b1, b2=b2, eps=eps, coef=coef)
     _on_card(table, "fused_decay_adam")
+    return _sweep(table, m, v, g_small, t, (lr, b1, b2, eps, coef), None)
+
+
+fused_decay_adam.launches = 0
+
+
+def _sweep(table, m, v, g_small, t, hyper, rows):
+    """Launch the sweep (kernel 7) and its sum's finish on the card, the
+    sweep carrying kernel 6's ``rows`` = (sid, order, g_rows, bounds) when
+    not None."""
     n = table.numel()
     if n % 8:
         raise ValueError(f"the sweep moves 8 values per step: V*D={n} must "
                          f"be a multiple of 8")
     g_small = g_small.contiguous()
-    if any(x.data_ptr() % 16 for x in (table, m, v, g_small)):
+    dev = table.device
+    row_ptrs = [0] * 4
+    if rows is not None:
+        row_ptrs = [x.data_ptr() for x in rows]
+    if any(x.data_ptr() % 16 for x in (table, m, v, g_small)) or (
+            row_ptrs[2] % 16):
         raise ValueError("the sweep needs 16-byte aligned tensors")
     lib = _build.load("fused_adam", _SIGNATURES)
-    dev = table.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(-(-n // (8 * 256)), SWEEP_GRID_PER_SM * n_sm))
+    grid = max(1, min(-(-n // (8 * 256)), SWEEP_GRID_PER_SM * _sm_count(dev)))
     block_sumsq = torch.empty((grid,), dtype=torch.float64, device=dev)
     sumsq = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -132,14 +151,14 @@ def fused_decay_adam(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         rc = lib.tpurec_decay_adam(
             table.data_ptr(), m.data_ptr(), v.data_ptr(),
             int(m.dtype == torch.bfloat16), g_small.data_ptr(), n,
-            g_small.numel(), *_consts(t, lr, b1, b2, eps, coef), grid,
-            block_sumsq.data_ptr(), sumsq.data_ptr(), stream)
+            g_small.numel(), *_consts(t, *hyper), grid,
+            block_sumsq.data_ptr(), sumsq.data_ptr(), *row_ptrs,
+            table.shape[1], stream)
     _build.check(lib, rc, "fused_decay_adam")
     fused_decay_adam.launches += 1
+    if rows is not None:
+        fused_sparse_adam.launches += 1
     return table, m, v, sumsq
-
-
-fused_decay_adam.launches = 0
 
 
 @torch.no_grad()
@@ -162,142 +181,36 @@ def fused_decay_adam_reference(table, m, v, g_small, t, *, lr, b1=0.9,
     return table, m, v, sumsq
 
 
-# -- kernel 6: the row step and its write-back -----------------------------
+# -- kernel 6: the touched rows in the sweep's pass -------------------------
 
-def _check_rows(table, m, ids, g) -> None:
-    N = ids.shape[0]
-    D = table.shape[1]
-    if ids.dtype != torch.int64 or ids.dim() != 1:
-        raise ValueError(f"ids must be [N] int64, got {tuple(ids.shape)} "
-                         f"{ids.dtype}")
-    if g is not None and (g.dtype != torch.float32
-                          or tuple(g.shape) != (N, D)):
-        raise ValueError(f"g must be [{N}, {D}] float32, got "
-                         f"{tuple(g.shape)} {g.dtype}")
-    for x in (ids,) + (() if g is None else (g,)):
-        if x.device != table.device or not x.is_contiguous():
-            raise ValueError(f"ids and g must be contiguous on "
-                             f"{table.device}")
-
-
-def adam_rows(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-              ids: torch.Tensor, g: torch.Tensor, t: int, *, lr: float,
-              b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
-              coef: float = 0.0
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 6's row step: the exact Adam step of rows ``ids`` [N]
-    (unique; ids outside [0, V) are skipped and their output rows left
-    unset) with gradients ``g`` [N, D], from the table and moments as they
-    stand.  -> compact (pb [N, D] float32, mb, vb [N, D] in m's dtype)."""
-    _check_table(table, m, v)
-    _check_rows(table, m, ids, g)
-    if table.device.type == "cpu":
-        return adam_rows_reference(table, m, v, ids, g, t, lr=lr, b1=b1,
-                                   b2=b2, eps=eps, coef=coef)
-    _on_card(table, "adam_rows")
-    lib = _build.load("fused_adam", _SIGNATURES)
-    (V, D), N = table.shape, ids.shape[0]
-    pb = torch.empty((N, D), dtype=torch.float32, device=table.device)
-    mb = torch.empty((N, D), dtype=m.dtype, device=table.device)
-    vb = torch.empty_like(mb)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tpurec_adam_rows(
-            table.data_ptr(), m.data_ptr(), v.data_ptr(),
-            int(m.dtype == torch.bfloat16), ids.data_ptr(), g.data_ptr(),
-            N, D, V, *_consts(t, lr, b1, b2, eps, coef), pb.data_ptr(),
-            mb.data_ptr(), vb.data_ptr(), stream)
-    _build.check(lib, rc, "adam_rows")
-    adam_rows.launches += 1
-    return pb, mb, vb
+def tile_row_bounds(V: int, D: int, device) -> torch.Tensor:
+    """[2, T] int64, T = ceil(V * D / TILE): for each tile t of the flat
+    table, the first row it meets, floor(TILE t / D), and one past the
+    last, min(V, ceil(TILE (t + 1) / D)) (cached per shape and device).
+    Searched in the sorted ids, they give each tile's entries; ids outside
+    [0, V) fall in no tile."""
+    key = (V, D, str(device))
+    if key not in _TILE_QUERIES:
+        T = -(-V * D // TILE)
+        t = torch.arange(T, dtype=torch.int64)
+        _TILE_QUERIES[key] = torch.stack(
+            [t * TILE // D, (-(-(t + 1) * TILE // D)).clamp(max=V)]
+        ).to(device)
+    return _TILE_QUERIES[key]
 
 
-adam_rows.launches = 0
-
-
-def write_rows(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-               ids: torch.Tensor, pb: torch.Tensor, mb: torch.Tensor,
-               vb: torch.Tensor) -> None:
-    """Kernel 6's write-back: rows ``ids`` (unique; outside [0, V)
-    skipped) of table, m, v become pb, mb, vb, in place."""
-    _check_table(table, m, v)
-    _check_rows(table, m, ids, pb)
-    N, D = pb.shape
-    if (mb.dtype != m.dtype or vb.dtype != m.dtype
-            or tuple(mb.shape) != (N, D) or tuple(vb.shape) != (N, D)
-            or not (mb.is_contiguous() and vb.is_contiguous())):
-        raise ValueError(f"mb and vb must be contiguous [{N}, {D}] {m.dtype}")
-    if table.device.type == "cpu":
-        write_rows_reference(table, m, v, ids, pb, mb, vb)
-        return
-    _on_card(table, "write_rows")
-    lib = _build.load("fused_adam", _SIGNATURES)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tpurec_write_rows(
-            table.data_ptr(), m.data_ptr(), v.data_ptr(),
-            int(m.dtype == torch.bfloat16), ids.data_ptr(), pb.data_ptr(),
-            mb.data_ptr(), vb.data_ptr(), N, D, table.shape[0], stream)
-    _build.check(lib, rc, "write_rows")
-    write_rows.launches += 1
-
-
-write_rows.launches = 0
-
-
-@torch.no_grad()
-def adam_rows_reference(table, m, v, ids, g, t, *, lr, b1=0.9, b2=0.99,
-                        eps=1e-8, coef=0.0):
-    """Plain PyTorch version of :func:`adam_rows` (rows of skipped ids
-    hold the step of row 0 or V-1; :func:`write_rows` never reads them)."""
-    bc1, bc2 = bias_corrections(t, b1, b2)
-    idc = ids.clamp(0, table.shape[0] - 1)
-    p_old = table[idc]
-    ub = g + coef * p_old
-    mb = b1 * m[idc].to(torch.float32) + (1.0 - b1) * ub
-    vb = b2 * v[idc].to(torch.float32) + (1.0 - b2) * (ub * ub)
-    pb = p_old - lr * (mb / bc1) / (torch.sqrt(vb / bc2) + eps)
-    return pb, mb.to(m.dtype), vb.to(v.dtype)
-
-
-@torch.no_grad()
-def write_rows_reference(table, m, v, ids, pb, mb, vb) -> None:
-    """Plain PyTorch version of :func:`write_rows`."""
-    ok = (ids >= 0) & (ids < table.shape[0])
-    rows = ids[ok]
-    table[rows] = pb[ok]
-    m[rows] = mb[ok]
-    v[rows] = vb[ok]
-
-
-# -- the TPU function's whole contract -------------------------------------
-
-def dedup_sorted(ids: torch.Tensor, g_rows: torch.Tensor, sentinel: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sort ids, sum duplicate rows' gradients (``_dedup_sorted`` /
-    ``train/sparse.py::combine_duplicate_rows``), with static shapes and no
-    host round trip.
-
-    -> (id_u [N] int64: the sorted unique ids, then ``sentinel``;
-        g_u [N, D]: row j is id_u[j]'s summed gradient, zero past the
-        unique ids; valid [N] bool).  Sums run in the order of the stable
-    sort, so a run gives the same bits every time."""
-    N = ids.shape[0]
-    dev = ids.device
-    sid, order = torch.sort(ids.to(torch.int64), stable=True)
-    sg = g_rows.index_select(0, order)
-    head = torch.ones(N, dtype=torch.bool, device=dev)
-    head[1:] = sid[1:] != sid[:-1]
-    seg = torch.cumsum(head.to(torch.int64), 0) - 1               # [N]
-    lengths = torch.zeros(N, dtype=torch.int64, device=dev).scatter_add_(
-        0, seg, torch.ones_like(seg))
-    g_u = torch.segment_reduce(sg, "sum", lengths=lengths, axis=0,
-                               unsafe=True)
-    j = torch.arange(N, device=dev)
-    first = torch.searchsorted(seg, j).clamp(max=max(N - 1, 0))
-    valid = j < seg[-1:] + 1
-    id_u = torch.where(valid, sid[first], torch.full_like(sid, sentinel))
-    return id_u, g_u, valid
+def _check_rows(table, ids, g_rows) -> None:
+    if ids.dim() != 1 or ids.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"ids must be [N] int64 or int32, got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    N, D = ids.shape[0], table.shape[1]
+    if tuple(g_rows.shape) != (N, D):
+        raise ValueError(f"g_rows must be [{N}, {D}], got "
+                         f"{tuple(g_rows.shape)}")
+    if not ids.device == g_rows.device == table.device:
+        raise ValueError(f"ids and g_rows must be on {table.device}")
+    if N >= 2**31:
+        raise ValueError(f"the row step takes fewer than 2**31 ids, got {N}")
 
 
 def fused_sparse_adam(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
@@ -308,23 +221,54 @@ def fused_sparse_adam(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """One exact dense-Adam step of the table with sparse gradients
-    ``g_rows`` [N, D] at ``ids`` [N] (duplicates summed) and, optionally,
-    a dense gradient ``g_small`` [S, D] of rows [0, S), in place.
-    ``g_small`` must be zero on rows that ``ids`` touch: their write-back
-    replaces the sweep's step.
+    ``g_rows`` [N, D] at ``ids`` [N] (duplicates summed in batch order;
+    ids outside [0, V) touch nothing) and, optionally, a dense gradient
+    ``g_small`` [S, D] of rows [0, S), in place.  A touched row takes
+    ``u = coef * p + (its summed gradient)``, which replaces ``g_small``
+    there; every other row ``u = coef * p (+ g_small)``.
 
-    The row step reads the table before the sweep changes it, into compact
-    buffers; the sweep then runs in place; the write-back puts the rows
-    over the swept ones.  The hybrid training step's table update is this
-    function.
+    On the card: one stable sort of the ids, one searchsorted of the
+    tiles' row bounds, one launch of the sweep carrying the rows, and the
+    one-block finish of sum(table**2).
 
     -> (table, m, v, sumsq) with sumsq = sum(table**2) before the step."""
-    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, coef=coef)
-    if ids.shape[0] == 0:
-        return fused_decay_adam(table, m, v, g_small, t, **kw)
-    id_u, g_u, _ = dedup_sorted(ids, g_rows.to(torch.float32),
-                                table.shape[0])
-    pb, mb, vb = adam_rows(table, m, v, id_u, g_u, t, **kw)
-    table, m, v, sumsq = fused_decay_adam(table, m, v, g_small, t, **kw)
-    write_rows(table, m, v, id_u, pb, mb, vb)
-    return table, m, v, sumsq
+    _check_table(table, m, v)
+    _check_rows(table, ids, g_rows)
+    g_small = _check_g_small(table, g_small)
+    g_rows = g_rows.to(torch.float32)
+    if table.device.type == "cpu":
+        return fused_sparse_adam_reference(table, m, v, ids, g_rows, t,
+                                           lr=lr, b1=b1, b2=b2, eps=eps,
+                                           coef=coef, g_small=g_small)
+    _on_card(table, "fused_sparse_adam")
+    rows = None
+    if ids.shape[0]:
+        sid, order = torch.sort(ids.to(torch.int64), stable=True)
+        bounds = torch.searchsorted(
+            sid, tile_row_bounds(*table.shape, table.device), out_int32=True)
+        rows = (sid, order, g_rows.contiguous(), bounds)
+    return _sweep(table, m, v, g_small, t, (lr, b1, b2, eps, coef), rows)
+
+
+fused_sparse_adam.launches = 0
+
+
+@torch.no_grad()
+def fused_sparse_adam_reference(table, m, v, ids, g_rows, t, *, lr, b1=0.9,
+                                b2=0.99, eps=1e-8, coef=0.0, g_small=None):
+    """Plain PyTorch version of :func:`fused_sparse_adam` (in place): the
+    ids sorted stably, each touched row's gradients summed in that order
+    (``index_add_``, in index order on the CPU) over a zero row that
+    replaces ``g_small``'s, then the sweep's formula on the dense
+    gradient."""
+    V, D = table.shape
+    g = torch.zeros_like(table)
+    if g_small is not None and g_small.shape[0]:
+        g[:g_small.shape[0]] = g_small
+    sid, order = torch.sort(ids.to(torch.int64), stable=True)
+    ok = (sid >= 0) & (sid < V)
+    rows = sid[ok]
+    g[rows] = 0.0
+    g.index_add_(0, rows, g_rows.to(torch.float32)[order[ok]])
+    return fused_decay_adam_reference(table, m, v, g, t, lr=lr, b1=b1,
+                                      b2=b2, eps=eps, coef=coef)

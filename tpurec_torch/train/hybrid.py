@@ -12,19 +12,19 @@ Per step (``hybrid.py:405-431``):
 3. the dense parameters take one ``torch.optim.Adam`` step;
 4. the table takes one exact dense-Adam step, in place
    (:class:`EmbeddingUpdater`, through
-   :func:`tpurec_torch.ops.fused_adam.fused_sparse_adam`): the big-field
-   rows' step from the table before the sweep (kernel 6's row step), the
-   full-table sweep with ``u = coef * p`` plus the small-field prefix
-   gradient (kernel 7), and the big-field rows written over the swept
-   ones (kernel 6's write-back);
+   :func:`tpurec_torch.ops.fused_adam.fused_sparse_adam`): one pass over
+   the table (kernel 7's sweep, ``u = coef * p`` plus the small-field
+   prefix gradient) that carries the big-field rows (kernel 6): a touched
+   row takes ``u = coef * p + g_row`` in place of the sweep's, the value
+   tpurec's update sets over the swept row (``hybrid.py:117-129``);
 5. the reported loss is ``loss + l2_emb * sum(table**2)`` (``:431``).
 
 ``coef = 2 * l2_emb + wd``: the reference's dense embedding L2 and Adam
 weight decay reach every row every step.  The small fields' gradients
 are dense over the table's prefix [0, S) (``EmbeddingLayout`` puts them
 first): they are summed per row in one sorted segment sum.  The big
-fields' touched rows are sorted and their duplicates summed
-(:func:`tpurec_torch.ops.fused_adam.dedup_sorted`).
+fields' touched rows are sorted stably, and the pass sums each row's
+gradients in that order (batch order).
 
 Ported: the single step and ``scan_k`` (a Python loop that returns the K
 losses).  ``indexed=True`` (device-resident datasets),

@@ -3,8 +3,6 @@
 
 - :class:`SparseEmbedState` holds the table's Adam moments ``m``/``v``
   (float32, or bfloat16 storage with float32 math);
-- :func:`combine_duplicate_rows` sorts row ids and sums duplicate rows'
-  gradients with static shapes (``sparse.py:58-74``);
 - :func:`init_sparse_opt_state` makes zero moments beside a table
   (``sparse.py:226-232``; the dense parameters' Adam is a
   ``torch.optim.Adam``, :func:`tpurec_torch.train.step.make_optimizer`).
@@ -15,8 +13,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-
-from tpurec_torch.ops.fused_adam import dedup_sorted
 
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -33,11 +29,6 @@ def moments_dtype(name: str) -> torch.dtype:
         raise ValueError(f"embedding_moments_dtype must be one of "
                          f"{sorted(_MOMENT_DTYPES)}, got {name!r}")
     return _MOMENT_DTYPES[name]
-
-
-# (ids [N], g_rows [N, D], vocab_size) -> (id_u: sorted unique ids, then
-# the sentinel vocab_size; g_u: their summed gradients; valid [N] bool)
-combine_duplicate_rows = dedup_sorted
 
 
 def init_sparse_opt_state(table: torch.Tensor,
