@@ -1,5 +1,5 @@
-"""Drive tpurec_torch's serving path and training step on one CUDA card,
-and check them.
+"""Drive tpurec_torch's serving path, training step and training harness
+on one CUDA card, and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -95,7 +95,20 @@ Phases (any failure exits non-zero and prints no result line):
     not, and its device time apart from its reduction's; #8 launched alone
     at 1 and 2 rows a warp and 1, 2, 4, 8 warps a block, at B = 512 and
     4096; #9 launched alone at 2, 4 and 8 warps a block; each beside the
-    floor of an empty kernel launched as it is.
+    floor of an empty kernel launched as it is;
+16. the training harness at full width: make_synthetic(131,072 rows) at
+    the flagship schema -> Trainer(...).fit(train, valid, test) of the
+    flagship MMoE (B=512, 1 epoch, dropout 0.2, bf16 table moments)
+    through the device-resident (indexed) epoch, with the counters of
+    kernels 1, 2, 3 and 6/7 read around the fit (a step each, and a
+    forward per eval batch); valid AUC at least 0.65; the same epoch
+    through the host-batching path from the same initial state (per-step
+    losses within 1e-5, valid AUC within 1e-4); streaming against exact
+    eval; Predictor.load_from_trainer against predict (1e-5); a
+    checkpoint served by predictor_from_checkpoint and loaded by a fresh
+    Trainer, both bitwise equal to predict; the small drive recipe (MMoE,
+    embed 8, 2 epochs) above AUC 0.7; epoch, eval and checkpoint times and
+    a profile of 16 indexed steps.
     A kernel of a path that a profile does not see fails its phase.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -2053,12 +2066,22 @@ def kernel_alone_ms(fn, *syms, n=50):
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")}
+    # a capture that recorded no device activity at all failed as a
+    # capture (seen once in phase 10): take it again, at most twice; one
+    # that recorded other kernels and not these still fails the phase
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = {e.key: e.self_device_time_total
+                  for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0}
+        if dev_us:
+            break
+        print(f"{syms[0]} launched alone: profile {attempt + 1} recorded no "
+              f"device activity; capturing again")
     return path_device_ms(dev_us, syms, n, f"{syms[0]} launched alone")
 
 
@@ -2110,6 +2133,313 @@ def chunk_timings(pred, rng, tag, syms):
             device_ms[name][B] = path_device_ms(
                 dev_us, (sym,), 1, f"{pred.model_name} chunk B={B}")
     return chunk_s, device_ms, busy_us
+
+
+# -- the training harness (phase 16) ------------------------------------------
+
+FIT_ROWS = 131072               # make_synthetic rows; ~118k train, ~6.5k valid
+FIT_AUC_MIN = 0.65              # a model that learns nothing reads ~0.5
+FIT_STEP_TOL = 1e-5             # indexed vs host epoch, per-step loss
+FIT_PATH_AUC_TOL = 1e-4         # indexed vs host epoch, valid AUC
+STREAM_TOL = {"total_auc": 2e-4, "total_loss": 1e-5, "mean_auc": 5e-4}
+LOAD_TOL = 1e-5                 # Predictor.load_from_trainer vs predict
+RECIPE_AUC_MIN = 0.7            # the small recipe, 2 epochs
+PROFILE_STEPS = 16
+
+
+def _record_steps(tr):
+    """Wrap a Trainer's step callables to keep each step's loss (on the
+    device) in order; -> the list they fill."""
+    out = []
+    for attr in ("scan_steps_idx", "scan_steps", "train_step"):
+        orig = getattr(tr, attr)
+
+        def wrapped(*a, _orig=orig):
+            r = _orig(*a)
+            out.append(r.detach().reshape(-1).clone())
+            return r
+
+        setattr(tr, attr, wrapped)
+    return out
+
+
+def harness_main_path(dev, tag):
+    """Phase 16: the training harness at full width.  make_synthetic at
+    the flagship schema -> Trainer(...).fit(train, valid, test) through
+    the device-resident (indexed) epoch, with the kernel counters read
+    around the fit; then the host-batching epoch from the same initial
+    state, streaming against exact eval, Predictor.load_from_trainer, a
+    checkpoint through predictor_from_checkpoint and a fresh Trainer, and
+    the small drive recipe.  -> (launches, summary)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurec_torch.config import Config, ModelConfig, TrainConfig
+    from tpurec_torch.data import make_synthetic
+    from tpurec_torch.serve import Predictor, predictor_from_checkpoint
+    from tpurec_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = make_synthetic(n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS),
+                          n_domain=N_DOMAIN, field_dims=FIELD_DIMS,
+                          domain_idx=DOMAIN_IDX, seed=1)
+    Xtr, ytr = data.train
+    Xva, yva = data.valid
+    w = data.domain_cnt_weight()
+    print(f"harness data: make_synthetic({FIT_ROWS} rows, flagship fields) "
+          f"in {time.perf_counter() - t0:.2f} s: {len(ytr)} train, "
+          f"{len(yva)} valid, {len(data.test[1])} test rows, "
+          f"{(Xtr.nbytes + ytr.nbytes) / 1e6:.1f} MB train split")
+    cfg = Config(model=ModelConfig(**MODEL, dropout=DROPOUT),
+                 train=TrainConfig(bs=512, epoch=1, seed=0,
+                                   embedding_moments_dtype="bfloat16"))
+    d2g = np.arange(N_DOMAIN) % N_TOWER
+
+    def trainer():
+        return Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                       domain2group=d2g)
+
+    t0 = time.perf_counter()
+    tr = trainer()
+    check(tr.device.type == "cuda" and
+          tr.model.embedding.table.device.type == "cuda",
+          "the Trainer was not built on the card")
+    check(Xtr.nbytes + ytr.nbytes <= tr.DEVICE_RESIDENT_BYTES,
+          "the train split is over the device-resident budget")
+    snap0 = tr.snapshot()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    steps_idx = _record_steps(tr)
+
+    n_steps = -(-len(ytr) // cfg.train.bs)
+    n_eval = sum(tr._padded_index_batches(len(y), cfg.train.bs,
+                                          tr.EVAL_CHUNK)[0].shape[0]
+                 for y in (yva, data.test[1]))
+    counters = train_counters("mmoe")
+    for fn in counters.values():
+        fn.launches = 0
+    marks = {}
+
+    def log_fn(r):
+        torch.cuda.synchronize()
+        marks["train_end" if "it" in r else "eval_end"] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    out = tr.fit(data.train, data.valid, data.test, domain_cnt_weight=w,
+                 log_fn=log_fn)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {"embedding_gather": n_steps + n_eval,
+            "field_attention_train": n_steps + n_eval,
+            "field_attention_bwd": n_steps, "fused_decay_adam": n_steps,
+            "fused_sparse_adam": n_steps}
+    print(f"harness main path: Trainer.fit, 1 epoch of {n_steps} indexed "
+          f"steps + {n_eval} eval batches (valid, test), launches "
+          f"{launches}")
+    check(launches == want, f"fit's kernel launches {launches}, expected "
+          f"{want} (a step each, and a forward per eval batch)")
+    train_s = marks["train_end"] - t0
+    valid = out["valid"]
+    check(valid is not None, "fit returned no valid result")
+    auc, mean_auc, loss = (valid["total_auc"], valid["mean_auc"],
+                           valid["total_loss"])
+    print(f"harness fit: valid total_auc {auc:.5f} (min {FIT_AUC_MIN}), "
+          f"mean_auc {mean_auc:.5f}, total_loss {loss:.5f}; test total_auc "
+          f"{out['test']['total_auc']:.5f}; train loss "
+          f"{valid['train_loss']:.4f}")
+    check(auc >= FIT_AUC_MIN, f"valid total_auc {auc} < {FIT_AUC_MIN}")
+    check(np.isfinite(mean_auc) and np.isfinite(loss),
+          f"valid mean_auc {mean_auc}, total_loss {loss} not finite")
+    step_loss_idx = torch.cat(steps_idx).cpu()
+    check(step_loss_idx.numel() == n_steps and
+          bool(torch.isfinite(step_loss_idx).all()),
+          f"indexed epoch: {step_loss_idx.numel()} step losses, finite "
+          f"{bool(torch.isfinite(step_loss_idx).all())}")
+    print(f"{tag} harness epoch (indexed, B=512, {n_steps} steps): train "
+          f"{train_s:.3f} s host clock = {len(ytr) / train_s:.0f} "
+          f"examples/s ({train_s / n_steps * 1e3:.3f} ms a step); epoch with "
+          f"valid eval {valid['epoch_seconds']:.3f} s; fit {fit_s:.3f} s "
+          f"(snapshot, best-state restore and test eval included); Trainer "
+          f"built in {build_s:.2f} s")
+
+    # the same epoch through the host path, from the same initial state
+    t0 = time.perf_counter()
+    tr2 = trainer()
+    tr2.restore(snap0)
+    tr2.DEVICE_RESIDENT_BYTES = 0               # the host-batching path
+    steps_host = _record_steps(tr2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host_loss = tr2.train_epoch(Xtr, ytr, 0)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    step_loss_host = torch.cat(steps_host).cpu()
+    check(step_loss_host.shape == step_loss_idx.shape,
+          f"host epoch took {step_loss_host.numel()} steps")
+    path_err = (step_loss_host - step_loss_idx).abs().max().item()
+    ev_host = tr2.evaluate(Xva, yva, w)
+    path_auc = abs(ev_host["total_auc"] - auc)
+    print(f"{tag} harness epoch (host batching, ArrayBatcher + prefetch, "
+          f"K={cfg.train.steps_per_dispatch}): {host_s:.3f} s = "
+          f"{len(ytr) / host_s:.0f} examples/s; vs indexed: per-step loss "
+          f"max abs err {path_err:.3g} (tol {FIT_STEP_TOL}), valid AUC "
+          f"{ev_host['total_auc']:.5f} (diff {path_auc:.3g}, tol "
+          f"{FIT_PATH_AUC_TOL}); bitwise equal losses "
+          f"{torch.equal(step_loss_host, step_loss_idx)}; epoch loss "
+          f"{host_loss:.5f} vs {valid['train_loss']:.5f}")
+    check(path_err <= FIT_STEP_TOL, f"host vs indexed epoch: step loss err "
+          f"{path_err}")
+    check(path_auc <= FIT_PATH_AUC_TOL,
+          f"host vs indexed epoch: valid AUC diff {path_auc}")
+
+    # where the epoch's time goes: a profile of 16 indexed steps
+    Xdev, ydev, d2g_dev = tr2._device_dataset(Xtr, ytr)
+    rng = np.random.default_rng(SEED + 16)
+    idx = torch.as_tensor(rng.integers(0, len(ytr), (PROFILE_STEPS + 2, 512),
+                                       dtype=np.int32), device=dev)
+    ones = torch.ones((PROFILE_STEPS + 2, 512), device=dev)
+    tr2.scan_steps_idx(tr2.state, Xdev, ydev, d2g_dev, idx[:2], ones[:2],
+                       tr2.dropout_gen)
+    torch.cuda.synchronize()
+    for attempt in range(3):    # as kernel_alone_ms: a failed capture
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            tr2.scan_steps_idx(tr2.state, Xdev, ydev, d2g_dev, idx[2:],
+                               ones[2:], tr2.dropout_gen)
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t1
+        evs = prof.key_averages()
+        busy_us = sum(e.self_device_time_total for e in evs
+                      if str(e.device_type).endswith("CUDA")
+                      and not getattr(e, "is_user_annotation", False))
+        if busy_us > 0:
+            break
+        print(f"harness epoch profile {attempt + 1} recorded no device "
+              f"activity; capturing again")
+    check(busy_us > 0, "the epoch profile shows no device time")
+    n_launch = sum(e.count for e in evs if e.key in LAUNCH_KEYS)
+    busy_share = busy_us / 1e6 / window_s
+    epoch_share = busy_us / PROFILE_STEPS / (train_s / n_steps * 1e6)
+    print(f"{tag} harness epoch profile ({PROFILE_STEPS} indexed steps): "
+          f"device busy {busy_us / PROFILE_STEPS:.1f} us a step, "
+          f"{100 * busy_share:.1f}% of the profiled window's "
+          f"{window_s * 1e3 / PROFILE_STEPS:.3f} ms a step, "
+          f"{100 * epoch_share:.1f}% of the unprofiled epoch's step; "
+          f"{n_launch / PROFILE_STEPS:.0f} launches a step")
+    del tr2, Xdev, ydev
+    torch.cuda.empty_cache()
+
+    # streaming against exact eval on the valid split
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    exact = tr.evaluate(Xva, yva, w)
+    exact_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    stream = tr.evaluate_streaming(Xva, yva, w)
+    stream_s = time.perf_counter() - t1
+    stream_err = {k: abs(stream[k] - exact[k]) for k in STREAM_TOL}
+    print(f"{tag} harness eval of {len(yva)} valid rows: exact "
+          f"{exact_s:.4f} s, streaming {stream_s:.4f} s (host clock); "
+          f"streaming vs exact {stream_err} (tol {STREAM_TOL})")
+    check(exact["total_auc"] == auc, f"evaluate after fit {exact['total_auc']}"
+          f" differs from fit's valid AUC {auc}")
+    check(all(stream_err[k] <= STREAM_TOL[k] for k in STREAM_TOL),
+          f"streaming vs exact eval: {stream_err}")
+
+    # serving the trained state
+    Xs = Xva[:N_ROWS]
+    p_tr = tr.predict(Xs)
+    live = Predictor(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, domain2group=d2g,
+                     batch_sizes=(cfg.train.bs,)).load_from_trainer(tr)
+    load_err = float(np.max(np.abs(live(Xs) - p_tr)))
+    check(load_err <= LOAD_TOL, f"Predictor.load_from_trainer vs predict: "
+          f"max abs err {load_err}")
+    del live
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "harness.pkl")
+        t1 = time.perf_counter()
+        tr.save_checkpoint(path, extra={"phase": 16})
+        write_s = time.perf_counter() - t1
+        size_mb = os.path.getsize(path) / 1e6
+        t1 = time.perf_counter()
+        served = predictor_from_checkpoint(path,
+                                           batch_sizes=(cfg.train.bs,))
+        read_s = time.perf_counter() - t1
+        p_ckpt = served(Xs)
+        del served
+        t1 = time.perf_counter()
+        fresh = trainer()
+        payload = fresh.load_checkpoint(path)
+        load_s = time.perf_counter() - t1
+    check(payload["extra"] == {"phase": 16}, "checkpoint extra lost")
+    check(np.array_equal(p_ckpt, p_tr), "predictor_from_checkpoint differs "
+          f"from Trainer.predict: max abs err "
+          f"{float(np.max(np.abs(p_ckpt - p_tr)))}")
+    p_fresh = fresh.predict(Xs)
+    check(np.array_equal(p_fresh, p_tr), "a fresh Trainer.load_checkpoint "
+          f"predicts otherwise: max abs err "
+          f"{float(np.max(np.abs(p_fresh - p_tr)))}")
+    del fresh, tr
+    torch.cuda.empty_cache()
+    print(f"{tag} harness checkpoint: {size_mb:.1f} MB written in "
+          f"{write_s:.3f} s; predictor_from_checkpoint {read_s:.3f} s, "
+          f"Trainer.load_checkpoint {load_s:.3f} s (build included); "
+          f"Predictor.load_from_trainer vs predict max abs err "
+          f"{load_err:.3g} (tol {LOAD_TOL}); checkpoint Predictor and fresh "
+          f"Trainer bitwise equal to predict on {len(Xs)} valid rows")
+
+    # the small drive recipe: MMoE, embed 8, 2 epochs on 12,000 rows
+    t1 = time.perf_counter()
+    small = make_synthetic(n_rows=12000, n_fields=6, n_domain=4, domain_idx=3,
+                           seed=1)
+    rcfg = Config(model=ModelConfig(model="mmoe", embed_dim=8,
+                                    mmoe_expert_dims=(32, 16),
+                                    mmoe_tower_dims=(16,), atten_embed_dim=8,
+                                    att_layer_num=1),
+                  train=TrainConfig(bs=256, epoch=2, seed=0))
+    rtr = Trainer(rcfg, small.field_dims, small.n_domain, small.domain_idx,
+                  domain2group=np.arange(small.n_domain))
+    rout = rtr.fit(small.train, small.valid,
+                   domain_cnt_weight=small.domain_cnt_weight())
+    recipe_auc = rout["valid"]["total_auc"]
+    print(f"harness small recipe (MMoE embed 8, 2 epochs, 12,000 rows): "
+          f"valid total_auc {recipe_auc:.5f} (min {RECIPE_AUC_MIN}) in "
+          f"{time.perf_counter() - t1:.2f} s")
+    check(recipe_auc > RECIPE_AUC_MIN,
+          f"small recipe valid AUC {recipe_auc} <= {RECIPE_AUC_MIN}")
+    del rtr
+    phase_s = time.perf_counter() - t_phase
+    print(f"harness phase: {phase_s:.1f} s")
+    return launches, {
+        "rows": {"train": len(ytr), "valid": len(yva),
+                 "test": len(data.test[1])},
+        "steps": n_steps, "eval_batches": n_eval, "launches": launches,
+        "valid": {k: valid[k] for k in ("total_auc", "mean_auc",
+                                        "total_loss", "mean_loss",
+                                        "train_loss", "epoch_seconds")},
+        "test_total_auc": out["test"]["total_auc"],
+        "train_seconds": train_s, "examples_per_s": len(ytr) / train_s,
+        "fit_seconds": fit_s, "build_seconds": build_s,
+        "host_path_seconds": host_s,
+        "host_path_examples_per_s": len(ytr) / host_s,
+        "host_vs_indexed_step_loss_err": path_err,
+        "host_vs_indexed_valid_auc_diff": path_auc,
+        "busy_us_per_step": busy_us / PROFILE_STEPS,
+        "busy_share_window": busy_share, "busy_share_epoch": epoch_share,
+        "launches_per_step": n_launch / PROFILE_STEPS,
+        "eval_exact_seconds": exact_s, "eval_streaming_seconds": stream_s,
+        "streaming_vs_exact": stream_err,
+        "load_from_trainer_err": load_err,
+        "checkpoint_mb": size_mb, "checkpoint_write_seconds": write_s,
+        "predictor_from_checkpoint_seconds": read_s,
+        "trainer_load_checkpoint_seconds": load_s,
+        "recipe_valid_auc": recipe_auc, "phase_seconds": phase_s}
 
 
 def main() -> int:
@@ -2442,6 +2772,9 @@ def main() -> int:
           f"{r['floor_ms']:.5f} ms (an empty kernel launched as it is), "
           f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
+    # -- 16. the training harness ------------------------------------------
+    fit_launches, fit_summary = harness_main_path(dev, tag)
+
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
         "field_attention": "tpurec/ops/attention_pallas.py:310",
@@ -2537,6 +2870,10 @@ def main() -> int:
                                   "errors": layered_errs,
                                   "fwd_bwd_ms": layered_ms,
                                   "vs_stack": errs11["layered_vs_stack"]}}))
+    for k in kernels:
+        if k["name"] in fit_launches:
+            k["launches_fit"] = fit_launches[k["name"]]
+    print(json.dumps({"harness": fit_summary}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

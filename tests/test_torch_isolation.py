@@ -51,7 +51,10 @@ def test_port_entry_points_import_nothing_of_jax():
             + f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n"
             "assert 'tpurec_torch.serve' in sys.modules\n"
-            "assert 'tpurec_torch.train.hybrid' in sys.modules\n")
+            "assert 'tpurec_torch.train.hybrid' in sys.modules\n"
+            "assert 'tpurec_torch.train.loop' in sys.modules\n"
+            "assert 'tpurec_torch.metrics' in sys.modules\n"
+            "assert 'tpurec_torch.data.loader' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
 
@@ -86,6 +89,13 @@ def test_entry_points_refuse_to_run_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         predictor_from_checkpoint(str(path))
     Predictor(_cfg(), (5, 7, 3), 3, 2, device="cpu")   # explicit CPU runs
+    from tpurec_torch.train import Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(_cfg(), (5, 7, 3), 3, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(_cfg(), (5, 7, 3), 3, 2, device="cuda")
+    Trainer(_cfg(), (5, 7, 3), 3, 2, device="cpu")     # explicit CPU runs
 
 
 def test_bf16_compute_is_refused():

@@ -279,8 +279,9 @@ def test_unported_options_raise():
     _, tcfg = _cfgs()
     pm = build_model("mmoe", FIELD_DIMS, N_TOWER, DOMAIN_IDX,
                      ModelConfig(**MODEL), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_hybrid_train_step(pm, tcfg, {}, True, L2, indexed=True)
+    # indexed=True is ported: the device-resident dataset's loop
+    scan_idx = make_hybrid_train_step(pm, tcfg, {}, True, L2, indexed=True)
+    assert scan_idx.__name__ == "scan_steps_idx"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_hybrid_train_step(
             pm, dataclasses.replace(tcfg, embedding_update="dense"), {},

@@ -12,12 +12,17 @@ the port's model:
 - ``batch_stats`` leaves (``mean``, ``var``, ``num_batches_tracked``) land
   beside their module's ``scale``/``bias`` as buffers.
 
-Every leaf is copied.
+Every leaf is copied.  :func:`train_state_from_flax` builds a port
+TrainState from the JAX package's hybrid TrainState;
+:func:`train_state_to_flax` is its inverse (the tree that
+``flax.serialization.to_state_dict`` gives for that TrainState), and
+:func:`restore_train_state` loads such a tree into a port TrainState in
+place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +80,14 @@ def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
     model.load_state_dict(state_dict_from_flax(params, model_state),
                           strict=True)
     ts = init_train_state(model, tcfg, device)
+    _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v, step)
+    return ts
+
+
+def _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v,
+                    step) -> None:
+    """The dense Adam's moments and count, the table's moments and the
+    step into ``ts``, in place where a tensor exists already."""
     dev = ts.model.get_parameter("embedding.table").device
     mu = dict(_leaves(adam_mu))
     nu = dict(_leaves(adam_nu))
@@ -100,4 +113,74 @@ def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
         dst = getattr(ts.emb_opt, name)
         dst.copy_(_tensor(src).to(dev, dst.dtype))
     ts.step = int(np.asarray(step))
-    return ts
+
+
+def _set_leaf(tree: Dict, key: str, leaf) -> None:
+    *path, last = key.split(".")
+    for k in path:
+        tree = tree.setdefault(k, {})
+    tree[last] = leaf
+
+
+def _numpy(t: torch.Tensor):
+    """A tensor -> numpy on the host; bfloat16 stays a tensor (numpy has
+    none), which the msgpack writer stores with its raw 2-byte payload."""
+    t = t.detach().to("cpu", copy=True)
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def train_state_to_flax(ts) -> Dict[str, Any]:
+    """A port TrainState -> the flax state dict of the JAX package's hybrid
+    TrainState (``flax.serialization.to_state_dict``'s tree):
+
+    ``{"params", "opt_state": {"0": {"0": {}, "1": {"count", "mu", "nu"},
+    "2": {}}, "1": {"m", "v"}}, "model_state", "step"}`` — the layout of
+    ``optax.chain(add_decayed_weights, scale_by_adam, scale)`` beside the
+    table's ``SparseEmbedState``.  Leaves are numpy arrays (bfloat16 table
+    moments stay CPU tensors); ``count`` and ``step`` are int32 scalars;
+    the dense Adam's per-parameter step is one count."""
+    model = ts.model
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    names = {n for n, _ in model.named_parameters()}
+    for key, t in model.state_dict().items():
+        _set_leaf(params if key in names else stats, key, _numpy(t))
+    mu: Dict[str, Any] = {}
+    nu: Dict[str, Any] = {}
+    ids = {id(p): n for n, p in model.named_parameters()}
+    counts = set()
+    for group in ts.optimizer.param_groups:
+        for p in group["params"]:
+            st = ts.optimizer.state.get(p) or {}
+            zero = torch.zeros_like(p, dtype=torch.float32)
+            _set_leaf(mu, ids[id(p)], _numpy(st.get("exp_avg", zero)))
+            _set_leaf(nu, ids[id(p)], _numpy(st.get("exp_avg_sq", zero)))
+            counts.add(int(st["step"]) if "step" in st else 0)
+    if len(counts) > 1:
+        raise ValueError(f"the dense parameters' Adam counts differ: "
+                         f"{sorted(counts)}")
+    count = counts.pop() if counts else 0
+    return {
+        "params": params,
+        "opt_state": {
+            "0": {"0": {}, "1": {"count": np.asarray(count, np.int32),
+                                 "mu": mu, "nu": nu}, "2": {}},
+            "1": {"m": _numpy(ts.emb_opt.m), "v": _numpy(ts.emb_opt.v)}},
+        "model_state": {"batch_stats": stats} if stats else {},
+        "step": np.asarray(ts.step, np.int32),
+    }
+
+
+def restore_train_state(ts, tree: Mapping) -> None:
+    """Load a flax state dict of the JAX package's hybrid TrainState (as
+    :func:`train_state_to_flax` writes it, or a tpurec checkpoint holds
+    it) into ``ts``, in place: the model's parameters and buffers are
+    copied into the tensors they hold (so a gather prepared for the table
+    stays valid), then the optimizers' state and the step."""
+    ts.model.load_state_dict(
+        state_dict_from_flax(tree["params"], tree.get("model_state")),
+        strict=True)
+    adam = tree["opt_state"]["0"]["1"]
+    emb = tree["opt_state"]["1"]
+    _load_optimizer(ts, adam["mu"], adam["nu"], adam["count"], emb["m"],
+                    emb["v"], tree["step"])

@@ -147,8 +147,16 @@ class Predictor:
         """Install the JAX package's variables (numpy trees)."""
         return self.load_state_dict(state_dict_from_flax(params, model_state))
 
+    def load_from_trainer(self, trainer):
+        """Copy the current weights out of a live port ``Trainer`` (later
+        training does not reach them)."""
+        return self.load_state_dict(
+            {k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()})
+
     def load_checkpoint(self, path: str, payload: Optional[Dict] = None):
-        """Load a Trainer or CDCTrainer ``save_checkpoint`` file.
+        """Load a Trainer or CDCTrainer ``save_checkpoint`` file, of the
+        JAX package or the port (both write the same payload).
 
         A persisted routing table REPLACES the constructor's grouping, so
         serving routes the way training did.  Only params and model

@@ -26,11 +26,11 @@ first): they are summed per row in one sorted segment sum.  The big
 fields' touched rows are sorted stably, and the pass sums each row's
 gradients in that order (batch order).
 
-Ported: the single step and ``scan_k`` (a Python loop that returns the K
-losses).  ``indexed=True`` (device-resident datasets),
-``update_stacked`` (CDC lanes), ``embedding_update`` other than
-``"hybrid"`` and ``compute_dtype="bfloat16"`` raise NotImplementedError;
-see ROADMAP.md.
+Ported: the single step, ``scan_k`` (a Python loop that returns the K
+losses) and ``indexed=True`` (the device-resident dataset's loop:
+:meth:`HybridTrainStep.scan_steps_idx`).  ``update_stacked`` (CDC
+lanes), ``embedding_update`` other than ``"hybrid"`` and
+``compute_dtype="bfloat16"`` raise NotImplementedError; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from tpurec_torch.config import TrainConfig
 from tpurec_torch.device import resolve_device
 from tpurec_torch.nn.core import EmbeddingLayout, prepared_gather
 from tpurec_torch.nn.precision import check_compute_dtype
+from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.ops.fused_adam import fused_sparse_adam
 from tpurec_torch.train.reg import regularization_loss
 from tpurec_torch.train.sparse import (SparseEmbedState,
@@ -246,25 +247,41 @@ class HybridTrainStep:
             self.one_step(ts, {k: v[i] for k, v in batch.items()}, generator)
             for i in range(K)])
 
+    def scan_steps_idx(self, ts: TrainState, Xdev, ydev, d2g, idxs, masks,
+                       generator) -> torch.Tensor:
+        """One step per row of ``idxs`` [k, bs] over a dataset on the
+        device (``hybrid.py:433-456``): each step gathers ``x = Xdev[idx]``,
+        ``y = ydev[idx]`` and ``group = d2g[x[:, domain_idx]]`` there, with
+        ``masks`` [k, bs] marking the padding rows.  -> [k] losses, left on
+        the device."""
+        domain_idx = ts.model.domain_idx
+        losses = []
+        for idx, mask in zip(idxs, masks):
+            x = Xdev.index_select(0, idx)
+            batch = {"x": x, "y": ydev.index_select(0, idx),
+                     "group": take_rows(d2g, x[:, domain_idx]),
+                     "mask": mask}
+            losses.append(self.one_step(ts, batch, generator))
+        return torch.stack(losses)
+
 
 def make_hybrid_train_step(model, tcfg: TrainConfig, reg_coefs,
                            multi_tower: bool, l2_reg_embedding: float,
                            scan_k: Optional[int] = None,
                            big_vocab_threshold: int = BIG_VOCAB_THRESHOLD,
-                           indexed: bool = False) -> HybridTrainStep:
+                           indexed: bool = False):
     """The train step (or K-step loop when ``scan_k``) with the hybrid
     table update (``hybrid.py:359-469``).  ``reg_coefs`` maps parameter
     names to L2 coefficients (:func:`tpurec_torch.train.reg.reg_coef_tree`);
     the table's entry is dropped, its L2 reaches the table through
-    ``coef``."""
-    if indexed:
-        raise NotImplementedError(
-            "indexed=True (device-resident datasets) is not ported yet: see "
-            "ROADMAP.md, queue 1, 'Harness'")
+    ``coef``.  ``indexed=True`` returns the device-resident dataset's loop,
+    ``scan_steps_idx(ts, Xdev, ydev, d2g, idxs, masks, generator) -> [k]
+    losses`` (:meth:`HybridTrainStep.scan_steps_idx`)."""
     if tcfg.embedding_update != "hybrid":
         raise NotImplementedError(
             f"embedding_update={tcfg.embedding_update!r} is not ported: the "
             "port trains with 'hybrid' only; see ROADMAP.md")
     check_compute_dtype(tcfg.compute_dtype)
-    return HybridTrainStep(model, tcfg, reg_coefs, multi_tower,
+    step = HybridTrainStep(model, tcfg, reg_coefs, multi_tower,
                            l2_reg_embedding, scan_k, big_vocab_threshold)
+    return step.scan_steps_idx if indexed else step
