@@ -108,7 +108,23 @@ Phases (any failure exits non-zero and prints no result line):
     checkpoint served by predictor_from_checkpoint and loaded by a fresh
     Trainer, both bitwise equal to predict; the small drive recipe (MMoE,
     embed 8, 2 epochs) above AUC 0.7; epoch, eval and checkpoint times and
-    a profile of 16 indexed steps.
+    a profile of 16 indexed steps;
+17. the CDC engine at full width: make_synthetic(131,072 rows) at the
+    flagship schema with 4 antipodal domain clusters ->
+    CDCTrainer(...).fit(train, valid, test) on the flagship MMoE as CDC's
+    base (4 clusters, the reference's CDC defaults, B=512, 3 epochs,
+    dropout 0.2, bf16 table moments): the warmup (400 steps), one matrix
+    update (50 mask rows at W = 3,584, the baseline and 50 A rows at 512,
+    54 B rows, 155 probe evals of 25,600 rows, the clustering) and the
+    split-mode epochs; the counters of kernels 1, 2, 3 and 6/7 read around
+    the fit against the schedule the trainer built (a step each, a forward
+    per probe eval and eval batch); valid AUC at least 0.65 with 4 groups
+    and finite matrices; the rollback bitwise with the moments and step
+    advanced; one populate row (2 steps at W = 3,584, its 25,600-row
+    eval) against the CPU's plain path; a checkpoint through a fresh
+    CDCTrainer (bitwise) and predictor_from_checkpoint (1e-5); update,
+    warmup, epoch and fit times and a profile of treatment steps at W =
+    3,584 and 512.
     A kernel of a path that a profile does not see fails its phase.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -2442,6 +2458,471 @@ def harness_main_path(dev, tag):
         "recipe_valid_auc": recipe_auc, "phase_seconds": phase_s}
 
 
+# -- the CDC engine on the MMoE base (phase 17) --------------------------------
+
+CDC_ROW_TOL = 1e-4              # a populate row, card vs CPU, of max(1, |x|)
+# weight decay of the populate-row check: a bias feeding a training
+# BatchNorm has a gradient that is zero but for rounding, which Adam turns
+# into a step of up to lr either way, differently on the card and the CPU
+# (ROADMAP.md queue 3); wd * bias outweighs that rounding, so both take
+# the same step and the row compares the kernels, not the rounding's sign
+CDC_CHECK_WD = 1e-3
+CDC_TREAT = 14                  # the checked mask row: 14 domains, 2 steps
+# epochs of the fit: the warmup and the one matrix update run in epoch 0,
+# the others train the clustering split-mode (the 2,048-step update
+# interval is longer than an epoch).  One epoch read valid AUC 0.634 on
+# these conflicting clusters on an H100 (PERF.md §4): the check that the
+# fit learns needs more than one epoch's 252 steps; each epoch's AUC prints
+CDC_EPOCHS = 3
+
+
+def adjusted_rand_index(a, b) -> float:
+    """Adjusted Rand index of two labelings (Hubert and Arabie)."""
+    a = np.unique(np.asarray(a), return_inverse=True)[1]
+    b = np.unique(np.asarray(b), return_inverse=True)[1]
+    cont = np.zeros((a.max() + 1, b.max() + 1), np.int64)
+    np.add.at(cont, (a, b), 1)
+
+    def pairs(x):
+        return (x * (x - 1) / 2).sum()
+
+    s, sa, sb = pairs(cont), pairs(cont.sum(1)), pairs(cont.sum(0))
+    expected = sa * sb / pairs(np.array([len(a)]))
+    top = (sa + sb) / 2
+    return float((s - expected) / (top - expected)) if top != expected \
+        else 1.0
+
+
+def cdc_config(dropout=DROPOUT, epoch=CDC_EPOCHS, **train):
+    """Phase 17's configuration: the flagship MMoE as CDC's base (expert
+    dims from mlp_dims), 4 clusters, every other CDC field at its
+    reference default; B=512, CDC_EPOCHS epochs, bf16 table moments."""
+    from tpurec_torch.config import (CDCConfig, Config, ModelConfig,
+                                     TrainConfig)
+
+    return Config(
+        model=ModelConfig(model="cdc", embed_dim=16,
+                          mlp_dims=(256, 128, 64), mmoe_n_expert=4,
+                          use_atten=True, atten_embed_dim=64,
+                          att_layer_num=3, att_head_num=2, dropout=dropout),
+        cdc=CDCConfig(base_model="mmoe", n_cluster=N_TOWER,
+                      cdc_tower_dims=(64, 32)),
+        train=TrainConfig(**{"bs": 512, "epoch": epoch, "seed": 0,
+                             "embedding_moments_dtype": "bfloat16",
+                             **train}))
+
+
+def _observe_schedule(tr, sched):
+    """Wrap the trainer's schedule entry points to record what it built:
+    the warmup's steps, each populate block's rows, valid steps and
+    trained rows, the probe forwards; and time the warmup and the
+    split-mode spans (each ended by a synchronize)."""
+    orig_warm, orig_pop = tr._warmup_sched, tr._run_populate_async
+    orig_base, orig_run, orig_span = (tr.eval_all_domains, tr._run_steps,
+                                      tr._train_span)
+
+    def warmup_sched():
+        out = orig_warm()
+        sched["warmup_steps"] += len(out[0])
+        return out
+
+    def populate(bidx, bmask, bvalid, eidx, emask):
+        valid = bvalid > 0
+        sched["blocks"].append({
+            "rows": int(bidx.shape[0]), "valid_steps": int(valid.sum()),
+            "width": int(bidx.shape[-1]),
+            "trained_rows": int(bmask[valid].sum())})
+        sched["probe_forwards"] += int(bidx.shape[0])
+        return orig_pop(bidx, bmask, bvalid, eidx, emask)
+
+    def baseline(idx, mask):
+        sched["probe_forwards"] += 1
+        return orig_base(idx, mask)
+
+    def run_steps(mode, idxs, masks, valids=None):
+        if mode != "warmup":
+            return orig_run(mode, idxs, masks, valids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_run(mode, idxs, masks, valids)
+        torch.cuda.synchronize()
+        sched["warmup_seconds"] += time.perf_counter() - t0
+        return out
+
+    def span(seq, lo, hi):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_span(seq, lo, hi)          # ends in its loss fetch
+        sched["span_seconds"] += time.perf_counter() - t0
+        sched["span_steps"] += hi - lo
+        return out
+
+    tr._warmup_sched, tr._run_populate_async = warmup_sched, populate
+    tr.eval_all_domains, tr._run_steps, tr._train_span = (baseline,
+                                                          run_steps, span)
+
+
+def _check_rollback(tr, sched, record):
+    """Wrap update_matrix_cdc: after it, every parameter and BN buffer
+    equals its update-entry value bitwise, while the table's moments, the
+    dense Adam's and the step count advanced by the blocks' valid steps."""
+    orig = tr.update_matrix_cdc
+    names = {id(p): n for n, p in tr.model.named_parameters()}
+
+    def update(k):
+        entry = {n: t.detach().clone()
+                 for n, t in tr.model.state_dict().items()}
+        step0, n_blocks = tr.state.step, len(sched["blocks"])
+        m0 = tr.state.emb_opt.m.clone()
+        p = next(iter(tr.state.optimizer.state))
+        adam0 = {k: v.clone() for k, v in tr.state.optimizer.state[p].items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(k)
+        torch.cuda.synchronize()
+        record["seconds"] = time.perf_counter() - t0
+        changed = [n for n, t in tr.model.state_dict().items()
+                   if not torch.equal(t, entry[n])]
+        check(not changed, f"update_matrix_cdc did not roll back {changed}")
+        valid = sum(b["valid_steps"] for b in sched["blocks"][n_blocks:])
+        adam1 = tr.state.optimizer.state[p]
+        check(tr.state.step - step0 == valid,
+              f"update_matrix_cdc advanced the step by {tr.state.step - step0}"
+              f", its blocks hold {valid} valid steps")
+        check(int(adam1["step"]) - int(adam0["step"]) == valid,
+              f"the dense Adam of {names[id(p)]} advanced "
+              f"{int(adam1['step']) - int(adam0['step'])} steps, not {valid}")
+        check(not torch.equal(tr.state.emb_opt.m, m0)
+              and not torch.equal(adam1["exp_avg"], adam0["exp_avg"]),
+              "update_matrix_cdc rolled the Adam moments back")
+        record.update(tensors=len(entry), valid_steps=valid,
+                      step_before=step0, step_after=tr.state.step)
+        del entry, m0
+
+    tr.update_matrix_cdc = update
+
+
+def cdc_row_vs_cpu(data, blob, d2g, tag):
+    """Check 3 of phase 17: one mask row (CDC_TREAT domains, one pass, so
+    2 treatment steps at W = 3,584 with masked rows) and its all-domain
+    probe eval (D * 512 = 25,600 rows), from the fitted state with dropout
+    0, on the card and on the CPU's plain path; the [D] row within
+    CDC_ROW_TOL of max(1, |x|), the table after the burst as phase 9
+    compares it.  The table's moments are held in float32 here (the
+    fitted bfloat16 ones convert exactly): from a trained state a float32
+    moment one rounding apart lands in another bfloat16 value on either
+    side, and the second step then differs by about 0.4% of its size (5.6e-6
+    on 68 of 26M entries on an H100); phases 7 and 9 hold the bfloat16
+    moments."""
+    from tpurec_torch.cdc import CDCTrainer
+
+    cfg = cdc_config(dropout=0.0, wd=CDC_CHECK_WD,
+                     embedding_moments_dtype="float32")
+    out = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        t = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, device=where)
+        t.restore_bytes(blob)
+        t.setup_data(data.train)
+        t.cluster.domain2group = np.asarray(d2g, np.int64)
+        bidx, bmask, bvalid = t._multi_burst_sched(
+            list(range(CDC_TREAT)), 1, 2)
+        eidx, emask = t._eval_sched()
+        Xsrc, ysrc, bi, ei = t._feed(bidx, eidx)
+        losses = t._steps("split", Xsrc, ysrc, bi, t._dev(bmask), bvalid)
+        table = t.model.embedding.table.detach().cpu().clone()
+        row = t._eval_rows(Xsrc, ysrc, ei, t._dev(emask)).cpu().double()
+        out[where] = dict(losses=[float(v) for v in losses], table=table,
+                          row=row, bidx=bidx, eidx=eidx,
+                          masked=int((bmask[bvalid > 0] == 0).sum()))
+        print(f"cdc populate row on {where}: {len(losses)} steps of "
+              f"{bidx.shape[1]} rows ({out[where]['masked']} masked), losses "
+              f"{out[where]['losses']}, probe eval of {eidx.size} rows "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del t, Xsrc, ysrc, bi, ei
+        torch.cuda.empty_cache()
+    g, c = out["cuda"], out["cpu"]
+    check(np.array_equal(g["bidx"], c["bidx"])
+          and np.array_equal(g["eidx"], c["eidx"]),
+          "the card's and the CPU's schedules differ")
+    check(len(g["losses"]) == 2 and g["bidx"].shape[1] == 7 * 512,
+          f"the checked row ran {len(g['losses'])} steps of "
+          f"{g['bidx'].shape[1]} rows")
+    row_err = ((g["row"] - c["row"]).abs()
+               / torch.clamp(c["row"].abs(), min=1.0)).max().item()
+    diff = (g["table"] - c["table"]).abs()
+    share = (diff > 1e-6).float().mean().item()
+    loss_rel = max(abs(a / b - 1) for a, b in zip(g["losses"], c["losses"]))
+    print(f"{tag} cdc populate row, card vs CPU plain path (dropout 0, wd "
+          f"{CDC_CHECK_WD}, float32 moments): [D] probe row max err {row_err:.3g} of max(1, "
+          f"|x|) (tol {CDC_ROW_TOL}); step loss max rel err {loss_rel:.3g}; "
+          f"table after the burst max abs err {diff.max().item():.3g} (tol "
+          f"2 lr), share beyond 1e-6 {share:.3g} (tol {CPU_TABLE_SHARE})")
+    check(row_err <= CDC_ROW_TOL, f"cdc populate row: max err {row_err}")
+    check(loss_rel <= CPU_LOSS_RTOL, f"cdc populate row: loss rel err "
+          f"{loss_rel}")
+    check(diff.max().item() <= 2 * cfg.train.lr + 1e-6
+          and share <= CPU_TABLE_SHARE,
+          f"cdc populate row: table max abs err {diff.max().item()}, share "
+          f"beyond 1e-6 {share}")
+    return {"row_err": row_err, "loss_rel_err": loss_rel,
+            "table_max_abs_err": diff.max().item(),
+            "table_share_beyond_1e-6": share,
+            "masked_rows": g["masked"]}
+
+
+def cdc_profile(tr, tag, n=PROFILE_STEPS):
+    """Check 6 of phase 17: where a treatment step's time goes, at W =
+    3,584 (7 domains a step) and at 512 (one domain), from the fitted
+    trainer: device busy share of the profiled window, launches a step,
+    device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for width in (7 * 512, 512):
+        if width == 512:
+            pairs = [tr._next_idx_padded(d % N_DOMAIN, 512)
+                     for d in range(n + 2)]
+            idxs = np.stack([p[0] for p in pairs])
+            masks = np.stack([p[1] for p in pairs])
+        else:
+            idxs, masks, _ = tr._multi_burst_sched(
+                list(range(N_DOMAIN)), 3, n + 2)
+        Xsrc, ysrc, bi = tr._feed(idxs)
+        md = tr._dev(masks)
+        tr._steps("split", Xsrc, ysrc, bi[:2], md[:2])
+        torch.cuda.synchronize()
+        for attempt in range(3):    # as kernel_alone_ms: a failed capture
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr._steps("split", Xsrc, ysrc, bi[2:], md[2:])
+                torch.cuda.synchronize()
+                window_s = time.perf_counter() - t0
+            evs = prof.key_averages()
+            dev_us = {e.key: e.self_device_time_total / n for e in evs
+                      if str(e.device_type).endswith("CUDA")
+                      and e.self_device_time_total > 0
+                      and not getattr(e, "is_user_annotation", False)}
+            if dev_us:
+                break
+            print(f"cdc profile W={width} {attempt + 1} recorded no device "
+                  f"activity; capturing again")
+        check(dev_us, f"the cdc profile at W={width} shows no device time")
+        busy = sum(dev_us.values())
+        step_us = window_s / n * 1e6
+        launches = sum(e.count for e in evs if e.key in LAUNCH_KEYS) / n
+        kernels = {
+            name: path_device_ms(dev_us, syms, 1, f"{tag} cdc W={width}")
+            for name, syms in (
+                ("embedding_gather", ("gather_kernel",)),
+                ("field_attention_train", ("field_attention_kernel",)),
+                ("field_attention_bwd", ("field_attention_bwd_kernel",
+                                         "reduce_partials_kernel")),
+                ("fused_sparse_adam", SWEEP_SYMS))}
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        print(f"{tag} cdc treatment step profile, W={width} ({n} steps): "
+              f"device busy {busy:.1f} us a step, {100 * busy / step_us:.1f}%"
+              f" of the profiled window's {step_us / 1e3:.3f} ms a step; "
+              f"{launches:.0f} launches a step; port kernels (ms a step) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in kernels.items())
+              + "".join(f"\n    {us:9.1f} us  {name[:90]}"
+                        for name, us in top))
+        out[str(width)] = {"busy_us": busy, "step_ms_profiled": step_us / 1e3,
+                           "busy_share": busy / step_us,
+                           "launches_per_step": launches,
+                           "kernel_device_ms": kernels,
+                           "top": [[k[:90], v] for k, v in top]}
+    return out
+
+
+def cdc_main_path(dev, tag):
+    """Phase 17: the CDC engine on the flagship MMoE at full width.
+    make_synthetic(131,072 rows, the flagship schema, 4 antipodal domain
+    clusters) -> CDCTrainer(...).fit(train, valid, test): the warmup, one
+    matrix update (mask, A and B blocks, the clustering) and the
+    split-mode epoch, with the kernel counters read around the fit against
+    the schedule the trainer built; then one populate row against the
+    CPU's plain path, the rollback (checked inside the fit), a checkpoint
+    through a fresh CDCTrainer and predictor_from_checkpoint, and a
+    profile of treatment steps.  -> (launches, summary)."""
+    import os
+    import tempfile
+
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.data import make_synthetic
+    from tpurec_torch.serve import predictor_from_checkpoint
+
+    t_phase = time.perf_counter()
+    data = make_synthetic(n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS),
+                          n_domain=N_DOMAIN, field_dims=FIELD_DIMS,
+                          domain_idx=DOMAIN_IDX, seed=1,
+                          domain_cluster_k=N_TOWER,
+                          domain_cluster_conflict=True)
+    cfg = cdc_config()
+    t0 = time.perf_counter()
+    tr = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
+    check(tr.device.type == "cuda"
+          and tr.model.embedding.table.device.type == "cuda",
+          "the CDCTrainer was not built on the card")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sched = {"warmup_steps": 0, "blocks": [], "probe_forwards": 0,
+             "warmup_seconds": 0.0, "span_seconds": 0.0, "span_steps": 0}
+    rollback = {}
+    _observe_schedule(tr, sched)
+    _check_rollback(tr, sched, rollback)
+    logs = []
+
+    counters = train_counters("mmoe")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = tr.fit(data.train, data.valid, data.test, log_fn=logs.append)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    epochs = [r for r in logs if "epoch_seconds" in r]
+    n_epoch = len(epochs) * len(tr.train_batcher.domain_batch_seq)
+    n_block = sum(b["valid_steps"] for b in sched["blocks"])
+    n_steps = sched["warmup_steps"] + n_block + n_epoch
+    n_eval = (len(epochs) * tr._padded_split(tr.valid_batcher)[6]
+              + tr._padded_split(tr.test_batcher)[6])
+    n_fwd = n_steps + sched["probe_forwards"] + n_eval
+    want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
+            "field_attention_bwd": n_steps, "fused_decay_adam": n_steps,
+            "fused_sparse_adam": n_steps}
+    print(f"cdc main path: CDCTrainer.fit, {sched['warmup_steps']} warmup "
+          f"steps, {len(sched['blocks'])} populate blocks "
+          f"{[(b['rows'], b['valid_steps'], b['width']) for b in sched['blocks']]}"
+          f" (rows, valid steps, width), {sched['probe_forwards']} probe "
+          f"forwards, {len(epochs)} epochs of {n_epoch // len(epochs)} "
+          f"steps, {n_eval} eval batches; "
+          f"launches {launches}")
+    check(launches == want, f"cdc fit's kernel launches {launches}, "
+          f"expected {want} (a step each; a forward per probe eval and eval "
+          f"batch)")
+    check(rollback.get("valid_steps") == n_block,
+          f"the rollback check saw {rollback.get('valid_steps')} valid "
+          f"steps, the blocks hold {n_block}")
+
+    st = tr.cluster
+    d2g, s_g = out["domain2group_list"], out["s_group2domain_list"]
+    valid = out["valid"]
+    check(len(d2g) == N_DOMAIN and set(d2g) == set(range(N_TOWER)),
+          f"domain2group_list {d2g} does not cover {N_TOWER} groups")
+    check(len(s_g) == N_TOWER, f"s_group2domain_list has {len(s_g)} lists")
+    mats = {"A": st.matrix_A, "B": st.matrix_B, "mask": st.matrix_mask,
+            "causal": st.matrix_causal, "old_A": st.old_matrix_A,
+            "old_B": st.old_matrix_B, "old_mask": st.old_matrix_mask}
+    check(all(np.all(np.isfinite(m)) for m in mats.values()),
+          "a CDC matrix is not finite")
+    check(np.abs(st.old_matrix_mask).sum() > 0
+          and np.abs(st.old_matrix_A).sum() > 0,
+          "the mask or A matrix was not populated")
+    auc, mean_auc = valid["total_auc"], valid["mean_auc"]
+    ari = adjusted_rand_index(d2g, data.domain_cluster)
+    upd_log = [r for r in logs if "cdc_update_seconds" in r]
+    check(len(upd_log) == 1 and st.call_update_group == 1,
+          f"{len(upd_log)} matrix updates logged, "
+          f"{st.call_update_group} clusterings (one expected)")
+    update_s = upd_log[0]["cdc_update_seconds"]
+    upd_rows = sum(b["trained_rows"] for b in sched["blocks"])
+    print(f"{tag} cdc fit: valid total_auc {auc:.5f} (min {FIT_AUC_MIN}), "
+          f"mean_auc {mean_auc:.5f}, total_loss {valid['total_loss']:.5f}; "
+          f"test total_auc {out['test']['total_auc']:.5f}; valid total_auc "
+          f"by epoch {[round(r['total_auc'], 5) for r in epochs]} (best "
+          f"epoch {valid['epoch']}); groups "
+          f"{np.bincount(d2g, minlength=N_TOWER).tolist()}, adjusted Rand "
+          f"index vs the data's clusters {ari:.4f}")
+    print(f"{tag} cdc times (host clock): build {build_s:.2f} s; warmup "
+          f"{sched['warmup_steps']} steps {sched['warmup_seconds']:.3f} s "
+          f"({sched['warmup_seconds'] / sched['warmup_steps'] * 1e3:.3f} ms a "
+          f"step); cdc_update_seconds {update_s:.3f} ({rollback['seconds']:.3f}"
+          f" synchronized), {n_block} valid steps, {upd_rows} trained rows = "
+          f"{upd_rows / update_s:.0f} rows/s, {sched['probe_forwards']} probe "
+          f"evals of {N_DOMAIN * 512} rows; split-mode epochs {sched['span_steps']} steps "
+          f"{sched['span_seconds']:.3f} s "
+          f"({sched['span_seconds'] / max(sched['span_steps'], 1) * 1e3:.3f} "
+          f"ms a step); epoch 0 with warmup, update and valid eval "
+          f"{epochs[0]['epoch_seconds']:.3f} s; fit {fit_s:.3f} s")
+    check(auc >= FIT_AUC_MIN, f"cdc valid total_auc {auc} < {FIT_AUC_MIN}")
+    check(np.isfinite(mean_auc), f"cdc valid mean_auc {mean_auc}")
+    print(f"{tag} cdc rollback: {rollback['tensors']} parameters and buffers "
+          f"bitwise equal to their update-entry values; step "
+          f"{rollback['step_before']} -> {rollback['step_after']} (+"
+          f"{rollback['valid_steps']} valid steps), moments advanced")
+
+    # one populate row on the card against the CPU's plain path
+    blob = tr.snapshot_bytes()
+    row_check = cdc_row_vs_cpu(data, blob, d2g, tag)
+
+    # the checkpoint: a fresh trainer, and the Predictor
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "cdc.pkl")
+        t1 = time.perf_counter()
+        tr.save_checkpoint(path, extra={"phase": 17})
+        write_s = time.perf_counter() - t1
+        size_mb = os.path.getsize(path) / 1e6
+        fresh = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
+        payload = fresh.load_checkpoint(path)
+        served = predictor_from_checkpoint(path, batch_sizes=(512,))
+    check(payload["extra"] == {"phase": 17}, "cdc checkpoint extra lost")
+    check(fresh.snapshot_bytes() == blob,
+          "a fresh CDCTrainer.load_checkpoint holds another state")
+    a, b = fresh._cluster_payload(), tr._cluster_payload()
+    same = all(
+        np.array_equal(a["matrices"][k], b["matrices"][k])
+        for k in b["matrices"]) and all(
+        a[k] == b[k] for k in b if k != "matrices")
+    check(same, "a fresh CDCTrainer.load_checkpoint holds another cluster")
+    del fresh
+    Xv, _, p_tr = tr.predict_split(tr.valid_batcher)
+    p_srv = served(Xv)
+    serve_err = float(np.max(np.abs(p_srv - p_tr)))
+    del served
+    torch.cuda.empty_cache()
+    print(f"{tag} cdc checkpoint: {size_mb:.1f} MB written in {write_s:.3f} "
+          f"s; a fresh CDCTrainer's state and cluster bitwise equal; "
+          f"predictor_from_checkpoint vs CDCTrainer.predict_split on "
+          f"{len(Xv)} valid rows max abs err {serve_err:.3g} (tol "
+          f"{LOAD_TOL})")
+    check(serve_err <= LOAD_TOL, f"cdc checkpoint Predictor: max abs err "
+          f"{serve_err}")
+
+    prof = cdc_profile(tr, tag)
+    del tr
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"cdc phase: {phase_s:.1f} s")
+    return launches, {
+        "rows": {"train": len(data.train[1]), "valid": len(data.valid[1]),
+                 "test": len(data.test[1])},
+        "warmup_steps": sched["warmup_steps"], "blocks": sched["blocks"],
+        "probe_forwards": sched["probe_forwards"], "epoch_steps": n_epoch,
+        "eval_batches": n_eval, "launches": launches,
+        "valid": {k: valid[k] for k in ("total_auc", "mean_auc",
+                                        "total_loss", "mean_loss",
+                                        "train_loss", "epoch_seconds",
+                                        "epoch")},
+        "valid_auc_by_epoch": [r["total_auc"] for r in epochs],
+        "epoch_seconds": [r["epoch_seconds"] for r in epochs],
+        "test_total_auc": out["test"]["total_auc"],
+        "domain2group": d2g, "adjusted_rand_index": ari,
+        "build_seconds": build_s, "warmup_seconds": sched["warmup_seconds"],
+        "cdc_update_seconds": update_s,
+        "update_seconds_synchronized": rollback["seconds"],
+        "update_valid_steps": n_block, "update_trained_rows": upd_rows,
+        "update_rows_per_s": upd_rows / update_s,
+        "epoch_span_seconds": sched["span_seconds"],
+        "epoch_span_steps": sched["span_steps"], "fit_seconds": fit_s,
+        "populate_row_vs_cpu": row_check, "checkpoint_mb": size_mb,
+        "checkpoint_write_seconds": write_s, "checkpoint_serve_err": serve_err,
+        "profile": prof, "phase_seconds": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2775,6 +3256,9 @@ def main() -> int:
     # -- 16. the training harness ------------------------------------------
     fit_launches, fit_summary = harness_main_path(dev, tag)
 
+    # -- 17. the CDC engine ---------------------------------------------------
+    cdc_launches, cdc_summary = cdc_main_path(dev, tag)
+
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
         "field_attention": "tpurec/ops/attention_pallas.py:310",
@@ -2873,7 +3357,10 @@ def main() -> int:
     for k in kernels:
         if k["name"] in fit_launches:
             k["launches_fit"] = fit_launches[k["name"]]
+        if k["name"] in cdc_launches:
+            k["launches_cdc"] = cdc_launches[k["name"]]
     print(json.dumps({"harness": fit_summary}))
+    print(json.dumps({"cdc": cdc_summary}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """tpurec_torch stands alone: no module of it (nor chip_smoke.py) imports
-JAX or the JAX package, its entry points refuse to fall back to the CPU
-when no card is there, and its kernel build is keyed by source."""
+JAX, the JAX package or scikit-learn (the port depends on none), its
+entry points refuse to fall back to the CPU when no card is there, and
+its kernel build is keyed by source."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpurec")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpurec", "sklearn")
 
 
 def _port_files():
@@ -54,7 +55,9 @@ def test_port_entry_points_import_nothing_of_jax():
             "assert 'tpurec_torch.train.hybrid' in sys.modules\n"
             "assert 'tpurec_torch.train.loop' in sys.modules\n"
             "assert 'tpurec_torch.metrics' in sys.modules\n"
-            "assert 'tpurec_torch.data.loader' in sys.modules\n")
+            "assert 'tpurec_torch.data.loader' in sys.modules\n"
+            "assert 'tpurec_torch.cdc' in sys.modules\n"
+            "assert 'tpurec_torch.cdc.engine' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
 

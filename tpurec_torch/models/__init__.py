@@ -29,6 +29,9 @@ _NOT_PORTED = {
 # models whose output is [B, n_tower] and whose caller selects the group's
 # tower (run.py:481-484)
 MULTI_TOWER_OUTPUT = {"mmoe", "ple", "pepnet", "epnet", "star"}
+# CDC-supported base models (cdc.py:32-54); of these the port builds
+# ``mmoe``, and build_model raises for the others
+CDC_BASE_MODELS = {"mmoe", "ple", "pepnet", "epnet", "star"}
 
 
 def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
@@ -59,5 +62,5 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
     return model.to(device)
 
 
-__all__ = ["AuxLogits", "CTRModel", "DCN", "MMoE", "MODEL_REGISTRY",
-           "MULTI_TOWER_OUTPUT", "build_model"]
+__all__ = ["AuxLogits", "CDC_BASE_MODELS", "CTRModel", "DCN", "MMoE",
+           "MODEL_REGISTRY", "MULTI_TOWER_OUTPUT", "build_model"]

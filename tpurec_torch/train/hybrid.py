@@ -28,9 +28,11 @@ gradients in that order (batch order).
 
 Ported: the single step, ``scan_k`` (a Python loop that returns the K
 losses) and ``indexed=True`` (the device-resident dataset's loop:
-:meth:`HybridTrainStep.scan_steps_idx`).  ``update_stacked`` (CDC
-lanes), ``embedding_update`` other than ``"hybrid"`` and
-``compute_dtype="bfloat16"`` raise NotImplementedError; see ROADMAP.md.
+:meth:`HybridTrainStep.scan_steps_idx`); the CDC engine drives
+:meth:`HybridTrainStep.one_step` with a loss head of its own.
+``update_stacked`` (CDC's row lanes), ``embedding_update`` other than
+``"hybrid"`` and ``compute_dtype="bfloat16"`` raise NotImplementedError;
+see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -157,8 +159,8 @@ class EmbeddingUpdater:
 
     def update_stacked(self, *args, **kwargs):
         raise NotImplementedError(
-            "update_stacked (the CDC engine's lanes) is not ported yet: see "
-            "ROADMAP.md, queue 1, 'CDC engine'")
+            "update_stacked (the CDC engine's lanes, cdc.parallel_rows > 0) "
+            "is not ported yet: see ROADMAP.md, queue 1, 'CDC row lanes'")
 
 
 def dense_named_parameters(model: torch.nn.Module):
@@ -206,10 +208,12 @@ class HybridTrainStep:
         self.upd = EmbeddingUpdater(model.field_dims, tcfg, l2_reg_embedding,
                                     big_vocab_threshold)
 
-    def loss_and_grads(self, ts: TrainState, batch, generator):
+    def loss_and_grads(self, ts: TrainState, batch, generator, head=None):
         """The loss before the table's L2 term, with the dense parameters'
         gradients left in their ``.grad`` -> (loss, rows [B*F, D] gathered
-        from the table, their gradient)."""
+        from the table, their gradient).  ``head(out, batch) -> loss``
+        replaces the masked BCE of the group's tower logit (the CDC
+        engine's warmup loss)."""
         model = ts.model
         table = model.get_parameter(TABLE)
         dev = table.device
@@ -222,16 +226,21 @@ class HybridTrainStep:
         out = model(x, group=batch.get("group"), train=True,
                     row_mask=batch.get("mask"), embed_rows=rows,
                     generator=generator)
-        logit = select_tower(out, batch["group"]) if self.multi_tower else out
-        loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
+        if head is not None:
+            loss = head(out, batch)
+        else:
+            logit = (select_tower(out, batch["group"]) if self.multi_tower
+                     else out)
+            loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
         loss = loss + regularization_loss(dense_named_parameters(model),
                                           self.reg_coefs_rest)
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         return loss.detach(), rows.detach(), rows.grad
 
-    def one_step(self, ts: TrainState, batch, generator) -> torch.Tensor:
-        loss, _, g_rows = self.loss_and_grads(ts, batch, generator)
+    def one_step(self, ts: TrainState, batch, generator, head=None
+                 ) -> torch.Tensor:
+        loss, _, g_rows = self.loss_and_grads(ts, batch, generator, head)
         ts.optimizer.step()
         table = ts.model.get_parameter(TABLE).detach()
         sumsq = self.upd.update(table, ts.emb_opt, batch["x"].to(

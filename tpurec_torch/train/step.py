@@ -1,7 +1,8 @@
 """Training-step helpers of the port (counterpart of ``tpurec/train/step.py``).
 
 - :func:`select_tower` picks each row's tower logit;
-- :func:`bce_with_logits` is the masked mean BCE of the JAX package;
+- :func:`bce_with_logits` is the masked mean BCE of the JAX package, and
+  :func:`bce_on_probs` the same on probabilities (CDC's warmup);
 - :func:`make_optimizer` is the dense parameters' Adam
   (``add_decayed_weights(wd)`` -> ``scale_by_adam`` -> ``scale(-lr)``, which
   is ``torch.optim.Adam(weight_decay=wd)``: wd is added to the gradient
@@ -68,6 +69,22 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     ``max(sum(weights), 1)`` (``tpurec/train/step.py:46-52``)."""
     losses = Fn.binary_cross_entropy_with_logits(
         logits, targets.to(logits.dtype), reduction="none")
+    if weights is None:
+        return losses.mean()
+    w = weights.to(losses.dtype)
+    return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None,
+                 eps: float = 1e-7) -> torch.Tensor:
+    """BCE on probabilities clipped to [eps, 1 - eps]; with ``weights`` the
+    weighted sum over ``max(sum(weights), 1)`` (``tpurec/train/step.py:
+    55-64``: CDC's warmup loss on the mean of the towers' probabilities).
+    The clip zeroes the gradient where a probability saturates."""
+    p = torch.clamp(probs, eps, 1.0 - eps)
+    t = targets.to(p.dtype)
+    losses = -(t * torch.log(p) + (1.0 - t) * torch.log1p(-p))
     if weights is None:
         return losses.mean()
     w = weights.to(losses.dtype)
