@@ -1,5 +1,5 @@
-"""Drive tpurec_torch's serving path, training step and training harness
-on one CUDA card, and check them.
+"""Drive tpurec_torch's serving path, training step, training harness and
+CDC engine on one CUDA card, for each model it ports, and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -124,7 +124,17 @@ Phases (any failure exits non-zero and prints no result line):
     eval) against the CPU's plain path; a checkpoint through a fresh
     CDCTrainer (bitwise) and predictor_from_checkpoint (1e-5); update,
     warmup, epoch and fit times and a profile of treatment steps at W =
-    3,584 and 512.
+    3,584 and 512;
+18. CDC's other base models (PLE, PEPNet, EPNet, STAR) at their
+    ModelConfig defaults on the flagship schema: (a) each one's Predictor
+    scores 5,000 rows against the CPU's plain path (#1 and #2 counted),
+    rows/s and a chunk profile at B = 512 and 4096; its hybrid step as
+    phase 8 drives MMoE's (#1, #2, #3 and #6's pass once a step), a step
+    profile, and 3 steps against the CPU's plain path; (b) phase 17's
+    CDCTrainer.fit on PLE at CDCConfig()'s defaults (4 clusters), with
+    phase 17's checks but the treatment profile; (c) STAR as CDC's base
+    (called without the group): one populate row at W = 3,584 with its
+    25,600-row eval against the CPU.
     A kernel of a path that a profile does not see fails its phase.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -133,6 +143,7 @@ is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import subprocess
@@ -413,6 +424,7 @@ def serving_weights(name, mcfg, gen):
     """Seeded weights of model ``name`` with random BatchNorm statistics,
     as a CPU state_dict.  -> (state_dict, number of parameters)."""
     from tpurec_torch.models import build_model
+    from tpurec_torch.models.star import PartitionedNorm
     from tpurec_torch.nn.core import BatchNorm
 
     model = build_model(name, FIELD_DIMS, N_TOWER, DOMAIN_IDX, mcfg,
@@ -423,6 +435,11 @@ def serving_weights(name, mcfg, gen):
                 m.mean.normal_(0.0, 0.3, generator=gen)
                 m.var.uniform_(0.5, 1.5, generator=gen)
                 m.scale.uniform_(0.8, 1.2, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, PartitionedNorm):
+                m.mean.normal_(0.0, 0.3, generator=gen)
+                m.var.uniform_(0.5, 1.5, generator=gen)
+                m.weight.uniform_(0.8, 1.2, generator=gen)
                 m.bias.normal_(0.0, 0.1, generator=gen)
     sd = model.state_dict()
     return sd, sum(v.numel() for k, v in sd.items()
@@ -435,6 +452,7 @@ def serving_weights(name, mcfg, gen):
 TRAIN_K = 8                     # steps per call of the K-step loop
 TRAIN_WARMUP_CALLS, TRAIN_TIMED_CALLS = 1, 2    # 8 warm-up, 16 timed steps
 L2 = 1e-5                       # bench.py:117,126
+TRAIN_WD = 1e-8                 # TrainConfig's default wd
 DROPOUT = 0.2
 BWD_TOL = 1e-4          # demb abs; a weight gradient: 1e-4 x max(1, max|g|)
 SWEEP_TOL = 1e-6        # p: this x max(1, |p'|, the step's terms) (see
@@ -443,6 +461,7 @@ BF16_MOMENT_TOL = 1e-2  # one bfloat16 ulp (2**-8) when FMA flips a rounding
 SUMSQ_RTOL = 1e-5
 ROWS_TOL = 2e-6         # the table update vs the CPU, as SWEEP_TOL for p
 CPU_LOSS_RTOL = 1e-4
+ROW_GRAD_RTOL = 1e-4    # step 1's gathered-row gradient, of its max |g|
 SWEEP_SYMS = ("decay_adam_kernel", "finish_sumsq_kernel")   # kernels 6, 7
 LAUNCH_KEYS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx")
@@ -731,7 +750,7 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
         res[where] = [p.cpu(), st.m.cpu(), st.v.cpu(), sq.cpu()]
         if where == "cuda":
             kernels = update_port_kernels(
-                lambda: upd.update(p, st, x.to(where), gr.to(where), 5))
+                lambda: upd.update(p, st, x.to(where), gr.to(where), 5), p)
         del p, st
     check(kernels == dict.fromkeys(SWEEP_SYMS, 1),
           f"table update: port kernels launched {kernels}, want the sweep "
@@ -744,8 +763,12 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
     err6, worst6, r6 = held_to_plain(got, want, step, "table update")
     del res, got, want, step
     # the rows' cases at the flagship table, against the plain version on
-    # the card: ids inside g_small's prefix (their rows' step replaces
-    # g_small's), 1,024 equal ids, ids outside [0, V); bitwise repeatable
+    # the CPU: ids inside g_small's prefix (their rows' step replaces
+    # g_small's), 1,024 equal ids, ids outside [0, V); bitwise repeatable.
+    # The kernel sums a row's entries in sort order; so does index_add_ on
+    # the CPU, while on the card it adds by atomics in a varying order, and
+    # two float32 orders of 1,024 N(0, 1) terms differ by up to about 3e-5,
+    # beyond SWEEP_TOL x max|v| for the moments
     S = layout.small_rows
     g6 = torch.Generator(device=dev).manual_seed(SEED + 61)
     gs = torch.randn(S, D, device=dev, generator=g6)
@@ -775,9 +798,9 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
             outs.append([t.cpu() for t in out])
         check(all(torch.equal(a, b) for a, b in zip(*outs)),
               f"{what}: two calls differ")
-        want = [t.cpu() for t in fused_sparse_adam_reference(
-            table.to(dev), m0c.clone(), v0c.clone(), ids, g_ids, 5,
-            g_small=gs, **kw)]
+        want = fused_sparse_adam_reference(
+            table.clone(), m0c.cpu(), v0c.cpu(), ids.cpu(), g_ids.cpu(), 5,
+            g_small=gs.cpu(), **kw)
         step = sweep_step(table.to(dev), m0c, v0c,
                           dense_grad(V, ids, g_ids, gs), 5, **kw).cpu()
         e, worst, _ = held_to_plain(outs[0], want, step, what)
@@ -802,7 +825,7 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
           f"table {worst6:.3g} x max(1, |p'|, step) vs the CPU plain path "
           f"(tol {ROWS_TOL}), m/v within rel {BF16_MOMENT_TOL}, sumsq rel "
           f"err {r6:.3g}; at {V} x {D} against the plain version on the "
-          f"card, ids in g_small's prefix, 1,024 equal ids, ids outside "
+          f"CPU, ids in g_small's prefix, 1,024 equal ids, ids outside "
           f"[0, V), each with bf16 and f32 moments (m/v within rel "
           f"{SWEEP_TOL} at f32): {worst6c:.3g} (tol {ROWS_TOL}), bitwise "
           f"repeatable; "
@@ -837,10 +860,17 @@ def held_to_plain(got, want, step, what):
     return diff.max().item(), worst, r
 
 
-def update_port_kernels(fn):
+def update_port_kernels(fn, table):
     """The port's kernels (every __global__ function of tpurec_torch/csrc)
-    one call of ``fn`` launches, by name, with their launch counts (from
-    torch.profiler)."""
+    one call of ``fn``, a table update of ``table`` in place, launches, by
+    name, with their launch counts (from torch.profiler).
+
+    A capture is taken again, at most twice, only when it was shown to
+    have failed: it recorded no device kernel, or it lacks some of the
+    pass's two kernels (and holds nothing more) while ``table`` moved in
+    most of its rows, which only the pass writes.  (Captures have recorded
+    nothing, in phase 7, and one kernel of two, in phase 18.)  Any other
+    capture is returned as it is, right or wrong."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -850,15 +880,30 @@ def update_port_kernels(fn):
     names = {m for src in _build.sources().values() for m in re.findall(
         r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(",
         src.read_text())}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for name in names:
-            if str(e.device_type).endswith("CUDA") and port_kernel(e.key,
-                                                                   name):
-                out[name] = out.get(name, 0) + e.count
+    want = dict.fromkeys(SWEEP_SYMS, 1)
+    for attempt in range(3):
+        before = table.detach().clone()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        moved = (table.detach() != before).any(dim=1).float().mean().item()
+        del before
+        evs = prof.key_averages()
+        ran = sum(e.count for e in evs if str(e.device_type).endswith("CUDA")
+                  and not e.key.startswith(("Memcpy", "Memset")))
+        out = {}
+        for e in evs:
+            for name in names:
+                if str(e.device_type).endswith("CUDA") and port_kernel(
+                        e.key, name):
+                    out[name] = out.get(name, 0) + e.count
+        lost = ran == 0 or (out != want and moved > 0.5 and all(
+            n <= want.get(k, 0) for k, n in out.items()))
+        if not lost:
+            return out
+        print(f"port kernels: capture {attempt + 1} recorded {ran} device "
+              f"kernels, {out}, while the table moved in {100 * moved:.1f}% "
+              f"of its rows: a lost capture; capturing again")
     return out
 
 
@@ -873,10 +918,10 @@ def train_counters(name):
     from tpurec_torch.ops.fused_adam import (fused_decay_adam,
                                              fused_sparse_adam)
 
-    dense = ({"field_attention_train": field_attention,
-              "field_attention_bwd": field_attention_bwd} if name == "mmoe"
-             else {"cross_network": cross_network,
-                   "cross_network_bwd": cross_network_bwd})
+    dense = ({"cross_network": cross_network,
+              "cross_network_bwd": cross_network_bwd} if name == "dcn"
+             else {"field_attention_train": field_attention,
+                   "field_attention_bwd": field_attention_bwd})
     return {"embedding_gather": embedding_gather, **dense,
             "fused_decay_adam": fused_decay_adam,
             "fused_sparse_adam": fused_sparse_adam}
@@ -954,19 +999,111 @@ def train_main_path(dev, rng, tag, name="mmoe", model_kw=MODEL):
     return ts, single, batches, gen, launches, timing
 
 
-def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL):
-    """Phase 9 (phase 13 for DCN): 3 full-width steps of model ``name``
-    with dropout 0 on the card and on the CPU's plain path, from the same
-    seeded weights and batches.  The table is scaled to N(0, 0.01**2), so
-    that the reported loss's L2 term (l2 * sum(table**2), 260 at the
-    N(0, 1) init) does not hide the data loss."""
+class relu_branches:
+    """Inside, ``torch.relu`` appends each call's branch mask (x > 0) to
+    ``masks`` (``record=True``), or applies the next recorded mask to a
+    call of its shape, in order, counting the inputs whose own branch
+    differs (``record=False``).  Calls of other shapes (the attention's
+    plain version, which the card runs inside kernel 2) compute as usual.
+    A ReLU input within rounding of 0 may take either branch on two
+    devices, and a gradient then parts by that unit's whole contribution;
+    replaying the card's branches on the CPU leaves rounding alone between
+    the two gradients."""
+
+    def __init__(self, masks, record):
+        self.masks, self.record = masks, record
+        self.used = self.flipped = self.inputs = 0
+
+    def __call__(self, x):
+        if self.record:
+            self.masks.append((x > 0).cpu())
+            return self.relu(x)
+        if self.used < len(self.masks) and \
+                self.masks[self.used].shape == x.shape:
+            mask = self.masks[self.used].to(x.device)
+            self.used += 1
+            self.inputs += mask.numel()
+            self.flipped += int(((x > 0) != mask).sum())
+            return x * mask
+        return self.relu(x)
+
+    def __enter__(self):
+        self.relu, torch.relu = torch.relu, self
+        return self
+
+    def __exit__(self, *exc):
+        torch.relu = self.relu
+
+
+def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch):
+    """Step 1's gradient of the gathered rows (``loss_and_grads``'s,
+    before Adam and before wd reaches anything) on the card against the
+    CPU's plain path, from train_vs_cpu's seeded weights and first batch,
+    the CPU on the card's ReLU branches (:class:`relu_branches`); held to
+    ROW_GRAD_RTOL of its largest value.  A wrong table gradient that
+    Adam's sign amplification or PLE's wd would hide shows here.  ->
+    summary dict."""
+    from tpurec_torch.config import ModelConfig
+    from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
+    from tpurec_torch.train.hybrid import (init_train_state,
+                                           make_hybrid_train_step)
+    from tpurec_torch.train.reg import reg_coef_tree
+
+    masks, grads = [], {}
+    for where in ("cuda", "cpu"):
+        model = build_model(name, FIELD_DIMS, N_TOWER, DOMAIN_IDX,
+                            ModelConfig(**model_kw, dropout=0.0),
+                            device=where,
+                            generator=torch.Generator().manual_seed(SEED + 3))
+        with torch.no_grad():
+            model.embedding.table.mul_(table_scale)
+        ts = init_train_state(model, tcfg, device=where)
+        reg = reg_coef_tree([n for n, _ in model.named_parameters()],
+                            name, L2, L2, L2)
+        step = make_hybrid_train_step(model, tcfg, reg,
+                                      name in MULTI_TOWER_OUTPUT, L2)
+        with relu_branches(masks, record=where == "cuda") as branches:
+            _, _, g = step.loss_and_grads(ts, batch, None)
+        grads[where] = g.detach().cpu()
+        del model, ts, step
+    check(branches.used == len(masks) > 0,
+          f"{name} row gradient: the CPU replayed {branches.used} of the "
+          f"card's {len(masks)} ReLU calls")
+    err = (grads["cuda"] - grads["cpu"]).abs().max().item()
+    top = grads["cpu"].abs().max().item()
+    check(err <= ROW_GRAD_RTOL * top,
+          f"{name} train cuda vs cpu: step 1's row gradient max abs err "
+          f"{err} of max |g| {top} ({branches.flipped} ReLU inputs on the "
+          f"other branch on the CPU)")
+    return {"max_abs_err": err, "max": top, "flipped": branches.flipped,
+            "relu_inputs": branches.inputs, "relu_calls": len(masks)}
+
+
+def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
+                 wd=TRAIN_WD):
+    """Phase 9 (phase 13 for DCN, 18 for CDC's other bases): 3 full-width
+    steps of model ``name`` with dropout 0 on the card and on the CPU's
+    plain path, from the same seeded weights and batches.  The table is
+    scaled to N(0, table_scale**2), so that the reported loss's L2 term
+    (l2 * sum(table**2), 260 at the N(0, 1) init) does not hide the data
+    loss; the loss before the table's L2 term (``loss_and_grads``'s) is
+    held to the same limit.  PLE runs at its init's scale, 1, and wd 1e-3
+    (``PLE_VS_CPU``): its experts have no BatchNorm, and at 0.01 one
+    rounding of the first step's rows moves its third loss by 2.6e-4 on
+    the CPU alone, at 1 by 7.9e-8 (``scripts/loss_sensitivity.py``); at
+    1 a table value's step is small beside the value, and about 30 of
+    the 26M values, whose first step is within a rounding of Adam's eps,
+    land more than 1e-6 apart (two H100 runs) unless wd * p, about 1e-3,
+    outweighs that rounding, as CDC_CHECK_WD does for phase 17's row.
+    The first step's gradient of the gathered rows is held apart, by
+    :func:`row_grad_vs_cpu`."""
     from tpurec_torch.config import ModelConfig, TrainConfig
     from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
     from tpurec_torch.train.hybrid import (init_train_state,
                                            make_hybrid_train_step)
     from tpurec_torch.train.reg import reg_coef_tree
 
-    tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16")
+    tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16", wd=wd)
     batches = train_batches(rng, 3, "cpu")
     out = {}
     for where in ("cuda", "cpu"):
@@ -976,26 +1113,40 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL):
                             device=where,
                             generator=torch.Generator().manual_seed(SEED + 3))
         with torch.no_grad():
-            model.embedding.table.mul_(0.01)
+            model.embedding.table.mul_(table_scale)
         ts = init_train_state(model, tcfg, device=where)
         reg = reg_coef_tree([n for n, _ in model.named_parameters()],
                             name, L2, L2, L2)
         step = make_hybrid_train_step(model, tcfg, reg,
                                       name in MULTI_TOWER_OUTPUT, L2)
-        losses, table1 = [], None
+        losses, data_losses, table1 = [], [], None
+        loss_and_grads = step.loss_and_grads
+
+        def record(*args, _f=loss_and_grads, _out=data_losses):
+            out = _f(*args)
+            _out.append(float(out[0]))
+            return out
+
+        step.loss_and_grads = record
         for i in range(3):
             losses.append(float(step(ts, {k: v[i] for k, v in
                                           batches.items()}, None)))
             if i == 0:
                 table1 = model.embedding.table.detach().cpu().clone()
-        out[where] = (losses, table1)
+        out[where] = (losses, table1, data_losses)
         print(f"{name}: 3 steps on {where}: losses {losses} "
               f"({time.perf_counter() - t0:.1f} s)")
         del model, ts
-    (lg, tg), (lc, tc) = out["cuda"], out["cpu"]
+    (lg, tg, dg), (lc, tc, dc) = out["cuda"], out["cpu"]
     rel = max(abs(a / b - 1) for a, b in zip(lg, lc))
+    data_rel = max(abs(a / b - 1) for a, b in zip(dg, dc))
     check(rel <= CPU_LOSS_RTOL,
           f"{name} train cuda vs cpu: loss rel err {rel}")
+    check(data_rel <= CPU_LOSS_RTOL,
+          f"{name} train cuda vs cpu: loss before the table's L2 rel err "
+          f"{data_rel}")
+    grad = row_grad_vs_cpu(name, model_kw, table_scale, tcfg,
+                           {k: v[0] for k, v in batches.items()})
     diff = (tg - tc).abs()
     share = (diff > 1e-6).float().mean().item()
     check(diff.max().item() <= 2 * tcfg.lr + 1e-6 and
@@ -1003,12 +1154,21 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL):
           f"{name} train cuda vs cpu: table after step 1 max abs err "
           f"{diff.max().item()}, share beyond 1e-6 {share}")
     print(f"{name} train cuda vs cpu plain path, 3 full-width steps "
-          f"(dropout 0): "
-          f"loss max rel err {rel:.3g} (tol {CPU_LOSS_RTOL}); table after "
+          f"(dropout 0, table x{table_scale}, wd {wd}): loss max rel err "
+          f"{rel:.3g}, "
+          f"before the table's L2 {data_rel:.3g} (tol {CPU_LOSS_RTOL}; "
+          f"those losses {dc}); step 1's gathered-row gradient max abs "
+          f"err {grad['max_abs_err']:.3g} of max |g| {grad['max']:.3g} "
+          f"(tol {ROW_GRAD_RTOL} of it; {grad['flipped']} ReLU inputs of "
+          f"{grad['relu_inputs']} on the other branch on the CPU, which "
+          f"follows the card's); table after "
           f"step 1 max abs err {diff.max().item():.3g} (tol 2 lr: Adam's "
           f"first step is +-lr whatever a gradient's size), share beyond "
           f"1e-6 {share:.3g} (tol {CPU_TABLE_SHARE})")
-    return {"loss_rel_err": rel, "table_max_abs_err": diff.max().item(),
+    return {"loss_rel_err": rel, "data_loss_rel_err": data_rel,
+            "table_scale": table_scale, "wd": wd,
+            "row_grad": grad,
+            "table_max_abs_err": diff.max().item(),
             "table_share_beyond_1e-6": share}
 
 
@@ -1052,12 +1212,19 @@ def step_profile(dev, ts, single, batches, gen, tag, step_ms):
                                   ts.step + 1, tag)
 
     n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for _ in range(n_prof):
-            single(ts, b0, gen)
-        torch.cuda.synchronize()
-    evs = prof.key_averages()
+    for attempt in range(3):    # as kernel_alone_ms: a failed capture
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(n_prof):
+                single(ts, b0, gen)
+            torch.cuda.synchronize()
+        evs = prof.key_averages()
+        if any(str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0 for e in evs):
+            break
+        print(f"{tag} step profile {attempt + 1} recorded no device "
+              f"activity; capturing again")
     # which host op launched the device time (by op and input shapes)
     op_top = sorted(((f"{e.key} {e.input_shapes}",
                       e.self_device_time_total / n_prof)
@@ -1128,7 +1295,7 @@ def update_profile(upd, table, st, x, g_rows, t, tag, n=5):
     dev_us = {e.key: e.self_device_time_total / n for e in evs
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0}
-    kernels = update_port_kernels(update)
+    kernels = update_port_kernels(update, table)
     check(kernels == dict.fromkeys(SWEEP_SYMS, 1),
           f"{tag} table update: port kernels {kernels}")
     pass_ms = path_device_ms(dev_us, SWEEP_SYMS, 1, f"{tag} table update")
@@ -2129,14 +2296,19 @@ def chunk_timings(pred, rng, tag, syms):
     for B in BATCH_SIZES:
         Xb = random_ids(rng, B)
         pred(Xb)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                pred(Xb)
-        dev_us = {e.key: e.self_device_time_total / 10
-                  for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")
-                  and e.self_device_time_total > 0}
+        for attempt in range(3):    # as kernel_alone_ms: a failed capture
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    pred(Xb)
+            dev_us = {e.key: e.self_device_time_total / 10
+                      for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")
+                      and e.self_device_time_total > 0}
+            if dev_us:
+                break
+            print(f"{tag} chunk profile B={B} {attempt + 1} recorded no "
+                  f"device activity; capturing again")
         busy, wall = sum(dev_us.values()), chunk_s[B] * 1e6
         busy_us[B] = busy
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
@@ -2493,10 +2665,12 @@ def adjusted_rand_index(a, b) -> float:
         else 1.0
 
 
-def cdc_config(dropout=DROPOUT, epoch=CDC_EPOCHS, **train):
+def cdc_config(dropout=DROPOUT, epoch=CDC_EPOCHS, base="mmoe", **train):
     """Phase 17's configuration: the flagship MMoE as CDC's base (expert
     dims from mlp_dims), 4 clusters, every other CDC field at its
-    reference default; B=512, CDC_EPOCHS epochs, bf16 table moments."""
+    reference default; B=512, CDC_EPOCHS epochs, bf16 table moments.
+    ``base`` names another base (phase 18: "ple" gives CDCConfig()
+    itself, PLE keeping its own expert dims; "star")."""
     from tpurec_torch.config import (CDCConfig, Config, ModelConfig,
                                      TrainConfig)
 
@@ -2505,7 +2679,7 @@ def cdc_config(dropout=DROPOUT, epoch=CDC_EPOCHS, **train):
                           mlp_dims=(256, 128, 64), mmoe_n_expert=4,
                           use_atten=True, atten_embed_dim=64,
                           att_layer_num=3, att_head_num=2, dropout=dropout),
-        cdc=CDCConfig(base_model="mmoe", n_cluster=N_TOWER,
+        cdc=CDCConfig(base_model=base, n_cluster=N_TOWER,
                       cdc_tower_dims=(64, 32)),
         train=TrainConfig(**{"bs": 512, "epoch": epoch, "seed": 0,
                              "embedding_moments_dtype": "bfloat16",
@@ -2602,7 +2776,7 @@ def _check_rollback(tr, sched, record):
     tr.update_matrix_cdc = update
 
 
-def cdc_row_vs_cpu(data, blob, d2g, tag):
+def cdc_row_vs_cpu(data, blob, d2g, tag, base="mmoe"):
     """Check 3 of phase 17: one mask row (CDC_TREAT domains, one pass, so
     2 treatment steps at W = 3,584 with masked rows) and its all-domain
     probe eval (D * 512 = 25,600 rows), from the fitted state with dropout
@@ -2613,11 +2787,12 @@ def cdc_row_vs_cpu(data, blob, d2g, tag):
     moment one rounding apart lands in another bfloat16 value on either
     side, and the second step then differs by about 0.4% of its size (5.6e-6
     on 68 of 26M entries on an H100); phases 7 and 9 hold the bfloat16
-    moments."""
+    moments.  ``base``: CDC's base model (phase 18)."""
     from tpurec_torch.cdc import CDCTrainer
 
-    cfg = cdc_config(dropout=0.0, wd=CDC_CHECK_WD,
+    cfg = cdc_config(dropout=0.0, wd=CDC_CHECK_WD, base=base,
                      embedding_moments_dtype="float32")
+    what = "cdc" if base == "mmoe" else f"cdc {base}"
     out = {}
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -2635,7 +2810,7 @@ def cdc_row_vs_cpu(data, blob, d2g, tag):
         out[where] = dict(losses=[float(v) for v in losses], table=table,
                           row=row, bidx=bidx, eidx=eidx,
                           masked=int((bmask[bvalid > 0] == 0).sum()))
-        print(f"cdc populate row on {where}: {len(losses)} steps of "
+        print(f"{what} populate row on {where}: {len(losses)} steps of "
               f"{bidx.shape[1]} rows ({out[where]['masked']} masked), losses "
               f"{out[where]['losses']}, probe eval of {eidx.size} rows "
               f"({time.perf_counter() - t0:.1f} s)")
@@ -2653,17 +2828,17 @@ def cdc_row_vs_cpu(data, blob, d2g, tag):
     diff = (g["table"] - c["table"]).abs()
     share = (diff > 1e-6).float().mean().item()
     loss_rel = max(abs(a / b - 1) for a, b in zip(g["losses"], c["losses"]))
-    print(f"{tag} cdc populate row, card vs CPU plain path (dropout 0, wd "
+    print(f"{tag} {what} populate row, card vs CPU plain path (dropout 0, wd "
           f"{CDC_CHECK_WD}, float32 moments): [D] probe row max err {row_err:.3g} of max(1, "
           f"|x|) (tol {CDC_ROW_TOL}); step loss max rel err {loss_rel:.3g}; "
           f"table after the burst max abs err {diff.max().item():.3g} (tol "
           f"2 lr), share beyond 1e-6 {share:.3g} (tol {CPU_TABLE_SHARE})")
-    check(row_err <= CDC_ROW_TOL, f"cdc populate row: max err {row_err}")
-    check(loss_rel <= CPU_LOSS_RTOL, f"cdc populate row: loss rel err "
+    check(row_err <= CDC_ROW_TOL, f"{what} populate row: max err {row_err}")
+    check(loss_rel <= CPU_LOSS_RTOL, f"{what} populate row: loss rel err "
           f"{loss_rel}")
     check(diff.max().item() <= 2 * cfg.train.lr + 1e-6
           and share <= CPU_TABLE_SHARE,
-          f"cdc populate row: table max abs err {diff.max().item()}, share "
+          f"{what} populate row: table max abs err {diff.max().item()}, share "
           f"beyond 1e-6 {share}")
     return {"row_err": row_err, "loss_rel_err": loss_rel,
             "table_max_abs_err": diff.max().item(),
@@ -2736,7 +2911,19 @@ def cdc_profile(tr, tag, n=PROFILE_STEPS):
     return out
 
 
-def cdc_main_path(dev, tag):
+@functools.lru_cache(maxsize=None)
+def cdc_data():
+    """Phases 17 and 18's data: make_synthetic(131,072 rows) at the
+    flagship schema with 4 antipodal domain clusters (made once)."""
+    from tpurec_torch.data import make_synthetic
+
+    return make_synthetic(
+        n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS), n_domain=N_DOMAIN,
+        field_dims=FIELD_DIMS, domain_idx=DOMAIN_IDX, seed=1,
+        domain_cluster_k=N_TOWER, domain_cluster_conflict=True)
+
+
+def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True):
     """Phase 17: the CDC engine on the flagship MMoE at full width.
     make_synthetic(131,072 rows, the flagship schema, 4 antipodal domain
     clusters) -> CDCTrainer(...).fit(train, valid, test): the warmup, one
@@ -2745,21 +2932,18 @@ def cdc_main_path(dev, tag):
     the schedule the trainer built; then one populate row against the
     CPU's plain path, the rollback (checked inside the fit), a checkpoint
     through a fresh CDCTrainer and predictor_from_checkpoint, and a
-    profile of treatment steps.  -> (launches, summary)."""
+    profile of treatment steps (when ``profile``).  Phase 18 runs it on
+    another ``base``.  -> (launches, summary)."""
     import os
     import tempfile
 
     from tpurec_torch.cdc import CDCTrainer
-    from tpurec_torch.data import make_synthetic
     from tpurec_torch.serve import predictor_from_checkpoint
 
     t_phase = time.perf_counter()
-    data = make_synthetic(n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS),
-                          n_domain=N_DOMAIN, field_dims=FIELD_DIMS,
-                          domain_idx=DOMAIN_IDX, seed=1,
-                          domain_cluster_k=N_TOWER,
-                          domain_cluster_conflict=True)
-    cfg = cdc_config()
+    data = cdc_data()
+    cfg = cdc_config(base=base)
+    what = "cdc" if base == "mmoe" else f"cdc {base}"
     t0 = time.perf_counter()
     tr = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
     check(tr.device.type == "cuda"
@@ -2774,7 +2958,7 @@ def cdc_main_path(dev, tag):
     _check_rollback(tr, sched, rollback)
     logs = []
 
-    counters = train_counters("mmoe")
+    counters = train_counters(base)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2793,14 +2977,14 @@ def cdc_main_path(dev, tag):
     want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
             "field_attention_bwd": n_steps, "fused_decay_adam": n_steps,
             "fused_sparse_adam": n_steps}
-    print(f"cdc main path: CDCTrainer.fit, {sched['warmup_steps']} warmup "
+    print(f"{what} main path: CDCTrainer.fit, {sched['warmup_steps']} warmup "
           f"steps, {len(sched['blocks'])} populate blocks "
           f"{[(b['rows'], b['valid_steps'], b['width']) for b in sched['blocks']]}"
           f" (rows, valid steps, width), {sched['probe_forwards']} probe "
           f"forwards, {len(epochs)} epochs of {n_epoch // len(epochs)} "
           f"steps, {n_eval} eval batches; "
           f"launches {launches}")
-    check(launches == want, f"cdc fit's kernel launches {launches}, "
+    check(launches == want, f"{what} fit's kernel launches {launches}, "
           f"expected {want} (a step each; a forward per probe eval and eval "
           f"batch)")
     check(rollback.get("valid_steps") == n_block,
@@ -2829,14 +3013,14 @@ def cdc_main_path(dev, tag):
           f"{st.call_update_group} clusterings (one expected)")
     update_s = upd_log[0]["cdc_update_seconds"]
     upd_rows = sum(b["trained_rows"] for b in sched["blocks"])
-    print(f"{tag} cdc fit: valid total_auc {auc:.5f} (min {FIT_AUC_MIN}), "
+    print(f"{tag} {what} fit: valid total_auc {auc:.5f} (min {FIT_AUC_MIN}), "
           f"mean_auc {mean_auc:.5f}, total_loss {valid['total_loss']:.5f}; "
           f"test total_auc {out['test']['total_auc']:.5f}; valid total_auc "
           f"by epoch {[round(r['total_auc'], 5) for r in epochs]} (best "
           f"epoch {valid['epoch']}); groups "
           f"{np.bincount(d2g, minlength=N_TOWER).tolist()}, adjusted Rand "
           f"index vs the data's clusters {ari:.4f}")
-    print(f"{tag} cdc times (host clock): build {build_s:.2f} s; warmup "
+    print(f"{tag} {what} times (host clock): build {build_s:.2f} s; warmup "
           f"{sched['warmup_steps']} steps {sched['warmup_seconds']:.3f} s "
           f"({sched['warmup_seconds'] / sched['warmup_steps'] * 1e3:.3f} ms a "
           f"step); cdc_update_seconds {update_s:.3f} ({rollback['seconds']:.3f}"
@@ -2847,29 +3031,29 @@ def cdc_main_path(dev, tag):
           f"({sched['span_seconds'] / max(sched['span_steps'], 1) * 1e3:.3f} "
           f"ms a step); epoch 0 with warmup, update and valid eval "
           f"{epochs[0]['epoch_seconds']:.3f} s; fit {fit_s:.3f} s")
-    check(auc >= FIT_AUC_MIN, f"cdc valid total_auc {auc} < {FIT_AUC_MIN}")
-    check(np.isfinite(mean_auc), f"cdc valid mean_auc {mean_auc}")
-    print(f"{tag} cdc rollback: {rollback['tensors']} parameters and buffers "
+    check(auc >= FIT_AUC_MIN, f"{what} valid total_auc {auc} < {FIT_AUC_MIN}")
+    check(np.isfinite(mean_auc), f"{what} valid mean_auc {mean_auc}")
+    print(f"{tag} {what} rollback: {rollback['tensors']} parameters and buffers "
           f"bitwise equal to their update-entry values; step "
           f"{rollback['step_before']} -> {rollback['step_after']} (+"
           f"{rollback['valid_steps']} valid steps), moments advanced")
 
     # one populate row on the card against the CPU's plain path
     blob = tr.snapshot_bytes()
-    row_check = cdc_row_vs_cpu(data, blob, d2g, tag)
+    row_check = cdc_row_vs_cpu(data, blob, d2g, tag, base)
 
     # the checkpoint: a fresh trainer, and the Predictor
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         path = os.path.join(tmp, "cdc.pkl")
         t1 = time.perf_counter()
-        tr.save_checkpoint(path, extra={"phase": 17})
+        tr.save_checkpoint(path, extra={"phase": phase})
         write_s = time.perf_counter() - t1
         size_mb = os.path.getsize(path) / 1e6
         fresh = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
         payload = fresh.load_checkpoint(path)
         served = predictor_from_checkpoint(path, batch_sizes=(512,))
-    check(payload["extra"] == {"phase": 17}, "cdc checkpoint extra lost")
+    check(payload["extra"] == {"phase": phase}, f"{what} checkpoint extra lost")
     check(fresh.snapshot_bytes() == blob,
           "a fresh CDCTrainer.load_checkpoint holds another state")
     a, b = fresh._cluster_payload(), tr._cluster_payload()
@@ -2884,19 +3068,19 @@ def cdc_main_path(dev, tag):
     serve_err = float(np.max(np.abs(p_srv - p_tr)))
     del served
     torch.cuda.empty_cache()
-    print(f"{tag} cdc checkpoint: {size_mb:.1f} MB written in {write_s:.3f} "
+    print(f"{tag} {what} checkpoint: {size_mb:.1f} MB written in {write_s:.3f} "
           f"s; a fresh CDCTrainer's state and cluster bitwise equal; "
           f"predictor_from_checkpoint vs CDCTrainer.predict_split on "
           f"{len(Xv)} valid rows max abs err {serve_err:.3g} (tol "
           f"{LOAD_TOL})")
-    check(serve_err <= LOAD_TOL, f"cdc checkpoint Predictor: max abs err "
+    check(serve_err <= LOAD_TOL, f"{what} checkpoint Predictor: max abs err "
           f"{serve_err}")
 
-    prof = cdc_profile(tr, tag)
+    prof = cdc_profile(tr, tag) if profile else None
     del tr
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
-    print(f"cdc phase: {phase_s:.1f} s")
+    print(f"{what} phase: {phase_s:.1f} s")
     return launches, {
         "rows": {"train": len(data.train[1]), "valid": len(data.valid[1]),
                  "test": len(data.test[1])},
@@ -2921,6 +3105,119 @@ def cdc_main_path(dev, tag):
         "populate_row_vs_cpu": row_check, "checkpoint_mb": size_mb,
         "checkpoint_write_seconds": write_s, "checkpoint_serve_err": serve_err,
         "profile": prof, "phase_seconds": phase_s}
+
+
+# -- CDC's other base models through every entry point (phase 18) ------------
+
+BASES = ("ple", "pepnet", "epnet", "star")
+# PLE's table scale and wd in the 3 steps against the CPU (train_vs_cpu)
+PLE_VS_CPU = (1.0, 1e-3)
+
+
+def bases_main_path(dev, rng, tag):
+    """Phase 18 (a): each of CDC's other bases at its ModelConfig defaults
+    on the flagship schema: the Predictor scores N_ROWS rows against the
+    CPU's plain path with #1 and #2 counted, rows/s and a chunk profile at
+    each batch size; the hybrid step as phase 8 drives MMoE's (K=8, 8
+    warm-up and 16 timed steps, #1, #2, #3 and #6's pass once a step),
+    its profile, and 3 steps against the CPU's plain path.
+    -> {name: summary}."""
+    from tpurec_torch.config import Config, ModelConfig
+    from tpurec_torch.ops.attention import field_attention
+    from tpurec_torch.ops.embedding import embedding_gather
+    from tpurec_torch.serve import Predictor
+
+    out = {}
+    d2g = np.arange(N_DOMAIN) % N_TOWER
+    for i, name in enumerate(BASES):
+        t0 = time.perf_counter()
+        kw = {"model": name}
+        cfg = Config(model=ModelConfig(**kw))
+        sd, n_params = serving_weights(
+            name, cfg.model, torch.Generator().manual_seed(SEED + 10 + i))
+        preds = {w: Predictor(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                              domain2group=d2g, batch_sizes=BATCH_SIZES,
+                              device=w).load_state_dict(sd)
+                 for w in ("cuda", "cpu")}
+        pred = preds["cuda"]
+        pred.warm()
+        X = random_ids(rng, N_ROWS)
+        embedding_gather.launches = 0
+        field_attention.launches = 0
+        p_gpu = pred(X)
+        serve_launches = {"embedding_gather": embedding_gather.launches,
+                          "field_attention": field_attention.launches}
+        check(all(n > 0 for n in serve_launches.values()),
+              f"{name} Predictor: a kernel was not launched: "
+              f"{serve_launches}")
+        p_cpu = preds.pop("cpu")(X)
+        err = float(np.max(np.abs(p_gpu - p_cpu)))
+        check(p_gpu.shape == (N_ROWS,) and np.all(np.isfinite(p_gpu))
+              and np.all((p_gpu > 0) & (p_gpu < 1)),
+              f"{name} predictions malformed")
+        check(err <= PRED_TOL, f"{name} Predictor cuda vs cpu: max abs err "
+              f"{err}")
+        print(f"{name} main path: Predictor ({n_params} params) scored "
+              f"{N_ROWS} rows, launches {serve_launches}; cuda vs cpu plain "
+              f"path max abs err {err:.3g} (tol {PRED_TOL}); mean prob "
+              f"{p_gpu.mean():.4f}")
+        chunk_s, chunk_dev, chunk_busy = chunk_timings(
+            pred, rng, tag, {"embedding_gather": "gather_kernel",
+                             "field_attention": "field_attention_kernel"})
+        del preds, pred
+        ts, single, batches, tgen, train_launches, timing = \
+            train_main_path(dev, rng, tag, name, kw)
+        _, profile = step_profile(dev, ts, single, batches, tgen,
+                                  f"{tag} {name}", timing["step_ms_host"])
+        del ts, single, batches
+        torch.cuda.empty_cache()
+        vs_cpu = train_vs_cpu(dev, rng, name, kw,
+                              *PLE_VS_CPU if name == "ple" else ())
+        out[name] = {
+            "params": n_params,
+            "serve": {"launches": serve_launches, "max_abs_err": err,
+                      "rows_per_s": {str(B): B / t for B, t in
+                                     chunk_s.items()},
+                      "chunk_device_busy_us": {str(B): v for B, v in
+                                               chunk_busy.items()},
+                      "chunk_device_ms": chunk_dev},
+            "train": {**timing, "launches": train_launches,
+                      "vs_cpu": vs_cpu, "profile": profile},
+            "seconds": time.perf_counter() - t0}
+        B = BATCH_SIZES[-1]
+        print(f"{tag} {name}: serving {B} rows/s "
+              f"{out[name]['serve']['rows_per_s'][str(B)]:.0f}, "
+              f"training {timing['examples_per_s_host']:.0f} examples/s "
+              f"(host clock), step busy {100 * profile['busy_share']:.1f}% "
+              f"over {profile['launches_per_step']:.0f} launches "
+              f"({out[name]['seconds']:.1f} s)")
+        torch.cuda.empty_cache()
+    return out
+
+
+def star_cdc_row(tag):
+    """Phase 18 (c): STAR as CDC's base, called without the group (every
+    tower's BatchNorms take the whole batch): one populate row at W =
+    3,584 with its 25,600-row probe eval, card against the CPU's plain
+    path, as phase 17's check 3.  The state is a fresh trainer's, with its
+    partitioned norm's shifts drawn N(0, 0.1**2): a zero shift has a
+    gradient that is rounding alone (the tower BatchNorms remove it), which
+    wd * shift then outweighs, as CDC_CHECK_WD does for the trained biases
+    of phase 17."""
+    from tpurec_torch.cdc import CDCTrainer
+
+    tr = CDCTrainer(cdc_config(base="star"), FIELD_DIMS, N_DOMAIN,
+                    DOMAIN_IDX)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    with torch.no_grad():
+        for p in (tr.model.pn.bias, tr.model.pn.shared_bias):
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    blob = tr.snapshot_bytes()
+    del tr
+    torch.cuda.empty_cache()
+    return cdc_row_vs_cpu(cdc_data(), blob, np.arange(N_DOMAIN) % N_TOWER,
+                          tag, "star")
+
 
 
 def main() -> int:
@@ -3259,6 +3556,15 @@ def main() -> int:
     # -- 17. the CDC engine ---------------------------------------------------
     cdc_launches, cdc_summary = cdc_main_path(dev, tag)
 
+    # -- 18. CDC's other base models ------------------------------------------
+    t18 = time.perf_counter()
+    bases = bases_main_path(dev, rng, tag)
+    ple_launches, ple_cdc = cdc_main_path(dev, tag, base="ple", phase=18,
+                                          profile=False)
+    star_row = star_cdc_row(tag)
+    bases_s = time.perf_counter() - t18
+    print(f"bases phase: {bases_s:.1f} s")
+
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
         "field_attention": "tpurec/ops/attention_pallas.py:310",
@@ -3359,8 +3665,20 @@ def main() -> int:
             k["launches_fit"] = fit_launches[k["name"]]
         if k["name"] in cdc_launches:
             k["launches_cdc"] = cdc_launches[k["name"]]
+        by_base = {}
+        for name, b in bases.items():
+            n = {"serve": b["serve"]["launches"].get(k["name"]),
+                 "train": b["train"]["launches"].get(k["name"])}
+            if any(v is not None for v in n.values()):
+                by_base[name] = n
+        if by_base:
+            k["launches_bases"] = by_base
+        if k["name"] in ple_launches:
+            k["launches_cdc_ple"] = ple_launches[k["name"]]
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
+    print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
+                      "cdc_star_row": star_row, "phase_seconds": bases_s}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -65,15 +65,17 @@ def data():
                           seed=1, domain_cluster_k=2)
 
 
-def _pair(data, wd=TrainConfig.wd, **cdc):
-    """(tpurec trainer, port trainer started from its state)."""
+def _pair(data, wd=TrainConfig.wd, model=None, **cdc):
+    """(tpurec trainer, port trainer started from its state); ``model``
+    overrides fields of MODEL."""
     t, c = {**TRAIN, "wd": wd}, {**CDC, **cdc}
+    m = {**MODEL, **(model or {})}
     jtr = JaxCDCTrainer(
-        JaxConfig(model=JaxModelConfig(**MODEL), cdc=JaxCDCConfig(**c),
+        JaxConfig(model=JaxModelConfig(**m), cdc=JaxCDCConfig(**c),
                   train=JaxTrainConfig(**t)),
         data.field_dims, data.n_domain, data.domain_idx)
     tr = CDCTrainer(
-        Config(model=ModelConfig(**MODEL), cdc=CDCConfig(**c),
+        Config(model=ModelConfig(**m), cdc=CDCConfig(**c),
                train=TrainConfig(**t)),
         data.field_dims, data.n_domain, data.domain_idx, device="cpu")
     tr.restore_bytes(fser.to_bytes(jtr.state))
@@ -167,10 +169,10 @@ def test_bce_on_probs_matches_tpurec(weights):
     assert zero.item() == 0.0                # sum(w) clamps to 1
 
 
-def run_epoch_pair(data, monkeypatch, wd, **cdc):
+def run_epoch_pair(data, monkeypatch, wd, model=None, **cdc):
     """One CDC epoch in both packages from one state -> (tpurec trainer,
     port trainer, their update_group records, their step losses)."""
-    jtr, tr = _pair(data, wd=wd, **cdc)
+    jtr, tr = _pair(data, wd=wd, model=model, **cdc)
     groups = {"jax": [], "port": []}
     _record_groups(monkeypatch, jax_engine, groups["jax"])
     _record_groups(monkeypatch, port_engine, groups["port"])

@@ -325,9 +325,12 @@ def test_unported_and_invalid_options_raise(data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CDCTrainer(_cfg(train={"compute_dtype": "bfloat16"}), *args,
                    device="cpu")
-    for base in ("ple", "pepnet", "epnet", "star"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CDCTrainer(_cfg(base_model=base), *args, device="cpu")
+    for base in ("ple", "pepnet", "epnet", "star"):    # CDC's other bases
+        other = CDCTrainer(_cfg(base_model=base), *args, device="cpu")
+        assert type(other.model).__name__ == {
+            "ple": "PLE", "pepnet": "PEPNet", "epnet": "PEPNet",
+            "star": "STAR"}[base]
+        assert other.model.n_tower == 2
     with pytest.raises(AssertionError):
         CDCTrainer(_cfg(base_model="dcn"), *args, device="cpu")
     with pytest.raises(ValueError, match="sparse"):

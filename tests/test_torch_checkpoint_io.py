@@ -1,7 +1,9 @@
 """Checkpoints across the two packages: the port's flax-msgpack writer
 (tpurec_torch.train.checkpoint.msgpack_dumps) against flax's, a port
 Trainer checkpoint in tpurec's Predictor and Trainer, a tpurec Trainer
-checkpoint in the port's, and the port's versioned PickleBackend.
+checkpoint in the port's (MMoE, DCN and CDC's other bases: PLE, PEPNet,
+EPNet, STAR; each trains on in the other package), and the port's
+versioned PickleBackend.
 
 Tolerances.  The writer and reader move bytes: equal bytes and equal
 values.  A checkpoint's state restores exactly (bitwise) into either
@@ -32,8 +34,13 @@ from tpurec_torch.train import Trainer
 
 SMALL_MODEL = dict(embed_dim=8, mlp_dims=(32, 16), mmoe_expert_dims=(32, 16),
                    mmoe_tower_dims=(16,), atten_embed_dim=8, att_layer_num=1,
-                   dropout=0.0)
-D2G = {"mmoe": np.arange(4), "dcn": None}
+                   ple_expert_dims=((32, 16), (16,)), ple_tower_dims=(16,),
+                   tower_dims=(32, 16), gate_hidden_dim=16, dropout=0.0)
+# CDC's other bases train and serve as zoo models too
+BASES = ["ple", "pepnet", "epnet", "star"]
+D2G = {"mmoe": np.arange(4), "dcn": None, "ple": np.arange(4),
+       "pepnet": np.arange(4), "epnet": np.arange(4),
+       "star": np.arange(4) % 3}
 P_ATOL = 1e-6
 
 
@@ -151,8 +158,10 @@ def test_msgpack_dumps_chunks_large_arrays(monkeypatch):
             ckpt.msgpack_dumps({"x": unsupported})
 
 
-@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["mmoe", "dcn"])
+@pytest.mark.parametrize(
+    "name,moments", [(n, m) for n in ("mmoe", "dcn")
+                     for m in ("float32", "bfloat16")]
+    + [(n, "bfloat16") for n in BASES])
 def test_port_checkpoint_in_tpurec(tmp_path, data, name, moments):
     tr = _port(data, name, moments)
     tr.fit(data.train, data.valid)
@@ -177,9 +186,12 @@ def test_port_checkpoint_in_tpurec(tmp_path, data, name, moments):
     np.testing.assert_array_equal(
         predictor_from_checkpoint(path, batch_sizes=(256,),
                                   device="cpu")(Xv), want)
+    if name in BASES:                          # tpurec trains on from it
+        assert np.isfinite(jtr.train_epoch(*data.train, 1))
+        assert int(jtr.state.step) == 2 * tr.state.step
 
 
-@pytest.mark.parametrize("name", ["mmoe", "dcn"])
+@pytest.mark.parametrize("name", ["mmoe", "dcn"] + BASES)
 def test_tpurec_checkpoint_in_port(tmp_path, data, name):
     jtr = _jax(data, name, "bfloat16")
     jtr.fit(data.train, data.valid)
@@ -200,8 +212,9 @@ def test_tpurec_checkpoint_in_port(tmp_path, data, name):
                      domain2group=D2G[name], batch_sizes=(256,),
                      device="cpu").load_from_trainer(tr)
     np.testing.assert_array_equal(live(Xv), tr.predict(Xv))
-    tr.train_epoch(*data.train, 1)             # training does not reach it
+    loss = tr.train_epoch(*data.train, 1)      # training does not reach it
     np.testing.assert_array_equal(live(Xv), pred(Xv))
+    assert np.isfinite(loss) and tr.state.step == 2 * int(jtr.state.step)
 
 
 def test_snapshot_restore_is_exact_and_in_place(data):

@@ -7,12 +7,19 @@ tests/test_train_e2e.py.  Across packages the port starts from tpurec's
 initial state (``Trainer.restore`` of ``flax.serialization.to_bytes``)
 with dropout 0: the two packages cannot share dropout bits.
 
+PLE and STAR (3 groups over the 4 domains, so STAR's tower statistics
+span groups of unequal size) run the same epoch.
+
 Tolerances across packages: per-step losses 1e-4 relative; the final
 state 1e-4 of max(1, |x|) for every leaf but two kinds.  A bias feeding a
 training BatchNorm has a gradient that is zero but for rounding, which
 Adam turns into a step of up to about lr either way in both packages
 (ROADMAP.md queue 3), so such a bias may differ by 2 lr a step, and so
-may the BatchNorm's running mean, which averages the bias in.  Eval on
+may the BatchNorm's running mean, which averages the bias in.  For PLE
+and STAR (KEY_BIAS_DRIFT) so may the key third of an attention layer's
+``in_proj_bias``: a softmax over the keys ignores a shift common to them
+all, so its gradient is rounding too (MMoE's and DCN's stay within 1e-4
+of tpurec's and are held there).  Eval on
 one state: AUC 1e-4, LogLoss 1e-5.  Eval of the two trained states:
 AUC 1e-3, LogLoss 1e-4, the room those biases leave (measured: 9.6e-5
 and 1.9e-5).  Within the port the indexed and host paths are bitwise
@@ -20,6 +27,7 @@ equal, as are two fits from one seed.  Streaming eval against the exact
 eval: the limits of tests/test_train_e2e.py."""
 
 import dataclasses
+import re
 
 import flax.serialization as fser
 import numpy as np
@@ -38,9 +46,13 @@ from tpurec_torch.train import Trainer
 from tpurec_torch.train.loop import EarlyStopper, use_streaming_eval
 
 SMALL_MODEL = dict(embed_dim=8, mlp_dims=(32, 16), mmoe_expert_dims=(32, 16),
-                   mmoe_tower_dims=(16,), atten_embed_dim=8, att_layer_num=1)
+                   mmoe_tower_dims=(16,), atten_embed_dim=8, att_layer_num=1,
+                   ple_expert_dims=((32, 16), (16,)), ple_tower_dims=(16,),
+                   tower_dims=(32, 16))
 TRAIN = dict(bs=256, epoch=1, seed=0, steps_per_dispatch=4)
-D2G = {"mmoe": np.arange(4), "dcn": None}
+KEY_BIAS_DRIFT = {"ple", "star"}
+D2G = {"mmoe": np.arange(4), "dcn": None, "ple": np.arange(4),
+       "star": np.arange(4) % 3}
 
 
 @pytest.fixture(autouse=True)
@@ -100,10 +112,15 @@ def _f64(a):
 
 def _feeds_training_bn(key):
     """A Linear's bias whose output a training BatchNorm normalises
-    (``linear_i`` -> ``bn_i`` of one MLP), or that BatchNorm's running
-    mean."""
+    (``linear_i`` -> ``bn_i`` of one MLP; STAR's star-layer biases and its
+    PN's shifts, which its tower BatchNorms remove), or that BatchNorm's
+    running mean."""
     parts = key.split(".")
     if parts[-1] == "mean" and "batch_stats" in parts:
+        return True
+    if parts[0] == "params" and (
+            re.fullmatch(r"(domain|shared)_b_\d+", parts[-1])
+            or parts[-2:] in (["pn", "bias"], ["pn", "shared_bias"])):
         return True
     if parts[-1] == "bias" and parts[-2].startswith("linear_") \
             and parts[0] == "params":
@@ -111,7 +128,7 @@ def _feeds_training_bn(key):
     return False
 
 
-@pytest.mark.parametrize("name", ["mmoe", "dcn"])
+@pytest.mark.parametrize("name", ["mmoe", "dcn", "ple", "star"])
 def test_one_epoch_matches_tpurec(data, name):
     jcfg = JaxConfig(model=JaxModelConfig(model=name, dropout=0.0,
                                           **SMALL_MODEL),
@@ -140,13 +157,14 @@ def test_one_epoch_matches_tpurec(data, name):
     for k, w in want.items():
         g, w = _f64(got[k]), _f64(w)
         assert g.shape == w.shape, k
-        err = np.max(np.abs(g - w) / np.maximum(1.0, np.abs(w)),
-                     initial=0.0)
-        if _feeds_training_bn(k):
-            n_drift += 1
-            assert np.max(np.abs(g - w), initial=0.0) <= drift, (k, err)
-        else:
-            assert err <= 1e-4, (k, err)
+        drifts = np.full(w.shape, _feeds_training_bn(k))
+        n_drift += _feeds_training_bn(k)
+        if k.endswith("in_proj_bias") and name in KEY_BIAS_DRIFT:
+            A = w.shape[-1] // 3
+            drifts[..., A:2 * A] = True     # the keys' bias: zero gradient
+        err = np.abs(g - w) / np.maximum(1.0, np.abs(w))
+        assert np.max(np.abs(g - w)[drifts], initial=0.0) <= drift, k
+        assert np.max(err[~drifts], initial=0.0) <= 1e-4, (k, err.max())
     assert n_drift >= 3
 
     Xv, yv = data.valid

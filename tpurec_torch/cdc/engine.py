@@ -46,8 +46,14 @@ counterpart: nothing compiles in eager PyTorch, and
 Not ported (each raises NotImplementedError naming ROADMAP.md): a mesh
 (``mesh``/``shardings``), ``cdc.parallel_rows > 0``
 (``populate_rows_parallel`` with ``EmbeddingUpdater.update_stacked``),
-``compute_dtype="bfloat16"`` and base models other than ``mmoe`` (through
-:func:`tpurec_torch.models.build_model`).
+and ``compute_dtype="bfloat16"``.
+
+The base model (``mmoe``, ``ple``, ``pepnet``, ``epnet`` or ``star``)
+trains without ``group``, as tpurec's engine calls it
+(``tpurec/cdc/engine.py:203-220``); the group only selects each row's
+tower.  STAR's partitioned and tower BatchNorms then take their training
+statistics over the whole batch.  The eval forwards, which use running
+statistics only, give the same logits with or without it.
 """
 
 from __future__ import annotations
@@ -156,7 +162,8 @@ class CDCTrainer:
 
         # base model with n_tower = n_cluster (run.py:43); CDC passes
         # expert_dims=mlp_dims and tower_dims=cdc_tower_dims into the base
-        # (run.py:424-425)
+        # (run.py:424-425); PLE keeps its own nested expert dims, as in
+        # tpurec (the reference would feed it flat mlp_dims and crash)
         base_cfg = dataclasses.replace(
             cfg.model,
             mmoe_expert_dims=cfg.model.mlp_dims,
@@ -177,7 +184,7 @@ class CDCTrainer:
         # one step object: one table updater, one prepared gather
         self.train_step = HybridTrainStep(
             self.model, tcfg, self.reg_coefs, multi_tower=True,
-            l2_reg_embedding=cfg.model.l2_reg_embedding)
+            l2_reg_embedding=cfg.model.l2_reg_embedding, model_group=False)
         self.emb_upd = self.train_step.upd
         self.eval_scan = make_indexed_eval_scan(
             self.model, True, domain_idx, compute_dtype=tcfg.compute_dtype)

@@ -1,7 +1,9 @@
 """Model registry of the port (counterpart of ``tpurec/models/__init__.py``).
 
-Ported: ``mmoe`` and ``dcn``; the JAX package's other model names raise
-``NotImplementedError`` and ``ROADMAP.md`` lists when they come.
+Ported: ``mmoe``, ``dcn`` and CDC's other bases, ``ple``, ``pepnet``,
+``epnet``, ``pepnet-single``, ``epnet-single`` and ``star``; the JAX
+package's other model names raise ``NotImplementedError`` and
+``ROADMAP.md`` lists when they come.
 """
 
 from __future__ import annotations
@@ -15,22 +17,27 @@ from tpurec_torch.device import resolve_device
 from tpurec_torch.models.base import AuxLogits, CTRModel
 from tpurec_torch.models.dcn import DCN
 from tpurec_torch.models.mmoe import MMoE
+from tpurec_torch.models.pepnet import PEPNet
+from tpurec_torch.models.ple import PLE
+from tpurec_torch.models.star import STAR
 from tpurec_torch.nn.initializers import init_module
 
-MODEL_REGISTRY = {"mmoe": MMoE, "dcn": DCN}
+MODEL_REGISTRY = {"mmoe": MMoE, "dcn": DCN, "ple": PLE, "pepnet": PEPNet,
+                  "epnet": PEPNet, "pepnet-single": PEPNet,
+                  "epnet-single": PEPNet, "star": STAR}
 
 # the JAX package's zoo, still to be ported
 _NOT_PORTED = {
-    "deepfm", "dcnv2", "autoint", "ple", "pepnet", "epnet",
-    "pepnet-single", "epnet-single", "star", "adl", "adl-split", "hinet",
-    "adasparse", "xdeepfm", "ipnn", "opnn", "afm",
+    "deepfm", "dcnv2", "autoint", "adl", "adl-split", "hinet", "adasparse",
+    "xdeepfm", "ipnn", "opnn", "afm",
 }
 
 # models whose output is [B, n_tower] and whose caller selects the group's
 # tower (run.py:481-484)
 MULTI_TOWER_OUTPUT = {"mmoe", "ple", "pepnet", "epnet", "star"}
-# CDC-supported base models (cdc.py:32-54); of these the port builds
-# ``mmoe``, and build_model raises for the others
+# models that read the per-row group id (run.py:64-65 + STAR's PN masking)
+NEEDS_GROUP = {"star", "adl", "adl-split", "hinet"}
+# CDC-supported base models (cdc.py:32-54)
 CDC_BASE_MODELS = {"mmoe", "ple", "pepnet", "epnet", "star"}
 
 
@@ -52,6 +59,10 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
     kw = dict(field_dims=tuple(int(d) for d in field_dims),
               embed_dim=cfg.embed_dim, cfg=cfg, n_tower=n_tower,
               domain_idx=domain_idx)
+    if name in ("pepnet", "pepnet-single", "epnet", "epnet-single"):
+        kw["use_ppnet"] = name.startswith("pepnet")
+    if name.endswith("-single"):
+        kw["n_tower"] = 1
     if device is not None and torch.device(device).type == "meta":
         return MODEL_REGISTRY[name](**kw, device=torch.device("meta"))
     device = resolve_device(device)
@@ -63,4 +74,5 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
 
 
 __all__ = ["AuxLogits", "CDC_BASE_MODELS", "CTRModel", "DCN", "MMoE",
-           "MODEL_REGISTRY", "MULTI_TOWER_OUTPUT", "build_model"]
+           "MODEL_REGISTRY", "MULTI_TOWER_OUTPUT", "NEEDS_GROUP", "PEPNet",
+           "PLE", "STAR", "build_model"]

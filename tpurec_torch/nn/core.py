@@ -8,6 +8,7 @@ parameter tree maps onto a ``state_dict`` by joining its path with dots
   torch's [out, in]) and computes ``x @ weight + bias``.
 - :class:`StackedLinear` is a bank of ``n_stack`` Linears, weight
   [T, in, out], computed as one batched product.
+- :class:`GateNN` is PEPNet's ``2 * sigmoid`` gate.
 - :class:`BatchNorm` holds ``scale``/``bias`` parameters and ``mean``/
   ``var``/``num_batches_tracked`` buffers of the JAX module's shapes; it
   normalises with the running statistics in eval and with masked batch
@@ -58,24 +59,27 @@ class Linear(nn.Module):
 
 
 class StackedLinear(nn.Module):
-    """A bank of ``n_stack`` Linear layers, weight [T, in, out].
+    """A bank of ``n_stack`` Linear layers, weight [T, in, out] (bias [T,
+    out] unless ``use_bias=False``).
 
     Input [B, in] broadcasts to every stack entry; input [B, T, in] applies
     entry t to slice [:, t, :].  Output is [B, T, out].
     """
 
     def __init__(self, n_stack: int, in_dim: int, features: int,
-                 device=None):
+                 use_bias: bool = True, device=None):
         super().__init__()
         self.in_dim = in_dim
         self.weight = nn.Parameter(torch.empty(n_stack, in_dim, features,
                                                device=device))
-        self.bias = nn.Parameter(torch.empty(n_stack, features,
-                                             device=device))
+        self.bias = (nn.Parameter(torch.empty(n_stack, features,
+                                              device=device))
+                     if use_bias else None)
 
     def reset_parameters(self, generator):
         tinit.linear_uniform_(self.weight, self.in_dim, generator)
-        tinit.linear_uniform_(self.bias, self.in_dim, generator)
+        if self.bias is not None:
+            tinit.linear_uniform_(self.bias, self.in_dim, generator)
 
     def forward(self, x):
         if x.dim() == 2:
@@ -85,7 +89,7 @@ class StackedLinear(nn.Module):
         else:
             raise ValueError(
                 f"StackedLinear expects rank-2/3 input, got {tuple(x.shape)}")
-        return y + self.bias[None]
+        return y if self.bias is None else y + self.bias[None]
 
 
 class BatchNorm(nn.Module):
@@ -188,12 +192,7 @@ class MLP(nn.Module):
                            if output_layer else None)
 
     def forward(self, x, train: bool = False, mask=None, generator=None):
-        for i in range(self.n_layers):
-            x = getattr(self, f"linear_{i}")(x)
-            x = torch.relu(getattr(self, f"bn_{i}")(x, train, mask))
-            if train:
-                x = dropout(x, self.dropout, generator)
-        return x if self.linear_out is None else self.linear_out(x)
+        return _mlp_layers(self, x, train, mask, generator)
 
 
 class StackedMLP(nn.Module):
@@ -201,30 +200,59 @@ class StackedMLP(nn.Module):
     (``tpurec/nn/core.py:188-215``).
 
     Input [B, in] or [B, T, in]; output [B, T, out_dim] (out_dim=1 if
-    ``output_layer``).  ``mask`` [B] weights the BN statistics.
+    ``output_layer``).  ``mask`` [B] or [B, T] weights the BN statistics;
+    ``use_bn=False`` leaves BN out.
     """
 
     def __init__(self, n_stack: int, in_dim: int, layer_dims: Sequence[int],
                  output_layer: bool = True, dropout: float = 0.0,
-                 device=None):
+                 use_bn: bool = True, device=None):
         super().__init__()
         self.n_layers = len(layer_dims)
         self.dropout = dropout
         for i, dim in enumerate(layer_dims):
             setattr(self, f"linear_{i}",
                     StackedLinear(n_stack, in_dim, dim, device=device))
-            setattr(self, f"bn_{i}", BatchNorm((n_stack, dim), device=device))
+            if use_bn:
+                setattr(self, f"bn_{i}", BatchNorm((n_stack, dim),
+                                                   device=device))
             in_dim = dim
         self.linear_out = (StackedLinear(n_stack, in_dim, 1, device=device)
                            if output_layer else None)
 
     def forward(self, x, train: bool = False, mask=None, generator=None):
-        for i in range(self.n_layers):
-            x = getattr(self, f"linear_{i}")(x)
-            x = torch.relu(getattr(self, f"bn_{i}")(x, train, mask))
-            if train:
-                x = dropout(x, self.dropout, generator)
-        return x if self.linear_out is None else self.linear_out(x)
+        return _mlp_layers(self, x, train, mask, generator)
+
+
+def _mlp_layers(mlp, x, train, mask, generator):
+    """The layers of an :class:`MLP` or :class:`StackedMLP`."""
+    for i in range(mlp.n_layers):
+        x = getattr(mlp, f"linear_{i}")(x)
+        bn = getattr(mlp, f"bn_{i}", None)
+        if bn is not None:
+            x = bn(x, train, mask)
+        x = torch.relu(x)
+        if train:
+            x = dropout(x, mlp.dropout, generator)
+    return x if mlp.linear_out is None else mlp.linear_out(x)
+
+
+class GateNN(nn.Module):
+    """PEPNet's gate (``tpurec/nn/core.py:344-358``): ``fc1`` -> ReLU ->
+    dropout (training only) -> ``fc2`` -> ``2 * sigmoid``."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, output_dim: int,
+                 dropout: float = 0.0, device=None):
+        super().__init__()
+        self.dropout = dropout
+        self.fc1 = Linear(in_dim, hidden_dim, device=device)
+        self.fc2 = Linear(hidden_dim, output_dim, device=device)
+
+    def forward(self, x, train: bool = False, generator=None):
+        h = torch.relu(self.fc1(x))
+        if train:
+            h = dropout(h, self.dropout, generator)
+        return 2.0 * torch.sigmoid(self.fc2(h))
 
 
 SMALL_VOCAB_THRESHOLD = 8192

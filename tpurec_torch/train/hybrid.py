@@ -193,13 +193,21 @@ class HybridTrainStep:
     ``batch`` holds x [B, F] int, y [B] float, group [B] int and
     (optionally) mask [B] float; ``generator`` is a torch.Generator on the
     model's device, the source of every dropout draw.
+
+    ``model_group`` (default True, as tpurec's step) hands the batch's
+    ``group`` to the model's forward; False calls the model without it
+    while the loss still selects each row's tower by it, as tpurec's CDC
+    engine calls its base (``tpurec/cdc/engine.py:203-220``): STAR then
+    normalises every tower over the whole batch.
     """
 
     def __init__(self, model, tcfg: TrainConfig, reg_coefs,
                  multi_tower: bool, l2_reg_embedding: float,
                  scan_k: Optional[int] = None,
-                 big_vocab_threshold: int = BIG_VOCAB_THRESHOLD):
+                 big_vocab_threshold: int = BIG_VOCAB_THRESHOLD,
+                 model_group: bool = True):
         self.tcfg = tcfg
+        self.model_group = model_group
         self.reg_coefs_rest = {k: c for k, c in reg_coefs.items()
                                if k != TABLE}
         self.multi_tower = multi_tower
@@ -223,7 +231,8 @@ class HybridTrainStep:
             rows = self.upd.gather_rows(table, x)
         rows.requires_grad_(True)
         model.train()
-        out = model(x, group=batch.get("group"), train=True,
+        out = model(x, group=batch.get("group") if self.model_group
+                    else None, train=True,
                     row_mask=batch.get("mask"), embed_rows=rows,
                     generator=generator)
         if head is not None:
