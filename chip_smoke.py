@@ -1,5 +1,6 @@
 """Drive tpurec_torch's serving path, training step, training harness and
-CDC engine on one CUDA card, for each model it ports, and check them.
+CDC engine on one CUDA card, for each model it ports, in float32 and in
+bf16 compute, and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -136,6 +137,17 @@ Phases (any failure exits non-zero and prints no result line):
     (called without the group): one populate row at W = 3,584 with its
     25,600-row eval against the CPU.
     A kernel of a path that a profile does not see fails its phase.
+19. the group-routed models and bf16 compute: (a) HiNet, ADL, ADL-split
+    and AdaSparse at their ModelConfig defaults on the flagship schema,
+    as phase 18 (a) drives CDC's bases: the Predictor against the CPU's
+    plain path, the K=8 loop with #1, #2, #3 and #6's pass once a step
+    and its profile, 3 steps, step 1's row gradient and ADL's centres
+    against the CPU, each comparison on the card's branches (ReLU masks,
+    ADL's routing, AdaSparse's pruner mask, replayed on the CPU); (b)
+    compute_dtype="bfloat16" on the flagship MMoE and on HiNet: the
+    Predictor and 3 steps against the CPU's bf16 plain path, and one
+    Trainer.fit epoch at phase 16's settings (HiNet's also in float32),
+    its valid AUC beside phase 16's.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -1000,47 +1012,93 @@ def train_main_path(dev, rng, tag, name="mmoe", model_kw=MODEL):
 
 
 class relu_branches:
-    """Inside, ``torch.relu`` appends each call's branch mask (x > 0) to
-    ``masks`` (``record=True``), or applies the next recorded mask to a
-    call of its shape, in order, counting the inputs whose own branch
-    differs (``record=False``).  Calls of other shapes (the attention's
-    plain version, which the card runs inside kernel 2) compute as usual.
-    A ReLU input within rounding of 0 may take either branch on two
-    devices, and a gradient then parts by that unit's whole contribution;
-    replaying the card's branches on the CPU leaves rounding alone between
-    the two gradients."""
+    """Inside, the branch points of a forward and backward are recorded
+    (``record=True``) or replayed in order (``record=False``), each call
+    matched to the next recorded one of its kind and shape, counting the
+    inputs whose own branch differs: ``torch.relu``'s mask (x > 0), ADL's
+    routing (``torch.argmax``) and AdaSparse's pruner mask (``torch.where``
+    with a 0-dim second operand: ``|pi| <= epsilon``).  Calls of other
+    shapes (the attention's plain version, which the card runs inside
+    kernel 2) compute as usual.  A value within rounding of a branch's
+    edge may take either side on two devices, and a gradient (or, at a
+    routing or a pruner edge, a logit) then parts by that unit's whole
+    contribution; replaying the card's branches on the CPU leaves rounding
+    alone between the two."""
 
     def __init__(self, masks, record):
         self.masks, self.record = masks, record
         self.used = self.flipped = self.inputs = 0
+        self.flips = {"relu": 0, "argmax": 0, "where": 0}
+
+    def _next(self, kind, shape):
+        if self.used < len(self.masks) and self.masks[self.used][0] == kind \
+                and self.masks[self.used][1].shape == shape:
+            self.used += 1
+            return self.masks[self.used - 1][1]
+        return None
+
+    def _count(self, kind, own, rec):
+        n = int((own != rec).sum())
+        self.inputs += rec.numel()
+        self.flipped += n
+        self.flips[kind] += n
 
     def __call__(self, x):
         if self.record:
-            self.masks.append((x > 0).cpu())
+            self.masks.append(("relu", (x > 0).cpu()))
             return self.relu(x)
-        if self.used < len(self.masks) and \
-                self.masks[self.used].shape == x.shape:
-            mask = self.masks[self.used].to(x.device)
-            self.used += 1
-            self.inputs += mask.numel()
-            self.flipped += int(((x > 0) != mask).sum())
-            return x * mask
-        return self.relu(x)
+        mask = self._next("relu", x.shape)
+        if mask is None:
+            return self.relu(x)
+        mask = mask.to(x.device)
+        self._count("relu", x > 0, mask)
+        return x * mask
+
+    def argmax(self, x, *args, **kwargs):
+        out = self._argmax(x, *args, **kwargs)
+        if self.record:
+            self.masks.append(("argmax", out.cpu()))
+            return out
+        rec = self._next("argmax", out.shape)
+        if rec is None:
+            return out
+        rec = rec.to(out.device)
+        self._count("argmax", out, rec)
+        return rec
+
+    def where(self, cond, *args, **kwargs):
+        if kwargs or len(args) != 2 or not (
+                torch.is_tensor(args[0]) and args[0].dim() == 0):
+            return self._where(cond, *args, **kwargs)
+        if self.record:
+            self.masks.append(("where", cond.cpu()))
+            return self._where(cond, *args)
+        rec = self._next("where", cond.shape)
+        if rec is None:
+            return self._where(cond, *args)
+        rec = rec.to(cond.device)
+        self._count("where", cond, rec)
+        return self._where(rec, *args)
 
     def __enter__(self):
         self.relu, torch.relu = torch.relu, self
+        self._argmax, torch.argmax = torch.argmax, self.argmax
+        self._where, torch.where = torch.where, self.where
         return self
 
     def __exit__(self, *exc):
         torch.relu = self.relu
+        torch.argmax = self._argmax
+        torch.where = self._where
 
 
-def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch):
+def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch,
+                    rtol=ROW_GRAD_RTOL):
     """Step 1's gradient of the gathered rows (``loss_and_grads``'s,
     before Adam and before wd reaches anything) on the card against the
     CPU's plain path, from train_vs_cpu's seeded weights and first batch,
-    the CPU on the card's ReLU branches (:class:`relu_branches`); held to
-    ROW_GRAD_RTOL of its largest value.  A wrong table gradient that
+    the CPU on the card's branches (:class:`relu_branches`); held to
+    ``rtol`` (ROW_GRAD_RTOL) of its largest value.  A wrong table gradient that
     Adam's sign amplification or PLE's wd would hide shows here.  ->
     summary dict."""
     from tpurec_torch.config import ModelConfig
@@ -1071,16 +1129,19 @@ def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch):
           f"card's {len(masks)} ReLU calls")
     err = (grads["cuda"] - grads["cpu"]).abs().max().item()
     top = grads["cpu"].abs().max().item()
-    check(err <= ROW_GRAD_RTOL * top,
+    check(err <= rtol * top,
           f"{name} train cuda vs cpu: step 1's row gradient max abs err "
-          f"{err} of max |g| {top} ({branches.flipped} ReLU inputs on the "
+          f"{err} of max |g| {top} ({branches.flips} inputs on the "
           f"other branch on the CPU)")
     return {"max_abs_err": err, "max": top, "flipped": branches.flipped,
-            "relu_inputs": branches.inputs, "relu_calls": len(masks)}
+            "flips": branches.flips, "relu_inputs": branches.inputs,
+            "relu_calls": len(masks)}
 
 
 def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
-                 wd=TRAIN_WD):
+                 wd=TRAIN_WD, compute_dtype="float32", replay=False,
+                 loss_rtol=CPU_LOSS_RTOL, grad_rtol=ROW_GRAD_RTOL,
+                 table_share=CPU_TABLE_SHARE):
     """Phase 9 (phase 13 for DCN, 18 for CDC's other bases): 3 full-width
     steps of model ``name`` with dropout 0 on the card and on the CPU's
     plain path, from the same seeded weights and batches.  The table is
@@ -1096,16 +1157,23 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
     land more than 1e-6 apart (two H100 runs) unless wd * p, about 1e-3,
     outweighs that rounding, as CDC_CHECK_WD does for phase 17's row.
     The first step's gradient of the gathered rows is held apart, by
-    :func:`row_grad_vs_cpu`."""
+    :func:`row_grad_vs_cpu`.  ``replay`` (phase 19) runs the 3 steps on
+    the card's branches too (:class:`relu_branches`: the routed models'
+    argmax and pruner edges part the losses themselves) and holds ADL's
+    centres after them to CENTRE_TOL; ``compute_dtype`` runs the steps in
+    that precision, held to ``loss_rtol``, ``grad_rtol`` and
+    ``table_share``.  -> summary dict."""
     from tpurec_torch.config import ModelConfig, TrainConfig
     from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
     from tpurec_torch.train.hybrid import (init_train_state,
                                            make_hybrid_train_step)
     from tpurec_torch.train.reg import reg_coef_tree
 
-    tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16", wd=wd)
+    tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16", wd=wd,
+                       compute_dtype=compute_dtype)
     batches = train_batches(rng, 3, "cpu")
-    out = {}
+    out, masks, centres = {}, [], {}
+    branches = None
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
         model = build_model(name, FIELD_DIMS, N_TOWER, DOMAIN_IDX,
@@ -1128,11 +1196,20 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
             return out
 
         step.loss_and_grads = record
-        for i in range(3):
-            losses.append(float(step(ts, {k: v[i] for k, v in
-                                          batches.items()}, None)))
-            if i == 0:
-                table1 = model.embedding.table.detach().cpu().clone()
+        if replay:
+            branches = relu_branches(masks, record=where == "cuda")
+            branches.__enter__()
+        try:
+            for i in range(3):
+                losses.append(float(step(ts, {k: v[i] for k, v in
+                                              batches.items()}, None)))
+                if i == 0:
+                    table1 = model.embedding.table.detach().cpu().clone()
+        finally:
+            if replay:
+                branches.__exit__(None, None, None)
+        if hasattr(model, "cluster_centers"):
+            centres[where] = model.cluster_centers.detach().cpu().clone()
         out[where] = (losses, table1, data_losses)
         print(f"{name}: 3 steps on {where}: losses {losses} "
               f"({time.perf_counter() - t0:.1f} s)")
@@ -1140,34 +1217,51 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
     (lg, tg, dg), (lc, tc, dc) = out["cuda"], out["cpu"]
     rel = max(abs(a / b - 1) for a, b in zip(lg, lc))
     data_rel = max(abs(a / b - 1) for a, b in zip(dg, dc))
-    check(rel <= CPU_LOSS_RTOL,
+    check(rel <= loss_rtol,
           f"{name} train cuda vs cpu: loss rel err {rel}")
-    check(data_rel <= CPU_LOSS_RTOL,
+    check(data_rel <= loss_rtol,
           f"{name} train cuda vs cpu: loss before the table's L2 rel err "
           f"{data_rel}")
+    if replay:
+        check(branches.used == len(masks) > 0,
+              f"{name} 3 steps: the CPU replayed {branches.used} of the "
+              f"card's {len(masks)} branch calls")
+    centre_err = None
+    if centres:
+        centre_err = (centres["cuda"] - centres["cpu"]).abs().max().item()
+        check(centre_err <= CENTRE_TOL, f"{name} train cuda vs cpu: "
+              f"cluster centres after 3 steps max abs err {centre_err}")
     grad = row_grad_vs_cpu(name, model_kw, table_scale, tcfg,
-                           {k: v[0] for k, v in batches.items()})
+                           {k: v[0] for k, v in batches.items()}, grad_rtol)
     diff = (tg - tc).abs()
     share = (diff > 1e-6).float().mean().item()
     check(diff.max().item() <= 2 * tcfg.lr + 1e-6 and
-          share <= CPU_TABLE_SHARE,
+          share <= table_share,
           f"{name} train cuda vs cpu: table after step 1 max abs err "
           f"{diff.max().item()}, share beyond 1e-6 {share}")
     print(f"{name} train cuda vs cpu plain path, 3 full-width steps "
-          f"(dropout 0, table x{table_scale}, wd {wd}): loss max rel err "
-          f"{rel:.3g}, "
-          f"before the table's L2 {data_rel:.3g} (tol {CPU_LOSS_RTOL}; "
-          f"those losses {dc}); step 1's gathered-row gradient max abs "
+          f"(dropout 0, table x{table_scale}, wd {wd}, {compute_dtype}): "
+          f"loss max rel err {rel:.3g}, "
+          f"before the table's L2 {data_rel:.3g} (tol {loss_rtol}; "
+          f"those losses {dc})"
+          + (f", on the card's branches ({branches.flips} of "
+             f"{branches.inputs} inputs flipped)" if replay else "")
+          + ("" if centre_err is None else
+             f"; cluster centres after 3 steps max abs err "
+             f"{centre_err:.3g} (tol {CENTRE_TOL})")
+          + f"; step 1's gathered-row gradient max abs "
           f"err {grad['max_abs_err']:.3g} of max |g| {grad['max']:.3g} "
-          f"(tol {ROW_GRAD_RTOL} of it; {grad['flipped']} ReLU inputs of "
+          f"(tol {grad_rtol} of it; {grad['flips']} inputs of "
           f"{grad['relu_inputs']} on the other branch on the CPU, which "
           f"follows the card's); table after "
           f"step 1 max abs err {diff.max().item():.3g} (tol 2 lr: Adam's "
           f"first step is +-lr whatever a gradient's size), share beyond "
-          f"1e-6 {share:.3g} (tol {CPU_TABLE_SHARE})")
+          f"1e-6 {share:.3g} (tol {table_share})")
     return {"loss_rel_err": rel, "data_loss_rel_err": data_rel,
             "table_scale": table_scale, "wd": wd,
-            "row_grad": grad,
+            "compute_dtype": compute_dtype, "row_grad": grad,
+            "step_flips": branches.flips if replay else None,
+            "centre_max_abs_err": centre_err,
             "table_max_abs_err": diff.max().item(),
             "table_share_beyond_1e-6": share}
 
@@ -3220,6 +3314,242 @@ def star_cdc_row(tag):
 
 
 
+# -- the group-routed models and bf16 compute (phase 19) ----------------------
+
+ROUTED = ("hinet", "adl", "adl-split", "adasparse")
+# ADL's cluster centres after 3 steps, card vs CPU (unit vectors)
+CENTRE_TOL = 1e-5
+# bf16 compute, card vs CPU on the card's branches: a pre-cast float32
+# value whose last bits differ between the two rounds to a neighbouring
+# bf16 value, 2**-8 apart, which moves the products it enters.  Each limit
+# is about 4x the largest of 3 seeds x (MMoE, HiNet) measured on an
+# NVIDIA H100 80GB HBM3 at 700 W (scripts/bf16_card_gaps.py: phase 19 (b)
+# at batch seeds 100-102; PERF.md): the Predictor 5.0e-5 to 1.47e-4 max
+# abs; the loss 2.2e-4 to 5.0e-4 relative; step 1's row gradient 5.0e-3
+# to 7.6e-3 of its max; table values beyond 1e-6 after step 1 (Adam's
+# +-lr where a near-zero gradient's sign differs) 3.1e-6 to 4.2e-6
+BF16_PRED_TOL = 6e-4
+BF16_LOSS_RTOL = 2e-3
+BF16_GRAD_RTOL = 3e-2
+BF16_TABLE_SHARE = 2e-5
+BF16_MODELS = ("mmoe", "hinet")
+# AdaSparse's table scale in the 3 steps against the CPU: its layer weights
+# start N(0, 1e-4**2), and at x0.01 one rounding of the first step's rows
+# moves its third loss by 1.75e-3 and its row gradient by 2.6e-2 of the
+# largest on the CPU alone, at x1 by 2.2e-7 and 4.3e-7
+# (scripts/loss_sensitivity.py --model adasparse --scale 0.01 1.0); at
+# x0.01 the card's third loss sat 2.5e-4 from the CPU's in one run
+ROUTED_SCALE = {"adasparse": 1.0}
+
+
+def routed_main_path(dev, rng, tag):
+    """Phase 19 (a): HiNet, ADL, ADL-split and AdaSparse at their
+    ModelConfig defaults on the flagship schema, as phase 18 (a) drives
+    CDC's bases: the Predictor on N_ROWS rows against the CPU's plain
+    path on the card's branches (ADL's routing and AdaSparse's pruner
+    mask replayed), #1 and #2 counted, rows/s and a chunk profile at each
+    batch size; the K=8 loop with #1, #2, #3 and #6's pass once a step and
+    its profile; 3 steps, step 1's row gradient and ADL's centres against
+    the CPU on the card's branches (AdaSparse at its table's init scale,
+    ROUTED_SCALE).  -> {name: summary}."""
+    from tpurec_torch.config import Config, ModelConfig
+    from tpurec_torch.ops.attention import field_attention
+    from tpurec_torch.ops.embedding import embedding_gather
+    from tpurec_torch.serve import Predictor
+
+    out = {}
+    d2g = np.arange(N_DOMAIN) % N_TOWER
+    for i, name in enumerate(ROUTED):
+        t0 = time.perf_counter()
+        kw = {"model": name}
+        cfg = Config(model=ModelConfig(**kw))
+        sd, n_params = serving_weights(
+            name, cfg.model, torch.Generator().manual_seed(SEED + 30 + i))
+        preds = {w: Predictor(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                              domain2group=d2g, batch_sizes=BATCH_SIZES,
+                              device=w).load_state_dict(sd)
+                 for w in ("cuda", "cpu")}
+        pred = preds["cuda"]
+        check(pred.model.n_tower == N_TOWER, f"{name}: {pred.model.n_tower} "
+              f"towers, expected {N_TOWER} (n_cluster or the grouping's)")
+        pred.warm()
+        X = random_ids(rng, N_ROWS)
+        embedding_gather.launches = 0
+        field_attention.launches = 0
+        masks = []
+        with relu_branches(masks, record=True):
+            p_gpu = pred(X)
+        serve_launches = {"embedding_gather": embedding_gather.launches,
+                          "field_attention": field_attention.launches}
+        check(all(n > 0 for n in serve_launches.values()),
+              f"{name} Predictor: a kernel was not launched: "
+              f"{serve_launches}")
+        with relu_branches(masks, record=False) as br:
+            p_cpu = preds.pop("cpu")(X)
+        check(br.used == len(masks), f"{name} Predictor: the CPU replayed "
+              f"{br.used} of the card's {len(masks)} branch calls")
+        err = float(np.max(np.abs(p_gpu - p_cpu)))
+        check(p_gpu.shape == (N_ROWS,) and np.all(np.isfinite(p_gpu))
+              and np.all((p_gpu > 0) & (p_gpu < 1)),
+              f"{name} predictions malformed")
+        check(err <= PRED_TOL, f"{name} Predictor cuda vs cpu: max abs err "
+              f"{err}")
+        print(f"{name} main path: Predictor ({n_params} params, "
+              f"{pred.model.n_tower} towers) scored {N_ROWS} rows, launches "
+              f"{serve_launches}; cuda vs cpu plain path (on the card's "
+              f"branches, {br.flips} inputs flipped) max abs err {err:.3g} "
+              f"(tol {PRED_TOL}); mean prob {p_gpu.mean():.4f}")
+        chunk_s, chunk_dev, chunk_busy = chunk_timings(
+            pred, rng, tag, {"embedding_gather": "gather_kernel",
+                             "field_attention": "field_attention_kernel"})
+        del preds, pred
+        ts, single, batches, tgen, train_launches, timing = \
+            train_main_path(dev, rng, tag, name, kw)
+        _, profile = step_profile(dev, ts, single, batches, tgen,
+                                  f"{tag} {name}", timing["step_ms_host"])
+        del ts, single, batches
+        torch.cuda.empty_cache()
+        vs_cpu = train_vs_cpu(dev, rng, name, kw,
+                              ROUTED_SCALE.get(name, 0.01), replay=True)
+        out[name] = {
+            "params": n_params,
+            "serve": {"launches": serve_launches, "max_abs_err": err,
+                      "flips": br.flips,
+                      "rows_per_s": {str(B): B / t for B, t in
+                                     chunk_s.items()},
+                      "chunk_device_busy_us": {str(B): v for B, v in
+                                               chunk_busy.items()},
+                      "chunk_device_ms": chunk_dev},
+            "train": {**timing, "launches": train_launches,
+                      "vs_cpu": vs_cpu, "profile": profile},
+            "seconds": time.perf_counter() - t0}
+        B = BATCH_SIZES[-1]
+        print(f"{tag} {name}: serving {B} rows/s "
+              f"{out[name]['serve']['rows_per_s'][str(B)]:.0f}, "
+              f"training {timing['examples_per_s_host']:.0f} examples/s "
+              f"(host clock), step busy {100 * profile['busy_share']:.1f}% "
+              f"over {profile['launches_per_step']:.0f} launches "
+              f"({out[name]['seconds']:.1f} s)")
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_fit(tag, name, data, compute_dtype):
+    """One Trainer.fit epoch at phase 16's settings (B=512, dropout 0.2,
+    bf16 table moments, the indexed epoch) of model ``name`` in
+    ``compute_dtype``.  -> summary dict (valid AUC, ms a step)."""
+    from tpurec_torch.config import Config, ModelConfig, TrainConfig
+    from tpurec_torch.train import Trainer
+
+    cfg = Config(model=ModelConfig(**(MODEL if name == "mmoe"
+                                      else {"model": name}),
+                                   dropout=DROPOUT),
+                 train=TrainConfig(bs=512, epoch=1, seed=0,
+                                   embedding_moments_dtype="bfloat16",
+                                   compute_dtype=compute_dtype))
+    tr = Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                 domain2group=np.arange(N_DOMAIN) % N_TOWER)
+    n_steps = -(-len(data.train[1]) // cfg.train.bs)
+    marks = {}
+
+    def log_fn(r):
+        torch.cuda.synchronize()
+        marks.setdefault("train_end", time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tr.fit(data.train, data.valid,
+                 domain_cnt_weight=data.domain_cnt_weight(), log_fn=log_fn)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    valid = res["valid"]
+    check(valid is not None and np.isfinite(valid["total_auc"]),
+          f"{name} {compute_dtype} fit: no finite valid result")
+    check(valid["total_auc"] >= FIT_AUC_MIN, f"{name} {compute_dtype} fit: "
+          f"valid total_auc {valid['total_auc']} < {FIT_AUC_MIN}")
+    step_ms = (marks["train_end"] - t0) / n_steps * 1e3
+    del tr
+    torch.cuda.empty_cache()
+    return {"valid_total_auc": valid["total_auc"],
+            "valid_mean_auc": valid["mean_auc"],
+            "valid_total_loss": valid["total_loss"],
+            "train_loss": valid["train_loss"], "steps": n_steps,
+            "step_ms": step_ms, "fit_seconds": fit_s}
+
+
+def bf16_main_path(dev, rng, tag, f32_fit_auc):
+    """Phase 19 (b): compute_dtype="bfloat16" on the flagship MMoE and on
+    HiNet: each one's Predictor on N_ROWS rows and 3 steps against the
+    CPU's bf16 plain path (on the card's branches), held to the BF16_*
+    limits; one Trainer.fit epoch at phase 16's settings in bf16 (and
+    HiNet's in float32), its valid AUC beside phase 16's float32 MMoE
+    AUC ``f32_fit_auc``.  -> summary dict."""
+    import dataclasses
+
+    from tpurec_torch.config import Config, ModelConfig
+    from tpurec_torch.data import make_synthetic
+    from tpurec_torch.serve import Predictor
+
+    out = {}
+    d2g = np.arange(N_DOMAIN) % N_TOWER
+    for i, name in enumerate(BF16_MODELS):
+        kw = MODEL if name == "mmoe" else {"model": name}
+        cfg = Config(model=ModelConfig(**kw))
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, compute_dtype="bfloat16"))
+        sd, _ = serving_weights(
+            name, cfg.model, torch.Generator().manual_seed(SEED + 40 + i))
+        preds = {w: Predictor(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                              domain2group=d2g, batch_sizes=BATCH_SIZES,
+                              device=w).load_state_dict(sd)
+                 for w in ("cuda", "cpu")}
+        X = random_ids(rng, N_ROWS)
+        masks = []
+        with relu_branches(masks, record=True):
+            p_gpu = preds["cuda"](X)
+        with relu_branches(masks, record=False) as br:
+            p_cpu = preds["cpu"](X)
+        f32 = Predictor(dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, compute_dtype="float32")), FIELD_DIMS, N_DOMAIN,
+            DOMAIN_IDX, domain2group=d2g, batch_sizes=BATCH_SIZES,
+            device="cuda").load_state_dict(sd)
+        p_f32 = f32(X)
+        del preds, f32
+        err = float(np.max(np.abs(p_gpu - p_cpu)))
+        gap = float(np.max(np.abs(p_gpu - p_f32)))
+        check(np.all(np.isfinite(p_gpu)) and err <= BF16_PRED_TOL,
+              f"{name} bf16 Predictor cuda vs cpu: max abs err {err}")
+        check(gap > 0, f"{name} bf16 Predictor equals float32's: no cast")
+        print(f"{tag} {name} bf16 Predictor: cuda vs cpu bf16 plain path "
+              f"max abs err {err:.3g} (tol {BF16_PRED_TOL}; {br.flips} "
+              f"inputs flipped, replayed); bf16 vs float32 on the card max "
+              f"abs {gap:.3g}")
+        torch.cuda.empty_cache()
+        vs_cpu = train_vs_cpu(dev, rng, name, kw, compute_dtype="bfloat16",
+                              replay=True, loss_rtol=BF16_LOSS_RTOL,
+                              grad_rtol=BF16_GRAD_RTOL,
+                              table_share=BF16_TABLE_SHARE)
+        out[name] = {"predictor_max_abs_err": err,
+                     "predictor_bf16_vs_f32": gap, "flips": br.flips,
+                     "vs_cpu": vs_cpu}
+    t0 = time.perf_counter()
+    data = make_synthetic(n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS),
+                          n_domain=N_DOMAIN, field_dims=FIELD_DIMS,
+                          domain_idx=DOMAIN_IDX, seed=1)
+    print(f"bf16 fit data: make_synthetic({FIT_ROWS} rows) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    fits = {"mmoe/bfloat16": bf16_fit(tag, "mmoe", data, "bfloat16"),
+            "hinet/bfloat16": bf16_fit(tag, "hinet", data, "bfloat16"),
+            "hinet/float32": bf16_fit(tag, "hinet", data, "float32")}
+    for k, r in fits.items():
+        print(f"{tag} fit {k}: 1 epoch of {r['steps']} indexed steps, "
+              f"{r['step_ms']:.3f} ms a step (host clock), valid total_auc "
+              f"{r['valid_total_auc']:.5f} (phase 16's float32 MMoE "
+              f"{f32_fit_auc:.5f}), mean_auc {r['valid_mean_auc']:.5f}")
+    out["fit"] = fits
+    out["fit"]["mmoe/float32 (phase 16)"] = {"valid_total_auc": f32_fit_auc}
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3565,6 +3895,13 @@ def main() -> int:
     bases_s = time.perf_counter() - t18
     print(f"bases phase: {bases_s:.1f} s")
 
+    # -- 19. the group-routed models and bf16 compute ------------------------
+    t19 = time.perf_counter()
+    routed = routed_main_path(dev, rng, tag)
+    bf16 = bf16_main_path(dev, rng, tag, fit_summary["valid"]["total_auc"])
+    routed_s = time.perf_counter() - t19
+    print(f"routed and bf16 phase: {routed_s:.1f} s")
+
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
         "field_attention": "tpurec/ops/attention_pallas.py:310",
@@ -3675,10 +4012,20 @@ def main() -> int:
             k["launches_bases"] = by_base
         if k["name"] in ple_launches:
             k["launches_cdc_ple"] = ple_launches[k["name"]]
+        by_model = {}
+        for name, b in routed.items():
+            n = {"serve": b["serve"]["launches"].get(k["name"]),
+                 "train": b["train"]["launches"].get(k["name"])}
+            if any(v is not None for v in n.values()):
+                by_model[name] = n
+        if by_model:
+            k["launches_routed"] = by_model
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
                       "cdc_star_row": star_row, "phase_seconds": bases_s}))
+    print(json.dumps({"routed": routed, "bf16": bf16,
+                      "phase_seconds": routed_s}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

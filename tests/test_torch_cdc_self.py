@@ -322,8 +322,12 @@ def test_unported_and_invalid_options_raise(data):
         CDCTrainer(_cfg(), *args, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CDCTrainer(_cfg(parallel_rows=4), *args, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CDCTrainer(_cfg(train={"compute_dtype": "bfloat16"}), *args,
+    # bf16 compute is ported; a dtype that names nothing raises
+    bf = CDCTrainer(_cfg(train={"compute_dtype": "bfloat16"}), *args,
+                    device="cpu")
+    assert bf.train_step.tcfg.compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        CDCTrainer(_cfg(train={"compute_dtype": "float16"}), *args,
                    device="cpu")
     for base in ("ple", "pepnet", "epnet", "star"):    # CDC's other bases
         other = CDCTrainer(_cfg(base_model=base), *args, device="cpu")

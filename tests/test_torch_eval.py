@@ -213,8 +213,23 @@ def test_streaming_eval_scans_match_jax(name):
 
 
 def test_bf16_compute_is_refused():
+    """bf16 compute is ported: every eval step and scan takes it, and its
+    forward differs from the float32 one (the Linears cast); a compute
+    dtype that names nothing still raises ValueError."""
     _, _, _, pm = _models("dcn")
-    for make in (ps.make_eval_step, ps.make_indexed_eval_scan):
-        args = (pm, False) if make is ps.make_eval_step else (pm, False, 3)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(*args, compute_dtype="bfloat16")
+    makers = (ps.make_eval_step, ps.make_indexed_eval_scan,
+              ps.make_streaming_eval_scan,
+              ps.make_streaming_eval_batch_scan)
+    for make in makers:
+        args = {ps.make_eval_step: (pm, False),
+                ps.make_indexed_eval_scan: (pm, False, 3)}.get(
+            make, (pm, False, 3, 4))
+        make(*args, compute_dtype="bfloat16")
+        with pytest.raises(ValueError, match="compute_dtype"):
+            make(*args, compute_dtype="float16")
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 3, (16, len(pm.field_dims))).astype(np.int32))
+    p32 = ps.make_eval_step(pm, False)(pm, {"x": x})
+    p16 = ps.make_eval_step(pm, False, "bfloat16")(pm, {"x": x})
+    assert not torch.equal(p32, p16)
+    torch.testing.assert_close(p16, p32, rtol=0, atol=0.05)

@@ -102,15 +102,22 @@ def test_entry_points_refuse_to_run_without_a_card(tmp_path):
 
 
 def test_bf16_compute_is_refused():
+    """bf16 compute is ported: a Predictor takes it (and serves in it);
+    a compute dtype that names nothing still raises ValueError."""
     import dataclasses
 
     from tpurec_torch.serve import Predictor
 
     cfg = _cfg()
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(cfg, (5, 7, 3), 3, 2, device="cpu")
+    for dtype in ("bfloat16", "bf16"):
+        bf = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, compute_dtype=dtype))
+        assert Predictor(bf, (5, 7, 3), 3, 2,
+                         device="cpu").compute_dtype == dtype
+    bad = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="float16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Predictor(bad, (5, 7, 3), 3, 2, device="cpu")
 
 
 def test_build_is_keyed_by_source(tmp_path, monkeypatch):

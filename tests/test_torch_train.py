@@ -286,9 +286,12 @@ def test_unported_options_raise():
         make_hybrid_train_step(
             pm, dataclasses.replace(tcfg, embedding_update="dense"), {},
             True, L2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # bf16 compute is ported; a dtype that names nothing raises
+    make_hybrid_train_step(
+        pm, dataclasses.replace(tcfg, compute_dtype="bfloat16"), {}, True, L2)
+    with pytest.raises(ValueError, match="compute_dtype"):
         make_hybrid_train_step(
-            pm, dataclasses.replace(tcfg, compute_dtype="bfloat16"), {},
+            pm, dataclasses.replace(tcfg, compute_dtype="float16"), {},
             True, L2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_hybrid_train_step(pm, tcfg, {}, True, L2).upd.update_stacked()

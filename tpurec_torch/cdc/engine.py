@@ -44,9 +44,13 @@ counterpart: nothing compiles in eager PyTorch, and
 :meth:`CDCTrainer.warm_compile` does nothing.
 
 Not ported (each raises NotImplementedError naming ROADMAP.md): a mesh
-(``mesh``/``shardings``), ``cdc.parallel_rows > 0``
-(``populate_rows_parallel`` with ``EmbeddingUpdater.update_stacked``),
-and ``compute_dtype="bfloat16"``.
+(``mesh``/``shardings``) and ``cdc.parallel_rows > 0``
+(``populate_rows_parallel`` with ``EmbeddingUpdater.update_stacked``).
+
+``compute_dtype="bfloat16"`` reaches every forward, as in the JAX
+package's six scopes (``tpurec/cdc/engine.py:205,291,493,516,545,573``):
+the training step's, the probe eval's (:meth:`CDCTrainer._eval_rows`)
+and the eval scans'.
 
 The base model (``mmoe``, ``ple``, ``pepnet``, ``epnet`` or ``star``)
 trains without ``group``, as tpurec's engine calls it
@@ -75,7 +79,7 @@ from tpurec_torch.device import resolve_device
 from tpurec_torch.metrics import (auc_score, evaluate_multi_domain,
                                   log_loss_score, streaming_eval_result)
 from tpurec_torch.models import CDC_BASE_MODELS, build_model
-from tpurec_torch.nn.precision import check_compute_dtype
+from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
                                            check_embed_layout_version,
@@ -152,7 +156,6 @@ class CDCTrainer:
                 "lazy Adam changes the treatment-burst dynamics the "
                 "affinity matrices are built from.  Use 'hybrid' (default; "
                 "bit-equivalent to 'dense').")
-        check_compute_dtype(cfg.train.compute_dtype)
         self.cfg = cfg
         self.n_domain = n_domain
         self.domain_idx = domain_idx
@@ -326,7 +329,8 @@ class CDCTrainer:
         ys = ysrc.index_select(0, flat).reshape(D, ebs)
         group = take_rows(self.domain2group_dev, x[:, self.domain_idx])
         self.model.eval()
-        out = self.model(x, group=group, train=False)
+        with _precision_scope(self.cfg.train.compute_dtype):
+            out = self.model(x, group=group, train=False)
         vals = select_tower(out, group).reshape(D, ebs)
         if self.cfg.cdc.use_metric == "auc":
             return probe_auc(vals, ys, mask)

@@ -10,7 +10,9 @@ the port's model:
 - weights keep flax's layout: a Linear's [in, out] and a stacked bank's
   [T, in, out] are the port's own layouts too, so nothing is transposed;
 - ``batch_stats`` leaves (``mean``, ``var``, ``num_batches_tracked``) land
-  beside their module's ``scale``/``bias`` as buffers.
+  beside their module's ``scale``/``bias`` as buffers, and so does ADL's
+  ``adl_state`` collection (``cluster_centers``); on the way back
+  :data:`BUFFER_COLLECTIONS` names each buffer's collection by its path.
 
 Every leaf is copied.  :func:`train_state_from_flax` builds a port
 TrainState from the JAX package's hybrid TrainState;
@@ -26,6 +28,11 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+# a buffer's flax collection, by its path in the state_dict; every other
+# buffer is a BatchNorm statistic, in ``batch_stats``
+BUFFER_COLLECTIONS = {"cluster_centers": "adl_state"}
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -134,17 +141,20 @@ def train_state_to_flax(ts) -> Dict[str, Any]:
     TrainState (``flax.serialization.to_state_dict``'s tree):
 
     ``{"params", "opt_state": {"0": {"0": {}, "1": {"count", "mu", "nu"},
-    "2": {}}, "1": {"m", "v"}}, "model_state", "step"}`` — the layout of
+    "2": {}}, "1": {"m", "v"}}, "model_state", "step"}`` (``model_state``
+    holds ``batch_stats`` and, for ADL, ``adl_state``) — the layout of
     ``optax.chain(add_decayed_weights, scale_by_adam, scale)`` beside the
     table's ``SparseEmbedState``.  Leaves are numpy arrays (bfloat16 table
     moments stay CPU tensors); ``count`` and ``step`` are int32 scalars;
     the dense Adam's per-parameter step is one count."""
     model = ts.model
     params: Dict[str, Any] = {}
-    stats: Dict[str, Any] = {}
+    collections: Dict[str, Dict[str, Any]] = {}
     names = {n for n, _ in model.named_parameters()}
     for key, t in model.state_dict().items():
-        _set_leaf(params if key in names else stats, key, _numpy(t))
+        tree = params if key in names else collections.setdefault(
+            BUFFER_COLLECTIONS.get(key, "batch_stats"), {})
+        _set_leaf(tree, key, _numpy(t))
     mu: Dict[str, Any] = {}
     nu: Dict[str, Any] = {}
     ids = {id(p): n for n, p in model.named_parameters()}
@@ -166,7 +176,7 @@ def train_state_to_flax(ts) -> Dict[str, Any]:
             "0": {"0": {}, "1": {"count": np.asarray(count, np.int32),
                                  "mu": mu, "nu": nu}, "2": {}},
             "1": {"m": _numpy(ts.emb_opt.m), "v": _numpy(ts.emb_opt.v)}},
-        "model_state": {"batch_stats": stats} if stats else {},
+        "model_state": collections,
         "step": np.asarray(ts.step, np.int32),
     }
 

@@ -1,8 +1,9 @@
 """Model registry of the port (counterpart of ``tpurec/models/__init__.py``).
 
-Ported: ``mmoe``, ``dcn`` and CDC's other bases, ``ple``, ``pepnet``,
-``epnet``, ``pepnet-single``, ``epnet-single`` and ``star``; the JAX
-package's other model names raise ``NotImplementedError`` and
+Ported: ``mmoe``, ``dcn``, CDC's other bases (``ple``, ``pepnet``,
+``epnet``, ``pepnet-single``, ``epnet-single`` and ``star``) and the
+group-routed models ``hinet``, ``adl``, ``adl-split`` and ``adasparse``;
+the JAX package's other model names raise ``NotImplementedError`` and
 ``ROADMAP.md`` lists when they come.
 """
 
@@ -14,8 +15,11 @@ import torch
 
 from tpurec_torch.config import ModelConfig
 from tpurec_torch.device import resolve_device
+from tpurec_torch.models.adasparse import AdaSparse
+from tpurec_torch.models.adl import ADL
 from tpurec_torch.models.base import AuxLogits, CTRModel
 from tpurec_torch.models.dcn import DCN
+from tpurec_torch.models.hinet import HiNet
 from tpurec_torch.models.mmoe import MMoE
 from tpurec_torch.models.pepnet import PEPNet
 from tpurec_torch.models.ple import PLE
@@ -24,16 +28,15 @@ from tpurec_torch.nn.initializers import init_module
 
 MODEL_REGISTRY = {"mmoe": MMoE, "dcn": DCN, "ple": PLE, "pepnet": PEPNet,
                   "epnet": PEPNet, "pepnet-single": PEPNet,
-                  "epnet-single": PEPNet, "star": STAR}
+                  "epnet-single": PEPNet, "star": STAR, "adl": ADL,
+                  "adl-split": ADL, "hinet": HiNet, "adasparse": AdaSparse}
 
 # the JAX package's zoo, still to be ported
-_NOT_PORTED = {
-    "deepfm", "dcnv2", "autoint", "adl", "adl-split", "hinet", "adasparse",
-    "xdeepfm", "ipnn", "opnn", "afm",
-}
+_NOT_PORTED = {"deepfm", "dcnv2", "autoint", "xdeepfm", "ipnn", "opnn",
+               "afm"}
 
 # models whose output is [B, n_tower] and whose caller selects the group's
-# tower (run.py:481-484)
+# tower (run.py:481-484); hinet/adl select internally and return [B]
 MULTI_TOWER_OUTPUT = {"mmoe", "ple", "pepnet", "epnet", "star"}
 # models that read the per-row group id (run.py:64-65 + STAR's PN masking)
 NEEDS_GROUP = {"star", "adl", "adl-split", "hinet"}
@@ -73,6 +76,6 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
     return model.to(device)
 
 
-__all__ = ["AuxLogits", "CDC_BASE_MODELS", "CTRModel", "DCN", "MMoE",
-           "MODEL_REGISTRY", "MULTI_TOWER_OUTPUT", "NEEDS_GROUP", "PEPNet",
-           "PLE", "STAR", "build_model"]
+__all__ = ["ADL", "AdaSparse", "AuxLogits", "CDC_BASE_MODELS", "CTRModel",
+           "DCN", "HiNet", "MMoE", "MODEL_REGISTRY", "MULTI_TOWER_OUTPUT",
+           "NEEDS_GROUP", "PEPNet", "PLE", "STAR", "build_model"]

@@ -8,6 +8,9 @@ parameter tree maps onto a ``state_dict`` by joining its path with dots
   torch's [out, in]) and computes ``x @ weight + bias``.
 - :class:`StackedLinear` is a bank of ``n_stack`` Linears, weight
   [T, in, out], computed as one batched product.
+- Those two round their operands to the compute dtype
+  (:func:`tpurec_torch.nn.precision.cast_operands`), as the JAX
+  package's do (``tpurec/nn/core.py:58,83``); nothing else here casts.
 - :class:`GateNN` is PEPNet's ``2 * sigmoid`` gate.
 - :class:`BatchNorm` holds ``scale``/``bias`` parameters and ``mean``/
   ``var``/``num_batches_tracked`` buffers of the JAX module's shapes; it
@@ -33,6 +36,7 @@ import torch
 from torch import nn
 
 from tpurec_torch.nn import initializers as tinit
+from tpurec_torch.nn.precision import cast_operands
 from tpurec_torch.ops.embedding import EmbeddingGather
 
 
@@ -54,7 +58,8 @@ class Linear(nn.Module):
             tinit.linear_uniform_(self.bias, self.in_dim, generator)
 
     def forward(self, x):
-        y = torch.matmul(x, self.weight)
+        xc, wc = cast_operands(x, self.weight)
+        y = torch.matmul(xc, wc)
         return y if self.bias is None else y + self.bias
 
 
@@ -82,10 +87,11 @@ class StackedLinear(nn.Module):
             tinit.linear_uniform_(self.bias, self.in_dim, generator)
 
     def forward(self, x):
+        xc, wc = cast_operands(x, self.weight)
         if x.dim() == 2:
-            y = torch.einsum("bi,tio->bto", x, self.weight)
+            y = torch.einsum("bi,tio->bto", xc, wc)
         elif x.dim() == 3:
-            y = torch.einsum("bti,tio->bto", x, self.weight)
+            y = torch.einsum("bti,tio->bto", xc, wc)
         else:
             raise ValueError(
                 f"StackedLinear expects rank-2/3 input, got {tuple(x.shape)}")

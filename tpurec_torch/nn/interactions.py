@@ -13,6 +13,21 @@ through kernel 3.  :class:`CrossNetwork` keeps the JAX module's ``w_{i}``
 :func:`tpurec_torch.ops.cross_network.cross_network` (kernels 8 and 9 on
 the card).  The interaction ops of the other zoo models come with their
 slices.
+
+Neither casts in bf16 mode (``compute_dtype="bfloat16"``): kernels #2-#5
+and #8/#9 compute what the JAX package's Pallas kernels compute, and
+those cast nothing.  On the TPU the JAX package runs the cross stack
+through its kernel, so the port's DCN in bf16 is its function there.
+The one known difference is attention: the JAX package's models run it
+on its jnp path (``FieldAttention.fused=None``), which rounds the
+operands of every projection and product of the stack to bfloat16
+(``tpurec/nn/interactions.py:177-221`` and its ``atten_embedding``/
+``V_res_embedding`` Linears), while the port's stack, those projections
+included, stays float32 inside kernel #2.  ``atten_linear``, a Linear
+outside the kernel, casts in both packages.  The gap is measured as a
+logit difference (``tests/test_torch_bf16_serve.py``) and as an AUC gap
+(``tests/test_torch_bf16_train.py``); ``PERF.md`` and ``ROADMAP.md``
+(queue 3, "Differences kept on purpose") record it.
 """
 
 from __future__ import annotations

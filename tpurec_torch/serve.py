@@ -34,6 +34,7 @@ from tpurec_torch.device import resolve_device
 from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
 from tpurec_torch.nn.core import EmbeddingLayout
 from tpurec_torch.nn.precision import check_compute_dtype
+from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.train.checkpoint import (check_embed_layout_version,
                                            msgpack_restore)
@@ -65,9 +66,10 @@ def quantize_table(table, dtype: str):
 
 
 class Predictor:
-    """Batch predictor for a ported model (MMoE and DCN) or a CDC
-    checkpoint on its MMoE base.  Multi-tower models select each row's
-    tower; single-head models (DCN) return their one logit.
+    """Batch predictor for a ported model or a CDC checkpoint on its
+    base.  Multi-tower models select each row's tower; single-head models
+    (DCN, HiNet, ADL, AdaSparse) return their one logit.  The forward runs
+    in ``cfg.train.compute_dtype``, as it was trained.
 
     ``cfg`` must be the TRAINING config; for ``cfg.model.model == "cdc"``
     the served network is the CDC base model with ``n_tower = n_cluster``.
@@ -82,6 +84,7 @@ class Predictor:
                 f"table_dtype must be one of {_TABLE_DTYPES}, got {table_dtype!r}")
         self.device = resolve_device(device)
         check_compute_dtype(cfg.train.compute_dtype)
+        self.compute_dtype = cfg.train.compute_dtype
         self.cfg = cfg
         self.field_dims = tuple(int(d) for d in field_dims)
         self.n_domain = int(n_domain)
@@ -109,7 +112,10 @@ class Predictor:
             n_tower = cfg.cdc.n_cluster
         else:
             mcfg = cfg.model
-            n_tower = int(np.max(domain2group)) + 1
+            # ADL routes over n_cluster towers (run.py:43); adl-split, as
+            # every other model, over the grouping's
+            n_tower = (cfg.cdc.n_cluster if name == "adl"
+                       else int(np.max(domain2group)) + 1)
         self.model_name = name
         self.domain2group = np.asarray(domain2group, np.int32)
         # raw request ids on hashed fields are bucketed like the training
@@ -185,7 +191,10 @@ class Predictor:
         """x [B, F] int32 on the device -> probabilities [B]."""
         rows = self._gather(x)
         group = take_rows(self._d2g, x[:, self.domain_idx])
-        out = self.model(x, group=group, embed_rows=rows)
+        # the precision the model was trained and validated with
+        # (tpurec/serve.py:198-211)
+        with _precision_scope(self.compute_dtype):
+            out = self.model(x, group=group, embed_rows=rows)
         logit = select_tower(out, group) if self.multi_tower else out
         return torch.sigmoid(logit)
 

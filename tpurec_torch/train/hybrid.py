@@ -30,8 +30,10 @@ Ported: the single step, ``scan_k`` (a Python loop that returns the K
 losses) and ``indexed=True`` (the device-resident dataset's loop:
 :meth:`HybridTrainStep.scan_steps_idx`); the CDC engine drives
 :meth:`HybridTrainStep.one_step` with a loss head of its own.
-``update_stacked`` (CDC's row lanes), ``embedding_update`` other than
-``"hybrid"`` and ``compute_dtype="bfloat16"`` raise NotImplementedError;
+The training forward runs inside the ``tcfg.compute_dtype`` scope
+(``hybrid.py:389``); its backward, outside the block, rounds at the casts
+the forward recorded.  ``update_stacked`` (CDC's row lanes) and
+``embedding_update`` other than ``"hybrid"`` raise NotImplementedError;
 see ROADMAP.md.
 """
 
@@ -45,6 +47,7 @@ from tpurec_torch.config import TrainConfig
 from tpurec_torch.device import resolve_device
 from tpurec_torch.nn.core import EmbeddingLayout, prepared_gather
 from tpurec_torch.nn.precision import check_compute_dtype
+from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.ops.fused_adam import fused_sparse_adam
 from tpurec_torch.train.reg import regularization_loss
@@ -206,6 +209,7 @@ class HybridTrainStep:
                  scan_k: Optional[int] = None,
                  big_vocab_threshold: int = BIG_VOCAB_THRESHOLD,
                  model_group: bool = True):
+        check_compute_dtype(tcfg.compute_dtype)
         self.tcfg = tcfg
         self.model_group = model_group
         self.reg_coefs_rest = {k: c for k, c in reg_coefs.items()
@@ -231,10 +235,11 @@ class HybridTrainStep:
             rows = self.upd.gather_rows(table, x)
         rows.requires_grad_(True)
         model.train()
-        out = model(x, group=batch.get("group") if self.model_group
-                    else None, train=True,
-                    row_mask=batch.get("mask"), embed_rows=rows,
-                    generator=generator)
+        with _precision_scope(self.tcfg.compute_dtype):
+            out = model(x, group=batch.get("group") if self.model_group
+                        else None, train=True,
+                        row_mask=batch.get("mask"), embed_rows=rows,
+                        generator=generator)
         if head is not None:
             loss = head(out, batch)
         else:
@@ -299,7 +304,6 @@ def make_hybrid_train_step(model, tcfg: TrainConfig, reg_coefs,
         raise NotImplementedError(
             f"embedding_update={tcfg.embedding_update!r} is not ported: the "
             "port trains with 'hybrid' only; see ROADMAP.md")
-    check_compute_dtype(tcfg.compute_dtype)
     step = HybridTrainStep(model, tcfg, reg_coefs, multi_tower,
                            l2_reg_embedding, scan_k, big_vocab_threshold)
     return step.scan_steps_idx if indexed else step

@@ -132,7 +132,10 @@ class Trainer:
             raise _not_ported(
                 f"embedding_update={cfg.train.embedding_update!r}",
                 "'The rest of the zoo' (the 'dense' and 'sparse' updates)")
-        self.n_tower = int(self.domain2group.max()) + 1
+        # ADL routes over n_cluster towers (run.py:43); adl-split, as every
+        # other model, over the grouping's (tpurec/train/loop.py:100-102)
+        self.n_tower = (cfg.cdc.n_cluster if name == "adl"
+                        else int(self.domain2group.max()) + 1)
         self.device = resolve_device(device)
         self.model = build_model(
             name, field_dims, self.n_tower, domain_idx, cfg.model,

@@ -20,7 +20,9 @@ A callable these return takes the model first, where the JAX package's
 takes ``params, model_state`` (the port's model holds both), then the JAX
 package's other arguments in their order.  A "scan" is a Python loop over
 the ``k`` batches that leaves every result on the device: nothing in it
-waits for the card.
+waits for the card.  Every eval forward runs inside its
+``compute_dtype`` scope (:mod:`tpurec_torch.nn.precision`), as the JAX
+package's does (``step.py:189,311,341,360``).
 
 The hybrid training step itself is :mod:`tpurec_torch.train.hybrid`.
 """
@@ -38,6 +40,7 @@ import torch.nn.functional as Fn
 from tpurec_torch.config import TrainConfig
 from tpurec_torch.metrics.metrics import BIN_P_MAX
 from tpurec_torch.nn.precision import check_compute_dtype
+from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.train.sparse import SparseEmbedState
 
@@ -114,10 +117,13 @@ class TrainState:
     step: int = 0
 
 
-def _eval_logit(model, x, group, multi_tower: bool) -> torch.Tensor:
-    """The eval forward of ``model`` on ids ``x`` -> each row's logit."""
+def _eval_logit(model, x, group, multi_tower: bool,
+                dtype: str = "float32") -> torch.Tensor:
+    """The eval forward of ``model`` on ids ``x`` in compute dtype
+    ``dtype`` -> each row's logit."""
     model.eval()
-    out = model(x, group=group, train=False)
+    with _precision_scope(dtype):
+        out = model(x, group=group, train=False)
     return select_tower(out, group) if multi_tower else out
 
 
@@ -136,7 +142,8 @@ def make_eval_step(model, multi_tower: bool, compute_dtype: str = "float32"):
     @torch.no_grad()
     def eval_step(model, batch):
         return torch.sigmoid(_eval_logit(model, batch["x"],
-                                         batch.get("group"), multi_tower))
+                                         batch.get("group"), multi_tower,
+                                         compute_dtype))
 
     return eval_step
 
@@ -154,7 +161,7 @@ def make_indexed_eval_scan(model, multi_tower: bool, domain_idx: int,
         for idx in idxs:
             x, _, group = _gather_batch(Xdev, d2g, idx, domain_idx)
             ps.append(torch.sigmoid(_eval_logit(model, x, group,
-                                                multi_tower)))
+                                                multi_tower, compute_dtype)))
         return torch.stack(ps)
 
     return eval_scan
@@ -264,7 +271,8 @@ def make_streaming_eval_scan(model, multi_tower: bool, domain_idx: int,
             x, dom, group = _gather_batch(Xdev, d2g, idx, domain_idx)
             y = ydev.index_select(0, idx)
             carry = hist_update(carry, dom,
-                                _eval_logit(model, x, group, multi_tower),
+                                _eval_logit(model, x, group, multi_tower,
+                                            compute_dtype),
                                 y, mask, n_bins)
         return carry
 
@@ -287,7 +295,8 @@ def make_streaming_eval_batch_scan(model, multi_tower: bool, domain_idx: int,
             x = batches["x"][i].to(torch.int32)
             group = batches["group"][i]
             carry = hist_update(carry, x[:, domain_idx],
-                                _eval_logit(model, x, group, multi_tower),
+                                _eval_logit(model, x, group, multi_tower,
+                                            compute_dtype),
                                 batches["y"][i], batches["mask"][i], n_bins)
         return carry
 
