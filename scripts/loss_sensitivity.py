@@ -1,7 +1,7 @@
 """How far rounding alone moves a model's training losses, on the CPU.
 
 Runs 3 hybrid steps of a full-width model on the flagship schema (the
-batches and seeded weights of ``chip_smoke.py``'s phase 9, dropout 0,
+batches and seeded weights of ``chip_smoke.py``'s phase 9, every dropout 0,
 bf16 table moments, the table scaled by ``--scale``, Adam's weight decay
 ``--wd``) twice: as is, and with one unit of float32 rounding (relative
 noise of 1.2e-7, seeded) on the table rows the first step gathers.  It
@@ -41,7 +41,8 @@ def losses(name, scale, wd, noise_seed=None):
     batches = cs.train_batches(np.random.default_rng(cs.SEED), 3, "cpu")
     tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16", wd=wd)
     model = build_model(name, cs.FIELD_DIMS, cs.N_TOWER, cs.DOMAIN_IDX,
-                        ModelConfig(model=name, dropout=0.0), device="cpu",
+                        ModelConfig(model=name, **cs.NO_DROPOUT),
+                        device="cpu",
                         generator=torch.Generator().manual_seed(cs.SEED + 3))
     with torch.no_grad():
         model.embedding.table.mul_(scale)

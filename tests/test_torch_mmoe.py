@@ -148,14 +148,16 @@ def test_port_init_is_seeded_and_torch_default(rng):
 
 def test_unported_paths_raise():
     dims = (30, 7, 5, 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("deepfm", dims, 1, 2, ModelConfig(model="deepfm"),
-                    device="cpu")
+    # deepfm and dcnv2 are ported: they build at their defaults
+    names = dict(build_model("deepfm", dims, 1, 2, ModelConfig(
+        model="deepfm"), device="cpu").named_parameters())
+    assert {"linear.weight", "mlp.linear_out.weight"} <= set(names)
     with pytest.raises(ValueError, match="Unknown model"):
         build_model("nope", dims, 1, 2, ModelConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("dcnv2", dims, 1, 2, ModelConfig(model="dcnv2"),
-                    device="cpu")
+    names = dict(build_model("dcnv2", dims, 1, 2, ModelConfig(
+        model="dcnv2"), device="cpu").named_parameters())
+    assert {"crossnet.gating", "crossnet.c_2", "dnn_linear.weight"} \
+        <= set(names)
     # the DCN family is ported: the model and MMoE's cross-network aux head
     names = dict(build_model("mmoe", dims, 1, 2, ModelConfig(
         model="mmoe", use_dcn=True), device="cpu").named_parameters())

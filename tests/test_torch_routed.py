@@ -37,9 +37,8 @@ from tpurec.models import build_model as jax_build_model
 from tpurec.train.reg import reg_coef_tree as jax_reg_coef_tree
 from tpurec_torch.config import ModelConfig
 from tpurec_torch.convert import state_dict_from_flax
-from tpurec_torch.models import (_NOT_PORTED, MODEL_REGISTRY,
-                                 MULTI_TOWER_OUTPUT, NEEDS_GROUP,
-                                 build_model)
+from tpurec_torch.models import (MODEL_REGISTRY, MULTI_TOWER_OUTPUT,
+                                 NEEDS_GROUP, build_model)
 from tpurec_torch.train.reg import reg_coef_tree
 
 ROUTED = ("hinet", "adl", "adl-split", "adasparse")
@@ -79,7 +78,7 @@ def jax_variables(name, kw, rng):
     x = jnp.asarray(ids(rng, 8))
     v = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), x))
     out = {"params": perturbed(v["params"], rng),
-           "batch_stats": random_stats(v["batch_stats"], rng)}
+           "batch_stats": random_stats(v.get("batch_stats", {}), rng)}
     if "adl_state" in v:
         out["adl_state"] = v["adl_state"]
     for k, layer in out["params"].items():
@@ -319,14 +318,14 @@ def test_state_dict_is_the_flax_tree(name):
 def test_seeded_init_and_registry():
     """One seed gives one set of weights; AdaSparse's layer weights are
     N(0, 1e-4**2) and ADL's centres N(0, 1); the registry builds the four
-    names, refuses the seven still to port, and without a card raises
-    unless asked for the CPU."""
+    names among every name of tpurec's, and without a card raises unless
+    asked for the CPU."""
+    from tpurec.models import MODEL_REGISTRY as JAX_REGISTRY
     from tpurec.models import MULTI_TOWER_OUTPUT as JAX_MULTI
     from tpurec.models import NEEDS_GROUP as JAX_NEEDS
 
     assert MULTI_TOWER_OUTPUT == JAX_MULTI and NEEDS_GROUP == JAX_NEEDS
-    assert _NOT_PORTED == {"deepfm", "dcnv2", "autoint", "xdeepfm", "ipnn",
-                           "opnn", "afm"}
+    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
     assert set(ROUTED) <= set(MODEL_REGISTRY)
     for name in ROUTED:
         cfg = ModelConfig(**routed_kw(name))

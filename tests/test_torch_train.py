@@ -282,10 +282,12 @@ def test_unported_options_raise():
     # indexed=True is ported: the device-resident dataset's loop
     scan_idx = make_hybrid_train_step(pm, tcfg, {}, True, L2, indexed=True)
     assert scan_idx.__name__ == "scan_steps_idx"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_hybrid_train_step(
-            pm, dataclasses.replace(tcfg, embedding_update="dense"), {},
-            True, L2)
+    # the maker reads no embedding_update (tpurec's does not either, and
+    # its CDC engine runs "dense" through it): a "dense" config builds
+    dense = make_hybrid_train_step(
+        pm, dataclasses.replace(tcfg, embedding_update="dense"), {},
+        True, L2)
+    assert dense.__class__.__name__ == "HybridTrainStep"
     # bf16 compute is ported; a dtype that names nothing raises
     make_hybrid_train_step(
         pm, dataclasses.replace(tcfg, compute_dtype="bfloat16"), {}, True, L2)

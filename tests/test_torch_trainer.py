@@ -307,14 +307,15 @@ def test_unported_and_invalid_options_raise(data):
     args = (data.field_dims, data.n_domain, data.domain_idx)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(_cfg("mmoe"), *args, mesh=object(), device="cpu")
-    bad = dataclasses.replace(_cfg("mmoe"), train=dataclasses.replace(
+    # "dense" is ported: one Adam over every parameter, the host epoch
+    dense = dataclasses.replace(_cfg("mmoe"), train=dataclasses.replace(
         _cfg("mmoe").train, embedding_update="dense"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(bad, *args, device="cpu")
+    tr = Trainer(dense, *args, device="cpu")
+    assert tr.state.emb_opt is None and tr.scan_steps_idx is None
     with pytest.raises(ValueError, match="CDC"):
         Trainer(_cfg("cdc"), *args, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(_cfg("deepfm"), *args, device="cpu")
+    # deepfm is ported too
+    assert Trainer(_cfg("deepfm"), *args, device="cpu").model.n_tower == 1
     with pytest.raises(ValueError, match="Unknown model"):
         Trainer(_cfg("nope"), *args, device="cpu")
     tr = _trainer(data, "dcn")

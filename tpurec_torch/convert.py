@@ -15,11 +15,20 @@ the port's model:
   :data:`BUFFER_COLLECTIONS` names each buffer's collection by its path.
 
 Every leaf is copied.  :func:`train_state_from_flax` builds a port
-TrainState from the JAX package's hybrid TrainState;
+TrainState from the JAX package's TrainState;
 :func:`train_state_to_flax` is its inverse (the tree that
 ``flax.serialization.to_state_dict`` gives for that TrainState), and
 :func:`restore_train_state` loads such a tree into a port TrainState in
-place.
+place.  Two optimizer layouts cross, by the trainer's
+``embedding_update``:
+
+- ``"hybrid"`` and ``"sparse"``: ``(tx.init(rest), SparseEmbedState)``,
+  optax's chain state over the parameters but the table, beside the
+  table's moments;
+- ``"dense"``: optax's chain state over every parameter, the table's
+  ``mu``/``nu`` included, and no ``SparseEmbedState``.
+
+A tree of the other layout than the state's raises.
 """
 
 from __future__ import annotations
@@ -70,23 +79,26 @@ def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
                           model_state: Optional[Mapping], adam_mu: Mapping,
                           adam_nu: Mapping, adam_count, emb_m, emb_v,
                           step, device=None):
-    """The JAX package's hybrid ``TrainState`` pieces, as numpy arrays, ->
-    the port's :class:`tpurec_torch.train.step.TrainState` on ``device``
-    (the card unless the caller asks for the CPU).
+    """The JAX package's ``TrainState`` pieces, as numpy arrays, -> the
+    port's :class:`tpurec_torch.train.step.TrainState` on ``device`` (the
+    card unless the caller asks for the CPU).
 
     ``params``/``model_state`` load into ``model``; ``adam_mu``,
     ``adam_nu`` and ``adam_count`` are optax's ``ScaleByAdamState`` of the
-    parameters other than the table (trees of the same paths), which
-    become the dense ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq``
-    and ``step``; ``emb_m``/``emb_v`` are the table's moments
-    (``SparseEmbedState``, float32 or bfloat16); ``step`` the step
-    count.  A leaf the model lacks, or one it has and the trees do not,
-    raises."""
+    parameters the dense optimizer steps (trees of the same paths), which
+    become the ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq`` and
+    ``step``; ``emb_m``/``emb_v`` are the table's moments
+    (``SparseEmbedState``, float32 or bfloat16) of the hybrid/sparse
+    layout, or None for the ``"dense"`` layout, whose Adam trees hold the
+    table too; ``step`` the step count.  A leaf the model lacks, or one it
+    has and the trees do not, raises."""
     from tpurec_torch.train.hybrid import init_train_state
+    from tpurec_torch.train.step import init_dense_train_state
 
     model.load_state_dict(state_dict_from_flax(params, model_state),
                           strict=True)
-    ts = init_train_state(model, tcfg, device)
+    ts = (init_dense_train_state if emb_m is None else init_train_state)(
+        model, tcfg, device)
     _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v, step)
     return ts
 
@@ -116,9 +128,10 @@ def _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v,
                 "exp_avg": _tensor(mu[n]).to(dev, torch.float32),
                 "exp_avg_sq": _tensor(nu[n]).to(dev, torch.float32),
             }
-    for name, src in (("m", emb_m), ("v", emb_v)):
-        dst = getattr(ts.emb_opt, name)
-        dst.copy_(_tensor(src).to(dev, dst.dtype))
+    if ts.emb_opt is not None:
+        for name, src in (("m", emb_m), ("v", emb_v)):
+            dst = getattr(ts.emb_opt, name)
+            dst.copy_(_tensor(src).to(dev, dst.dtype))
     ts.step = int(np.asarray(step))
 
 
@@ -137,16 +150,18 @@ def _numpy(t: torch.Tensor):
 
 
 def train_state_to_flax(ts) -> Dict[str, Any]:
-    """A port TrainState -> the flax state dict of the JAX package's hybrid
+    """A port TrainState -> the flax state dict of the JAX package's
     TrainState (``flax.serialization.to_state_dict``'s tree):
 
     ``{"params", "opt_state": {"0": {"0": {}, "1": {"count", "mu", "nu"},
     "2": {}}, "1": {"m", "v"}}, "model_state", "step"}`` (``model_state``
     holds ``batch_stats`` and, for ADL, ``adl_state``) — the layout of
     ``optax.chain(add_decayed_weights, scale_by_adam, scale)`` beside the
-    table's ``SparseEmbedState``.  Leaves are numpy arrays (bfloat16 table
-    moments stay CPU tensors); ``count`` and ``step`` are int32 scalars;
-    the dense Adam's per-parameter step is one count."""
+    table's ``SparseEmbedState`` — or, for a ``"dense"`` state (no
+    ``emb_opt``), ``"opt_state": {"0": {}, "1": {"count", "mu", "nu"},
+    "2": {}}`` over every parameter.  Leaves are numpy arrays (bfloat16
+    table moments stay CPU tensors); ``count`` and ``step`` are int32
+    scalars; the dense Adam's per-parameter step is one count."""
     model = ts.model
     params: Dict[str, Any] = {}
     collections: Dict[str, Dict[str, Any]] = {}
@@ -170,27 +185,42 @@ def train_state_to_flax(ts) -> Dict[str, Any]:
         raise ValueError(f"the dense parameters' Adam counts differ: "
                          f"{sorted(counts)}")
     count = counts.pop() if counts else 0
+    chain = {"0": {}, "1": {"count": np.asarray(count, np.int32),
+                            "mu": mu, "nu": nu}, "2": {}}
     return {
         "params": params,
-        "opt_state": {
-            "0": {"0": {}, "1": {"count": np.asarray(count, np.int32),
-                                 "mu": mu, "nu": nu}, "2": {}},
+        "opt_state": chain if ts.emb_opt is None else {
+            "0": chain,
             "1": {"m": _numpy(ts.emb_opt.m), "v": _numpy(ts.emb_opt.v)}},
         "model_state": collections,
         "step": np.asarray(ts.step, np.int32),
     }
 
 
+def _layout(dense: bool) -> str:
+    return ("'dense' (Adam over every parameter)" if dense else
+            "'hybrid'/'sparse' (Adam over the rest, the table's moments "
+            "beside it)")
+
+
 def restore_train_state(ts, tree: Mapping) -> None:
-    """Load a flax state dict of the JAX package's hybrid TrainState (as
+    """Load a flax state dict of the JAX package's TrainState (as
     :func:`train_state_to_flax` writes it, or a tpurec checkpoint holds
     it) into ``ts``, in place: the model's parameters and buffers are
     copied into the tensors they hold (so a gather prepared for the table
-    stays valid), then the optimizers' state and the step."""
+    stays valid), then the optimizers' state and the step.  A tree whose
+    optimizer layout is not the state's raises ValueError before anything
+    is copied."""
+    opt = tree["opt_state"]
+    dense = "count" in opt["1"]
+    if dense != (ts.emb_opt is None):
+        raise ValueError(
+            f"the checkpoint's optimizer state has the {_layout(dense)} "
+            f"layout, the trainer's update the {_layout(not dense)} one: "
+            "restore it into a trainer of the update that wrote it")
     ts.model.load_state_dict(
         state_dict_from_flax(tree["params"], tree.get("model_state")),
         strict=True)
-    adam = tree["opt_state"]["0"]["1"]
-    emb = tree["opt_state"]["1"]
-    _load_optimizer(ts, adam["mu"], adam["nu"], adam["count"], emb["m"],
-                    emb["v"], tree["step"])
+    adam, emb = (opt["1"], {}) if dense else (opt["0"]["1"], opt["1"])
+    _load_optimizer(ts, adam["mu"], adam["nu"], adam["count"],
+                    emb.get("m"), emb.get("v"), tree["step"])

@@ -1,10 +1,10 @@
 """Model registry of the port (counterpart of ``tpurec/models/__init__.py``).
 
-Ported: ``mmoe``, ``dcn``, CDC's other bases (``ple``, ``pepnet``,
-``epnet``, ``pepnet-single``, ``epnet-single`` and ``star``) and the
-group-routed models ``hinet``, ``adl``, ``adl-split`` and ``adasparse``;
-the JAX package's other model names raise ``NotImplementedError`` and
-``ROADMAP.md`` lists when they come.
+Every name of the JAX package's registry: the reference's zoo
+(``deepfm``, ``dcn``, ``dcnv2``, ``autoint``, ``mmoe``, ``ple``,
+``pepnet``, ``epnet`` and their ``-single`` variants, ``star``, ``adl``,
+``adl-split``, ``hinet``, ``adasparse``) and the extensions ``xdeepfm``,
+``ipnn``, ``opnn`` and ``afm``.
 """
 
 from __future__ import annotations
@@ -17,8 +17,12 @@ from tpurec_torch.config import ModelConfig
 from tpurec_torch.device import resolve_device
 from tpurec_torch.models.adasparse import AdaSparse
 from tpurec_torch.models.adl import ADL
+from tpurec_torch.models.autoint import AutoInt
 from tpurec_torch.models.base import AuxLogits, CTRModel
 from tpurec_torch.models.dcn import DCN
+from tpurec_torch.models.dcnv2 import DCNv2
+from tpurec_torch.models.deepfm import DeepFM
+from tpurec_torch.models.extensions import AFM, PNN, xDeepFM
 from tpurec_torch.models.hinet import HiNet
 from tpurec_torch.models.mmoe import MMoE
 from tpurec_torch.models.pepnet import PEPNet
@@ -26,14 +30,12 @@ from tpurec_torch.models.ple import PLE
 from tpurec_torch.models.star import STAR
 from tpurec_torch.nn.initializers import init_module
 
-MODEL_REGISTRY = {"mmoe": MMoE, "dcn": DCN, "ple": PLE, "pepnet": PEPNet,
-                  "epnet": PEPNet, "pepnet-single": PEPNet,
+MODEL_REGISTRY = {"deepfm": DeepFM, "dcn": DCN, "dcnv2": DCNv2,
+                  "autoint": AutoInt, "mmoe": MMoE, "ple": PLE,
+                  "pepnet": PEPNet, "epnet": PEPNet, "pepnet-single": PEPNet,
                   "epnet-single": PEPNet, "star": STAR, "adl": ADL,
-                  "adl-split": ADL, "hinet": HiNet, "adasparse": AdaSparse}
-
-# the JAX package's zoo, still to be ported
-_NOT_PORTED = {"deepfm", "dcnv2", "autoint", "xdeepfm", "ipnn", "opnn",
-               "afm"}
+                  "adl-split": ADL, "hinet": HiNet, "adasparse": AdaSparse,
+                  "xdeepfm": xDeepFM, "ipnn": PNN, "opnn": PNN, "afm": AFM}
 
 # models whose output is [B, n_tower] and whose caller selects the group's
 # tower (run.py:481-484); hinet/adl select internally and return [B]
@@ -53,10 +55,6 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
     when asked.  The inits are drawn on the CPU, so one seed gives one set
     of weights on either device.  ``device="meta"`` builds shapes only,
     for a caller that loads every weight itself."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to tpurec_torch yet: see "
-            "ROADMAP.md, queue 1")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model: {name}")
     kw = dict(field_dims=tuple(int(d) for d in field_dims),
@@ -64,6 +62,8 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
               domain_idx=domain_idx)
     if name in ("pepnet", "pepnet-single", "epnet", "epnet-single"):
         kw["use_ppnet"] = name.startswith("pepnet")
+    elif name == "opnn":
+        kw["use_inner"] = False
     if name.endswith("-single"):
         kw["n_tower"] = 1
     if device is not None and torch.device(device).type == "meta":
@@ -76,6 +76,7 @@ def build_model(name: str, field_dims: Tuple[int, ...], n_tower: int,
     return model.to(device)
 
 
-__all__ = ["ADL", "AdaSparse", "AuxLogits", "CDC_BASE_MODELS", "CTRModel",
-           "DCN", "HiNet", "MMoE", "MODEL_REGISTRY", "MULTI_TOWER_OUTPUT",
-           "NEEDS_GROUP", "PEPNet", "PLE", "STAR", "build_model"]
+__all__ = ["ADL", "AFM", "AdaSparse", "AutoInt", "AuxLogits",
+           "CDC_BASE_MODELS", "CTRModel", "DCN", "DCNv2", "DeepFM", "HiNet",
+           "MMoE", "MODEL_REGISTRY", "MULTI_TOWER_OUTPUT", "NEEDS_GROUP",
+           "PEPNet", "PLE", "PNN", "STAR", "build_model", "xDeepFM"]

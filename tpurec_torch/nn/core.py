@@ -37,7 +37,7 @@ from torch import nn
 
 from tpurec_torch.nn import initializers as tinit
 from tpurec_torch.nn.precision import cast_operands
-from tpurec_torch.ops.embedding import EmbeddingGather
+from tpurec_torch.ops.embedding import EmbeddingGather, embedding_lookup
 
 
 class Linear(nn.Module):
@@ -347,6 +347,9 @@ class FusedEmbedding(nn.Module):
 
     ids[b, f] reads row ``offsets[f] + ids[b, f]`` of a [vocab, embed_dim]
     table laid out by :class:`EmbeddingLayout`; padding rows are zero.
+    Where autograd records, the table takes the rows' gradients
+    (:func:`tpurec_torch.ops.embedding.embedding_lookup`: the ``"dense"``
+    update differentiates through the lookup).
     """
 
     def __init__(self, field_dims, embed_dim: int,
@@ -364,5 +367,8 @@ class FusedEmbedding(nn.Module):
 
     def forward(self, ids):
         """ids [B, F] -> rows [B, F, D]."""
-        return prepared_gather(self, self.table, self.layout)(
-            ids.to(torch.int32).contiguous())
+        gather = prepared_gather(self, self.table, self.layout)
+        ids = ids.to(torch.int32).contiguous()
+        if torch.is_grad_enabled() and self.table.requires_grad:
+            return embedding_lookup(gather, ids)
+        return gather(ids)

@@ -17,6 +17,17 @@ call checks only the ids, allocates the output and launches.
 :class:`EmbeddingGather` and :func:`embedding_gather` (one-shot) launch
 the kernel for CUDA tensors and run :func:`embedding_gather_reference`
 for CPU tensors only.
+
+:func:`embedding_lookup` is the gather with a gradient with respect to
+the table (the ``"dense"`` embedding update differentiates through the
+lookup): the forward is the prepared gather (kernel 1 on the card), the
+backward :func:`embedding_gather_table_grad`, the rows' gradients
+``index_add_``-ed into a zero [V, D] table gradient.  The JAX package
+computes that scatter as XLA's transpose of ``jnp.take``, outside any
+Pallas kernel; ``index_add_`` is its PyTorch counterpart.  On the card it
+sums a row's gradients by atomics, in an order that varies from run to
+run, so two runs' table gradients may differ in their last bits wherever
+a row is touched more than once; on the CPU it sums in index order.
 """
 
 from __future__ import annotations
@@ -200,3 +211,53 @@ def embedding_gather_reference(table, ids, offsets, limits, scales=None):
     if scales is not None:
         rows = rows * take_rows(scales, g)[..., None]
     return rows
+
+
+def embedding_gather_table_grad(dy: torch.Tensor, ids: torch.Tensor,
+                                offsets: torch.Tensor, limits: torch.Tensor,
+                                n_rows: int) -> torch.Tensor:
+    """The gradient of :func:`embedding_gather` with respect to a float32
+    table of ``n_rows`` rows: ``dy`` [N, F, D] added into a zero [n_rows,
+    D] tensor at each id's row by ``index_add_`` (by atomics, in a varying
+    order, on the card).  An id that wraps reaches the row it read; one
+    that read the fill value reaches no row, as in the transpose of
+    ``jnp.take``."""
+    g = _wrap_int32(ids.long() + offsets.long()[None, :])
+    lim = torch.clamp(limits.long()[None, :], max=n_rows)
+    r = torch.where(g < 0, g + lim, g)
+    ok = (r >= 0) & (r < lim)
+    D = dy.shape[-1]
+    vals = torch.where(ok[..., None], dy.to(torch.float32),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=dy.device))
+    grad = torch.zeros((n_rows, D), dtype=torch.float32, device=dy.device)
+    return grad.index_add_(0, torch.where(ok, r, 0).reshape(-1),
+                           vals.reshape(-1, D))
+
+
+class _Lookup(torch.autograd.Function):
+    """The prepared gather with the table's gradient in its backward."""
+
+    @staticmethod
+    def forward(ctx, table, ids, gather):
+        ctx.save_for_backward(ids)
+        ctx.gather = gather
+        return gather(ids)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ids, = ctx.saved_tensors
+        g = ctx.gather
+        return (embedding_gather_table_grad(dy, ids, g.offsets, g.limits,
+                                            g.V), None, None)
+
+
+def embedding_lookup(gather: EmbeddingGather,
+                     ids: torch.Tensor) -> torch.Tensor:
+    """``gather(ids)``, differentiable with respect to ``gather.table`` (a
+    float32 table that requires its gradient) through
+    :func:`embedding_gather_table_grad`; the ids take no gradient."""
+    if gather.dtype != torch.float32:
+        raise ValueError("embedding_lookup differentiates a float32 table "
+                         f"only, not {gather.dtype}")
+    return _Lookup.apply(gather.table, ids, gather)

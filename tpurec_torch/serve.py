@@ -66,9 +66,10 @@ def quantize_table(table, dtype: str):
 
 
 class Predictor:
-    """Batch predictor for a ported model or a CDC checkpoint on its
-    base.  Multi-tower models select each row's tower; single-head models
-    (DCN, HiNet, ADL, AdaSparse) return their one logit.  The forward runs
+    """Batch predictor for any model of the registry or a CDC checkpoint
+    on its base.  Multi-tower models select each row's tower; single-head
+    models (DeepFM, DCN, DCNv2, AutoInt, HiNet, ADL, AdaSparse, xDeepFM,
+    IPNN/OPNN, AFM) return their one logit.  The forward runs
     in ``cfg.train.compute_dtype``, as it was trained.
 
     ``cfg`` must be the TRAINING config; for ``cfg.model.model == "cdc"``

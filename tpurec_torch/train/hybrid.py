@@ -32,9 +32,16 @@ losses) and ``indexed=True`` (the device-resident dataset's loop:
 :meth:`HybridTrainStep.one_step` with a loss head of its own.
 The training forward runs inside the ``tcfg.compute_dtype`` scope
 (``hybrid.py:389``); its backward, outside the block, rounds at the casts
-the forward recorded.  ``update_stacked`` (CDC's row lanes) and
-``embedding_update`` other than ``"hybrid"`` raise NotImplementedError;
-see ROADMAP.md.
+the forward recorded.  ``update_stacked`` (CDC's row lanes) raises
+NotImplementedError; see ROADMAP.md.  The step reads no
+``embedding_update``: the JAX package's maker does not either, and its
+CDC engine runs ``"dense"`` through it.
+
+:class:`SparseTrainStep` is the ``"sparse"`` update
+(``tpurec/train/sparse.py:85-223``): steps 1-3 as above, then, in place of
+step 4, lazy Adam on the touched rows
+(:class:`tpurec_torch.train.sparse.LazyAdamRows`); it returns the loss
+before the table's L2 term, as the JAX step does.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.ops.fused_adam import fused_sparse_adam
 from tpurec_torch.train.reg import regularization_loss
-from tpurec_torch.train.sparse import (SparseEmbedState,
+from tpurec_torch.train.sparse import (LazyAdamRows, SparseEmbedState,
                                        init_sparse_opt_state, moments_dtype)
 from tpurec_torch.train.step import (TrainState, bce_with_logits,
                                      make_optimizer, select_tower)
@@ -175,7 +182,9 @@ def dense_named_parameters(model: torch.nn.Module):
 def init_train_state(model: torch.nn.Module, tcfg: TrainConfig,
                      device=None) -> TrainState:
     """Move ``model`` to ``device`` (the card unless the caller asks for
-    the CPU) and give it a dense Adam and zero table moments."""
+    the CPU) and give it a dense Adam and zero table moments: the state of
+    the ``"hybrid"`` and ``"sparse"`` updates (the ``"dense"`` one's is
+    :func:`tpurec_torch.train.step.init_dense_train_state`)."""
     dev = resolve_device(device)
     model.to(dev)
     table = model.get_parameter(TABLE)
@@ -294,16 +303,54 @@ def make_hybrid_train_step(model, tcfg: TrainConfig, reg_coefs,
                            big_vocab_threshold: int = BIG_VOCAB_THRESHOLD,
                            indexed: bool = False):
     """The train step (or K-step loop when ``scan_k``) with the hybrid
-    table update (``hybrid.py:359-469``).  ``reg_coefs`` maps parameter
-    names to L2 coefficients (:func:`tpurec_torch.train.reg.reg_coef_tree`);
-    the table's entry is dropped, its L2 reaches the table through
-    ``coef``.  ``indexed=True`` returns the device-resident dataset's loop,
-    ``scan_steps_idx(ts, Xdev, ydev, d2g, idxs, masks, generator) -> [k]
-    losses`` (:meth:`HybridTrainStep.scan_steps_idx`)."""
-    if tcfg.embedding_update != "hybrid":
-        raise NotImplementedError(
-            f"embedding_update={tcfg.embedding_update!r} is not ported: the "
-            "port trains with 'hybrid' only; see ROADMAP.md")
+    table update (``hybrid.py:359-469``), whatever ``embedding_update``
+    says.  ``reg_coefs`` maps parameter names to L2 coefficients
+    (:func:`tpurec_torch.train.reg.reg_coef_tree`); the table's entry is
+    dropped, its L2 reaches the table through ``coef``.  ``indexed=True``
+    returns the device-resident dataset's loop, ``scan_steps_idx(ts, Xdev,
+    ydev, d2g, idxs, masks, generator) -> [k] losses``
+    (:meth:`HybridTrainStep.scan_steps_idx`)."""
     step = HybridTrainStep(model, tcfg, reg_coefs, multi_tower,
                            l2_reg_embedding, scan_k, big_vocab_threshold)
     return step.scan_steps_idx if indexed else step
+
+
+class SparseTrainStep(HybridTrainStep):
+    """The ``"sparse"`` update's step (``tpurec/train/sparse.py:85-223``):
+    the hybrid step's gather, forward and dense Adam, then lazy Adam on
+    the touched table rows (:class:`LazyAdamRows`, ``dedup`` "scatter" or
+    "sort", chosen by the table's size when None).  Returns the loss
+    before the table's L2 term.  The state is :func:`init_train_state`'s
+    (moments in ``embedding_moments_dtype``)."""
+
+    def __init__(self, model, tcfg: TrainConfig, reg_coefs,
+                 multi_tower: bool, l2_reg_embedding: float,
+                 scan_k: Optional[int] = None, dedup: Optional[str] = None):
+        super().__init__(model, tcfg, reg_coefs, multi_tower,
+                         l2_reg_embedding, scan_k)
+        self.rows_update = LazyAdamRows(model.field_dims, tcfg,
+                                        l2_reg_embedding, dedup)
+
+    def one_step(self, ts: TrainState, batch, generator, head=None
+                 ) -> torch.Tensor:
+        loss, rows, g_rows = self.loss_and_grads(ts, batch, generator, head)
+        ts.optimizer.step()
+        table = ts.model.get_parameter(TABLE).detach()
+        self.rows_update.update(table, ts.emb_opt,
+                                batch["x"].to(table.device), rows, g_rows,
+                                ts.step + 1)
+        ts.step += 1
+        return loss
+
+
+def make_sparse_train_step(model, tcfg: TrainConfig, reg_coefs,
+                           multi_tower: bool, l2_reg_embedding: float,
+                           scan_k: Optional[int] = None,
+                           dedup: Optional[str] = None) -> SparseTrainStep:
+    """The ``"sparse"`` update's step, or its K-step loop when ``scan_k``
+    (``tpurec/train/sparse.py:85-223``): ``reg_coefs`` as
+    :func:`make_hybrid_train_step`'s (the table's L2 reaches the touched
+    rows through ``l2_reg_embedding``); ``dedup`` as
+    :class:`LazyAdamRows`'s."""
+    return SparseTrainStep(model, tcfg, reg_coefs, multi_tower,
+                           l2_reg_embedding, scan_k, dedup)

@@ -5,13 +5,22 @@ epoch loop, weighted-mean-AUC early stopping with patience (run.py:440-468),
 best-state save/reload (run.py:447-459,758-760), and global + per-domain
 evaluation (run.py:647-711).
 
-- An epoch over a dataset that fits :attr:`Trainer.DEVICE_RESIDENT_BYTES`
-  runs device-resident: the split is copied to the card once, and each
-  step gathers its batch there by row index
-  (:meth:`tpurec_torch.train.hybrid.HybridTrainStep.scan_steps_idx`); a
-  larger one is batched on the host (``ArrayBatcher`` on a prefetch
-  thread, K stacked batches a call).  Both follow the JAX package's batch
-  schedule, so they differ only in their padding rows, which are masked.
+- ``cfg.train.embedding_update`` picks the table's update as the JAX
+  package's Trainer does (``tpurec/train/loop.py:126-177``): ``"hybrid"``
+  (the default, :func:`tpurec_torch.train.hybrid.make_hybrid_train_step`),
+  ``"sparse"`` (:func:`~tpurec_torch.train.hybrid.make_sparse_train_step`,
+  lazy Adam on the touched rows) or ``"dense"``
+  (:func:`tpurec_torch.train.step.make_train_step`, one Adam over every
+  parameter).
+- Under ``"hybrid"``, an epoch over a dataset that fits
+  :attr:`Trainer.DEVICE_RESIDENT_BYTES` runs device-resident: the split
+  is copied to the card once, and each step gathers its batch there by
+  row index (:meth:`tpurec_torch.train.hybrid.HybridTrainStep.
+  scan_steps_idx`); a larger one, and every epoch of the other two
+  updates (which have no ``scan_steps_idx``, as in the JAX package), is
+  batched on the host (``ArrayBatcher`` on a prefetch thread, K stacked
+  batches a call).  Both follow the JAX package's batch schedule, so they
+  differ only in their padding rows, which are masked.
 - Losses stay on the device; the host sums them only at log points and
   at the end of the epoch.
 - Dropout draws from one ``torch.Generator`` on the device, seeded from
@@ -23,8 +32,7 @@ evaluation (run.py:647-711).
 
 Not ported (each raises NotImplementedError naming ROADMAP.md): a mesh
 (``mesh``/``shardings``, ``train_epoch_multihost``,
-``evaluate_streaming_multihost``) and ``embedding_update`` other than
-``"hybrid"``.
+``evaluate_streaming_multihost``).
 """
 
 from __future__ import annotations
@@ -49,11 +57,16 @@ from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
                                            make_backend, msgpack_dumps,
                                            msgpack_restore)
 from tpurec_torch.train.hybrid import (init_train_state,
-                                       make_hybrid_train_step)
+                                       make_hybrid_train_step,
+                                       make_sparse_train_step)
 from tpurec_torch.train.reg import reg_coef_tree
-from tpurec_torch.train.step import (HostHistAccumulator, make_eval_step,
+from tpurec_torch.train.step import (HostHistAccumulator,
+                                     init_dense_train_state, make_eval_step,
                                      make_indexed_eval_scan,
-                                     make_streaming_eval_scan)
+                                     make_streaming_eval_scan,
+                                     make_train_step)
+
+EMBEDDING_UPDATES = ("hybrid", "sparse", "dense")
 
 
 def _jsonable(obj):
@@ -128,10 +141,10 @@ class Trainer:
         self.domain2group = np.asarray(domain2group, np.int32)
         if name in ("cdc",):
             raise ValueError("use the CDC trainer for CDC")
-        if cfg.train.embedding_update != "hybrid":
-            raise _not_ported(
-                f"embedding_update={cfg.train.embedding_update!r}",
-                "'The rest of the zoo' (the 'dense' and 'sparse' updates)")
+        if cfg.train.embedding_update not in EMBEDDING_UPDATES:
+            raise ValueError(f"embedding_update must be one of "
+                             f"{EMBEDDING_UPDATES}, got "
+                             f"{cfg.train.embedding_update!r}")
         # ADL routes over n_cluster towers (run.py:43); adl-split, as every
         # other model, over the grouping's (tpurec/train/loop.py:100-102)
         self.n_tower = (cfg.cdc.n_cluster if name == "adl"
@@ -150,16 +163,28 @@ class Trainer:
             [n for n, _ in self.model.named_parameters()], name,
             cfg.model.l2_reg_embedding, cfg.model.l2_reg_linear,
             cfg.model.l2_reg_dnn)
-        self.state = init_train_state(self.model, tcfg, self.device)
+        self.embedding_update = tcfg.embedding_update
         # one step object (one table updater, one prepared gather) serves
-        # the single step, the K-step loop and the indexed loop
-        step = make_hybrid_train_step(
-            self.model, tcfg, self.reg_coefs, self.multi_tower,
-            l2_reg_embedding=cfg.model.l2_reg_embedding,
-            scan_k=tcfg.steps_per_dispatch)
+        # the single step, the K-step loop and (hybrid) the indexed loop
+        if self.embedding_update == "dense":
+            self.state = init_dense_train_state(self.model, tcfg,
+                                                self.device)
+            step = make_train_step(self.model, tcfg, self.reg_coefs,
+                                   self.multi_tower,
+                                   scan_k=tcfg.steps_per_dispatch)
+        else:
+            self.state = init_train_state(self.model, tcfg, self.device)
+            make = (make_hybrid_train_step
+                    if self.embedding_update == "hybrid"
+                    else make_sparse_train_step)
+            step = make(self.model, tcfg, self.reg_coefs, self.multi_tower,
+                        l2_reg_embedding=cfg.model.l2_reg_embedding,
+                        scan_k=tcfg.steps_per_dispatch)
         self.train_step = step.one_step
         self.scan_steps = step
-        self.scan_steps_idx = step.scan_steps_idx
+        self.scan_steps_idx = (step.scan_steps_idx
+                               if self.embedding_update == "hybrid"
+                               else None)
         self.eval_step = make_eval_step(self.model, self.multi_tower,
                                         compute_dtype=tcfg.compute_dtype)
         self.eval_scan = make_indexed_eval_scan(
@@ -258,7 +283,8 @@ class Trainer:
 
     def train_epoch(self, X: np.ndarray, y: np.ndarray, epoch_i: int,
                     log_fn=None) -> float:
-        if X.nbytes + y.nbytes <= self.DEVICE_RESIDENT_BYTES:
+        if (self.scan_steps_idx is not None
+                and X.nbytes + y.nbytes <= self.DEVICE_RESIDENT_BYTES):
             return self._train_epoch_device_resident(X, y, epoch_i, log_fn)
         bs = self.cfg.train.bs
         batcher = ArrayBatcher(

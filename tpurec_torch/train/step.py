@@ -9,6 +9,10 @@
   before the moments, as the reference's run.py:720-723 does);
 - :class:`TrainState` holds a model, its dense optimizer, the embedding
   table's Adam moments and the step count;
+- :func:`make_train_step` is the ``"dense"`` embedding update's step
+  (``step.py:73-175``): autograd through the lookup, one
+  ``torch.optim.Adam`` over every parameter, the table included
+  (:func:`init_dense_train_state`);
 - the eval steps (``step.py:178-370``): :func:`make_eval_step`,
   :func:`make_indexed_eval_scan` (batches gathered by row index from a
   dataset on the device), the streaming-eval accumulators
@@ -24,7 +28,8 @@ waits for the card.  Every eval forward runs inside its
 ``compute_dtype`` scope (:mod:`tpurec_torch.nn.precision`), as the JAX
 package's does (``step.py:189,311,341,360``).
 
-The hybrid training step itself is :mod:`tpurec_torch.train.hybrid`.
+The hybrid and ``"sparse"`` training steps are
+:mod:`tpurec_torch.train.hybrid`.
 """
 
 from __future__ import annotations
@@ -38,10 +43,12 @@ import torch
 import torch.nn.functional as Fn
 
 from tpurec_torch.config import TrainConfig
+from tpurec_torch.device import resolve_device
 from tpurec_torch.metrics.metrics import BIN_P_MAX
 from tpurec_torch.nn.precision import check_compute_dtype
 from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
+from tpurec_torch.train.reg import regularization_loss
 from tpurec_torch.train.sparse import SparseEmbedState
 
 # the per-row log loss's cap, -log(1e-15), as metrics.log_loss_score clips
@@ -104,17 +111,98 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
 
 @dataclasses.dataclass
 class TrainState:
-    """What the hybrid step reads and updates in place.
+    """What a training step reads and updates in place.
 
     ``model`` holds the table (``embedding.table``), the dense parameters
-    and the BN buffers; ``optimizer`` steps every parameter but the table;
-    ``emb_opt`` holds the table's Adam moments; ``step`` counts the steps
-    taken (the next one is ``step + 1``, Adam's 1-based count)."""
+    and the BN buffers.  Under the ``"hybrid"`` and ``"sparse"`` updates
+    ``optimizer`` steps every parameter but the table and ``emb_opt``
+    holds the table's Adam moments; under ``"dense"`` ``optimizer`` steps
+    the table too, with float32 moments, and ``emb_opt`` is None.
+    ``step`` counts the steps taken (the next one is ``step + 1``, Adam's
+    1-based count)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    emb_opt: SparseEmbedState
+    emb_opt: Optional[SparseEmbedState]
     step: int = 0
+
+
+def init_dense_train_state(model: torch.nn.Module, tcfg: TrainConfig,
+                           device=None) -> TrainState:
+    """The ``"dense"`` update's state: ``model`` on ``device`` (the card
+    unless the caller asks for the CPU) and one Adam over every parameter.
+    Its moments are float32 whatever ``embedding_moments_dtype`` says, as
+    the JAX package's ``tx.init(params)`` (``tpurec/train/loop.py:
+    133-134``)."""
+    model.to(resolve_device(device))
+    return TrainState(model=model,
+                      optimizer=make_optimizer(model.parameters(), tcfg),
+                      emb_opt=None, step=0)
+
+
+class DenseTrainStep:
+    """The ``"dense"`` embedding update's step (``tpurec/train/step.py:
+    73-175``): ``step(ts, batch, generator) -> loss`` (with ``scan_k``,
+    ``step(ts, batches, generator) -> [K] losses`` over batches stacked on
+    a leading K axis), updating ``ts`` in place.
+
+    The training forward looks the batch up in the table with autograd
+    recording (kernel 1 on the card, its backward ``index_add_``:
+    :func:`tpurec_torch.ops.embedding.embedding_lookup`); the loss is the
+    masked BCE plus the L2 of every parameter in ``reg_coefs``, the
+    table's included, and one ``torch.optim.Adam`` steps every parameter.
+    The returned loss is that whole loss."""
+
+    def __init__(self, model, tcfg: TrainConfig, reg_coefs,
+                 multi_tower: bool, scan_k: Optional[int] = None):
+        check_compute_dtype(tcfg.compute_dtype)
+        self.tcfg = tcfg
+        self.reg_coefs = dict(reg_coefs)
+        self.multi_tower = multi_tower
+        self.scan_k = scan_k
+
+    def loss_and_grads(self, ts: TrainState, batch, generator
+                       ) -> torch.Tensor:
+        """The loss, with every parameter's gradient left in its
+        ``.grad``."""
+        model = ts.model
+        dev = model.get_parameter("embedding.table").device
+        batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+        model.train()
+        with _precision_scope(self.tcfg.compute_dtype):
+            out = model(batch["x"], group=batch.get("group"), train=True,
+                        row_mask=batch.get("mask"), generator=generator)
+        logit = (select_tower(out, batch["group"]) if self.multi_tower
+                 else out)
+        loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
+        loss = loss + regularization_loss(model.named_parameters(),
+                                          self.reg_coefs)
+        ts.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        return loss.detach()
+
+    def one_step(self, ts: TrainState, batch, generator) -> torch.Tensor:
+        loss = self.loss_and_grads(ts, batch, generator)
+        ts.optimizer.step()
+        ts.step += 1
+        return loss
+
+    def __call__(self, ts: TrainState, batch, generator) -> torch.Tensor:
+        if not self.scan_k:
+            return self.one_step(ts, batch, generator)
+        return torch.stack([
+            self.one_step(ts, {k: v[i] for k, v in batch.items()}, generator)
+            for i in range(batch["x"].shape[0])])
+
+
+def make_train_step(model, tcfg: TrainConfig, reg_coefs, multi_tower: bool,
+                    scan_k: Optional[int] = None) -> DenseTrainStep:
+    """The ``"dense"`` update's step, or its K-step loop when ``scan_k``
+    (``tpurec/train/step.py``'s ``make_train_step`` and
+    ``make_scan_train_steps``).  ``reg_coefs`` maps parameter names to L2
+    coefficients (:func:`tpurec_torch.train.reg.reg_coef_tree`), the
+    table's included; the state is :func:`init_dense_train_state`'s."""
+    return DenseTrainStep(model, tcfg, reg_coefs, multi_tower, scan_k)
 
 
 def _eval_logit(model, x, group, multi_tower: bool,
