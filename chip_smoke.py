@@ -1,6 +1,6 @@
 """Drive tpurec_torch's serving path, training step (under each embedding
-update), training harness and CDC engine on one CUDA card, for each model
-it ports, in float32 and in bf16 compute, and check them.
+update), training harness, CDC engine and CLI on one CUDA card, for each
+model it ports, in float32 and in bf16 compute, and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -165,6 +165,26 @@ Phases (any failure exits non-zero and prints no result line):
     untouched rows and moments bitwise unchanged; one Trainer.fit epoch
     of DeepFM (table init N(0, 0.01**2)) under each of the three updates
     at phase 16's settings, valid AUC at least 0.65 and ms a step.
+21. the CLI (``tpurec_torch.cli.main``, in-process, the kernel counters
+    read around each run; every argv with --mesh_data -1 and a seed):
+    (a) MMoE at ModelConfig's widths, 2 epochs of 131,072 synthetic rows:
+    finite valid and test AUC, valid at least 0.65, a domain_auc key a
+    domain, train_loss records in the JSONL log, the checkpoint, #1, #2,
+    #3 and #6's pass once a step (and #1, #2 a forward per eval batch)
+    against the trainer's schedule, ms a step; (b) CDC on PEPNet, EPNet
+    and STAR (32,768 rows, one matrix update each): the clustering, a
+    finite valid AUC, the checkpoint served by predictor_from_checkpoint
+    on the card against the CPU within 1e-4; (c) --resume from (a)'s
+    checkpoint (1 epoch), --domain_filter '[0,2,4]' --hash_buckets
+    '{0: 16}' on DeepFM (only the kept domains in domain_auc), bf16
+    compute on MMoE (its valid AUC beside (a)'s first epoch's); (d)
+    ``python3 -m tpurec_torch.cli`` as a subprocess (rc 0, the result as
+    its last line), its checkpoint through ``python3 -m
+    tpurec_torch.serve`` on the card against the CPU within 1e-4, and a
+    ``utils.profiling.trace`` of 8 of (a)'s steps naming #1, #2 and #3
+    with a StepTimer summary; (e) a preprocessed Ali-CCP CSV of 131,072
+    rows at the flagship's 23 fields (written with numpy, read by the
+    CLI with pandas) trained for an epoch with (a)'s checks.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -3965,6 +3985,435 @@ def updates_main_path(dev, rng, tag):
     return out
 
 
+# -- the CLI on the card (phase 21) -------------------------------------------
+
+CLI_ROWS = 131072               # (a) and (e): phase 16's rows
+CLI_SMALL_ROWS = 32768          # (b)-(d): the CDC fits and the options
+CLI_AUC_MIN = 0.65              # as phase 16
+CLI_TRACE_STEPS = 8
+CLI_SYMS = ("gather_kernel", "field_attention_kernel",
+            "field_attention_bwd_kernel")          # #1, #2, #3
+CLI_BASES = ("pepnet", "epnet", "star")
+# the CLI's Ali-CCP columns (tpurec_torch/cli.py load_dataset), in
+# FIELD_DIMS' order
+CLI_ALICCP_FIELDS = ("userid", "121", "122", "124", "125", "126", "127",
+                     "128", "129", "itemid", "domain", "207", "210", "216",
+                     "508", "509", "702", "853", "109_14", "110_14",
+                     "127_14", "150_14", "301")
+# (e) is in because the card's machine has pandas (3.0.2 there): the CLI
+# reads a preprocessed CSV with pandas, as the JAX package's does
+
+
+class _CliRecorder:
+    """Around one ``tpurec_torch.cli.main`` call: the trainers it builds
+    (``Trainer`` and ``CDCTrainer`` replaced by subclasses that keep
+    themselves, the split ``fit`` gets and each ``train_epoch``'s host
+    seconds, synchronized), the kernel counters zeroed before and read
+    after, and the call's stdout and stderr."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.trainers = []
+
+    def _sub(self, base):
+        rec = self
+
+        class Recorded(base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.cli_epoch_s, self.cli_split = [], None
+                rec.trainers.append(self)
+
+            def fit(self, train, valid, test=None, **k):
+                self.cli_split = train
+                self.cli_valid, self.cli_test = valid[1], test[1]
+                return super().fit(train, valid, test=test, **k)
+
+            def train_epoch(self, *a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = super().train_epoch(*a, **k)
+                torch.cuda.synchronize()
+                self.cli_epoch_s.append(time.perf_counter() - t0)
+                return r
+
+        return Recorded
+
+    def run(self, argv):
+        """-> (main's output, launches, stdout lines, seconds)."""
+        import contextlib
+        import io
+
+        import tpurec_torch.cdc
+        import tpurec_torch.train
+        from tpurec_torch import cli
+
+        saved = (tpurec_torch.train.Trainer, tpurec_torch.cdc.CDCTrainer)
+        tpurec_torch.train.Trainer = self._sub(saved[0])
+        tpurec_torch.cdc.CDCTrainer = self._sub(saved[1])
+        out_buf, err_buf = io.StringIO(), io.StringIO()
+        for fn in self.counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out_buf), \
+                    contextlib.redirect_stderr(err_buf):
+                out = cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            tpurec_torch.train.Trainer, tpurec_torch.cdc.CDCTrainer = saved
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in self.counters.items()}
+        lines = out_buf.getvalue().splitlines()
+        check(bool(lines) and json.loads(lines[-1]).get("checkpoint")
+              == out.get("checkpoint"),
+              f"cli {argv[:2]}: the last line printed is not the result")
+        return out, launches, lines, secs
+
+
+def cli_counters():
+    """Every kernel wrapper's launch counter, by the kernels line's names
+    (``field_attention_train`` counts the stack's eval launches too)."""
+    from tpurec_torch.ops.attention import (attention_layer_bwd,
+                                            fused_attention_layer)
+    from tpurec_torch.ops.cross_network import (cross_network,
+                                                cross_network_bwd)
+
+    return {**train_counters("mmoe"), "cross_network": cross_network,
+            "cross_network_bwd": cross_network_bwd,
+            "attention_layer": fused_attention_layer,
+            "attention_layer_bwd": attention_layer_bwd}
+
+
+def _cli_argv(tmp, name, seed, opts):
+    import os
+
+    return opts + ["--mesh_data", "-1", "--is_set_seed", "1", "--seed",
+                   str(seed), "--save_path", os.path.join(tmp, name),
+                   "--log_path", os.path.join(tmp, f"{name}.jsonl")]
+
+
+def _cli_log(tmp, name):
+    import os
+
+    with open(os.path.join(tmp, f"{name}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _cli_fit_checks(tr, out, log, launches, n_domain, what):
+    """(a) and (e)'s checks on a Trainer run of the CLI.  -> summary."""
+    import os
+
+    valid, test = out["valid"], out["test"]
+    check(valid is not None, f"{what}: no valid result (mean_auc NaN in "
+          "every epoch)")
+    for split, r in (("valid", valid), ("test", test)):
+        check(np.isfinite(r["total_auc"]),
+              f"{what}: {split} total_auc {r['total_auc']} not finite")
+        check(sorted(r["domain_auc"]) == list(range(n_domain)),
+              f"{what}: {split} domain_auc keys {sorted(r['domain_auc'])}")
+    check(valid["total_auc"] >= CLI_AUC_MIN,
+          f"{what}: valid total_auc {valid['total_auc']} < {CLI_AUC_MIN}")
+    steps_log = [r for r in log if "it" in r]
+    evals = [r for r in log if "total_auc" in r]
+    check(len(steps_log) == len(evals) == len(tr.cli_epoch_s) >= 1
+          and all(np.isfinite(r["train_loss"]) for r in steps_log),
+          f"{what}: the JSONL log holds {len(steps_log)} train_loss and "
+          f"{len(evals)} eval records for {len(tr.cli_epoch_s)} epochs")
+    check(os.path.exists(out["checkpoint"]),
+          f"{what}: no checkpoint at {out['checkpoint']}")
+    bs = tr.cfg.train.bs
+    n_train = len(tr.cli_split[1])
+    n_steps = -(-n_train // bs)
+    n_epochs = len(evals)
+
+    def n_eval(split):
+        return tr._padded_index_batches(len(split), bs,
+                                        tr.EVAL_CHUNK)[0].shape[0]
+
+    fwd = n_epochs * n_eval(tr.cli_valid) + n_eval(tr.cli_test)
+    # #6's rows ride in the sweep only where the schema has big fields
+    big = bool(tr.model.embedding.layout.big_fields)
+    want = {"embedding_gather": n_epochs * n_steps + fwd,
+            "field_attention_train": n_epochs * n_steps + fwd,
+            "field_attention_bwd": n_epochs * n_steps,
+            "fused_decay_adam": n_epochs * n_steps,
+            "fused_sparse_adam": n_epochs * n_steps if big else 0}
+    want.update({k: 0 for k in launches if k not in want})
+    check(launches == want, f"{what}: kernel launches {launches}, expected "
+          f"{want} ({n_epochs} epochs of {n_steps} steps, a forward per "
+          f"eval batch; big fields {big})")
+    step_ms = [s / n_steps * 1e3 for s in tr.cli_epoch_s]
+    return {"valid_total_auc": valid["total_auc"],
+            "valid_mean_auc": valid["mean_auc"],
+            "valid_total_loss": valid["total_loss"],
+            "test_total_auc": test["total_auc"],
+            "valid_auc_by_epoch": [r["total_auc"] for r in evals],
+            "train_rows": n_train, "epochs": n_epochs, "steps": n_steps,
+            "step_ms": step_ms, "launches": launches}
+
+
+def _aliccp_csv(path, rng, n):
+    """A preprocessed Ali-CCP table written with numpy: the CLI's 23
+    feature columns at FIELD_DIMS (each field's largest id present), a
+    ``click`` that depends on the small fields and the domain, and
+    ``train_tag`` 0/1/2 at about 90/5/5%."""
+    X = np.stack([rng.integers(0, d, n) for d in FIELD_DIMS], 1)
+    X[np.arange(len(FIELD_DIMS)), np.arange(len(FIELD_DIMS))] = \
+        np.asarray(FIELD_DIMS) - 1
+    logit = np.zeros(n)
+    for f, d in enumerate(FIELD_DIMS):
+        if d <= 5000:
+            logit += rng.normal(0.0, 0.8, d)[X[:, f]]
+    click = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int64)
+    tag = rng.choice(3, n, p=[0.9, 0.05, 0.05])
+    np.savetxt(path, np.column_stack([X, click, tag]), fmt="%d",
+               delimiter=",", comments="",
+               header=",".join(CLI_ALICCP_FIELDS + ("click", "train_tag")))
+
+
+def cli_main_path(dev, tag):
+    """Phase 21: ``tpurec_torch.cli.main`` on the card, in-process, with the
+    kernel counters read around each run: (a) MMoE at ModelConfig's
+    widths, 2 epochs of 131,072 synthetic rows; (b) CDC on PEPNet, EPNet
+    and STAR with one matrix update each; (c) --resume, --domain_filter
+    with --hash_buckets on DeepFM, bf16 compute on MMoE; (d) the CLI and
+    the serving CLI as subprocesses, a torch.profiler trace of 8 of (a)'s
+    steps through utils.profiling; (e) the CSV branch on a preprocessed
+    Ali-CCP table at the flagship's fields.  -> (launches by run,
+    summary)."""
+    import os
+    import pickle
+    import shutil
+    import subprocess as sp
+    import tempfile
+
+    from tpurec_torch.data.preprocess import AliCCPPreprocessor
+    from tpurec_torch.serve import predictor_from_checkpoint
+    from tpurec_torch.utils.profiling import StepTimer, trace
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="cli_")
+    rng = np.random.default_rng(SEED + 21)
+    launches, summary = {}, {}
+
+    def run(name, opts, seed=SEED + 21):
+        rec = _CliRecorder(cli_counters())
+        out, n, lines, secs = rec.run(_cli_argv(tmp, name, seed, opts))
+        launches[name] = n
+        check(all(t.device.type == "cuda" for t in rec.trainers),
+              f"cli {name}: a trainer was not built on the card")
+        return out, rec.trainers[-1], n, _cli_log(tmp, name), secs
+
+    # (a) MMoE, 2 epochs, at ModelConfig's widths
+    mmoe = ["--model", "mmoe", "--dataset_name", "synthetic", "--n_rows",
+            str(CLI_ROWS), "--n_domain", "6", "--bs", "512"]
+    out_a, tr_a, n, log, secs = run("mmoe", mmoe + ["--epoch", "2"])
+    Xtr, ytr = tr_a.cli_split
+    summary["a_mmoe"] = a = {**_cli_fit_checks(tr_a, out_a, log, n, 6,
+                                               "cli mmoe"), "seconds": secs}
+    print(f"{tag} cli (a) mmoe: {a['epochs']} epochs of {a['steps']} steps "
+          f"({a['train_rows']} train rows) at "
+          + ", ".join(f"{m:.3f}" for m in a["step_ms"])
+          + f" ms a step (host clock); valid total_auc "
+          f"{a['valid_total_auc']:.5f} (by epoch "
+          + ", ".join(f"{v:.5f}" for v in a["valid_auc_by_epoch"])
+          + f"), test {a['test_total_auc']:.5f}; launches {n}; main "
+          f"{secs:.2f} s")
+
+    # (b) CDC on PEPNet, EPNet, STAR: one matrix update each
+    summary["b_cdc"] = {}
+    for base in CLI_BASES:
+        name = f"cdc_{base}"
+        out, tr, n, log, secs = run(name, [
+            "--model", "cdc", "--base_model", base, "--dataset_name",
+            "synthetic", "--n_rows", str(CLI_SMALL_ROWS), "--n_domain", "6",
+            "--epoch", "1", "--bs", "512", "--warmup_step", "10",
+            "--update_interval", "100000", "--n_causal_mask", "4"])
+        upd = [r["cdc_update_seconds"] for r in log
+               if "cdc_update_seconds" in r]
+        auc = out["valid"]["total_auc"]
+        check(len(upd) == 1, f"cli {name}: {len(upd)} matrix updates")
+        check(np.isfinite(auc), f"cli {name}: valid total_auc {auc}")
+        check(n["embedding_gather"] > 0 and n["fused_decay_adam"] > 0,
+              f"cli {name}: kernel launches {n}")
+        pred = predictor_from_checkpoint(out["checkpoint"])
+        check(pred.device.type == "cuda",
+              f"cli {name}: the checkpoint's Predictor is not on the card")
+        Xs = tr.cli_split[0][:2000]
+        p_card = pred(Xs)
+        p_cpu = predictor_from_checkpoint(out["checkpoint"],
+                                          device="cpu")(Xs)
+        err = float(np.max(np.abs(p_card - p_cpu)))
+        check(p_card.shape == (len(Xs),) and np.all(np.isfinite(p_card))
+              and err <= PRED_TOL, f"cli {name}: checkpoint served on the "
+              f"card vs the CPU: max abs err {err}")
+        summary["b_cdc"][base] = {
+            "domain2group": out["domain2group_list"],
+            "s_group2domain": out["s_group2domain_list"],
+            "valid_total_auc": auc, "test_total_auc":
+            out["test"]["total_auc"], "update_seconds": upd[0],
+            "launches": n, "serve_err": err, "seconds": secs}
+        print(f"{tag} cli (b) cdc on {base}: clustering "
+              f"{out['domain2group_list']} (groups "
+              f"{out['s_group2domain_list']}); matrix update {upd[0]:.3f} "
+              f"s; valid total_auc {auc:.5f}; checkpoint served on the card "
+              f"vs CPU max abs err {err:.3g}; launches {n}; main "
+              f"{secs:.2f} s")
+        del pred, tr
+
+    # (c) --resume, --domain_filter + --hash_buckets, bf16 compute
+    out, tr, n, log, secs = run("resume", mmoe + [
+        "--epoch", "1", "--resume", out_a["checkpoint"]])
+    step0 = int(tr.state.step) - len(tr.cli_epoch_s) * -(
+        -len(tr.cli_split[1]) // 512)
+    check(step0 == 2 * a["steps"], f"cli resume: started at step {step0}, "
+          f"(a) ended at {2 * a['steps']}")
+    check(np.isfinite(out["valid"]["total_auc"]),
+          "cli resume: valid total_auc not finite")
+    summary["c_resume"] = {"valid_total_auc": out["valid"]["total_auc"],
+                           "start_step": step0, "launches": n}
+    print(f"{tag} cli (c) --resume (a)'s checkpoint at step {step0}: 1 "
+          f"epoch, valid total_auc {out['valid']['total_auc']:.5f}")
+    del tr
+    out, tr, n, log, secs = run("deepfm_filter", [
+        "--dataset_name", "synthetic", "--n_rows", str(CLI_SMALL_ROWS),
+        "--n_domain", "6", "--epoch", "1", "--domain_filter", "[0,2,4]",
+        "--hash_buckets", "{0: 16}"])
+    keys = sorted(out["valid"]["domain_auc"])
+    check(keys == [0, 1, 2] and sorted(out["test"]["domain_auc"]) == keys,
+          f"cli deepfm --domain_filter: domain_auc keys {keys}")
+    check(tr.model.field_dims[0] == 16 and tr.n_domain == 3,
+          f"cli deepfm --hash_buckets: field dims {tr.model.field_dims}")
+    check(np.isfinite(out["valid"]["total_auc"]) and n["embedding_gather"]
+          > 0, f"cli deepfm: valid {out['valid']['total_auc']}, {n}")
+    summary["c_filter"] = {"valid_total_auc": out["valid"]["total_auc"],
+                           "domain_auc_keys": keys, "launches": n}
+    print(f"{tag} cli (c) deepfm --domain_filter [0,2,4] --hash_buckets "
+          f"{{0: 16}}: domain_auc keys {keys}, valid total_auc "
+          f"{out['valid']['total_auc']:.5f}")
+    del tr
+    out, tr, n, log, secs = run("mmoe_bf16", mmoe + [
+        "--epoch", "1", "--compute_dtype", "bfloat16"])
+    check(tr.cfg.train.compute_dtype == "bfloat16" and np.isfinite(
+        out["valid"]["total_auc"]), "cli bf16: not run in bf16, or no AUC")
+    bf16_ms = tr.cli_epoch_s[0] / -(-len(tr.cli_split[1]) // 512) * 1e3
+    summary["c_bf16"] = {"valid_total_auc": out["valid"]["total_auc"],
+                         "f32_epoch0_valid_auc": a["valid_auc_by_epoch"][0],
+                         "step_ms": bf16_ms, "launches": n}
+    print(f"{tag} cli (c) mmoe --compute_dtype bfloat16: 1 epoch, valid "
+          f"total_auc {out['valid']['total_auc']:.5f} beside (a)'s epoch 0 "
+          f"{a['valid_auc_by_epoch'][0]:.5f} (float32); {bf16_ms:.3f} ms a "
+          "step")
+    del tr
+
+    # (d) the CLI and the serving CLI as subprocesses; a trace of 8 steps
+    t0 = time.perf_counter()
+    argv = _cli_argv(tmp, "sub", SEED + 22, [
+        "--dataset_name", "synthetic", "--n_rows", str(CLI_SMALL_ROWS),
+        "--n_domain", "6", "--epoch", "1"])
+    proc = sp.run([sys.executable, "-m", "tpurec_torch.cli", *argv],
+                  cwd=root, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m tpurec_torch.cli exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.splitlines()[-1])
+    ck = res["checkpoint"]
+    check(os.path.exists(ck) and res["valid"] is not None
+          and np.isfinite(res["valid"]["total_auc"]),
+          f"python -m tpurec_torch.cli: result {str(res)[:300]}")
+    with open(ck, "rb") as f:
+        fd = pickle.load(f)["field_dims"]
+    Xs = np.stack([rng.integers(0, d, N_ROWS) for d in fd], 1)
+    xin, pout = os.path.join(tmp, "X.npy"), os.path.join(tmp, "p.npy")
+    np.save(xin, Xs)
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-m", "tpurec_torch.serve", "--ckpt", ck,
+                   "--input", xin, "--output", pout], cwd=root,
+                  capture_output=True, text=True, timeout=600)
+    serve_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m tpurec_torch.serve exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    p_card = np.load(pout)
+    p_cpu = predictor_from_checkpoint(ck, device="cpu")(Xs)
+    serve_err = float(np.max(np.abs(p_card - p_cpu)))
+    check(p_card.shape == (N_ROWS,) and serve_err <= PRED_TOL,
+          f"the serving CLI on the card vs the CPU: max abs err {serve_err}")
+    print(f"{tag} cli (d) python -m tpurec_torch.cli (deepfm, 1 epoch) rc 0 "
+          f"in {sub_s:.2f} s, valid total_auc "
+          f"{res['valid']['total_auc']:.5f}; python -m tpurec_torch.serve "
+          f"{N_ROWS} rows in {serve_s:.2f} s, card vs CPU max abs err "
+          f"{serve_err:.3g} (tol {PRED_TOL})")
+
+    Xdev, ydev, d2g = tr_a._device_dataset(Xtr, ytr)
+    idx = torch.as_tensor(rng.integers(0, len(ytr), (CLI_TRACE_STEPS + 2,
+                                                     512), dtype=np.int32),
+                          device=dev)
+    ones = torch.ones((CLI_TRACE_STEPS + 2, 512), device=dev)
+
+    def step(i):
+        tr_a.scan_steps_idx(tr_a.state, Xdev, ydev, d2g, idx[i:i + 1],
+                            ones[i:i + 1], tr_a.dropout_gen)
+        torch.cuda.synchronize()
+
+    step(0)
+    step(1)
+    timer = StepTimer(warmup=0)
+    tdir = os.path.join(tmp, "trace")
+    with trace(tdir):
+        open_capture_window()
+        for i in range(2, CLI_TRACE_STEPS + 2):
+            with timer:
+                step(i)
+    files = sorted(os.listdir(tdir))
+    check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+          f"utils.profiling.trace wrote {files}")
+    with open(os.path.join(tdir, files[0])) as f:
+        text = f.read()
+    seen = {s: text.count(s) for s in CLI_SYMS}
+    check(all(seen.values()), f"the trace names kernels {seen}")
+    steps = timer.summary()
+    check(steps.get("steps") == CLI_TRACE_STEPS, f"StepTimer {steps}")
+    print(f"{tag} cli (d) utils.profiling.trace of {CLI_TRACE_STEPS} of (a)'s "
+          f"steps: {files[0]} ({len(text) / 1e6:.1f} MB) names "
+          + ", ".join(f"{s} x{c}" for s, c in seen.items())
+          + "; StepTimer " + json.dumps(steps))
+    summary["d_serving"] = {"subprocess_seconds": sub_s,
+                            "serve_seconds": serve_s, "serve_err": serve_err,
+                            "trace_kernels": seen, "step_timer": steps}
+    del tr_a, Xdev, ydev, d2g
+    torch.cuda.empty_cache()
+
+    # (e) the CSV branch at the flagship's fields
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "aliccp")
+    os.makedirs(data_dir)
+    _aliccp_csv(AliCCPPreprocessor(data_dir).preprocess_path, rng, CLI_ROWS)
+    csv_s = time.perf_counter() - t0
+    out, tr, n, log, secs = run("aliccp", [
+        "--model", "mmoe", "--dataset_name", "aliccp", "--data_path",
+        data_dir, "--epoch", "1", "--bs", "512"])
+    check(tuple(tr.model.field_dims) == FIELD_DIMS and tr.n_domain ==
+          N_DOMAIN, f"cli aliccp: field dims {tr.model.field_dims}, "
+          f"{tr.n_domain} domains")
+    e = summary["e_aliccp"] = {
+        **_cli_fit_checks(tr, out, log, n, N_DOMAIN, "cli aliccp"),
+        "seconds": secs, "csv_write_seconds": csv_s,
+        "table_rows": int(sum(FIELD_DIMS))}
+    print(f"{tag} cli (e) mmoe on a preprocessed Ali-CCP CSV "
+          f"({CLI_ROWS} rows, the flagship's {e['table_rows']}-row table): "
+          f"{e['steps']} steps at {e['step_ms'][0]:.3f} ms a step (host "
+          f"clock); valid total_auc {e['valid_total_auc']:.5f}; launches "
+          f"{n}; main {secs:.2f} s (CSV written in {csv_s:.2f} s)")
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"cli phase: {summary['phase_seconds']:.1f} s")
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4324,6 +4773,9 @@ def main() -> int:
     zoo_s = time.perf_counter() - t20
     print(f"zoo and updates phase: {zoo_s:.1f} s")
 
+    # -- 21. the CLI on the card ------------------------------------------------
+    cli_launches, cli = cli_main_path(dev, tag)
+
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
         "field_attention": "tpurec/ops/attention_pallas.py:310",
@@ -4453,6 +4905,9 @@ def main() -> int:
                 by_zoo[key] = {"train": r["launches"][k["name"]]}
         if by_zoo:
             k["launches_zoo"] = by_zoo
+        key = ("field_attention_train" if k["name"] == "field_attention"
+               else k["name"])
+        k["launches_cli"] = {run: n[key] for run, n in cli_launches.items()}
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
@@ -4461,6 +4916,7 @@ def main() -> int:
                       "phase_seconds": routed_s}))
     print(json.dumps({"zoo": zoo, "updates": updates,
                       "phase_seconds": zoo_s}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)

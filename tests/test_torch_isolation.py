@@ -62,6 +62,54 @@ def test_port_entry_points_import_nothing_of_jax():
                    timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
 
 
+def test_cli_imports_no_pandas_and_no_jax():
+    """The CLI, with the data and utils packages, loads without pandas: the
+    CSV datasets' branch imports it when it runs."""
+    code = ("import sys\n"
+            "import tpurec_torch.cli, tpurec_torch.data, tpurec_torch.utils\n"
+            "import tpurec_torch.utils.profiling, tpurec_torch.data.fastcsv\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('pandas',)!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+
+
+def _imports_at(path: Path):
+    """(module, whether the import sits inside a function) for each
+    import statement of ``path``."""
+    tree = ast.parse(path.read_text(), str(path))
+    inner = {id(n) for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in ast.walk(f)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            yield name.split(".")[0], id(node) in inner
+
+
+def test_pandas_only_where_tpurec_imports_it():
+    """pandas: at the top of data/preprocess.py, and inside functions of
+    data/fastcsv.py (the fallback) and cli.py (the CSV datasets' branch);
+    nowhere else in the port, chip_smoke.py included."""
+    where = {}
+    for path in _port_files():
+        for name, inner in _imports_at(path):
+            if name == "pandas":
+                where.setdefault(path.relative_to(REPO).as_posix(),
+                                 set()).add(inner)
+    assert where == {"tpurec_torch/data/preprocess.py": {False},
+                     "tpurec_torch/data/fastcsv.py": {True},
+                     "tpurec_torch/cli.py": {True}}
+    pre = REPO / "tpurec_torch" / "data" / "preprocess.py"
+    assert not {n for n, _ in _imports_at(pre)} & set(FORBIDDEN)
+
+
 def _cfg():
     from tpurec_torch.config import Config, ModelConfig
 
@@ -99,6 +147,13 @@ def test_entry_points_refuse_to_run_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(_cfg(), (5, 7, 3), 3, 2, device="cuda")
     Trainer(_cfg(), (5, 7, 3), 3, 2, device="cpu")     # explicit CPU runs
+    from tpurec_torch.cli import main
+
+    argv = ["--n_rows", "300", "--epoch", "1", "--save_path", ""]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv + ["--device", "cuda"])
 
 
 def test_bf16_compute_is_refused():
