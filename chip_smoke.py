@@ -3,6 +3,7 @@ update), training harness, CDC engine and CLI on one CUDA card, for each
 model it ports, in float32 and in bf16 compute, and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py --phase 22 --draws 3   # the mesh alone
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -19,7 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
 3. hold each serving kernel against its plain PyTorch version on the card,
    at the flagship shapes and ragged batch sizes: the prepared gather
    (EmbeddingGather) bit-exact for float32, bfloat16 and int8 tables
-   (out-of-range ids included); the attention stack within 1e-4 at B = 1,
+   (out-of-range ids included), and with a row window (each half of the
+   table, a (., 2) mesh's shards) bit-exact against its plain version
+   with the window; the attention stack within 1e-4 at B = 1,
    R - 1, R, R + 1, 512, 513, 4096, 4097 (R its rows a block), bitwise
    repeatable, a NaN in one batch row kept out of its block-mates';
 4. the serving path: a Predictor of the flagship MMoE (23 Ali-CCP-shaped
@@ -185,6 +188,25 @@ Phases (any failure exits non-zero and prints no result line):
     with a StepTimer summary; (e) a preprocessed Ali-CCP CSV of 131,072
     rows at the flagship's 23 fields (written with numpy, read by the
     CLI with pandas) trained for an epoch with (a)'s checks.
+22. the (data, model) mesh (``tpurec_torch.parallel``): (a) a world of
+    one over NCCL, ``make_mesh(1, 1)``: 3 flagship steps (dropout 0.2) of
+    the mesh Trainer bit for bit the mesh-less Trainer's; (b) 4 ranks on
+    the card over gloo (this script with ``--mesh-rank``), mesh (2, 2),
+    global B=512, dropout 0, bf16 moments: 3 hybrid steps against the
+    one-device card step (loss rtol 2e-5; the table gathered to rank 0
+    within 2e-5 of the one-device update replayed on the mesh's row
+    gradients, and of the one-device run at wd 1e-3; at the default wd
+    the parting by step printed: row gradients, the dense values after
+    step 1, each table value beyond 2e-5), each rank's #1,
+    #2, #3 and #6/7's pass once a step; (c) one
+    Trainer.fit epoch on (2, 2) at phase 16's settings: the valid AUC
+    within 0.01 of phase 16's, ms a step and the collectives' share, the
+    async backend's save beside the pickle's, its checkpoint restored
+    onto one device evaluating within 1e-6; (d) ``python -m
+    torch.distributed.run --nproc_per_node 2 -m tpurec_torch.cli`` at
+    21 (a)'s configuration for one epoch: exit 0, one result line, the
+    valid AUC within 0.01 of 21 (a)'s first epoch.  Every rank's exit
+    code is checked.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -343,6 +365,46 @@ def port_kernel(key: str, name: str) -> bool:
     kernels of the same short names inside its own namespaces)."""
     return key.removeprefix("void ").startswith(
         f"(anonymous namespace)::{name}")
+
+
+def gather_window_checks(dev, layout, tables):
+    """Phase 3: kernel 1 with a row window, each half of the flagship table
+    (a (., 2) mesh's shards; the rows outside it zero), bit-exact against
+    its plain version with the window, at every table dtype.  Its ids come
+    from a generator of its own, so the later phases' draws stay as they
+    were."""
+    from tpurec_torch.ops.embedding import embedding_gather_reference
+
+    rng = np.random.default_rng(SEED + 3)
+
+    F, D = len(FIELD_DIMS), MODEL["embed_dim"]
+    V = layout.vocab
+    half = -(-V // 2)
+    offsets, limits = layout.device_arrays(dev, V)
+    for dtype, (q, s) in tables.items():
+        qp = torch.cat([q, torch.zeros((2 * half - V, D), dtype=q.dtype,
+                                       device=dev)])
+        sp_ = None if s is None else torch.cat(
+            [s, torch.zeros(2 * half - V, device=dev)])
+        for m in range(2):
+            qs = qp[m * half:(m + 1) * half].contiguous()
+            ss = None if sp_ is None else \
+                sp_[m * half:(m + 1) * half].contiguous()
+            g = layout.gather(qs, ss, window=(m * half, V))
+            for B in (512, 4096):
+                X = random_ids(rng, B)
+                X[0, 1] = -1
+                X[-1, 9] = 10**8
+                ids = torch.from_numpy(X).to(dev)
+                got = g(ids)
+                want = embedding_gather_reference(qs, ids, offsets, limits,
+                                                  ss, m * half, V)
+                torch.cuda.synchronize()
+                check(got.shape == (B, F, D) and nan_equal(got, want),
+                      f"windowed gather {dtype} shard {m} B={B} differs")
+    print("gather with a row window (each half of the table, the rows "
+          "outside it zero): bit-exact vs plain for float32/bfloat16/int8 "
+          "at B=512,4096")
 
 
 def attention_launch(dev):
@@ -4414,6 +4476,571 @@ def cli_main_path(dev, tag):
     return launches, summary
 
 
+# -- the (data, model) mesh (phase 22) ----------------------------------------
+
+MESH_SHAPE = (2, 2)             # (b), (c): 4 ranks on the one card, gloo
+MESH_STEPS = 3
+MESH_LOSS_RTOL = 2e-5           # tpurec's own limits for its mesh
+MESH_TABLE_ATOL = 2e-5          # (tests/test_sharding.py:57-82)
+# (b) runs at the default wd and at CDC_CHECK_WD.  Its table, at every
+# wd, is within MESH_TABLE_ATOL of the one-device update replayed on the
+# mesh's own row gradients: the update on the shard is exact.  Against
+# the one-device run the table is held to MESH_TABLE_ATOL at wd 1e-3
+# only.  At the default wd a dense value whose step-1 gradient lies near
+# Adam's eps steps by lr g / (|g| + eps) on the rounding of g, and a ReLU
+# input within a rounding of 0 can take the other branch, so the mesh's
+# model parts from one device's after step 1 and the row gradients of
+# steps 2-3 part with it; on an H100 (700 W) three batch draws parted
+# 24, 0 and 18,268 of the 26M table values by more than MESH_TABLE_ATOL
+# (`--phase 22 --draws 3`).  No bound fits that, so there the phase
+# prints the parting by step (row gradients, dense values after step 1,
+# each table value beyond) and holds the loss and the replay.  Draws past
+# the first are diagnostics: the one-device table check holds on draw 0
+MESH_WDS = {"default": TRAIN_WD, "wd1e-3": CDC_CHECK_WD}
+MESH_DRAWS = 1                  # (b)'s batch draws at each wd
+MESH_PARTED = 1e-6              # a dense value parted after step 1
+MESH_AUC_TOL = 0.01             # (c) vs phase 16, (d) vs phase 21 (a)
+MESH_EVAL_TOL = 1e-6            # (c)'s state restored onto one device
+MESH_TIMEOUT = 600
+
+
+def mesh_config(dropout, wd=TRAIN_WD):
+    """Phase 16's settings (B=512, bfloat16 moments) with the async
+    versioned backend."""
+    from tpurec_torch.config import Config, ModelConfig, TrainConfig
+
+    return Config(model=ModelConfig(**MODEL, dropout=dropout),
+                  train=TrainConfig(bs=512, epoch=1, seed=0, wd=wd,
+                                    embedding_moments_dtype="bfloat16",
+                                    checkpoint_backend="orbax"))
+
+
+def mesh_trainer(cfg, mesh=None):
+    from tpurec_torch.train import Trainer
+
+    return Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                   domain2group=np.arange(N_DOMAIN) % N_TOWER, mesh=mesh)
+
+
+def mesh_batches(dev, rows=slice(None), draw=0):
+    """(b)'s MESH_STEPS global batches of 512 rows (this data rank's
+    ``rows``), as tensors on ``dev``; ``draw`` picks another draw."""
+    rng = np.random.default_rng(SEED + 22 + 1000 * draw)
+    d2g = np.arange(N_DOMAIN) % N_TOWER
+    out = []
+    for _ in range(MESH_STEPS):
+        X = random_ids(rng, 512)
+        b = {"x": X, "y": rng.integers(0, 2, 512).astype(np.float32),
+             "group": d2g[X[:, DOMAIN_IDX]].astype(np.int32),
+             "mask": np.ones(512, np.float32)}
+        out.append({k: torch.from_numpy(v[rows]).to(dev)
+                    for k, v in b.items()})
+    return out
+
+
+def mesh_fit_data():
+    from tpurec_torch.data import make_synthetic
+
+    return make_synthetic(n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS),
+                          n_domain=N_DOMAIN, field_dims=FIELD_DIMS,
+                          domain_idx=DOMAIN_IDX, seed=1)
+
+
+def mesh_rank(out_dir, draws=MESH_DRAWS):
+    """One rank of phase 22 (b) and (c), started by :func:`mesh_main_path`
+    with RANK/WORLD_SIZE/LOCAL_RANK/MASTER_* set: (b) MESH_STEPS hybrid
+    steps of the flagship (dropout 0) on MESH_SHAPE, the table gathered
+    to rank 0 (``draws`` batch draws at each wd); (c) Trainer.fit
+    of one epoch at phase 16's settings, the exact valid eval, the async
+    backend's save and the pickle checkpoint.  Writes ``rank_<r>.json``
+    (and rank 0 the gathered tables)."""
+    import os
+
+    from tpurec_torch.parallel import init_distributed, make_mesh
+    from tpurec_torch.parallel.collectives import STATS, reset_stats
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    j = init_distributed()
+    mesh = make_mesh(*MESH_SHAPE)
+    dev = mesh.device
+    bl = 512 // mesh.n_data
+    rows = slice(mesh.d * bl, (mesh.d + 1) * bl)
+    rec = {"rank": j.rank, "backend": j.backend, "device": str(dev),
+           "coords": [mesh.d, mesh.m]}
+    counters = train_counters("mmoe")
+
+    # (b) MESH_STEPS steps, dropout 0, at each of MESH_WDS
+    rec["b_losses"] = {}
+    for name, wd, draw in mesh_b_runs(draws):
+        key = f"{name}_{draw}"
+        tr = mesh_trainer(mesh_config(0.0, wd), mesh)
+        updates = record_updates(tr)
+        for fn in counters.values():
+            fn.launches = 0
+        losses = []
+        for t, b in enumerate(mesh_batches(dev, rows, draw)):
+            losses.append(float(tr.train_step(tr.state, b, tr.dropout_gen)))
+            if t == 0 and j.rank == 0:
+                np.savez(os.path.join(out_dir, f"dense1_{key}.npz"),
+                         **dense_values(tr))
+        rec["b_losses"][key] = losses
+        rec["b_launches"] = {k: fn.launches for k, fn in counters.items()}
+        emb = tr.model.embedding
+        table = emb.shard.gather(emb.table.detach())
+        if j.rank == 0:
+            np.save(os.path.join(out_dir, f"table_{key}.npy"),
+                    table.cpu().numpy())
+            np.savez(os.path.join(out_dir, f"rows_{key}.npz"),
+                     x=np.stack([r["x"] for r in updates]),
+                     g=np.stack([r["g"] for r in updates]))
+        del tr, table, emb, updates
+        torch.cuda.empty_cache()
+
+    # (c) one fit epoch at phase 16's settings
+    data = mesh_fit_data()
+    Xva, yva = data.valid
+    w = data.domain_cnt_weight()
+    tr = mesh_trainer(mesh_config(DROPOUT), mesh)
+    n_steps = -(-len(data.train[1]) // 512)
+    n_eval = tr._padded_index_batches(len(yva), 512,
+                                      tr.EVAL_CHUNK)[0].shape[0]
+    for fn in counters.values():
+        fn.launches = 0
+    marks = {}
+
+    def log_fn(r):
+        torch.cuda.synchronize()
+        if "it" in r:
+            marks["train_end"] = time.perf_counter()
+            marks["coll"] = dict(STATS)
+
+    torch.cuda.synchronize()
+    reset_stats()
+    t0 = time.perf_counter()
+    out = tr.fit(data.train, data.valid, domain_cnt_weight=w, log_fn=log_fn)
+    torch.cuda.synchronize()
+    rec["c_launches"] = {k: fn.launches for k, fn in counters.items()}
+    rec["c_schedule"] = {"steps": n_steps, "eval_batches": n_eval}
+    train_s = marks["train_end"] - t0
+    rec["c_train_s"] = train_s
+    rec["c_step_ms"] = train_s / n_steps * 1e3
+    rec["c_collectives"] = marks["coll"]
+    rec["c_valid"] = {k: out["valid"][k] for k in
+                      ("total_auc", "mean_auc", "total_loss", "train_loss")}
+    exact = tr.evaluate(Xva, yva, w)
+    rec["c_exact"] = {k: exact[k] for k in ("total_auc", "total_loss")}
+    be = tr.make_checkpointer(os.path.join(out_dir, "ck"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save_versioned(be, 1, extra={"phase": 22})
+    rec["c_save_return_s"] = time.perf_counter() - t0
+    be.wait_until_finished()
+    rec["c_save_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr.save_checkpoint(os.path.join(out_dir, "mesh.pkl"))
+    rec["c_pickle_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank_{j.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_b_runs(draws):
+    """(b)'s runs: (name of the wd, wd, batch draw)."""
+    return [(name, wd, draw) for name, wd in MESH_WDS.items()
+            for draw in range(draws)]
+
+
+def record_updates(trainer):
+    """Have ``trainer``'s table update record, at each step, its global
+    batch: the ids ``x`` [B, F] and row gradients ``g`` [B*F, D] (on a
+    mesh, the data ranks' exchanged in global order, as the update
+    gathers them); and, on one device, every table value's update u =
+    coef p + g and its terms |coef p| + the sum of |g| over the batch rows
+    that read it (``u``, ``a``, on the card), with the medians over the
+    touched values of |u| and of |u| / terms.  -> the list of dicts it
+    appends to, one a step."""
+    upd = trainer.scan_steps.upd
+    update, out = upd.update, []
+
+    def recorded(table, emb_opt, x, g_rows, step, shard=None):
+        B, F = x.shape
+        xg, gg = x, g_rows.reshape(B, F, -1).float()
+        if shard is not None:
+            xg, gg = shard.exchange(xg, gg)
+        gg = gg.reshape(-1, gg.shape[-1])
+        rec = {"x": xg.cpu().numpy(), "g": gg.cpu().numpy()}
+        if shard is None:
+            V, D = table.shape
+            offsets, _ = upd.layout.device_arrays(table.device, V)
+            ids = (xg.long() + offsets.long()[None]).reshape(-1)
+            u = torch.zeros_like(table).index_add_(0, ids, gg)
+            a = torch.zeros_like(table).index_add_(0, ids, gg.abs())
+            touched = a > 0
+            u.add_(upd.coef * table)
+            a.add_(upd.coef * table.abs())
+            ut = u[touched].abs()
+            rec.update(u=u, a=a, median_u=float(ut.median()),
+                       median_ratio=float((ut / a[touched]).median()))
+        out.append(rec)
+        return update(table, emb_opt, x, g_rows, step, shard)
+
+    upd.update = recorded
+    return out
+
+
+def dense_values(trainer):
+    """{name: a copy of the values} of every parameter but the table, on
+    the host."""
+    return {n: p.detach().to("cpu", copy=True).numpy()
+            for n, p in trainer.model.named_parameters()
+            if n != "embedding.table"}
+
+
+def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS):
+    """Start ``world`` copies of this script as ranks of one process group
+    on localhost and wait for all; -> their exit codes and log tails."""
+    import os
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    me = os.path.abspath(__file__)
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(os.path.join(out_dir, f"rank_{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, me, "--mesh-rank", out_dir, "--draws",
+             str(draws)], env=env,
+            cwd=os.path.dirname(me), stdout=log, stderr=subprocess.STDOUT))
+    rcs = []
+    try:
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=timeout))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    tails = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank_{r}.log")) as f:
+            tails.append(f"--- rank {r} (rc={rcs[r]}) ---\n"
+                         + "".join(f.readlines()[-25:]))
+    return rcs, "\n".join(tails)
+
+
+def _auc_text(auc):
+    return "(not run: not compared)" if auc is None else f"{auc:.5f}"
+
+
+def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
+    """Phase 22: the (data, model) mesh.  (a) a world of 1 over NCCL: the
+    mesh Trainer's MESH_STEPS flagship steps against the mesh-less ones,
+    bit for bit; (b) 4 ranks on the card over gloo, MESH_SHAPE, dropout 0:
+    MESH_STEPS hybrid steps against the one-device card step, each rank's
+    launches of #1, #2, #3 and #7's pass with #6's rows a step; (c) one
+    Trainer.fit epoch on MESH_SHAPE at phase 16's settings: the valid AUC
+    beside phase 16's, ms a step, the collectives' share, the async
+    backend's save against the pickle write, its checkpoint restored onto
+    one device; (d) the CLI under torch.distributed.run, 2 ranks on the
+    card, phase 21 (a)'s configuration for one epoch.  ``fit_auc`` and
+    ``cli_auc0`` (phase 16's AUC, phase 21 (a)'s first epoch's) may be
+    None when the phase runs alone: (c) and (d) then print their AUC
+    uncompared.  ``draws``: (b)'s batch draws at each wd.  ->
+    (launches, summary)."""
+    import os
+    import shutil
+    import subprocess as sp
+    import tempfile
+
+    from tpurec_torch.parallel import init_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    counters = train_counters("mmoe")
+    summary, launches = {}, {}
+
+    # (a) a world of one over NCCL
+    j = init_distributed()
+    check(j.world == 1 and j.backend == "nccl",
+          f"a world of one on the card chose {j.backend} ({j.reason})")
+    mesh = make_mesh(1, 1)
+    cfg = mesh_config(DROPOUT)
+    on, off = mesh_trainer(cfg, mesh), mesh_trainer(cfg)
+    batches = mesh_batches(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    l_on = torch.stack([on.train_step(on.state, b, on.dropout_gen)
+                        for b in batches])
+    launches["a_world1"] = {k: fn.launches for k, fn in counters.items()}
+    l_off = torch.stack([off.train_step(off.state, b, off.dropout_gen)
+                         for b in batches])
+    same = (torch.equal(l_on, l_off)
+            and torch.equal(on.model.embedding.table,
+                            off.model.embedding.table)
+            and torch.equal(on.state.emb_opt.m, off.state.emb_opt.m)
+            and torch.equal(on.state.emb_opt.v, off.state.emb_opt.v))
+    check(same, f"(1, 1) mesh vs no mesh: losses {l_on.tolist()} vs "
+          f"{l_off.tolist()}, table max abs err "
+          f"{(on.model.embedding.table - off.model.embedding.table).abs().max().item()}")
+    check(launches["a_world1"] == {k: MESH_STEPS for k in counters},
+          f"(a) launches {launches['a_world1']}")
+    print(f"{tag} mesh (a) world of 1, backend {j.backend} ({j.reason}): "
+          f"{MESH_STEPS} flagship steps (dropout {DROPOUT}) on mesh (1, 1) "
+          f"bit for bit the mesh-less steps (losses, table, moments); "
+          f"launches {launches['a_world1']}")
+    summary["a"] = {"backend": j.backend, "bitwise": True,
+                    "launches": launches["a_world1"]}
+    del on, off, batches
+    torch.cuda.empty_cache()
+
+    # (b) and (c): 4 ranks sharing the card over gloo
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    rcs, tails = _spawn_ranks(world, tmp, draws=draws)
+    ranks_s = time.perf_counter() - t0
+    check(rcs == [0] * world, f"mesh ranks exited {rcs}:\n{tails}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank_{r}.json")) as f:
+            recs.append(json.load(f))
+    for r in recs:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        check(r["b_launches"] == {k: MESH_STEPS for k in counters},
+              f"(b) rank {r['rank']} launches {r['b_launches']}, expected "
+              f"{MESH_STEPS} of each")
+        sch = r["c_schedule"]
+        want = {"embedding_gather": sch["steps"] + sch["eval_batches"],
+                "field_attention_train": sch["steps"] + sch["eval_batches"],
+                "field_attention_bwd": sch["steps"],
+                "fused_decay_adam": sch["steps"],
+                "fused_sparse_adam": sch["steps"]}
+        check(r["c_launches"] == want, f"(c) rank {r['rank']} launches "
+              f"{r['c_launches']}, expected {want} (a step each, a forward "
+              "per eval batch of the fit's streaming eval)")
+        # every rank returns the global loss and eval: the same AUC (the
+        # histograms' counts are exact) and losses; the eval's loss sums
+        # are float atomics (index_add_), so they may part in last bits
+        v, v0 = r["c_valid"], recs[0]["c_valid"]
+        check(r["b_losses"] == recs[0]["b_losses"]
+              and v["total_auc"] == v0["total_auc"]
+              and v["train_loss"] == v0["train_loss"]
+              and abs(v["total_loss"] - v0["total_loss"]) <= 1e-6,
+              f"rank {r['rank']} disagrees with rank 0: (b) losses "
+              f"{r['b_losses']} vs {recs[0]['b_losses']}; (c) {v} vs {v0}")
+    print(f"{tag} mesh (b)/(c): {world} ranks on the card over gloo, mesh "
+          f"{MESH_SHAPE}, ran in {ranks_s:.1f} s (start-up included); "
+          f"every rank exited 0")
+    launches["b_steps"] = recs[0]["b_launches"]
+    launches["c_fit"] = recs[0]["c_launches"]
+
+    # (b) against the one-device card step
+    summary["b"] = {"launches": launches["b_steps"]}
+    for name, wd, draw in mesh_b_runs(draws):
+        key = f"{name}_{draw}"
+        cfg = mesh_config(0.0, wd)
+        table = np.load(os.path.join(tmp, f"table_{key}.npy"))
+        # the one-device table update replayed on the mesh's row gradients
+        with np.load(os.path.join(tmp, f"rows_{key}.npz")) as z:
+            xs, gs = z["x"], z["g"]
+        rep = mesh_trainer(cfg)
+        rt = rep.model.get_parameter("embedding.table").detach()
+        for t in range(MESH_STEPS):
+            rep.scan_steps.upd.update(rt, rep.state.emb_opt,
+                                      torch.from_numpy(xs[t]).to(dev),
+                                      torch.from_numpy(gs[t]).to(dev), t + 1)
+        replay = np.abs(table - rt.cpu().numpy())
+        del rep, rt
+        # the one-device run
+        ref = mesh_trainer(cfg)
+        updates = record_updates(ref)
+        l_ref = []
+        for t, b in enumerate(mesh_batches(dev, draw=draw)):
+            l_ref.append(float(ref.train_step(ref.state, b, ref.dropout_gen)))
+            if t == 0:
+                dense1 = dense_values(ref)
+                grad1 = {n: p.grad.to("cpu", copy=True).numpy()
+                         for n, p in ref.model.named_parameters()
+                         if n in dense1 and p.grad is not None}
+        want_t = ref.model.embedding.table.detach().cpu().numpy()
+        del ref
+        l_mesh = recs[0]["b_losses"][key]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_mesh, l_ref))
+        diff = np.abs(table - want_t)
+        t_err = float(diff.max())
+        where = np.argwhere(diff > MESH_TABLE_ATOL)
+        beyond = len(where)
+        share = beyond / diff.size
+        g_rel = [float(np.abs(gs[t] - r["g"]).max() / np.abs(r["g"]).max())
+                 for t, r in enumerate(updates)]
+        with np.load(os.path.join(tmp, f"dense1_{key}.npz")) as z:
+            dpart = {n: np.abs(z[n] - dense1[n]) for n in dense1}
+        parted = {n: d > MESH_PARTED for n, d in dpart.items()}
+        n_parted = int(sum(m.sum() for m in parted.values()))
+        d_max = max(float(d.max()) for d in dpart.values())
+        g_parted = max([float(np.abs(grad1[n][m]).max())
+                        for n, m in parted.items() if m.any() and n in grad1]
+                       or [0.0])
+        g_med = float(np.median(np.concatenate(
+            [np.abs(g).ravel() for g in grad1.values()])))
+        print(f"{tag} mesh (b) {MESH_STEPS} hybrid steps on {MESH_SHAPE} vs "
+              f"one device, wd {wd}, batch draw {draw}: losses {l_mesh} vs "
+              f"{l_ref} (max rel err {loss_rel:.3g}, tol {MESH_LOSS_RTOL}); "
+              f"the table gathered to rank 0 against the one-device update "
+              f"replayed on the mesh's row gradients: max abs err "
+              f"{float(replay.max()):.3g} (tol {MESH_TABLE_ATOL}); against "
+              f"the one-device run: max abs err {t_err:.3g}, {beyond} of "
+              f"{diff.size} values beyond {MESH_TABLE_ATOL} (share "
+              f"{share:.3g})")
+        print(f"{tag} mesh (b) wd {wd}, draw {draw}: the mesh's row "
+              f"gradients against one device's, max abs err of max |g| by "
+              f"step {[float(f'{x:.3g}') for x in g_rel]}; the dense "
+              f"parameters after step 1: {n_parted} values parted by more "
+              f"than {MESH_PARTED} (max {d_max:.3g}), their largest "
+              f"one-device step-1 |g| {g_parted:.3g} (Adam's eps 1e-8; "
+              f"the median |g| {g_med:.3g})")
+        check(loss_rel <= MESH_LOSS_RTOL, f"(b) wd {wd} draw {draw}: loss "
+              f"rel err {loss_rel}")
+        check(float(replay.max()) <= MESH_TABLE_ATOL, f"(b) wd {wd} draw "
+              f"{draw}: the mesh's table update is not one device's on the "
+              f"same row gradients: max abs err {float(replay.max())}")
+        rec = {"wd": wd, "draw": draw, "losses": l_mesh,
+               "one_device_losses": l_ref, "loss_rel_err": loss_rel,
+               "replay_abs_err": float(replay.max()),
+               "table_abs_err": t_err, "table_values_beyond_atol": beyond,
+               "share_beyond": share, "row_grad_rel_err": g_rel,
+               "dense_parted_step1": n_parted, "dense_max_err_step1": d_max,
+               "dense_parted_max_grad": g_parted}
+        if wd != TRAIN_WD:
+            # held on the main run's draw; the others measure how often
+            # a ReLU that flips at step 1 parts the runs here too
+            check(draw > 0 or t_err <= MESH_TABLE_ATOL, f"(b) wd {wd}: "
+                  f"table abs err {t_err}")
+        else:
+            meds = [(float(f"{r['median_u']:.3g}"),
+                     float(f"{r['median_ratio']:.3g}")) for r in updates]
+            print(f"{tag} mesh (b) wd {wd}, draw {draw}: the touched "
+                  f"values' median |u| and |u| / (|coef p| + sum |g|) by "
+                  f"step {meds}; each value beyond {MESH_TABLE_ATOL}: "
+                  f"[row, col, |u| by step, least ratio, |mesh - one|]"
+                  f"{' (the first 64)' if beyond > 64 else ''}:")
+            r_, c_ = (torch.from_numpy(np.ascontiguousarray(where[:, i]))
+                      .to(dev) for i in (0, 1))
+            u = torch.stack([x["u"][r_, c_].abs() for x in updates])
+            ratio = (u / torch.stack([x["a"][r_, c_] for x in updates])
+                     ).min(0)[0].cpu().numpy()
+            u = u.cpu().numpy()
+            for k in range(min(beyond, 64)):
+                print(f"    [{where[k, 0]}, {where[k, 1]}, "
+                      f"{[float(f'{x:.3g}') for x in u[:, k]]}, "
+                      f"{ratio[k]:.3g}, {diff[where[k, 0], where[k, 1]]:.3g}]")
+            rec["touched_median_u_ratio"] = meds
+        summary["b"][key] = rec
+        del updates, table, want_t, replay, diff, dense1, grad1, dpart
+        torch.cuda.empty_cache()
+
+    # (c) the fit's numbers, and its checkpoint onto one device
+    r0 = recs[0]
+    auc = r0["c_valid"]["total_auc"]
+    coll = r0["c_collectives"]
+    shares = [r["c_collectives"]["seconds"] / r["c_train_s"] for r in recs]
+    print(f"{tag} mesh (c) Trainer.fit 1 epoch on {MESH_SHAPE} "
+          f"({r0['c_schedule']['steps']} steps of 512, dropout {DROPOUT}): "
+          f"valid total_auc {auc:.5f} (streaming) beside phase 16's "
+          f"{_auc_text(fit_auc)} (tol {MESH_AUC_TOL}); "
+          + ", ".join(f"rank {r['rank']} {r['c_step_ms']:.3f}" for r in recs)
+          + " ms a step (host clock); collectives "
+          + ", ".join(f"{100 * x:.1f}%" for x in shares)
+          + f" of the epoch ({coll['calls']} calls, "
+          f"{coll['bytes'] / 1e6:.1f} MB on rank 0; host time inside "
+          f"torch.distributed, gloo)")
+    print(f"{tag} mesh (c) checkpoints: async save returned in "
+          + ", ".join(f"{r['c_save_return_s'] * 1e3:.1f}" for r in recs)
+          + " ms, written in "
+          + ", ".join(f"{r['c_save_write_s'] * 1e3:.1f}" for r in recs)
+          + " ms; pickle (gathered, rank 0 writes) "
+          + ", ".join(f"{r['c_pickle_s'] * 1e3:.1f}" for r in recs) + " ms")
+    check(fit_auc is None or abs(auc - fit_auc) <= MESH_AUC_TOL,
+          f"(c) valid AUC {auc} vs phase 16's {fit_auc}")
+    data = mesh_fit_data()
+    one = mesh_trainer(mesh_config(DROPOUT))
+    meta = one.load_versioned(one.make_checkpointer(os.path.join(tmp, "ck")))
+    ev = one.evaluate(*data.valid, data.domain_cnt_weight())
+    ev_err = {k: abs(ev[k] - r0["c_exact"][k]) for k in r0["c_exact"]}
+    print(f"{tag} mesh (c) the async checkpoint restored onto one device: "
+          f"exact valid eval vs the mesh's {ev_err} (tol {MESH_EVAL_TOL})")
+    check(meta["extra"] == {"phase": 22}, f"(c) checkpoint extra {meta}")
+    check(all(v <= MESH_EVAL_TOL for v in ev_err.values()),
+          f"(c) restored eval differs: {ev_err}")
+    del one, data
+    torch.cuda.empty_cache()
+    summary["c"] = {
+        "valid": r0["c_valid"], "phase16_valid_total_auc": fit_auc,
+        "step_ms": [r["c_step_ms"] for r in recs],
+        "collective_share": shares, "collectives_rank0": coll,
+        "save_return_ms": [r["c_save_return_s"] * 1e3 for r in recs],
+        "save_write_ms": [r["c_save_write_s"] * 1e3 for r in recs],
+        "pickle_ms": [r["c_pickle_s"] * 1e3 for r in recs],
+        "restore_eval_err": ev_err, "launches": launches["c_fit"],
+        "ranks_seconds": ranks_s}
+
+    # (d) the CLI under torch.distributed.run, 2 ranks on the card
+    argv = ["--model", "mmoe", "--dataset_name", "synthetic", "--n_rows",
+            str(CLI_ROWS), "--n_domain", "6", "--bs", "512", "--epoch", "1",
+            "--mesh_data", "2", "--is_set_seed", "1", "--seed",
+            str(SEED + 21), "--save_path", os.path.join(tmp, "cli"),
+            "--log_path", os.path.join(tmp, "cli.jsonl")]
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc_per_node", "2", "-m",
+                   "tpurec_torch.cli", *argv], cwd=root, capture_output=True,
+                  text=True, timeout=MESH_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torch.distributed.run -m tpurec_torch.cli "
+          f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+    results = [json.loads(x) for x in proc.stdout.splitlines()
+               if x.startswith("{") and '"valid"' in x]
+    check(len(results) == 1, f"(d) {len(results)} result lines (rank 0 "
+          "alone prints one)")
+    with open(os.path.join(tmp, "cli.jsonl")) as f:
+        log = [json.loads(x) for x in f]
+    mrec = [r for r in log if "mesh" in r]
+    check(len(mrec) == 1 and mrec[0]["mesh"] == [2, 1]
+          and mrec[0]["backend"] == "gloo", f"(d) the mesh record {mrec}")
+    cli_auc = results[0]["valid"]["total_auc"]
+    check(os.path.exists(results[0]["checkpoint"]),
+          "(d) no checkpoint from rank 0")
+    print(f"{tag} mesh (d) python -m torch.distributed.run --nproc_per_node "
+          f"2 -m tpurec_torch.cli (mesh {mrec[0]['mesh']}, backend "
+          f"{mrec[0]['backend']}): exit 0 in {cli_s:.1f} s; valid total_auc "
+          f"{cli_auc:.5f} beside phase 21 (a)'s epoch 0 "
+          f"{_auc_text(cli_auc0)} (tol "
+          f"{MESH_AUC_TOL})")
+    check(cli_auc0 is None or abs(cli_auc - cli_auc0) <= MESH_AUC_TOL,
+          f"(d) valid AUC {cli_auc} vs phase 21 (a)'s {cli_auc0}")
+    summary["d"] = {"valid_total_auc": cli_auc, "phase21_epoch0": cli_auc0,
+                    "seconds": cli_s, "backend": mrec[0]["backend"]}
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.distributed.destroy_process_group()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {summary['phase_seconds']:.1f} s")
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4497,6 +5124,7 @@ def main() -> int:
     print(f"gather (prepared, EmbeddingGather): bit-exact vs plain for "
           f"float32/bfloat16/int8 at B=1,512,513,4096,4097 (out-of-range "
           f"ids included)")
+    gather_window_checks(dev, layout, tables)
 
     A, H, L = MODEL["atten_embed_dim"], MODEL["att_head_num"], \
         MODEL["att_layer_num"]
@@ -4640,6 +5268,13 @@ def main() -> int:
             q32, pick(id_sets), offsets, limits))
         host_us = host_enqueue_us(lambda: g32(id_sets[0]))
         alone = kernel_alone_ms(lambda: g32(pick(id_sets)), "gather_kernel")
+        # a (., 2) mesh's shard: the window of the table's first half
+        g_win = layout.gather(q32[:-(-q32.shape[0] // 2)].contiguous(),
+                              window=(0, q32.shape[0]))
+        win_ms = cuda_ms(lambda: g_win(pick(id_sets)))
+        win_host_us = host_enqueue_us(lambda: g_win(id_sets[0]))
+        win_alone = kernel_alone_ms(lambda: g_win(pick(id_sets)),
+                                    "gather_kernel")
         lib_host_us = host_enqueue_us(
             lambda: torch.index_select(q32, 0, glob[0]))
         n_unique = torch.unique(glob[0]).numel()
@@ -4650,7 +5285,9 @@ def main() -> int:
             one_shot_ms=one_shot, host_enqueue_us=host_us,
             device_alone_ms=alone,
             library_host_enqueue_us=lib_host_us,
-            rows_per_block=GATHER_THREADS * GATHER_PIECES / (F * D / 4))
+            rows_per_block=GATHER_THREADS * GATHER_PIECES / (F * D / 4),
+            window_ms=win_ms, window_host_enqueue_us=win_host_us,
+            window_device_alone_ms=win_alone)
         print(f"{tag} embedding_gather B={B}: prepared {ms:.4f} ms, "
               f"index_select {lib:.4f} ms, one-shot {one_shot:.4f} ms (CUDA "
               f"events); host enqueue {host_us:.2f} us a call, index_select "
@@ -4658,6 +5295,11 @@ def main() -> int:
               f"synchronize); device "
               + ("not seen" if alone is None else f"{alone:.5f} ms")
               + " a launch back to back (torch.profiler, 50 launches)")
+        print(f"{tag} embedding_gather B={B} with a row window (half the "
+              f"table): prepared {win_ms:.4f} ms (CUDA events), host "
+              f"enqueue {win_host_us:.2f} us a call, device "
+              + ("not seen" if win_alone is None else f"{win_alone:.5f} ms")
+              + " a launch back to back")
 
         embs = [embedding_gather(q32, i, offsets, limits) for i in id_sets[:4]]
         ms = cuda_ms(lambda: field_attention(pick(embs), flat, L, H))
@@ -4775,6 +5417,11 @@ def main() -> int:
 
     # -- 21. the CLI on the card ------------------------------------------------
     cli_launches, cli = cli_main_path(dev, tag)
+
+    # -- 22. the (data, model) mesh --------------------------------------------
+    mesh_launches, mesh = mesh_main_path(
+        dev, tag, fit_summary["valid"]["total_auc"],
+        cli["a_mmoe"]["valid_auc_by_epoch"][0])
 
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
@@ -4908,6 +5555,8 @@ def main() -> int:
         key = ("field_attention_train" if k["name"] == "field_attention"
                else k["name"])
         k["launches_cli"] = {run: n[key] for run, n in cli_launches.items()}
+        k["launches_mesh"] = {run: n.get(key)
+                              for run, n in mesh_launches.items()}
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
@@ -4917,6 +5566,7 @@ def main() -> int:
     print(json.dumps({"zoo": zoo, "updates": updates,
                       "phase_seconds": zoo_s}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
@@ -4927,8 +5577,63 @@ def main() -> int:
     return 0
 
 
+def phase22_main(draws: int) -> int:
+    """Phase 22 alone, after the build and phase 3's check of kernel 1's
+    row window; (b) at each wd over ``draws`` batch draws.  Phases
+    16 and 21 do not run, so (c) and (d) print their AUC uncompared."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from tpurec_torch.nn.core import EmbeddingLayout
+    from tpurec_torch.ops import _build
+    from tpurec_torch.serve import quantize_table
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    gpu = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()[0]
+    print(gpu)
+    built = _build.build()
+    print(f"built {sorted(built)} in {time.perf_counter() - t_start:.1f} s")
+    layout = EmbeddingLayout(FIELD_DIMS)
+    gen = torch.Generator().manual_seed(SEED)
+    table = torch.randn(layout.vocab, MODEL["embed_dim"], generator=gen)
+    table[layout.n_rows:] = 0.0
+    tables = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        q, sc = quantize_table(table, dtype)
+        tables[dtype] = (q.to(dev), None if sc is None else sc.to(dev))
+    gather_window_checks(dev, layout, tables)
+    del tables, table
+    launches, summary = mesh_main_path(dev, f"[{gpu}]", None, None, draws)
+    print(json.dumps({"launches_mesh": launches}))
+    print(json.dumps({"mesh": summary}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port on the card: every "
+                                 "phase, with no arguments.")
+    ap.add_argument("--phase", type=int, choices=[22],
+                    help="run this phase alone (after the build)")
+    ap.add_argument("--draws", type=int, default=MESH_DRAWS,
+                    help="phase 22 (b)'s batch draws at each wd")
+    ap.add_argument("--mesh-rank", metavar="DIR",
+                    help="one rank of phase 22 (b)/(c), started by the "
+                    "phase itself")
+    opts = ap.parse_args()
     try:
+        if opts.mesh_rank:
+            sys.exit(mesh_rank(opts.mesh_rank, opts.draws))
+        if opts.phase == 22:
+            sys.exit(phase22_main(opts.draws))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,0 +1,525 @@
+"""Rank process of the port's mesh tests (tests/test_torch_parallel_*.py,
+tests/test_torch_cli_mesh.py), and the launcher that starts the ranks.
+
+:func:`spawn` starts ``world`` copies of this script on the CPU, joined
+over gloo on a free localhost port (``RANK``/``WORLD_SIZE``/
+``MASTER_ADDR``/``MASTER_PORT``, as ``torch.distributed.run`` sets
+them); each runs one task, which runs every case of its test file and
+writes its results (``.npz``/JSON) under the output directory for the
+tests to read.  The ``cli`` task runs ``tpurec_torch.cli.main`` with
+dropout 0 (the CLI has no dropout flag), under ``torch.distributed.run``.
+
+This file has no test functions: its name keeps it among the port's test
+files.  It imports nothing of the JAX package.
+
+    python tests/test_torch_mesh_worker.py <task> <out_dir> [args...]
+"""
+
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+# tests/test_sharding.py's MMoE, with a big field (> 8192 rows) so that
+# the table update has rows as well as the small-field prefix
+FIELD_DIMS = (64, 48, 16, 8, 24, 9000)
+DOMAIN_IDX = 3
+N_DOMAIN = 8
+N_TOWER = 2
+D2G = np.arange(N_DOMAIN) % N_TOWER
+BS = 64
+MODEL = dict(model="mmoe", embed_dim=8, mmoe_expert_dims=(16, 8),
+             mmoe_tower_dims=(8,), use_atten=True, atten_embed_dim=8,
+             att_layer_num=1, dropout=0.0)
+STEPS = 4
+UPDATES = ("hybrid", "dense", "sparse")
+# one step of the models with the other batch-coupled reductions
+OTHERS = {"star": dict(model="star", embed_dim=8, tower_dims=(16, 8),
+                       use_atten=False, dropout=0.0),
+          "adl": dict(model="adl", embed_dim=8, tower_dims=(16, 8),
+                      use_atten=False, dropout=0.0)}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(task, world, out_dir, *args, timeout=300, torchrun=False):
+    """Run ``task`` on ``world`` ranks; raise with every log's tail unless
+    all exit 0.  ``torchrun``: one ``python -m torch.distributed.run``
+    starts them (``args`` then follow the script)."""
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("PYTHONHASHSEED", None)
+    port = _free_port()
+    me = os.path.abspath(__file__)
+    if torchrun:
+        cmds = [[sys.executable, "-m", "torch.distributed.run",
+                 "--nnodes", "1", "--nproc_per_node", str(world),
+                 "--master_addr", "127.0.0.1", "--master_port", str(port),
+                 me, task, str(out_dir), *map(str, args)]]
+        envs = [env]
+    else:
+        cmds, envs = [], []
+        for r in range(world):
+            cmds.append([sys.executable, me, task, str(out_dir),
+                         *map(str, args)])
+            envs.append(dict(env, RANK=str(r), WORLD_SIZE=str(world),
+                             LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                             MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+    procs, logs = [], []
+    for i, (cmd, e) in enumerate(zip(cmds, envs)):
+        log = open(os.path.join(out_dir, f"{task}_{i}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(cmd, cwd=REPO, env=e, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    rcs = []
+    try:
+        for p in procs:
+            rcs.append(p.wait(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if any(rcs):
+        tails = []
+        for i in range(len(procs)):
+            with open(os.path.join(out_dir, f"{task}_{i}.log")) as f:
+                tails.append(f"--- {task} {i} (rc={rcs[i]}) ---\n"
+                             + "".join(f.readlines()[-40:]))
+        raise AssertionError(f"{task} failed (rcs={rcs})\n"
+                             + "\n".join(tails))
+    return rcs
+
+
+# ---------------------------------------------------------------- shared
+
+def config(update="hybrid", model=None, **train):
+    from tpurec_torch.config import Config, ModelConfig, TrainConfig
+
+    return Config(model=ModelConfig(**(model or MODEL)),
+                  train=TrainConfig(bs=BS, wd=1e-8,
+                                    embedding_update=update, **train))
+
+
+def global_batches(n=STEPS, seed=0):
+    """``n`` global batches (numpy) of BS rows, the last rows of each
+    masked."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        x = np.stack([rng.integers(0, d, BS) for d in FIELD_DIMS],
+                     1).astype(np.int32)
+        x[: BS // 4, 5] = rng.integers(0, 5, BS // 4)   # repeated big rows
+        mask = np.ones(BS, np.float32)
+        mask[BS - 3 - i:] = 0.0
+        out.append({"x": x, "y": rng.integers(0, 2, BS).astype(np.float32),
+                    "group": D2G[x[:, DOMAIN_IDX]].astype(np.int32),
+                    "mask": mask})
+    return out
+
+
+def flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}."))
+        else:
+            t = v
+            if hasattr(t, "detach"):
+                import torch
+
+                t = t.detach().to("cpu", torch.float32).numpy()
+            out[f"{prefix}{k}"] = np.asarray(t)
+    return out
+
+
+def trainer(cfg, mesh=None, field_dims=FIELD_DIMS, n_domain=N_DOMAIN,
+            d2g=D2G):
+    from tpurec_torch.train import Trainer
+
+    return Trainer(cfg, field_dims, n_domain, DOMAIN_IDX, domain2group=d2g,
+                   mesh=mesh, device=None if mesh is not None else "cpu")
+
+
+def run_steps(tr, batches, rows=None):
+    """The trainer's single step on each batch (its rows ``rows``) ->
+    losses."""
+    import torch
+
+    losses = []
+    for b in batches:
+        if rows is not None:
+            b = {k: v[rows] for k, v in b.items()}
+        losses.append(float(tr.train_step(
+            tr.state, {k: torch.from_numpy(v) for k, v in b.items()},
+            tr.dropout_gen)))
+    return losses
+
+
+def _join():
+    import torch
+
+    from tpurec_torch.parallel import init_distributed
+
+    torch.set_num_threads(1)
+    return init_distributed("cpu")
+
+
+def _rows(mesh, bs=BS):
+    bl = bs // mesh.n_data
+    return slice(mesh.d * bl, (mesh.d + 1) * bl)
+
+
+# ---------------------------------------------------------------- tasks
+
+def task_steps(out_dir):
+    """4 steps under each update on every mesh of this world, and one
+    step of STAR and ADL on (world, 1): losses and the whole state
+    (gathered) from rank 0."""
+    from tpurec_torch.convert import train_state_to_flax
+    from tpurec_torch.parallel import make_mesh
+
+    j = _join()
+    shapes = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}[j.world]
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(*shape)
+        for upd in UPDATES:
+            tr = trainer(config(upd), mesh)
+            losses = run_steps(tr, global_batches(), _rows(mesh))
+            state = flat(train_state_to_flax(tr.state))
+            if j.rank == 0:
+                key = f"{upd}_{shape[0]}x{shape[1]}"
+                res.update({f"{key}/{k}": v for k, v in state.items()})
+                res[f"{key}/losses"] = np.asarray(losses)
+        if shape[1] == 1 and j.world == 2:
+            for name, kw in OTHERS.items():
+                tr = trainer(config(model=kw), mesh)
+                losses = run_steps(tr, global_batches(1), _rows(mesh))
+                state = flat(train_state_to_flax(tr.state))
+                if j.rank == 0:
+                    res.update({f"{name}/{k}": v for k, v in state.items()})
+                    res[f"{name}/losses"] = np.asarray(losses)
+    if j.rank == 0:
+        np.savez(os.path.join(out_dir, f"steps_{j.world}.npz"), **res)
+
+
+def lookup_inputs(n_rows=40):
+    """(table [V, D] float32, ids [n_rows, F] int32 field-local with
+    out-of-range ones, weights of the test loss [n_rows, F, D])."""
+    from tpurec_torch.nn.core import EmbeddingLayout
+
+    rng = np.random.default_rng(3)
+    layout = EmbeddingLayout(FIELD_DIMS)
+    table = rng.normal(size=(layout.vocab, 8)).astype(np.float32)
+    ids = np.stack([rng.integers(0, d, n_rows) for d in FIELD_DIMS],
+                   1).astype(np.int32)
+    ids[0, 0] = -1                   # wraps inside the small prefix
+    ids[1, 5] = 10**8                # past the table: NaN
+    ids[2, 1] = 9999                 # past the small prefix: NaN
+    ids[3, 5] = -5                   # wraps over the whole table
+    ids[4:12, 5] = ids[4, 5]         # a row read many times
+    w = rng.normal(size=(n_rows, len(FIELD_DIMS), 8)).astype(np.float32)
+    return layout, table, ids, w
+
+
+def task_lookup(out_dir):
+    """Mesh coordinates and groups; the collectives' backward rules; the
+    windowed gather and sharded_embedding_lookup, with their table
+    gradients, on every mesh of this world."""
+    import torch
+    import torch.distributed as dist
+
+    from tpurec_torch.ops.embedding import EmbeddingGather
+    from tpurec_torch.parallel import make_mesh
+    from tpurec_torch.parallel.collectives import (all_reduce_,
+                                                   data_all_reduce,
+                                                   model_all_reduce)
+    from tpurec_torch.parallel.embedding import (shard_table,
+                                                 sharded_embedding_lookup)
+
+    j = _join()
+    shapes = {2: [(2, 1), (1, 2)], 4: [(2, 2), (4, 1), (1, 4)]}[j.world]
+    layout, table, ids, w = lookup_inputs()
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(*shape)
+        key = f"{shape[0]}x{shape[1]}"
+        t = torch.tensor([float(j.rank)])
+        d_sum = float(all_reduce_(t.clone(), mesh.data_group))
+        m_sum = float(all_reduce_(t.clone(), mesh.model_group))
+        # backward rules: y = AR(c x); loss = k y
+        c, k = 3.0, float(j.rank + 1)
+        x = torch.tensor(1.0, requires_grad=True)
+        (k * model_all_reduce(c * x, mesh)).backward()
+        gm = float(x.grad)
+        x = torch.tensor(1.0, requires_grad=True)
+        (k * data_all_reduce(c * x, mesh)).backward()
+        gd = float(x.grad)
+        res[f"{key}/coords"] = [mesh.d, mesh.m, list(mesh.data_ranks),
+                                list(mesh.model_ranks), d_sum, m_sum,
+                                gm, gd]
+        # the lookup: this data rank's rows of ids, the table's layout
+        rows = slice(mesh.d * len(ids) // mesh.n_data,
+                     (mesh.d + 1) * len(ids) // mesh.n_data)
+        local, shard = shard_table(torch.from_numpy(table), mesh)
+        local.requires_grad_(True)
+        out = sharded_embedding_lookup(
+            layout.gather(local, window=shard.window),
+            torch.from_numpy(ids[rows]), shard)
+        torch.nansum(torch.tanh(out) * torch.from_numpy(w[rows])).backward()
+        g = all_reduce_(local.grad.clone(), mesh.data_group)
+        full_g = shard.gather(g)
+        got = shard.exchange(out.detach())[0]
+        # global-row ids, no layout (tpurec's sharded_embedding_lookup)
+        gids = np.clip(ids + layout.offsets[None], 0, layout.vocab - 1)
+        local2, shard2 = shard_table(torch.from_numpy(table), mesh)
+        local2.requires_grad_(True)
+        F = gids.shape[1]
+        out2 = sharded_embedding_lookup(
+            EmbeddingGather(local2, torch.zeros(F, dtype=torch.int32),
+                            torch.full((F,), shard2.V, dtype=torch.int32),
+                            row_lo=shard2.row_lo, n_table_rows=shard2.V),
+            torch.from_numpy(gids[rows].astype(np.int32)), shard2)
+        torch.sum(torch.tanh(out2) * torch.from_numpy(w[rows])).backward()
+        g2 = shard2.gather(all_reduce_(local2.grad.clone(),
+                                       mesh.data_group))
+        got2 = shard2.exchange(out2.detach())[0]
+        if j.rank == 0:
+            res[f"{key}/rows"] = got.numpy()
+            res[f"{key}/grad"] = full_g.numpy()
+            res[f"{key}/rows_global"] = got2.numpy()
+            res[f"{key}/grad_global"] = g2.numpy()
+            res[f"{key}/shape"] = [shard.V, shard.V_pad, shard.n_local]
+        coords = [None] * j.world
+        dist.all_gather_object(coords, res[f"{key}/coords"])
+        res[f"{key}/coords"] = coords
+    if j.rank == 0:
+        np.savez(os.path.join(out_dir, f"lookup_{j.world}.npz"),
+                 **{k: np.asarray(v, dtype=object if k.endswith("coords")
+                                  else None) for k, v in res.items()})
+
+
+# the Trainer tests' data: a big field (9000 rows) and 4 domains
+FIT_DIMS = (60, 9000, 30, 4, 20, 12)
+FIT_MODEL = dict(model="mmoe", embed_dim=8, mmoe_expert_dims=(16,),
+                 mmoe_tower_dims=(8,), use_atten=True, atten_embed_dim=8,
+                 att_layer_num=1, dropout=0.0, embed_init_std=0.01)
+FIT_BS = 256
+
+
+def fit_config(**train):
+    from tpurec_torch.config import Config, ModelConfig, TrainConfig
+
+    kw = dict(bs=FIT_BS, epoch=1, seed=0, steps_per_dispatch=4, wd=1e-8)
+    kw.update(train)
+    return Config(model=ModelConfig(**FIT_MODEL), train=TrainConfig(**kw))
+
+
+def fit_data():
+    from tpurec_torch.data import make_synthetic
+
+    return make_synthetic(n_rows=3000, n_fields=len(FIT_DIMS),
+                          field_dims=FIT_DIMS, n_domain=4,
+                          domain_idx=3, seed=5)
+
+
+def fit_trainer(cfg, mesh=None):
+    from tpurec_torch.train import Trainer
+
+    return Trainer(cfg, FIT_DIMS, 4, 3, domain2group=np.arange(4),
+                   mesh=mesh, device=None if mesh is not None else "cpu")
+
+
+def record_steps(tr):
+    """Make ``tr``'s step loops keep their losses in ``tr.step_losses``."""
+    tr.step_losses = []
+    for name in ("scan_steps_idx", "scan_steps", "train_step"):
+        fn = getattr(tr, name)
+        if fn is None:
+            continue
+
+        def rec(*a, _fn=fn, **k):
+            out = _fn(*a, **k)
+            tr.step_losses.extend(np.atleast_1d(
+                out.detach().cpu().numpy()).tolist())
+            return out
+        setattr(tr, name, rec)
+    return tr
+
+
+def task_trainer(out_dir):
+    """4 ranks: one fit epoch on (2, 2) (per-step losses, the result, the
+    exact eval, the gathered state) and a pickle checkpoint from rank 0.
+    2 ranks: tpurec's checkpoint (``tpurec.pkl``) onto (1, 2) and its
+    exact eval; then train_epoch_multihost and evaluate_streaming_multihost
+    on (2, 1), each rank feeding its own dataset range, a surplus of eval
+    rows, and the host-batching epoch (the "dense" update) on (2, 1)."""
+    from tpurec_torch.convert import train_state_to_flax
+    from tpurec_torch.parallel import make_mesh
+
+    j = _join()
+    data = fit_data()
+    res = {}
+    if j.world == 4:
+        mesh = make_mesh(2, 2)
+        tr = record_steps(fit_trainer(fit_config(), mesh))
+        out = tr.fit(data.train, data.valid,
+                     domain_cnt_weight=data.domain_cnt_weight())
+        exact = tr.evaluate(*data.valid, data.domain_cnt_weight())
+        pred = tr.predict(data.valid[0])
+        state = flat(train_state_to_flax(tr.state))
+        tr.save_checkpoint(os.path.join(out_dir, "mesh.pkl"))
+        if j.rank == 0:
+            res.update({f"fit/{k}": v for k, v in state.items()})
+            res["fit/losses"] = np.asarray(tr.step_losses)
+            res["fit/pred"] = pred
+            for k in ("total_auc", "total_loss", "mean_auc"):
+                res[f"fit/valid_{k}"] = out["valid"][k]
+                res[f"fit/exact_{k}"] = exact[k]
+    else:
+        mesh = make_mesh(1, 2)
+        tr = fit_trainer(fit_config(), mesh)
+        tr.load_checkpoint(os.path.join(out_dir, "tpurec.pkl"))
+        ev = tr.evaluate(*data.valid, data.domain_cnt_weight())
+        if j.rank == 0:
+            res["load/total_auc"] = ev["total_auc"]
+            res["load/total_loss"] = ev["total_loss"]
+        mesh = make_mesh(2, 1)
+        tr = record_steps(fit_trainer(fit_config(), mesh))
+        X, y = data.train
+        lo, hi = tr.feed.dataset_range(len(X))
+        loss = tr.train_epoch_multihost(X[lo:hi], y[lo:hi], len(X), 0)
+        Xv, yv = data.valid
+        vlo, vhi = tr.feed.dataset_range(len(Xv))
+        ev = tr.evaluate_streaming_multihost(
+            Xv[vlo:vhi], yv[vlo:vhi], len(Xv), data.domain_cnt_weight())
+        try:
+            tr.evaluate_streaming_multihost(Xv, yv, len(Xv) // 2)
+            surplus = ""
+        except ValueError as e:
+            surplus = str(e)
+        state = flat(train_state_to_flax(tr.state))
+        # the host-batching epoch (the "dense" update's) on (2, 1)
+        hb = record_steps(fit_trainer(fit_config(embedding_update="dense"),
+                                      mesh))
+        hb.train_epoch(X, y, 0)
+        host = flat(train_state_to_flax(hb.state))
+        if j.rank == 0:
+            res.update({f"host/{k}": v for k, v in host.items()})
+            res["host/losses"] = np.asarray(hb.step_losses)
+            res.update({f"mh/{k}": v for k, v in state.items()})
+            res["mh/loss"] = loss
+            res["mh/losses"] = np.asarray(tr.step_losses)
+            res["mh/surplus"] = surplus
+            for k in ("total_auc", "total_loss", "mean_auc"):
+                res[f"mh/eval_{k}"] = ev[k]
+    if j.rank == 0:
+        np.savez(os.path.join(out_dir, f"trainer_{j.world}.npz"), **res)
+
+
+def task_ckpt(out_dir):
+    """2 ranks: 3 saves of a (1, 2) trainer through the async backend
+    (``max_to_keep`` 2), then step 3 restored onto (2, 1) and saved there
+    as step 4; the gathered states of both and what the step-4 directory
+    holds, from rank 0."""
+    import torch.distributed as dist
+
+    from tpurec_torch.convert import train_state_to_flax
+    from tpurec_torch.parallel import make_mesh
+
+    j = _join()
+    cfg = fit_config(checkpoint_backend="orbax")
+    data = fit_data()
+    X, y = data.train
+    tr = fit_trainer(cfg, make_mesh(1, 2))
+    be = tr.make_checkpointer(os.path.join(out_dir, "ck"), max_to_keep=2)
+    for step in (1, 2, 3):
+        tr.train_epoch(X[: FIT_BS * step], y[: FIT_BS * step], step)
+        tr.save_versioned(be, step, extra={"s": step})
+    be.wait_until_finished()
+    saved = flat(train_state_to_flax(tr.state))
+    tr2 = fit_trainer(cfg, make_mesh(2, 1))
+    meta = tr2.load_versioned(tr2.make_checkpointer(
+        os.path.join(out_dir, "ck")), step=3)
+    loaded = flat(train_state_to_flax(tr2.state))
+    # a save on (2, 1), where data rank 1 writes no file
+    be2 = tr2.make_checkpointer(os.path.join(out_dir, "ck21"))
+    tr2.save_versioned(be2, 4)
+    be2.wait_until_finished()
+    dist.barrier()
+    if j.rank == 0:
+        res = {f"saved/{k}": v for k, v in saved.items()}
+        res["ck21"] = np.asarray(sorted(os.listdir(os.path.join(out_dir,
+                                                                "ck21"))))
+        res.update({f"loaded/{k}": v for k, v in loaded.items()})
+        res["steps"] = np.asarray(sorted(be.all_steps()))
+        res["extra"] = json.dumps(meta["extra"])
+        np.savez(os.path.join(out_dir, "ckpt.npz"), **res)
+
+
+def task_cli(out_dir, *argv):
+    """One rank of ``tpurec_torch.cli.main(argv)`` under
+    torch.distributed.run, with dropout 0; writes the seed its config
+    took (``seed_<rank>.json``) and its steps' losses
+    (``losses_<rank>.json``)."""
+    import torch
+
+    from tpurec_torch import cli
+
+    torch.set_num_threads(1)
+    build = cli.build_config
+
+    def no_dropout(args):
+        cfg = build(args)
+        rank = os.environ.get("RANK", "0")
+        with open(os.path.join(out_dir, f"seed_{rank}.json"), "w") as f:
+            json.dump(cfg.train.seed, f)
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, dropout=0.0))
+
+    cli.build_config = no_dropout
+    losses = record_losses()
+    cli.main(list(argv))
+    with open(os.path.join(out_dir, f"losses_{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump(losses, f)
+
+
+def record_losses(patch=setattr):
+    """Make the hybrid step append each step's loss to the returned list
+    (``patch``: how to set the attribute, e.g. a monkeypatch's)."""
+    from tpurec_torch.train import hybrid
+
+    losses = []
+    one_step = hybrid.HybridTrainStep.one_step
+
+    def recorded(self, *args, **kwargs):
+        loss = one_step(self, *args, **kwargs)
+        losses.append(float(loss))
+        return loss
+
+    patch(hybrid.HybridTrainStep, "one_step", recorded)
+    return losses
+
+
+TASKS = {"cli": task_cli, "steps": task_steps, "lookup": task_lookup, "trainer": task_trainer,
+         "ckpt": task_ckpt}
+
+
+if __name__ == "__main__":
+    TASKS[sys.argv[1]](*sys.argv[2:])

@@ -305,7 +305,8 @@ def test_fit_is_reproducible(data):
 
 def test_unported_and_invalid_options_raise(data):
     args = (data.field_dims, data.n_domain, data.domain_idx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is ported (tests/test_torch_parallel_*.py): it must be one
+    with pytest.raises(TypeError, match="Mesh"):
         Trainer(_cfg("mmoe"), *args, mesh=object(), device="cpu")
     # "dense" is ported: one Adam over every parameter, the host epoch
     dense = dataclasses.replace(_cfg("mmoe"), train=dataclasses.replace(
@@ -319,9 +320,9 @@ def test_unported_and_invalid_options_raise(data):
     with pytest.raises(ValueError, match="Unknown model"):
         Trainer(_cfg("nope"), *args, device="cpu")
     tr = _trainer(data, "dcn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         tr.train_epoch_multihost(*data.train, len(data.train[0]), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         tr.evaluate_streaming_multihost(*data.valid, len(data.valid[0]))
     with pytest.raises(ValueError, match="empty"):
         tr.evaluate(data.valid[0][:0], data.valid[1][:0])

@@ -44,7 +44,7 @@ counterpart: nothing compiles in eager PyTorch, and
 :meth:`CDCTrainer.warm_compile` does nothing.
 
 Not ported (each raises NotImplementedError naming ROADMAP.md): a mesh
-(``mesh``/``shardings``) and ``cdc.parallel_rows > 0``
+(``mesh``/``shardings``, item 8b) and ``cdc.parallel_rows > 0``
 (``populate_rows_parallel`` with ``EmbeddingUpdater.update_stacked``).
 
 ``compute_dtype="bfloat16"`` reaches every forward, as in the JAX
@@ -140,7 +140,9 @@ class CDCTrainer:
     def __init__(self, cfg: Config, field_dims, n_domain: int,
                  domain_idx: int, mesh=None, shardings=None, device=None):
         if mesh is not None or shardings is not None:
-            raise _not_ported("a mesh (mesh=, shardings=)", "'Parallelism'")
+            raise _not_ported("CDCTrainer's mesh (mesh=, shardings=)",
+                              "item 8b (CDCTrainer's mesh and expert "
+                              "parallelism)")
         assert cfg.cdc.base_model in CDC_BASE_MODELS, cfg.cdc.base_model
         if cfg.cdc.parallel_rows > 0:
             raise _not_ported(

@@ -5,18 +5,27 @@ Mirrors the reference's 21-flag surface (main.py:16-41) on top of the typed
 config, including the all-args seed-hash default (main.py:43-47), with the
 JAX package's flags and defaults plus ``--device`` (``cuda``, the default,
 or ``cpu``).  The seed hash reads every flag but ``--device``, so one argv
-gives the JAX package's seed in one process.
+gives the JAX package's seed in one process.  Python salts ``str``
+hashes per process, so under a launcher rank 0's hash is broadcast to
+every rank before anything is seeded: the ranks of one launch train from
+one seed.
 
     python -m tpurec_torch.cli --model cdc --dataset_name synthetic \
         --base_model mmoe --mesh_data -1
-    python -m tpurec_torch.cli --model mmoe --dataset_name aliccp \
-        --data_path dataset/aliccp --group_strategy split --mesh_data -1
+    python -m torch.distributed.run --nproc_per_node 4 -m tpurec_torch.cli \
+        --model mmoe --dataset_name aliccp --data_path dataset/aliccp \
+        --group_strategy split --mesh_data 2 --mesh_model 2
 
-A mesh of more than one card is not ported (ROADMAP.md, queue 1, item 8
-'Parallelism'): a request for one raises NotImplementedError, and with
-the default ``--mesh_data 0`` so does a host with more than one card;
-``--mesh_data -1`` trains on one.  pandas is imported only by the CSV
-datasets' branch.
+The mesh follows the JAX package's rule (``tpurec/cli.py:299-328``) with
+ranks for devices: under ``torch.distributed.run`` the world is the
+launch's ranks, the default ``--mesh_data 0`` takes all of them, an
+explicit mesh larger than the world exits, and ``--mesh_data -1`` trains
+each rank alone.  A plain launch on a host of several cards exits with
+how to launch, where the JAX package would train on every card; a mesh
+must take every rank of the launch.  Only rank 0 logs, writes the
+checkpoint and prints the result line.  ``CDCTrainer``'s mesh and
+``--mesh_expert_parallel`` raise NotImplementedError (ROADMAP.md, queue
+1, item 8b).  pandas is imported only by the CSV datasets' branch.
 """
 
 from __future__ import annotations
@@ -107,10 +116,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     # mirror scalar metrics to wandb when the package is installed
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--wandb_project", default="tpurec")
-    # device mesh: data x model axes (more than one device is not ported:
-    # ROADMAP.md item 8).  mesh_data=0 means
-    # "all remaining devices after mesh_model"; -1 disables the mesh even
-    # on a multi-device host; with 1 device no mesh is built.
+    # device mesh: data x model axes over the launch's ranks.  mesh_data=0
+    # means "all remaining ranks after mesh_model"; -1 disables the mesh
+    # even under a launcher; with 1 rank no mesh is built.
     p.add_argument("--mesh_data", type=int, default=0)
     p.add_argument("--mesh_model", type=int, default=1)
     # shard MoE expert banks (MMoE/PLE/HiNet) over the model axis too
@@ -246,9 +254,83 @@ def load_dataset(cfg: Config):
             field_dims, n_domain, domain_idx)
 
 
+def _launched() -> bool:
+    """Whether a launcher (torch.distributed.run) started this process."""
+    return "WORLD_SIZE" in os.environ and "RANK" in os.environ
+
+
+def resolve_mesh(args):
+    """The (n_data, n_model) the flags ask for, or None for no mesh
+    (``tpurec/cli.py:299-328`` with the launch's ranks as its devices).
+    Exits with a message where the request cannot be met."""
+    launched = _launched()
+    if launched:
+        n_dev = int(os.environ["WORLD_SIZE"])
+    else:
+        n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
+    explicit = args.mesh_data > 0 or args.mesh_model > 1
+    if args.mesh_data < 0 or not (explicit or n_dev > 1):
+        return None
+    n_model = max(args.mesh_model, 1)
+    n_data = args.mesh_data if args.mesh_data > 0 else max(n_dev // n_model, 1)
+    n_use = n_data * n_model
+    if n_use > n_dev:
+        # an EXPLICIT request that can't be satisfied must fail loudly —
+        # silently training unsharded would hide a misconfiguration
+        raise SystemExit(
+            f"--mesh_data {n_data} x --mesh_model {n_model} needs "
+            f"{n_use} devices, have {n_dev}")
+    if n_use == 1:
+        return None
+    if not launched:
+        raise SystemExit(
+            f"a mesh of --mesh_data {n_data} x --mesh_model {n_model} runs "
+            f"one process a rank: launch with python -m "
+            f"torch.distributed.run --nproc_per_node {n_use} -m "
+            f"tpurec_torch.cli ..., or pass --mesh_data -1 to train on one "
+            f"device")
+    if n_use != n_dev:
+        raise SystemExit(
+            f"--mesh_data {n_data} x --mesh_model {n_model} uses {n_use} of "
+            f"the launch's {n_dev} ranks: a mesh takes every rank")
+    return n_data, n_model
+
+
+def _shared_seed(args, device) -> None:
+    """Rank 0's seed on every rank (each process salts its str hashes)."""
+    from tpurec_torch.parallel.collectives import broadcast_
+
+    t = torch.tensor([args.seed], dtype=torch.int64, device=device)
+    args.seed = int(broadcast_(t, 0))
+
+
 def main(argv=None):
     args = parse_args(argv)
+    shape = resolve_mesh(args)
+    mesh = shardings = None
+    rank0 = True
+    if shape is not None:
+        from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+
+        if "cdc" in args.model or args.mesh_expert_parallel:
+            from tpurec_torch.parallel.mesh import ITEM_8B
+
+            raise NotImplementedError(
+                f"{'CDCTrainer' if 'cdc' in args.model else 'expert'}"
+                f"'s mesh is not ported to tpurec_torch yet: {ITEM_8B}")
+        joined = init_distributed(args.device)
+        _shared_seed(args, joined.device)
+        mesh = make_mesh(*shape, device=joined.device)
+        shardings = Shardings(mesh)
+        rank0 = mesh.rank == 0
     cfg = build_config(args)
+    if mesh is not None:
+        # record the RESOLVED mesh (mesh_data=0 means auto) so the config
+        # serialized into checkpoints describes the actual run
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, n_data=shape[0], n_model=shape[1]))
     resolve_device(args.device)     # no card: fail before loading data
     np.random.seed(cfg.train.seed)
 
@@ -293,7 +375,11 @@ def main(argv=None):
 
     logger = JsonlLogger(args.log_path)
     log_fn = logger
-    if args.wandb:
+    if mesh is not None:
+        log_fn({"mesh": [mesh.n_data, mesh.n_model], "ranks": mesh.size,
+                "backend": mesh.backend, "device": str(mesh.device),
+                "seed": cfg.train.seed})
+    if args.wandb and rank0:
         # optional wandb mirror (the reference logs through wandb,
         # main.py:79-80); gated on the package being installed
         try:
@@ -311,21 +397,6 @@ def main(argv=None):
                 _jsonl(rec)
                 wandb.log({k: v for k, v in rec.items()
                            if isinstance(v, (int, float))})
-
-    # a (data, model) mesh when more than one device is available (or the
-    # user asked for a specific shape): not ported, so any request that
-    # needs more than one card raises
-    n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
-    explicit = args.mesh_data > 0 or args.mesh_model > 1
-    if args.mesh_data >= 0 and (explicit or n_dev > 1):
-        n_model = max(args.mesh_model, 1)
-        n_data = args.mesh_data if args.mesh_data > 0 else max(n_dev // n_model, 1)
-        if n_data * n_model > 1:
-            raise NotImplementedError(
-                f"a mesh of --mesh_data {n_data} x --mesh_model {n_model} "
-                f"devices ({n_dev} on {args.device}) is not ported to "
-                "tpurec_torch yet: see ROADMAP.md, queue 1, item 8 "
-                "'Parallelism'; --mesh_data -1 trains on one device")
 
     if "cdc" in cfg.model.model:
         from tpurec_torch.cdc import CDCTrainer
@@ -347,7 +418,9 @@ def main(argv=None):
                 else [0] * n_domain
             )
         tr = Trainer(cfg, field_dims, n_domain, domain_idx,
-                     domain2group=strategy[:n_domain], device=args.device)
+                     domain2group=strategy[:n_domain], mesh=mesh,
+                     shardings=shardings,
+                     device=None if mesh is not None else args.device)
         if args.resume:
             tr.load_checkpoint(args.resume)
         out = tr.fit(train, valid, test=test, log_fn=log_fn)
@@ -365,7 +438,8 @@ def main(argv=None):
         tr.save_checkpoint(ckpt, extra={"result": _jsonable(out)})
         out["checkpoint"] = ckpt
 
-    print(json.dumps(_jsonable(out), default=str))
+    if rank0:
+        print(json.dumps(_jsonable(out), default=str))
     return out
 
 

@@ -29,6 +29,14 @@ place.  Two optimizer layouts cross, by the trainer's
   ``mu``/``nu`` included, and no ``SparseEmbedState``.
 
 A tree of the other layout than the state's raises.
+
+A state on a mesh (its table one shard of the rows:
+:class:`tpurec_torch.parallel.embedding.TableShard` at
+``model.embedding.shard``) crosses as the whole table: the table and its
+moments are gathered over the model group on the way out (a collective:
+every rank calls it; ``local=True`` keeps this rank's rows instead), and
+each rank keeps its rows of a whole table on the way in.  The padding
+rows of the shards never appear in a tree.
 """
 
 from __future__ import annotations
@@ -38,10 +46,23 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from tpurec_torch.parallel.embedding import table_shard
+
 
 # a buffer's flax collection, by its path in the state_dict; every other
 # buffer is a BatchNorm statistic, in ``batch_stats``
 BUFFER_COLLECTIONS = {"cluster_centers": "adl_state"}
+TABLE = "embedding.table"
+
+
+def _rows_in(shard):
+    """Table-shaped array -> this shard's rows (a whole table's are cut;
+    a tensor of the shard's rows passes)."""
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        if shard is None or t.shape[0] == shard.n_local:
+            return t
+        return shard.local(t)
+    return rows
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -95,12 +116,19 @@ def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
     from tpurec_torch.train.hybrid import init_train_state
     from tpurec_torch.train.step import init_dense_train_state
 
-    model.load_state_dict(state_dict_from_flax(params, model_state),
-                          strict=True)
+    _load_model(model, params, model_state)
     ts = (init_dense_train_state if emb_m is None else init_train_state)(
         model, tcfg, device)
     _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v, step)
     return ts
+
+
+def _load_model(model, params, model_state) -> None:
+    """The trees into ``model`` (its rows of the table on a mesh)."""
+    sd = state_dict_from_flax(params, model_state)
+    if TABLE in sd:
+        sd[TABLE] = _rows_in(table_shard(model))(sd[TABLE])
+    model.load_state_dict(sd, strict=True)
 
 
 def _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v,
@@ -120,18 +148,20 @@ def _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v,
                 f"{sorted(stepped - set(tree))}, unexpected "
                 f"{sorted(set(tree) - stepped)}")
     count = float(np.asarray(adam_count))
+    rows = _rows_in(table_shard(ts.model))
     for group in ts.optimizer.param_groups:
         for p in group["params"]:
             n = names[id(p)]
+            cut = rows if n == TABLE else (lambda t: t)
             ts.optimizer.state[p] = {
                 "step": torch.tensor(count, dtype=torch.float32),
-                "exp_avg": _tensor(mu[n]).to(dev, torch.float32),
-                "exp_avg_sq": _tensor(nu[n]).to(dev, torch.float32),
+                "exp_avg": cut(_tensor(mu[n])).to(dev, torch.float32),
+                "exp_avg_sq": cut(_tensor(nu[n])).to(dev, torch.float32),
             }
     if ts.emb_opt is not None:
         for name, src in (("m", emb_m), ("v", emb_v)):
             dst = getattr(ts.emb_opt, name)
-            dst.copy_(_tensor(src).to(dev, dst.dtype))
+            dst.copy_(rows(_tensor(src)).to(dev, dst.dtype))
     ts.step = int(np.asarray(step))
 
 
@@ -149,7 +179,7 @@ def _numpy(t: torch.Tensor):
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
-def train_state_to_flax(ts) -> Dict[str, Any]:
+def train_state_to_flax(ts, local: bool = False) -> Dict[str, Any]:
     """A port TrainState -> the flax state dict of the JAX package's
     TrainState (``flax.serialization.to_state_dict``'s tree):
 
@@ -161,15 +191,20 @@ def train_state_to_flax(ts) -> Dict[str, Any]:
     ``emb_opt``), ``"opt_state": {"0": {}, "1": {"count", "mu", "nu"},
     "2": {}}`` over every parameter.  Leaves are numpy arrays (bfloat16
     table moments stay CPU tensors); ``count`` and ``step`` are int32
-    scalars; the dense Adam's per-parameter step is one count."""
+    scalars; the dense Adam's per-parameter step is one count.  On a
+    mesh the table-shaped leaves are gathered (every rank must call),
+    unless ``local``."""
     model = ts.model
+    shard = table_shard(model)
+    full = (shard.gather if shard is not None and not local
+            else (lambda t: t))
     params: Dict[str, Any] = {}
     collections: Dict[str, Dict[str, Any]] = {}
     names = {n for n, _ in model.named_parameters()}
     for key, t in model.state_dict().items():
         tree = params if key in names else collections.setdefault(
             BUFFER_COLLECTIONS.get(key, "batch_stats"), {})
-        _set_leaf(tree, key, _numpy(t))
+        _set_leaf(tree, key, _numpy(full(t) if key == TABLE else t))
     mu: Dict[str, Any] = {}
     nu: Dict[str, Any] = {}
     ids = {id(p): n for n, p in model.named_parameters()}
@@ -178,8 +213,10 @@ def train_state_to_flax(ts) -> Dict[str, Any]:
         for p in group["params"]:
             st = ts.optimizer.state.get(p) or {}
             zero = torch.zeros_like(p, dtype=torch.float32)
-            _set_leaf(mu, ids[id(p)], _numpy(st.get("exp_avg", zero)))
-            _set_leaf(nu, ids[id(p)], _numpy(st.get("exp_avg_sq", zero)))
+            cut = full if ids[id(p)] == TABLE else (lambda t: t)
+            _set_leaf(mu, ids[id(p)], _numpy(cut(st.get("exp_avg", zero))))
+            _set_leaf(nu, ids[id(p)],
+                      _numpy(cut(st.get("exp_avg_sq", zero))))
             counts.add(int(st["step"]) if "step" in st else 0)
     if len(counts) > 1:
         raise ValueError(f"the dense parameters' Adam counts differ: "
@@ -191,7 +228,8 @@ def train_state_to_flax(ts) -> Dict[str, Any]:
         "params": params,
         "opt_state": chain if ts.emb_opt is None else {
             "0": chain,
-            "1": {"m": _numpy(ts.emb_opt.m), "v": _numpy(ts.emb_opt.v)}},
+            "1": {"m": _numpy(full(ts.emb_opt.m)),
+                  "v": _numpy(full(ts.emb_opt.v))}},
         "model_state": collections,
         "step": np.asarray(ts.step, np.int32),
     }
@@ -218,9 +256,7 @@ def restore_train_state(ts, tree: Mapping) -> None:
             f"the checkpoint's optimizer state has the {_layout(dense)} "
             f"layout, the trainer's update the {_layout(not dense)} one: "
             "restore it into a trainer of the update that wrote it")
-    ts.model.load_state_dict(
-        state_dict_from_flax(tree["params"], tree.get("model_state")),
-        strict=True)
+    _load_model(ts.model, tree["params"], tree.get("model_state"))
     adam, emb = (opt["1"], {}) if dense else (opt["0"]["1"], opt["1"])
     _load_optimizer(ts, adam["mu"], adam["nu"], adam["count"],
                     emb.get("m"), emb.get("v"), tree["step"])

@@ -15,6 +15,15 @@
 //            which reproduces mixed_table_lookup's two gathers exactly.
 //   scales (int8 tables): out = float(row) * scales[g], the scale taken
 //            with the same rule over the whole table (fill NaN).
+//   window   a table that holds only global rows [row_lo, row_lo + n_window)
+//            (one shard of a table row-sharded over a mesh's model axis):
+//            a row that the rules above read but that lies outside the
+//            window gives a zero row, in the same launch, so that the sum
+//            of every shard's rows is the lookup (the shard's clip + where
+//            of tpurec/parallel/embedding.py:56-66).  Offsets, limits and
+//            the rules stay global: n_table_rows is the whole table's row
+//            count.  The whole table as its window (row_lo 0, n_window =
+//            n_table_rows) is the plain gather, bit for bit.
 //
 // Bound on the H100: bytes (ids in, the rows read, float32 rows out).  A
 // row of D=16 is 64 B (f32), 32 B (bf16) or 16 B (int8); a "piece" is 16
@@ -76,7 +85,8 @@ __global__ void __launch_bounds__(kBlock)
                   const int* __restrict__ offsets,
                   const int* __restrict__ limits, unsigned n_pieces,
                   unsigned n_fields, unsigned chunks, int d,
-                  int n_table_rows, float* __restrict__ out) {
+                  int n_table_rows, int row_lo, int n_window,
+                  float* __restrict__ out) {
   const unsigned base = blockIdx.x * static_cast<unsigned>(kBlock * kUnroll) +
                         threadIdx.x;
   unsigned pair[kUnroll], chunk[kUnroll];
@@ -96,21 +106,26 @@ __global__ void __launch_bounds__(kBlock)
                    : 0;
     lim[u] = live[u] ? min(limits[f], n_table_rows) : 0;
   }
-  // 2. the row pieces (and scales), all in flight together
+  // 2. the row pieces (and scales), all in flight together; a row the
+  //    rules read outside the window is zero (ok, not in the window)
   Pack<T, VEC> p[kUnroll];
-  bool ok[kUnroll];
+  bool ok[kUnroll], in_win[kUnroll];
   float sc[kUnroll];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const int r = g[u] < 0 ? g[u] + lim[u] : g[u];
     ok[u] = r >= 0 && r < lim[u];
-    if (ok[u])
+    const int w = r - row_lo;  // r >= 0 here and row_lo >= 0: no overflow
+    in_win[u] = ok[u] && w >= 0 && w < n_window;
+    if (in_win[u])
       p[u] = *reinterpret_cast<const Pack<T, VEC>*>(
-          table + static_cast<long long>(r) * d + chunk[u] * VEC);
+          table + static_cast<long long>(w) * d + chunk[u] * VEC);
     if (scales != nullptr) {
       const int s = g[u] < 0 ? g[u] + n_table_rows : g[u];
-      sc[u] = (live[u] && s >= 0 && s < n_table_rows)
-                  ? scales[s]
+      const int sw = s - row_lo;
+      sc[u] = (live[u] && s >= 0 && s < n_table_rows && sw >= 0 &&
+               sw < n_window)
+                  ? scales[sw]
                   : __int_as_float(0x7fc00000);
     }
   }
@@ -118,11 +133,13 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     if (!live[u]) continue;
+    const bool zero = ok[u] && !in_win[u];
     float vals[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k)
-      vals[k] = ok[u] ? to_float(p[u].v[k]) : fill_value<T>();
-    if (scales != nullptr) {
+      vals[k] = in_win[u] ? to_float(p[u].v[k])
+                          : (zero ? 0.0f : fill_value<T>());
+    if (scales != nullptr && !zero) {
 #pragma unroll
       for (int k = 0; k < VEC; ++k) vals[k] *= sc[u];
     }
@@ -142,7 +159,9 @@ __global__ void __launch_bounds__(kBlock)
 }  // namespace
 
 // What a launch needs besides the ids: fixed when the gather is prepared.
-// dtype: 0 float32, 1 bfloat16, 2 int8.  scales may be null.
+// dtype: 0 float32, 1 bfloat16, 2 int8.  scales may be null; they are the
+// window's, as the table is.  n_table_rows is the whole table's row
+// count; the table pointer holds rows [row_lo, row_lo + n_window).
 struct GatherPlan {
   const float* scales;
   const int* offsets;
@@ -151,6 +170,8 @@ struct GatherPlan {
   int n_fields;
   int d;
   int n_table_rows;
+  int row_lo;
+  int n_window;
 };
 
 namespace {
@@ -172,19 +193,19 @@ cudaError_t launch(const GatherPlan& pl, const void* table, const int* ids,
     gather_kernel<T, kVec><<<grid, kBlock, 0, stream>>>(
         tab, pl.scales, ids, pl.offsets, pl.limits,
         static_cast<unsigned>(pieces), pl.n_fields, pl.d / kVec, pl.d,
-        pl.n_table_rows, out);
+        pl.n_table_rows, pl.row_lo, pl.n_window, out);
   else
     gather_kernel<T, 1><<<grid, kBlock, 0, stream>>>(
         tab, pl.scales, ids, pl.offsets, pl.limits,
         static_cast<unsigned>(pieces), pl.n_fields, pl.d, pl.d,
-        pl.n_table_rows, out);
+        pl.n_table_rows, pl.row_lo, pl.n_window, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // ids [n, plan->n_fields] int32 -> out [n, n_fields, d] float32 rows of
-// the [n_table_rows, d] table.  Returns the cudaError_t of the launch (0
+// the [n_table_rows, d] table (of its window: zero rows elsewhere).  Returns the cudaError_t of the launch (0
 // on success).
 extern "C" int tpurec_embedding_gather(const GatherPlan* plan,
                                        const void* table, const int* ids,

@@ -19,7 +19,8 @@ the JAX package keeps them in the ``adl_state`` collection, which
   reference, ``tpurec/models/adl.py:12-14``);
 - that update sums over EVERY row of the batch, padded rows included
   (``adl.py:61-66`` reads no ``row_mask``), while the tower BatchNorms
-  take the routed rows under ``row_mask`` alone.
+  take the routed rows under ``row_mask`` alone; on a mesh the sum is the
+  global batch's, all-reduced over the data group.
 
 The similarity, centre update and tower products are float32 in bf16
 mode too; only the StackedMLP's Linears cast.
@@ -33,6 +34,12 @@ from torch import nn
 from tpurec_torch.models.base import AuxLogits, CTRModel
 from tpurec_torch.nn import initializers as tinit
 from tpurec_torch.nn.core import StackedMLP
+from tpurec_torch.parallel.collectives import all_reduce_, current_mesh
+
+
+def _data_group():
+    mesh = current_mesh()
+    return None if mesh is None else mesh.data_group
 
 
 def _l2norm(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -81,7 +88,9 @@ class ADL(CTRModel):
             coeff = torch.softmax(embed_sg @ c.T, dim=1)          # [B, T]
             if train:
                 rate = self.cfg.dlm_update_rate
-                tmp = _l2norm(coeff.T @ embed_sg)
+                # over the global batch's rows on a mesh
+                tmp = _l2norm(all_reduce_(coeff.T @ embed_sg,
+                                          _data_group()))
                 c.copy_(_l2norm(rate * c + (1 - rate) * tmp))
             routing = torch.argmax(coeff, dim=1)
             onehot = (routing[:, None] == torch.arange(

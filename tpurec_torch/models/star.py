@@ -24,7 +24,8 @@ from torch import nn
 
 from tpurec_torch.models.base import AuxLogits, CTRModel
 from tpurec_torch.nn import initializers as tinit
-from tpurec_torch.nn.core import BatchNorm, dropout
+from tpurec_torch.nn.core import BatchNorm, dropout, global_moments
+from tpurec_torch.parallel.collectives import current_mesh
 
 
 class PartitionedNorm(nn.Module):
@@ -58,11 +59,8 @@ class PartitionedNorm(nn.Module):
         if train:
             m = group_onehot if row_mask is None else \
                 group_onehot * row_mask[:, None]
-            w = m[:, :, None]                                # [B, T, 1]
-            n = w.sum(dim=0)                                 # [T, 1]
-            n_safe = torch.clamp(n, min=1.0)
-            mean = (w * xt).sum(dim=0) / n_safe
-            var = (w * torch.square(xt - mean[None])).sum(dim=0) / n_safe
+            # each tower's moments over its rows of the (global) batch
+            mean, var, n = global_moments(xt, m, current_mesh())
             with torch.no_grad():
                 mo = self.momentum
                 unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))

@@ -22,6 +22,13 @@ parameter tree maps onto a ``state_dict`` by joining its path with dots
 - :func:`mixed_table_lookup` is one launch of the gather kernel;
   :meth:`EmbeddingLayout.gather` prepares it once for a table.
 
+On a mesh (:mod:`tpurec_torch.parallel`) the training forward runs
+inside :func:`tpurec_torch.parallel.collectives.mesh_scope`: BatchNorm
+then takes its statistics over the global batch (its sums all-reduced
+over the data group), and a :class:`FusedEmbedding` whose table is one
+shard of the rows (``shard``) gathers its window and sums the rows over
+the model group.
+
 Modules are built with ``torch.empty`` parameters; ``reset_parameters``
 draws the torch-default inits from an explicit generator
 (:func:`tpurec_torch.nn.initializers.init_module` calls them all).
@@ -37,7 +44,9 @@ from torch import nn
 
 from tpurec_torch.nn import initializers as tinit
 from tpurec_torch.nn.precision import cast_operands
-from tpurec_torch.ops.embedding import EmbeddingGather, embedding_lookup
+from tpurec_torch.ops.embedding import EmbeddingGather
+from tpurec_torch.parallel.collectives import current_mesh, data_all_reduce
+from tpurec_torch.parallel.embedding import sharded_embedding_lookup
 
 
 class Linear(nn.Module):
@@ -110,6 +119,13 @@ class BatchNorm(nn.Module):
     with a mask, only where at least one row contributed — and counts
     ``num_batches_tracked``.  A batch of one row with no mask passes
     through unchanged, as the JAX module skips BN at batch size 1.
+
+    Inside a :func:`~tpurec_torch.parallel.collectives.mesh_scope` with a
+    data group, the batch is the global one: the count and the (masked)
+    sum are all-reduced over the data group for the mean, then the
+    centred sum of squares for the variance (the JAX module's two passes),
+    and the one-row skip reads the global batch size.  The running
+    statistics then update identically on every rank.
     """
 
     momentum = 0.1
@@ -133,24 +149,20 @@ class BatchNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x, train: bool = False, mask=None):
-        if x.shape[0] == 1 and mask is None:
+        mesh = current_mesh()
+        n_data = 1 if mesh is None else mesh.n_data
+        if x.shape[0] * n_data == 1 and mask is None:
             return x
         if not train:
             mean, var = self.mean, self.var
+        elif mask is None and n_data == 1:
+            n = torch.tensor(float(x.shape[0]), dtype=x.dtype,
+                             device=x.device)
+            mean = x.mean(dim=0)
+            var = torch.square(x - mean).mean(dim=0)
         else:
-            if mask is None:
-                n = torch.tensor(float(x.shape[0]), dtype=x.dtype,
-                                 device=x.device)
-                mean = x.mean(dim=0)
-                var = torch.square(x - mean).mean(dim=0)
-            else:
-                m = mask.to(x.dtype)
-                w = m.reshape(m.shape + (1,) * (x.dim() - m.dim())) \
-                    .expand_as(x)
-                n = w.sum(dim=0)
-                n_safe = torch.clamp(n, min=1.0)
-                mean = (w * x).sum(dim=0) / n_safe
-                var = (w * torch.square(x - mean)).sum(dim=0) / n_safe
+            mean, var, n = global_moments(x, mask, mesh)
+        if train:
             with torch.no_grad():
                 mo = self.momentum
                 unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
@@ -164,6 +176,33 @@ class BatchNorm(nn.Module):
                 self.num_batches_tracked.add_(1)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
             + self.bias
+
+
+def global_moments(x, mask, mesh):
+    """(mean, biased variance, count) over axis 0 of the global batch
+    whose rows ``x`` [B_local, ...] are this data rank's, weighted by
+    ``mask`` [B_local] (or [B_local, T] for a bank, ``x`` broadcasting
+    over T) when given.  Without a data group (``mesh`` None or n_data 1)
+    the batch is ``x``'s own and no collective runs."""
+    stat = x.shape[1:]
+    if mask is None:
+        w = None
+        s = x.sum(dim=0)
+        n_l = torch.full(stat, float(x.shape[0]), dtype=x.dtype,
+                         device=x.device)
+    else:
+        m = mask.to(x.dtype)
+        w = m.reshape(m.shape + (1,) * (x.dim() - m.dim()))
+        s = (w * x).sum(dim=0)
+        n_l = w.sum(dim=0).expand_as(s)
+    sn = data_all_reduce(torch.stack([s, n_l.detach()]), mesh)
+    n = sn[1].detach()
+    n_safe = torch.clamp(n, min=1.0)
+    mean = sn[0] / n_safe
+    sq = torch.square(x - mean)
+    q = (sq if w is None else w * sq).sum(dim=0)
+    var = data_all_reduce(q, mesh) / n_safe
+    return mean, var, n
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator]):
@@ -309,11 +348,15 @@ class EmbeddingLayout:
         return self._device_arrays[key]
 
     def gather(self, table: torch.Tensor,
-               scales: Optional[torch.Tensor] = None) -> EmbeddingGather:
+               scales: Optional[torch.Tensor] = None,
+               window=None) -> EmbeddingGather:
         """The lookup of :func:`mixed_table_lookup` prepared for ``table``
-        (and its int8 ``scales``): call it with int32 ids [B, F]."""
-        offsets, limits = self.device_arrays(table.device, table.shape[0])
-        return EmbeddingGather(table, offsets, limits, scales)
+        (and its int8 ``scales``): call it with int32 ids [B, F].
+        ``window`` ``(row_lo, n_table_rows)``: ``table`` holds those rows
+        of an ``n_table_rows``-row table, and a row outside reads zero."""
+        row_lo, V = window or (0, table.shape[0])
+        offsets, limits = self.device_arrays(table.device, V)
+        return EmbeddingGather(table, offsets, limits, scales, row_lo, V)
 
 
 def mixed_table_lookup(table: torch.Tensor, ids: torch.Tensor,
@@ -331,14 +374,16 @@ def mixed_table_lookup(table: torch.Tensor, ids: torch.Tensor,
     return layout.gather(table, scales)(ids.to(torch.int32).contiguous())
 
 
-def prepared_gather(holder, table: torch.Tensor,
-                    layout: EmbeddingLayout) -> EmbeddingGather:
+def prepared_gather(holder, table: torch.Tensor, layout: EmbeddingLayout,
+                    window=None) -> EmbeddingGather:
     """``holder``'s gather of ``table``, prepared at the first call and
     again only when the table is another tensor or has moved to another
-    device, shape or type (:meth:`EmbeddingGather.serves`)."""
+    device, shape or type, or the window changed
+    (:meth:`EmbeddingGather.serves`).  ``window``: ``(row_lo,
+    n_table_rows)`` when ``table`` is one shard of the rows."""
     g = getattr(holder, "_gather", None)
-    if g is None or not g.serves(table):
-        g = holder._gather = layout.gather(table)
+    if g is None or not g.serves(table, window):
+        g = holder._gather = layout.gather(table, window=window)
     return g
 
 
@@ -350,6 +395,10 @@ class FusedEmbedding(nn.Module):
     Where autograd records, the table takes the rows' gradients
     (:func:`tpurec_torch.ops.embedding.embedding_lookup`: the ``"dense"``
     update differentiates through the lookup).
+
+    ``shard`` (a :class:`tpurec_torch.parallel.embedding.TableShard`, set
+    when the table is replaced by one shard of its rows): the lookup
+    gathers the shard's window and sums the rows over the model group.
     """
 
     def __init__(self, field_dims, embed_dim: int,
@@ -359,6 +408,7 @@ class FusedEmbedding(nn.Module):
         self.init_std = init_std
         self.table = nn.Parameter(torch.empty(self.layout.vocab, embed_dim,
                                               device=device))
+        self.shard = None
 
     def reset_parameters(self, generator):
         tinit.normal_(self.table, generator, self.init_std)
@@ -367,8 +417,8 @@ class FusedEmbedding(nn.Module):
 
     def forward(self, ids):
         """ids [B, F] -> rows [B, F, D]."""
-        gather = prepared_gather(self, self.table, self.layout)
-        ids = ids.to(torch.int32).contiguous()
-        if torch.is_grad_enabled() and self.table.requires_grad:
-            return embedding_lookup(gather, ids)
-        return gather(ids)
+        shard = self.shard
+        return sharded_embedding_lookup(
+            prepared_gather(self, self.table, self.layout,
+                            None if shard is None else shard.window),
+            ids, shard)

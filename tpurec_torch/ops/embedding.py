@@ -18,6 +18,13 @@ call checks only the ids, allocates the output and launches.
 the kernel for CUDA tensors and run :func:`embedding_gather_reference`
 for CPU tensors only.
 
+A row window serves a table row-sharded over a mesh's model axis
+(:mod:`tpurec_torch.parallel.embedding`): the table passed holds global
+rows ``[row_lo, row_lo + n_rows)`` of an ``n_table_rows``-row table, and a
+row the rules read outside the window is a zero row, in the same launch.
+The window is fixed when the gather is prepared, so a call does no more
+work; the whole table as the window is the plain gather, bit for bit.
+
 :func:`embedding_lookup` is the gather with a gradient with respect to
 the table (the ``"dense"`` embedding update differentiates through the
 lookup): the forward is the prepared gather (kernel 1 on the card), the
@@ -47,7 +54,8 @@ class _Plan(ctypes.Structure):
     _fields_ = [("scales", ctypes.c_void_p), ("offsets", ctypes.c_void_p),
                 ("limits", ctypes.c_void_p), ("dtype", ctypes.c_int),
                 ("n_fields", ctypes.c_int), ("d", ctypes.c_int),
-                ("n_table_rows", ctypes.c_int)]
+                ("n_table_rows", ctypes.c_int), ("row_lo", ctypes.c_int),
+                ("n_window", ctypes.c_int)]
 
 
 _SIGNATURES = {
@@ -99,16 +107,29 @@ class EmbeddingGather:
     limits and scales are checked here, once, and kept referenced; a call
     checks only the ids.  The table may change in place between calls
     (its pointer is read at each call).
+
+    ``row_lo``/``n_table_rows``: ``table`` (and ``scales``) hold global
+    rows ``[row_lo, row_lo + V)`` of a table of ``n_table_rows`` rows
+    (default: the whole table, ``row_lo`` 0); a row read outside that
+    window is zero.
     """
 
     def __init__(self, table: torch.Tensor, offsets: torch.Tensor,
                  limits: torch.Tensor,
-                 scales: Optional[torch.Tensor] = None):
+                 scales: Optional[torch.Tensor] = None, row_lo: int = 0,
+                 n_table_rows: Optional[int] = None):
         _check_table(table, offsets, limits, scales)
         self.table, self.offsets, self.limits, self.scales = (
             table, offsets, limits, scales)
         self.n_fields = offsets.shape[0]
         self.V, self.D = table.shape
+        self.row_lo = int(row_lo)
+        self.n_table_rows = (self.V if n_table_rows is None
+                             else int(n_table_rows))
+        if not 0 <= self.row_lo <= self.n_table_rows < 2**31:
+            raise ValueError(f"window row_lo {row_lo} of a "
+                             f"{self.n_table_rows}-row table")
+        self.window = (self.row_lo, self.n_table_rows)
         self.dtype = table.dtype
         self.device = table.device
         self.device_index = table.get_device()       # -1 on the CPU
@@ -118,16 +139,19 @@ class EmbeddingGather:
             self._plan = ctypes.pointer(_Plan(
                 None if scales is None else scales.data_ptr(),
                 offsets.data_ptr(), limits.data_ptr(),
-                _DTYPE_CODES[table.dtype], self.n_fields, self.D, self.V))
+                _DTYPE_CODES[table.dtype], self.n_fields, self.D,
+                self.n_table_rows, self.row_lo, self.V))
 
-    def serves(self, table: torch.Tensor) -> bool:
-        """Whether this gather still fits ``table``: the same tensor, on
-        the same device, of the same shape and type (its storage may have
-        been replaced: a call reads the pointer)."""
+    def serves(self, table: torch.Tensor, window=None) -> bool:
+        """Whether this gather still fits ``table`` and ``window``
+        (``(row_lo, n_table_rows)``; None: the whole table): the same
+        tensor, on the same device, of the same shape and type (its
+        storage may have been replaced: a call reads the pointer)."""
         return (self.table is table
                 and table.get_device() == self.device_index
                 and table.dtype == self.dtype
-                and tuple(table.shape) == (self.V, self.D))
+                and tuple(table.shape) == (self.V, self.D)
+                and self.window == (window or (0, self.V)))
 
     def _check_ids(self, ids: torch.Tensor) -> None:
         if (ids.dtype is not torch.int32 or ids.dim() != 2
@@ -144,8 +168,9 @@ class EmbeddingGather:
     def __call__(self, ids: torch.Tensor) -> torch.Tensor:
         self._check_ids(ids)
         if self.device_index < 0:
-            return embedding_gather_reference(self.table, ids, self.offsets,
-                                              self.limits, self.scales)
+            return embedding_gather_reference(
+                self.table, ids, self.offsets, self.limits, self.scales,
+                self.row_lo, self.n_table_rows)
         N = ids.shape[0]
         if N * self.n_fields * self.D > _MAX_PIECES:
             raise ValueError(f"{N} rows of {self.n_fields} fields x "
@@ -170,12 +195,14 @@ class EmbeddingGather:
 
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor,
                      offsets: torch.Tensor, limits: torch.Tensor,
-                     scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     scales: Optional[torch.Tensor] = None, row_lo: int = 0,
+                     n_table_rows: Optional[int] = None) -> torch.Tensor:
     """One-shot :class:`EmbeddingGather`: ids [N, F] int32 -> float32 rows
-    [N, F, D] of ``table`` [V, D] (the same rules and results)."""
+    [N, F, D] of ``table`` [V, D] (the same rules, window and results)."""
     _check_table(table, offsets, limits, scales,
                  ids.shape[1] if ids.dim() == 2 else None)
-    return EmbeddingGather(table, offsets, limits, scales)(ids)
+    return EmbeddingGather(table, offsets, limits, scales, row_lo,
+                           n_table_rows)(ids)
 
 
 embedding_gather.launches = 0   # kernel 1's launches, from either form
@@ -204,28 +231,59 @@ def take_rows(src: torch.Tensor, idx: torch.Tensor, limit=None):
                                             device=src.device))
 
 
-def embedding_gather_reference(table, ids, offsets, limits, scales=None):
-    """Plain PyTorch version of :func:`embedding_gather` (same rules)."""
+def _window_rows(ids, offsets, limits, row_lo, n_window, n_table_rows):
+    """(g, ok, in_win, w): each id's global row before the limit rule, and
+    whether the rule reads a row, whether that row lies in the window and
+    its row in the window (see the CUDA source)."""
     g = _wrap_int32(ids.long() + offsets.long()[None, :])
-    rows = take_rows(table, g, limits.long()[None, :]).to(torch.float32)
+    lim = torch.clamp(limits.long()[None, :], max=n_table_rows)
+    r = torch.where(g < 0, g + lim, g)
+    ok = (r >= 0) & (r < lim)
+    w = r - row_lo
+    return g, ok, ok & (w >= 0) & (w < n_window), w
+
+
+def embedding_gather_reference(table, ids, offsets, limits, scales=None,
+                               row_lo: int = 0,
+                               n_table_rows: Optional[int] = None):
+    """Plain PyTorch version of :func:`embedding_gather` (same rules and
+    window)."""
+    n = table.shape[0]
+    V = n if n_table_rows is None else n_table_rows
+    g, ok, in_win, w = _window_rows(ids, offsets, limits, row_lo, n, V)
+    dev = table.device
+    fill = float("nan") if table.dtype.is_floating_point else float(
+        torch.iinfo(table.dtype).min)
+    vals = table[w.clamp(0, max(n - 1, 0))].to(torch.float32)
+    zero = (ok & ~in_win)[..., None]
+    rows = torch.where(in_win[..., None], vals,
+                       torch.where(zero, 0.0, torch.tensor(fill,
+                                                           device=dev)))
     if scales is not None:
-        rows = rows * take_rows(scales, g)[..., None]
+        s = torch.where(g < 0, g + V, g)
+        sw = s - row_lo
+        sok = (s >= 0) & (s < V) & (sw >= 0) & (sw < n)
+        sc = torch.where(sok, scales[sw.clamp(0, max(n - 1, 0))],
+                         torch.tensor(float("nan"), device=dev))
+        rows = torch.where(zero, rows, rows * sc[..., None])
     return rows
 
 
 def embedding_gather_table_grad(dy: torch.Tensor, ids: torch.Tensor,
                                 offsets: torch.Tensor, limits: torch.Tensor,
-                                n_rows: int) -> torch.Tensor:
+                                n_rows: int, row_lo: int = 0,
+                                n_table_rows: Optional[int] = None
+                                ) -> torch.Tensor:
     """The gradient of :func:`embedding_gather` with respect to a float32
     table of ``n_rows`` rows: ``dy`` [N, F, D] added into a zero [n_rows,
     D] tensor at each id's row by ``index_add_`` (by atomics, in a varying
     order, on the card).  An id that wraps reaches the row it read; one
     that read the fill value reaches no row, as in the transpose of
-    ``jnp.take``."""
-    g = _wrap_int32(ids.long() + offsets.long()[None, :])
-    lim = torch.clamp(limits.long()[None, :], max=n_rows)
-    r = torch.where(g < 0, g + lim, g)
-    ok = (r >= 0) & (r < lim)
+    ``jnp.take``.  With a window (``row_lo``, ``n_table_rows``: the table
+    is rows [row_lo, row_lo + n_rows) of that many) only the rows read in
+    the window take a gradient."""
+    V = n_rows if n_table_rows is None else n_table_rows
+    _, _, ok, r = _window_rows(ids, offsets, limits, row_lo, n_rows, V)
     D = dy.shape[-1]
     vals = torch.where(ok[..., None], dy.to(torch.float32),
                        torch.zeros((), dtype=torch.float32,
@@ -249,7 +307,8 @@ class _Lookup(torch.autograd.Function):
         ids, = ctx.saved_tensors
         g = ctx.gather
         return (embedding_gather_table_grad(dy, ids, g.offsets, g.limits,
-                                            g.V), None, None)
+                                            g.V, g.row_lo, g.n_table_rows),
+                None, None)
 
 
 def embedding_lookup(gather: EmbeddingGather,

@@ -1,0 +1,254 @@
+"""The (data, model) mesh over ``torch.distributed`` (counterpart of
+``tpurec/parallel/mesh.py:28-134``).
+
+The JAX package builds a ``jax.sharding.Mesh`` and lets GSPMD place its
+collectives.  The port follows PyTorch's idiom: one process per rank,
+explicit collectives (:mod:`tpurec_torch.parallel.collectives`).  The
+layout is the JAX package's:
+
+- ``data`` axis: each data rank takes its slice of every global batch;
+  dense gradients, BatchNorm statistics and the loss's denominator are
+  summed over the data group (the ranks of one model coordinate);
+- ``model`` axis: the fused embedding table and its table-shaped moments
+  are split by rows over the model group (the ranks of one data
+  coordinate); every other parameter is replicated.
+
+Ranks are laid out row-major, ``np.arange(world).reshape(n_data,
+n_model)``, as the JAX package lays out its devices: rank ``r`` is
+``(d, m) = divmod(r, n_model)``.
+
+:func:`init_distributed` joins the process group that ``torchrun``
+(``python -m torch.distributed.run``) describes in ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``.  A rank runs on
+card ``LOCAL_RANK % device_count`` unless the caller asks for the CPU.
+The backend is NCCL when every local rank has a card of its own, and gloo
+when ranks share a card or run on the CPU; the choice is printed and
+returned.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tpurec_torch.device import resolve_device
+
+# the item of ROADMAP.md's queue 1 that ports CDC's mesh and expert
+# parallelism
+ITEM_8B = ("see ROADMAP.md, queue 1, item 8b (CDCTrainer's mesh and "
+           "expert parallelism)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Distributed:
+    """What :func:`init_distributed` chose."""
+    rank: int
+    world: int
+    local_rank: int
+    device: torch.device
+    backend: str
+    reason: str
+
+
+_JOINED: Optional[Distributed] = None
+
+
+def choose_backend(device: torch.device, local_world: int,
+                   n_cards: int) -> Tuple[str, str]:
+    """-> (backend, why): NCCL when every local rank has a card of its
+    own, else gloo (ranks sharing a card, or on the CPU)."""
+    if device.type == "cpu":
+        return "gloo", "ranks on the CPU"
+    if local_world <= n_cards:
+        return "nccl", f"{local_world} local ranks on {n_cards} cards"
+    return "gloo", (f"{local_world} local ranks share {n_cards} card"
+                    f"{'s' if n_cards > 1 else ''}")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init_distributed(device=None) -> Distributed:
+    """Join the process group of this launch (once; later calls return
+    the first one's choice).  ``device``: "cpu" puts the rank on the CPU;
+    else the rank takes card ``LOCAL_RANK % device_count`` (raising when
+    there is none).  Without a launcher's ``MASTER_ADDR`` a world of one
+    joins on a free localhost port."""
+    global _JOINED
+    if _JOINED is not None:
+        return _JOINED
+    env = os.environ
+    rank = int(env.get("RANK", 0))
+    world = int(env.get("WORLD_SIZE", 1))
+    local_rank = int(env.get("LOCAL_RANK", 0))
+    local_world = int(env.get("LOCAL_WORLD_SIZE", world))
+    if device is not None and torch.device(device).type == "cpu":
+        dev = torch.device("cpu")
+        n_cards = 0
+    else:
+        resolve_device("cuda")          # raises without a card
+        n_cards = torch.cuda.device_count()
+        dev = torch.device("cuda", local_rank % n_cards)
+        torch.cuda.set_device(dev)
+    chosen, why = choose_backend(dev, local_world, n_cards)
+    init_method = "env://"
+    if not dist.is_initialized():
+        if "MASTER_ADDR" not in env:
+            if world != 1:
+                raise RuntimeError(
+                    f"WORLD_SIZE {world} without MASTER_ADDR/MASTER_PORT: "
+                    "launch with python -m torch.distributed.run")
+            init_method = f"tcp://127.0.0.1:{_free_port()}"
+        dist.init_process_group(chosen, init_method=init_method, rank=rank,
+                                world_size=world)
+    _JOINED = Distributed(rank, world, local_rank, dev, chosen, why)
+    print(f"tpurec_torch.parallel: rank {rank} of {world} on {dev}, "
+          f"backend {chosen} ({why})", flush=True)
+    return _JOINED
+
+
+def joined() -> Optional[Distributed]:
+    """The choice of :func:`init_distributed` in this process, or None."""
+    return _JOINED
+
+
+def mesh_layout(n_data: int, n_model: int) -> np.ndarray:
+    """[n_data, n_model] global ranks, row-major."""
+    return np.arange(n_data * n_model).reshape(n_data, n_model)
+
+
+class Mesh:
+    """This rank's place on a (data, model) mesh and its two groups.
+
+    ``d``, ``m``: the rank's coordinates; ``data_ranks`` the ranks of its
+    model coordinate (its data group), ``model_ranks`` those of its data
+    coordinate (its model group), each in coordinate order.  A group of
+    one rank is None (:mod:`tpurec_torch.parallel.collectives` skips it).
+    ``shape`` maps axis names to sizes, as ``jax.sharding.Mesh.shape``."""
+
+    def __init__(self, n_data: int, n_model: int, rank: int,
+                 device: torch.device, backend: str, data_group=None,
+                 model_group=None, data_axis: str = "data",
+                 model_axis: str = "model"):
+        self.n_data, self.n_model = n_data, n_model
+        self.rank = rank
+        self.d, self.m = divmod(rank, n_model)
+        layout = mesh_layout(n_data, n_model)
+        self.data_ranks = tuple(int(r) for r in layout[:, self.m])
+        self.model_ranks = tuple(int(r) for r in layout[self.d, :])
+        self.device = device
+        self.backend = backend
+        self.data_group = data_group
+        self.model_group = model_group
+        self.axis_names = (data_axis, model_axis)
+        self.shape = {data_axis: n_data, model_axis: n_model}
+
+    @property
+    def size(self) -> int:
+        return self.n_data * self.n_model
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.n_data}, model={self.n_model}, rank "
+                f"{self.rank} = ({self.d}, {self.m}), {self.device}, "
+                f"{self.backend})")
+
+
+def make_mesh(n_data: int = 0, n_model: int = 1, world: Optional[int] = None,
+              device=None, data_axis: str = "data",
+              model_axis: str = "model") -> Mesh:
+    """The (data, model) mesh over every rank of the process group (a
+    world of one when none was joined), with the JAX package's checks:
+    ``n_data <= 0`` takes every rank left after ``n_model``, and the
+    product must be the world.  Every rank must call it, in the same
+    order, with the same arguments: it creates the groups."""
+    if world is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_data <= 0:
+        if world % n_model:
+            raise AssertionError(
+                f"{world} ranks do not split into model groups of {n_model}")
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise AssertionError(
+            f"{n_data}x{n_model} mesh needs {n_data*n_model} devices, have "
+            f"{world}")
+    j = joined()
+    dev = (torch.device(device) if device is not None
+           else j.device if j is not None else resolve_device(None))
+    backend = (dist.get_backend() if dist.is_initialized() else "none")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    layout = mesh_layout(n_data, n_model)
+    data_group = model_group = None
+    if world > 1:
+        for m in range(n_model):        # every rank creates every group
+            g = _group(layout[:, m])
+            if rank in layout[:, m]:
+                data_group = g
+        for d in range(n_data):
+            g = _group(layout[d, :])
+            if rank in layout[d, :]:
+                model_group = g
+    return Mesh(n_data, n_model, rank, dev, backend, data_group,
+                model_group, data_axis, model_axis)
+
+
+def _group(ranks: Sequence[int]):
+    """A process group of ``ranks``, or None for one rank."""
+    ranks = [int(r) for r in ranks]
+    g = dist.new_group(ranks)
+    return g if len(ranks) > 1 else None
+
+
+# state names (dotted) that are row-sharded over the model axis
+_ROW_SHARDED_SUFFIXES = ("embedding.table",)
+
+
+def row_sharded(path) -> bool:
+    """Whether the leaf at ``path`` (a dotted name, or its keys) is
+    row-sharded over the model axis: ``embedding.table``, and ``m``/``v``
+    under the optimizer state (the table's moments: ``emb_opt.m``,
+    ``opt_state.1.m``); ``_spec_for_path``'s rules
+    (``tpurec/parallel/mesh.py:78-101``)."""
+    keys = path.split(".") if isinstance(path, str) else [
+        str(k) for k in path]
+    full = ".".join(keys)
+    if any(full.endswith(s) for s in _ROW_SHARDED_SUFFIXES):
+        return True
+    return bool(keys) and keys[-1] in ("m", "v") and any(
+        "opt_state" in k or k == "emb_opt" for k in keys)
+
+
+class Shardings:
+    """Which leaves of a state are row-sharded over the model axis
+    (``tpurec/parallel/mesh.py:67-131``, ``_spec_for_path``'s rules on the
+    port's dotted names): ``embedding.table`` and the table's moments
+    (``m``/``v`` under the optimizer state: ``emb_opt.m``,
+    ``opt_state.1.m``) split by rows; every other leaf is replicated.
+
+    ``expert_parallel=True`` (the expert banks over the model axis) is not
+    ported yet."""
+
+    def __init__(self, mesh: Mesh, data_axis: str = "data",
+                 model_axis: str = "model", expert_parallel: bool = False):
+        if expert_parallel:
+            raise NotImplementedError(
+                f"Shardings(expert_parallel=True) is not ported: {ITEM_8B}")
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.expert_parallel = expert_parallel
+
+    def spec(self, path) -> Tuple:
+        """``path`` (a dotted name, or its keys) -> ``(model_axis, None)``
+        for a row-sharded leaf (:func:`row_sharded`), ``()`` for a
+        replicated one."""
+        return (self.model_axis, None) if row_sharded(path) else ()

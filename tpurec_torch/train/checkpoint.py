@@ -22,8 +22,13 @@ raw 2-byte payload under the name ``"bfloat16"``.  Arrays read are
 read-only views of the input bytes.
 
 :class:`PickleBackend` keeps versioned single-file checkpoints of a port
-TrainState (``tpurec/train/checkpoint.py:120-186``); the orbax backend is
-not ported (orbax imports jax).
+TrainState (``tpurec/train/checkpoint.py:120-186``).
+:class:`AsyncBackend` is the port's counterpart of the JAX package's
+``OrbaxBackend`` (``tpurec/train/checkpoint.py:48-103``), which
+``make_backend("orbax")`` returns: asynchronous, versioned, sharded.  Its
+files are the port's own (orbax imports jax, so the JAX package cannot
+read them, nor the port orbax's); the pickle checkpoint of
+``Trainer.save_checkpoint`` stays the format that crosses packages.
 
 The layout-version guard is the JAX package's (``train/checkpoint.py:35-45``):
 the fused table's row order is ``smallfirst-v2`` in both packages.
@@ -31,9 +36,13 @@ the fused table's row order is ``smallfirst-v2`` in both packages.
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
+import shutil
 import struct
+import threading
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -367,11 +376,206 @@ class PickleBackend:
         pass
 
 
+def _split_leaves(tree, prefix=""):
+    """Nested dicts -> {dotted path: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_split_leaves(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _nest(flat: Dict[str, Any]) -> Dict:
+    """{dotted path: leaf} -> nested dicts (empty subtrees kept as
+    ``{}`` leaves by their writer)."""
+    out: Dict = {}
+    for key, v in flat.items():
+        *path, last = key.split(".")
+        t = out
+        for k in path:
+            t = t.setdefault(k, {})
+        t[last] = v
+    return out
+
+
+class AsyncBackend:
+    """Asynchronous versioned checkpoints of a port TrainState, sharded as
+    the state is (``make_backend("orbax")``).
+
+    ``save`` copies the state to host memory and returns; a writer thread
+    writes the step into ``<step>.partial/`` and, once every file of the
+    step is there, rank 0's writer renames it ``<step>/``.  On a mesh
+    (the table one shard of its rows) each model coordinate's rank of
+    data coordinate 0 writes its rows of the table and its moments, with
+    their row range (``shard_<m>.msgpack``); rank 0 writes every other
+    leaf (``state.msgpack``) and ``meta.json`` (the step, ``extra`` as
+    JSON, the table layout tag, the shard count).  The directory must be
+    shared by the ranks.  ``max_to_keep`` newest complete steps stay;
+    ``latest_step``/``all_steps`` list complete steps only.  ``restore``
+    assembles the whole table and loads it onto any mesh shape or one
+    device (each rank keeps its rows)."""
+
+    POLL_S = 0.01
+    TIMEOUT_S = 600.0
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._pending: Optional[int] = None
+
+    def _path(self, step: int, partial: bool = False) -> str:
+        return os.path.join(self.directory,
+                            f"{step}.partial" if partial else str(step))
+
+    def save(self, step: int, state: Any, extra: Optional[Dict] = None):
+        """Copy ``state`` to host memory and start writing it as ``step``
+        (waits for the previous save first)."""
+        from tpurec_torch.convert import train_state_to_flax
+        from tpurec_torch.parallel.embedding import table_shard
+        from tpurec_torch.parallel.mesh import row_sharded
+
+        self.wait_until_finished()
+        shard = table_shard(state.model)
+        mesh = None if shard is None else shard.mesh
+        rank, d, m = (0, 0, 0) if mesh is None else (mesh.rank, mesh.d,
+                                                     mesh.m)
+        n_shards = 1 if mesh is None else mesh.n_model
+        flat = _split_leaves(train_state_to_flax(state, local=True))
+        rows = {k: v for k, v in flat.items() if row_sharded(k)}
+        V = (state.model.get_parameter("embedding.table").shape[0]
+             if shard is None else shard.V)
+        row_lo = 0 if shard is None else shard.row_lo
+        n_rows = max(0, min(V - row_lo, next(iter(rows.values())).shape[0]))
+        files = {}
+        if d == 0:
+            files[f"shard_{m}.msgpack"] = {
+                "row_lo": row_lo,
+                "leaves": {k: v[:n_rows] for k, v in rows.items()}}
+        if rank == 0:
+            files["state.msgpack"] = {
+                k: v for k, v in flat.items() if k not in rows}
+            files["meta.json"] = {
+                "step": int(step), "extra": extra or {},
+                "embed_layout": EMBED_LAYOUT_VERSION, "n_rows": int(V),
+                "n_shards": n_shards}
+        expected = (["state.msgpack", "meta.json"]
+                    + [f"shard_{i}.msgpack" for i in range(n_shards)])
+        self._pending = step
+        self._error = None
+        self._thread = threading.Thread(
+            target=self._write, args=(step, files, expected if rank == 0
+                                      else None), daemon=True)
+        self._thread.start()
+
+    def _write(self, step: int, files: Dict, expected) -> None:
+        try:
+            if not files and expected is None:
+                return              # a data rank d > 0: nothing to write
+            tmp = self._path(step, partial=True)
+            os.makedirs(tmp, exist_ok=True)
+            for name, obj in files.items():
+                data = (json.dumps(obj).encode() if name.endswith(".json")
+                        else msgpack_dumps(obj))
+                part = os.path.join(tmp, f"{name}.{os.getpid()}.tmp")
+                with open(part, "wb") as f:
+                    f.write(data)
+                os.replace(part, os.path.join(tmp, name))
+            if expected is None:
+                return
+            self._wait(lambda: all(os.path.exists(os.path.join(tmp, n))
+                                   for n in expected), f"step {step}'s files")
+            final = self._path(step)
+            if os.path.isdir(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            for s in sorted(self.all_steps())[: -self.max_to_keep]:
+                shutil.rmtree(self._path(s), ignore_errors=True)
+        except BaseException as e:      # raised by wait_until_finished
+            self._error = e
+
+    def _wait(self, done, what: str) -> None:
+        t0 = time.monotonic()
+        while not done():
+            if time.monotonic() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"{what} not written in "
+                                   f"{self.TIMEOUT_S} s")
+            time.sleep(self.POLL_S)
+
+    def wait_until_finished(self):
+        """Block until the last save is complete on every rank (its step
+        listed); raise what its writer raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+        if self._pending is not None:
+            step, self._pending = self._pending, None
+            self._wait(lambda: os.path.isdir(self._path(step)),
+                       f"step {step}")
+
+    def restore(self, state_template: Any, step: Optional[int] = None):
+        """-> (state, extra) from ``step`` (default: the newest complete
+        one), loaded into ``state_template`` in place: the whole table is
+        assembled from the shards' rows and each rank keeps its own."""
+        from tpurec_torch.convert import restore_train_state
+
+        self.wait_until_finished()
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        path = self._path(step)
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        check_embed_layout_version(meta.get("embed_layout"), path)
+        flat = _split_leaves(msgpack_restore(self._read(path,
+                                                        "state.msgpack")))
+        parts: Dict[str, list] = {}
+        for i in range(meta["n_shards"]):
+            sh = msgpack_restore(self._read(path, f"shard_{i}.msgpack"))
+            for k, v in sh["leaves"].items():
+                parts.setdefault(k, []).append((sh["row_lo"], v))
+        for k, chunks in parts.items():
+            full = np.concatenate([v for _, v in sorted(
+                chunks, key=lambda c: c[0])])
+            if full.shape[0] != meta["n_rows"]:
+                raise ValueError(f"{path}: {k} has {full.shape[0]} rows, "
+                                 f"expected {meta['n_rows']}")
+            flat[k] = full
+        restore_train_state(state_template, _nest(flat))
+        return state_template, meta["extra"]
+
+    @staticmethod
+    def _read(path: str, name: str) -> bytes:
+        with open(os.path.join(path, name), "rb") as f:
+            return f.read()
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return max(steps) if steps else None
+
+    def all_steps(self):
+        if not os.path.isdir(self.directory):
+            return []
+        return [int(f) for f in os.listdir(self.directory)
+                if f.isdigit() and os.path.exists(
+                    os.path.join(self.directory, f, "meta.json"))]
+
+    def close(self):
+        self.wait_until_finished()
+
+
 def make_backend(kind: str, directory: str, max_to_keep: int = 3):
+    """``"pickle"`` (:class:`PickleBackend`) or ``"orbax"`` (the port's
+    :class:`AsyncBackend`)."""
     if kind == "orbax":
-        raise NotImplementedError(
-            "the orbax checkpoint backend is not ported (orbax imports "
-            "jax): use 'pickle'; see ROADMAP.md, queue 1")
+        return AsyncBackend(directory, max_to_keep)
     if kind == "pickle":
         return PickleBackend(directory, max_to_keep)
     raise ValueError(f"unknown checkpoint backend {kind!r}")

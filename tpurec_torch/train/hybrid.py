@@ -26,6 +26,22 @@ first): they are summed per row in one sorted segment sum.  The big
 fields' touched rows are sorted stably, and the pass sums each row's
 gradients in that order (batch order).
 
+On a mesh (:mod:`tpurec_torch.parallel`: the model's table is one shard
+of its rows, ``embedding.shard``) the batch is this data rank's slice of
+the global batch, and a step adds collectives:
+
+1. kernel 1 gathers the shard's window, and the model group sums the rows;
+2. the forward's BatchNorm statistics and the loss's denominator are the
+   global batch's (:func:`tpurec_torch.parallel.collectives.mesh_scope`);
+3. the dense gradients and the loss are summed over the data group in one
+   buffer, the dense L2 counted on data rank 0 only;
+4. the ids and the rows' gradients are gathered over the data group in
+   data-rank order, which is the global batch's: the sorts, and with them
+   the summation orders, are the one-device step's; the ids are then
+   localised to the shard (those outside touch nothing) and the
+   small-field prefix is cut to the shard's rows;
+5. ``sumsq`` is summed over the model group.
+
 Ported: the single step, ``scan_k`` (a Python loop that returns the K
 losses) and ``indexed=True`` (the device-resident dataset's loop:
 :meth:`HybridTrainStep.scan_steps_idx`); the CDC engine drives
@@ -57,11 +73,17 @@ from tpurec_torch.nn.precision import check_compute_dtype
 from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.ops.fused_adam import fused_sparse_adam
+from tpurec_torch.parallel.collectives import (all_reduce_, all_reduce_grads,
+                                               mesh_scope)
+from tpurec_torch.parallel.embedding import (sharded_embedding_lookup,
+                                             table_shard)
 from tpurec_torch.train.reg import regularization_loss
 from tpurec_torch.train.sparse import (LazyAdamRows, SparseEmbedState,
                                        init_sparse_opt_state, moments_dtype)
 from tpurec_torch.train.step import (TrainState, bce_with_logits,
                                      make_optimizer, select_tower)
+
+
 
 BIG_VOCAB_THRESHOLD = 8192
 TABLE = "embedding.table"
@@ -114,11 +136,14 @@ class EmbeddingUpdater:
                 t(self.big), t([int(off[f]) for f in self.big]))
         return self._index[key]
 
-    def gather_rows(self, table: torch.Tensor, x: torch.Tensor
-                    ) -> torch.Tensor:
-        """x [B, F] -> the batch's table rows [B*F, D] (kernel 1)."""
-        return prepared_gather(self, table, self.layout)(
-            x.to(torch.int32).contiguous()).reshape(-1, table.shape[1])
+    def gather_rows(self, table: torch.Tensor, x: torch.Tensor,
+                    shard=None) -> torch.Tensor:
+        """x [B, F] -> the batch's table rows [B*F, D] (kernel 1; with a
+        ``shard``, its window, summed over the model group)."""
+        return sharded_embedding_lookup(
+            prepared_gather(self, table, self.layout,
+                            None if shard is None else shard.window),
+            x, shard).reshape(-1, table.shape[1])
 
     def small_field_grads(self, x, g_rows) -> Optional[torch.Tensor]:
         """[S, D] gradient of the small-field prefix (None when S = 0):
@@ -151,20 +176,33 @@ class EmbeddingUpdater:
 
     @torch.no_grad()
     def update(self, table: torch.Tensor, emb_opt: SparseEmbedState,
-               x: torch.Tensor, g_rows: torch.Tensor, step: int
-               ) -> torch.Tensor:
+               x: torch.Tensor, g_rows: torch.Tensor, step: int,
+               shard=None) -> torch.Tensor:
         """One exact dense-Adam step of ``table`` and ``emb_opt``, in place,
         given the batch's ids ``x`` [B, F] and its rows' gradients
         ``g_rows`` [B*F, D]; ``step`` is Adam's 1-based count.  -> sumsq =
-        sum(table**2) before the step."""
+        sum(table**2) before the step.  With a ``shard``, ``table`` and
+        ``emb_opt`` are its rows and ``x``/``g_rows`` this data rank's:
+        they are gathered over the data group first, and sumsq is the
+        whole table's."""
         tcfg = self.tcfg
         B, F = x.shape
         g_rows = g_rows.reshape(B, F, -1).to(torch.float32)
+        if shard is not None:
+            x, g_rows = shard.exchange(x, g_rows)
         ids, g = self.big_rows(x, g_rows)
+        g_small = self.small_field_grads(x, g_rows)
+        if shard is not None:
+            ids = ids - shard.row_lo            # outside the shard: no row
+            S = shard.small_rows(self.S)
+            g_small = (g_small[shard.row_lo:shard.row_lo + S]
+                       if S else None)
         _, _, _, sumsq = fused_sparse_adam(
             table, emb_opt.m, emb_opt.v, ids, g, step, lr=tcfg.lr,
             b1=tcfg.adam_b1, b2=tcfg.adam_b2, eps=tcfg.adam_eps,
-            coef=self.coef, g_small=self.small_field_grads(x, g_rows))
+            coef=self.coef, g_small=g_small)
+        if shard is not None:
+            all_reduce_(sumsq, shard.mesh.model_group)
         return sumsq
 
     def update_stacked(self, *args, **kwargs):
@@ -240,26 +278,34 @@ class HybridTrainStep:
         dev = table.device
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         x = batch["x"].to(torch.int32)
+        shard = table_shard(model)
+        mesh = None if shard is None else shard.mesh
         with torch.no_grad():
-            rows = self.upd.gather_rows(table, x)
+            rows = self.upd.gather_rows(table, x, shard)
         rows.requires_grad_(True)
         model.train()
-        with _precision_scope(self.tcfg.compute_dtype):
-            out = model(x, group=batch.get("group") if self.model_group
-                        else None, train=True,
-                        row_mask=batch.get("mask"), embed_rows=rows,
-                        generator=generator)
-        if head is not None:
-            loss = head(out, batch)
-        else:
-            logit = (select_tower(out, batch["group"]) if self.multi_tower
-                     else out)
-            loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
-        loss = loss + regularization_loss(dense_named_parameters(model),
-                                          self.reg_coefs_rest)
+        with mesh_scope(mesh):
+            with _precision_scope(self.tcfg.compute_dtype):
+                out = model(x, group=batch.get("group") if self.model_group
+                            else None, train=True,
+                            row_mask=batch.get("mask"), embed_rows=rows,
+                            generator=generator)
+            if head is not None:
+                loss = head(out, batch)
+            else:
+                logit = (select_tower(out, batch["group"])
+                         if self.multi_tower else out)
+                loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
+        dense = dense_named_parameters(model)
+        if mesh is None or mesh.d == 0:     # the L2 counted once
+            loss = loss + regularization_loss(dense, self.reg_coefs_rest)
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        return loss.detach(), rows.detach(), rows.grad
+        loss = loss.detach()
+        if mesh is not None:
+            loss, = all_reduce_grads([p for _, p in dense], mesh.data_group,
+                                     loss)
+        return loss, rows.detach(), rows.grad
 
     def one_step(self, ts: TrainState, batch, generator, head=None
                  ) -> torch.Tensor:
@@ -267,7 +313,7 @@ class HybridTrainStep:
         ts.optimizer.step()
         table = ts.model.get_parameter(TABLE).detach()
         sumsq = self.upd.update(table, ts.emb_opt, batch["x"].to(
-            table.device), g_rows, ts.step + 1)
+            table.device), g_rows, ts.step + 1, table_shard(ts.model))
         ts.step += 1
         return loss + self.l2_reg_embedding * sumsq
 
@@ -338,7 +384,7 @@ class SparseTrainStep(HybridTrainStep):
         table = ts.model.get_parameter(TABLE).detach()
         self.rows_update.update(table, ts.emb_opt,
                                 batch["x"].to(table.device), rows, g_rows,
-                                ts.step + 1)
+                                ts.step + 1, table_shard(ts.model))
         ts.step += 1
         return loss
 

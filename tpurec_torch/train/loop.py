@@ -30,9 +30,30 @@ evaluation (run.py:647-711).
   checkpoint written here loads into the JAX package's Trainer and
   Predictor, and theirs into the port's.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md): a mesh
-(``mesh``/``shardings``, ``train_epoch_multihost``,
-``evaluate_streaming_multihost``).
+On a (data, model) mesh (``mesh=``/``shardings=``, :mod:`tpurec_torch.
+parallel`; one process a rank) the trainer computes the one-device
+training on the global batch, as the JAX package's GSPMD mesh does:
+
+- every rank builds the same initial state (one broadcast checksum
+  checks it); the table and its moments are then cut to this rank's rows
+  over the model axis, and the dataset is replicated on every rank;
+- both epochs give data rank ``d`` the ``d``-th slice of every global
+  batch, from one shuffle seed on all ranks; the steps add the
+  collectives of :mod:`tpurec_torch.train.hybrid`;
+- dropout draws come from a generator seeded from the data coordinate
+  (``seed + 1 + DROPOUT_SEED_STRIDE * d``), never from the rank, so the
+  model replicas of one data block draw the same masks.  The masks are
+  not the one-device run's (kernel 2's hash reads the local row), which
+  the JAX package's are;
+- eval defaults to the streaming histograms, summed over the data group;
+  the exact eval gathers each data rank's predictions in global order;
+- :meth:`Trainer.snapshot` and :meth:`Trainer.save_checkpoint` gather the
+  shards (rank 0 writes the file); :meth:`Trainer.load_checkpoint` reads
+  the file on every rank, which keeps its rows.
+
+:meth:`Trainer.train_epoch_multihost` and
+:meth:`Trainer.evaluate_streaming_multihost` feed each data rank only its
+own dataset shard (``tpurec/train/loop.py:345-450, 631-720``).
 """
 
 from __future__ import annotations
@@ -52,6 +73,11 @@ from tpurec_torch.device import resolve_device
 from tpurec_torch.metrics import (auc_score, evaluate_multi_domain,
                                   log_loss_score, streaming_eval_result)
 from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
+from tpurec_torch.parallel.collectives import (all_gather, all_reduce_,
+                                               broadcast_)
+from tpurec_torch.parallel.embedding import shard_table
+from tpurec_torch.parallel.feed import GlobalBatchFeed, epoch_plan
+from tpurec_torch.parallel.mesh import Mesh, Shardings
 from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
                                            check_embed_layout_version,
                                            make_backend, msgpack_dumps,
@@ -63,10 +89,13 @@ from tpurec_torch.train.reg import reg_coef_tree
 from tpurec_torch.train.step import (HostHistAccumulator,
                                      init_dense_train_state, make_eval_step,
                                      make_indexed_eval_scan,
+                                     make_streaming_eval_batch_scan,
                                      make_streaming_eval_scan,
                                      make_train_step)
 
 EMBEDDING_UPDATES = ("hybrid", "sparse", "dense")
+# data rank d's dropout generator is seeded seed + 1 + this * d
+DROPOUT_SEED_STRIDE = 7919
 
 
 def _jsonable(obj):
@@ -126,12 +155,21 @@ class Trainer:
 
     The model's weights are drawn from a CPU generator seeded
     ``cfg.train.seed``; ``self.state`` is the port's
-    :class:`tpurec_torch.train.step.TrainState`."""
+    :class:`tpurec_torch.train.step.TrainState`.  ``mesh``/``shardings``
+    (:mod:`tpurec_torch.parallel`) train on a (data, model) mesh, on the
+    mesh's device unless ``device`` says otherwise."""
 
     def __init__(self, cfg: Config, field_dims, n_domain: int, domain_idx: int,
                  domain2group=None, mesh=None, shardings=None, device=None):
-        if mesh is not None or shardings is not None:
-            raise _not_ported("a mesh (mesh=, shardings=)", "'Parallelism'")
+        if shardings is not None and mesh is None:
+            mesh = shardings.mesh
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a tpurec_torch.parallel.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
+        if mesh is not None and shardings is None:
+            shardings = Shardings(mesh)
+        if mesh is not None and device is None:
+            device = mesh.device
         self.cfg = cfg
         self.n_domain = n_domain
         self.domain_idx = domain_idx
@@ -156,7 +194,14 @@ class Trainer:
             generator=torch.Generator().manual_seed(cfg.train.seed))
         self.multi_tower = (name in MULTI_TOWER_OUTPUT
                             and not name.endswith("-single"))
-        self.mesh = None
+        self.mesh = mesh
+        self.shardings = shardings
+        if mesh is not None:
+            self.feed = GlobalBatchFeed(mesh, cfg.mesh.data_axis)
+            self._check_same_state()
+            emb = self.model.get_submodule("embedding")
+            local, emb.shard = shard_table(emb.table.detach(), mesh)
+            emb.table = torch.nn.Parameter(local)
 
         tcfg = cfg.train
         self.reg_coefs = reg_coef_tree(
@@ -190,10 +235,42 @@ class Trainer:
         self.eval_scan = make_indexed_eval_scan(
             self.model, self.multi_tower, self.domain_idx,
             compute_dtype=tcfg.compute_dtype)
+        d = 0 if mesh is None else mesh.d
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
-            tcfg.seed + 1)
+            tcfg.seed + 1 + DROPOUT_SEED_STRIDE * d)
         self.stopper = EarlyStopper(tcfg.early_stop)
         self._best_bytes: Optional[bytes] = None
+
+    def _check_same_state(self):
+        """Raise unless this rank's initial model equals rank 0's (one
+        broadcast of a checksum over every parameter and buffer)."""
+        c = torch.zeros(2, dtype=torch.float64, device=self.device)
+        for t in self.model.state_dict().values():
+            t = t.detach().to(torch.float64)
+            c[0] += t.sum()
+            c[1] += (t * t).sum()
+        ref = broadcast_(c.clone(), 0)
+        if not torch.equal(c, ref):
+            raise RuntimeError(
+                f"rank {self.mesh.rank}'s initial state differs from rank "
+                f"0's (checksums {c.tolist()} vs {ref.tolist()}): every "
+                "rank must build the model from the same config and seed")
+
+    def _local_rows(self, bs: int) -> slice:
+        """This data rank's columns of a global batch of ``bs`` rows."""
+        if self.mesh is None:
+            return slice(0, bs)
+        bl = self.feed.local_rows_per_step(bs)
+        return slice(self.mesh.d * bl, (self.mesh.d + 1) * bl)
+
+    def _gather_rows_global(self, local: torch.Tensor) -> torch.Tensor:
+        """[nb, bs_local] per data rank -> [nb, bs] in global order."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_group is None:
+            return local
+        g = all_gather(local[None].contiguous(), mesh.data_group,
+                       mesh.n_data, mesh.d)
+        return g.permute(1, 0, 2).reshape(local.shape[0], -1)
 
     # ------------------------------------------------------------------
     def _group_of(self, X: np.ndarray) -> np.ndarray:
@@ -253,9 +330,11 @@ class Trainer:
         if pad:
             idx = np.concatenate([idx, np.zeros(pad, np.int64)])
             mask[n:] = 0.0
-        idx_dev = torch.as_tensor(idx.reshape(nb, bs).astype(np.int32),
-                                  device=self.device)
-        mask_dev = torch.as_tensor(mask.reshape(nb, bs), device=self.device)
+        cols = self._local_rows(bs)
+        idx_dev = torch.as_tensor(
+            idx.reshape(nb, bs)[:, cols].astype(np.int32), device=self.device)
+        mask_dev = torch.as_tensor(mask.reshape(nb, bs)[:, cols],
+                                   device=self.device)
 
         loss_sum, n_batches, device_losses = 0.0, 0, []
 
@@ -287,10 +366,19 @@ class Trainer:
                 and X.nbytes + y.nbytes <= self.DEVICE_RESIDENT_BYTES):
             return self._train_epoch_device_resident(X, y, epoch_i, log_fn)
         bs = self.cfg.train.bs
+        cols = self._local_rows(bs)
         batcher = ArrayBatcher(
             X, y, bs, group=self._group_of(X), shuffle=True,
             rng=np.random.default_rng(self.cfg.train.seed + epoch_i),
         )
+        return self._host_epoch(
+            ({k: v[cols] for k, v in b.items()} for b in batcher),
+            epoch_i, log_fn)
+
+    def _host_epoch(self, batches, epoch_i: int, log_fn) -> float:
+        """The host-batching loop over ``batches`` (this rank's rows of
+        each step): K stacked a call, the copy on a prefetch thread."""
+        bs = self.cfg.train.bs
         loss_sum, n_batches = 0.0, 0
         log_interval = max(1, self.cfg.train.log_interval_rows // bs)
         K = max(1, self.cfg.train.steps_per_dispatch)
@@ -314,7 +402,7 @@ class Trainer:
                 pending.clear()
                 return out
 
-            for batch in batcher:
+            for batch in batches:
                 pending.append(batch)
                 if len(pending) == K:
                     yield from emit()
@@ -350,8 +438,60 @@ class Trainer:
                 rows_since_log = 0
         return synced_loss()
 
-    def train_epoch_multihost(self, *args, **kwargs) -> float:
-        raise _not_ported("train_epoch_multihost", "'Parallelism'")
+    def train_epoch_multihost(self, X_local: np.ndarray, y_local: np.ndarray,
+                              n_global_rows: int, epoch_i: int,
+                              log_fn=None) -> float:
+        """One epoch where each data rank feeds only ITS dataset shard
+        (``tpurec/train/loop.py:345-450``): load ``X_local`` with
+        ``GlobalBatchFeed(mesh).dataset_range(n_global_rows)``; the model
+        replicas of a data block must load the same rows (checked).
+        Every rank runs the same ``n_batches`` steps
+        (:func:`~tpurec_torch.parallel.feed.epoch_plan`); a short local
+        stream is padded with fully masked filler batches, and surplus
+        rows wait for the next epoch's reshuffle.  The shuffle seed is
+        ``seed + epoch + 7919 * d``: the JAX package's ``7919 *
+        process_index``, where a process here is a rank and its model
+        replicas must agree."""
+        if self.mesh is None:
+            raise ValueError("train_epoch_multihost requires a mesh")
+        bs = self.cfg.train.bs
+        feed = self.feed
+        nb, bs_local = epoch_plan(n_global_rows, bs, feed)
+        feed.check_replicas(X_local)
+        batcher = ArrayBatcher(
+            X_local, y_local, bs_local, group=self._group_of(X_local),
+            shuffle=True, rng=np.random.default_rng(
+                self.cfg.train.seed + epoch_i + 7919 * self.mesh.d),
+        ) if len(X_local) else None
+        return self._host_epoch(
+            self._local_stream(batcher, nb, bs_local, X_local, None),
+            epoch_i, log_fn)
+
+    def _local_stream(self, batcher, nb: int, bs_local: int, X_local,
+                      surplus: Optional[str]):
+        """``nb`` local batches: the batcher's, then masked fillers.  A
+        batch past ``nb`` is left for the next epoch, or, with
+        ``surplus`` (its message), raises ValueError."""
+        n_fields = (X_local.shape[1] if X_local.ndim == 2
+                    else len(self.model.field_dims))
+        filler = {
+            "x": np.zeros((bs_local, n_fields), np.int32),
+            "y": np.zeros(bs_local, np.float32),
+            "mask": np.zeros(bs_local, np.float32),
+            "group": np.zeros(bs_local, np.int32),
+        }
+        produced = 0
+        if batcher is not None:
+            for b in batcher:
+                if produced == nb:
+                    if surplus is not None:
+                        raise ValueError(surplus)
+                    break
+                produced += 1
+                yield b
+        while produced < nb:
+            produced += 1
+            yield filler
 
     EVAL_CHUNK = 128  # batches per eval call (device-resident path)
 
@@ -427,19 +567,22 @@ class Trainer:
             Xdev, _, d2g = self._device_dataset(X, y)
             n = X.shape[0]
             idx, _, ch = self._padded_index_batches(n, bs, self.EVAL_CHUNK)
-            idx_dev = torch.as_tensor(idx, device=self.device)
+            idx_dev = torch.as_tensor(idx[:, self._local_rows(bs)],
+                                      device=self.device)
             preds = [self.eval_scan(self.model, Xdev, d2g,
                                     idx_dev[b0:b0 + ch])
                      for b0 in range(0, idx.shape[0], ch)]
-            return torch.cat(preds).reshape(-1)[:n].cpu().numpy()
+            preds = self._gather_rows_global(torch.cat(preds))
+            return preds.reshape(-1)[:n].cpu().numpy()
         batcher = ArrayBatcher(X, y, bs, group=self._group_of(X),
                                shuffle=False)
-        preds = []
-        for batch in batcher:
-            p = self.eval_step(self.model, self._to_device(batch))
-            preds.append((p, batch["mask"]))  # copied to the host below
-        return np.concatenate(
-            [p.cpu().numpy()[mask > 0] for p, mask in preds])
+        cols = self._local_rows(bs)
+        preds = torch.stack([
+            self.eval_step(self.model, self._to_device(
+                {k: v[cols] for k, v in batch.items()}))
+            for batch in batcher])
+        return self._gather_rows_global(preds).reshape(-1)[
+            :X.shape[0]].cpu().numpy()
 
     def evaluate_streaming(self, X: np.ndarray, y: np.ndarray,
                            domain_cnt_weight: Optional[np.ndarray] = None,
@@ -468,11 +611,13 @@ class Trainer:
         # counts stay exact at any eval-split size
         acc = HostHistAccumulator(init_carry)
 
+        cols = self._local_rows(bs)
+
         def run_window(Xdev, ydev, d2g, n_rows):
             idx, mask, ch = self._padded_index_batches(n_rows, bs,
                                                        self.EVAL_CHUNK)
-            idx_dev = torch.as_tensor(idx, device=self.device)
-            mask_dev = torch.as_tensor(mask, device=self.device)
+            idx_dev = torch.as_tensor(idx[:, cols], device=self.device)
+            mask_dev = torch.as_tensor(mask[:, cols], device=self.device)
             for b0 in range(0, idx.shape[0], ch):
                 acc.update(scan_hist(
                     self.model, Xdev, ydev, d2g,
@@ -500,31 +645,101 @@ class Trainer:
                     yw = np.concatenate([yw, np.zeros(W - nw, np.float32)])
                 run_window(torch.as_tensor(Xw, device=self.device),
                            torch.as_tensor(yw, device=self.device), d2g, nw)
-        pos, neg, lsum, lcnt = acc.totals()
+        pos, neg, lsum, lcnt = self._data_totals(acc.totals())
         return streaming_eval_result(
             pos.reshape(self.n_domain, n_bins),
             neg.reshape(self.n_domain, n_bins), lsum, lcnt,
             domain_cnt_weight
             if self.cfg.train.is_evaluate_multi_domain else None)
 
-    def evaluate_streaming_multihost(self, *args, **kwargs) -> Dict:
-        raise _not_ported("evaluate_streaming_multihost", "'Parallelism'")
+    def _data_totals(self, totals):
+        """Host float64 histogram totals summed over the data group (its
+        ranks scored different rows; the model group's repeat them)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_group is None:
+            return totals
+        sizes = [t.size for t in totals]
+        flat = torch.as_tensor(np.concatenate(totals), device=self.device)
+        flat = all_reduce_(flat, mesh.data_group).cpu().numpy()
+        return tuple(np.split(flat, np.cumsum(sizes)[:-1]))
+
+    def evaluate_streaming_multihost(self, X_local: np.ndarray,
+                                     y_local: np.ndarray,
+                                     n_global_rows: int,
+                                     domain_cnt_weight: Optional[np.ndarray] = None,
+                                     n_bins: int = 8192) -> Dict:
+        """Streaming eval where each data rank feeds only ITS dataset shard
+        (``tpurec/train/loop.py:631-720``, the same contract as
+        :meth:`train_epoch_multihost`): the histograms are summed over the
+        data group, so every rank returns the whole eval's result.  Rows
+        past this rank's share raise ValueError (an eval has no next
+        pass to take them)."""
+        if self.mesh is None:
+            raise ValueError("evaluate_streaming_multihost requires a mesh")
+        bs = self.cfg.train.bs
+        cache = getattr(self, "_stream_eval_mh_cache", None)
+        if cache is None:
+            cache = self._stream_eval_mh_cache = {}
+        if n_bins not in cache:
+            cache[n_bins] = make_streaming_eval_batch_scan(
+                self.model, self.multi_tower, self.domain_idx,
+                self.n_domain, n_bins, self.cfg.train.compute_dtype)
+        hist_scan, init_carry = cache[n_bins]
+        nb, bs_local = epoch_plan(n_global_rows, bs, self.feed)
+        batcher = ArrayBatcher(
+            X_local, y_local, bs_local, group=self._group_of(X_local),
+            shuffle=False) if len(X_local) else None
+        stream = self._local_stream(
+            batcher, nb, bs_local, X_local,
+            f"X_local has more rows than this rank's share of the "
+            f"{n_global_rows}-row global eval ({nb} global batches x "
+            f"{bs_local} local rows)")
+        acc = HostHistAccumulator(init_carry)
+        K = self.EVAL_CHUNK
+        pending = []
+        for i, batch in enumerate(stream):
+            pending.append(batch)
+            if len(pending) == K or i == nb - 1:
+                stacked = self.feed.global_stacked_batch(
+                    {k: np.stack([b[k] for b in pending])
+                     for k in pending[0]}, bs)
+                acc.update(hist_scan(self.model, *acc.carry, stacked))
+                pending = []
+        pos, neg, lsum, lcnt = self._data_totals(acc.totals())
+        return streaming_eval_result(
+            pos.reshape(self.n_domain, n_bins),
+            neg.reshape(self.n_domain, n_bins), lsum, lcnt,
+            domain_cnt_weight
+            if self.cfg.train.is_evaluate_multi_domain else None)
 
     # ------------------------------------------------------------------
-    def snapshot(self) -> bytes:
+    def snapshot(self, local: bool = False) -> bytes:
         """The state as flax msgpack bytes (the JAX package's TrainState
-        layout)."""
-        return msgpack_dumps(train_state_to_flax(self.state))
+        layout).  On a mesh the table and its moments are gathered (every
+        rank must call), unless ``local``: this rank's rows, for its own
+        :meth:`restore` (the best state of :meth:`fit`)."""
+        return msgpack_dumps(train_state_to_flax(self.state, local=local))
 
     def restore(self, blob: bytes):
         """Load a :meth:`snapshot` (or a JAX package TrainState's
-        ``flax.serialization.to_bytes``) into the state, in place."""
+        ``flax.serialization.to_bytes``) into the state, in place; on a
+        mesh this rank keeps its rows of the table."""
         restore_train_state(self.state, msgpack_restore(blob))
 
+    def _is_writer(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
     def save_checkpoint(self, path: str, extra: Optional[Dict] = None):
+        """The JAX package's pickle checkpoint; on a mesh the shards are
+        gathered and rank 0 writes it (every rank must call; they leave
+        together, once the file is complete)."""
+        state = self.snapshot()
+        if not self._is_writer():
+            torch.distributed.barrier()
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         payload = {
-            "state": self.snapshot(),
+            "state": state,
             "best_result": self.stopper.best_result,
             "config_model": self.cfg.model.model,
             # self-describing checkpoint: full config + dataset schema, so
@@ -540,9 +755,12 @@ class Trainer:
         }
         with open(path, "wb") as f:
             pickle.dump(payload, f)
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def load_checkpoint(self, path: str) -> Dict:
-        """Load a ``save_checkpoint`` file of either package.
+        """Load a ``save_checkpoint`` file of either package (on a mesh,
+        every rank reads it and keeps its rows).
 
         TRUST BOUNDARY: the file is a pickle; load only checkpoints you
         wrote or trust."""
@@ -555,8 +773,8 @@ class Trainer:
     # -- backend-based (versioned) checkpoints -------------------------
     def make_checkpointer(self, directory: str, max_to_keep: int = 3):
         """Versioned checkpoint manager (tpurec_torch.train.checkpoint):
-        backend chosen by TrainConfig.checkpoint_backend ('pickle'; 'orbax'
-        is not ported)."""
+        backend chosen by TrainConfig.checkpoint_backend ('pickle', or
+        'orbax': the port's asynchronous sharded backend)."""
         return make_backend(
             self.cfg.train.checkpoint_backend, directory, max_to_keep
         )
@@ -585,6 +803,7 @@ class Trainer:
             domain_cnt_weight = cnt / cnt.sum()
         eval_fn = (self.evaluate_streaming if self._use_streaming_eval
                    else self.evaluate)
+        local = self.mesh is not None   # the best state: each rank's rows
         for epoch_i in range(self.cfg.train.epoch):
             t0 = time.time()
             train_loss = self.train_epoch(Xtr, ytr, epoch_i, log_fn=log_fn)
@@ -596,7 +815,7 @@ class Trainer:
                 log_fn(result)
             cont = self.stopper.is_continuable(result)
             if self.stopper.improved:
-                self._best_bytes = self.snapshot()
+                self._best_bytes = self.snapshot(local=local)
             if not cont:
                 break
         if self._best_bytes is not None:

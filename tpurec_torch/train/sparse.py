@@ -117,21 +117,39 @@ class LazyAdamRows:
     @torch.no_grad()
     def update(self, table: torch.Tensor, emb_opt: SparseEmbedState,
                x: torch.Tensor, rows: torch.Tensor, g_rows: torch.Tensor,
-               step: int) -> None:
+               step: int, shard=None) -> None:
         """One lazy-Adam step of ``table`` and ``emb_opt``, in place, given
         the batch's ids ``x`` [B, F], the rows gathered for it ``rows``
-        [B*F, D] and their gradients; ``step`` is Adam's 1-based count."""
+        [B*F, D] and their gradients; ``step`` is Adam's 1-based count.
+
+        With a ``shard`` (:class:`tpurec_torch.parallel.embedding.
+        TableShard`), ``table`` and ``emb_opt`` hold its rows and ``x``,
+        ``rows`` and ``g_rows`` are this data rank's: all three are
+        gathered over the data group in data-rank order (the global
+        batch's), and only the ids in the shard step, localised to it."""
         tcfg = self.tcfg
         D = table.shape[1]
+        if shard is not None:
+            x, rows, g_rows = shard.exchange(x, rows.reshape(-1, D),
+                                             g_rows.reshape(-1, D))
         flat_ids = self._flat_ids(x)
         g_rows = g_rows.reshape(-1, D).to(torch.float32)
+        rows = rows.reshape(-1, D)
+        vocab = self.vocab
+        if shard is not None:
+            local = flat_ids - shard.row_lo
+            keep = (local >= 0) & (local < shard.n_local)
+            flat_ids, rows, g_rows = local[keep], rows[keep], g_rows[keep]
+            vocab = shard.n_local
+            if not flat_ids.numel():
+                return
         if self.dedup == "scatter":
             g_u = torch.zeros_like(table).index_add_(
                 0, flat_ids, g_rows).index_select(0, flat_ids)
-            ids, p = flat_ids, rows.reshape(-1, D)
+            ids, p = flat_ids, rows
         else:
             seg_ids, g_u, valid = combine_duplicate_rows(flat_ids, g_rows,
-                                                         self.vocab)
+                                                         vocab)
             n = int(valid.sum())
             ids, g_u = seg_ids[:n], g_u[:n]
             p = table.index_select(0, ids)

@@ -48,6 +48,9 @@ from tpurec_torch.metrics.metrics import BIN_P_MAX
 from tpurec_torch.nn.precision import check_compute_dtype
 from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
+from tpurec_torch.parallel.collectives import (all_reduce_, all_reduce_grads,
+                                               current_mesh, mesh_scope)
+from tpurec_torch.parallel.embedding import table_shard
 from tpurec_torch.train.reg import regularization_loss
 from tpurec_torch.train.sparse import SparseEmbedState
 
@@ -76,13 +79,23 @@ def select_tower(logits: torch.Tensor, group: torch.Tensor) -> torch.Tensor:
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean BCE on logits; with ``weights`` the weighted sum over
-    ``max(sum(weights), 1)`` (``tpurec/train/step.py:46-52``)."""
+    ``max(sum(weights), 1)`` (``tpurec/train/step.py:46-52``).
+
+    Inside a :func:`~tpurec_torch.parallel.collectives.mesh_scope` with a
+    data group, the rows are this data rank's slice of the global batch:
+    the sum is the slice's and the denominator the global batch's (the
+    weights' sum all-reduced over the data group), so the data ranks'
+    losses sum to the global batch's."""
     losses = Fn.binary_cross_entropy_with_logits(
         logits, targets.to(logits.dtype), reduction="none")
+    mesh = current_mesh()
+    group = None if mesh is None else mesh.data_group
     if weights is None:
-        return losses.mean()
+        return losses.mean() if group is None else \
+            losses.sum() / float(losses.shape[0] * mesh.n_data)
     w = weights.to(losses.dtype)
-    return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
+    n = all_reduce_(w.sum().detach(), group)
+    return (losses * w).sum() / torch.clamp(n, min=1.0)
 
 
 def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor,
@@ -151,7 +164,14 @@ class DenseTrainStep:
     :func:`tpurec_torch.ops.embedding.embedding_lookup`); the loss is the
     masked BCE plus the L2 of every parameter in ``reg_coefs``, the
     table's included, and one ``torch.optim.Adam`` steps every parameter.
-    The returned loss is that whole loss."""
+    The returned loss is that whole loss.
+
+    On a mesh (the model's table is one shard: ``embedding.shard``) the
+    batch is this data rank's slice: the lookup sums the shards' rows over
+    the model group, the table's gradient reaches the shard's rows only,
+    and every gradient (the shard's included) is summed over the data
+    group in one buffer.  The L2 terms join the loss on data rank 0 only,
+    so the sum counts them once; the returned loss is the global one."""
 
     def __init__(self, model, tcfg: TrainConfig, reg_coefs,
                  multi_tower: bool, scan_k: Optional[int] = None):
@@ -164,22 +184,42 @@ class DenseTrainStep:
     def loss_and_grads(self, ts: TrainState, batch, generator
                        ) -> torch.Tensor:
         """The loss, with every parameter's gradient left in its
-        ``.grad``."""
+        ``.grad`` (on a mesh: both summed over the data group)."""
         model = ts.model
         dev = model.get_parameter("embedding.table").device
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+        mesh = table_mesh(model)
         model.train()
-        with _precision_scope(self.tcfg.compute_dtype):
-            out = model(batch["x"], group=batch.get("group"), train=True,
-                        row_mask=batch.get("mask"), generator=generator)
-        logit = (select_tower(out, batch["group"]) if self.multi_tower
-                 else out)
-        loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
-        loss = loss + regularization_loss(model.named_parameters(),
-                                          self.reg_coefs)
+        with mesh_scope(mesh):
+            with _precision_scope(self.tcfg.compute_dtype):
+                out = model(batch["x"], group=batch.get("group"),
+                            train=True, row_mask=batch.get("mask"),
+                            generator=generator)
+            logit = (select_tower(out, batch["group"]) if self.multi_tower
+                     else out)
+            loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
+        named = list(model.named_parameters())
+        if mesh is None:
+            loss = loss + regularization_loss(named, self.reg_coefs)
+            ts.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            return loss.detach()
+        table_reg = regularization_loss(
+            [(n, p) for n, p in named if n == "embedding.table"],
+            self.reg_coefs).to(dev)
+        if mesh.d == 0:
+            loss = loss + regularization_loss(
+                [(n, p) for n, p in named if n != "embedding.table"],
+                self.reg_coefs) + table_reg
+        else:
+            table_reg = torch.zeros((), device=dev)
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        return loss.detach()
+        loss, table_reg = all_reduce_grads(
+            [p for _, p in named], mesh.data_group,
+            loss.detach() - table_reg.detach(), table_reg.detach())
+        # the table's L2 over every shard
+        return loss + all_reduce_(table_reg.clone(), mesh.model_group)
 
     def one_step(self, ts: TrainState, batch, generator) -> torch.Tensor:
         loss = self.loss_and_grads(ts, batch, generator)
@@ -205,12 +245,19 @@ def make_train_step(model, tcfg: TrainConfig, reg_coefs, multi_tower: bool,
     return DenseTrainStep(model, tcfg, reg_coefs, multi_tower, scan_k)
 
 
+def table_mesh(model):
+    """The mesh of ``model``'s table when it is one shard of the rows,
+    else None."""
+    shard = table_shard(model)
+    return None if shard is None else shard.mesh
+
+
 def _eval_logit(model, x, group, multi_tower: bool,
                 dtype: str = "float32") -> torch.Tensor:
     """The eval forward of ``model`` on ids ``x`` in compute dtype
     ``dtype`` -> each row's logit."""
     model.eval()
-    with _precision_scope(dtype):
+    with mesh_scope(table_mesh(model)), _precision_scope(dtype):
         out = model(x, group=group, train=False)
     return select_tower(out, group) if multi_tower else out
 

@@ -1,6 +1,7 @@
 """Structured metric logging (the port's copy of ``tpurec/utils/logging.py``:
 the reference scatters wandb.log calls; this writes one JSON line an
-event)."""
+event).  In a process group (a mesh's ranks) only rank 0 writes and
+echoes: the other ranks' loggers take records and drop them."""
 
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ class JsonlLogger:
     compact metrics to stderr).  Pass as ``log_fn`` to the trainers."""
 
     def __init__(self, path: Optional[str] = None, echo: bool = True):
+        if not is_rank0():
+            path, echo = None, False
         self.path = path
         self.echo = echo
         if path:
@@ -38,6 +41,15 @@ class JsonlLogger:
     def close(self):
         if self._f:
             self._f.close()
+
+
+def is_rank0() -> bool:
+    """Whether this process writes: rank 0 of its process group, or any
+    process outside one."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or \
+        dist.get_rank() == 0
 
 
 def _scalar(v):

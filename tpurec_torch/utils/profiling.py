@@ -1,5 +1,7 @@
 """Profiling helpers (the port's counterpart of ``tpurec/utils/profiling.py``):
-``torch.profiler`` traces in place of JAX's, and per-step timing."""
+``torch.profiler`` traces in place of JAX's, and per-step timing.  In a
+process group (a mesh's ranks) only rank 0 writes a trace, and only rank
+0's timer keeps a summary."""
 
 from __future__ import annotations
 
@@ -11,27 +13,33 @@ from typing import Dict
 
 import torch
 
+from tpurec_torch.utils.logging import is_rank0
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the CPU and, when a card is
     present, CUDA activity; on exit it is written under ``log_dir`` as
     ``<host>.<pid>.<ms>.pt.trace.json`` (Chrome/Perfetto, and TensorBoard's
-    profiler plugin).  Yields the profiler (``key_averages()``, ...)."""
+    profiler plugin); on a rank other than 0 nothing is written.  Yields
+    the profiler (``key_averages()``, ...)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield prof
+    if not is_rank0():
+        return
+    os.makedirs(log_dir, exist_ok=True)
     name = f"{socket.gethostname()}.{os.getpid()}.{time.time_ns() // 10**6}"
     prof.export_chrome_trace(os.path.join(log_dir, name + ".pt.trace.json"))
 
 
 class StepTimer:
-    """Wall-clock step timing with warmup discard and percentile summary."""
+    """Wall-clock step timing with warmup discard and percentile summary
+    (empty on a rank other than 0)."""
 
     def __init__(self, warmup: int = 3):
         self.warmup = warmup
@@ -50,7 +58,7 @@ class StepTimer:
             self._times.append(dt)
 
     def summary(self) -> Dict[str, float]:
-        if not self._times:
+        if not self._times or not is_rank0():
             return {}
         import numpy as np
 
