@@ -1176,20 +1176,28 @@ class relu_branches:
     matched to the next recorded one of its kind and shape, counting the
     inputs whose own branch differs: ``torch.relu``'s mask (x > 0), ADL's
     routing (``torch.argmax``) and AdaSparse's pruner mask (``torch.where``
-    with a 0-dim second operand: ``|pi| <= epsilon``).  Calls of other
-    shapes (the attention's plain version, which the card runs inside
-    kernel 2) compute as usual.  A value within rounding of a branch's
-    edge may take either side on two devices, and a gradient (or, at a
-    routing or a pruner edge, a logit) then parts by that unit's whole
-    contribution; replaying the card's branches on the CPU leaves rounding
-    alone between the two."""
+    with a 0-dim second operand: ``|pi| <= epsilon``), and the attention
+    stack's own ReLU, which the card runs inside kernels #2/#3: its
+    branch is read from the stack's output (y > 0) as the card returns
+    it, and replayed on the CPU's plain version's ``torch.relu`` (counted
+    apart, as "attention"; ``attention=False`` leaves it to compute as
+    usual; a replay on the card only counts it).  Calls of other shapes
+    compute as usual.  A value within
+    rounding of a branch's edge may take either side on two devices, and
+    a gradient (or, at a routing or a pruner edge, a logit) then parts by
+    that unit's whole contribution; replaying the card's branches on the
+    CPU leaves rounding alone between the two."""
 
-    def __init__(self, masks, record):
+    def __init__(self, masks, record, attention=True):
         self.masks, self.record = masks, record
+        self.attention = attention
         self.used = self.flipped = self.inputs = 0
-        self.flips = {"relu": 0, "argmax": 0, "where": 0}
+        self.flips = {"relu": 0, "argmax": 0, "where": 0, "attention": 0}
 
     def _next(self, kind, shape):
+        while (not self.attention and self.used < len(self.masks)
+               and self.masks[self.used][2:] == ("attention",)):
+            self.used += 1
         if self.used < len(self.masks) and self.masks[self.used][0] == kind \
                 and self.masks[self.used][1].shape == shape:
             self.used += 1
@@ -1201,6 +1209,7 @@ class relu_branches:
         self.inputs += rec.numel()
         self.flipped += n
         self.flips[kind] += n
+        return n
 
     def __call__(self, x):
         if self.record:
@@ -1210,8 +1219,24 @@ class relu_branches:
         if mask is None:
             return self.relu(x)
         mask = mask.to(x.device)
-        self._count("relu", x > 0, mask)
+        n = self._count("relu", x > 0, mask)
+        if self.masks[self.used - 1][2:] == ("attention",):
+            self.flips["attention"] += n
         return x * mask
+
+    def field_attention(self, *args, **kwargs):
+        y = self._field_attention(*args, **kwargs)
+        if not y.is_cuda:
+            return y            # the plain version's torch.relu replays
+        if self.record:
+            self.masks.append(("relu", (y > 0).cpu(), "attention"))
+        elif self.used < len(self.masks) \
+                and self.masks[self.used][2:] == ("attention",):
+            # a replay on the card: the kernel takes its own branch
+            rec = self.masks[self.used][1].to(y.device)
+            self.used += 1
+            self.flips["attention"] += self._count("relu", y > 0, rec)
+        return y
 
     def argmax(self, x, *args, **kwargs):
         out = self._argmax(x, *args, **kwargs)
@@ -1240,15 +1265,22 @@ class relu_branches:
         return self._where(rec, *args)
 
     def __enter__(self):
+        from tpurec_torch.nn import interactions
+
         self.relu, torch.relu = torch.relu, self
         self._argmax, torch.argmax = torch.argmax, self.argmax
         self._where, torch.where = torch.where, self.where
+        self._field_attention = interactions.field_attention
+        interactions.field_attention = self.field_attention
         return self
 
     def __exit__(self, *exc):
+        from tpurec_torch.nn import interactions
+
         torch.relu = self.relu
         torch.argmax = self._argmax
         torch.where = self._where
+        interactions.field_attention = self._field_attention
 
 
 def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch,
@@ -1257,7 +1289,12 @@ def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch,
     before Adam and before wd reaches anything) on the card against the
     CPU's plain path, from train_vs_cpu's seeded weights and first batch,
     the CPU on the card's branches (:class:`relu_branches`); held to
-    ``rtol`` (ROW_GRAD_RTOL) of its largest value.  A wrong table gradient that
+    ``rtol`` (ROW_GRAD_RTOL) of its largest value.  Where an input of the
+    attention stack's ReLU took the other branch on the CPU than in the
+    card's forward, the CPU runs it both ways and the closer gradient is
+    held: the card's kernel #3 takes that branch again on z recomputed
+    from the layer inputs, which may land on either side of 0.  A wrong
+    table gradient that
     Adam's sign amplification or PLE's wd would hide shows here.  Under
     the "dense" update the whole table's gradient is held instead: the
     rows' gradients through the lookup's backward (``index_add_``, by
@@ -1267,32 +1304,75 @@ def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch,
     from tpurec_torch.models import build_model
 
     masks, grads = [], {}
-    for where in ("cuda", "cpu"):
+    for where in ("cuda", "cpu", "cpu, the stack's ReLU unreplayed"):
+        if where not in ("cuda", "cpu") and not branches.flips["attention"]:
+            break
+        dev_ = where.split(",")[0]
         model = build_model(name, FIELD_DIMS, towers(name), DOMAIN_IDX,
                             ModelConfig(**model_kw, **NO_DROPOUT),
-                            device=where,
+                            device=dev_,
                             generator=torch.Generator().manual_seed(SEED + 3))
         with torch.no_grad():
             model.embedding.table.mul_(table_scale)
-        ts = train_state(model, tcfg, where, update)
+        ts = train_state(model, tcfg, dev_, update)
         step = train_step_of(model, tcfg, name, update)
-        with relu_branches(masks, record=where == "cuda") as branches:
+        with relu_branches(masks, record=where == "cuda",
+                           attention=where in ("cuda", "cpu")) as br:
             out = step.loss_and_grads(ts, batch, None)
+        if where in ("cuda", "cpu"):
+            branches = br
         g = (model.embedding.table.grad if update == "dense" else out[2])
         grads[where] = g.detach().cpu()
         del model, ts, step
     check(branches.used == len(masks) > 0,
           f"{name} row gradient: the CPU replayed {branches.used} of the "
           f"card's {len(masks)} ReLU calls")
-    err = (grads["cuda"] - grads["cpu"]).abs().max().item()
+    gap = (grads["cuda"] - grads["cpu"]).abs()
+    replayed = unreplayed = None
+    if len(grads) == 3:
+        # the card takes the attention stack's ReLU twice: kernel #2 in
+        # the forward, kernel #3 on z recomputed from the layer inputs,
+        # and an input within a rounding of 0 may take each side.  The
+        # CPU took the forward's branch (replayed) and its own: the
+        # gradient is held on the closer of the two
+        other = (grads["cuda"] - grads[where]).abs()
+        replayed, unreplayed = gap.max().item(), other.max().item()
+        print(f"{name} row gradient: {branches.flips['attention']} inputs "
+              f"of the attention stack's ReLU on the other branch from the "
+              f"card's forward; the largest gap with that branch replayed "
+              f"{replayed:.3g}, with the CPU's own {unreplayed:.3g}")
+        if unreplayed < replayed:
+            gap = other
+    err = gap.max().item()
     top = grads["cpu"].abs().max().item()
+    routes = [m[1] for m in masks if m[0] == "argmax"]
+    routed = None
+    if routes:
+        # a routed model: where the largest gap lies, and how many rows
+        # each of its routings sent to that row's tower
+        B = routes[0].shape[0]
+        row = int(gap.reshape(B, -1).amax(1).argmax())
+        counts = [np.bincount(r.numpy(), minlength=towers(name)).tolist()
+                  for r in routes]
+        towers_of_row = [int(r[row]) for r in routes]
+        routed = {"batch_row": row, "towers": towers_of_row,
+                  "routed_rows": counts,
+                  "next_row_gap": float(gap.reshape(B, -1).amax(1)
+                                        .topk(2).values[1])}
+        print(f"{name} row gradient: the largest gap {err:.3g} lies in "
+              f"batch row {row} (the next row's largest "
+              f"{routed['next_row_gap']:.3g}), "
+              f"routed to towers {towers_of_row}; rows a tower by routing "
+              f"call {counts}; flips by kind {branches.flips}")
     check(err <= rtol * top,
           f"{name} train cuda vs cpu: step 1's row gradient max abs err "
           f"{err} of max |g| {top} ({branches.flips} inputs on the "
           f"other branch on the CPU)")
     return {"max_abs_err": err, "max": top, "flipped": branches.flipped,
             "flips": branches.flips, "relu_inputs": branches.inputs,
-            "relu_calls": len(masks)}
+            "relu_calls": len(masks), "routed": routed,
+            "max_abs_err_stack_replayed": replayed,
+            "max_abs_err_stack_unreplayed": unreplayed}
 
 
 def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
@@ -4698,9 +4778,12 @@ def dense_values(trainer):
             if n != "embedding.table"}
 
 
-def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS):
-    """Start ``world`` copies of this script as ranks of one process group
-    on localhost and wait for all; -> their exit codes and log tails."""
+def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS,
+                 flag="--mesh-rank"):
+    """Start ``world`` copies of this script (``flag`` names the rank's
+    part: ``--mesh-rank`` phase 22's, ``--ep-rank`` phase 23's) as ranks
+    of one process group on localhost and wait for all; -> their exit
+    codes and log tails."""
     import os
     import socket
 
@@ -4716,7 +4799,7 @@ def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS):
         log = open(os.path.join(out_dir, f"rank_{r}.log"), "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, me, "--mesh-rank", out_dir, "--draws",
+            [sys.executable, me, flag, out_dir, "--draws",
              str(draws)], env=env,
             cwd=os.path.dirname(me), stdout=log, stderr=subprocess.STDOUT))
     rcs = []
@@ -5038,6 +5121,438 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
     torch.distributed.destroy_process_group()
     summary["phase_seconds"] = time.perf_counter() - t_phase
     print(f"mesh phase: {summary['phase_seconds']:.1f} s")
+    return launches, summary
+
+
+# -- CDC on the mesh and expert parallelism (phase 23) ------------------------
+
+EP_STEPS = MESH_STEPS
+# (a) runs at CDC_CHECK_WD, where the banks and the table are held to one
+# device's, and at the default wd, where a bias feeding a training
+# BatchNorm (the experts' own) steps by up to lr on the rounding of its
+# zero gradient and the parting prints (phase 22 (b)'s reason)
+EP_WDS = {"wd1e-3": CDC_CHECK_WD, "default": TRAIN_WD}
+EP_BANK = "experts"             # the flagship MMoE's bank: 4 -> 2 a rank
+# (b) phase 17's configuration (cdc_config) on phase 21 (b)'s data and
+# schedule (32,768 rows, 6 domains, warmup_step 10, one matrix update),
+# with 8 causal-mask rows in place of phase 21's 4: with few mask rows
+# the causal distances of a few domains tie, and k-means then breaks the
+# ties on rounding (tests/test_torch_cdc_mesh.py met that at 4 domains)
+EP_CDC_DOMAINS = 6
+EP_CDC_DIMS = FIELD_DIMS[:DOMAIN_IDX] + (EP_CDC_DOMAINS,) \
+    + FIELD_DIMS[DOMAIN_IDX + 1:]
+EP_CDC_CAUSAL = 8
+EP_CDC_ATOL = 5e-5              # tests/test_cdc_e2e.py:213-244's limit
+
+
+def ep_cdc_config():
+    """(b)'s CDC configuration: cdc_config at CDC_CHECK_WD, dropout 0, one
+    epoch, the streaming eval on both sides, the async backend."""
+    import dataclasses
+
+    cfg = cdc_config(dropout=0.0, epoch=1, wd=CDC_CHECK_WD,
+                     eval_streaming=True, checkpoint_backend="orbax")
+    return dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, warmup_step=10, update_interval=100000,
+        n_causal_mask=EP_CDC_CAUSAL))
+
+
+def ep_cdc_data():
+    from tpurec_torch.data import make_synthetic
+
+    return make_synthetic(
+        n_rows=CLI_SMALL_ROWS, n_fields=len(EP_CDC_DIMS),
+        n_domain=EP_CDC_DOMAINS, field_dims=EP_CDC_DIMS,
+        domain_idx=DOMAIN_IDX, seed=1, domain_cluster_k=N_TOWER,
+        domain_cluster_conflict=True)
+
+
+def ep_bank(model):
+    """{name: value} of the experts bank's state, whole (a split leaf
+    gathered over the model group: every rank must call)."""
+    from tpurec_torch.parallel.experts import expert_leaf_shards
+
+    shards = expert_leaf_shards(model)
+    out = {}
+    for k, t in model.state_dict().items():
+        if k.split(".")[0] == EP_BANK:
+            t = shards[k].gather(t) if k in shards else t
+            out[k] = t.detach().to("cpu", torch.float32).numpy()
+    return out
+
+
+def ep_rank(out_dir):
+    """One rank of phase 23 (a) and (b), started by :func:`ep_main_path`
+    with RANK/WORLD_SIZE/LOCAL_RANK/MASTER_* set, on MESH_SHAPE with
+    Shardings(expert_parallel=True): (a) EP_STEPS hybrid steps of the
+    flagship MMoE (dropout 0) at each of EP_WDS, the table and the
+    experts gathered to rank 0; (b) CDCTrainer.fit of (b)'s configuration,
+    the exact valid eval and the async backend's save.  Writes
+    ``ep_rank_<r>.json`` (and rank 0 the gathered values)."""
+    import os
+
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+    from tpurec_torch.parallel.collectives import STATS, reset_stats
+    from tpurec_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    j = init_distributed()
+    mesh = make_mesh(*MESH_SHAPE)
+    sh = Shardings(mesh, expert_parallel=True)
+    dev = mesh.device
+    bl = 512 // mesh.n_data
+    rows = slice(mesh.d * bl, (mesh.d + 1) * bl)
+    rec = {"rank": j.rank, "backend": j.backend, "device": str(dev),
+           "coords": [mesh.d, mesh.m]}
+    counters = train_counters("mmoe")
+
+    # (a) EP_STEPS steps at each wd
+    rec["a_losses"] = {}
+    for name, wd in EP_WDS.items():
+        tr = Trainer(mesh_config(0.0, wd), FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                     domain2group=np.arange(N_DOMAIN) % N_TOWER,
+                     shardings=sh)
+        for fn in counters.values():
+            fn.launches = 0
+        rec["a_losses"][name] = [
+            float(tr.train_step(tr.state, b, tr.dropout_gen))
+            for b in mesh_batches(dev, rows)]
+        rec["a_launches"] = {k: fn.launches for k, fn in counters.items()}
+        rec["a_bank_shapes"] = {
+            k: list(t.shape) for k, t in tr.model.state_dict().items()
+            if k.split(".")[0] == EP_BANK}
+        bank = ep_bank(tr.model)
+        emb = tr.model.embedding
+        table = emb.shard.gather(emb.table.detach())
+        if j.rank == 0:
+            np.savez(os.path.join(out_dir, f"ep_{name}.npz"),
+                     table=table.cpu().numpy(), **bank)
+        del tr, table, emb, bank
+        torch.cuda.empty_cache()
+
+    # (b) CDC on the mesh with the experts split
+    data = ep_cdc_data()
+    tr = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX,
+                    shardings=sh)
+    check(tr.device.type == "cuda" and tr.model.experts.expert_shard
+          is not None, f"rank {j.rank}: CDCTrainer on {tr.device}, experts "
+          "not split")
+    sched = {"warmup_steps": 0, "blocks": [], "probe_forwards": 0,
+             "warmup_seconds": 0.0, "span_seconds": 0.0, "span_steps": 0}
+    _observe_schedule(tr, sched)
+    observed_span, coll = tr._train_span, {"seconds": 0.0, "calls": 0,
+                                           "bytes": 0}
+
+    def span(seq, lo, hi):
+        before = dict(STATS)
+        out = observed_span(seq, lo, hi)
+        for k in coll:
+            coll[k] += STATS[k] - before[k]
+        return out
+
+    tr._train_span = span
+    observed_block = tr._run_populate_async
+    blocks = []
+
+    def block(*args):
+        # each populate block's entry state, gathered, for one device's
+        blob = tr.snapshot_bytes()
+        if j.rank == 0:
+            with open(os.path.join(out_dir, f"block_{len(blocks)}.msgpack"),
+                      "wb") as f:
+                f.write(blob)
+        blocks.append(len(blob))
+        return observed_block(*args)
+
+    tr._run_populate_async = block
+    for fn in counters.values():
+        fn.launches = 0
+    reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.fit(data.train, data.valid)
+    torch.cuda.synchronize()
+    rec["b_fit_s"] = time.perf_counter() - t0
+    rec["b_fit_collectives"] = dict(STATS)
+    rec["b_launches"] = {k: fn.launches for k, fn in counters.items()}
+    n_steps = (sched["warmup_steps"]
+               + sum(b["valid_steps"] for b in sched["blocks"])
+               + sched["span_steps"])
+    n_eval = tr._padded_split(tr.valid_batcher)[6]
+    rec["b_schedule"] = {"steps": n_steps, "eval_batches": n_eval,
+                         "probe_forwards": sched["probe_forwards"],
+                         "span_steps": sched["span_steps"],
+                         "warmup_steps": sched["warmup_steps"],
+                         "blocks": sched["blocks"]}
+    rec["b_step_ms"] = sched["span_seconds"] / sched["span_steps"] * 1e3
+    rec["b_span_collective_share"] = coll["seconds"] / sched["span_seconds"]
+    rec["b_span_collectives"] = coll
+    st = tr.cluster
+    rec["b_cluster"] = {"mask": st.matrix_mask.tolist(),
+                        "A": st.matrix_A.tolist(), "B": st.matrix_B.tolist(),
+                        "d2g": [int(g) for g in st.domain2group_list]}
+    rec["b_valid"] = {k: out["valid"][k] for k in
+                      ("total_auc", "mean_auc", "total_loss", "train_loss")}
+    exact = tr.evaluate(tr.valid_batcher)
+    rec["b_exact"] = {k: exact[k] for k in ("total_auc", "total_loss")}
+    be = tr.make_checkpointer(os.path.join(out_dir, "cdc_ck"))
+    tr.save_versioned(be, 1, extra={"phase": 23})
+    be.wait_until_finished()
+    with open(os.path.join(out_dir, f"ep_rank_{j.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ep_main_path(dev, tag, cli_cdc_aucs=None):
+    """Phase 23: CDC on the (data, model) mesh and expert parallelism, 4
+    ranks sharing the card over gloo (:func:`ep_rank`).  (a) EP_STEPS
+    hybrid steps of the flagship MMoE on MESH_SHAPE with its 4 experts
+    split 2 a rank, against the one-device card run: losses at
+    MESH_LOSS_RTOL at both wds, the gathered experts (weights, biases,
+    BatchNorm statistics) and the table at MESH_TABLE_ATOL at
+    CDC_CHECK_WD, the parting printed at the default wd; each rank's bank
+    shapes and launches of #1, #2, #3 and #6/#7 a step.  (b)
+    CDCTrainer.fit on MESH_SHAPE with expert parallelism against the
+    one-device CDCTrainer.fit on the card, which takes the mesh's state
+    at the entry of each populate block: the matrices at EP_CDC_ATOL
+    and the same domain2group, the valid AUC beside, the async checkpoint
+    restored onto one device (exact eval within MESH_EVAL_TOL), ms a step
+    and the collectives' share.  (c) the CLI under torch.distributed.run
+    on 2 ranks: CDC on PLE with --mesh_model 2 --mesh_expert_parallel for
+    one epoch; its AUC beside ``cli_cdc_aucs`` (phase 21 (b)'s, None when
+    the phase runs alone).  -> (launches, summary)."""
+    import os
+    import shutil
+    import subprocess as sp
+    import tempfile
+
+    from tpurec_torch.cdc import CDCTrainer
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    counters = train_counters("mmoe")
+    summary, launches = {}, {}
+    tmp = tempfile.mkdtemp(prefix="ep_")
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    rcs, tails = _spawn_ranks(world, tmp, flag="--ep-rank")
+    ranks_s = time.perf_counter() - t0
+    check(rcs == [0] * world, f"phase 23 ranks exited {rcs}:\n{tails}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"ep_rank_{r}.json")) as f:
+            recs.append(json.load(f))
+    from tpurec_torch.config import ModelConfig
+
+    E = ModelConfig(**MODEL).mmoe_n_expert
+    for r in recs:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        check(r["a_launches"] == {k: EP_STEPS for k in counters},
+              f"(a) rank {r['rank']} launches {r['a_launches']}, expected "
+              f"{EP_STEPS} of each")
+        shapes = r["a_bank_shapes"]
+        check(shapes[f"{EP_BANK}.linear_0.weight"][0] == E // MESH_SHAPE[1]
+              and shapes[f"{EP_BANK}.bn_0.mean"][0] == E // MESH_SHAPE[1]
+              and len(shapes[f"{EP_BANK}.bn_0.scale"]) == 1,
+              f"rank {r['rank']}: bank shapes {shapes}")
+        sch = r["b_schedule"]
+        n_fwd = sch["steps"] + sch["probe_forwards"] + sch["eval_batches"]
+        want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
+                "field_attention_bwd": sch["steps"],
+                "fused_decay_adam": sch["steps"],
+                "fused_sparse_adam": sch["steps"]}
+        check(r["b_launches"] == want, f"(b) rank {r['rank']} launches "
+              f"{r['b_launches']}, expected {want} (a step each, a forward "
+              "per probe eval and streaming-eval batch)")
+        check(r["b_cluster"]["d2g"] == recs[0]["b_cluster"]["d2g"]
+              and r["a_losses"] == recs[0]["a_losses"],
+              f"rank {r['rank']} disagrees with rank 0")
+    print(f"{tag} ep: {world} ranks on the card over gloo, mesh "
+          f"{MESH_SHAPE}, Shardings(expert_parallel=True), ran in "
+          f"{ranks_s:.1f} s (start-up included); every rank exited 0; "
+          + "; ".join(f"rank {r['rank']} {tuple(r['coords'])} holds "
+                      f"{EP_BANK}.linear_0.weight "
+                      f"{r['a_bank_shapes'][f'{EP_BANK}.linear_0.weight']}"
+                      for r in recs))
+    launches["a_steps"] = recs[0]["a_launches"]
+    launches["b_cdc_fit"] = recs[0]["b_launches"]
+
+    # (a) against the one-device card steps
+    summary["a"] = {"launches": launches["a_steps"],
+                    "bank_shapes": recs[0]["a_bank_shapes"]}
+    for name, wd in EP_WDS.items():
+        ref = mesh_trainer(mesh_config(0.0, wd))
+        l_ref = [float(ref.train_step(ref.state, b, ref.dropout_gen))
+                 for b in mesh_batches(dev)]
+        want_t = ref.model.embedding.table.detach().cpu().numpy()
+        want_b = ep_bank(ref.model)
+        del ref
+        torch.cuda.empty_cache()
+        l_mesh = recs[0]["a_losses"][name]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_mesh, l_ref))
+        with np.load(os.path.join(tmp, f"ep_{name}.npz")) as z:
+            t_err = float(np.abs(z["table"] - want_t).max())
+            beyond = int((np.abs(z["table"] - want_t) > MESH_TABLE_ATOL)
+                         .sum())
+            b_err = {k: float(np.abs(z[k] - v).max())
+                     for k, v in want_b.items()}
+        worst = max(b_err, key=b_err.get)
+        print(f"{tag} ep (a) {EP_STEPS} hybrid steps on {MESH_SHAPE}, "
+              f"experts split, wd {wd}: losses {l_mesh} vs one device "
+              f"{l_ref} (max rel err {loss_rel:.3g}, tol {MESH_LOSS_RTOL}); "
+              f"gathered table max abs err {t_err:.3g} ({beyond} values "
+              f"beyond {MESH_TABLE_ATOL}); experts' leaves max abs err "
+              f"{b_err[worst]:.3g} ({worst}; by leaf "
+              + ", ".join(f"{k.split('.', 1)[1]} {v:.2g}"
+                          for k, v in b_err.items()) + ")")
+        check(loss_rel <= MESH_LOSS_RTOL, f"(a) wd {wd}: loss rel err "
+              f"{loss_rel}")
+        if wd != TRAIN_WD:
+            check(t_err <= MESH_TABLE_ATOL and b_err[worst] <=
+                  MESH_TABLE_ATOL, f"(a) wd {wd}: table abs err {t_err}, "
+                  f"{worst} abs err {b_err[worst]}")
+        summary["a"][name] = {"wd": wd, "losses": l_mesh,
+                              "one_device_losses": l_ref,
+                              "loss_rel_err": loss_rel,
+                              "table_abs_err": t_err,
+                              "table_values_beyond_atol": beyond,
+                              "bank_abs_err": b_err}
+
+    # (b) against the one-device CDCTrainer on the card, which takes the
+    # mesh's state (gathered) at the entry of each populate block: run by
+    # run the two part by rounding over tens of steps (the first run of
+    # this phase: 1e-3 in the matrices after the warmup's 20 steps, 3e-4
+    # in A from the update's entry), so each block compares from one state
+    r0 = recs[0]
+    data = ep_cdc_data()
+    one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
+    one_block, n_block = one._run_populate_async, [0]
+
+    def block_from_mesh(*args):
+        with open(os.path.join(tmp, f"block_{n_block[0]}.msgpack"),
+                  "rb") as f:
+            one.restore_bytes(f.read())
+        n_block[0] += 1
+        return one_block(*args)
+
+    one._run_populate_async = block_from_mesh
+    t0 = time.perf_counter()
+    out1 = one.fit(data.train, data.valid)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    st = one.cluster
+    m_err = {m: float(np.abs(np.asarray(r0["b_cluster"][m]) - v).max())
+             for m, v in (("mask", st.matrix_mask), ("A", st.matrix_A),
+                          ("B", st.matrix_B))}
+    d2g1 = [int(g) for g in st.domain2group_list]
+    auc, auc1 = r0["b_valid"]["total_auc"], out1["valid"]["total_auc"]
+    check(n_block[0] == len(r0["b_schedule"]["blocks"]),
+          f"(b) one device restored {n_block[0]} block states")
+    del one
+    torch.cuda.empty_cache()
+    sch = r0["b_schedule"]
+    shares = [r["b_span_collective_share"] for r in recs]
+    print(f"{tag} ep (b) CDCTrainer.fit on {MESH_SHAPE} with the experts "
+          f"split ({EP_CDC_DOMAINS} domains, {sch['warmup_steps']} warmup "
+          f"steps, one matrix update of {len(sch['blocks'])} blocks "
+          f"{[(b['rows'], b['valid_steps'], b['width']) for b in sch['blocks']]}"
+          f" (rows, valid steps, width), {sch['span_steps']} split-mode "
+          f"steps, wd {CDC_CHECK_WD}): matrices vs one device's update, "
+          f"each of its {n_block[0]} blocks from the mesh's block-entry "
+          f"state, max abs err "
+          f"{m_err} (tol {EP_CDC_ATOL}); domain2group {r0['b_cluster']['d2g']}"
+          f" vs {d2g1}; valid total_auc {auc:.5f} (streaming) beside one "
+          f"device's {auc1:.5f}; launches {r0['b_launches']}")
+    print(f"{tag} ep (b) split-mode steps: "
+          + ", ".join(f"rank {r['rank']} {r['b_step_ms']:.3f}" for r in recs)
+          + " ms a step (host clock, 256 rows a data rank); collectives "
+          + ", ".join(f"{100 * x:.1f}%" for x in shares)
+          + f" of the span ({r0['b_span_collectives']['calls']} calls, "
+          f"{r0['b_span_collectives']['bytes'] / 1e6:.1f} MB on rank 0; host "
+          f"time inside torch.distributed, gloo); the fit {r0['b_fit_s']:.1f}"
+          f" s on the mesh, {one_s:.1f} s on one device")
+    check(all(v <= EP_CDC_ATOL for v in m_err.values()),
+          f"(b) matrices vs one device: {m_err}")
+    check(r0["b_cluster"]["d2g"] == d2g1, f"(b) domain2group "
+          f"{r0['b_cluster']['d2g']} vs one device's {d2g1}")
+    check(abs(auc - auc1) <= MESH_AUC_TOL, f"(b) valid AUC {auc} vs one "
+          f"device's {auc1}")
+    one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
+    one.setup_data(data.train, data.valid)
+    meta = one.load_versioned(one.make_checkpointer(os.path.join(tmp,
+                                                                 "cdc_ck")))
+    ev = one.evaluate(one.valid_batcher)
+    ev_err = {k: abs(ev[k] - r0["b_exact"][k]) for k in r0["b_exact"]}
+    print(f"{tag} ep (b) the async checkpoint restored onto one device: "
+          f"exact valid eval vs the mesh's {ev_err} (tol {MESH_EVAL_TOL}); "
+          f"clustering {one.cluster.domain2group_list}")
+    check(meta["extra"] == {"phase": 23}, f"(b) checkpoint extra {meta}")
+    check(all(v <= MESH_EVAL_TOL for v in ev_err.values())
+          and one.cluster.domain2group_list == r0["b_cluster"]["d2g"],
+          f"(b) restored eval differs: {ev_err}")
+    del one, data
+    torch.cuda.empty_cache()
+    summary["b"] = {
+        "matrix_abs_err": m_err, "domain2group": r0["b_cluster"]["d2g"],
+        "one_device_domain2group": d2g1, "valid": r0["b_valid"],
+        "one_device_valid_total_auc": auc1, "schedule": sch,
+        "step_ms": [r["b_step_ms"] for r in recs],
+        "span_collective_share": shares,
+        "span_collectives_rank0": r0["b_span_collectives"],
+        "fit_seconds": r0["b_fit_s"], "one_device_fit_seconds": one_s,
+        "restore_eval_err": ev_err, "launches": launches["b_cdc_fit"]}
+
+    # (c) the CLI: CDC on PLE with the experts split, 2 ranks
+    argv = ["--model", "cdc", "--base_model", "ple", "--mesh_model", "2",
+            "--mesh_expert_parallel", "--dataset_name", "synthetic",
+            "--n_rows", str(CLI_SMALL_ROWS), "--n_domain", "6", "--epoch",
+            "1", "--bs", "512", "--warmup_step", "10", "--update_interval",
+            "100000", "--n_causal_mask", "4", "--is_set_seed", "1", "--seed",
+            str(SEED + 23), "--save_path", os.path.join(tmp, "cli"),
+            "--log_path", os.path.join(tmp, "cli.jsonl")]
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc_per_node", "2", "-m",
+                   "tpurec_torch.cli", *argv], cwd=root, capture_output=True,
+                  text=True, timeout=MESH_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(c) torch.distributed.run -m "
+          f"tpurec_torch.cli exited {proc.returncode}: {proc.stderr[-3000:]}")
+    results = [json.loads(x) for x in proc.stdout.splitlines()
+               if x.startswith("{") and '"valid"' in x]
+    check(len(results) == 1, f"(c) {len(results)} result lines (rank 0 "
+          "alone prints one)")
+    with open(os.path.join(tmp, "cli.jsonl")) as f:
+        log = [json.loads(x) for x in f]
+    mrec = [r for r in log if "mesh" in r]
+    split = [x for x in proc.stdout.splitlines()
+             if "expert parallelism over the model axis" in x]
+    check(len(mrec) == 1 and mrec[0]["mesh"] == [1, 2]
+          and mrec[0]["backend"] == "gloo", f"(c) the mesh record {mrec}")
+    check(len(split) == 1 and "experts_specific (8 -> 4 a rank)" in split[0],
+          f"(c) the split printed: {split}")
+    cli_auc = results[0]["valid"]["total_auc"]
+    check(np.isfinite(cli_auc) and os.path.exists(results[0]["checkpoint"]),
+          f"(c) valid AUC {cli_auc}, checkpoint from rank 0")
+    print(f"{tag} ep (c) python -m torch.distributed.run --nproc_per_node 2 "
+          f"-m tpurec_torch.cli --model cdc --base_model ple --mesh_model 2 "
+          f"--mesh_expert_parallel (backend {mrec[0]['backend']}; "
+          f"{split[0].split(': ', 1)[1]}): exit 0 in {cli_s:.1f} s; "
+          f"clustering {results[0]['domain2group_list']}; valid total_auc "
+          f"{cli_auc:.5f} beside phase 21 (b)'s CDC runs "
+          + ("(not run: not compared)" if cli_cdc_aucs is None else
+             ", ".join(f"{b} {a:.5f}" for b, a in cli_cdc_aucs.items())))
+    summary["c"] = {"valid_total_auc": cli_auc, "seconds": cli_s,
+                    "domain2group": results[0]["domain2group_list"],
+                    "split": split[0], "phase21_cdc": cli_cdc_aucs}
+    shutil.rmtree(tmp, ignore_errors=True)
+    summary["ranks_seconds"] = ranks_s
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"ep phase: {summary['phase_seconds']:.1f} s")
     return launches, summary
 
 
@@ -5423,6 +5938,10 @@ def main() -> int:
         dev, tag, fit_summary["valid"]["total_auc"],
         cli["a_mmoe"]["valid_auc_by_epoch"][0])
 
+    # -- 23. CDC on the mesh and expert parallelism ---------------------------
+    ep_launches, ep = ep_main_path(
+        dev, tag, {b: r["valid_total_auc"] for b, r in cli["b_cdc"].items()})
+
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
         "field_attention": "tpurec/ops/attention_pallas.py:310",
@@ -5557,6 +6076,8 @@ def main() -> int:
         k["launches_cli"] = {run: n[key] for run, n in cli_launches.items()}
         k["launches_mesh"] = {run: n.get(key)
                               for run, n in mesh_launches.items()}
+        k["launches_ep"] = {run: n.get(key)
+                            for run, n in ep_launches.items()}
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
@@ -5567,6 +6088,7 @@ def main() -> int:
                       "phase_seconds": zoo_s}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"expert": ep}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
@@ -5616,24 +6138,87 @@ def phase22_main(draws: int) -> int:
     return 0
 
 
+def _phase_alone(name):
+    """The start of a phase run alone: the card's name and power limit,
+    the kernels built.  -> (dev, tag), or None without a card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tpurec_torch.ops import _build
+
+    t0 = time.perf_counter()
+    gpu = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()[0]
+    print(gpu)
+    built = _build.build()
+    print(f"{name}: built {sorted(built)} in {time.perf_counter() - t0:.1f} "
+          "s")
+    return torch.device("cuda"), f"[{gpu}]"
+
+
+def phase19_main(seed: int) -> int:
+    """Phase 19 (a) alone, after the build: the routed models with their
+    batches drawn from ``default_rng(seed)`` (in the whole run the draw
+    follows the earlier phases')."""
+    start = _phase_alone("phase 19")
+    if start is None:
+        return 1
+    dev, tag = start
+    t0 = time.perf_counter()
+    routed = routed_main_path(dev, np.random.default_rng(seed), tag)
+    print(json.dumps({"routed": routed, "seed": seed}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def phase23_main() -> int:
+    """Phase 23 alone, after the build.  Phase 21 does not run, so (c)
+    prints its AUC uncompared."""
+    start = _phase_alone("phase 23")
+    if start is None:
+        return 1
+    dev, tag = start
+    t0 = time.perf_counter()
+    launches, summary = ep_main_path(dev, tag, None)
+    print(json.dumps({"launches_ep": launches}))
+    print(json.dumps({"expert": summary}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
-    ap.add_argument("--phase", type=int, choices=[22],
-                    help="run this phase alone (after the build)")
+    ap.add_argument("--phase", type=int, choices=[19, 22, 23],
+                    help="run this phase alone (after the build; 19: its "
+                    "routed models)")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
                     help="phase 22 (b)'s batch draws at each wd")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="phase 19's batch draw (with --phase 19)")
     ap.add_argument("--mesh-rank", metavar="DIR",
                     help="one rank of phase 22 (b)/(c), started by the "
+                    "phase itself")
+    ap.add_argument("--ep-rank", metavar="DIR",
+                    help="one rank of phase 23 (a)/(b), started by the "
                     "phase itself")
     opts = ap.parse_args()
     try:
         if opts.mesh_rank:
             sys.exit(mesh_rank(opts.mesh_rank, opts.draws))
+        if opts.ep_rank:
+            sys.exit(ep_rank(opts.ep_rank))
+        if opts.phase == 19:
+            sys.exit(phase19_main(opts.seed))
         if opts.phase == 22:
             sys.exit(phase22_main(opts.draws))
+        if opts.phase == 23:
+            sys.exit(phase23_main())
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

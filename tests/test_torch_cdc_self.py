@@ -320,7 +320,8 @@ def test_matrix_artifacts(tmp_path, data):
 
 def test_unported_and_invalid_options_raise(data):
     args = (data.field_dims, data.n_domain, data.domain_idx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the mesh is ported: one that is not tpurec_torch.parallel's raises
+    with pytest.raises(TypeError, match="tpurec_torch.parallel.Mesh"):
         CDCTrainer(_cfg(), *args, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CDCTrainer(_cfg(parallel_rows=4), *args, device="cpu")

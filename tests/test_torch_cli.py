@@ -375,23 +375,10 @@ SMALL = ["--n_rows", "600", "--n_domain", "3", "--epoch", "1", "--bs",
 
 @pytest.mark.parametrize("opts,what", [
     (["--model", "cdc", "--parallel_rows", "2"], "parallel_rows"),
-    (["--mesh_data", "2", "--mesh_expert_parallel"], "item 8b"),
-    (["--mesh_model", "2", "--model", "cdc"], "item 8b"),
-    (["--mesh_data", "2", "--mesh_model", "2", "--model", "cdc"],
-     "item 8b"),
 ])
-def test_not_ported_raises_naming_roadmap(opts, what, monkeypatch):
+def test_not_ported_raises_naming_roadmap(opts, what):
     """What is still not ported raises, naming ROADMAP.md: CDC's row
-    lanes; CDC's mesh and expert parallelism (item 8b), asked for under a
-    launcher of as many ranks as the mesh (the CLI refuses before joining
-    the process group)."""
-    if "--mesh_data" in opts or "--mesh_model" in opts:
-        n_data = int(opts[opts.index("--mesh_data") + 1]) \
-            if "--mesh_data" in opts else 1
-        n_model = int(opts[opts.index("--mesh_model") + 1]) \
-            if "--mesh_model" in opts else 1
-        monkeypatch.setenv("WORLD_SIZE", str(n_data * n_model))
-        monkeypatch.setenv("RANK", "0")
+    lanes."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         pcli.main(SMALL + opts)
     assert what in str(e.value)

@@ -1,5 +1,6 @@
 """Rank process of the port's mesh tests (tests/test_torch_parallel_*.py,
-tests/test_torch_cli_mesh.py), and the launcher that starts the ranks.
+tests/test_torch_cdc_mesh.py, tests/test_torch_cli_mesh*.py), and the
+launcher that starts the ranks.
 
 :func:`spawn` starts ``world`` copies of this script on the CPU, joined
 over gloo on a free localhost port (``RANK``/``WORLD_SIZE``/
@@ -111,8 +112,9 @@ def config(update="hybrid", model=None, **train):
     from tpurec_torch.config import Config, ModelConfig, TrainConfig
 
     return Config(model=ModelConfig(**(model or MODEL)),
-                  train=TrainConfig(bs=BS, wd=1e-8,
-                                    embedding_update=update, **train))
+                  train=TrainConfig(**{"bs": BS, "wd": 1e-8,
+                                       "embedding_update": update,
+                                       **train}))
 
 
 def global_batches(n=STEPS, seed=0):
@@ -517,8 +519,245 @@ def record_losses(patch=setattr):
     return losses
 
 
-TASKS = {"cli": task_cli, "steps": task_steps, "lookup": task_lookup, "trainer": task_trainer,
-         "ckpt": task_ckpt}
+# ------------------------------------------------------- expert parallelism
+
+EP_WD = 1e-3            # the parameters' check (see test_torch_parallel_expert)
+EP_MODELS = {
+    "mmoe": MODEL,
+    "ple": dict(model="ple", embed_dim=8, ple_expert_dims=((16, 8), (8,)),
+                ple_tower_dims=(8,), use_atten=False, dropout=0.0),
+    "hinet": dict(model="hinet", embed_dim=8, sei_dims=(16, 8),
+                  tower_dims=(8,), use_atten=False, dropout=0.0),
+}
+EP_STEPS = 3
+# the L2 of a bank's shared BatchNorm scale, which the models leave at 0
+BN_SCALE_L2 = 0.05
+
+
+def ep_trainer(cfg, mesh=None, expert_parallel=True):
+    from tpurec_torch.parallel import Shardings
+    from tpurec_torch.train import Trainer
+
+    sh = None if mesh is None else Shardings(mesh,
+                                             expert_parallel=expert_parallel)
+    return Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, domain2group=D2G,
+                   shardings=sh, device=None if mesh is not None else "cpu")
+
+
+def ep_forwards(tr, batch, rows, mesh):
+    """(eval logits, training logits with dropout 0, training logits at
+    the model's dropout) of ``tr.model`` on this data rank's ``rows``."""
+    import torch
+
+    from tpurec_torch.parallel.collectives import mesh_scope
+
+    b = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
+    out = []
+    with torch.no_grad():
+        tr.model.eval()
+        out.append(tr.model(b["x"], group=b["group"]))
+        tr.model.train()
+        gen = torch.Generator().manual_seed(7)
+        with mesh_scope(mesh):
+            out.append(tr.model(b["x"], group=b["group"], train=True,
+                                row_mask=b["mask"], generator=gen))
+    return [o.numpy() for o in out]
+
+
+def bn_scale_grads(tr, batch, rows, bank="experts"):
+    """One hybrid loss_and_grads with the bank's BatchNorm scale given an
+    L2 coefficient -> (loss, the scale's gradient, the bank's first
+    weight's gradient gathered over the model group)."""
+    import torch
+
+    from tpurec_torch.train.hybrid import HybridTrainStep
+
+    coefs = dict(tr.reg_coefs)
+    coefs[f"{bank}.bn_0.scale"] = BN_SCALE_L2
+    step = HybridTrainStep(tr.model, tr.cfg.train, coefs, True,
+                           tr.cfg.model.l2_reg_embedding)
+    b = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
+    loss, _, _ = step.loss_and_grads(tr.state, b, tr.dropout_gen)
+    mod = tr.model.get_submodule(bank)
+    w = mod.linear_0.weight.grad
+    if mod.expert_shard is not None:
+        w = mod.expert_shard.gather(w)
+    return (float(loss), mod.bn_0.scale.grad.numpy().copy(),
+            w.numpy().copy())
+
+
+def task_expert(out_dir):
+    """2 ranks, (1, 2): MMoE, PLE and HiNet with their banks split, each
+    rank's leaf shapes and the eval and training forwards (dropout 0 and
+    the models' 0.2).  4 ranks, (2, 2): EP_STEPS steps of MMoE under each
+    update at EP_WD and the hybrid's at the default wd, the gathered
+    states and losses, and the BatchNorm scale's gradient with an L2;
+    (1, 4): EP_STEPS hybrid steps of PLE, whose 2 shared experts stay
+    whole.  Rank 0 writes ``expert_<world>.npz``."""
+    from tpurec_torch.convert import train_state_to_flax
+    from tpurec_torch.parallel import make_mesh
+
+    j = _join()
+    res = {}
+    batches = global_batches(EP_STEPS)
+    if j.world == 2:
+        mesh = make_mesh(1, 2)
+        rows = _rows(mesh)
+        for name, kw in EP_MODELS.items():
+            for rate in (0.0, 0.2):
+                tr = ep_trainer(config(model=dict(kw, dropout=rate)), mesh)
+                outs = ep_forwards(tr, batches[0], rows, mesh)
+                shapes = {k: list(t.shape)
+                          for k, t in tr.model.state_dict().items()}
+                if j.rank == 0:
+                    for i, o in enumerate(outs):
+                        res[f"{name}_{rate}/fwd{i}"] = o
+                res[f"{name}_{rate}/shapes_{j.rank}"] = json.dumps(shapes)
+        shapes = [None] * j.world
+        import torch.distributed as dist
+
+        for key in [k for k in res if k.endswith(f"shapes_{j.rank}")]:
+            dist.all_gather_object(shapes, res[key])
+            for r, v in enumerate(shapes):
+                res[key[:-1] + str(r)] = v
+    else:
+        mesh = make_mesh(2, 2)
+        rows = _rows(mesh)
+        for upd in UPDATES:
+            for wd in (EP_WD, 1e-8):
+                if wd != EP_WD and upd != "hybrid":
+                    continue
+                tr = ep_trainer(config(upd, wd=wd), mesh)
+                losses = run_steps(tr, batches, rows)
+                state = flat(train_state_to_flax(tr.state))
+                key = f"{upd}_{wd:g}"
+                if j.rank == 0:
+                    res.update({f"{key}/{k}": v for k, v in state.items()})
+                    res[f"{key}/losses"] = np.asarray(losses)
+                if wd == EP_WD and upd != "sparse":
+                    # the pickle and the async checkpoint, and the
+                    # pickle back onto a fresh (2, 2) trainer
+                    tr.save_checkpoint(os.path.join(out_dir, f"{key}.pkl"))
+                    be = tr.make_checkpointer(os.path.join(out_dir,
+                                                           f"{key}_ck"))
+                    be.save(1, tr.state)
+                    be.wait_until_finished()
+                    back = ep_trainer(config(upd, wd=wd), mesh)
+                    back.load_checkpoint(os.path.join(out_dir, f"{key}.pkl"))
+                    again = flat(train_state_to_flax(back.state))
+                    if j.rank == 0:
+                        res[f"{key}/reloaded_equal"] = all(
+                            np.array_equal(again[k], state[k]) for k in state)
+        loss, g_scale, g_w = bn_scale_grads(ep_trainer(config(wd=EP_WD),
+                                                       mesh), batches[0],
+                                            rows)
+        if j.rank == 0:
+            res.update({"bn/loss": loss, "bn/scale": g_scale, "bn/w": g_w})
+        mesh = make_mesh(1, 4)
+        tr = ep_trainer(config(model=EP_MODELS["ple"], wd=EP_WD), mesh)
+        split = sorted(n for n, m in tr.model.named_modules()
+                       if getattr(m, "expert_shard", None) is not None)
+        losses = run_steps(tr, batches, _rows(mesh))
+        state = flat(train_state_to_flax(tr.state))
+        if j.rank == 0:
+            res.update({f"ple14/{k}": v for k, v in state.items()})
+            res["ple14/losses"] = np.asarray(losses)
+            res["ple14/split"] = json.dumps(split)
+    if j.rank == 0:
+        np.savez(os.path.join(out_dir, f"expert_{j.world}.npz"), **res)
+
+
+# ------------------------------------------------------------- CDC's mesh
+
+CDC_DIMS = dict(n_rows=3500, n_fields=6, n_domain=4, domain_idx=3, seed=1,
+                domain_cluster_k=2)
+CDC_MODEL = dict(model="cdc", embed_dim=8, mlp_dims=(32, 16),
+                 atten_embed_dim=8, att_layer_num=1, dropout=0.0)
+CDC_CDC = dict(base_model="mmoe", n_cluster=2, n_causal_mask=8,
+               warmup_step=1, update_matrix_step=1, update_interval=2,
+               cdc_tower_dims=(16,))
+CDC_WD = 1e-3           # the probe rows' check (see test_torch_cdc_mesh)
+
+
+def cdc_data():
+    from tpurec_torch.data import make_synthetic
+
+    return make_synthetic(**CDC_DIMS)
+
+
+def cdc_config(placement="resident", **train):
+    from tpurec_torch.config import CDCConfig, Config, ModelConfig, \
+        TrainConfig
+
+    kw = dict(bs=256, epoch=1, seed=0, wd=CDC_WD,
+              checkpoint_backend="orbax")
+    kw.update(train)
+    return Config(model=ModelConfig(**CDC_MODEL),
+                  cdc=CDCConfig(**CDC_CDC, data_placement=placement),
+                  train=TrainConfig(**kw))
+
+
+def cdc_trainer(cfg, data, mesh=None, expert_parallel=False):
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.parallel import Shardings
+
+    sh = None if mesh is None else Shardings(mesh,
+                                             expert_parallel=expert_parallel)
+    return CDCTrainer(cfg, data.field_dims, data.n_domain, data.domain_idx,
+                      shardings=sh,
+                      device=None if mesh is not None else "cpu")
+
+
+def cluster_of(tr):
+    st = tr.cluster
+    return {"mask": st.matrix_mask, "A": st.matrix_A, "B": st.matrix_B,
+            "d2g": np.asarray(st.domain2group_list)}
+
+
+def task_cdc(out_dir):
+    """4 ranks, (2, 2): one update_matrix_cdc resident and "stream",
+    without and with expert parallelism (the matrices and the
+    clustering).  2 ranks, (2, 1): CDCTrainer.fit (two updates), the exact
+    valid eval, and the pickle and async checkpoints.  Rank 0 writes
+    ``cdc_<world>.npz``."""
+    from tpurec_torch.parallel import make_mesh
+
+    j = _join()
+    data = cdc_data()
+    res = {}
+    if j.world == 4:
+        mesh = make_mesh(2, 2)
+        for ep in (False, True):
+            for placement in ("resident", "stream"):
+                tr = cdc_trainer(cdc_config(placement), data, mesh, ep)
+                tr.setup_data(data.train, data.valid)
+                tr.update_matrix_cdc(1)
+                key = f"{placement}_{'ep' if ep else 'dp'}"
+                res.update({f"{key}/{k}": v
+                            for k, v in cluster_of(tr).items()})
+                res[f"{key}/resident"] = tr._resident
+    else:
+        mesh = make_mesh(2, 1)
+        tr = cdc_trainer(cdc_config(), data, mesh)
+        out = tr.fit(data.train, data.valid)
+        exact = tr.evaluate(tr.valid_batcher)
+        tr.save_checkpoint(os.path.join(out_dir, "cdc_mesh.pkl"))
+        be = tr.make_checkpointer(os.path.join(out_dir, "cdc_ck"))
+        tr.save_versioned(be, 1, extra={"s": 1})
+        be.wait_until_finished()
+        if j.rank == 0:
+            res["fit/d2g"] = np.asarray(out["domain2group_list"])
+            res["fit/s_groups"] = json.dumps(out["s_group2domain_list"])
+            for k in ("total_auc", "total_loss"):
+                res[f"fit/valid_{k}"] = out["valid"][k]
+                res[f"fit/exact_{k}"] = exact[k]
+    if j.rank == 0:
+        np.savez(os.path.join(out_dir, f"cdc_{j.world}.npz"), **res)
+
+
+TASKS = {"cli": task_cli, "steps": task_steps, "lookup": task_lookup,
+         "trainer": task_trainer, "ckpt": task_ckpt, "expert": task_expert,
+         "cdc": task_cdc}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """The port's mesh layer without spawning ranks: make_mesh's checks and
 messages, the Shardings rules, the data feed's arithmetic and the
-backend's choice against the JAX package's (tpurec/parallel/), kernel
-1's row window in its plain version, and what stays unported (item 8b).
+backend's choice against the JAX package's (tpurec/parallel/), and
+kernel 1's row window in its plain version.
 
-The mesh's collectives run in tests/test_torch_parallel_lookup.py and
-tests/test_torch_parallel_steps.py (gloo, spawned ranks)."""
+The mesh's collectives run in tests/test_torch_parallel_lookup.py,
+tests/test_torch_parallel_steps.py and, with expert parallelism,
+tests/test_torch_parallel_expert.py (gloo, spawned ranks)."""
 
 import jax
 import numpy as np
@@ -81,18 +82,6 @@ def test_shardings_are_tpurecs(path):
     # the port's own state names
     assert sh.spec("embedding.table") == ("model", None)
     assert sh.spec("emb_opt.m") == sh.spec("emb_opt.v") == ("model", None)
-
-
-def test_expert_parallel_and_cdc_mesh_name_item_8b():
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        Shardings(_mesh(1, 2), expert_parallel=True)
-    from tpurec_torch.cdc import CDCTrainer
-    from tpurec_torch.config import CDCConfig, Config, ModelConfig
-
-    cfg = Config(model=ModelConfig(model="cdc"), cdc=CDCConfig(
-        base_model="mmoe"))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        CDCTrainer(cfg, (4, 4, 3), 3, 2, mesh=_mesh(1, 1), device="cpu")
 
 
 @pytest.mark.parametrize("n_rows", [0, 1, 7, 100, 1001, 4096])

@@ -43,9 +43,33 @@ The JAX engine's XLA compile machinery (``_DaemonBuild``,
 counterpart: nothing compiles in eager PyTorch, and
 :meth:`CDCTrainer.warm_compile` does nothing.
 
-Not ported (each raises NotImplementedError naming ROADMAP.md): a mesh
-(``mesh``/``shardings``, item 8b) and ``cdc.parallel_rows > 0``
-(``populate_rows_parallel`` with ``EmbeddingUpdater.update_stacked``).
+On a (data, model) mesh (``mesh``/``shardings``, :mod:`tpurec_torch.
+parallel`; one process a rank) the engine computes the one-device CDC on
+each step's whole schedule, as the JAX package's GSPMD mesh does
+(``tpurec/cdc/engine.py:86-199``):
+
+- every rank builds the same initial state (checked), then cuts the
+  table to its rows and, with ``Shardings(expert_parallel=True)``, the
+  expert banks to its stacks (:meth:`tpurec_torch.parallel.mesh.
+  Shardings.shard_model`); every rank holds the whole split and draws
+  every schedule from the same host generators;
+- a step of ``W`` rows gives data rank ``d`` its rows ``[d W / n_data,
+  (d + 1) W / n_data)`` (a ``bs`` that does not divide ``n_data``
+  raises: every width is a multiple of it), and the hybrid step adds the mesh's collectives; the probe
+  eval scores each data rank's slice of the ``D * ebs`` rows and gathers
+  the logits over the data group, so every rank computes the same
+  matrix rows and clustering (one broadcast checks the clustering);
+- dropout draws from a generator seeded from the data coordinate
+  (``seed + 1 + DROPOUT_SEED_STRIDE * d``), as the Trainer's;
+- the split evals score each data rank's slice of every batch: the
+  streaming eval (the default on a mesh) sums its histograms over the
+  data group, the exact eval gathers the predictions in global order;
+- snapshots for the rollback are each rank's own tensors; checkpoints
+  gather the table and the banks, and rank 0 writes them.
+
+Not ported (raises NotImplementedError naming ROADMAP.md):
+``cdc.parallel_rows > 0`` (``populate_rows_parallel`` with
+``EmbeddingUpdater.update_stacked``).
 
 ``compute_dtype="bfloat16"`` reaches every forward, as in the JAX
 package's six scopes (``tpurec/cdc/engine.py:205,291,493,516,545,573``):
@@ -81,12 +105,16 @@ from tpurec_torch.metrics import (auc_score, evaluate_multi_domain,
 from tpurec_torch.models import CDC_BASE_MODELS, build_model
 from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
+from tpurec_torch.parallel.collectives import broadcast_
+from tpurec_torch.parallel.mesh import Mesh, Shardings
 from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
                                            check_embed_layout_version,
                                            make_backend, msgpack_dumps,
                                            msgpack_restore)
 from tpurec_torch.train.hybrid import HybridTrainStep, init_train_state
-from tpurec_torch.train.loop import (EarlyStopper, _not_ported,
+from tpurec_torch.train.loop import (DROPOUT_SEED_STRIDE, EarlyStopper,
+                                     _not_ported, check_same_state,
+                                     data_totals, gather_rows_global,
                                      use_streaming_eval)
 from tpurec_torch.train.reg import reg_coef_tree
 from tpurec_torch.train.step import (HostHistAccumulator, bce_on_probs,
@@ -128,21 +156,31 @@ class CDCTrainer:
 
     The base model's weights are drawn from a CPU generator seeded
     ``cfg.train.seed``; ``self.state`` is the port's hybrid
-    :class:`tpurec_torch.train.step.TrainState`."""
+    :class:`tpurec_torch.train.step.TrainState`.  ``mesh``/``shardings``
+    (:mod:`tpurec_torch.parallel`) train on a (data, model) mesh, on the
+    mesh's device unless ``device`` says otherwise."""
 
-    # dataset-placement budget (CDCConfig.data_placement='auto'): a train
-    # split up to this size lives on the card, a larger one streams
+    # dataset-placement budgets (CDCConfig.data_placement='auto'): a train
+    # split up to this size lives on the card, a larger one streams; on a
+    # mesh every rank holds the whole split, so the budget is smaller
+    # (tpurec/cdc/engine.py:604-621)
     RESIDENT_BUDGET = 4 << 30
+    MESH_RESIDENT_BUDGET = 256 << 20
     # split-mode steps per span of host scheduling (tpurec's scan length)
     _SPAN_SCAN = 256
     _HIST_BINS = 8192  # streaming-eval score bins (AUC error O(1/bins))
 
     def __init__(self, cfg: Config, field_dims, n_domain: int,
                  domain_idx: int, mesh=None, shardings=None, device=None):
-        if mesh is not None or shardings is not None:
-            raise _not_ported("CDCTrainer's mesh (mesh=, shardings=)",
-                              "item 8b (CDCTrainer's mesh and expert "
-                              "parallelism)")
+        if shardings is not None and mesh is None:
+            mesh = shardings.mesh
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a tpurec_torch.parallel.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
+        if mesh is not None and shardings is None:
+            shardings = Shardings(mesh)
+        if mesh is not None and device is None:
+            device = mesh.device
         assert cfg.cdc.base_model in CDC_BASE_MODELS, cfg.cdc.base_model
         if cfg.cdc.parallel_rows > 0:
             raise _not_ported(
@@ -161,7 +199,8 @@ class CDCTrainer:
         self.cfg = cfg
         self.n_domain = n_domain
         self.domain_idx = domain_idx
-        self.mesh = None
+        self.mesh = mesh
+        self.shardings = shardings
         self.n_cluster = cfg.cdc.n_cluster
         self.device = resolve_device(device)
 
@@ -181,6 +220,16 @@ class CDCTrainer:
             cfg.cdc.base_model, field_dims, self.n_cluster, domain_idx,
             base_cfg, device=self.device,
             generator=torch.Generator().manual_seed(tcfg.seed))
+        if mesh is not None:
+            # every width a step or a probe eval takes (bs, W =
+            # group_chunk_size * bs, D * ebs) is a multiple of bs
+            if tcfg.bs % mesh.n_data:
+                raise ValueError(
+                    f"bs = {tcfg.bs} does not split over the data axis of "
+                    f"{mesh.n_data}: a step of W rows gives each data rank "
+                    "W / n_data of them")
+            check_same_state(self.model, mesh, self.device)
+            shardings.shard_model(self.model)
         self.reg_coefs = reg_coef_tree(
             [n for n, _ in self.model.named_parameters()], cfg.cdc.base_model,
             cfg.model.l2_reg_embedding, cfg.model.l2_reg_linear,
@@ -193,8 +242,9 @@ class CDCTrainer:
         self.emb_upd = self.train_step.upd
         self.eval_scan = make_indexed_eval_scan(
             self.model, True, domain_idx, compute_dtype=tcfg.compute_dtype)
+        d = 0 if mesh is None else mesh.d
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
-            tcfg.seed + 1)
+            tcfg.seed + 1 + DROPOUT_SEED_STRIDE * d)
         self.np_rng = np.random.default_rng(tcfg.seed)
         self.stopper = EarlyStopper(tcfg.early_stop)
         self.cluster: Optional[CDCClusterState] = None
@@ -230,7 +280,9 @@ class CDCTrainer:
             return False
         if mode != "auto":
             raise ValueError(f"unknown data_placement {mode!r}")
-        return nbytes <= self.RESIDENT_BUDGET
+        budget = (self.MESH_RESIDENT_BUDGET if self.mesh is not None
+                  else self.RESIDENT_BUDGET)
+        return nbytes <= budget
 
     def setup_data(self, train, valid=None, test=None):
         Xtr, ytr = train
@@ -299,22 +351,32 @@ class CDCTrainer:
         return self._d2g[1]
 
     # ------------------------------------------------------------------
+    def _cols(self, width: int) -> slice:
+        """This data rank's columns of a ``width``-row schedule (all of
+        them without a mesh)."""
+        if self.mesh is None:
+            return slice(0, width)
+        n = width // self.mesh.n_data
+        return slice(self.mesh.d * n, (self.mesh.d + 1) * n)
+
     def _steps(self, mode: str, Xsrc, ysrc, idxs, masks, valids=None
                ) -> List[torch.Tensor]:
         """One hybrid step per row of ``idxs`` [K, W] (device) whose
         ``valids`` entry (host) is set -> the steps' losses, on the
-        device.  ``mode`` is "warmup" or "split"."""
+        device.  ``mode`` is "warmup" or "split".  On a mesh each step
+        takes this data rank's columns of its row."""
         head = _warmup_head if mode == "warmup" else None
         d2g = self.domain2group_dev
+        cols = self._cols(idxs.shape[1])
         losses = []
         for s in range(idxs.shape[0]):
             if valids is not None and not valids[s]:
                 continue
-            idx = idxs[s]
+            idx = idxs[s, cols]
             x = Xsrc.index_select(0, idx)
             batch = {"x": x, "y": ysrc.index_select(0, idx),
                      "group": take_rows(d2g, x[:, self.domain_idx]),
-                     "mask": masks[s]}
+                     "mask": masks[s, cols]}
             losses.append(self.train_step.one_step(
                 self.state, batch, self.dropout_gen, head))
         return losses
@@ -324,16 +386,19 @@ class CDCTrainer:
         """[D, ebs] row indices (device) -> [D] probe metric from ONE
         eval forward of D*ebs rows: the per-domain loss, or the exact
         pairwise AUC for use_metric='auc' (cdc.py:113-119; run.py:550-558
-        evaluates the domains one by one)."""
+        evaluates the domains one by one).  On a mesh each data rank
+        scores its slice of the rows and the logits are gathered over the
+        data group, so every rank computes the same [D] row."""
         D, ebs = idx.shape
         flat = idx.reshape(-1)
-        x = Xsrc.index_select(0, flat)
+        x = Xsrc.index_select(0, flat[self._cols(D * ebs)])
         ys = ysrc.index_select(0, flat).reshape(D, ebs)
         group = take_rows(self.domain2group_dev, x[:, self.domain_idx])
         self.model.eval()
         with _precision_scope(self.cfg.train.compute_dtype):
             out = self.model(x, group=group, train=False)
-        vals = select_tower(out, group).reshape(D, ebs)
+        vals = gather_rows_global(select_tower(out, group)[None],
+                                  self.mesh).reshape(D, ebs)
         if self.cfg.cdc.use_metric == "auc":
             return probe_auc(vals, ys, mask)
         return probe_loss(vals, ys, mask)
@@ -548,8 +613,23 @@ class CDCTrainer:
 
         update_group(st, cfg, self.domain_cnt_weight,
                      kmeans_seed=int(self.np_rng.integers(2**31)))
+        self._check_clustering()
         if cfg.save_matrix_artifacts:
             self._dump_matrices()
+
+    def _check_clustering(self):
+        """On a mesh, raise unless every rank holds rank 0's domain2group
+        (one broadcast): two ranks must never train different towers."""
+        if self.mesh is None or not torch.distributed.is_initialized():
+            return
+        mine = torch.as_tensor(
+            np.asarray(self.cluster.domain2group, np.int64),
+            device=self.device)
+        ref = broadcast_(mine.clone(), 0)
+        if not torch.equal(mine, ref):
+            raise RuntimeError(
+                f"rank {self.mesh.rank}'s clustering {mine.tolist()} is not "
+                f"rank 0's {ref.tolist()}: the ranks' matrix rows differ")
 
     def _dump_matrices(self, out_dir: Optional[str] = None):
         """Persist A/B/mask/causal matrices (cdc.py:395-426's dump): csv +
@@ -716,16 +796,19 @@ class CDCTrainer:
         """The split's rows in domain order -> (X, y, probabilities [n]):
         the padded split crosses to the card once, its [bs] batches run
         CH to a call, each row routed by domain2group; one fetch at the
-        end."""
+        end.  On a mesh each data rank scores its columns of every batch
+        and the predictions are gathered in global order."""
         bs = self.cfg.train.bs
         X, y, Xp, _, _, n, nb, CH = self._padded_split(batcher)
         Xd = self._dev(Xp.astype(np.int32))
         idx = torch.arange(nb * bs, dtype=torch.int32,
-                           device=self.device).reshape(nb, bs)
+                           device=self.device).reshape(nb, bs)[
+                               :, self._cols(bs)]
         d2g = self.domain2group_dev
         preds = [self.eval_scan(self.model, Xd, d2g, idx[b0:b0 + CH])
                  for b0 in range(0, nb, CH)]
-        return X, y, torch.cat(preds).reshape(-1)[:n].cpu().numpy()
+        preds = gather_rows_global(torch.cat(preds), self.mesh)
+        return X, y, preds.reshape(-1)[:n].cpu().numpy()
 
     def evaluate(self, batcher: DomainBatcher) -> Dict:
         """Split-mode eval (run.py:653-661): :meth:`predict_split`, then
@@ -743,7 +826,9 @@ class CDCTrainer:
         """Split-mode eval with NO host prediction gather: per-(domain, bin)
         AUC histograms + capped BCE sums accumulate on the card (see
         Trainer.evaluate_streaming); same result keys as :meth:`evaluate`,
-        AUC within O(1/_HIST_BINS) of it."""
+        AUC within O(1/_HIST_BINS) of it.  On a mesh each data rank
+        scores its columns of every batch and the histograms are summed
+        over the data group."""
         bs = self.cfg.train.bs
         n_bins = self._HIST_BINS
         _, _, Xp, yp, mp, n, nb, CH = self._padded_split(batcher)
@@ -751,30 +836,35 @@ class CDCTrainer:
             self.model, True, self.domain_idx, self.n_domain, n_bins,
             self.cfg.train.compute_dtype)
         acc = HostHistAccumulator(init)
+        cols = self._cols(bs)
         Xd, yd = self._dev(Xp.astype(np.int32)), self._dev(yp)
-        md = self._dev(mp.reshape(nb, bs))
+        md = self._dev(mp.reshape(nb, bs)[:, cols])
         idx = torch.arange(nb * bs, dtype=torch.int32,
-                           device=self.device).reshape(nb, bs)
+                           device=self.device).reshape(nb, bs)[:, cols]
         d2g = self.domain2group_dev
         for b0 in range(0, nb, CH):
             acc.update(scan_hist(self.model, Xd, yd, d2g,
                                  (idx[b0:b0 + CH], md[b0:b0 + CH]),
                                  *acc.carry))
-        pos, neg, lsum, lcnt = acc.totals()
+        pos, neg, lsum, lcnt = data_totals(acc.totals(), self.mesh,
+                                           self.device)
         return streaming_eval_result(
             pos.reshape(self.n_domain, n_bins),
             neg.reshape(self.n_domain, n_bins), lsum, lcnt,
             self.domain_cnt_weight)
 
     # ------------------------------------------------------------------
-    def snapshot_bytes(self) -> bytes:
+    def snapshot_bytes(self, local: bool = False) -> bytes:
         """The state as flax msgpack bytes (the JAX package's hybrid
-        TrainState layout)."""
-        return msgpack_dumps(train_state_to_flax(self.state))
+        TrainState layout).  On a mesh the table and the split banks are
+        gathered (every rank must call), unless ``local``: this rank's
+        part, for its own :meth:`restore_bytes`."""
+        return msgpack_dumps(train_state_to_flax(self.state, local=local))
 
     def restore_bytes(self, blob: bytes):
         """Load a :meth:`snapshot_bytes` (or a JAX package TrainState's
-        ``flax.serialization.to_bytes``) into the state, in place."""
+        ``flax.serialization.to_bytes``) into the state, in place; on a
+        mesh this rank keeps its part."""
         restore_train_state(self.state, msgpack_restore(blob))
 
     def _cluster_payload(self) -> Dict:
@@ -821,10 +911,21 @@ class CDCTrainer:
     def save_checkpoint(self, path: str, extra: Optional[Dict] = None):
         """Persist train state + the clustering state (single-file pickle,
         the JAX package's payload; for versioned checkpoints see
-        :meth:`make_checkpointer`)."""
+        :meth:`make_checkpointer`).  On a mesh the state is gathered and
+        rank 0 writes the file (every rank must call; they leave
+        together)."""
+        state = self.snapshot_bytes()
+        writer = self.mesh is None or self.mesh.rank == 0
+        if writer:
+            self._write_checkpoint(path, state, extra)
+        if self.mesh is not None and torch.distributed.is_initialized():
+            torch.distributed.barrier()
+
+    def _write_checkpoint(self, path: str, state: bytes,
+                          extra: Optional[Dict]):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         payload = {
-            "state": self.snapshot_bytes(),
+            "state": state,
             # self-describing (see Trainer.save_checkpoint): serving needs
             # nothing but this file
             "config": config_to_dict(self.cfg),
@@ -840,7 +941,8 @@ class CDCTrainer:
             pickle.dump(payload, f)
 
     def load_checkpoint(self, path: str) -> Dict:
-        """Load a ``save_checkpoint`` file of either package.
+        """Load a ``save_checkpoint`` file of either package (on a mesh,
+        every rank reads it and keeps its part).
 
         TRUST BOUNDARY: the file is a pickle; load only checkpoints you
         wrote or trust."""
@@ -854,8 +956,9 @@ class CDCTrainer:
     # -- versioned checkpoints -------------------------------------------
     def make_checkpointer(self, directory: str, max_to_keep: int = 3):
         """Versioned checkpoint manager (tpurec_torch.train.checkpoint):
-        backend chosen by TrainConfig.checkpoint_backend ('pickle'; 'orbax'
-        is not ported)."""
+        backend chosen by TrainConfig.checkpoint_backend ('pickle', or
+        'orbax': the port's asynchronous sharded backend).  The clustering
+        rides in the step's ``extra``."""
         return make_backend(self.cfg.train.checkpoint_backend, directory,
                             max_to_keep)
 
@@ -890,7 +993,9 @@ class CDCTrainer:
                 log_fn(result)
             cont = self.stopper.is_continuable(result)
             if self.stopper.improved:
-                self._best_bytes = self.snapshot_bytes()
+                # on a mesh: each rank's own part
+                self._best_bytes = self.snapshot_bytes(
+                    local=self.mesh is not None)
                 # cluster assignment is part of checkpoint semantics
                 # (run.py:455-457)
                 best_cluster = (

@@ -23,9 +23,14 @@ explicit mesh larger than the world exits, and ``--mesh_data -1`` trains
 each rank alone.  A plain launch on a host of several cards exits with
 how to launch, where the JAX package would train on every card; a mesh
 must take every rank of the launch.  Only rank 0 logs, writes the
-checkpoint and prints the result line.  ``CDCTrainer``'s mesh and
-``--mesh_expert_parallel`` raise NotImplementedError (ROADMAP.md, queue
-1, item 8b).  pandas is imported only by the CSV datasets' branch.
+checkpoint and prints the result line.  The mesh reaches ``Trainer`` and
+``CDCTrainer`` alike, and ``--mesh_expert_parallel`` splits the expert
+banks over its model axis (``Shardings(expert_parallel=True)``; without
+a mesh the flag does nothing, as in the JAX package).  pandas is
+imported only by the CSV datasets' branch.
+
+    python -m torch.distributed.run --nproc_per_node 2 -m tpurec_torch.cli \
+        --model cdc --base_model ple --mesh_model 2 --mesh_expert_parallel
 """
 
 from __future__ import annotations
@@ -312,16 +317,11 @@ def main(argv=None):
     if shape is not None:
         from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
 
-        if "cdc" in args.model or args.mesh_expert_parallel:
-            from tpurec_torch.parallel.mesh import ITEM_8B
-
-            raise NotImplementedError(
-                f"{'CDCTrainer' if 'cdc' in args.model else 'expert'}"
-                f"'s mesh is not ported to tpurec_torch yet: {ITEM_8B}")
         joined = init_distributed(args.device)
         _shared_seed(args, joined.device)
         mesh = make_mesh(*shape, device=joined.device)
-        shardings = Shardings(mesh)
+        shardings = Shardings(mesh,
+                              expert_parallel=args.mesh_expert_parallel)
         rank0 = mesh.rank == 0
     cfg = build_config(args)
     if mesh is not None:
@@ -401,8 +401,9 @@ def main(argv=None):
     if "cdc" in cfg.model.model:
         from tpurec_torch.cdc import CDCTrainer
 
-        tr = CDCTrainer(cfg, field_dims, n_domain, domain_idx,
-                        device=args.device)
+        tr = CDCTrainer(cfg, field_dims, n_domain, domain_idx, mesh=mesh,
+                        shardings=shardings,
+                        device=None if mesh is not None else args.device)
         if args.resume:
             tr.load_checkpoint(args.resume)
         out = tr.fit(train, valid, test=test, log_fn=log_fn)

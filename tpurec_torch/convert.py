@@ -36,7 +36,11 @@ A state on a mesh (its table one shard of the rows:
 moments are gathered over the model group on the way out (a collective:
 every rank calls it; ``local=True`` keeps this rank's rows instead), and
 each rank keeps its rows of a whole table on the way in.  The padding
-rows of the shards never appear in a tree.
+rows of the shards never appear in a tree.  The leaves of expert banks
+split over the model axis (:mod:`tpurec_torch.parallel.experts`), their
+Adam moments included, cross the same way: gathered to the one-device
+shapes on the way out (``local_experts=True`` keeps this rank's
+stacks), cut to this rank's stacks on the way in.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from tpurec_torch.parallel.embedding import table_shard
+from tpurec_torch.parallel.experts import expert_leaf_shards
 
 
 # a buffer's flax collection, by its path in the state_dict; every other
@@ -63,6 +68,29 @@ def _rows_in(shard):
             return t
         return shard.local(t)
     return rows
+
+
+def _cuts(model):
+    """state_dict key -> a function taking a whole leaf (or one of this
+    rank's part) to this rank's part: the table's rows, a split bank's
+    stacks; other keys are absent."""
+    cuts = {k: sh.local for k, sh in expert_leaf_shards(model).items()}
+    shard = table_shard(model)
+    if shard is not None:
+        cuts[TABLE] = _rows_in(shard)
+    return cuts
+
+
+def _gathers(model, local: bool, local_experts: bool):
+    """state_dict key -> the function gathering this rank's part of it to
+    the whole leaf (a collective), for the table unless ``local`` and for
+    the split banks' leaves unless ``local_experts``."""
+    out = {} if local_experts else {
+        k: sh.gather for k, sh in expert_leaf_shards(model).items()}
+    shard = table_shard(model)
+    if shard is not None and not local:
+        out[TABLE] = shard.gather
+    return out
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -124,10 +152,12 @@ def train_state_from_flax(model: torch.nn.Module, tcfg, params: Mapping,
 
 
 def _load_model(model, params, model_state) -> None:
-    """The trees into ``model`` (its rows of the table on a mesh)."""
+    """The trees into ``model`` (its rows of the table and its stacks of
+    the split banks on a mesh)."""
     sd = state_dict_from_flax(params, model_state)
-    if TABLE in sd:
-        sd[TABLE] = _rows_in(table_shard(model))(sd[TABLE])
+    for k, cut in _cuts(model).items():
+        if k in sd:
+            sd[k] = cut(sd[k])
     model.load_state_dict(sd, strict=True)
 
 
@@ -148,11 +178,11 @@ def _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v,
                 f"{sorted(stepped - set(tree))}, unexpected "
                 f"{sorted(set(tree) - stepped)}")
     count = float(np.asarray(adam_count))
-    rows = _rows_in(table_shard(ts.model))
+    cuts = _cuts(ts.model)
     for group in ts.optimizer.param_groups:
         for p in group["params"]:
             n = names[id(p)]
-            cut = rows if n == TABLE else (lambda t: t)
+            cut = cuts.get(n, lambda t: t)
             ts.optimizer.state[p] = {
                 "step": torch.tensor(count, dtype=torch.float32),
                 "exp_avg": cut(_tensor(mu[n])).to(dev, torch.float32),
@@ -161,7 +191,8 @@ def _load_optimizer(ts, adam_mu, adam_nu, adam_count, emb_m, emb_v,
     if ts.emb_opt is not None:
         for name, src in (("m", emb_m), ("v", emb_v)):
             dst = getattr(ts.emb_opt, name)
-            dst.copy_(rows(_tensor(src)).to(dev, dst.dtype))
+            dst.copy_(cuts.get(TABLE, lambda t: t)(_tensor(src))
+                      .to(dev, dst.dtype))
     ts.step = int(np.asarray(step))
 
 
@@ -179,7 +210,9 @@ def _numpy(t: torch.Tensor):
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
-def train_state_to_flax(ts, local: bool = False) -> Dict[str, Any]:
+def train_state_to_flax(ts, local: bool = False,
+                        local_experts: Optional[bool] = None
+                        ) -> Dict[str, Any]:
     """A port TrainState -> the flax state dict of the JAX package's
     TrainState (``flax.serialization.to_state_dict``'s tree):
 
@@ -193,18 +226,19 @@ def train_state_to_flax(ts, local: bool = False) -> Dict[str, Any]:
     table moments stay CPU tensors); ``count`` and ``step`` are int32
     scalars; the dense Adam's per-parameter step is one count.  On a
     mesh the table-shaped leaves are gathered (every rank must call),
-    unless ``local``."""
+    unless ``local``, and the split expert banks' leaves and moments,
+    unless ``local_experts`` (default: ``local``)."""
     model = ts.model
-    shard = table_shard(model)
-    full = (shard.gather if shard is not None and not local
-            else (lambda t: t))
+    gathers = _gathers(model, local,
+                       local if local_experts is None else local_experts)
+    full = gathers.get(TABLE, lambda t: t)
     params: Dict[str, Any] = {}
     collections: Dict[str, Dict[str, Any]] = {}
     names = {n for n, _ in model.named_parameters()}
     for key, t in model.state_dict().items():
         tree = params if key in names else collections.setdefault(
             BUFFER_COLLECTIONS.get(key, "batch_stats"), {})
-        _set_leaf(tree, key, _numpy(full(t) if key == TABLE else t))
+        _set_leaf(tree, key, _numpy(gathers.get(key, lambda v: v)(t)))
     mu: Dict[str, Any] = {}
     nu: Dict[str, Any] = {}
     ids = {id(p): n for n, p in model.named_parameters()}
@@ -213,7 +247,7 @@ def train_state_to_flax(ts, local: bool = False) -> Dict[str, Any]:
         for p in group["params"]:
             st = ts.optimizer.state.get(p) or {}
             zero = torch.zeros_like(p, dtype=torch.float32)
-            cut = full if ids[id(p)] == TABLE else (lambda t: t)
+            cut = gathers.get(ids[id(p)], lambda t: t)
             _set_leaf(mu, ids[id(p)], _numpy(cut(st.get("exp_avg", zero))))
             _set_leaf(nu, ids[id(p)],
                       _numpy(cut(st.get("exp_avg_sq", zero))))

@@ -27,7 +27,9 @@ inside :func:`tpurec_torch.parallel.collectives.mesh_scope`: BatchNorm
 then takes its statistics over the global batch (its sums all-reduced
 over the data group), and a :class:`FusedEmbedding` whose table is one
 shard of the rows (``shard``) gathers its window and sums the rows over
-the model group.
+the model group.  A :class:`StackedMLP` expert bank split over the
+model axis (``expert_shard``, :mod:`tpurec_torch.parallel.experts`) runs
+its own stacks and returns every stack (:func:`split_bank_forward`).
 
 Modules are built with ``torch.empty`` parameters; ``reset_parameters``
 draws the torch-default inits from an explicit generator
@@ -45,7 +47,10 @@ from torch import nn
 from tpurec_torch.nn import initializers as tinit
 from tpurec_torch.nn.precision import cast_operands
 from tpurec_torch.ops.embedding import EmbeddingGather
-from tpurec_torch.parallel.collectives import current_mesh, data_all_reduce
+from tpurec_torch.parallel.collectives import (copy_to_model, current_mesh,
+                                               data_all_reduce,
+                                               gather_from_model,
+                                               scatter_to_model)
 from tpurec_torch.parallel.embedding import sharded_embedding_lookup
 
 
@@ -205,16 +210,26 @@ def global_moments(x, mask, mesh):
     return mean, var, n
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator]):
+def dropout(x, rate: float, generator: Optional[torch.Generator],
+            stacks=None):
     """flax ``nn.Dropout``: keep each value with probability 1 - rate and
     scale kept values by 1/(1 - rate); the uniform draws come from
-    ``generator`` (on ``x``'s device)."""
+    ``generator`` (on ``x``'s device).  ``stacks`` (a
+    :class:`~tpurec_torch.parallel.experts.BankShard`): ``x`` [B, E/n, ...]
+    holds this rank's stacks of a bank; the draws are the whole bank's
+    [B, E, ...] and this rank keeps its slice, so the generator advances
+    as without the split."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= rate
+    shape = x.shape if stacks is None else (
+        (x.shape[0], stacks.n_stack) + tuple(x.shape[2:]))
+    u = torch.rand(shape, generator=generator, device=x.device,
+                   dtype=x.dtype)
+    if stacks is not None:
+        u = u.narrow(1, stacks.lo, stacks.n_local)
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                              device=x.device))
 
@@ -246,15 +261,19 @@ class StackedMLP(nn.Module):
 
     Input [B, in] or [B, T, in]; output [B, T, out_dim] (out_dim=1 if
     ``output_layer``).  ``mask`` [B] or [B, T] weights the BN statistics;
-    ``use_bn=False`` leaves BN out.
+    ``use_bn=False`` leaves BN out.  ``expert_shard`` (None: whole) is set
+    when the bank is split over the model axis
+    (:func:`tpurec_torch.parallel.experts.split_expert_banks`).
     """
 
     def __init__(self, n_stack: int, in_dim: int, layer_dims: Sequence[int],
                  output_layer: bool = True, dropout: float = 0.0,
                  use_bn: bool = True, device=None):
         super().__init__()
+        self.n_stack = n_stack
         self.n_layers = len(layer_dims)
         self.dropout = dropout
+        self.expert_shard = None
         for i, dim in enumerate(layer_dims):
             setattr(self, f"linear_{i}",
                     StackedLinear(n_stack, in_dim, dim, device=device))
@@ -266,11 +285,32 @@ class StackedMLP(nn.Module):
                            if output_layer else None)
 
     def forward(self, x, train: bool = False, mask=None, generator=None):
+        if self.expert_shard is not None:
+            return split_bank_forward(self, x, train, mask, generator)
         return _mlp_layers(self, x, train, mask, generator)
 
 
-def _mlp_layers(mlp, x, train, mask, generator):
-    """The layers of an :class:`MLP` or :class:`StackedMLP`."""
+def split_bank_forward(bank, x, train, mask, generator):
+    """The forward of a bank split over the model axis: the input through
+    :func:`~tpurec_torch.parallel.collectives.copy_to_model` ([B, in]) or
+    this rank's stacks of it (:func:`~tpurec_torch.parallel.collectives.
+    scatter_to_model`, [B, E, in]; a [B, E] mask likewise), this rank's
+    stacks, then every stack's output [B, E, H] through
+    :func:`~tpurec_torch.parallel.collectives.gather_from_model`.  Each
+    stack computes what it computes in the whole bank; BatchNorm updates
+    this rank's running statistics only."""
+    shard = bank.expert_shard
+    mesh = shard.mesh
+    x = copy_to_model(x, mesh) if x.dim() == 2 else scatter_to_model(x, mesh)
+    if mask is not None and mask.dim() == 2:
+        mask = mask.narrow(1, shard.lo, shard.n_local)
+    y = _mlp_layers(bank, x, train, mask, generator, shard)
+    return gather_from_model(y, mesh)
+
+
+def _mlp_layers(mlp, x, train, mask, generator, stacks=None):
+    """The layers of an :class:`MLP` or :class:`StackedMLP` (``stacks``:
+    a split bank's :class:`~tpurec_torch.parallel.experts.BankShard`)."""
     for i in range(mlp.n_layers):
         x = getattr(mlp, f"linear_{i}")(x)
         bn = getattr(mlp, f"bn_{i}", None)
@@ -278,7 +318,7 @@ def _mlp_layers(mlp, x, train, mask, generator):
             x = bn(x, train, mask)
         x = torch.relu(x)
         if train:
-            x = dropout(x, mlp.dropout, generator)
+            x = dropout(x, mlp.dropout, generator, stacks)
     return x if mlp.linear_out is None else mlp.linear_out(x)
 
 

@@ -16,6 +16,17 @@ and their backward rules differ:
   denominator).  Each data rank's loss depends on the joined value, so
   the backward all-reduces the gradient over the data group too.
 
+Expert parallelism (:mod:`tpurec_torch.parallel.experts`) adds three
+more, on the model group, around a bank split over it:
+
+- :func:`copy_to_model` hands a bank its replicated input: forward the
+  identity, backward the sum over the model group (each model rank's
+  stacks give part of the input's gradient);
+- :func:`scatter_to_model` hands it this rank's stacks of a per-stack
+  input: forward the slice, backward the gather of every rank's slice;
+- :func:`gather_from_model` returns every rank's stacks: forward the
+  gather along the stack axis, backward this rank's slice.
+
 A group of one rank is None: every collective over it returns its input,
 so a mesh of one rank runs the one-device code bit for bit.
 
@@ -150,3 +161,69 @@ def all_reduce_grads(params, group, *scalars: torch.Tensor):
         g.copy_(flat[o:o + n].view_as(g))
         o += n
     return tuple(flat[o + i] for i in range(len(scalars)))
+
+
+def _gather_axis(t: torch.Tensor, group, size: int, index: int,
+                 axis: int) -> torch.Tensor:
+    """:func:`all_gather` along ``axis``."""
+    full = all_gather(t.movedim(axis, 0).contiguous(), group, size, index)
+    return full.movedim(0, axis).contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index, axis):
+        ctx.n, ctx.index, ctx.axis = x.shape[axis], index, axis
+        return _gather_axis(x, group, size, index, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.axis, ctx.index * ctx.n, ctx.n).contiguous(),
+                None, None, None, None)
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index, axis):
+        n = x.shape[axis] // size
+        ctx.group, ctx.size, ctx.index, ctx.axis = group, size, index, axis
+        return x.narrow(axis, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather_axis(g, ctx.group, ctx.size, ctx.index, ctx.axis),
+                None, None, None, None)
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x``, replicated over ``mesh``'s model group, into a bank split
+    over it; backward the sum of the gradients over the model group."""
+    group = None if mesh is None else mesh.model_group
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, mesh, axis: int = 1) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``axis`` in model-rank
+    order; backward this rank's slice of the gradient."""
+    group = None if mesh is None else mesh.model_group
+    return x if group is None else _GatherFromModel.apply(
+        x, group, mesh.n_model, mesh.m, axis)
+
+
+def scatter_to_model(x: torch.Tensor, mesh, axis: int = 1) -> torch.Tensor:
+    """This model rank's slice of ``x`` along ``axis`` (``x.shape[axis] /
+    n_model`` entries); backward every rank's gradient gathered."""
+    group = None if mesh is None else mesh.model_group
+    return x if group is None else _ScatterToModel.apply(
+        x, group, mesh.n_model, mesh.m, axis)

@@ -11,7 +11,10 @@ layout is the JAX package's:
   summed over the data group (the ranks of one model coordinate);
 - ``model`` axis: the fused embedding table and its table-shaped moments
   are split by rows over the model group (the ranks of one data
-  coordinate); every other parameter is replicated.
+  coordinate); with ``Shardings(expert_parallel=True)`` the expert banks
+  split their leading axis over it too
+  (:mod:`tpurec_torch.parallel.experts`); every other parameter is
+  replicated.
 
 Ranks are laid out row-major, ``np.arange(world).reshape(n_data,
 n_model)``, as the JAX package lays out its devices: rank ``r`` is
@@ -38,11 +41,7 @@ import torch
 import torch.distributed as dist
 
 from tpurec_torch.device import resolve_device
-
-# the item of ROADMAP.md's queue 1 that ports CDC's mesh and expert
-# parallelism
-ITEM_8B = ("see ROADMAP.md, queue 1, item 8b (CDCTrainer's mesh and "
-           "expert parallelism)")
+from tpurec_torch.parallel.experts import in_expert_bank, split_expert_banks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,27 +227,65 @@ def row_sharded(path) -> bool:
 
 
 class Shardings:
-    """Which leaves of a state are row-sharded over the model axis
+    """Which leaves of a state are split over the model axis
     (``tpurec/parallel/mesh.py:67-131``, ``_spec_for_path``'s rules on the
     port's dotted names): ``embedding.table`` and the table's moments
     (``m``/``v`` under the optimizer state: ``emb_opt.m``,
-    ``opt_state.1.m``) split by rows; every other leaf is replicated.
+    ``opt_state.1.m``) split by rows; with ``expert_parallel``, a leaf of
+    an expert bank (:data:`~tpurec_torch.parallel.experts.
+    EXPERT_BANK_NAMES` in its path; its Adam moments share the path) of
+    two axes or more whose leading axis divides the model axis splits
+    along that axis; every other leaf is replicated.
 
-    ``expert_parallel=True`` (the expert banks over the model axis) is not
-    ported yet."""
+    :meth:`shard_model` cuts a model to this rank's part."""
 
     def __init__(self, mesh: Mesh, data_axis: str = "data",
                  model_axis: str = "model", expert_parallel: bool = False):
-        if expert_parallel:
-            raise NotImplementedError(
-                f"Shardings(expert_parallel=True) is not ported: {ITEM_8B}")
         self.mesh = mesh
         self.data_axis = data_axis
         self.model_axis = model_axis
         self.expert_parallel = expert_parallel
 
-    def spec(self, path) -> Tuple:
-        """``path`` (a dotted name, or its keys) -> ``(model_axis, None)``
-        for a row-sharded leaf (:func:`row_sharded`), ``()`` for a
+    def spec(self, path, leaf=None) -> Tuple:
+        """``path`` (a dotted name, or its keys) and, for an expert bank's
+        leaf, the ``leaf`` itself (its shape decides) -> ``(model_axis,
+        None)`` for a row-sharded leaf (:func:`row_sharded`),
+        ``(model_axis, None, ...)`` for a split bank leaf, ``()`` for a
         replicated one."""
-        return (self.model_axis, None) if row_sharded(path) else ()
+        if row_sharded(path):
+            return (self.model_axis, None)
+        shape = tuple(getattr(leaf, "shape", ()))
+        if (self.expert_parallel and in_expert_bank(path)
+                and len(shape) >= 2
+                and shape[0] % self.mesh.shape[self.model_axis] == 0):
+            return (self.model_axis,) + (None,) * (len(shape) - 1)
+        return ()
+
+    def shard_model(self, model) -> None:
+        """Cut ``model`` (every rank's the same) to this rank's part, in
+        place: the table to its rows
+        (:func:`tpurec_torch.parallel.embedding.shard_table`) and, with
+        ``expert_parallel``, each expert bank that divides the model axis
+        to its stacks (:func:`tpurec_torch.parallel.experts.
+        split_expert_banks`).  Rank 0 prints which banks split and which
+        stayed whole."""
+        from tpurec_torch.parallel.embedding import shard_table
+
+        emb = model.get_submodule("embedding")
+        local, emb.shard = shard_table(emb.table.detach(), self.mesh)
+        emb.table = torch.nn.Parameter(local)
+        if not self.expert_parallel:
+            return
+        split, whole = split_expert_banks(model, self.mesh)
+        if self.mesh.rank == 0:
+            n = self.mesh.n_model
+            E = {name: model.get_submodule(name).n_stack
+                 for name in split + whole}
+            parts = [f"{name} ({E[name]} -> {E[name] // n} a rank)"
+                     for name in split]
+            parts += [f"{name} whole ({E[name]} stacks on a model axis of "
+                      f"{n})" for name in whole]
+            print(f"tpurec_torch.parallel: expert parallelism over the "
+                  f"model axis of {n}: "
+                  + ("; ".join(parts) if parts else "no expert bank"),
+                  flush=True)

@@ -308,7 +308,8 @@ class PickleBackend:
     """Versioned single-file checkpoints of a port TrainState
     (``ckpt_<step>.pkl``: the state as flax msgpack bytes, ``extra``, the
     step and the table's layout tag), of which the newest ``max_to_keep``
-    stay."""
+    stay.  On a mesh the state is gathered and rank 0 writes the file
+    (every rank calls :meth:`save`; they leave together)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
@@ -320,6 +321,7 @@ class PickleBackend:
 
     def save(self, step: int, state: Any, extra: Optional[Dict] = None):
         from tpurec_torch.convert import train_state_to_flax
+        from tpurec_torch.parallel.embedding import table_shard
 
         payload = {
             "state": msgpack_dumps(train_state_to_flax(state)),
@@ -327,6 +329,16 @@ class PickleBackend:
             "step": step,
             "embed_layout": EMBED_LAYOUT_VERSION,
         }
+        shard = table_shard(state.model)
+        if shard is not None:       # a mesh: rank 0 writes, all leave
+            if shard.mesh.rank == 0:
+                self._write(step, payload)
+            if torch.distributed.is_initialized():
+                torch.distributed.barrier()
+            return
+        self._write(step, payload)
+
+    def _write(self, step: int, payload: Dict) -> None:
         tmp = self._path(step) + ".tmp"
         with open(tmp, "wb") as f:
             pickle.dump(payload, f)
@@ -400,6 +412,16 @@ def _nest(flat: Dict[str, Any]) -> Dict:
     return out
 
 
+def _json_leaf(obj):
+    """numpy arrays and scalars in ``meta.json`` as lists and numbers (a
+    CDC state's matrices ride in its ``extra``)."""
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    raise TypeError(f"{type(obj).__name__} is not JSON serializable")
+
+
 class AsyncBackend:
     """Asynchronous versioned checkpoints of a port TrainState, sharded as
     the state is (``make_backend("orbax")``).
@@ -410,7 +432,8 @@ class AsyncBackend:
     (the table one shard of its rows) each model coordinate's rank of
     data coordinate 0 writes its rows of the table and its moments, with
     their row range (``shard_<m>.msgpack``); rank 0 writes every other
-    leaf (``state.msgpack``) and ``meta.json`` (the step, ``extra`` as
+    leaf (``state.msgpack``: expert banks split over the model axis are
+    gathered to it first) and ``meta.json`` (the step, ``extra`` as
     JSON, the table layout tag, the shard count).  The directory must be
     shared by the ranks.  ``max_to_keep`` newest complete steps stay;
     ``latest_step``/``all_steps`` list complete steps only.  ``restore``
@@ -445,7 +468,9 @@ class AsyncBackend:
         rank, d, m = (0, 0, 0) if mesh is None else (mesh.rank, mesh.d,
                                                      mesh.m)
         n_shards = 1 if mesh is None else mesh.n_model
-        flat = _split_leaves(train_state_to_flax(state, local=True))
+        # the table's rows stay local; split expert banks are gathered
+        flat = _split_leaves(train_state_to_flax(state, local=True,
+                                                 local_experts=False))
         rows = {k: v for k, v in flat.items() if row_sharded(k)}
         V = (state.model.get_parameter("embedding.table").shape[0]
              if shard is None else shard.V)
@@ -479,7 +504,8 @@ class AsyncBackend:
             tmp = self._path(step, partial=True)
             os.makedirs(tmp, exist_ok=True)
             for name, obj in files.items():
-                data = (json.dumps(obj).encode() if name.endswith(".json")
+                data = (json.dumps(obj, default=_json_leaf).encode()
+                        if name.endswith(".json")
                         else msgpack_dumps(obj))
                 part = os.path.join(tmp, f"{name}.{os.getpid()}.tmp")
                 with open(part, "wb") as f:

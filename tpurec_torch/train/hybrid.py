@@ -42,6 +42,15 @@ the global batch, and a step adds collectives:
    small-field prefix is cut to the shard's rows;
 5. ``sumsq`` is summed over the model group.
 
+Under expert parallelism (:mod:`tpurec_torch.parallel.experts`) a split
+bank's leaves hold this rank's stacks and their gradients are those
+stacks' part: they are summed over the data group only, as every dense
+gradient.  The whole leaves of a split bank (its BatchNorm ``scale``/
+``bias``) take a partial gradient on each model rank, which is summed
+over the model group as well.  Their L2 terms join the loss on model
+rank 0 only, the stacks' on every model rank, and the returned loss adds
+those terms summed over the model group: it is the one-device loss.
+
 Ported: the single step, ``scan_k`` (a Python loop that returns the K
 losses) and ``indexed=True`` (the device-resident dataset's loop:
 :meth:`HybridTrainStep.scan_steps_idx`); the CDC engine drives
@@ -77,6 +86,7 @@ from tpurec_torch.parallel.collectives import (all_reduce_, all_reduce_grads,
                                                mesh_scope)
 from tpurec_torch.parallel.embedding import (sharded_embedding_lookup,
                                              table_shard)
+from tpurec_torch.parallel.experts import expert_leaves, model_split_l2
 from tpurec_torch.train.reg import regularization_loss
 from tpurec_torch.train.sparse import (LazyAdamRows, SparseEmbedState,
                                        init_sparse_opt_state, moments_dtype)
@@ -297,14 +307,33 @@ class HybridTrainStep:
                          if self.multi_tower else out)
                 loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
         dense = dense_named_parameters(model)
+        # expert parallelism: the split banks' L2 terms are summed over
+        # the model group, and so are the gradients of their whole leaves
+        split, partial = expert_leaves(model)
+        ep = bool(split or partial)
+        whole, summed = model_split_l2(dense, split, partial,
+                                       0 if mesh is None else mesh.m)
+        reg_m = torch.zeros((), device=dev) if ep else None
         if mesh is None or mesh.d == 0:     # the L2 counted once
-            loss = loss + regularization_loss(dense, self.reg_coefs_rest)
+            loss = loss + regularization_loss(whole, self.reg_coefs_rest)
+            if ep:
+                reg_m = regularization_loss(summed,
+                                            self.reg_coefs_rest).to(dev)
+                loss = loss + reg_m
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()
-        if mesh is not None:
+        if mesh is not None and not ep:
             loss, = all_reduce_grads([p for _, p in dense], mesh.data_group,
                                      loss)
+        elif mesh is not None:
+            reg_m = reg_m.detach()
+            loss, reg_m = all_reduce_grads([p for _, p in dense],
+                                           mesh.data_group, loss - reg_m,
+                                           reg_m)
+            reg_m, = all_reduce_grads([p for n, p in dense if n in partial],
+                                      mesh.model_group, reg_m)
+            loss = loss + reg_m
         return loss, rows.detach(), rows.grad
 
     def one_step(self, ts: TrainState, batch, generator, head=None

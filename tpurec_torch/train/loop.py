@@ -36,7 +36,10 @@ training on the global batch, as the JAX package's GSPMD mesh does:
 
 - every rank builds the same initial state (one broadcast checksum
   checks it); the table and its moments are then cut to this rank's rows
-  over the model axis, and the dataset is replicated on every rank;
+  over the model axis, and with ``Shardings(expert_parallel=True)`` the
+  expert banks and their moments to this rank's stacks
+  (:meth:`tpurec_torch.parallel.mesh.Shardings.shard_model`); the
+  dataset is replicated on every rank;
 - both epochs give data rank ``d`` the ``d``-th slice of every global
   batch, from one shuffle seed on all ranks; the steps add the
   collectives of :mod:`tpurec_torch.train.hybrid`;
@@ -48,8 +51,9 @@ training on the global batch, as the JAX package's GSPMD mesh does:
 - eval defaults to the streaming histograms, summed over the data group;
   the exact eval gathers each data rank's predictions in global order;
 - :meth:`Trainer.snapshot` and :meth:`Trainer.save_checkpoint` gather the
-  shards (rank 0 writes the file); :meth:`Trainer.load_checkpoint` reads
-  the file on every rank, which keeps its rows.
+  shards and the split banks (rank 0 writes the file);
+  :meth:`Trainer.load_checkpoint` reads the file on every rank, which
+  keeps its rows and its stacks.
 
 :meth:`Trainer.train_epoch_multihost` and
 :meth:`Trainer.evaluate_streaming_multihost` feed each data rank only its
@@ -75,7 +79,6 @@ from tpurec_torch.metrics import (auc_score, evaluate_multi_domain,
 from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
 from tpurec_torch.parallel.collectives import (all_gather, all_reduce_,
                                                broadcast_)
-from tpurec_torch.parallel.embedding import shard_table
 from tpurec_torch.parallel.feed import GlobalBatchFeed, epoch_plan
 from tpurec_torch.parallel.mesh import Mesh, Shardings
 from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
@@ -121,6 +124,42 @@ def use_streaming_eval(cfg, mesh) -> bool:
     whenever running on a mesh.  Single rule shared by the trainers."""
     es = cfg.train.eval_streaming
     return (mesh is not None) if es is None else bool(es)
+
+
+def check_same_state(model, mesh, device) -> None:
+    """Raise unless this rank's initial ``model`` equals rank 0's (one
+    broadcast of a checksum over every parameter and buffer)."""
+    c = torch.zeros(2, dtype=torch.float64, device=device)
+    for t in model.state_dict().values():
+        t = t.detach().to(torch.float64)
+        c[0] += t.sum()
+        c[1] += (t * t).sum()
+    ref = broadcast_(c.clone(), 0)
+    if not torch.equal(c, ref):
+        raise RuntimeError(
+            f"rank {mesh.rank}'s initial state differs from rank 0's "
+            f"(checksums {c.tolist()} vs {ref.tolist()}): every rank must "
+            "build the model from the same config and seed")
+
+
+def gather_rows_global(local: torch.Tensor, mesh) -> torch.Tensor:
+    """[nb, bs_local] per data rank -> [nb, bs] in global order."""
+    if mesh is None or mesh.data_group is None:
+        return local
+    g = all_gather(local[None].contiguous(), mesh.data_group,
+                   mesh.n_data, mesh.d)
+    return g.permute(1, 0, 2).reshape(local.shape[0], -1)
+
+
+def data_totals(totals, mesh, device):
+    """Host float64 histogram totals summed over the data group (its
+    ranks scored different rows; the model group's repeat them)."""
+    if mesh is None or mesh.data_group is None:
+        return totals
+    sizes = [t.size for t in totals]
+    flat = torch.as_tensor(np.concatenate(totals), device=device)
+    flat = all_reduce_(flat, mesh.data_group).cpu().numpy()
+    return tuple(np.split(flat, np.cumsum(sizes)[:-1]))
 
 
 class EarlyStopper:
@@ -198,10 +237,8 @@ class Trainer:
         self.shardings = shardings
         if mesh is not None:
             self.feed = GlobalBatchFeed(mesh, cfg.mesh.data_axis)
-            self._check_same_state()
-            emb = self.model.get_submodule("embedding")
-            local, emb.shard = shard_table(emb.table.detach(), mesh)
-            emb.table = torch.nn.Parameter(local)
+            check_same_state(self.model, mesh, self.device)
+            shardings.shard_model(self.model)
 
         tcfg = cfg.train
         self.reg_coefs = reg_coef_tree(
@@ -241,21 +278,6 @@ class Trainer:
         self.stopper = EarlyStopper(tcfg.early_stop)
         self._best_bytes: Optional[bytes] = None
 
-    def _check_same_state(self):
-        """Raise unless this rank's initial model equals rank 0's (one
-        broadcast of a checksum over every parameter and buffer)."""
-        c = torch.zeros(2, dtype=torch.float64, device=self.device)
-        for t in self.model.state_dict().values():
-            t = t.detach().to(torch.float64)
-            c[0] += t.sum()
-            c[1] += (t * t).sum()
-        ref = broadcast_(c.clone(), 0)
-        if not torch.equal(c, ref):
-            raise RuntimeError(
-                f"rank {self.mesh.rank}'s initial state differs from rank "
-                f"0's (checksums {c.tolist()} vs {ref.tolist()}): every "
-                "rank must build the model from the same config and seed")
-
     def _local_rows(self, bs: int) -> slice:
         """This data rank's columns of a global batch of ``bs`` rows."""
         if self.mesh is None:
@@ -264,13 +286,7 @@ class Trainer:
         return slice(self.mesh.d * bl, (self.mesh.d + 1) * bl)
 
     def _gather_rows_global(self, local: torch.Tensor) -> torch.Tensor:
-        """[nb, bs_local] per data rank -> [nb, bs] in global order."""
-        mesh = self.mesh
-        if mesh is None or mesh.data_group is None:
-            return local
-        g = all_gather(local[None].contiguous(), mesh.data_group,
-                       mesh.n_data, mesh.d)
-        return g.permute(1, 0, 2).reshape(local.shape[0], -1)
+        return gather_rows_global(local, self.mesh)
 
     # ------------------------------------------------------------------
     def _group_of(self, X: np.ndarray) -> np.ndarray:
@@ -653,15 +669,7 @@ class Trainer:
             if self.cfg.train.is_evaluate_multi_domain else None)
 
     def _data_totals(self, totals):
-        """Host float64 histogram totals summed over the data group (its
-        ranks scored different rows; the model group's repeat them)."""
-        mesh = self.mesh
-        if mesh is None or mesh.data_group is None:
-            return totals
-        sizes = [t.size for t in totals]
-        flat = torch.as_tensor(np.concatenate(totals), device=self.device)
-        flat = all_reduce_(flat, mesh.data_group).cpu().numpy()
-        return tuple(np.split(flat, np.cumsum(sizes)[:-1]))
+        return data_totals(totals, self.mesh, self.device)
 
     def evaluate_streaming_multihost(self, X_local: np.ndarray,
                                      y_local: np.ndarray,

@@ -51,6 +51,7 @@ from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.parallel.collectives import (all_reduce_, all_reduce_grads,
                                                current_mesh, mesh_scope)
 from tpurec_torch.parallel.embedding import table_shard
+from tpurec_torch.parallel.experts import expert_leaves, model_split_l2
 from tpurec_torch.train.reg import regularization_loss
 from tpurec_torch.train.sparse import SparseEmbedState
 
@@ -104,14 +105,20 @@ def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor,
     """BCE on probabilities clipped to [eps, 1 - eps]; with ``weights`` the
     weighted sum over ``max(sum(weights), 1)`` (``tpurec/train/step.py:
     55-64``: CDC's warmup loss on the mean of the towers' probabilities).
-    The clip zeroes the gradient where a probability saturates."""
+    The clip zeroes the gradient where a probability saturates.  Inside a
+    mesh scope with a data group the denominator is the global batch's,
+    as :func:`bce_with_logits`'s."""
     p = torch.clamp(probs, eps, 1.0 - eps)
     t = targets.to(p.dtype)
     losses = -(t * torch.log(p) + (1.0 - t) * torch.log1p(-p))
+    mesh = current_mesh()
+    group = None if mesh is None else mesh.data_group
     if weights is None:
-        return losses.mean()
+        return losses.mean() if group is None else \
+            losses.sum() / float(losses.shape[0] * mesh.n_data)
     w = weights.to(losses.dtype)
-    return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
+    n = all_reduce_(w.sum().detach(), group)
+    return (losses * w).sum() / torch.clamp(n, min=1.0)
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
@@ -171,7 +178,11 @@ class DenseTrainStep:
     the model group, the table's gradient reaches the shard's rows only,
     and every gradient (the shard's included) is summed over the data
     group in one buffer.  The L2 terms join the loss on data rank 0 only,
-    so the sum counts them once; the returned loss is the global one."""
+    so the sum counts them once; the returned loss is the global one.
+    Under expert parallelism the split banks' L2 terms are summed over
+    the model group with the table's, and the gradients of their whole
+    leaves too (:meth:`tpurec_torch.train.hybrid.HybridTrainStep.
+    loss_and_grads` says why)."""
 
     def __init__(self, model, tcfg: TrainConfig, reg_coefs,
                  multi_tower: bool, scan_k: Optional[int] = None):
@@ -204,13 +215,15 @@ class DenseTrainStep:
             ts.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             return loss.detach()
-        table_reg = regularization_loss(
-            [(n, p) for n, p in named if n == "embedding.table"],
-            self.reg_coefs).to(dev)
+        # the L2 terms of the table's rows and of the split expert banks
+        # (tpurec_torch.parallel.experts) are summed over the model group
+        split, partial = expert_leaves(model)
+        whole, summed = model_split_l2(named, split, partial, mesh.m,
+                                       also=("embedding.table",))
+        table_reg = regularization_loss(summed, self.reg_coefs).to(dev)
         if mesh.d == 0:
-            loss = loss + regularization_loss(
-                [(n, p) for n, p in named if n != "embedding.table"],
-                self.reg_coefs) + table_reg
+            loss = loss + regularization_loss(whole, self.reg_coefs) \
+                + table_reg
         else:
             table_reg = torch.zeros((), device=dev)
         ts.optimizer.zero_grad(set_to_none=True)
@@ -218,6 +231,11 @@ class DenseTrainStep:
         loss, table_reg = all_reduce_grads(
             [p for _, p in named], mesh.data_group,
             loss.detach() - table_reg.detach(), table_reg.detach())
+        if partial:
+            table_reg, = all_reduce_grads(
+                [p for n, p in named if n in partial], mesh.model_group,
+                table_reg)
+            return loss + table_reg
         # the table's L2 over every shard
         return loss + all_reduce_(table_reg.clone(), mesh.model_group)
 
