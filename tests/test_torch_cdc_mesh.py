@@ -9,10 +9,14 @@ without and with expert parallelism; 2 ranks run CDCTrainer.fit on
 (2, 1) (two matrix updates), its exact eval and both checkpoints.
 
 Data: make_synthetic(3500 rows, 6 fields, 4 domains, 2 domain clusters)
-at bs=256 with 8 causal-mask rows (4 leave the causal matrix of 4
-domains with ties that k-means breaks on rounding).  Limits: the
-matrices atol 5e-5 (tests/test_cdc_e2e.py's), the same clustering; a
-checkpoint restored onto one device evaluates within 1e-6 of the mesh.
+at bs=256 with 8 causal-mask rows, and with 4 in one update with and
+without expert parallelism: there the causal distances of the 4 domains
+tie (domains 0 and 3 lie at one distance from each other and at 0 from
+1 and 2), so matrices moved by 1e-7 already cluster {0} or {3} apart,
+and the clustering is held only where matrices within the tolerance
+cluster alike.  Limits: the matrices atol 5e-5 (tests/test_cdc_e2e.py's),
+the same clustering; a checkpoint restored onto one device evaluates
+within 1e-6 of the mesh.
 It runs at wd = 1e-3: at the default wd a bias feeding a training
 BatchNorm steps by up to lr on the rounding of its zero gradient, which
 reaches the probe evals through the running mean (ROADMAP.md queue 3).
@@ -80,6 +84,41 @@ def test_update_matrix_on_2x2_matches_one_device(runs, one_update,
                                    err_msg=f"{key} {m}")
     np.testing.assert_array_equal(runs[f"{key}/d2g"], one_update["d2g"])
     assert len(set(one_update["d2g"].tolist())) == 2
+
+
+@pytest.fixture(scope="module")
+def one_update_few(data):
+    torch.set_num_threads(1)
+    with mw.kmeans_seeds() as seeds:
+        tr = mw.cdc_trainer(mw.cdc_config(mask_rows=mw.CDC_FEW_MASK_ROWS),
+                            data)
+        tr.setup_data(data.train, data.valid)
+        tr.update_matrix_cdc(1)
+    return {**mw.cluster_of(tr), "seeds": np.asarray(seeds)}
+
+
+@pytest.mark.parametrize("ep", ["dp", "ep"])
+def test_update_matrix_with_few_mask_rows_on_2x2(runs, one_update_few, ep):
+    """(2, 2) with 4 causal-mask rows: the matrices as above; the
+    clustering is held where matrices moved by the tolerance cluster
+    alike, and else each side's must be its own matrices' (a tie)."""
+    key, one = f"few_{ep}", one_update_few
+    for m in ("mask", "A", "B"):
+        np.testing.assert_allclose(runs[f"{key}/{m}"], one[m], rtol=0,
+                                   atol=MATRIX_ATOL, err_msg=f"{key} {m}")
+    np.testing.assert_array_equal(runs[f"{key}/seeds"], one["seeds"])
+    seed = int(one["seeds"][0])
+    own, moved = mw.clustering_tie(one["mask"], 2, seed, MATRIX_ATOL)
+    mesh_own, _ = mw.clustering_tie(runs[f"{key}/mask"], 2, seed,
+                                    MATRIX_ATOL, draws=0)
+    assert own == tuple(one["d2g"].tolist())
+    assert mesh_own == tuple(runs[f"{key}/d2g"].tolist())
+    if len(moved) == 1:
+        np.testing.assert_array_equal(runs[f"{key}/d2g"], one["d2g"])
+    else:
+        print(f"{key}: the clustering ties within {MATRIX_ATOL}: {moved}; "
+              f"mesh {runs[f'{key}/d2g'].tolist()}, one device "
+              f"{one['d2g'].tolist()}")
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ files.  It imports nothing of the JAX package.
     python tests/test_torch_mesh_worker.py <task> <out_dir> [args...]
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -677,6 +678,7 @@ CDC_CDC = dict(base_model="mmoe", n_cluster=2, n_causal_mask=8,
                warmup_step=1, update_matrix_step=1, update_interval=2,
                cdc_tower_dims=(16,))
 CDC_WD = 1e-3           # the probe rows' check (see test_torch_cdc_mesh)
+CDC_FEW_MASK_ROWS = 4   # where the clustering of the 4 domains ties
 
 
 def cdc_data():
@@ -685,15 +687,17 @@ def cdc_data():
     return make_synthetic(**CDC_DIMS)
 
 
-def cdc_config(placement="resident", **train):
+def cdc_config(placement="resident", mask_rows=CDC_CDC["n_causal_mask"],
+               **train):
     from tpurec_torch.config import CDCConfig, Config, ModelConfig, \
         TrainConfig
 
     kw = dict(bs=256, epoch=1, seed=0, wd=CDC_WD,
               checkpoint_backend="orbax")
     kw.update(train)
+    cdc = {**CDC_CDC, "n_causal_mask": mask_rows}
     return Config(model=ModelConfig(**CDC_MODEL),
-                  cdc=CDCConfig(**CDC_CDC, data_placement=placement),
+                  cdc=CDCConfig(**cdc, data_placement=placement),
                   train=TrainConfig(**kw))
 
 
@@ -714,10 +718,50 @@ def cluster_of(tr):
             "d2g": np.asarray(st.domain2group_list)}
 
 
+@contextlib.contextmanager
+def kmeans_seeds():
+    """Record the k-means seed of each clustering the CDC engine runs."""
+    import tpurec_torch.cdc.engine as eng
+
+    seeds, orig = [], eng.update_group
+
+    def update_group(st, cfg, w, kmeans_seed=None):
+        seeds.append(kmeans_seed)
+        return orig(st, cfg, w, kmeans_seed=kmeans_seed)
+
+    eng.update_group = update_group
+    try:
+        yield seeds
+    finally:
+        eng.update_group = orig
+
+
+def clustering_tie(mask, n_cluster, seed, atol, draws=32):
+    """The first update's clustering (k-means on the causal distances of
+    ``mask``, st.matrix_mask after the affinity transform, with the
+    update's seed) of ``mask`` and of ``draws`` copies moved by +-atol
+    -> (labels, {labels: count}).  More than one labelling among the
+    copies: the clustering is a tie that the tolerance does not decide."""
+    from collections import Counter
+
+    from tpurec_torch.cdc.algorithm import calc_causal_matrix, kmeans_group
+
+    def labels(m):
+        causal = np.arccos(np.clip(calc_causal_matrix(m.T), -1.0, 1.0))
+        return tuple(int(g) for g in kmeans_group(causal, n_cluster,
+                                                   seed=seed))
+
+    rng = np.random.default_rng(0)
+    moved = Counter(labels(mask + atol * rng.choice((-1.0, 1.0), mask.shape))
+                    for _ in range(draws))
+    return labels(mask), dict(moved)
+
+
 def task_cdc(out_dir):
     """4 ranks, (2, 2): one update_matrix_cdc resident and "stream",
     without and with expert parallelism (the matrices and the
-    clustering).  2 ranks, (2, 1): CDCTrainer.fit (two updates), the exact
+    clustering), and resident with CDC_FEW_MASK_ROWS (with the k-means
+    seed).  2 ranks, (2, 1): CDCTrainer.fit (two updates), the exact
     valid eval, and the pickle and async checkpoints.  Rank 0 writes
     ``cdc_<world>.npz``."""
     from tpurec_torch.parallel import make_mesh
@@ -736,6 +780,15 @@ def task_cdc(out_dir):
                 res.update({f"{key}/{k}": v
                             for k, v in cluster_of(tr).items()})
                 res[f"{key}/resident"] = tr._resident
+        for ep in (False, True):
+            with kmeans_seeds() as seeds:
+                tr = cdc_trainer(cdc_config(mask_rows=CDC_FEW_MASK_ROWS),
+                                 data, mesh, ep)
+                tr.setup_data(data.train, data.valid)
+                tr.update_matrix_cdc(1)
+            key = f"few_{'ep' if ep else 'dp'}"
+            res.update({f"{key}/{k}": v for k, v in cluster_of(tr).items()})
+            res[f"{key}/seeds"] = np.asarray(seeds)
     else:
         mesh = make_mesh(2, 1)
         tr = cdc_trainer(cdc_config(), data, mesh)

@@ -307,34 +307,31 @@ class HybridTrainStep:
                          if self.multi_tower else out)
                 loss = bce_with_logits(logit, batch["y"], batch.get("mask"))
         dense = dense_named_parameters(model)
-        # expert parallelism: the split banks' L2 terms are summed over
-        # the model group, and so are the gradients of their whole leaves
+        if mesh is None:
+            loss = loss + regularization_loss(dense, self.reg_coefs_rest)
+            ts.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            return loss.detach(), rows.detach(), rows.grad
+        # the split expert banks' L2 terms are summed over the model
+        # group, and so are the gradients of their whole leaves (both
+        # empty without expert parallelism)
         split, partial = expert_leaves(model)
-        ep = bool(split or partial)
-        whole, summed = model_split_l2(dense, split, partial,
-                                       0 if mesh is None else mesh.m)
-        reg_m = torch.zeros((), device=dev) if ep else None
-        if mesh is None or mesh.d == 0:     # the L2 counted once
-            loss = loss + regularization_loss(whole, self.reg_coefs_rest)
-            if ep:
-                reg_m = regularization_loss(summed,
-                                            self.reg_coefs_rest).to(dev)
-                loss = loss + reg_m
+        whole, summed = model_split_l2(dense, split, partial, mesh.m)
+        if mesh.d == 0:     # the L2 counted once
+            reg_m = regularization_loss(summed, self.reg_coefs_rest).to(dev)
+            loss = loss + regularization_loss(whole, self.reg_coefs_rest) \
+                + reg_m
+        else:
+            reg_m = torch.zeros((), device=dev)
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        loss = loss.detach()
-        if mesh is not None and not ep:
-            loss, = all_reduce_grads([p for _, p in dense], mesh.data_group,
-                                     loss)
-        elif mesh is not None:
-            reg_m = reg_m.detach()
-            loss, reg_m = all_reduce_grads([p for _, p in dense],
-                                           mesh.data_group, loss - reg_m,
-                                           reg_m)
+        loss, reg_m = all_reduce_grads(
+            [p for _, p in dense], mesh.data_group,
+            loss.detach() - reg_m.detach(), reg_m.detach())
+        if split or partial:
             reg_m, = all_reduce_grads([p for n, p in dense if n in partial],
                                       mesh.model_group, reg_m)
-            loss = loss + reg_m
-        return loss, rows.detach(), rows.grad
+        return loss + reg_m, rows.detach(), rows.grad
 
     def one_step(self, ts: TrainState, batch, generator, head=None
                  ) -> torch.Tensor:
