@@ -215,10 +215,29 @@ Phases (any failure exits non-zero and prints no result line):
     against the one-device fit whole and from the mesh's state at each
     populate block's entry (the matrices within 5e-5 and the same
     clustering unless it ties within 5e-5), each also with its rows in
-    another order (the parting of a summation order), the loss parting
-    by step and the AUCs printed, the async checkpoint restored onto one
-    device within 1e-6;
+    another order (the parting of a summation order) and with its batch
+    sums made in the data ranks' row blocks (``mesh_split_sums``: the
+    BatchNorm statistics and the dense gradients, two 256-row partial
+    sums then their sum), the loss parting by step and the AUCs printed,
+    the async checkpoint restored onto one device within 1e-6;
     (c) the CLI's CDC on PLE on 2 ranks with ``--mesh_expert_parallel``.
+24. CDC's row lanes (``cdc.parallel_rows``): (a)
+    ``EmbeddingUpdater.update_stacked`` at the flagship table, 4 lanes
+    at steps (3, 7, 11, 1), bf16 and float32 moments, duplicate ids, row
+    ids in the small-field prefix and ids outside the table, against 4
+    plain-version updates on the CPU (phase 7's limits), bitwise
+    repeatable, a lane left out keeping its block; (b) phase 17's
+    configuration through its warmup, then update_matrix_cdc in 4 lanes,
+    serially, in 4 lanes again, from one state: each update's seconds
+    and peak memory printed, the two lane updates bitwise equal, the
+    trainer's state bitwise unchanged by each, #1, #2, #3 and #6/7's pass
+    counted against the schedule; one lane row against the CPU's plain
+    path and, on the card, against the serial row 0 (1e-6, bitwise
+    expected); (c) phase 23 (b)'s configuration on (2, 2) over gloo with
+    the experts split (this script with ``--lanes-rank``): one lane
+    update against one device's lanes from the mesh's state (matrices
+    within 5e-5, the clustering unless it ties).  ``--phase 24`` runs
+    this phase alone.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -226,6 +245,7 @@ is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -607,17 +627,16 @@ CPU_TABLE_SHARE = 1e-6
 def attn_bwd_flops_per_row(F, D, A, H, L, res=True):
     """Float32 operations of kernel 3 per batch row, counted from the code:
     each layer's in-projection and attention recomputed from its saved
-    input, the last layer's out-projection once (for the ReLU mask; the
-    other layers' outputs are the saved inputs of the next), the residual,
-    and per layer the out- and in-projection backward (weight gradient
-    and input gradient) and the four [F, F] x [F, hd] products per head;
-    then the embedding projection's backward."""
+    input (the last ReLU's branch is read from the forward's output, and
+    the other layers' outputs are the saved inputs of the next), the
+    residual's backward, and per layer the out- and in-projection backward
+    (weight gradient and input gradient) and the four [F, F] x [F, hd]
+    products per head; then the embedding projection's backward."""
     hd = A // H
-    recompute = (L * (2 * F * A * 3 * A + 4 * H * F * F * hd)
-                 + 2 * F * A * A)
+    recompute = L * (2 * F * A * 3 * A + 4 * H * F * F * hd)
     per_layer = (2 * 2 * F * A * A + 4 * 2 * H * F * F * hd
                  + 2 * 2 * F * A * 3 * A)
-    res_part = 3 * 2 * F * D * A if res else 0   # recompute, dW, dx
+    res_part = 2 * 2 * F * D * A if res else 0   # dW, dx
     return recompute + res_part + L * per_layer + 2 * 2 * F * D * A
 
 
@@ -704,10 +723,10 @@ RELU_MARGIN = 1e-4      # |pre-ReLU value| below which rounding sets the mask
 def away_from_relu_kink(emb, flat, L, H, rate, seed, dy):
     """dy with zeros where the plain forward's pre-ReLU value (in float64)
     lies within RELU_MARGIN of 0.  There float32 rounding alone decides the
-    ReLU's mask: the kernel's recomputed value and the plain version's may
-    fall on either side, each gradient right for its own rounding, and one
-    such element moves its batch row's demb by about |dy|.  -> (dy, share
-    of elements zeroed)."""
+    ReLU's mask: the kernel's forward and the plain version's may fall on
+    either side, each gradient right for its own forward, and one such
+    element moves its batch row's demb by about |dy|.  -> (dy, share of
+    elements zeroed)."""
     from tpurec_torch.ops.attention import (attention_layer,
                                             field_attention_reference,
                                             keep_mask)
@@ -795,10 +814,10 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
         zeroed = max(zeroed, share)
         field_attention_reference(e_leaf, leaves, L, H, rate,
                                   seed).backward(dy)
-        demb, grads = field_attention_bwd(emb, dy, saved, fl, L, H, rate,
-                                          seed)
-        demb2, grads2 = field_attention_bwd(emb, dy, saved, fl, L, H, rate,
-                                            seed)
+        demb, grads = field_attention_bwd(emb, dy, saved, y, fl, L, H,
+                                          rate, seed)
+        demb2, grads2 = field_attention_bwd(emb, dy, saved, y, fl, L, H,
+                                            rate, seed)
         torch.cuda.synchronize()
         check(torch.equal(demb, demb2) and all(
             a is None or torch.equal(a, b) for a, b in zip(grads, grads2)),
@@ -1192,24 +1211,19 @@ class relu_branches:
     stack's own ReLU, which the card runs inside kernels #2/#3: its
     branch is read from the stack's output (y > 0) as the card returns
     it, and replayed on the CPU's plain version's ``torch.relu`` (counted
-    apart, as "attention"; ``attention=False`` leaves it to compute as
-    usual; a replay on the card only counts it).  Calls of other shapes
-    compute as usual.  A value within
+    apart, as "attention"; a replay on the card only counts it).  Calls of
+    other shapes compute as usual.  A value within
     rounding of a branch's edge may take either side on two devices, and
     a gradient (or, at a routing or a pruner edge, a logit) then parts by
     that unit's whole contribution; replaying the card's branches on the
     CPU leaves rounding alone between the two."""
 
-    def __init__(self, masks, record, attention=True):
+    def __init__(self, masks, record):
         self.masks, self.record = masks, record
-        self.attention = attention
         self.used = self.flipped = self.inputs = 0
         self.flips = {"relu": 0, "argmax": 0, "where": 0, "attention": 0}
 
     def _next(self, kind, shape):
-        while (not self.attention and self.used < len(self.masks)
-               and self.masks[self.used][2:] == ("attention",)):
-            self.used += 1
         if self.used < len(self.masks) and self.masks[self.used][0] == kind \
                 and self.masks[self.used][1].shape == shape:
             self.used += 1
@@ -1301,61 +1315,37 @@ def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch,
     before Adam and before wd reaches anything) on the card against the
     CPU's plain path, from train_vs_cpu's seeded weights and first batch,
     the CPU on the card's branches (:class:`relu_branches`); held to
-    ``rtol`` (ROW_GRAD_RTOL) of its largest value.  Where an input of the
-    attention stack's ReLU took the other branch on the CPU than in the
-    card's forward, the CPU runs it both ways and the closer gradient is
-    held: the card's kernel #3 takes that branch again on z recomputed
-    from the layer inputs, which may land on either side of 0.  A wrong
-    table gradient that
-    Adam's sign amplification or PLE's wd would hide shows here.  Under
-    the "dense" update the whole table's gradient is held instead: the
-    rows' gradients through the lookup's backward (``index_add_``, by
-    atomics on the card, in index order on the CPU) plus the table's L2.
-    -> summary dict."""
+    ``rtol`` (ROW_GRAD_RTOL) of its largest value.  One branch is held:
+    the card's, replayed.  Kernel #3 takes the attention stack's last ReLU
+    from kernel #2's output, so the card's backward follows the branches
+    its forward took, and so does the CPU's replay.  A wrong table
+    gradient that Adam's sign amplification or PLE's wd would hide shows
+    here.  Under the "dense" update the whole table's gradient is held
+    instead: the rows' gradients through the lookup's backward
+    (``index_add_``, by atomics on the card, in index order on the CPU)
+    plus the table's L2.  -> summary dict."""
     from tpurec_torch.config import ModelConfig
     from tpurec_torch.models import build_model
 
     masks, grads = [], {}
-    for where in ("cuda", "cpu", "cpu, the stack's ReLU unreplayed"):
-        if where not in ("cuda", "cpu") and not branches.flips["attention"]:
-            break
-        dev_ = where.split(",")[0]
+    for where in ("cuda", "cpu"):
         model = build_model(name, FIELD_DIMS, towers(name), DOMAIN_IDX,
                             ModelConfig(**model_kw, **NO_DROPOUT),
-                            device=dev_,
+                            device=where,
                             generator=torch.Generator().manual_seed(SEED + 3))
         with torch.no_grad():
             model.embedding.table.mul_(table_scale)
-        ts = train_state(model, tcfg, dev_, update)
+        ts = train_state(model, tcfg, where, update)
         step = train_step_of(model, tcfg, name, update)
-        with relu_branches(masks, record=where == "cuda",
-                           attention=where in ("cuda", "cpu")) as br:
+        with relu_branches(masks, record=where == "cuda") as branches:
             out = step.loss_and_grads(ts, batch, None)
-        if where in ("cuda", "cpu"):
-            branches = br
         g = (model.embedding.table.grad if update == "dense" else out[2])
         grads[where] = g.detach().cpu()
         del model, ts, step
     check(branches.used == len(masks) > 0,
           f"{name} row gradient: the CPU replayed {branches.used} of the "
           f"card's {len(masks)} ReLU calls")
-    gap = (grads["cuda"] - grads["cpu"]).abs()
-    replayed = unreplayed = None
-    if len(grads) == 3:
-        # the card takes the attention stack's ReLU twice: kernel #2 in
-        # the forward, kernel #3 on z recomputed from the layer inputs,
-        # and an input within a rounding of 0 may take each side.  The
-        # CPU took the forward's branch (replayed) and its own: the
-        # gradient is held on the closer of the two
-        other = (grads["cuda"] - grads[where]).abs()
-        replayed, unreplayed = gap.max().item(), other.max().item()
-        print(f"{name} row gradient: {branches.flips['attention']} inputs "
-              f"of the attention stack's ReLU on the other branch from the "
-              f"card's forward; the largest gap with that branch replayed "
-              f"{replayed:.3g}, with the CPU's own {unreplayed:.3g}")
-        if unreplayed < replayed:
-            gap = other
-    err = gap.max().item()
+    err = (grads["cuda"] - grads["cpu"]).abs().max().item()
     top = grads["cpu"].abs().max().item()
     check(err <= rtol * top,
           f"{name} train cuda vs cpu: step 1's row gradient max abs err "
@@ -1363,9 +1353,7 @@ def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch,
           f"other branch on the CPU)")
     return {"max_abs_err": err, "max": top, "flipped": branches.flipped,
             "flips": branches.flips, "relu_inputs": branches.inputs,
-            "relu_calls": len(masks),
-            "max_abs_err_stack_replayed": replayed,
-            "max_abs_err_stack_unreplayed": unreplayed}
+            "relu_calls": len(masks)}
 
 
 def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
@@ -1676,19 +1664,19 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
         bound_ms=max(t_ops, t_b) * 1e3, flops=fwd_flops, bytes=fwd_bytes,
         bound_by="operations" if t_ops >= t_b else "bytes")
 
-    _, saved = field_attention_fwd(emb, flat, L, H, DROPOUT, seed, True)
+    y_k, saved = field_attention_fwd(emb, flat, L, H, DROPOUT, seed, True)
     dy = torch.randn(512, F, A, device=dev)
     leaves = [w.clone().requires_grad_(True) for w in flat]
     e_leaf = emb.clone().requires_grad_(True)
     y_lib = sdpa_stack(e_leaf, leaves, L, H, DROPOUT)
     bwd_flops = 512 * attn_bwd_flops_per_row(F, D, A, H, L)
-    bwd_bytes = 512 * F * (2 * D + A + L * A) * 4 + 2 * w_bytes
+    bwd_bytes = 512 * F * (2 * D + 2 * A + L * A) * 4 + 2 * w_bytes
     t_ops, t_b = bwd_flops / PEAK_F32_FLOPS, bwd_bytes / PEAK_BYTES_PER_S
     rows["field_attention_bwd"] = dict(
-        ms=cuda_ms(lambda: field_attention_bwd(emb, dy, saved, flat, L, H,
-                                               DROPOUT, seed)),
+        ms=cuda_ms(lambda: field_attention_bwd(emb, dy, saved, y_k, flat, L,
+                                               H, DROPOUT, seed)),
         plain_ms=cuda_ms(lambda: field_attention_bwd_reference(
-            emb, dy, saved, flat, L, H, DROPOUT, seed)),
+            emb, dy, saved, y_k, flat, L, H, DROPOUT, seed)),
         library_ms=cuda_ms(lambda: torch.autograd.grad(
             y_lib, [e_leaf] + leaves, dy, retain_graph=True)),
         library="torch.autograd.grad through the SDPA + addmm stack "
@@ -1709,7 +1697,8 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
     stream = torch.cuda.current_stream().cuda_stream
     by_r = bwd_rows_sweep(
         lambda r, st: lib.tpurec_field_attention_bwd(
-            emb.data_ptr(), dy.data_ptr(), saved.data_ptr(), ptrs, 512, r,
+            emb.data_ptr(), dy.data_ptr(), saved.data_ptr(),
+            y_k.data_ptr(), ptrs, 512, r,
             int(st), F, D, A, H, L, seed_s.data_ptr(),
             keep_threshold(DROPOUT), 1.0 - DROPOUT, 1,
             bwd_grid(512, r, _sm_count(dev)), demb_s.data_ptr(),
@@ -2054,7 +2043,8 @@ def layer_kernel_checks(dev, flat, emb_of):
 
     # the layered path with seed s drops what the stack drops with seed s
     # (dy zeroed where rounding decides the final ReLU: the stack's kernel
-    # 3 recomputes it, the layered path takes torch.relu's)
+    # 3 takes kernel 2's branch, the layered path torch.relu's of its own
+    # forward)
     emb = emb_of(512)
     dy, _ = away_from_relu_kink(
         emb, flat, L, H, DROPOUT, seed,
@@ -4774,7 +4764,8 @@ def dense_values(trainer):
 def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS,
                  flag="--mesh-rank"):
     """Start ``world`` copies of this script (``flag`` names the rank's
-    part: ``--mesh-rank`` phase 22's, ``--ep-rank`` phase 23's) as ranks
+    part: ``--mesh-rank`` phase 22's, ``--ep-rank`` phase 23's,
+    ``--lanes-rank`` phase 24's) as ranks
     of one process group on localhost and wait for all; -> their exit
     codes and log tails."""
     import os
@@ -5216,6 +5207,161 @@ def _trace_cdc(tr, on_block=None, reorder=False):
     return trace, lambda: setattr(eng, "update_group", update_group)
 
 
+class _SplitLinear(torch.autograd.Function):
+    """``x @ w (+ b)`` (a Linear: ``eq`` None) or ``einsum(eq, x, w) (+
+    b[None])`` (a StackedLinear), computed as the layer computes it; the
+    backward sums w's and b's gradients over ``n`` row blocks apart, then
+    the blocks' sums in order, as ``n`` data ranks sum theirs."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, n, eq):
+        ctx.save_for_backward(x, w)
+        ctx.n, ctx.eq, ctx.has_b = n, eq, b is not None
+        y = torch.matmul(x, w) if eq is None else torch.einsum(eq, x, w)
+        if b is None:
+            return y
+        return y + (b if eq is None else b[None])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        n, eq = ctx.n, ctx.eq
+        xs, dys = x.chunk(n), dy.chunk(n)
+        if eq is None:
+            dx = torch.matmul(dy, w.transpose(-1, -2))
+            dw = sum(xi.reshape(-1, xi.shape[-1]).T
+                     @ di.reshape(-1, di.shape[-1])
+                     for xi, di in zip(xs, dys))
+            dims = tuple(range(dy.dim() - 1))
+        else:
+            src, out = eq.split("->")[0].split(",")[0], eq.split("->")[1]
+            dx = torch.einsum(f"{out},tio->{src}", dy, w)
+            dw = sum(torch.einsum(f"{src},{out}->tio", xi, di)
+                     for xi, di in zip(xs, dys))
+            dims = (0,)
+        db = (sum(di.sum(dim=dims) for di in dys) if ctx.has_b else None)
+        return dx, dw, db, None, None
+
+
+class _SplitAffine(torch.autograd.Function):
+    """BatchNorm's ``xhat * scale + bias``; the backward sums scale's and
+    bias's gradients over ``n`` row blocks apart, then in order."""
+
+    @staticmethod
+    def forward(ctx, xhat, scale, bias, n):
+        ctx.save_for_backward(xhat, scale)
+        ctx.n = n
+        return xhat * scale + bias
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, scale = ctx.saved_tensors
+        dims = tuple(range(dy.dim() - 1))
+        pairs = list(zip(xhat.chunk(ctx.n), dy.chunk(ctx.n)))
+        return (dy * scale, sum((d * x).sum(dim=dims) for x, d in pairs),
+                sum(d.sum(dim=dims) for _, d in pairs), None)
+
+
+class mesh_split_sums:
+    """Inside, a one-device training step makes its batch sums as a mesh
+    of ``n`` data ranks makes them: each of ``n`` contiguous row blocks
+    (data rank d's rows) summed apart, then the blocks' sums in order.
+    That covers the BatchNorm statistics' sums (the masked sum, the count
+    and the centred sum of squares, ``global_moments``) and the dense
+    parameters' gradients: the Linears' and StackedLinears' weights and
+    biases, the BatchNorms' scale and bias, and the attention stack's
+    weights (kernel #3 run on each block, its weight gradients summed).
+    The rest computes as on one device (the reductions of activation
+    gradients inside a backward, the loss's sum, the model axis' split).
+    float32 compute only (no bf16 casts)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        import tpurec_torch.nn.core as core
+        import tpurec_torch.ops.attention as att
+
+        n = self.n
+        self.saved = (core.global_moments, core.Linear.forward,
+                      core.StackedLinear.forward, core.BatchNorm.forward,
+                      att.field_attention_bwd)
+        bwd = att.field_attention_bwd
+
+        def moments(x, mask, mesh):
+            stat = x.shape[1:]
+            xs = x.chunk(n)
+            if mask is None:
+                ws = [None] * n
+                s = sum(xi.sum(dim=0) for xi in xs)
+                n_l = torch.full(stat, float(x.shape[0]), dtype=x.dtype,
+                                 device=x.device)
+            else:
+                m = mask.to(x.dtype)
+                w = m.reshape(m.shape + (1,) * (x.dim() - m.dim()))
+                ws = w.chunk(n)
+                s = sum((wi * xi).sum(dim=0) for wi, xi in zip(ws, xs))
+                n_l = sum(wi.sum(dim=0) for wi in ws).expand_as(s)
+            n_safe = torch.clamp(n_l.detach(), min=1.0)
+            mean = s / n_safe
+            q = sum((sq if wi is None else wi * sq).sum(dim=0)
+                    for wi, sq in zip(ws, (torch.square(xi - mean)
+                                            for xi in xs)))
+            return mean, q / n_safe, n_l.detach()
+
+        def linear(mod, x):
+            return _SplitLinear.apply(x, mod.weight, mod.bias, n, None)
+
+        def stacked(mod, x):
+            eq = {2: "bi,tio->bto", 3: "bti,tio->bto"}[x.dim()]
+            return _SplitLinear.apply(x, mod.weight, mod.bias, n, eq)
+
+        def batch_norm(mod, x, train=False, mask=None):
+            if not train or (x.shape[0] * n == 1 and mask is None):
+                return self.saved[3](mod, x, train, mask)
+            mean, var, cnt = moments(x, mask, None)
+            with torch.no_grad():
+                mo = mod.momentum
+                unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
+                if mask is None:
+                    mod.mean.copy_((1 - mo) * mod.mean + mo * mean)
+                    mod.var.copy_((1 - mo) * mod.var + mo * unbiased)
+                else:
+                    has_rows = (cnt > 0).to(x.dtype)
+                    mod.mean.add_(mo * has_rows * (mean - mod.mean))
+                    mod.var.add_(mo * has_rows * (unbiased - mod.var))
+                mod.num_batches_tracked.add_(1)
+            xhat = (x - mean) * torch.rsqrt(var + mod.eps)
+            return _SplitAffine.apply(xhat, mod.scale, mod.bias, n)
+
+        def attention_bwd(emb, dy, saved, y, flat_w, *args):
+            parts = [bwd(e, d, sv, yy, flat_w, *args) for e, d, sv, yy in
+                     zip(emb.chunk(n), dy.chunk(n), saved.chunk(n, dim=1),
+                         y.chunk(n))]
+            grads = [None if parts[0][1][i] is None
+                     else sum(p[1][i] for p in parts)
+                     for i in range(len(flat_w))]
+            return torch.cat([p[0] for p in parts]), grads
+
+        # the wrapper counts its launches on the name it is called by
+        attention_bwd.launches = bwd.launches
+        core.global_moments = moments
+        core.Linear.forward = linear
+        core.StackedLinear.forward = stacked
+        core.BatchNorm.forward = batch_norm
+        att.field_attention_bwd = attention_bwd
+        return self
+
+    def __exit__(self, *exc):
+        import tpurec_torch.nn.core as core
+        import tpurec_torch.ops.attention as att
+
+        self.saved[4].launches = att.field_attention_bwd.launches
+        (core.global_moments, core.Linear.forward,
+         core.StackedLinear.forward, core.BatchNorm.forward,
+         att.field_attention_bwd) = self.saved
+
+
 def _trace_floats(trace):
     """A trace's losses, as floats, stage by stage in their order."""
     return {k: [float(x) for x in v] for k, v in trace.items()
@@ -5523,14 +5669,18 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
                               "table_values_beyond_atol": beyond,
                               "bank_abs_err": b_err}
 
-    # (b) against four one-device CDCTrainer.fit runs on the card, each
+    # (b) against six one-device CDCTrainer.fit runs on the card, each
     # traced step by step: "whole" from the seeded start, as the mesh;
     # "reordered", the same with each step's rows in another order (the
     # parting a summation order alone makes over a fit); "blocks", which
     # takes the mesh's state (gathered) at the entry of each populate
-    # block, so that each block compares from one state; and
+    # block, so that each block compares from one state;
     # "blocks_reordered", that with the rows in another order (the
-    # parting of a summation order from one state)
+    # parting of a summation order from one state); and "split" and
+    # "blocks_split", "whole" and "blocks" with the batch sums made in the
+    # data ranks' row blocks (:class:`mesh_split_sums`): where the mesh
+    # parts from "blocks" as "blocks_split" does, the data split's sums
+    # explain it
     r0 = recs[0]
     data = ep_cdc_data()
     n_cluster = ep_cdc_config().cdc.n_cluster
@@ -5538,7 +5688,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
                 "d2g": r0["b_cluster"]["d2g"],
                 **{m: r0["b_cluster"][m] for m in ("mask", "A", "B")}}
     runs = {}
-    for name in ("whole", "reordered", "blocks", "blocks_reordered"):
+    for name in ("whole", "reordered", "blocks", "blocks_reordered",
+                 "split", "blocks_split"):
         one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS,
                          DOMAIN_IDX)
 
@@ -5551,7 +5702,9 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
             reorder=name.endswith("reordered"))
         t0 = time.perf_counter()
         try:
-            out1 = one.fit(data.train, data.valid)
+            with (mesh_split_sums(MESH_SHAPE[0]) if name.endswith("split")
+                  else contextlib.nullcontext()):
+                out1 = one.fit(data.train, data.valid)
             torch.cuda.synchronize()
         finally:
             undo()
@@ -5576,9 +5729,13 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
                       for k, r in runs.items()))
     pairs = {"mesh_vs_whole": (mesh_run, runs["whole"]),
              "reordered_vs_whole": (runs["reordered"], runs["whole"]),
+             "split_vs_whole": (runs["split"], runs["whole"]),
              "mesh_vs_blocks": (mesh_run, runs["blocks"]),
              "blocks_reordered_vs_blocks": (runs["blocks_reordered"],
-                                            runs["blocks"])}
+                                            runs["blocks"]),
+             "blocks_split_vs_blocks": (runs["blocks_split"],
+                                        runs["blocks"]),
+             "mesh_vs_blocks_split": (mesh_run, runs["blocks_split"])}
     errs = {k: m_err(a, b) for k, (a, b) in pairs.items()}
     parts = {k: _parting(a["trace"], b["trace"])
              for k, (a, b) in pairs.items()}
@@ -5608,7 +5765,14 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
           f"{EP_CDC_ATOL}), one device from itself by "
           f"{mx['reordered_vs_whole']:.3g} when only each step's row order "
           f"changes; from each block's state {mx['mesh_vs_blocks']:.3g} and "
-          f"{mx['blocks_reordered_vs_blocks']:.3g}.  The valid AUC after the "
+          f"{mx['blocks_reordered_vs_blocks']:.3g}.  The witness of the data "
+          f"split's sums (mesh_split_sums, {MESH_SHAPE[0]} row blocks): "
+          f"{mx['split_vs_whole']:.3g} over the whole fit, "
+          f"{mx['blocks_split_vs_blocks']:.3g} from each block's state, and "
+          f"the mesh from it {mx['mesh_vs_blocks_split']:.3g}; by matrix "
+          f"(mask, A, B) the mesh {errs['mesh_vs_blocks']}, the witness "
+          f"{errs['blocks_split_vs_blocks']}, the reordered rows "
+          f"{errs['blocks_reordered_vs_blocks']}.  The valid AUC after the "
           "split-mode steps is printed, not held: the one-device fits that "
           "differ by rounding alone spread by "
           f"{max(aucs) - min(aucs):.4f}")
@@ -5723,6 +5887,466 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
     summary["phase_seconds"] = time.perf_counter() - t_phase
     print(f"ep phase: {summary['phase_seconds']:.1f} s")
     return launches, summary
+
+
+# -- CDC's row lanes (phase 24) ----------------------------------------------
+
+LANES = 4                       # cdc.parallel_rows of (b) and (c)
+LANE_STEPS = (3, 7, 11, 1)      # (a): each lane's Adam step
+LANE_DEMOTE = 100               # (a): fields over this many ids take the
+#                                 row path, so some row ids lie in the
+#                                 small-field prefix
+LANE_ROW_GAP = 1e-6             # (b): lane row 0 vs serial row 0
+LANES_CAUSAL = 4                # (b): mask rows, cut from phase 17's 50
+#                                 (phases 21 and 23 run 4) to keep the
+#                                 script inside its time limit
+
+
+def lanes_update_checks(dev):
+    """Phase 24 (a): EmbeddingUpdater.update_stacked on the card at the
+    flagship table, LANES lanes at steps LANE_STEPS, bf16 and float32
+    moments, against LANES updates of the plain version on the CPU (each
+    lane's block as phase 7 holds the table update): 512 rows a lane with
+    duplicate big-field ids, row ids in the small-field prefix (fields
+    over LANE_DEMOTE ids on the row path), ids past the table and below
+    0; bitwise repeatable; a lane left out of ``active`` keeps its block
+    bitwise; one sweep launch a lane.  -> max abs error."""
+    from tpurec_torch.config import TrainConfig
+    from tpurec_torch.nn.core import EmbeddingLayout
+    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
+                                             fused_sparse_adam)
+    from tpurec_torch.train.hybrid import EmbeddingUpdater
+    from tpurec_torch.train.sparse import SparseEmbedState
+
+    N, F = len(LANE_STEPS), len(FIELD_DIMS)
+    V, D = EmbeddingLayout(FIELD_DIMS).vocab, MODEL["embed_dim"]
+    gen = torch.Generator().manual_seed(SEED + 24)
+    rng = np.random.default_rng(SEED + 24)
+    table = torch.randn(V, D, generator=gen) * 0.01
+    x = np.stack([random_ids(rng, 512) for _ in range(N)])
+    x[:, :256, 0] = x[:, 256:, 0]                   # duplicates
+    big = int(np.argmax(FIELD_DIMS))
+    x[1, ::3, big] = FIELD_DIMS[big] + 10**7        # past the table
+    off = int(EmbeddingLayout(FIELD_DIMS).offsets[big])
+    x[2, ::5, big] = -off - 5                       # row -5: below 0
+    x = torch.from_numpy(x)
+    g = torch.randn(N, 512 * F, D, generator=gen)
+    err, worst_all = 0.0, 0.0
+    for mdt in (torch.bfloat16, torch.float32):
+        upd = EmbeddingUpdater(FIELD_DIMS, TrainConfig(
+            bs=512, embedding_moments_dtype=str(mdt)[6:]), L2, LANE_DEMOTE)
+        check(any(f not in upd.small and FIELD_DIMS[f] <= 8192
+                  for f in range(F)), "no layout-small field on the row path")
+        m0 = (torch.randn(N * V, D, generator=gen) * 0.01).to(mdt)
+        v0 = (torch.rand(N * V, D, generator=gen) * 1e-4).to(mdt)
+        outs = []
+        for active in (None, None, [0, 2, 3]):
+            p = table.repeat(N, 1).to(dev)
+            st = SparseEmbedState(m=m0.to(dev, copy=True),
+                                  v=v0.to(dev, copy=True))
+            on = list(range(N)) if active is None else active
+            before = (fused_decay_adam.launches, fused_sparse_adam.launches)
+            sq = upd.update_stacked(p, st, x[on].to(dev), g[on].to(dev),
+                                    [LANE_STEPS[l] for l in on], lanes=N,
+                                    active=active)
+            torch.cuda.synchronize()
+            check((fused_decay_adam.launches - before[0],
+                   fused_sparse_adam.launches - before[1]) == (len(on),)
+                  * 2, f"update_stacked ({mdt}): one pass a lane expected")
+            outs.append(([p.cpu(), st.m.cpu(), st.v.cpu()], sq.cpu()))
+            del p, st
+        (a, sa), (b, sb), (c, sc) = outs
+        check(all(torch.equal(u, w) for u, w in zip(a, b))
+              and torch.equal(sa, sb), f"update_stacked ({mdt}): two calls "
+              "differ")
+        one = slice(V, 2 * V)
+        check(torch.equal(c[0][one], table) and torch.equal(c[1][one],
+                                                            m0[one])
+              and torch.equal(c[2][one], v0[one]),
+              f"update_stacked ({mdt}): lane 1, not active, was written")
+        for l, i in ((0, 0), (2, 1), (3, 2)):
+            rows = slice(l * V, (l + 1) * V)
+            check(all(torch.equal(u[rows], w[rows]) for u, w in zip(a, c))
+                  and torch.equal(sa[l], sc[i]),
+                  f"update_stacked ({mdt}): lane {l} differs with lane 1 "
+                  "left out")
+        for l in range(N):
+            rows = slice(l * V, (l + 1) * V)
+            pw = table.clone()
+            sw = SparseEmbedState(m=m0[rows].clone(), v=v0[rows].clone())
+            sqw = upd.update(pw, sw, x[l], g[l], LANE_STEPS[l])
+            xr = x[l]
+            ids, gr = upd.big_rows(xr, g[l].reshape(512, F, D))
+            gs = upd.small_field_grads(xr, g[l].reshape(512, F, D))
+            tc = upd.tcfg
+            step = sweep_step(table, m0[rows], v0[rows],
+                              dense_grad(V, ids, gr, gs), LANE_STEPS[l],
+                              lr=tc.lr, coef=upd.coef, b1=tc.adam_b1,
+                              b2=tc.adam_b2, eps=tc.adam_eps)
+            e, worst, _ = held_to_plain(
+                [a[0][rows], a[1][rows], a[2][rows], sa[l]],
+                [pw, sw.m, sw.v, sqw], step,
+                f"update_stacked lane {l} ({str(mdt)[6:]} moments)")
+            err, worst_all = max(err, e), max(worst_all, worst)
+        del outs, a, b, c, m0, v0
+    print(f"update_stacked at {N} x {V} x {D} (lanes at steps "
+          f"{list(LANE_STEPS)}, 512 rows a lane, duplicate ids, row ids in "
+          f"the small-field prefix, ids past the table and below 0; bf16 and "
+          f"f32 moments) vs {N} plain-version updates on the CPU: table "
+          f"{worst_all:.3g} x max(1, |p'|, step) (tol {ROWS_TOL}), m/v as "
+          f"phase 7, max abs err {err:.3g}; one pass a lane, bitwise "
+          f"repeatable, a lane left out keeps its block")
+    return err
+
+
+def _cdc_state(tr):
+    """Every tensor of a CDCTrainer's state (cloned, by name) and its
+    step."""
+    out = {f"model/{k}": t.detach().clone()
+           for k, t in tr.model.state_dict().items()}
+    out["emb/m"] = tr.state.emb_opt.m.clone()
+    out["emb/v"] = tr.state.emb_opt.v.clone()
+    for i, st in enumerate(tr.state.optimizer.state.values()):
+        out.update({f"adam/{i}/{k}": v.clone() for k, v in st.items()})
+    return out, tr.state.step
+
+
+def _lanes_update(tr, lanes, counters):
+    """One update_matrix_cdc of ``tr`` from its state with ``lanes`` row
+    lanes (0: serial); every generator, the batcher, the clustering and
+    (serial) the train state are put back after.  -> {matrices, seconds
+    (host clock, synchronized), peak device memory, launches, the
+    schedule's valid steps and probe forwards}."""
+    import copy
+    import dataclasses
+
+    kept = copy.deepcopy((tr.np_rng, tr.train_batcher, tr.cluster))
+    gen = tr.dropout_gen.get_state()
+    blob = None if lanes else tr.snapshot_bytes()
+    tr.cfg = dataclasses.replace(tr.cfg, cdc=dataclasses.replace(
+        tr.cfg.cdc, parallel_rows=lanes))
+    sched = {"steps": 0, "probe": 0}
+    populate, baseline = tr._run_populate_async, tr.eval_all_domains
+
+    def populate_(bidx, bmask, bvalid, eidx, emask):
+        sched["steps"] += int((bvalid > 0).sum())
+        sched["probe"] += int(bidx.shape[0])
+        return populate(bidx, bmask, bvalid, eidx, emask)
+
+    def baseline_(idx, mask):
+        sched["probe"] += 1
+        return baseline(idx, mask)
+
+    tr._run_populate_async, tr.eval_all_domains = populate_, baseline_
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tr.update_matrix_cdc(tr._scaled_update_matrix_step())
+        torch.cuda.synchronize()
+    finally:
+        del tr._run_populate_async, tr.eval_all_domains
+    seconds = time.perf_counter() - t0
+    st = tr.cluster
+    out = {"mask": st.matrix_mask.copy(), "A": st.matrix_A.copy(),
+           "B": st.matrix_B.copy(), "d2g": list(st.domain2group_list),
+           "seconds": seconds, "peak_gb": torch.cuda.max_memory_allocated()
+           / 2**30, "launches": {k: fn.launches
+                                 for k, fn in counters.items()},
+           "valid_steps": sched["steps"], "probe_forwards": sched["probe"]}
+    tr.np_rng, tr.train_batcher, tr.cluster = kept
+    tr.dropout_gen.set_state(gen)
+    if blob is not None:
+        tr.restore_bytes(blob)
+    return out
+
+
+def lanes_row_vs_cpu(data, blob, d2g, tag):
+    """Phase 24 (b)'s row checks: one mask row (CDC_TREAT domains, 2
+    treatment steps at W = 3,584, its probe eval of D * 512 rows) run as
+    lane 0 of LANES from the fitted state, dropout 0, wd CDC_CHECK_WD,
+    float32 moments (as phase 17's :func:`cdc_row_vs_cpu`), on the card
+    and on the CPU's plain path: the row within CDC_ROW_TOL of max(1, |x|)
+    and the lane's table after the burst as phase 17 holds the table; on
+    the card, the serial path's row from the same state against the lane's
+    (bitwise expected, LANE_ROW_GAP)."""
+    import dataclasses
+
+    from tpurec_torch.cdc import CDCTrainer
+
+    cfg = cdc_config(dropout=0.0, wd=CDC_CHECK_WD,
+                     embedding_moments_dtype="float32")
+    cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, parallel_rows=LANES))
+    out = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        t = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, device=where)
+        t.restore_bytes(blob)
+        t.setup_data(data.train)
+        t.cluster.domain2group = np.asarray(d2g, np.int64)
+        bidx, bmask, bvalid = t._multi_burst_sched(
+            list(range(CDC_TREAT)), 1, 2)
+        eidx, emask = t._eval_sched()
+        block = (bidx[None], bmask[None], bvalid[None], eidx[None],
+                 emask[None])
+        row = t._run_populate_async(*block)[0].cpu().double()
+        V = t.model.embedding.table.shape[0]
+        table = t._lanes.table[:V].cpu().clone()
+        out[where] = {"row": row, "table": table}
+        if where == "cuda":
+            t.cfg = dataclasses.replace(t.cfg, cdc=dataclasses.replace(
+                t.cfg.cdc, parallel_rows=0))
+            out[where]["serial"] = t._run_populate_async(*block)[0].cpu(
+                ).double()
+        print(f"cdc lane row on {where}: {int(bvalid.sum())} steps of "
+              f"{bidx.shape[1]} rows, probe eval of {eidx.size} rows "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del t
+        torch.cuda.empty_cache()
+    g, c = out["cuda"], out["cpu"]
+    row_err = ((g["row"] - c["row"]).abs()
+               / torch.clamp(c["row"].abs(), min=1.0)).max().item()
+    diff = (g["table"] - c["table"]).abs()
+    share = (diff > 1e-6).float().mean().item()
+    gap = (g["row"] - g["serial"]).abs().max().item()
+    print(f"{tag} cdc lane row, card vs CPU plain path (dropout 0, wd "
+          f"{CDC_CHECK_WD}, float32 moments): [D] probe row max err "
+          f"{row_err:.3g} of max(1, |x|) (tol {CDC_ROW_TOL}); the lane's "
+          f"table after the burst max abs err {diff.max().item():.3g} (tol 2 "
+          f"lr), share beyond 1e-6 {share:.3g} (tol {CPU_TABLE_SHARE}); "
+          f"lane row 0 vs serial row 0 on the card: max abs gap {gap:.3g} "
+          f"({'bitwise' if gap == 0 else 'not bitwise'}; tol {LANE_ROW_GAP})")
+    check(row_err <= CDC_ROW_TOL, f"lane row: max err {row_err}")
+    check(diff.max().item() <= 2 * cfg.train.lr + 1e-6
+          and share <= CPU_TABLE_SHARE, f"lane row: table max abs err "
+          f"{diff.max().item()}, share beyond 1e-6 {share}")
+    check(gap <= LANE_ROW_GAP, f"lane row 0 vs serial row 0: {gap}")
+    return {"row_err": row_err, "table_max_abs_err": diff.max().item(),
+            "table_share_beyond_1e-6": share, "lane_vs_serial_row0": gap}
+
+
+def lanes_cdc_config(**train):
+    """(b)'s configuration: phase 17's (cdc_config) for one epoch, with
+    LANES_CAUSAL causal-mask rows."""
+    import dataclasses
+
+    cfg = cdc_config(epoch=1, **train)
+    return dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, n_causal_mask=LANES_CAUSAL))
+
+
+def lanes_rank(out_dir):
+    """One rank of phase 24 (c), started by :func:`lanes_main_path` as
+    phase 23 starts its ranks: phase 23 (b)'s CDCTrainer on MESH_SHAPE
+    with the experts split, LANES row lanes; its warmup, the gathered
+    state (rank 0 writes it), one update_matrix_cdc with the launches
+    counted.  Writes ``lanes_rank_<r>.json``."""
+    import dataclasses
+    import os
+
+    import tpurec_torch.cdc.engine as eng
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    j = init_distributed()
+    mesh = make_mesh(*MESH_SHAPE)
+    cfg = ep_cdc_config()
+    cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, parallel_rows=LANES))
+    data = ep_cdc_data()
+    tr = CDCTrainer(cfg, EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX,
+                    shardings=Shardings(mesh, expert_parallel=True))
+    tr.setup_data(data.train, data.valid)
+    tr._run_steps("warmup", *tr._warmup_sched())
+    blob = tr.snapshot_bytes()
+    if j.rank == 0:
+        with open(os.path.join(out_dir, "lanes_entry.msgpack"), "wb") as f:
+            f.write(blob)
+    counters = train_counters("mmoe")
+    seeds, update_group = [], eng.update_group
+
+    def update_group_(st, c, w, kmeans_seed=None):
+        seeds.append(kmeans_seed)
+        return update_group(st, c, w, kmeans_seed=kmeans_seed)
+
+    eng.update_group = update_group_
+    try:
+        up = _lanes_update(tr, LANES, counters)
+    finally:
+        eng.update_group = update_group
+    rec = {"rank": j.rank, "seeds": seeds, "step": tr.state.step,
+           **{k: (v.tolist() if isinstance(v, np.ndarray) else v)
+              for k, v in up.items()}}
+    with open(os.path.join(out_dir, f"lanes_rank_{j.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def lanes_main_path(dev, tag):
+    """Phase 24: CDC's row lanes.  (a) :func:`lanes_update_checks`.  (b)
+    phase 17's configuration (the flagship MMoE as CDC's base, 4
+    antipodal domain clusters, B=512, dropout 0.2, bf16 moments) through
+    its warmup, then update_matrix_cdc from that state in turns: LANES
+    lanes, serial, lanes; each update's seconds and peak memory printed;
+    finite matrices, the two lane updates bitwise equal, the trainer's
+    state bitwise unchanged by each lane update, and the kernels' launches
+    against the schedule (#1, #2 a valid step and a probe eval, #3 and
+    #6/#7's pass a valid step); then :func:`lanes_row_vs_cpu`.  (c)
+    phase 23 (b)'s configuration on MESH_SHAPE over gloo with the experts
+    split (:func:`lanes_rank`): one lane update against one device's lanes
+    from the mesh's state, matrices at EP_CDC_ATOL, the clustering held
+    unless it ties.  -> (launches of (b)'s lane update, summary)."""
+    t_phase = time.perf_counter()
+    summary = {"a_max_abs_err": lanes_update_checks(dev)}
+    summary["b"] = lanes_updates(tag)
+    summary["c"] = lanes_on_mesh(tag)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"lanes phase: {summary['phase_seconds']:.1f} s")
+    return summary["b"]["launches"], summary
+
+
+def lanes_updates(tag):
+    """Phase 24 (b) (see :func:`lanes_main_path`).  -> summary."""
+    from tpurec_torch.cdc import CDCTrainer
+
+    data = cdc_data()
+    tr = CDCTrainer(lanes_cdc_config(), FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
+    tr.setup_data(data.train, data.valid, data.test)
+    tr._run_steps("warmup", *tr._warmup_sched())
+    torch.cuda.synchronize()
+    counters = train_counters("mmoe")
+    runs = []
+    for lanes in (LANES, 0, LANES):
+        before, step0 = _cdc_state(tr)
+        runs.append(_lanes_update(tr, lanes, counters))
+        if lanes:
+            after, step1 = _cdc_state(tr)
+            moved = [k for k in before if not torch.equal(before[k],
+                                                          after[k])]
+            check(step1 == step0 and not moved and before.keys()
+                  == after.keys(), f"a lane update moved the trainer's "
+                  f"state: step {step0} -> {step1}, {moved[:5]}")
+            del after
+        del before
+    for lanes, r in zip((LANES, 0, LANES), runs):
+        n_steps, n_fwd = r["valid_steps"], r["valid_steps"] + r[
+            "probe_forwards"]
+        want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
+                "field_attention_bwd": n_steps, "fused_decay_adam": n_steps,
+                "fused_sparse_adam": n_steps}
+        what = f"{lanes} lanes" if lanes else "serial"
+        check(r["launches"] == want, f"(b) {what}: launches "
+              f"{r['launches']}, expected {want}")
+        check(all(np.all(np.isfinite(r[m])) for m in ("mask", "A", "B")),
+              f"(b) {what}: a matrix is not finite")
+    l1, ser, l2 = runs
+    check(all(np.array_equal(l1[m], l2[m]) for m in ("mask", "A", "B")),
+          "(b) the two lane updates differ")
+    gaps = {m: float(np.abs(l1[m] - ser[m]).max()) for m in ("mask", "A",
+                                                             "B")}
+    print(f"{tag} lanes (b) update_matrix_cdc of phase 17's configuration "
+          f"({LANES_CAUSAL} mask rows; {l1['valid_steps']} valid steps, "
+          f"{l1['probe_forwards']} probe evals), in turns (host clock, "
+          f"synchronized): " + ", ".join(
+              f"{'lanes' if n else 'serial'} {r['seconds']:.3f} s (peak "
+              f"{r['peak_gb']:.2f} GiB)" for n, r in zip((LANES, 0, LANES),
+                                                          runs))
+          + f"; the lane updates bitwise equal, the trainer's state bitwise "
+          f"unchanged by each; launches {l1['launches']} (= the schedule); "
+          f"lanes vs serial (the documented divergence: each row its own "
+          f"moments) max abs {gaps}; domain2group lanes {l1['d2g']}, serial "
+          f"{ser['d2g']}")
+    summary = {
+        "mask_rows": LANES_CAUSAL, "valid_steps": l1["valid_steps"],
+        "probe_forwards": l1["probe_forwards"],
+        "seconds": {"lanes_1": l1["seconds"], "serial": ser["seconds"],
+                    "lanes_2": l2["seconds"]},
+        "peak_gb": {"lanes_1": l1["peak_gb"], "serial": ser["peak_gb"],
+                    "lanes_2": l2["peak_gb"]},
+        "launches": l1["launches"], "lanes_vs_serial": gaps,
+        "domain2group": {"lanes": l1["d2g"], "serial": ser["d2g"]}}
+    blob, d2g = tr.snapshot_bytes(), list(tr.cluster.domain2group_list)
+    del tr, runs, l1, l2, ser
+    torch.cuda.empty_cache()
+    summary["row"] = lanes_row_vs_cpu(data, blob, d2g, tag)
+    return summary
+
+
+def lanes_on_mesh(tag):
+    """Phase 24 (c) (see :func:`lanes_main_path`).  -> summary."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from tpurec_torch.cdc import CDCTrainer
+
+    tmp = tempfile.mkdtemp(prefix="lanes_")
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    rcs, tails = _spawn_ranks(world, tmp, flag="--lanes-rank")
+    ranks_s = time.perf_counter() - t0
+    check(rcs == [0] * world, f"phase 24 ranks exited {rcs}:\n{tails}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"lanes_rank_{r}.json")) as f:
+            recs.append(json.load(f))
+    cfg = ep_cdc_config()
+    cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, parallel_rows=LANES))
+    ep_data = ep_cdc_data()
+    one = CDCTrainer(cfg, EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
+    one.setup_data(ep_data.train, ep_data.valid)
+    one._run_steps("warmup", *one._warmup_sched())
+    with open(os.path.join(tmp, "lanes_entry.msgpack"), "rb") as f:
+        one.restore_bytes(f.read())
+    ref = _lanes_update(one, LANES, train_counters("mmoe"))
+    r0 = recs[0]
+    for r in recs:
+        n_fwd = r["valid_steps"] + r["probe_forwards"]
+        want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
+                "field_attention_bwd": r["valid_steps"],
+                "fused_decay_adam": r["valid_steps"],
+                "fused_sparse_adam": r["valid_steps"]}
+        check(r["launches"] == want and r["d2g"] == r0["d2g"],
+              f"(c) rank {r['rank']}: launches {r['launches']} (expected "
+              f"{want}), clustering {r['d2g']} (rank 0's {r0['d2g']})")
+    errs = {m: float(np.abs(np.asarray(r0[m]) - ref[m]).max())
+            for m in ("mask", "A", "B")}
+    n_cluster = cfg.cdc.n_cluster
+    seed = r0["seeds"]
+    check(len(seed) == 1, f"(c) k-means seeds {seed}")
+    own, moved = clustering_tie(ref["mask"], n_cluster, seed[0], EP_CDC_ATOL)
+    tied = len(moved) > 1
+    print(f"{tag} lanes (c) update_matrix_cdc in {LANES} lanes on "
+          f"{MESH_SHAPE} over gloo with the experts split ({world} ranks in "
+          f"{ranks_s:.1f} s, start-up included; {r0['valid_steps']} valid "
+          f"lane-steps, {r0['seconds']:.3f} s) against one device's lanes "
+          f"from the mesh's state ({ref['seconds']:.3f} s): matrices max abs "
+          f"err {errs} (tol {EP_CDC_ATOL}); domain2group mesh {r0['d2g']}, "
+          f"one device {ref['d2g']}; moved by +-{EP_CDC_ATOL}: {moved} ("
+          + ("a tie: compared, not held" if tied else "held") + f"); "
+          f"launches a rank {r0['launches']}")
+    check(all(v <= EP_CDC_ATOL for v in errs.values()),
+          f"(c) matrices vs one device's lanes: {errs}")
+    check(own == tuple(ref["d2g"]), f"(c) reclustering gives {own}, one "
+          f"device's {ref['d2g']}")
+    check(tied or r0["d2g"] == ref["d2g"], f"(c) domain2group {r0['d2g']} "
+          f"vs one device's {ref['d2g']}")
+    del one, ep_data
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"matrix_abs_err": errs, "domain2group": r0["d2g"],
+            "one_device_domain2group": ref["d2g"],
+            "clustering_moved": {str(list(k)): n for k, n in moved.items()},
+            "launches": r0["launches"], "seconds": r0["seconds"],
+            "one_device_seconds": ref["seconds"], "ranks_seconds": ranks_s}
 
 
 def main() -> int:
@@ -6111,6 +6735,9 @@ def main() -> int:
     ep_launches, ep = ep_main_path(
         dev, tag, {b: r["valid_total_auc"] for b, r in cli["b_cdc"].items()})
 
+    # -- 24. CDC's row lanes ----------------------------------------------------
+    lanes_launches, lanes = lanes_main_path(dev, tag)
+
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
         "field_attention": "tpurec/ops/attention_pallas.py:310",
@@ -6247,6 +6874,7 @@ def main() -> int:
                               for run, n in mesh_launches.items()}
         k["launches_ep"] = {run: n.get(key)
                             for run, n in ep_launches.items()}
+        k["launches_lanes"] = lanes_launches.get(key)
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
@@ -6258,6 +6886,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"expert": ep}))
+    print(json.dumps({"lanes": lanes}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
@@ -6343,6 +6972,20 @@ def phase19_main(seed: int) -> int:
     return 0
 
 
+def phase24_main() -> int:
+    """Phase 24 alone, after the build."""
+    start = _phase_alone("phase 24")
+    if start is None:
+        return 1
+    dev, tag = start
+    t0 = time.perf_counter()
+    launches, summary = lanes_main_path(dev, tag)
+    print(json.dumps({"launches_lanes": launches}))
+    print(json.dumps({"lanes": summary}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def phase23_main() -> int:
     """Phase 23 alone, after the build.  Phase 21 does not run, so (c)
     prints its AUC uncompared."""
@@ -6363,7 +7006,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
-    ap.add_argument("--phase", type=int, choices=[19, 22, 23],
+    ap.add_argument("--phase", type=int, choices=[19, 22, 23, 24],
                     help="run this phase alone (after the build; 19: its "
                     "routed models)")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
@@ -6376,18 +7019,25 @@ if __name__ == "__main__":
     ap.add_argument("--ep-rank", metavar="DIR",
                     help="one rank of phase 23 (a)/(b), started by the "
                     "phase itself")
+    ap.add_argument("--lanes-rank", metavar="DIR",
+                    help="one rank of phase 24 (c), started by the phase "
+                    "itself")
     opts = ap.parse_args()
     try:
         if opts.mesh_rank:
             sys.exit(mesh_rank(opts.mesh_rank, opts.draws))
         if opts.ep_rank:
             sys.exit(ep_rank(opts.ep_rank))
+        if opts.lanes_rank:
+            sys.exit(lanes_rank(opts.lanes_rank))
         if opts.phase == 19:
             sys.exit(phase19_main(opts.seed))
         if opts.phase == 22:
             sys.exit(phase22_main(opts.draws))
         if opts.phase == 23:
             sys.exit(phase23_main())
+        if opts.phase == 24:
+            sys.exit(phase24_main())
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -6,12 +6,14 @@ torch.profiler over 20 back-to-back calls.  Prints one JSON line.
 
 It imports the ``tpurec_torch`` of the working directory, so running it
 from the roots of two checkouts in turns (parent, change, change, parent)
-compares two commits on one card:
+compares two commits on one card (kernel 3 gets the forward's output
+where the checkout's wrapper takes it):
 
     (cd ../parent && python3 ../repo/scripts/time_attn_bwd.py)
     python3 scripts/time_attn_bwd.py
 """
 
+import inspect
 import json
 import os
 import sys
@@ -43,12 +45,16 @@ def main():
         flat += [mk(A, 3 * A), mk(3 * A), mk(A, A), mk(A)]
     emb = mk(B, F, D)
     seed = torch.tensor(5, device=dev)
-    _, saved = att.field_attention_fwd(emb, flat, L, H, 0.2, seed, True)
+    y, saved = att.field_attention_fwd(emb, flat, L, H, 0.2, seed, True)
     dy = mk(B, F, A) * 5
     x = saved[1].contiguous()
+    # kernel 3 takes the forward's output y since the ReLU repair; a
+    # checkout from before it does not
+    stack_args = ((emb, dy, saved, y) if "y" in inspect.signature(
+        att.field_attention_bwd).parameters else (emb, dy, saved))
     calls = (
         ("field_attention_bwd", "field_attention_bwd_kernel",
-         lambda: att.field_attention_bwd(emb, dy, saved, flat, L, H, 0.2,
+         lambda: att.field_attention_bwd(*stack_args, flat, L, H, 0.2,
                                          seed)),
         ("attention_layer_bwd", "attention_layer_bwd_kernel",
          lambda: att.attention_layer_bwd(x, dy, *flat[8:12], H, 1)))

@@ -126,7 +126,7 @@ def test_wrappers_refuse_other_devices():
     dy = torch.zeros(2, F, A, device=dev)
     with pytest.raises(ValueError, match="cuda or cpu"):
         field_attention_bwd(emb, dy, torch.zeros(1, 2, F, A, device=dev),
-                            flat, 1, H)
+                            dy, flat, 1, H)
     with pytest.raises(ValueError, match="cuda or cpu"):
         attention_layer_bwd(dy, dy, *flat[4:8], H)
 

@@ -121,7 +121,7 @@ def test_plain_backward_regenerates_the_mask(rng, rate, res):
     y.backward(dy)
     with torch.no_grad():
         demb, grads = field_attention_bwd(
-            te.detach(), dy, torch.stack(saved), [
+            te.detach(), dy, torch.stack(saved), y.detach(), [
                 None if w is None else w.detach() for w in tw], L, H, rate,
             seed)
     torch.testing.assert_close(demb, te.grad, rtol=1e-5, atol=1e-6)

@@ -5,7 +5,8 @@ device.
 
 One spawn per world (tests/test_torch_mesh_worker.py's ``cdc`` task): 4
 ranks run one update_matrix_cdc on (2, 2), resident and "stream",
-without and with expert parallelism; 2 ranks run CDCTrainer.fit on
+without and with expert parallelism, and one in 4 row lanes
+(``cdc.parallel_rows``) without and with it; 2 ranks run CDCTrainer.fit on
 (2, 1) (two matrix updates), its exact eval and both checkpoints.
 
 Data: make_synthetic(3500 rows, 6 fields, 4 domains, 2 domain clusters)
@@ -119,6 +120,30 @@ def test_update_matrix_with_few_mask_rows_on_2x2(runs, one_update_few, ep):
         print(f"{key}: the clustering ties within {MATRIX_ATOL}: {moved}; "
               f"mesh {runs[f'{key}/d2g'].tolist()}, one device "
               f"{one['d2g'].tolist()}")
+
+
+@pytest.fixture(scope="module")
+def one_update_lanes(data):
+    torch.set_num_threads(1)
+    tr = mw.cdc_trainer(mw.cdc_config(lanes=mw.CDC_LANES), data)
+    tr.setup_data(data.train, data.valid)
+    tr.update_matrix_cdc(1)
+    return mw.cluster_of(tr)
+
+
+@pytest.mark.parametrize("ep", ["dp", "ep"])
+def test_lanes_on_2x2_match_one_devices_lanes(runs, one_update_lanes, ep):
+    """(2, 2), the update in row lanes (``parallel_rows`` 4; each lane's
+    step rows split over the data ranks, its table its copy of the
+    rank's shard): the matrix rows and the clustering of one device's
+    lanes."""
+    key = f"lanes_{ep}"
+    for m in ("mask", "A", "B"):
+        np.testing.assert_allclose(runs[f"{key}/{m}"], one_update_lanes[m],
+                                   rtol=0, atol=MATRIX_ATOL,
+                                   err_msg=f"{key} {m}")
+    np.testing.assert_array_equal(runs[f"{key}/d2g"],
+                                  one_update_lanes["d2g"])
 
 
 @pytest.fixture(scope="module")

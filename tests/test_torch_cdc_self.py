@@ -17,6 +17,7 @@ from tpurec_torch.cdc import CDCTrainer
 from tpurec_torch.cdc.algorithm import CDCClusterState, update_group
 from tpurec_torch.config import CDCConfig, Config, ModelConfig, TrainConfig
 from tpurec_torch.data import make_synthetic
+from tpurec_torch.train.sparse import SparseEmbedState
 from tpurec_torch.utils import read_matrix_xlsx
 
 MODEL = dict(model="cdc", embed_dim=8, mlp_dims=(32, 16), atten_embed_dim=8,
@@ -323,8 +324,16 @@ def test_unported_and_invalid_options_raise(data):
     # the mesh is ported: one that is not tpurec_torch.parallel's raises
     with pytest.raises(TypeError, match="tpurec_torch.parallel.Mesh"):
         CDCTrainer(_cfg(), *args, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CDCTrainer(_cfg(parallel_rows=4), *args, device="cpu")
+    # the row lanes are ported: parallel_rows=4 builds and populates
+    lanes = CDCTrainer(_cfg(parallel_rows=4), *args, device="cpu")
+    lanes.setup_data(data.train)
+    lanes._train_burst(0, 1)
+    bidx, bmask, bvalid = lanes._multi_burst_sched([0, 1], 1, 2)
+    eidx, emask = lanes._eval_sched()
+    rows = lanes._run_populate_async(bidx[None], bmask[None], bvalid[None],
+                                     eidx[None], emask[None])
+    assert rows.shape == (1, data.n_domain) and torch.isfinite(rows).all()
+    assert lanes._lanes.n == 4 and lanes.state.step == 1
     # bf16 compute is ported; a dtype that names nothing raises
     bf = CDCTrainer(_cfg(train={"compute_dtype": "bfloat16"}), *args,
                     device="cpu")
@@ -353,5 +362,12 @@ def test_unported_and_invalid_options_raise(data):
             CDCTrainer(_cfg(), *args)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             CDCTrainer(_cfg(), *args, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense.emb_upd.update_stacked()
+    # update_stacked runs: two lanes of the table, each one update
+    upd, table = dense.emb_upd, dense.model.embedding.table.detach()
+    flat = table.repeat(2, 1)
+    st = SparseEmbedState(m=torch.zeros_like(flat), v=torch.zeros_like(flat))
+    x = torch.zeros((2, 3, len(data.field_dims)), dtype=torch.int32)
+    g = torch.ones((2, 3 * len(data.field_dims), table.shape[1]))
+    sumsq = upd.update_stacked(flat, st, x, g, [1, 2], lanes=2)
+    assert torch.allclose(sumsq, (table * table).sum().expand(2))
+    assert not torch.equal(flat[:len(table)], table)

@@ -19,8 +19,7 @@
   two runs' AUCs are printed, not held); each checkpoint served by the
   other package's Predictor within 1e-5;
 - (``--model cdc``: tests/test_torch_cli_cdc.py);
-- what is not ported raises NotImplementedError naming ROADMAP.md
-  (``--parallel_rows 2``, a mesh of more than one device), and
+- ``--parallel_rows 2`` (CDC's row lanes) against tpurec's CLI, and
   ``--wandb`` without the package warns and trains.
 """
 
@@ -365,7 +364,7 @@ def test_checkpoint_serves_in_the_other_package(deepfm_runs, who):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported, and the wandb gate
+# CDC's row lanes, and the wandb gate
 # ---------------------------------------------------------------------------
 
 SMALL = ["--n_rows", "600", "--n_domain", "3", "--epoch", "1", "--bs",
@@ -376,12 +375,21 @@ SMALL = ["--n_rows", "600", "--n_domain", "3", "--epoch", "1", "--bs",
 @pytest.mark.parametrize("opts,what", [
     (["--model", "cdc", "--parallel_rows", "2"], "parallel_rows"),
 ])
-def test_not_ported_raises_naming_roadmap(opts, what):
-    """What is still not ported raises, naming ROADMAP.md: CDC's row
-    lanes."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        pcli.main(SMALL + opts)
-    assert what in str(e.value)
+def test_not_ported_raises_naming_roadmap(tmp_path, opts, what):
+    """What raised here before it was ported now trains as tpurec's CLI
+    does on the same argv: CDC's row lanes (``--parallel_rows 2``) at
+    tests/test_torch_cli_cdc.py's CDC case, held as that case holds it
+    (the clustering, AUC and LogLoss), with the option in both configs."""
+    from test_torch_cli_cdc import run_cdc_clis
+
+    assert pcli.build_config(pcli.parse_args(opts)).cdc.parallel_rows == 2
+    oj, op = run_cdc_clis(tmp_path, opts[2:])
+    assert op["domain2group_list"] == oj["domain2group_list"]
+    assert op["s_group2domain_list"] == oj["s_group2domain_list"]
+    for split in ("valid", "test"):
+        assert abs(op[split]["total_auc"] - oj[split]["total_auc"]) <= AUC_TOL
+        assert abs(op[split]["total_loss"]
+                   - oj[split]["total_loss"]) <= LOSS_TOL, what
 
 
 def test_one_device_mesh_trains(capsys):

@@ -37,7 +37,12 @@ def cdc_runs(tmp_path_factory):
     tests/test_torch_cdc_fit.py (CDC's probe rows differ across packages
     by up to 1.7e-4 at the default wd, which decides a clustering of
     domains without structure).  -> (tpurec's output, the port's)."""
-    tmp = tmp_path_factory.mktemp("cdc")
+    return run_cdc_clis(tmp_path_factory.mktemp("cdc"))
+
+
+def run_cdc_clis(tmp, extra=()):
+    """:func:`cdc_runs`'s two CLI runs in ``tmp``, ``extra`` appended to
+    the argv of both."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
@@ -52,7 +57,7 @@ def cdc_runs(tmp_path_factory):
         jtr.setup_data(train, valid, test)
         start = str(tmp / "start.pkl")
         jtr.save_checkpoint(start)
-        argv = CDC + ["--resume", start]
+        argv = CDC + list(extra) + ["--resume", start]
         oj = jcli.main(argv + ["--save_path", str(tmp / "j")])
         op = pcli.main(argv + ["--save_path", str(tmp / "p"),
                                "--device", "cpu"])

@@ -6,7 +6,8 @@ as ``tpurec/cli.py:317-335`` passes its mesh and
 ``Shardings(expert_parallel=...)`` to ``CDCTrainer``.
 
 Two runs, each one epoch of CDC with one matrix update at tiny widths:
-``cdc_2x1`` on the MMoE base with ``--mesh_data 2``, and ``cdc_ple_1x2``
+``cdc_2x1`` on the MMoE base with ``--mesh_data 2`` and the update in
+two row lanes (``--parallel_rows 2``), and ``cdc_ple_1x2``
 on the PLE base with ``--mesh_model 2 --mesh_expert_parallel`` (its
 specific and shared experts split one and two a rank).  Each exits 0,
 rank 0 alone prints the result and writes the checkpoint, and the
@@ -28,7 +29,8 @@ ARGV = ["--device", "cpu", "--model", "cdc", "--dataset_name", "synthetic",
         "--embed_dim", "4", "--n_cluster", "2", "--n_causal_mask", "4",
         "--warmup_step", "1", "--update_matrix_step", "1",
         "--update_interval", "100", "--seed", "1", "--is_set_seed", "1"]
-RUNS = {"cdc_2x1": ["--base_model", "mmoe", "--mesh_data", "2"],
+RUNS = {"cdc_2x1": ["--base_model", "mmoe", "--mesh_data", "2",
+                    "--parallel_rows", "2"],
         "cdc_ple_1x2": ["--base_model", "ple", "--mesh_model", "2",
                         "--mesh_expert_parallel"]}
 MESH = {"cdc_2x1": [2, 1], "cdc_ple_1x2": [1, 2]}

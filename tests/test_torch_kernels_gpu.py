@@ -143,11 +143,12 @@ def test_attention_backward_matches_autograd(cuda, B, res, rate):
     dy = torch.from_numpy(rng.normal(size=(B, 23, 64)).astype(
         np.float32)).to(cuda)
     saved = []
-    field_attention_reference(e, leaves, 3, 2, rate, seed,
-                              saved=saved).backward(dy)
+    y = field_attention_reference(e, leaves, 3, 2, rate, seed, saved=saved)
+    y.backward(dy)
     before = field_attention_bwd.launches
     demb, grads = field_attention_bwd(
-        emb, dy, torch.stack(saved).detach(), flat, 3, 2, rate, seed)
+        emb, dy, torch.stack(saved).detach(), y.detach(), flat, 3, 2, rate,
+        seed)
     torch.cuda.synchronize()
     assert field_attention_bwd.launches == before + 1
     assert (demb - e.grad).abs().max().item() <= 1e-4
@@ -523,8 +524,9 @@ def test_attention_backward_from_kernel_saved_inputs(cuda):
     seed = torch.tensor(23, device=cuda)
     dy = torch.from_numpy(rng.normal(size=(513, 23, 64)).astype(
         np.float32)).to(cuda)
-    _, saved = field_attention_fwd(emb, flat, 3, 2, 0.2, seed, save=True)
-    demb, grads = field_attention_bwd(emb, dy, saved, flat, 3, 2, 0.2, seed)
+    y, saved = field_attention_fwd(emb, flat, 3, 2, 0.2, seed, save=True)
+    demb, grads = field_attention_bwd(emb, dy, saved, y, flat, 3, 2, 0.2,
+                                      seed)
     leaves = [w.clone().requires_grad_(True) for w in flat]
     e = emb.clone().requires_grad_(True)
     field_attention_reference(e, leaves, 3, 2, 0.2, seed).backward(dy)
@@ -612,12 +614,13 @@ def _stack_bwd_vs_autograd(cuda, emb, flat, dy, rate, seed):
               for w in flat]
     e = emb.clone().requires_grad_(True)
     saved = []
-    field_attention_reference(e, leaves, 3, 2, rate, seed,
-                              saved=saved).backward(dy)
-    saved = torch.stack(saved).detach()
+    y = field_attention_reference(e, leaves, 3, 2, rate, seed, saved=saved)
+    y.backward(dy)
+    saved, y = torch.stack(saved).detach(), y.detach()
     before = field_attention_bwd.launches
-    demb, grads = field_attention_bwd(emb, dy, saved, flat, 3, 2, rate, seed)
-    demb2, grads2 = field_attention_bwd(emb, dy, saved, flat, 3, 2, rate,
+    demb, grads = field_attention_bwd(emb, dy, saved, y, flat, 3, 2, rate,
+                                      seed)
+    demb2, grads2 = field_attention_bwd(emb, dy, saved, y, flat, 3, 2, rate,
                                         seed)
     torch.cuda.synchronize()
     assert field_attention_bwd.launches == before + 2

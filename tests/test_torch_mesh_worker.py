@@ -679,6 +679,7 @@ CDC_CDC = dict(base_model="mmoe", n_cluster=2, n_causal_mask=8,
                cdc_tower_dims=(16,))
 CDC_WD = 1e-3           # the probe rows' check (see test_torch_cdc_mesh)
 CDC_FEW_MASK_ROWS = 4   # where the clustering of the 4 domains ties
+CDC_LANES = 4           # cdc.parallel_rows of the lanes' update
 
 
 def cdc_data():
@@ -688,14 +689,14 @@ def cdc_data():
 
 
 def cdc_config(placement="resident", mask_rows=CDC_CDC["n_causal_mask"],
-               **train):
+               lanes=0, **train):
     from tpurec_torch.config import CDCConfig, Config, ModelConfig, \
         TrainConfig
 
     kw = dict(bs=256, epoch=1, seed=0, wd=CDC_WD,
               checkpoint_backend="orbax")
     kw.update(train)
-    cdc = {**CDC_CDC, "n_causal_mask": mask_rows}
+    cdc = {**CDC_CDC, "n_causal_mask": mask_rows, "parallel_rows": lanes}
     return Config(model=ModelConfig(**CDC_MODEL),
                   cdc=CDCConfig(**cdc, data_placement=placement),
                   train=TrainConfig(**kw))
@@ -760,8 +761,9 @@ def clustering_tie(mask, n_cluster, seed, atol, draws=32):
 def task_cdc(out_dir):
     """4 ranks, (2, 2): one update_matrix_cdc resident and "stream",
     without and with expert parallelism (the matrices and the
-    clustering), and resident with CDC_FEW_MASK_ROWS (with the k-means
-    seed).  2 ranks, (2, 1): CDCTrainer.fit (two updates), the exact
+    clustering), resident with CDC_FEW_MASK_ROWS (with the k-means
+    seed), and resident in CDC_LANES row lanes, without and with expert
+    parallelism.  2 ranks, (2, 1): CDCTrainer.fit (two updates), the exact
     valid eval, and the pickle and async checkpoints.  Rank 0 writes
     ``cdc_<world>.npz``."""
     from tpurec_torch.parallel import make_mesh
@@ -789,6 +791,12 @@ def task_cdc(out_dir):
             key = f"few_{'ep' if ep else 'dp'}"
             res.update({f"{key}/{k}": v for k, v in cluster_of(tr).items()})
             res[f"{key}/seeds"] = np.asarray(seeds)
+        for ep in (False, True):
+            tr = cdc_trainer(cdc_config(lanes=CDC_LANES), data, mesh, ep)
+            tr.setup_data(data.train, data.valid)
+            tr.update_matrix_cdc(1)
+            key = f"lanes_{'ep' if ep else 'dp'}"
+            res.update({f"{key}/{k}": v for k, v in cluster_of(tr).items()})
     else:
         mesh = make_mesh(2, 1)
         tr = cdc_trainer(cdc_config(), data, mesh)

@@ -2,8 +2,10 @@
 against the JAX package's, on the same small inputs made with numpy from a
 seed: the helpers, the Amazon pipeline, the raw Ali-CCP conversion and
 ``AliCCPPreprocessor.main`` (in-memory and streaming, every sample_mode,
-both KBins strategies) give equal frames and byte-identical files; the
-numpy KBins copy gives scikit-learn 1.9.0's edges and bins bit for bit."""
+every KBins strategy) give equal frames and byte-identical files; the
+numpy KBins copy gives scikit-learn 1.9.0's edges and bins bit for bit
+(``"kmeans"``: up to 256 rows, or with scikit-learn on one OpenMP thread;
+on several, within the rounding of its threads' summation order)."""
 
 import json
 import warnings
@@ -12,6 +14,7 @@ import numpy as np
 import pandas as pd
 import pytest
 from sklearn.preprocessing import KBinsDiscretizer
+from threadpoolctl import threadpool_limits
 
 import tpurec.data.preprocess as J
 import tpurec_torch.data.preprocess as P
@@ -214,11 +217,17 @@ def _aliccp_main(mod, root, paths, mode, method, streaming, **kw):
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("method,streaming", [
-    ("uniform", False), ("quantile", False), ("uniform", True)])
+    ("uniform", False), ("quantile", False), ("uniform", True),
+    ("kmeans", False)])
 def test_aliccp_main_is_tpurecs(tmp_path, aliccp_splits, mode, method,
                                 streaming):
+    """Frames and files byte for byte.  ``"kmeans"``: scikit-learn on one
+    OpenMP thread, which sums its rows in row order as the port does; on
+    several it adds the threads' partial sums in the order they finish
+    (test_kbins_copy_is_sklearns holds the port to that within rounding)."""
     kw = {"chunksize": 1777} if streaming else {}
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), threadpool_limits(
+            1 if method == "kmeans" else None, "openmp"):
         warnings.simplefilter("ignore")      # scikit-learn's constant col
         want, jpre = _aliccp_main(J, tmp_path, aliccp_splits, mode, method,
                                   streaming, **kw)
@@ -307,14 +316,53 @@ def _check_same(col, strategy, subsample=None, others=()):
     return ours
 
 
-@pytest.mark.parametrize("strategy", ["uniform", "quantile"])
+def _check_close(col, others, rtol):
+    """The kmeans copy against scikit-learn on its default threads: the
+    edges within ``rtol`` of the column's range, and every row's bin equal
+    but for values within that distance of an edge."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sk = _sklearn("kmeans", None).fit(pd.DataFrame({"c": col}))
+    ours = P._KBinsDiscretizer(10, "kmeans").fit(col)
+    edges, atol = sk.bin_edges_[0], rtol * (float(col.max())
+                                             - float(col.min()))
+    assert ours.bin_edges_.shape == edges.shape
+    finite = np.isfinite(edges)
+    assert np.array_equal(ours.bin_edges_[~finite], edges[~finite])
+    np.testing.assert_allclose(ours.bin_edges_[finite], edges[finite],
+                               rtol=0, atol=atol)
+    for x in (col, *others):
+        want = sk.transform(pd.DataFrame({"c": x})).astype(int)[:, 0]
+        near = (np.abs(x.astype(np.float64)[:, None]
+                       - edges[finite][None, :]) <= atol).any(axis=1)
+        np.testing.assert_array_equal(ours.transform(x)[~near], want[~near])
+
+
+# scikit-learn on several threads adds the threads' partial sums in the
+# order they finish; a float32 column's k-means runs in float32, where
+# that order parts the edges by a few of its ulps (1.9e-7 of the range
+# measured at 3,000 rows), and a float64 one's by about 1e-15
+KMEANS_THREADS_RTOL = {np.dtype(np.float32): 2.0 ** -20}
+
+
+@pytest.mark.parametrize("strategy", ["uniform", "quantile", "kmeans"])
 @pytest.mark.parametrize("name", list(_columns()))
 def test_kbins_copy_is_sklearns(name, strategy):
+    """``"kmeans"``: bitwise up to 256 rows and on one OpenMP thread; on
+    scikit-learn's default threads, within rounding (:func:`_check_close`,
+    1e-9 of the range, float32 columns KMEANS_THREADS_RTOL)."""
     col = _columns()[name]
     # a split of another dtype, as reduce_mem may give val/test
     other = (col.astype(np.float64) if col.dtype != np.float64
              else col.astype(np.float32))
-    ours = _check_same(col, strategy, others=(other, other[::-1] * 1.5))
+    others = (other, other[::-1] * 1.5)
+    if strategy == "kmeans":
+        _check_same(col[:256], strategy, others=others)
+        _check_close(col, others, KMEANS_THREADS_RTOL.get(col.dtype, 1e-9))
+        with threadpool_limits(1, "openmp"):
+            ours = _check_same(col, strategy, others=others)
+    else:
+        ours = _check_same(col, strategy, others=others)
     if name.startswith("constant"):
         assert ours.n_bins_ == 1 and not ours.transform(col).any()
     if name == "float32" and strategy == "uniform":
@@ -362,5 +410,11 @@ def test_kbins_copy_refuses_what_sklearn_refuses():
             fn(pd.DataFrame({"c": np.zeros(0)}))
     with pytest.raises(ValueError, match="0 sample"):
         P._KBinsDiscretizer(10, "uniform").fit(np.zeros(0))
-    with pytest.raises(ValueError, match="not ported"):
-        P._KBinsDiscretizer(10, "kmeans")
+    few = np.arange(5.0)
+    for fn in (_sklearn("kmeans", None).fit, P._KBinsDiscretizer(
+            10, "kmeans").fit):
+        with pytest.raises(ValueError, match="n_samples=5 should be >= "
+                                             "n_clusters=10"):
+            fn(pd.DataFrame({"c": few}))
+    with pytest.raises(ValueError, match="strategy"):
+        P._KBinsDiscretizer(10, "kmedoids")

@@ -43,6 +43,7 @@ from tpurec_torch.models import build_model
 from tpurec_torch.train.hybrid import (init_train_state,
                                        make_hybrid_train_step)
 from tpurec_torch.train.reg import reg_coef_tree
+from tpurec_torch.train.sparse import SparseEmbedState
 
 FIELD_DIMS = (16, 64, 12, 8, 40)      # fields 1 and 4 big at threshold 20
 DOMAIN_IDX, N_TOWER, BS = 3, 2, 32
@@ -295,8 +296,16 @@ def test_unported_options_raise():
         make_hybrid_train_step(
             pm, dataclasses.replace(tcfg, compute_dtype="float16"), {},
             True, L2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_hybrid_train_step(pm, tcfg, {}, True, L2).upd.update_stacked()
+    # CDC's row lanes' update runs: two lanes of the table, one step each
+    upd = make_hybrid_train_step(pm, tcfg, {}, True, L2).upd
+    table = pm.embedding.table.detach()
+    flat = table.repeat(2, 1)
+    st = SparseEmbedState(m=torch.zeros_like(flat), v=torch.zeros_like(flat))
+    x = torch.zeros((2, 4, len(FIELD_DIMS)), dtype=torch.int32)
+    g = torch.ones((2, 4 * len(FIELD_DIMS), table.shape[1]))
+    sumsq = upd.update_stacked(flat, st, x, g, [1, 1], lanes=2)
+    assert torch.allclose(sumsq, (table * table).sum().expand(2))
+    assert torch.equal(flat[:len(table)], flat[len(table):])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_train_state(pm, tcfg)

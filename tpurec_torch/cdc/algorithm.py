@@ -224,7 +224,7 @@ def _kmeans_single_lloyd(X, centers, tol) -> tuple:
     """sklearn's _kmeans_single_lloyd: iterate until the labels repeat
     (strict convergence) or the centers' squared shift is within ``tol``;
     without strict convergence the labels are recomputed from the final
-    centers.  -> (labels, inertia)."""
+    centers.  -> (labels, inertia, centers)."""
     labels = np.full(X.shape[0], -1, dtype=np.int32)
     labels_old = labels.copy()
     strict = False
@@ -241,7 +241,7 @@ def _kmeans_single_lloyd(X, centers, tol) -> tuple:
     inertia = 0.0
     for d in _sq_dist_unrolled(X, centers[labels]):
         inertia += d
-    return labels, inertia
+    return labels, inertia, centers
 
 
 def _is_same_clustering(a: np.ndarray, b: np.ndarray, k: int) -> bool:
@@ -280,7 +280,7 @@ def kmeans_group(matrix_causal: np.ndarray, n_cluster: int, seed: Optional[int] 
     best_labels, best_inertia = None, None
     for _ in range(KMEANS_N_INIT):
         centers = _kmeans_plusplus(X, n_cluster, x_sq, rs)
-        labels, inertia = _kmeans_single_lloyd(X, centers, tol)
+        labels, inertia, _ = _kmeans_single_lloyd(X, centers, tol)
         if best_inertia is None or (
                 inertia < best_inertia
                 and not _is_same_clustering(labels, best_labels, n_cluster)):

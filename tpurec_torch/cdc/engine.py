@@ -67,9 +67,25 @@ each step's whole schedule, as the JAX package's GSPMD mesh does
 - snapshots for the rollback are each rank's own tensors; checkpoints
   gather the table and the banks, and rank 0 writes them.
 
-Not ported (raises NotImplementedError naming ROADMAP.md):
-``cdc.parallel_rows > 0`` (``populate_rows_parallel`` with
-``EmbeddingUpdater.update_stacked``).
+**Row lanes** (``cdc.parallel_rows = N > 0``, ``populate_rows_parallel``,
+``tpurec/cdc/engine.py:414-481``): the JAX package's documented divergence
+from the serial rows (``tpurec/config.py:170-183``).  A block's rows run in
+chunks of N lanes (:class:`RowLanes`); every lane of every chunk starts
+from the update-entry state with its own copy of the parameters, the BN
+buffers, the dense Adam state, the table, its moments and the step count,
+runs its row's treatment burst over the valid steps only, step-major (step
+s of every lane, then step s + 1), and scores its probe eval; the lanes'
+losses are discarded and the trainer's state leaves the update unchanged.
+A short last chunk leaves its spare lanes idle.  The lanes' tables and
+moments are one lane-flat [N*V, D] allocation each, stepped once a step by
+:meth:`tpurec_torch.train.hybrid.EmbeddingUpdater.update_stacked` over the
+lanes whose step is valid.  Dropout: at each chunk's start one call draws N
+int64 seeds from the trainer's ``dropout_gen`` (lane l takes the l-th)
+and reseeds lane l's own generator, from which the lane's steps draw as a
+serial step draws from ``dropout_gen`` (kernel 2's seed, then the MLP's
+masks, forward by forward): a row does not depend on the other lanes.  On
+a mesh each lane's step takes this data rank's columns and each lane's
+table is its copy of this rank's shard, as in the serial path.
 
 ``compute_dtype="bfloat16"`` reaches every forward, as in the JAX
 package's six scopes (``tpurec/cdc/engine.py:205,291,493,516,545,573``):
@@ -86,7 +102,9 @@ statistics only, give the same logits with or without it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import os
 import pickle
 import time
@@ -106,19 +124,23 @@ from tpurec_torch.models import CDC_BASE_MODELS, build_model
 from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.parallel.collectives import broadcast_
+from tpurec_torch.parallel.embedding import table_shard
 from tpurec_torch.parallel.mesh import Mesh, Shardings
 from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
                                            check_embed_layout_version,
                                            make_backend, msgpack_dumps,
                                            msgpack_restore)
-from tpurec_torch.train.hybrid import HybridTrainStep, init_train_state
+from tpurec_torch.train.hybrid import (TABLE, HybridTrainStep,
+                                       dense_named_parameters,
+                                       init_train_state)
 from tpurec_torch.train.loop import (DROPOUT_SEED_STRIDE, EarlyStopper,
-                                     _not_ported, check_same_state,
-                                     data_totals, gather_rows_global,
-                                     use_streaming_eval)
+                                     check_same_state, data_totals,
+                                     gather_rows_global, use_streaming_eval)
 from tpurec_torch.train.reg import reg_coef_tree
-from tpurec_torch.train.step import (HostHistAccumulator, bce_on_probs,
-                                     make_indexed_eval_scan,
+from tpurec_torch.train.sparse import SparseEmbedState
+from tpurec_torch.train.step import (HostHistAccumulator, TrainState,
+                                     bce_on_probs, make_indexed_eval_scan,
+                                     make_optimizer,
                                      make_streaming_eval_scan, select_tower)
 
 
@@ -148,6 +170,107 @@ def probe_auc(vals, ys, masks):
     score = (a > b).to(vals.dtype) + 0.5 * (a == b).to(vals.dtype)
     wins = (pos[:, :, None] * neg[:, None, :] * score).sum(dim=(1, 2))
     return wins / torch.clamp(pos.sum(dim=1) * neg.sum(dim=1), min=1.0)
+
+
+class RowLanes:
+    """N lane copies of a :class:`CDCTrainer`'s state for CDC's row lanes
+    (``cdc.parallel_rows = N``), built once for the trainer's life: N base
+    models (each its own parameters, BN buffers, kernel 1 gather and
+    hybrid step), N dense ``torch.optim.Adam``, and one lane-flat table
+    and pair of moments [N*V, D] whose block l is lane l's table (its
+    model's ``embedding.table`` is a view of it).  :meth:`start` copies
+    the trainer's state into the first lanes in place; :meth:`step` takes
+    one step of some lanes.  Tensors are matched by name
+    (``state_dict`` keys; the table is ``embedding.table``)."""
+
+    def __init__(self, tr: "CDCTrainer", n: int):
+        self.tr, self.n = tr, n
+        entry = tr.model.get_parameter(TABLE)
+        V, D = entry.shape
+        self.V = V
+        self.table = torch.empty((n * V, D), dtype=entry.dtype,
+                                 device=entry.device)
+        m = tr.state.emb_opt.m
+        self.emb_opt = SparseEmbedState(
+            m=torch.empty((n * V, D), dtype=m.dtype, device=m.device),
+            v=torch.empty((n * V, D), dtype=m.dtype, device=m.device))
+        tcfg = tr.cfg.train
+        self.models, self.states, self.train_steps = [], [], []
+        for l in range(n):
+            model = tr._new_base(tr.model.field_dims)
+            if tr.mesh is not None:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    tr.shardings.shard_model(model)
+            model.embedding.table = torch.nn.Parameter(
+                self.table[l * V:(l + 1) * V])
+            self.models.append(model)
+            self.states.append(TrainState(
+                model=model, optimizer=make_optimizer(
+                    [p for _, p in dense_named_parameters(model)], tcfg),
+                emb_opt=None))
+            self.train_steps.append(HybridTrainStep(
+                model, tcfg, tr.reg_coefs, multi_tower=True,
+                l2_reg_embedding=tr.cfg.model.l2_reg_embedding,
+                model_group=False))
+        self.gens = [torch.Generator(device=tr.device) for _ in range(n)]
+
+    @torch.no_grad()
+    def start(self, k: int):
+        """A chunk's start: lanes [0, k) take the trainer's state (copied
+        in place) and a dropout seed each from its ``dropout_gen``."""
+        tr = self.tr
+        seeds = torch.randint(2**62, (self.n,), generator=tr.dropout_gen,
+                              device=tr.device).tolist()
+        entry = tr.model.state_dict()
+        src_opt = tr.state.optimizer
+        src = dict(dense_named_parameters(tr.model))
+        V, D = self.V, self.table.shape[1]
+        for flat, t in ((self.table, entry[TABLE]),
+                        (self.emb_opt.m, tr.state.emb_opt.m),
+                        (self.emb_opt.v, tr.state.emb_opt.v)):
+            flat[:k * V].view(k, V, D).copy_(t.expand(k, V, D))
+        for l in range(k):
+            for name, t in self.models[l].state_dict().items():
+                if name != TABLE:
+                    t.copy_(entry[name])
+            opt = self.states[l].optimizer
+            for name, p in dense_named_parameters(self.models[l]):
+                _copy_adam_state(opt.state[p], src_opt.state.get(src[name],
+                                                                 {}))
+            self.states[l].step = tr.state.step
+            self.gens[l].manual_seed(seeds[l])
+
+    def step(self, lanes: List[int], batches: List[Dict]):
+        """One split-mode step of each lane of ``lanes`` (sorted) on its
+        batch: each lane's forward, backward and dense Adam, then one
+        :meth:`~tpurec_torch.train.hybrid.EmbeddingUpdater.update_stacked`
+        of their tables.  The losses are discarded."""
+        xs, gs = [], []
+        for l, batch in zip(lanes, batches):
+            ts = self.states[l]
+            _, _, g_rows = self.train_steps[l].loss_and_grads(
+                ts, batch, self.gens[l])
+            ts.optimizer.step()
+            xs.append(batch["x"])
+            gs.append(g_rows)
+        shard = table_shard(self.models[0])
+        self.tr.emb_upd.update_stacked(
+            self.table, self.emb_opt, torch.stack(xs), torch.stack(gs),
+            [self.states[l].step + 1 for l in lanes], lanes=self.n,
+            active=lanes, shard=shard)
+        for l in lanes:
+            self.states[l].step += 1
+
+
+def _copy_adam_state(dst: Dict, src: Dict):
+    """``torch.optim.Adam``'s per-parameter state ``src`` (tensors) into
+    ``dst``, in place where ``dst`` already holds the same entries."""
+    if dst.keys() != src.keys():
+        dst.clear()
+        dst.update({k: v.clone() for k, v in src.items()})
+        return
+    for k, v in src.items():
+        dst[k].copy_(v)
 
 
 class CDCTrainer:
@@ -182,10 +305,6 @@ class CDCTrainer:
         if mesh is not None and device is None:
             device = mesh.device
         assert cfg.cdc.base_model in CDC_BASE_MODELS, cfg.cdc.base_model
-        if cfg.cdc.parallel_rows > 0:
-            raise _not_ported(
-                "cdc.parallel_rows > 0 (populate_rows_parallel with "
-                "EmbeddingUpdater.update_stacked)", "'CDC row lanes'")
         # burst steps ALWAYS use the hybrid embedding update: it is
         # bit-equivalent to the reference's dense Adam (so 'dense' changes
         # nothing) and the lazy 'sparse' variant would alter the
@@ -208,7 +327,7 @@ class CDCTrainer:
         # expert_dims=mlp_dims and tower_dims=cdc_tower_dims into the base
         # (run.py:424-425); PLE keeps its own nested expert dims, as in
         # tpurec (the reference would feed it flat mlp_dims and crash)
-        base_cfg = dataclasses.replace(
+        self._base_cfg = dataclasses.replace(
             cfg.model,
             mmoe_expert_dims=cfg.model.mlp_dims,
             mmoe_tower_dims=cfg.cdc.cdc_tower_dims,
@@ -216,10 +335,7 @@ class CDCTrainer:
             tower_dims=cfg.cdc.cdc_tower_dims,
         )
         tcfg = cfg.train
-        self.model = build_model(
-            cfg.cdc.base_model, field_dims, self.n_cluster, domain_idx,
-            base_cfg, device=self.device,
-            generator=torch.Generator().manual_seed(tcfg.seed))
+        self.model = self._new_base(field_dims)
         if mesh is not None:
             # every width a step or a probe eval takes (bs, W =
             # group_chunk_size * bs, D * ebs) is a multiple of bs
@@ -251,6 +367,15 @@ class CDCTrainer:
         self._best_bytes = None
         self._snapshot = None
         self._d2g = None
+        self._lanes: Optional[RowLanes] = None
+
+    def _new_base(self, field_dims) -> torch.nn.Module:
+        """The base model, its weights drawn from a CPU generator seeded
+        ``cfg.train.seed``, on the trainer's device."""
+        return build_model(
+            self.cfg.cdc.base_model, field_dims, self.n_cluster,
+            self.domain_idx, self._base_cfg, device=self.device,
+            generator=torch.Generator().manual_seed(self.cfg.train.seed))
 
     # ------------------------------------------------------------------
     # snapshot / rollback (cdc.py:343-354): params + model buffers, NOT opt
@@ -359,6 +484,16 @@ class CDCTrainer:
         n = width // self.mesh.n_data
         return slice(self.mesh.d * n, (self.mesh.d + 1) * n)
 
+    def _batch(self, Xsrc, ysrc, idx, mask, d2g):
+        """One step's batch from its schedule row ``idx`` [W] and ``mask``
+        [W] (device): on a mesh, this data rank's columns."""
+        cols = self._cols(idx.shape[0])
+        idx = idx[cols]
+        x = Xsrc.index_select(0, idx)
+        return {"x": x, "y": ysrc.index_select(0, idx),
+                "group": take_rows(d2g, x[:, self.domain_idx]),
+                "mask": mask[cols]}
+
     def _steps(self, mode: str, Xsrc, ysrc, idxs, masks, valids=None
                ) -> List[torch.Tensor]:
         """One hybrid step per row of ``idxs`` [K, W] (device) whose
@@ -367,36 +502,33 @@ class CDCTrainer:
         takes this data rank's columns of its row."""
         head = _warmup_head if mode == "warmup" else None
         d2g = self.domain2group_dev
-        cols = self._cols(idxs.shape[1])
         losses = []
         for s in range(idxs.shape[0]):
             if valids is not None and not valids[s]:
                 continue
-            idx = idxs[s, cols]
-            x = Xsrc.index_select(0, idx)
-            batch = {"x": x, "y": ysrc.index_select(0, idx),
-                     "group": take_rows(d2g, x[:, self.domain_idx]),
-                     "mask": masks[s, cols]}
+            batch = self._batch(Xsrc, ysrc, idxs[s], masks[s], d2g)
             losses.append(self.train_step.one_step(
                 self.state, batch, self.dropout_gen, head))
         return losses
 
     @torch.no_grad()
-    def _eval_rows(self, Xsrc, ysrc, idx, mask) -> torch.Tensor:
+    def _eval_rows(self, Xsrc, ysrc, idx, mask, model=None) -> torch.Tensor:
         """[D, ebs] row indices (device) -> [D] probe metric from ONE
-        eval forward of D*ebs rows: the per-domain loss, or the exact
-        pairwise AUC for use_metric='auc' (cdc.py:113-119; run.py:550-558
-        evaluates the domains one by one).  On a mesh each data rank
-        scores its slice of the rows and the logits are gathered over the
-        data group, so every rank computes the same [D] row."""
+        eval forward of D*ebs rows of ``model`` (the trainer's unless
+        given): the per-domain loss, or the exact pairwise AUC for
+        use_metric='auc' (cdc.py:113-119; run.py:550-558 evaluates the
+        domains one by one).  On a mesh each data rank scores its slice
+        of the rows and the logits are gathered over the data group, so
+        every rank computes the same [D] row."""
+        model = self.model if model is None else model
         D, ebs = idx.shape
         flat = idx.reshape(-1)
         x = Xsrc.index_select(0, flat[self._cols(D * ebs)])
         ys = ysrc.index_select(0, flat).reshape(D, ebs)
         group = take_rows(self.domain2group_dev, x[:, self.domain_idx])
-        self.model.eval()
+        model.eval()
         with _precision_scope(self.cfg.train.compute_dtype):
-            out = self.model(x, group=group, train=False)
+            out = model(x, group=group, train=False)
         vals = gather_rows_global(select_tower(out, group)[None],
                                   self.mesh).reshape(D, ebs)
         if self.cfg.cdc.use_metric == "auc":
@@ -510,11 +642,16 @@ class CDCTrainer:
         Per row r: the treatment burst (bidx[r] [K, W], its valid steps
         only), the metric on every domain (eidx[r] [D, ebs]), then the
         rollback of the parameters and BN buffers to the block's entry
-        values, KEEPING the optimizers' moments and step counts."""
+        values, KEEPING the optimizers' moments and step counts.  With
+        ``cdc.parallel_rows > 0`` the rows run in lanes instead
+        (:meth:`_run_populate_lanes`, ``tpurec/cdc/engine.py:1028-1029``)."""
         if bidx.shape[0] == 0:
             return torch.zeros((0, self.n_domain), device=self.device)
         Xsrc, ysrc, bidx_d, eidx_d = self._feed(bidx, eidx)
         bmask_d, emask_d = self._dev(bmask), self._dev(emask)
+        if self.cfg.cdc.parallel_rows > 0:
+            return self._run_populate_lanes(Xsrc, ysrc, bidx_d, bmask_d,
+                                            bvalid, eidx_d, emask_d)
         entry = self._model_tensors()
         rows = []
         for r in range(bidx.shape[0]):
@@ -522,6 +659,34 @@ class CDCTrainer:
                         bvalid[r])
             rows.append(self._eval_rows(Xsrc, ysrc, eidx_d[r], emask_d[r]))
             self._load_model_tensors(entry)
+        return torch.stack(rows)
+
+    def _run_populate_lanes(self, Xsrc, ysrc, bidx, bmask, bvalid, eidx,
+                            emask) -> torch.Tensor:
+        """A block's rows in chunks of ``cdc.parallel_rows`` lanes
+        (``_run_populate_parallel``, ``tpurec/cdc/engine.py:1044-1078``)
+        -> [R, D] rows, on the device; the trainer's state is not
+        touched.  Schedules as :meth:`_run_populate_async`'s, on the
+        device but ``bvalid`` [R, K] (host)."""
+        n_lanes = self.cfg.cdc.parallel_rows
+        if self._lanes is None or self._lanes.n != n_lanes:
+            self._lanes = RowLanes(self, n_lanes)
+        lanes = self._lanes
+        d2g = self.domain2group_dev
+        R, K = bvalid.shape
+        rows = []
+        for lo in range(0, R, lanes.n):
+            n = min(lanes.n, R - lo)
+            lanes.start(n)
+            for s in range(K):
+                on = [l for l in range(n) if bvalid[lo + l, s]]
+                if on:
+                    lanes.step(on, [self._batch(Xsrc, ysrc, bidx[lo + l, s],
+                                                bmask[lo + l, s], d2g)
+                                    for l in on])
+            rows += [self._eval_rows(Xsrc, ysrc, eidx[lo + l], emask[lo + l],
+                                     model=lanes.models[l])
+                     for l in range(n)]
         return torch.stack(rows)
 
     def eval_all_domains(self, idx, mask) -> torch.Tensor:

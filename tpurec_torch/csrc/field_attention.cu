@@ -70,9 +70,8 @@
 // backwards.  A block of 512 threads stacks R batch rows (the wrapper
 // picks R: 2 at the flagship shapes) into M = R*F rows padded to 16, and
 // every projection of the backward is one 3xTF32 tensor-core product over
-// them: the recomputed x @ w_in, the last layer's o @ w_out and emb @
-// w_res (one product over the concatenated [o | emb]), dx @ w_out^T, dqkv
-// @ w_in^T, dx @ w_res^T, dx @ w_emb^T, and the weight gradients o^T @ dx,
+// them: the recomputed x @ w_in, dx @ w_out^T, dqkv @ w_in^T, dx @
+// w_res^T, dx @ w_emb^T, and the weight gradients o^T @ dx,
 // x^T @ dqkv, emb^T @ dx, whose reduction runs over the M stacked rows.
 // w_in and w_out of a layer are staged in shared memory by cp.async, the
 // next layer's once the current one's are read, so each weight crosses L2
@@ -101,6 +100,12 @@
 // group writes instead of adding, so nothing needs zeroing), 27.5 MB for
 // kernel 3 at most, inside the 50 MB L2.  reduce_partials_kernel then sums
 // the slices in a fixed order: deterministic, unlike float atomics.
+//
+// The stack's last ReLU takes its branch from the forward's output y =
+// relu(z) (kernel 2's, kept by the wrapper): dx = dy where y > 0.  A z
+// recomputed here could fall on the other side of 0 for an input within a
+// rounding of it, and the backward would then not be the gradient of the
+// forward that ran.  A NaN z gives y NaN or 0 and dx 0, as before.
 // Batch rows never mix outside those sums: rows past the last batch row
 // are zeros, and fields past F read as 0 and are not stored.
 
@@ -1290,10 +1295,10 @@ struct BwdRows {
 };
 
 // Kernel 3.  A persistent grid: block b takes the groups of R batch rows
-// b, b + gridDim.x, ...  Per group: the last layer recomputed from its
-// saved input, the ReLU's mask from the recomputed output (dx = dy where
-// it passed), then layer by layer backwards (each layer's internals
-// recomputed from its saved input), the residual's and the embedding
+// b, b + gridDim.x, ...  Per group: the ReLU's mask from the forward's
+// output y (dx = dy where y > 0), then layer by layer backwards (each
+// layer's internals recomputed from its saved input), the residual's and
+// the embedding
 // projection's gradients, and demb written per row.  The weight gradients
 // go into the block's slice of partial [grid, n_w].  kStage: w_in and
 // w_out staged in shared memory, else read from device memory.
@@ -1301,7 +1306,8 @@ template <bool kStage>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     field_attention_bwd_kernel(const float* __restrict__ emb,
                                const float* __restrict__ dy,
-                               const float* __restrict__ saved, Weights w,
+                               const float* __restrict__ saved,
+                               const float* __restrict__ y, Weights w,
                                int B, int R, int F, int D, int A, int H, int L,
                                float sqrt_hd, Dropout dp,
                                float* __restrict__ demb,
@@ -1330,32 +1336,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       __syncthreads();
       const float* w_in = kStage ? b.wa : w.w_in[l];
       const float* w_out = kStage ? b.wb : w.w_out[l];
-      b.recompute(w_in, lwi, w.b_in[l], l, sqrt_hd, dp);
       const bool last = l == L - 1;
       if (last) {
-        // z = o @ w_out + emb @ w_res + (b_out + b_res), one product over
-        // [o | emb]; dx = dy where z > 0, else 0 (torch.relu's backward)
-        const float* b_out = w.b_out[l];
-        mma_gemm<1, 2>(
-            b.M, A, A + (res ? D : 0),
-            [&](int m, int k) {
-              return k < A ? b.o[m * b.ldx + k] : b.e[m * b.lde + k - A];
-            },
-            [&](int k, int n) {
-              return k < A ? w_out[k * lwo + n]
-                           : __ldg(w.w_res + (k - A) * A + n);
-            },
-            [&](int m, int n, float v0, float v1) {
-              float z0 = v0 + __ldg(b_out + n), z1 = v1 + __ldg(b_out + n + 1);
-              if (res) {
-                z0 += __ldg(w.b_res + n);
-                z1 += __ldg(w.b_res + n + 1);
-              }
-              float* p = b.dx + m * b.ldx + n;
-              st2(p, z0 > 0.f ? p[0] : 0.f, z1 > 0.f ? p[1] : 0.f);
-            });
-        __syncthreads();
+        // dx = dy where the forward's y > 0, else 0 (torch.relu's
+        // backward on the branch the forward took); the recompute below
+        // touches no dx, and its barriers publish these writes
+        const float* yg = y + b.row0 * FA;
+        const int aq = A / 4;
+        for (int i = threadIdx.x; i < b.n_real * aq; i += blockDim.x) {
+          const int m = i / aq, c = (i - m * aq) * 4;
+          const float4 yv = __ldg(reinterpret_cast<const float4*>(
+              yg + static_cast<long long>(m) * A + c));
+          float* p = b.dx + m * b.ldx + c;
+          if (!(yv.x > 0.f)) p[0] = 0.f;
+          if (!(yv.y > 0.f)) p[1] = 0.f;
+          if (!(yv.z > 0.f)) p[2] = 0.f;
+          if (!(yv.w > 0.f)) p[3] = 0.f;
+        }
       }
+      b.recompute(w_in, lwi, w.b_in[l], l, sqrt_hd, dp);
       const int nl = l > 0 ? l - 1 : L - 1;
       const bool next = kStage && (l > 0 || more);
       b.layer(
@@ -1631,11 +1630,12 @@ extern "C" int tpurec_field_attention_fwd(
 
 // The backward: dy [B, F, A] -> demb [B, F, D] and the weight gradients,
 // flat in the weights' order, into wgrad [n_w].  saved [L, B, F, A] are
-// the forward's layer inputs; seed/thresh/keep/dropout as in the forward.
+// the forward's layer inputs and y [B, F, A] its output; seed/thresh/
+// keep/dropout as in the forward.
 // R batch rows go to a block (stage: weights staged in shared memory);
 // partial is [grid, n_w] scratch, grid <= the B / R groups of rows.
 extern "C" int tpurec_field_attention_bwd(
-    const float* emb, const float* dy, const float* saved,
+    const float* emb, const float* dy, const float* saved, const float* y,
     const float* const* weights, int B, int R, int stage, int F, int D,
     int A, int H, int L, const long long* seed, unsigned thresh, float keep,
     int dropout, int grid, float* demb, float* partial, float* wgrad,
@@ -1658,7 +1658,7 @@ extern "C" int tpurec_field_attention_bwd(
   const float sqrt_hd = sqrtf(static_cast<float>(A / H));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<grid, kFwdThreads, smem, s>>>(
-      emb, dy, saved, w, B, R, F, D, A, H, L, sqrt_hd,
+      emb, dy, saved, y, w, B, R, F, D, A, H, L, sqrt_hd,
       make_dropout(seed, thresh, keep, dropout), demb, partial, n_w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -67,6 +67,16 @@ class _KBinsDiscretizer:
     - a constant column gets the edges ``[-inf, inf]`` (one bin, all 0);
     - ``quantile``: ``np.percentile`` with ``"averaged_inverted_cdf"`` as
       float64, then every edge within 1e-8 of the one before is dropped;
+    - ``kmeans``: one-column ``KMeans(n_bins, init=<the uniform bins'
+      midpoints>, n_init=1)`` (Lloyd, ``max_iter`` 300, tolerance 1e-4 of
+      the column's variance, the column centred by its mean; the port's
+      k-means steps, :func:`tpurec_torch.cdc.algorithm.
+      _kmeans_single_lloyd`), in float32 for a float32 column and float64
+      otherwise; the sorted centres' midpoints between the column's min and
+      max are the edges, then every edge within 1e-8 of the one before is
+      dropped.  Up to 256 rows the sums are scikit-learn's; above, it sums
+      chunks of 256 rows on several threads, in an order no copy follows,
+      and the edges part by rounding;
     - above ``subsample`` rows the fit draws ``np.random.choice(n,
       subsample, replace=True)`` from numpy's global state, as
       scikit-learn's ``resample`` does with ``random_state=None``;
@@ -76,9 +86,9 @@ class _KBinsDiscretizer:
 
     def __init__(self, n_bins: int = 10, strategy: str = "uniform",
                  subsample: Optional[int] = None):
-        if strategy not in ("uniform", "quantile"):
-            raise ValueError(f"strategy {strategy!r} is not ported "
-                             "(uniform and quantile are)")
+        if strategy not in ("uniform", "quantile", "kmeans"):
+            raise ValueError(f"strategy must be 'uniform', 'quantile' or "
+                             f"'kmeans', got {strategy!r}")
         self.n_bins = n_bins
         self.strategy = strategy
         self.subsample = subsample
@@ -114,14 +124,41 @@ class _KBinsDiscretizer:
         elif self.strategy == "uniform":
             self.bin_edges_ = np.linspace(lo, hi, self.n_bins + 1)
         else:
-            edges = np.asarray(
-                np.percentile(x, np.linspace(0, 100, self.n_bins + 1),
-                              method="averaged_inverted_cdf"),
-                dtype=np.float64)
+            edges = (self._kmeans_edges(x, lo, hi)
+                     if self.strategy == "kmeans" else np.asarray(
+                         np.percentile(x, np.linspace(0, 100,
+                                                      self.n_bins + 1),
+                                       method="averaged_inverted_cdf"),
+                         dtype=np.float64))
             self.bin_edges_ = edges[
                 np.ediff1d(edges, to_begin=np.inf) > 1e-8]
         self.n_bins_ = len(self.bin_edges_) - 1
         return self
+
+    def _kmeans_edges(self, x, lo, hi) -> np.ndarray:
+        """scikit-learn's ``"kmeans"`` edges of the column ``x`` (min
+        ``lo``, max ``hi``) before narrow bins are dropped."""
+        from tpurec_torch.cdc.algorithm import (KMEANS_TOL,
+                                                _kmeans_single_lloyd)
+
+        k = self.n_bins
+        if len(x) < k:
+            raise ValueError(f"n_samples={len(x)} should be >= "
+                             f"n_clusters={k}.")
+        uniform = np.linspace(lo, hi, k + 1)
+        X = np.array(x[:, None], order="C", dtype=(
+            x.dtype if x.dtype in (np.float32, np.float64) else np.float64))
+        centers = np.array((uniform[1:] + uniform[:-1])[:, None] * 0.5,
+                           dtype=X.dtype)
+        tol = np.mean(np.var(X, axis=0)) * KMEANS_TOL
+        mean = X.mean(axis=0)
+        X -= mean
+        centers -= mean
+        centers = _kmeans_single_lloyd(X, centers, tol)[2]
+        centers += mean
+        centers = centers[:, 0]
+        centers.sort()
+        return np.r_[lo, (centers[1:] + centers[:-1]) * 0.5, hi]
 
     def transform(self, x) -> np.ndarray:
         """-> the int bin of each row, as ``transform(...).astype(int)``."""

@@ -74,8 +74,8 @@ _SIGNATURES = {
     "tpurec_field_attention_smem_bytes": (ctypes.c_longlong,
                                           [_I, _I, _I, _I, _I, _I]),
     "tpurec_field_attention_bwd": (_I, [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_uint,
-        ctypes.c_float, _I, _I, _P, _P, _P, _P]),
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        ctypes.c_uint, ctypes.c_float, _I, _I, _P, _P, _P, _P]),
     "tpurec_field_attention_bwd_smem_bytes": (ctypes.c_longlong,
                                               [_I, _I, _I, _I, _I, _I]),
     "tpurec_attention_layer_fwd": (_I, [
@@ -395,25 +395,27 @@ def field_attention_fwd(emb: torch.Tensor,
 
 
 def field_attention_bwd(emb: torch.Tensor, dy: torch.Tensor,
-                        saved: torch.Tensor,
+                        saved: torch.Tensor, y: torch.Tensor,
                         flat_w: Sequence[Optional[torch.Tensor]],
                         n_layers: int, n_heads: int, rate: float = 0.0,
                         seed: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
     """Kernel 3: dy [B, F, A] -> (demb [B, F, D], gradients of ``flat_w``),
     recomputing each layer from ``saved`` [L, B, F, A] (the training
-    forward's layer inputs) with the forward's dropout mask.  CPU tensors
-    run :func:`field_attention_bwd_reference`."""
+    forward's layer inputs) with the forward's dropout mask.  The last
+    ReLU passes dy where the forward's output ``y`` [B, F, A] is above 0:
+    the branch the forward took.  CPU tensors run
+    :func:`field_attention_bwd_reference`."""
     _check(emb, flat_w, n_layers, n_heads)
     _check_rate(rate, seed)
     B, F, D = emb.shape
     A = flat_w[0].shape[1]
-    if tuple(dy.shape) != (B, F, A) or tuple(saved.shape) != (
-            n_layers, B, F, A):
-        raise ValueError(f"dy must be [{B}, {F}, {A}] and saved "
+    if (tuple(dy.shape) != (B, F, A) or tuple(y.shape) != (B, F, A)
+            or tuple(saved.shape) != (n_layers, B, F, A)):
+        raise ValueError(f"dy and y must be [{B}, {F}, {A}] and saved "
                          f"[{n_layers}, {B}, {F}, {A}]")
     if emb.device.type == "cpu":
-        return field_attention_bwd_reference(emb, dy, saved, flat_w,
+        return field_attention_bwd_reference(emb, dy, saved, y, flat_w,
                                              n_layers, n_heads, rate, seed)
     if emb.device.type != "cuda":
         raise ValueError(f"field_attention runs on cuda or cpu, not "
@@ -422,7 +424,8 @@ def field_attention_bwd(emb: torch.Tensor, dy: torch.Tensor,
     R, stage, smem, grid = bwd_config(B, F, D, A, n_heads, _sm_count(dev))
     _check_kernel(emb, flat_w, n_layers, n_heads, smem)
     lib = _build.load("field_attention", _SIGNATURES)
-    emb, dy, saved = (_aligned(t.to(torch.float32)) for t in (emb, dy, saved))
+    emb, dy, saved, y = (_aligned(t.to(torch.float32))
+                         for t in (emb, dy, saved, y))
     shapes = [None if w is None else tuple(w.shape) for w in flat_w]
     n_w = sum(math.prod(s) for s in shapes if s is not None)
     demb = torch.empty((B, F, D), dtype=torch.float32, device=dev)
@@ -434,7 +437,7 @@ def field_attention_bwd(emb: torch.Tensor, dy: torch.Tensor,
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.tpurec_field_attention_bwd(
                 emb.data_ptr(), dy.data_ptr(), saved.data_ptr(),
-                _ptrs(flat_w), B, R, int(stage), F, D, A, n_heads, n_layers,
+                y.data_ptr(), _ptrs(flat_w), B, R, int(stage), F, D, A, n_heads, n_layers,
                 seed_ptr, keep_threshold(rate), 1.0 - rate, int(rate > 0.0),
                 grid, demb.data_ptr(), partial.data_ptr(), wgrad.data_ptr(),
                 stream)
@@ -458,25 +461,27 @@ field_attention_bwd.launches = 0
 
 
 class FieldAttentionFn(torch.autograd.Function):
-    """Kernel 2 in training mode forward, kernel 3 backward."""
+    """Kernel 2 in training mode forward, kernel 3 backward.  The output
+    is kept for the backward, which takes the last ReLU's branch from
+    it."""
 
     @staticmethod
     def forward(ctx, emb, seed, n_layers, n_heads, rate, *flat_w):
         y, saved = field_attention_fwd(emb, flat_w, n_layers, n_heads, rate,
                                        seed, save=True)
         ctx.meta = (n_layers, n_heads, rate, [w is None for w in flat_w])
-        ctx.save_for_backward(emb, seed, saved,
+        ctx.save_for_backward(emb, seed, saved, y,
                               *[w for w in flat_w if w is not None])
         return y
 
     @staticmethod
     def backward(ctx, dy):
         n_layers, n_heads, rate, missing = ctx.meta
-        emb, seed, saved, *ws = ctx.saved_tensors
+        emb, seed, saved, y, *ws = ctx.saved_tensors
         it = iter(ws)
         flat_w = [None if m else next(it) for m in missing]
-        demb, grads = field_attention_bwd(emb, dy, saved, flat_w, n_layers,
-                                          n_heads, rate, seed)
+        demb, grads = field_attention_bwd(emb, dy, saved, y, flat_w,
+                                          n_layers, n_heads, rate, seed)
         return (demb, None, None, None, None, *grads)
 
 
@@ -764,16 +769,16 @@ def field_attention_reference(emb, flat_w, n_layers: int, n_heads: int,
     return torch.relu(x)
 
 
-def field_attention_bwd_reference(emb, dy, saved, flat_w, n_layers: int,
+def field_attention_bwd_reference(emb, dy, saved, y, flat_w, n_layers: int,
                                   n_heads: int, rate: float = 0.0,
                                   seed=None):
     """Plain PyTorch version of kernel 3, in its steps
-    (``attention_pallas.py::_bwd_kernel``): the ReLU mask from the last
-    layer recomputed from its saved input, then layer by layer backwards,
-    each layer's internals recomputed from ``saved`` and its dropout mask
-    regenerated from the seed."""
+    (``attention_pallas.py::_bwd_kernel``): the ReLU mask from the
+    forward's output ``y`` (dy passes where y > 0), then layer by layer
+    backwards, each layer's internals recomputed from ``saved`` and its
+    dropout mask regenerated from the seed."""
     B, F, D = emb.shape
-    w_emb, b_emb, w_res, b_res = flat_w[:4]
+    w_emb, _, w_res, _ = flat_w[:4]
     A = w_emb.shape[1]
     H = n_heads
     hd = A // H
@@ -794,13 +799,8 @@ def field_attention_bwd_reference(emb, dy, saved, flat_w, n_layers: int,
             outs.append(torch.matmul(ad, v))
         return heads, torch.cat(outs, dim=-1)
 
-    _, o = internals(n_layers - 1)
-    w_out, b_out = flat_w[6 + 4 * (n_layers - 1): 8 + 4 * (n_layers - 1)]
-    z = torch.matmul(o, w_out) + b_out
     grads: List[Optional[torch.Tensor]] = [None] * len(flat_w)
-    if w_res is not None:
-        z = z + torch.matmul(emb, w_res) + b_res
-    dz = torch.where(z > 0, dy, torch.zeros_like(dy))
+    dz = torch.where(y > 0, dy, torch.zeros_like(dy))
     dz2 = dz.reshape(B * F, A)
     if w_res is not None:
         grads[2] = e2.T @ dz2

@@ -57,8 +57,8 @@ losses) and ``indexed=True`` (the device-resident dataset's loop:
 :meth:`HybridTrainStep.one_step` with a loss head of its own.
 The training forward runs inside the ``tcfg.compute_dtype`` scope
 (``hybrid.py:389``); its backward, outside the block, rounds at the casts
-the forward recorded.  ``update_stacked`` (CDC's row lanes) raises
-NotImplementedError; see ROADMAP.md.  The step reads no
+the forward recorded.  :meth:`EmbeddingUpdater.update_stacked` steps the
+lane-flat tables of CDC's row lanes.  The step reads no
 ``embedding_update``: the JAX package's maker does not either, and its
 CDC engine runs ``"dense"`` through it.
 
@@ -71,7 +71,7 @@ before the table's L2 term, as the JAX step does.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -215,10 +215,57 @@ class EmbeddingUpdater:
             all_reduce_(sumsq, shard.mesh.model_group)
         return sumsq
 
-    def update_stacked(self, *args, **kwargs):
-        raise NotImplementedError(
-            "update_stacked (the CDC engine's lanes, cdc.parallel_rows > 0) "
-            "is not ported yet: see ROADMAP.md, queue 1, 'CDC row lanes'")
+    @torch.no_grad()
+    def update_stacked(self, table: torch.Tensor, emb_opt: SparseEmbedState,
+                       x: torch.Tensor, g_rows: torch.Tensor, step, *,
+                       lanes: int, active: Optional[Sequence[int]] = None,
+                       shard=None) -> torch.Tensor:
+        """``lanes`` independent lanes of :meth:`update` on lane-flat
+        operands, in place (``hybrid.py:265-356``): ``table`` and
+        ``emb_opt``'s moments are [N*V, D] and lane l owns rows
+        [l*V, (l+1)*V); ``x`` is [n, B, F], ``g_rows`` [n, B*F, D] and
+        ``step`` [n] (1-based), one entry for each lane of ``active``
+        (sorted lane indices; all N lanes when None).  A lane not in
+        ``active`` is left as it was: the JAX package computes its step
+        and discards it.  -> sumsq [n], each lane's sum(table**2) before
+        the step.
+
+        Each lane's rows are one contiguous [V, D] view, and its step is
+        :meth:`update` on that view (kernel 7's pass carrying kernel 6's
+        rows, one launch a lane): per-lane bias corrections, the small-
+        field prefix [l*V, l*V + S), big-field duplicates summed in batch
+        order, and ids outside [0, V) touching nothing, never the next
+        lane's block.  The views keep the sweep's 16-byte alignment only
+        when V*D is a multiple of 8.  With a ``shard`` each lane's view
+        is its block of the shard's rows, ``x``/``g_rows`` are this data
+        rank's, exchanged lane by lane, and each sumsq is the whole
+        lane's table's."""
+        NV, D = table.shape
+        V = NV // lanes
+        if lanes < 1 or V * lanes != NV:
+            raise ValueError(f"a lane-flat table of {NV} rows does not "
+                             f"split into {lanes} lanes")
+        if (V * D) % 8:
+            raise ValueError(f"each lane's [{V}, {D}] block must start "
+                             f"16-byte aligned for the sweep: V*D = {V * D} "
+                             f"is not a multiple of 8")
+        ids = list(range(lanes)) if active is None else [int(l) for l in
+                                                         active]
+        if ids != sorted(set(ids)) or not all(0 <= l < lanes for l in ids):
+            raise ValueError(f"active must list distinct lanes of "
+                             f"[0, {lanes}) in order, got {ids}")
+        if not (x.shape[0] == g_rows.shape[0] == len(step) == len(ids)):
+            raise ValueError(f"x, g_rows and step need one entry per "
+                             f"active lane ({len(ids)}), got "
+                             f"{x.shape[0]}, {g_rows.shape[0]}, {len(step)}")
+        sumsq = []
+        for i, l in enumerate(ids):
+            rows = slice(l * V, (l + 1) * V)
+            sumsq.append(self.update(
+                table[rows], SparseEmbedState(m=emb_opt.m[rows],
+                                              v=emb_opt.v[rows]),
+                x[i], g_rows[i], int(step[i]), shard))
+        return torch.stack(sumsq)
 
 
 def dense_named_parameters(model: torch.nn.Module):

@@ -113,12 +113,6 @@ def _jsonable(obj):
     return obj
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpurec_torch yet: see ROADMAP.md, queue 1, "
-        f"{item}")
-
-
 def use_streaming_eval(cfg, mesh) -> bool:
     """eval_streaming=None means auto: histogram (no-host-gather) eval
     whenever running on a mesh.  Single rule shared by the trainers."""
