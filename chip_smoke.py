@@ -4,6 +4,7 @@ model it ports, in float32 and in bf16 compute, and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --phase 22 --draws 3   # the mesh alone
+    python3 chip_smoke.py --phase 25 --rows 52000000   # CDC, split streamed
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -135,10 +136,13 @@ Phases (any failure exits non-zero and prints no result line):
     rows/s and a chunk profile at B = 512 and 4096; its hybrid step as
     phase 8 drives MMoE's (#1, #2, #3 and #6's pass once a step), a step
     profile, and 3 steps against the CPU's plain path; (b) phase 17's
-    CDCTrainer.fit on PLE at CDCConfig()'s defaults (4 clusters), with
+    CDCTrainer.fit on PLE at CDCConfig()'s defaults (4 clusters) but 4
+    causal-mask rows (phase 25 (b) runs the 50 at scale), with
     phase 17's checks but the treatment profile; (c) STAR as CDC's base
     (called without the group): one populate row at W = 3,584 with its
-    25,600-row eval against the CPU.
+    25,600-row eval against the CPU; (d) PEPNet-single and EPNet-single,
+    which CDC takes as no base: (c)'s burst and eval through their own
+    hybrid step, against the CPU on the card's branches.
     A kernel of a path that a profile does not see fails its phase.
 19. the group-routed models and bf16 compute: (a) HiNet, ADL, ADL-split
     and AdaSparse at their ModelConfig defaults on the flagship schema,
@@ -215,10 +219,8 @@ Phases (any failure exits non-zero and prints no result line):
     against the one-device fit whole and from the mesh's state at each
     populate block's entry (the matrices within 5e-5 and the same
     clustering unless it ties within 5e-5), each also with its rows in
-    another order (the parting of a summation order) and with its batch
-    sums made in the data ranks' row blocks (``mesh_split_sums``: the
-    BatchNorm statistics and the dense gradients, two 256-row partial
-    sums then their sum), the loss parting by step and the AUCs printed,
+    another order (the parting of a summation order), the loss parting by
+    step and the AUCs printed,
     the async checkpoint restored onto one device within 1e-6;
     (c) the CLI's CDC on PLE on 2 ranks with ``--mesh_expert_parallel``.
 24. CDC's row lanes (``cdc.parallel_rows``): (a)
@@ -228,9 +230,9 @@ Phases (any failure exits non-zero and prints no result line):
     plain-version updates on the CPU (phase 7's limits), bitwise
     repeatable, a lane left out keeping its block; (b) phase 17's
     configuration through its warmup, then update_matrix_cdc in 4 lanes,
-    serially, in 4 lanes again, from one state: each update's seconds
-    and peak memory printed, the two lane updates bitwise equal, the
-    trainer's state bitwise unchanged by each, #1, #2, #3 and #6/7's pass
+    then serially, from one state: each update's seconds and peak memory
+    printed, the trainer's state bitwise unchanged by the lanes (phase 25
+    (a) holds the lane updates bitwise repeatable), #1, #2, #3 and #6/7's pass
     counted against the schedule; one lane row against the CPU's plain
     path and, on the card, against the serial row 0 (1e-6, bitwise
     expected); (c) phase 23 (b)'s configuration on (2, 2) over gloo with
@@ -238,6 +240,30 @@ Phases (any failure exits non-zero and prints no result line):
     update against one device's lanes from the mesh's state (matrices
     within 5e-5, the clustering unless it ties).  ``--phase 24`` runs
     this phase alone.
+25. CDC as its users run it, on CDCConfig()'s default base PLE: (a)
+    phase 23 (b)'s data (32,768 rows, 6 domains) through five
+    CDCTrainer.fit runs from one state at CDCConfig()'s defaults but 4
+    mask rows, warmup_step 10 and update_interval 10 (an update before
+    steps 0, 19 and 39): "resident" and "stream", each serially and in 4
+    row lanes, and "stream" in lanes in bf16; "stream" bitwise
+    "resident" (every loss, each update's matrices and clustering, the
+    final state), #1, #2, #3 and #6/7's pass against the schedule update
+    by update, at updates 2 and 3 a serial mask row and a lane B row
+    against the CPU's plain path on the card's branches, bf16 finite;
+    each update's seconds, its host window's seconds and peak memory.
+    (b) ``--phase 25 [--rows N]`` alone: 52,000,000 synthetic rows at
+    the flagship schema, a 4.49 GB train split that "auto" must
+    stream; the warmup, the update before step 0, steps 0-1998, the
+    update before step 1999 serially and in 4 lanes from one state, then
+    in turns 1,024 steps with the split moved onto the card and 1,024 with
+    it back in host memory: seconds, the host
+    window's share, host and device peak memory, launches against the
+    schedule, the valid AUC, one populate row against the CPU.
+    ``--phase 23`` also runs phase 23 (b)'s two witnesses: the one-device
+    fits with the batch sums made in the data ranks' row blocks
+    (``mesh_split_sums``: the BatchNorm statistics and the dense
+    gradients, two 256-row partial sums then their sum), and the fit on
+    (2, 2) with the experts whole, each from each block's state.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -1092,6 +1118,14 @@ def table_counters():
 
     return {"fused_decay_adam": fused_decay_adam,
             "fused_sparse_adam": fused_sparse_adam}
+
+
+def schedule_launches(steps, forwards):
+    """The launches a hybrid training path makes: #1 and #2 a step and a
+    forward (an eval, a probe eval), #3 and #6/7's pass a step."""
+    return {"embedding_gather": forwards, "field_attention_train": forwards,
+            "field_attention_bwd": steps, "fused_decay_adam": steps,
+            "fused_sparse_adam": steps}
 
 
 def train_state(model, tcfg, device, update="hybrid"):
@@ -2803,10 +2837,7 @@ def harness_main_path(dev, tag):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    want = {"embedding_gather": n_steps + n_eval,
-            "field_attention_train": n_steps + n_eval,
-            "field_attention_bwd": n_steps, "fused_decay_adam": n_steps,
-            "fused_sparse_adam": n_steps}
+    want = schedule_launches(n_steps, n_steps + n_eval)
     print(f"harness main path: Trainer.fit, 1 epoch of {n_steps} indexed "
           f"steps + {n_eval} eval batches (valid, test), launches "
           f"{launches}")
@@ -3146,74 +3177,131 @@ def _check_rollback(tr, sched, record):
     tr.update_matrix_cdc = update
 
 
-def cdc_row_vs_cpu(data, blob, d2g, tag, base="mmoe"):
-    """Check 3 of phase 17: one mask row (CDC_TREAT domains, one pass, so
-    2 treatment steps at W = 3,584 with masked rows) and its all-domain
-    probe eval (D * 512 = 25,600 rows), from the fitted state with dropout
-    0, on the card and on the CPU's plain path; the [D] row within
-    CDC_ROW_TOL of max(1, |x|), the table after the burst as phase 9
-    compares it.  The table's moments are held in float32 here (the
-    fitted bfloat16 ones convert exactly): from a trained state a float32
-    moment one rounding apart lands in another bfloat16 value on either
-    side, and the second step then differs by about 0.4% of its size (5.6e-6
-    on 68 of 26M entries on an H100); phases 7 and 9 hold the bfloat16
-    moments.  ``base``: CDC's base model (phase 18)."""
-    from tpurec_torch.cdc import CDCTrainer
+def populate_row_vs_cpu(cfg, X, y, dims, n_domain, blob, d2g, row, lanes,
+                        tag, what):
+    """One populate row of CDC at ``cfg``, from the card's state ``blob``
+    (at its update's entry) with the clustering ``d2g``: ``row`` =
+    (bidx [K, W], bmask [K, W], bvalid [K], eidx [D, ebs], emask [D,
+    ebs]), schedules into the host split ``X``, ``y``, gathered into one
+    window as the "stream" placement's ``_feed`` does.  Its treatment
+    burst and probe eval run on the card and on the CPU's plain path,
+    serially (``lanes`` 0) or as lane 0 of ``lanes``, the CPU on the
+    card's branches (:class:`relu_branches`), #1, #2, #3 and #6/7's pass
+    counted on the card: the [D] row within CDC_ROW_TOL of max(1, |x|),
+    the steps' losses (serial) within CPU_LOSS_RTOL, the table after the
+    burst (the lane's under lanes) within 2 lr and CPU_TABLE_SHARE of it
+    beyond 1e-6.  ``cfg`` takes dropout 0, wd CDC_CHECK_WD and float32
+    moments (see :func:`cdc_row_vs_cpu`).  -> summary."""
+    import dataclasses
 
-    cfg = cdc_config(dropout=0.0, wd=CDC_CHECK_WD, base=base,
-                     embedding_moments_dtype="float32")
-    what = "cdc" if base == "mmoe" else f"cdc {base}"
-    out = {}
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.cdc.algorithm import CDCClusterState
+
+    cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, parallel_rows=lanes))
+    bidx, bmask, bvalid, eidx, emask = row
+    flat = np.concatenate([bidx.ravel(), eidx.ravel()]).astype(np.int64)
+    Xw, yw = np.ascontiguousarray(X[flat]), np.ascontiguousarray(y[flat])
+    pos = np.arange(flat.size, dtype=np.int32)
+    bpos = pos[:bidx.size].reshape(bidx.shape)
+    epos = pos[bidx.size:].reshape(eidx.shape)
+    masks, out = [], {}
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        t = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, device=where)
+        t = CDCTrainer(cfg, dims, n_domain, DOMAIN_IDX, device=where)
         t.restore_bytes(blob)
-        t.setup_data(data.train)
+        t.cluster = CDCClusterState.create(n_domain, cfg.cdc.n_cluster,
+                                           cfg.cdc)
         t.cluster.domain2group = np.asarray(d2g, np.int64)
-        bidx, bmask, bvalid = t._multi_burst_sched(
-            list(range(CDC_TREAT)), 1, 2)
-        eidx, emask = t._eval_sched()
-        Xsrc, ysrc, bi, ei = t._feed(bidx, eidx)
-        losses = t._steps("split", Xsrc, ysrc, bi, t._dev(bmask), bvalid)
-        table = t.model.embedding.table.detach().cpu().clone()
-        row = t._eval_rows(Xsrc, ysrc, ei, t._dev(emask)).cpu().double()
-        out[where] = dict(losses=[float(v) for v in losses], table=table,
-                          row=row, bidx=bidx, eidx=eidx,
-                          masked=int((bmask[bvalid > 0] == 0).sum()))
-        print(f"{what} populate row on {where}: {len(losses)} steps of "
-              f"{bidx.shape[1]} rows ({out[where]['masked']} masked), losses "
-              f"{out[where]['losses']}, probe eval of {eidx.size} rows "
+        dev = t.device
+        Xs, ys = (torch.from_numpy(Xw).to(dev), torch.from_numpy(yw).to(dev))
+        bi, ei = torch.from_numpy(bpos).to(dev), torch.from_numpy(epos).to(dev)
+        bm = torch.from_numpy(bmask).to(dev)
+        em = torch.from_numpy(emask).to(dev)
+        counters = train_counters(cfg.cdc.base_model)
+        for fn in counters.values():
+            fn.launches = 0
+        with relu_branches(masks, record=where == "cuda") as branches:
+            if lanes:
+                r = t._run_populate_lanes(Xs, ys, bi[None], bm[None],
+                                          bvalid[None], ei[None], em[None])[0]
+                losses = []
+                table = t._lanes.table[:t._lanes.V]
+            else:
+                losses = [float(v) for v in t._steps("split", Xs, ys, bi, bm,
+                                                      bvalid)]
+                r = t._eval_rows(Xs, ys, ei, em)
+                table = t.model.embedding.table
+            r = r.cpu().double()
+        out[where] = {"row": r, "losses": losses,
+                      "table": table.detach().cpu().clone(),
+                      "launches": {k: fn.launches
+                                   for k, fn in counters.items()}}
+        print(f"{what} on {where}: {int((bvalid > 0).sum())} steps of "
+              f"{bidx.shape[1]} rows, probe eval of {eidx.size} rows "
               f"({time.perf_counter() - t0:.1f} s)")
-        del t, Xsrc, ysrc, bi, ei
+        del t, Xs, ys, bi, ei, table
         torch.cuda.empty_cache()
     g, c = out["cuda"], out["cpu"]
-    check(np.array_equal(g["bidx"], c["bidx"])
-          and np.array_equal(g["eidx"], c["eidx"]),
-          "the card's and the CPU's schedules differ")
-    check(len(g["losses"]) == 2 and g["bidx"].shape[1] == 7 * 512,
-          f"the checked row ran {len(g['losses'])} steps of "
-          f"{g['bidx'].shape[1]} rows")
+    n = int((bvalid > 0).sum())
+    check(branches.used == len(masks) > 0, f"{what}: the CPU replayed "
+          f"{branches.used} of the card's {len(masks)} ReLU calls")
+    check(g["launches"] == schedule_launches(n, n + 1),
+          f"{what}: launches {g['launches']} for {n} steps and a probe eval")
     row_err = ((g["row"] - c["row"]).abs()
                / torch.clamp(c["row"].abs(), min=1.0)).max().item()
     diff = (g["table"] - c["table"]).abs()
     share = (diff > 1e-6).float().mean().item()
-    loss_rel = max(abs(a / b - 1) for a, b in zip(g["losses"], c["losses"]))
-    print(f"{tag} {what} populate row, card vs CPU plain path (dropout 0, wd "
-          f"{CDC_CHECK_WD}, float32 moments): [D] probe row max err {row_err:.3g} of max(1, "
-          f"|x|) (tol {CDC_ROW_TOL}); step loss max rel err {loss_rel:.3g}; "
-          f"table after the burst max abs err {diff.max().item():.3g} (tol "
-          f"2 lr), share beyond 1e-6 {share:.3g} (tol {CPU_TABLE_SHARE})")
-    check(row_err <= CDC_ROW_TOL, f"{what} populate row: max err {row_err}")
-    check(loss_rel <= CPU_LOSS_RTOL, f"{what} populate row: loss rel err "
-          f"{loss_rel}")
+    loss_rel = max((abs(a / b - 1) for a, b in zip(g["losses"],
+                                                   c["losses"])), default=0.0)
+    print(f"{tag} {what}, card vs CPU plain path on the card's branches "
+          f"(dropout 0, wd {CDC_CHECK_WD}, float32 moments; "
+          f"{branches.flips} inputs on the other branch on the CPU): [D] "
+          f"probe row max err {row_err:.3g} of max(1, |x|) (tol "
+          f"{CDC_ROW_TOL}); step loss max rel err {loss_rel:.3g}; table "
+          f"after the burst max abs err {diff.max().item():.3g} (tol 2 lr), "
+          f"share beyond 1e-6 {share:.3g} (tol {CPU_TABLE_SHARE})")
+    check(row_err <= CDC_ROW_TOL, f"{what}: row max err {row_err}")
+    check(loss_rel <= CPU_LOSS_RTOL, f"{what}: loss rel err {loss_rel}")
     check(diff.max().item() <= 2 * cfg.train.lr + 1e-6
-          and share <= CPU_TABLE_SHARE,
-          f"{what} populate row: table max abs err {diff.max().item()}, share "
-          f"beyond 1e-6 {share}")
+          and share <= CPU_TABLE_SHARE, f"{what}: table max abs err "
+          f"{diff.max().item()}, share beyond 1e-6 {share}")
     return {"row_err": row_err, "loss_rel_err": loss_rel,
             "table_max_abs_err": diff.max().item(),
-            "table_share_beyond_1e-6": share,
-            "masked_rows": g["masked"]}
+            "table_share_beyond_1e-6": share, "steps": n,
+            "flips": branches.flips}
+
+
+def cdc_row_vs_cpu(data, blob, d2g, tag, base="mmoe"):
+    """Check 3 of phase 17: one mask row (CDC_TREAT domains, one pass, so
+    2 treatment steps at W = 3,584 with masked rows) and its all-domain
+    probe eval (D * 512 = 25,600 rows), scheduled as a fresh trainer on
+    ``data`` schedules it, from the fitted state ``blob`` with dropout 0,
+    on the card and on the CPU's plain path (:func:`populate_row_vs_cpu`).
+    The table's moments are held in float32 here (the fitted bfloat16
+    ones convert exactly): from a trained state a float32 moment one
+    rounding apart lands in another bfloat16 value on either side, and
+    the second step then differs by about 0.4% of its size (5.6e-6 on 68
+    of 26M entries on an H100); phases 7 and 9 hold the bfloat16 moments.
+    ``base``: CDC's base model (phase 18)."""
+    from tpurec_torch.cdc import CDCTrainer
+
+    cfg = cdc_config(dropout=0.0, wd=CDC_CHECK_WD, base=base,
+                     embedding_moments_dtype="float32")
+    t = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, device="cpu")
+    t.setup_data(data.train)
+    bidx, bmask, bvalid = t._multi_burst_sched(list(range(CDC_TREAT)), 1, 2)
+    eidx, emask = t._eval_sched()
+    del t
+    check(int(bvalid.sum()) == 2 and bidx.shape[1] == 7 * 512,
+          f"the checked row runs {int(bvalid.sum())} steps of "
+          f"{bidx.shape[1]} rows")
+    X, y = data.train
+    what = "cdc" if base == "mmoe" else f"cdc {base}"
+    out = populate_row_vs_cpu(
+        cfg, X, y, FIELD_DIMS, N_DOMAIN, blob, d2g,
+        (bidx, bmask, bvalid, eidx, emask), 0, tag, f"{what} populate row")
+    return {**out, "masked_rows": int((bmask[bvalid > 0] == 0).sum())}
 
 
 def cdc_profile(tr, tag, n=PROFILE_STEPS):
@@ -3279,7 +3367,8 @@ def cdc_data():
         domain_cluster_k=N_TOWER, domain_cluster_conflict=True)
 
 
-def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True):
+def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True,
+                  n_causal_mask=None):
     """Phase 17: the CDC engine on the flagship MMoE at full width.
     make_synthetic(131,072 rows, the flagship schema, 4 antipodal domain
     clusters) -> CDCTrainer(...).fit(train, valid, test): the warmup, one
@@ -3289,7 +3378,8 @@ def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True):
     CPU's plain path, the rollback (checked inside the fit), a checkpoint
     through a fresh CDCTrainer and predictor_from_checkpoint, and a
     profile of treatment steps (when ``profile``).  Phase 18 runs it on
-    another ``base``.  -> (launches, summary)."""
+    another ``base``, with ``n_causal_mask`` mask rows (None: the
+    reference's 50).  -> (launches, summary)."""
     import os
     import tempfile
 
@@ -3299,6 +3389,11 @@ def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True):
     t_phase = time.perf_counter()
     data = cdc_data()
     cfg = cdc_config(base=base)
+    if n_causal_mask is not None:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
+            cfg.cdc, n_causal_mask=n_causal_mask))
     what = "cdc" if base == "mmoe" else f"cdc {base}"
     t0 = time.perf_counter()
     tr = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
@@ -3330,9 +3425,7 @@ def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True):
     n_eval = (len(epochs) * tr._padded_split(tr.valid_batcher)[6]
               + tr._padded_split(tr.test_batcher)[6])
     n_fwd = n_steps + sched["probe_forwards"] + n_eval
-    want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
-            "field_attention_bwd": n_steps, "fused_decay_adam": n_steps,
-            "fused_sparse_adam": n_steps}
+    want = schedule_launches(n_steps, n_fwd)
     print(f"{what} main path: CDCTrainer.fit, {sched['warmup_steps']} warmup "
           f"steps, {len(sched['blocks'])} populate blocks "
           f"{[(b['rows'], b['valid_steps'], b['width']) for b in sched['blocks']]}"
@@ -3466,6 +3559,9 @@ def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True):
 # -- CDC's other base models through every entry point (phase 18) ------------
 
 BASES = ("ple", "pepnet", "epnet", "star")
+# (b)'s causal-mask rows, cut from CDCConfig()'s 50 (as phase 24's) to keep
+# the script inside its time limit; phase 25 (b) runs the 50 at scale
+PLE_CDC_CAUSAL = 4
 # PLE's table scale and wd in the 3 steps against the CPU (train_vs_cpu)
 PLE_VS_CPU = (1.0, 1e-3)
 
@@ -4891,11 +4987,8 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
               f"(b) rank {r['rank']} launches {r['b_launches']}, expected "
               f"{MESH_STEPS} of each")
         sch = r["c_schedule"]
-        want = {"embedding_gather": sch["steps"] + sch["eval_batches"],
-                "field_attention_train": sch["steps"] + sch["eval_batches"],
-                "field_attention_bwd": sch["steps"],
-                "fused_decay_adam": sch["steps"],
-                "fused_sparse_adam": sch["steps"]}
+        want = schedule_launches(sch["steps"],
+                                 sch["steps"] + sch["eval_batches"])
         check(r["c_launches"] == want, f"(c) rank {r['rank']} launches "
               f"{r['c_launches']}, expected {want} (a step each, a forward "
               "per eval batch of the fit's streaming eval)")
@@ -5542,13 +5635,42 @@ def ep_rank(out_dir):
     be = tr.make_checkpointer(os.path.join(out_dir, "cdc_ck"))
     tr.save_versioned(be, 1, extra={"phase": 23})
     be.wait_until_finished()
+    del tr
+    torch.cuda.empty_cache()
+    if os.path.exists(os.path.join(out_dir, "witness")):
+        # the model-axis witness: (b) again with the experts whole on every
+        # rank (the table still split over the model axis)
+        tr = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS,
+                        DOMAIN_IDX, shardings=Shardings(mesh))
+        check(tr.model.experts.expert_shard is None,
+              f"rank {j.rank}: the witness' experts are split")
+
+        def whole_block(i):
+            blob = tr.snapshot_bytes()
+            if j.rank == 0:
+                with open(os.path.join(out_dir, f"whole_block_{i}.msgpack"),
+                          "wb") as f:
+                    f.write(blob)
+
+        trace, undo = _trace_cdc(tr, on_block=whole_block)
+        try:
+            tr.fit(data.train, data.valid)
+        finally:
+            undo()
+        st = tr.cluster
+        rec["w_trace"], rec["w_seeds"] = _trace_floats(trace), trace["seeds"]
+        rec["w_cluster"] = {"mask": st.matrix_mask.tolist(),
+                            "A": st.matrix_A.tolist(),
+                            "B": st.matrix_B.tolist(),
+                            "d2g": [int(g) for g in st.domain2group_list]}
+        del tr
     with open(os.path.join(out_dir, f"ep_rank_{j.rank}.json"), "w") as f:
         json.dump(rec, f)
     torch.distributed.destroy_process_group()
     return 0
 
 
-def ep_main_path(dev, tag, cli_cdc_aucs=None):
+def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     """Phase 23: CDC on the (data, model) mesh and expert parallelism, 4
     ranks sharing the card over gloo (:func:`ep_rank`).  (a) EP_STEPS
     hybrid steps of the flagship MMoE on MESH_SHAPE with its 4 experts
@@ -5570,7 +5692,15 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
     step and the collectives' share.  (c) the CLI under torch.distributed.run
     on 2 ranks: CDC on PLE with --mesh_model 2 --mesh_expert_parallel for
     one epoch; its AUC beside ``cli_cdc_aucs`` (phase 21 (b)'s, None when
-    the phase runs alone).  -> (launches, summary)."""
+    the phase runs alone).  ``witness`` (``--phase 23`` only) adds (b)'s
+    model-axis witness: the ranks fit (b) again on MESH_SHAPE with the
+    experts whole (``Shardings(mesh)``), and a one-device fit from that
+    run's state at each block's entry gives its parting beside the split
+    run's: where the A rows part as far without the split banks, the
+    model axis' bank sums do not explain A's excess; and (b)'s data-split
+    witness (``mesh_split_sums``): the one-device fits whole and
+    from each block's state with the batch sums made in the data ranks'
+    row blocks.  -> (launches, summary)."""
     import os
     import shutil
     import subprocess as sp
@@ -5584,6 +5714,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
     summary, launches = {}, {}
     tmp = tempfile.mkdtemp(prefix="ep_")
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    if witness:
+        open(os.path.join(tmp, "witness"), "w").close()
     t0 = time.perf_counter()
     rcs, tails = _spawn_ranks(world, tmp, flag="--ep-rank")
     ranks_s = time.perf_counter() - t0
@@ -5608,10 +5740,7 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
               f"rank {r['rank']}: bank shapes {shapes}")
         sch = r["b_schedule"]
         n_fwd = sch["steps"] + sch["probe_forwards"] + sch["eval_batches"]
-        want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
-                "field_attention_bwd": sch["steps"],
-                "fused_decay_adam": sch["steps"],
-                "fused_sparse_adam": sch["steps"]}
+        want = schedule_launches(sch["steps"], n_fwd)
         check(r["b_launches"] == want, f"(b) rank {r['rank']} launches "
               f"{r['b_launches']}, expected {want} (a step each, a forward "
               "per probe eval and streaming-eval batch)")
@@ -5669,18 +5798,18 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
                               "table_values_beyond_atol": beyond,
                               "bank_abs_err": b_err}
 
-    # (b) against six one-device CDCTrainer.fit runs on the card, each
-    # traced step by step: "whole" from the seeded start, as the mesh;
-    # "reordered", the same with each step's rows in another order (the
+    # (b) against four (with ``witness`` six) one-device CDCTrainer.fit
+    # runs on the card, each traced step by step: "whole" from the seeded
+    # start, as the mesh; "reordered", the same with each step's rows in another order (the
     # parting a summation order alone makes over a fit); "blocks", which
     # takes the mesh's state (gathered) at the entry of each populate
     # block, so that each block compares from one state;
     # "blocks_reordered", that with the rows in another order (the
-    # parting of a summation order from one state); and "split" and
-    # "blocks_split", "whole" and "blocks" with the batch sums made in the
-    # data ranks' row blocks (:class:`mesh_split_sums`): where the mesh
-    # parts from "blocks" as "blocks_split" does, the data split's sums
-    # explain it
+    # parting of a summation order from one state); and, with
+    # ``witness``, "split" and "blocks_split", "whole" and "blocks" with
+    # the batch sums made in the data ranks' row blocks
+    # (:class:`mesh_split_sums`): where the mesh parts from "blocks" as
+    # "blocks_split" does, the data split's sums explain it
     r0 = recs[0]
     data = ep_cdc_data()
     n_cluster = ep_cdc_config().cdc.n_cluster
@@ -5688,8 +5817,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
                 "d2g": r0["b_cluster"]["d2g"],
                 **{m: r0["b_cluster"][m] for m in ("mask", "A", "B")}}
     runs = {}
-    for name in ("whole", "reordered", "blocks", "blocks_reordered",
-                 "split", "blocks_split"):
+    for name in ("whole", "reordered", "blocks", "blocks_reordered") + (
+            ("split", "blocks_split") if witness else ()):
         one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS,
                          DOMAIN_IDX)
 
@@ -5729,13 +5858,14 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
                       for k, r in runs.items()))
     pairs = {"mesh_vs_whole": (mesh_run, runs["whole"]),
              "reordered_vs_whole": (runs["reordered"], runs["whole"]),
-             "split_vs_whole": (runs["split"], runs["whole"]),
              "mesh_vs_blocks": (mesh_run, runs["blocks"]),
              "blocks_reordered_vs_blocks": (runs["blocks_reordered"],
-                                            runs["blocks"]),
-             "blocks_split_vs_blocks": (runs["blocks_split"],
-                                        runs["blocks"]),
-             "mesh_vs_blocks_split": (mesh_run, runs["blocks_split"])}
+                                            runs["blocks"])}
+    if witness:
+        pairs.update({
+            "split_vs_whole": (runs["split"], runs["whole"]),
+            "blocks_split_vs_blocks": (runs["blocks_split"], runs["blocks"]),
+            "mesh_vs_blocks_split": (mesh_run, runs["blocks_split"])})
     errs = {k: m_err(a, b) for k, (a, b) in pairs.items()}
     parts = {k: _parting(a["trace"], b["trace"])
              for k, (a, b) in pairs.items()}
@@ -5765,17 +5895,21 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
           f"{EP_CDC_ATOL}), one device from itself by "
           f"{mx['reordered_vs_whole']:.3g} when only each step's row order "
           f"changes; from each block's state {mx['mesh_vs_blocks']:.3g} and "
-          f"{mx['blocks_reordered_vs_blocks']:.3g}.  The witness of the data "
-          f"split's sums (mesh_split_sums, {MESH_SHAPE[0]} row blocks): "
-          f"{mx['split_vs_whole']:.3g} over the whole fit, "
-          f"{mx['blocks_split_vs_blocks']:.3g} from each block's state, and "
-          f"the mesh from it {mx['mesh_vs_blocks_split']:.3g}; by matrix "
-          f"(mask, A, B) the mesh {errs['mesh_vs_blocks']}, the witness "
-          f"{errs['blocks_split_vs_blocks']}, the reordered rows "
-          f"{errs['blocks_reordered_vs_blocks']}.  The valid AUC after the "
-          "split-mode steps is printed, not held: the one-device fits that "
-          "differ by rounding alone spread by "
+          f"{mx['blocks_reordered_vs_blocks']:.3g}; by matrix (mask, A, B) "
+          f"the mesh {errs['mesh_vs_blocks']}, the reordered rows "
+          f"{errs['blocks_reordered_vs_blocks']}.  "
+          + (f"The witness of the data split's sums (mesh_split_sums, "
+             f"{MESH_SHAPE[0]} row blocks): {mx['split_vs_whole']:.3g} over "
+             f"the whole fit, {mx['blocks_split_vs_blocks']:.3g} from each "
+             f"block's state ({errs['blocks_split_vs_blocks']}), and the mesh "
+             f"from it {mx['mesh_vs_blocks_split']:.3g}.  " if witness
+             else "")
+          + "The valid AUC after the split-mode steps is printed, not held: "
+          "the one-device fits that differ by rounding alone spread by "
           f"{max(aucs) - min(aucs):.4f}")
+    if witness:
+        summary["b_witness"] = ep_model_axis_witness(
+            tag, tmp, r0, mesh_run, runs, errs, m_err)
     # the clustering of the held comparison: its domain2group is held
     # unless matrices within the tolerance of one device's cluster
     # otherwise (a tie), and each side's is its own matrices' clustering
@@ -5889,6 +6023,61 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None):
     return launches, summary
 
 
+def ep_model_axis_witness(tag, tmp, r0, mesh_run, runs, errs, m_err):
+    """Phase 23 (b)'s model-axis witness (``--phase 23``): the ranks' fit
+    of (b) on MESH_SHAPE with the experts whole (rank 0's record ``r0``,
+    its state at each block's entry in ``whole_block_<i>.msgpack``) against
+    a one-device fit from those states, beside the split run's parting
+    from its own block states (``errs["mesh_vs_blocks"]``) and a summation
+    order's (``errs["blocks_reordered_vs_blocks"]``).  -> summary."""
+    import os
+
+    from tpurec_torch.cdc import CDCTrainer
+
+    whole = {"trace": r0["w_trace"], "seeds": r0["w_seeds"],
+             **r0["w_cluster"]}
+    one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
+
+    def from_mesh(i):
+        with open(os.path.join(tmp, f"whole_block_{i}.msgpack"), "rb") as f:
+            one.restore_bytes(f.read())
+
+    trace, undo = _trace_cdc(one, on_block=from_mesh)
+    try:
+        data = ep_cdc_data()
+        one.fit(data.train, data.valid)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    st = one.cluster
+    ref = {"trace": _trace_floats(trace), "mask": st.matrix_mask,
+           "A": st.matrix_A, "B": st.matrix_B,
+           "d2g": [int(g) for g in st.domain2group_list]}
+    del one, st
+    torch.cuda.empty_cache()
+    w_err = m_err(whole, ref)
+    part = _parting(whole["trace"], ref["trace"])
+    split_a = errs["mesh_vs_blocks"]["A"]
+    order_a = errs["blocks_reordered_vs_blocks"]["A"]
+    explained = w_err["A"] <= 2 * order_a < split_a
+    print(f"{tag} ep (b) model-axis witness: (b) on {MESH_SHAPE} with the "
+          f"experts whole parts from one device, each block from its state, "
+          f"by {w_err} (mask, A, B); the split run by "
+          f"{errs['mesh_vs_blocks']}, a summation order by "
+          f"{errs['blocks_reordered_vs_blocks']}.  A without the split "
+          f"banks {w_err['A']:.3g}, with them {split_a:.3g}, a summation "
+          f"order {order_a:.3g}: "
+          + ("the split banks' sums explain A's excess" if explained else
+             "the split banks' sums do not explain A's excess")
+          + f"; clustering whole {whole['d2g']}, one device {ref['d2g']}; "
+          f"|loss difference| by step: {_parting_line(part)}")
+    return {"matrix_abs_err": w_err, "split_matrix_abs_err":
+            errs["mesh_vs_blocks"], "order_matrix_abs_err":
+            errs["blocks_reordered_vs_blocks"], "banks_explain_A": explained,
+            "domain2group": whole["d2g"], "one_device_domain2group":
+            ref["d2g"], "loss_parting_by_step": part}
+
+
 # -- CDC's row lanes (phase 24) ----------------------------------------------
 
 LANES = 4                       # cdc.parallel_rows of (b) and (c)
@@ -5900,6 +6089,9 @@ LANE_ROW_GAP = 1e-6             # (b): lane row 0 vs serial row 0
 LANES_CAUSAL = 4                # (b): mask rows, cut from phase 17's 50
 #                                 (phases 21 and 23 run 4) to keep the
 #                                 script inside its time limit
+LANES_TURNS = (LANES, 0)        # (b): the lanes, then the serial rows;
+#                                 phase 25 (a) holds lane updates bitwise
+#                                 repeatable, fit against fit
 
 
 def lanes_update_checks(dev):
@@ -6011,17 +6203,32 @@ def _cdc_state(tr):
     return out, tr.state.step
 
 
+def _keep_schedule(tr):
+    """The schedule generators, the batcher's cursors and the clustering
+    of ``tr`` (the split's arrays shared, not copied), and its dropout
+    generator's state."""
+    import copy
+
+    b = tr.train_batcher
+    memo = {id(a): a for a in b.dom_X + b.dom_y + b.dom_rows}
+    return (copy.deepcopy((tr.np_rng, b, tr.cluster), memo),
+            tr.dropout_gen.get_state())
+
+
+def _put_schedule(tr, kept):
+    (tr.np_rng, tr.train_batcher, tr.cluster), gen = kept
+    tr.dropout_gen.set_state(gen)
+
+
 def _lanes_update(tr, lanes, counters):
     """One update_matrix_cdc of ``tr`` from its state with ``lanes`` row
     lanes (0: serial); every generator, the batcher, the clustering and
     (serial) the train state are put back after.  -> {matrices, seconds
     (host clock, synchronized), peak device memory, launches, the
     schedule's valid steps and probe forwards}."""
-    import copy
     import dataclasses
 
-    kept = copy.deepcopy((tr.np_rng, tr.train_batcher, tr.cluster))
-    gen = tr.dropout_gen.get_state()
+    kept = _keep_schedule(tr)
     blob = None if lanes else tr.snapshot_bytes()
     tr.cfg = dataclasses.replace(tr.cfg, cdc=dataclasses.replace(
         tr.cfg.cdc, parallel_rows=lanes))
@@ -6056,8 +6263,7 @@ def _lanes_update(tr, lanes, counters):
            / 2**30, "launches": {k: fn.launches
                                  for k, fn in counters.items()},
            "valid_steps": sched["steps"], "probe_forwards": sched["probe"]}
-    tr.np_rng, tr.train_batcher, tr.cluster = kept
-    tr.dropout_gen.set_state(gen)
+    _put_schedule(tr, kept)
     if blob is not None:
         tr.restore_bytes(blob)
     return out
@@ -6068,8 +6274,9 @@ def lanes_row_vs_cpu(data, blob, d2g, tag):
     treatment steps at W = 3,584, its probe eval of D * 512 rows) run as
     lane 0 of LANES from the fitted state, dropout 0, wd CDC_CHECK_WD,
     float32 moments (as phase 17's :func:`cdc_row_vs_cpu`), on the card
-    and on the CPU's plain path: the row within CDC_ROW_TOL of max(1, |x|)
-    and the lane's table after the burst as phase 17 holds the table; on
+    and on the CPU's plain path on the card's branches: the row within
+    CDC_ROW_TOL of max(1, |x|) and the lane's table after the burst as
+    phase 17 holds the table; on
     the card, the serial path's row from the same state against the lane's
     (bitwise expected, LANE_ROW_GAP)."""
     import dataclasses
@@ -6080,7 +6287,7 @@ def lanes_row_vs_cpu(data, blob, d2g, tag):
                      embedding_moments_dtype="float32")
     cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
         cfg.cdc, parallel_rows=LANES))
-    out = {}
+    out, masks = {}, []
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
         t = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, device=where)
@@ -6092,7 +6299,8 @@ def lanes_row_vs_cpu(data, blob, d2g, tag):
         eidx, emask = t._eval_sched()
         block = (bidx[None], bmask[None], bvalid[None], eidx[None],
                  emask[None])
-        row = t._run_populate_async(*block)[0].cpu().double()
+        with relu_branches(masks, record=where == "cuda") as branches:
+            row = t._run_populate_async(*block)[0].cpu().double()
         V = t.model.embedding.table.shape[0]
         table = t._lanes.table[:V].cpu().clone()
         out[where] = {"row": row, "table": table}
@@ -6107,12 +6315,16 @@ def lanes_row_vs_cpu(data, blob, d2g, tag):
         del t
         torch.cuda.empty_cache()
     g, c = out["cuda"], out["cpu"]
+    check(branches.used == len(masks) > 0, f"lane row: the CPU replayed "
+          f"{branches.used} of the card's {len(masks)} ReLU calls")
     row_err = ((g["row"] - c["row"]).abs()
                / torch.clamp(c["row"].abs(), min=1.0)).max().item()
     diff = (g["table"] - c["table"]).abs()
     share = (diff > 1e-6).float().mean().item()
     gap = (g["row"] - g["serial"]).abs().max().item()
-    print(f"{tag} cdc lane row, card vs CPU plain path (dropout 0, wd "
+    print(f"{tag} cdc lane row, card vs CPU plain path on the card's "
+          f"branches ({branches.flips} inputs on the other branch on the "
+          f"CPU; dropout 0, wd "
           f"{CDC_CHECK_WD}, float32 moments): [D] probe row max err "
           f"{row_err:.3g} of max(1, |x|) (tol {CDC_ROW_TOL}); the lane's "
           f"table after the burst max abs err {diff.max().item():.3g} (tol 2 "
@@ -6192,10 +6404,10 @@ def lanes_main_path(dev, tag):
     """Phase 24: CDC's row lanes.  (a) :func:`lanes_update_checks`.  (b)
     phase 17's configuration (the flagship MMoE as CDC's base, 4
     antipodal domain clusters, B=512, dropout 0.2, bf16 moments) through
-    its warmup, then update_matrix_cdc from that state in turns: LANES
-    lanes, serial, lanes; each update's seconds and peak memory printed;
-    finite matrices, the two lane updates bitwise equal, the trainer's
-    state bitwise unchanged by each lane update, and the kernels' launches
+    its warmup, then update_matrix_cdc from that state in turns
+    (LANES_TURNS): LANES lanes, then serial; each update's seconds and peak
+    memory printed; finite matrices, the trainer's state bitwise
+    unchanged by the lane update, and the kernels' launches
     against the schedule (#1, #2 a valid step and a probe eval, #3 and
     #6/#7's pass a valid step); then :func:`lanes_row_vs_cpu`.  (c)
     phase 23 (b)'s configuration on MESH_SHAPE over gloo with the experts
@@ -6222,7 +6434,7 @@ def lanes_updates(tag):
     torch.cuda.synchronize()
     counters = train_counters("mmoe")
     runs = []
-    for lanes in (LANES, 0, LANES):
+    for lanes in LANES_TURNS:
         before, step0 = _cdc_state(tr)
         runs.append(_lanes_update(tr, lanes, counters))
         if lanes:
@@ -6234,20 +6446,15 @@ def lanes_updates(tag):
                   f"state: step {step0} -> {step1}, {moved[:5]}")
             del after
         del before
-    for lanes, r in zip((LANES, 0, LANES), runs):
-        n_steps, n_fwd = r["valid_steps"], r["valid_steps"] + r[
-            "probe_forwards"]
-        want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
-                "field_attention_bwd": n_steps, "fused_decay_adam": n_steps,
-                "fused_sparse_adam": n_steps}
+    for lanes, r in zip(LANES_TURNS, runs):
+        want = schedule_launches(r["valid_steps"],
+                                 r["valid_steps"] + r["probe_forwards"])
         what = f"{lanes} lanes" if lanes else "serial"
         check(r["launches"] == want, f"(b) {what}: launches "
               f"{r['launches']}, expected {want}")
         check(all(np.all(np.isfinite(r[m])) for m in ("mask", "A", "B")),
               f"(b) {what}: a matrix is not finite")
-    l1, ser, l2 = runs
-    check(all(np.array_equal(l1[m], l2[m]) for m in ("mask", "A", "B")),
-          "(b) the two lane updates differ")
+    l1, ser = runs
     gaps = {m: float(np.abs(l1[m] - ser[m]).max()) for m in ("mask", "A",
                                                              "B")}
     print(f"{tag} lanes (b) update_matrix_cdc of phase 17's configuration "
@@ -6255,24 +6462,21 @@ def lanes_updates(tag):
           f"{l1['probe_forwards']} probe evals), in turns (host clock, "
           f"synchronized): " + ", ".join(
               f"{'lanes' if n else 'serial'} {r['seconds']:.3f} s (peak "
-              f"{r['peak_gb']:.2f} GiB)" for n, r in zip((LANES, 0, LANES),
-                                                          runs))
-          + f"; the lane updates bitwise equal, the trainer's state bitwise "
-          f"unchanged by each; launches {l1['launches']} (= the schedule); "
+              f"{r['peak_gb']:.2f} GiB)" for n, r in zip(LANES_TURNS, runs))
+          + f"; the trainer's state bitwise unchanged by the lanes; "
+          f"launches {l1['launches']} (= the schedule); "
           f"lanes vs serial (the documented divergence: each row its own "
           f"moments) max abs {gaps}; domain2group lanes {l1['d2g']}, serial "
           f"{ser['d2g']}")
     summary = {
         "mask_rows": LANES_CAUSAL, "valid_steps": l1["valid_steps"],
         "probe_forwards": l1["probe_forwards"],
-        "seconds": {"lanes_1": l1["seconds"], "serial": ser["seconds"],
-                    "lanes_2": l2["seconds"]},
-        "peak_gb": {"lanes_1": l1["peak_gb"], "serial": ser["peak_gb"],
-                    "lanes_2": l2["peak_gb"]},
+        "seconds": {"lanes": l1["seconds"], "serial": ser["seconds"]},
+        "peak_gb": {"lanes": l1["peak_gb"], "serial": ser["peak_gb"]},
         "launches": l1["launches"], "lanes_vs_serial": gaps,
         "domain2group": {"lanes": l1["d2g"], "serial": ser["d2g"]}}
     blob, d2g = tr.snapshot_bytes(), list(tr.cluster.domain2group_list)
-    del tr, runs, l1, l2, ser
+    del tr, runs, l1, ser
     torch.cuda.empty_cache()
     summary["row"] = lanes_row_vs_cpu(data, blob, d2g, tag)
     return summary
@@ -6309,11 +6513,8 @@ def lanes_on_mesh(tag):
     ref = _lanes_update(one, LANES, train_counters("mmoe"))
     r0 = recs[0]
     for r in recs:
-        n_fwd = r["valid_steps"] + r["probe_forwards"]
-        want = {"embedding_gather": n_fwd, "field_attention_train": n_fwd,
-                "field_attention_bwd": r["valid_steps"],
-                "fused_decay_adam": r["valid_steps"],
-                "fused_sparse_adam": r["valid_steps"]}
+        want = schedule_launches(r["valid_steps"],
+                                 r["valid_steps"] + r["probe_forwards"])
         check(r["launches"] == want and r["d2g"] == r0["d2g"],
               f"(c) rank {r['rank']}: launches {r['launches']} (expected "
               f"{want}), clustering {r['d2g']} (rank 0's {r0['d2g']})")
@@ -6347,6 +6548,607 @@ def lanes_on_mesh(tag):
             "clustering_moved": {str(list(k)): n for k, n in moved.items()},
             "launches": r0["launches"], "seconds": r0["seconds"],
             "one_device_seconds": ref["seconds"], "ranks_seconds": ranks_s}
+
+
+# -- CDC as its users run it: "stream", three updates a fit (phase 25) --------
+
+STREAM_CAUSAL = EP_CDC_CAUSAL   # (a): causal-mask rows (CDCConfig(): 50)
+STREAM_WARMUP = 10              # (a): warmup_step, 20 steps of 512 rows
+STREAM_INTERVAL = 10            # (a): update_interval: a boundary every 20
+#                                 steps, so the epoch of about 58 steps
+#                                 updates before steps 0, 19 and 39
+STREAM_MIN_UPDATES = 3
+# (a)'s fits, one initial state: (name, data_placement, parallel_rows,
+# compute_dtype); (ii) must equal (i) and (iv) equal (iii) bitwise
+STREAM_FITS = (("i", "resident", 0, "float32"),
+               ("ii", "stream", 0, "float32"),
+               ("iii", "resident", LANES, "float32"),
+               ("iv", "stream", LANES, "float32"),
+               ("v", "stream", LANES, "bfloat16"))
+STREAM_CHECKED = (1, 2)         # (a): updates 2 and 3, rows vs the CPU
+STREAM_ROWS = 52_000_000        # (b): make_synthetic rows; the 46.8M-row
+#                                 train split (4.49 GB) is over
+#                                 CDCTrainer.RESIDENT_BUDGET (4 GiB)
+STREAM_SPAN = 1999              # (b): steps 0-1998, then the update before
+#                                 step 1999 (update_interval 1000 x 1024 /
+#                                 512 = 2000 steps)
+STREAM_RESIDENT_SPAN = 1024     # (b): steps with the split on the card, then
+#                                 as many back in host memory
+SINGLES = ("pepnet-single", "epnet-single")
+
+
+def stream_config(placement="auto", lanes=0, cut=True, **train):
+    """Phase 25's configuration: CDCConfig()'s defaults on PLE at
+    ModelConfig()'s widths (:func:`cdc_config` with base "ple"), one
+    epoch, the split at ``placement`` and ``lanes`` row lanes; ``cut``
+    ((a)) takes STREAM_CAUSAL mask rows, STREAM_WARMUP and
+    STREAM_INTERVAL."""
+    import dataclasses
+
+    cfg = cdc_config(base="ple", epoch=1, **train)
+    cut_kw = (dict(n_causal_mask=STREAM_CAUSAL, warmup_step=STREAM_WARMUP,
+                   update_interval=STREAM_INTERVAL) if cut else {})
+    return dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, data_placement=placement, parallel_rows=lanes, **cut_kw))
+
+
+def _observe_updates(tr, X, counters, keep=()):
+    """Wrap ``tr``'s entry points for phase 25 -> (record, undo).  The
+    record holds every hybrid step's loss (tensors; the lanes' steps
+    discard theirs), the warmup's and the spans' steps and the spans'
+    seconds, and per matrix update: its seconds (host clock,
+    synchronized), the seconds of its ``_feed`` calls inside (the host
+    window's gather and copy under "stream", the index copies under
+    "resident"; each synchronized), peak device memory, the launches of
+    ``counters`` beside its schedule (valid steps, probe forwards), the
+    raw matrices and k-means seed update_group received and the
+    clustering it gave, and the domains each B row trained (from the
+    host split ``X``).  For an update whose index is in ``keep``: its
+    entry state and clustering, its mask row with the fewest valid steps
+    (the cheapest to replay on the CPU) and its B row with the most."""
+    import tpurec_torch.cdc.engine as eng
+
+    rec = {"losses": [], "updates": [], "feed_seconds": 0.0,
+           "warmup_steps": 0, "span_steps": 0, "span_seconds": 0.0}
+    steps, populate, baseline, feed = (tr._steps, tr._run_populate_async,
+                                       tr.eval_all_domains, tr._feed)
+    update, span, warmup = (tr.update_matrix_cdc, tr._train_span,
+                            tr._warmup_sched)
+    update_group = eng.update_group
+    cur = {}
+
+    def steps_(mode, *args):
+        out = steps(mode, *args)
+        rec["losses"].extend(out)
+        return out
+
+    def feed_(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = feed(*args)
+        torch.cuda.synchronize()
+        rec["feed_seconds"] += time.perf_counter() - t0
+        return out
+
+    def populate_(bidx, bmask, bvalid, eidx, emask):
+        u = cur["u"]
+        block = len(u["blocks"])
+        valid = bvalid > 0
+        n = valid.sum(1)
+        u["blocks"].append([int(bidx.shape[0]), int(n.sum()),
+                            int(bidx.shape[-1])])
+        u["valid_steps"] += int(n.sum())
+        u["probe_forwards"] += int(bidx.shape[0])
+
+        def row(r):
+            return tuple(a[r].copy() for a in (bidx, bmask, bvalid, eidx,
+                                               emask))
+
+        if block == 2:
+            u["b_rows"] = [sorted({int(d) for d in X[bidx[r][valid[r]][
+                bmask[r][valid[r]] > 0], DOMAIN_IDX]})
+                for r in range(bidx.shape[0])]
+        if u["keep"] and block == 0:
+            r = int(np.argmin(np.where(n > 0, n, 1 << 30)))
+            u["mask_row"] = (r, row(r))
+        if u["keep"] and block == 2:
+            r = int(np.argmax(n))
+            u["b_row"] = (r, row(r))
+        return populate(bidx, bmask, bvalid, eidx, emask)
+
+    def baseline_(idx, mask):
+        cur["u"]["probe_forwards"] += 1
+        return baseline(idx, mask)
+
+    def update_group_(st, cfg, w, kmeans_seed=None):
+        cur["u"].update(mask=st.matrix_mask.copy(), A=st.matrix_A.copy(),
+                        B=st.matrix_B.copy(), seed=kmeans_seed)
+        return update_group(st, cfg, w, kmeans_seed=kmeans_seed)
+
+    def update_(k):
+        u = {"valid_steps": 0, "probe_forwards": 0, "blocks": [],
+             "keep": len(rec["updates"]) in keep}
+        if u["keep"]:
+            u["entry"] = tr.snapshot_bytes()
+            u["entry_d2g"] = list(tr.cluster.domain2group_list)
+        cur["u"] = u
+        before = {n: fn.launches for n, fn in counters.items()}
+        f0 = rec["feed_seconds"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        update(k)
+        torch.cuda.synchronize()
+        u["seconds"] = time.perf_counter() - t0
+        u["feed_seconds"] = rec["feed_seconds"] - f0
+        u["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        u["launches"] = {n: fn.launches - before[n]
+                         for n, fn in counters.items()}
+        u["d2g"] = [int(g) for g in tr.cluster.domain2group_list]
+        rec["updates"].append(u)
+
+    def span_(seq, lo, hi):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = span(seq, lo, hi)               # ends in its loss fetch
+        rec["span_seconds"] += time.perf_counter() - t0
+        rec["span_steps"] += hi - lo
+        return out
+
+    def warmup_():
+        out = warmup()
+        rec["warmup_steps"] += len(out[0])
+        return out
+
+    names = ("_steps", "_feed", "_run_populate_async", "eval_all_domains",
+             "update_matrix_cdc", "_train_span", "_warmup_sched")
+    for name, fn in zip(names, (steps_, feed_, populate_, baseline_,
+                                update_, span_, warmup_)):
+        setattr(tr, name, fn)
+    eng.update_group = update_group_
+
+    def undo():
+        for name in names:
+            delattr(tr, name)
+        eng.update_group = update_group
+
+    return rec, undo
+
+
+def _check_update_launches(u, what):
+    want = schedule_launches(u["valid_steps"],
+                              u["valid_steps"] + u["probe_forwards"])
+    check(u["launches"] == want, f"{what}: launches {u['launches']}, the "
+          f"schedule {want}")
+    check(all(np.all(np.isfinite(u[m])) for m in ("mask", "A", "B")),
+          f"{what}: a matrix is not finite")
+
+
+def _update_line(u):
+    return (f"{u['seconds']:.3f} s (_feed {u['feed_seconds']:.3f} s, "
+            f"{100 * u['feed_seconds'] / u['seconds']:.1f}%; peak "
+            f"{u['peak_gb']:.2f} GiB; {u['valid_steps']} valid steps, "
+            f"{u['probe_forwards']} probe evals) -> {u['d2g']}")
+
+
+def stream_fit(data, counters, placement, lanes, dtype, keep=()):
+    """One of phase 25 (a)'s fits: CDCTrainer.fit(train, valid) of
+    :func:`stream_config` at ``placement``, ``lanes`` row lanes and
+    ``dtype`` compute, observed (:func:`_observe_updates`), the counters
+    read around it against the schedule, fit-wide and update by update.
+    -> record."""
+    from tpurec_torch.cdc import CDCTrainer
+
+    tr = CDCTrainer(stream_config(placement, lanes, compute_dtype=dtype),
+                    EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
+    rec, undo = _observe_updates(tr, data.train[0], counters, keep)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = tr.fit(data.train, data.valid)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    rec["fit_seconds"] = time.perf_counter() - t0
+    what = (f"(a) {placement}, {f'{lanes} lanes' if lanes else 'serial'}, "
+            f"{dtype}")
+    check(tr._resident == (placement == "resident"),
+          f"{what}: resident {tr._resident}")
+    ups = rec["updates"]
+    check(len(ups) >= STREAM_MIN_UPDATES, f"{what}: {len(ups)} updates")
+    for i, u in enumerate(ups):
+        _check_update_launches(u, f"{what}, update {i + 1}")
+    n_steps = (rec["warmup_steps"] + sum(u["valid_steps"] for u in ups)
+               + rec["span_steps"])
+    n_fwd = (n_steps + sum(u["probe_forwards"] for u in ups)
+             + tr._padded_split(tr.valid_batcher)[6])
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    want = schedule_launches(n_steps, n_fwd)
+    check(rec["launches"] == want, f"{what}: the fit's launches "
+          f"{rec['launches']}, the schedule {want}")
+    rec["losses"] = [float(x) for x in rec["losses"]]
+    rec["state"] = tr.snapshot_bytes()
+    rec["auc"] = out["valid"]["total_auc"]
+    rec["cluster_matrices"] = {"mask": tr.cluster.matrix_mask,
+                               "A": tr.cluster.matrix_A,
+                               "B": tr.cluster.matrix_B}
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def stream_fits(tag):
+    """Phase 25 (a) (see :func:`stream_main_path`).  -> (launches by fit,
+    summary)."""
+    data = ep_cdc_data()
+    X, y = data.train
+    counters = train_counters("ple")
+    fits = {}
+    for key, placement, lanes, dtype in STREAM_FITS:
+        fits[key] = f = stream_fit(
+            data, counters, placement, lanes, dtype,
+            STREAM_CHECKED if key in ("ii", "iv") else ())
+        print(f"{tag} stream (a) ({key}) CDCTrainer.fit of PLE, "
+              f"{placement}, {f'{lanes} lanes' if lanes else 'serial'}, "
+              f"{dtype}: "
+              f"{f['warmup_steps']} warmup steps, {len(f['updates'])} "
+              f"updates, {f['span_steps']} split-mode steps "
+              f"({f['span_seconds'] / f['span_steps'] * 1e3:.3f} ms a step), "
+              f"fit {f['fit_seconds']:.2f} s, valid total_auc "
+              f"{f['auc']:.5f}; launches {f['launches']} (= the schedule)")
+        for i, u in enumerate(f["updates"]):
+            print(f"    update {i + 1}: {_update_line(u)}; B rows trained "
+                  + ", ".join(f"{r}: {d}" for r, d in enumerate(u["b_rows"])
+                              if d))
+    same = {}
+    for a, b in (("i", "ii"), ("iii", "iv")):
+        A, B = fits[a], fits[b]
+        same[f"{b}_vs_{a}"] = s = {
+            "losses": A["losses"] == B["losses"],
+            "matrices": len(A["updates"]) == len(B["updates"]) and all(
+                np.array_equal(ua[m], ub[m]) for ua, ub in
+                zip(A["updates"], B["updates"]) for m in ("mask", "A", "B")),
+            "clusterings": [u["d2g"] for u in A["updates"]]
+            == [u["d2g"] for u in B["updates"]]
+            and [u["seed"] for u in A["updates"]]
+            == [u["seed"] for u in B["updates"]],
+            "state": A["state"] == B["state"]}
+        check(all(s.values()), f"(a) ({b}) stream vs ({a}) resident: {s}")
+    ratio = {k: [fits[b]["updates"][i]["seconds"]
+                 / fits[a]["updates"][i]["seconds"]
+                 for i in range(len(fits[a]["updates"]))]
+             for k, (a, b) in (("serial", ("i", "ii")),
+                               ("lanes", ("iii", "iv")))}
+    print(f"{tag} stream (a) \"stream\" bitwise \"resident\" over "
+          f"{len(fits['i']['updates'])} updates (every loss, the matrices, "
+          f"the clusterings and the final state), serially and in {LANES} "
+          f"lanes; stream's update seconds over resident's: serial "
+          + ", ".join(f"{x:.3f}" for x in ratio["serial"]) + "; lanes "
+          + ", ".join(f"{x:.3f}" for x in ratio["lanes"]))
+    rows = {}
+    check_cfg = stream_config(dropout=0.0, wd=CDC_CHECK_WD,
+                              embedding_moments_dtype="float32")
+    for key, lanes in (("ii", 0), ("iv", LANES)):
+        for i in STREAM_CHECKED:
+            u = fits[key]["updates"][i]
+            r, row = u["mask_row" if lanes == 0 else "b_row"]
+            what = (f"cdc ple update {i + 1} "
+                    + (f"mask row {r}" if lanes == 0
+                       else f"B row {r} as lane 0 of {LANES}"))
+            rows[f"{key}_update{i + 1}"] = populate_row_vs_cpu(
+                check_cfg, X, y, EP_CDC_DIMS, EP_CDC_DOMAINS, u["entry"],
+                u["entry_d2g"], row, lanes, tag, what)
+    v = fits["v"]
+    check(np.isfinite(v["auc"]) and all(
+        np.all(np.isfinite(m)) for m in v["cluster_matrices"].values()),
+        f"(a) (v) bf16: valid AUC {v['auc']}, matrices finite?")
+    print(f"{tag} stream (a) (v) bf16 compute, stream, {LANES} lanes: "
+          f"finite matrices; valid total_auc {v['auc']:.5f} beside (iv)'s "
+          f"float32 {fits['iv']['auc']:.5f}")
+    summary = {
+        "bitwise": same, "stream_over_resident_update_seconds": ratio,
+        "rows_vs_cpu": rows,
+        "fits": {k: {"placement": p, "lanes": n, "dtype": d,
+                     "valid_total_auc": fits[k]["auc"],
+                     "fit_seconds": fits[k]["fit_seconds"],
+                     "warmup_steps": fits[k]["warmup_steps"],
+                     "span_steps": fits[k]["span_steps"],
+                     "span_ms_a_step": fits[k]["span_seconds"]
+                     / fits[k]["span_steps"] * 1e3,
+                     "launches": fits[k]["launches"],
+                     "updates": [{x: u[x] for x in (
+                         "seconds", "feed_seconds", "peak_gb",
+                         "valid_steps", "probe_forwards", "blocks", "d2g",
+                         "b_rows", "launches")} for u in fits[k]["updates"]]}
+                 for k, p, n, d in STREAM_FITS}}
+    launches = {k: fits[k]["launches"] for k, *_ in STREAM_FITS}
+    del fits
+    return launches, summary
+
+
+def single_row_vs_cpu(name, tag):
+    """Phase 18 (d): ``pepnet-single`` and ``epnet-single``, which CDC
+    takes as no base in either package (``CDC_BASE_MODELS``: a base has a
+    tower a cluster), through phase 18 (c)'s check with their own hybrid
+    step: from the seeded weights at ModelConfig's widths, every vector
+    that starts at zero (the biases and shifts) drawn N(0, 0.1**2) as
+    phase 18 (c) draws STAR's shifts (a zero bias before a training
+    BatchNorm has a gradient that is rounding alone, which wd * bias then
+    outweighs), dropout 0, wd CDC_CHECK_WD, float32 moments: a burst of 2 steps at W = 3,584 rows
+    (7 domains' batches each, from phase 17's data) and the per-domain
+    probe loss (cdc.engine.probe_loss) of one 512-row batch a domain
+    (25,600 rows), on the card and on the CPU's plain path on the card's
+    branches: the [D] row within CDC_ROW_TOL of max(1, |x|), the losses
+    within CPU_LOSS_RTOL, the table after the burst within 2 lr
+    (CPU_TABLE_SHARE beyond 1e-6); #1, #2 a step and the eval forward,
+    #3 and #6/7's pass a step.  -> summary."""
+    from tpurec_torch.cdc.engine import probe_loss
+    from tpurec_torch.config import ModelConfig, TrainConfig
+    from tpurec_torch.data.loader import DomainBatcher
+    from tpurec_torch.models import build_model
+
+    Xtr, ytr = cdc_data().train
+    batcher = DomainBatcher(Xtr, ytr, DOMAIN_IDX, N_DOMAIN, 512,
+                            rng=np.random.default_rng(SEED + 25))
+    W, ebs = 7 * 512, 512
+    bidx, bmask = np.zeros((2, W), np.int64), np.zeros((2, W), np.float32)
+    for s in range(2):
+        idx = np.concatenate([batcher.next_idx(d)
+                              for d in range(7 * s, 7 * s + 7)])
+        bidx[s, :len(idx)], bmask[s, :len(idx)] = idx, 1.0
+    eidx = np.zeros((N_DOMAIN, ebs), np.int64)
+    emask = np.zeros((N_DOMAIN, ebs), np.float32)
+    for d in range(N_DOMAIN):
+        idx = batcher.next_idx(d)
+        eidx[d, :len(idx)], emask[d, :len(idx)] = idx, 1.0
+    tcfg = TrainConfig(bs=512, wd=CDC_CHECK_WD,
+                       embedding_moments_dtype="float32")
+    masks, out = [], {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = build_model(name, FIELD_DIMS, N_TOWER, DOMAIN_IDX,
+                            ModelConfig(model=name, **NO_DROPOUT),
+                            device=where,
+                            generator=torch.Generator().manual_seed(SEED + 25))
+        gen = torch.Generator().manual_seed(SEED + 26)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.dim() == 1 and not p.any():
+                    p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        dev = model.embedding.table.device
+        ts = train_state(model, tcfg, dev)
+        step = train_step_of(model, tcfg, name)
+        counters = train_counters(name)
+        for fn in counters.values():
+            fn.launches = 0
+
+        def batch(idx, mask, dev=dev):
+            x = torch.from_numpy(Xtr[idx]).to(dev)
+            return {"x": x, "y": torch.from_numpy(ytr[idx]).to(dev),
+                    "group": x[:, DOMAIN_IDX] % N_TOWER,
+                    "mask": torch.from_numpy(mask).to(dev)}
+
+        with relu_branches(masks, record=where == "cuda") as branches:
+            losses = [float(step(ts, batch(bidx[s], bmask[s]), None))
+                      for s in range(2)]
+            e = batch(eidx.ravel(), emask.ravel())
+            model.eval()
+            with torch.no_grad():
+                vals = model(e["x"], group=e["group"], train=False)
+            row = probe_loss(vals.reshape(N_DOMAIN, ebs),
+                             e["y"].reshape(N_DOMAIN, ebs),
+                             e["mask"].reshape(N_DOMAIN, ebs))
+        check(vals.shape == (N_DOMAIN * ebs,), f"{name}: eval logits "
+              f"{tuple(vals.shape)}, one tower expected")
+        out[where] = {"row": row.cpu().double(), "losses": losses,
+                      "table": model.embedding.table.detach().cpu().clone(),
+                      "launches": {k: fn.launches
+                                   for k, fn in counters.items()}}
+        print(f"{name} burst on {where}: 2 steps of {W} rows "
+              f"({int((bmask == 0).sum())} masked), losses {losses}, probe "
+              f"eval of {eidx.size} rows ({time.perf_counter() - t0:.1f} s)")
+        del model, ts, step, e, vals
+        torch.cuda.empty_cache()
+    g, c = out["cuda"], out["cpu"]
+    check(branches.used == len(masks) > 0, f"{name}: the CPU replayed "
+          f"{branches.used} of the card's {len(masks)} ReLU calls")
+    check(g["launches"] == schedule_launches(2, 3),
+          f"{name}: launches {g['launches']} for 2 steps and an eval")
+    row_err = ((g["row"] - c["row"]).abs()
+               / torch.clamp(c["row"].abs(), min=1.0)).max().item()
+    diff = (g["table"] - c["table"]).abs()
+    share = (diff > 1e-6).float().mean().item()
+    loss_rel = max(abs(a / b - 1) for a, b in zip(g["losses"], c["losses"]))
+    print(f"{tag} {name} burst row (phase 18 (c)'s check through its own "
+          f"step), card vs CPU plain path on the card's branches "
+          f"({branches.flips} inputs on the other branch on the CPU): [D] "
+          f"probe row max err {row_err:.3g} of max(1, |x|) (tol "
+          f"{CDC_ROW_TOL}); step loss max rel err {loss_rel:.3g}; table "
+          f"after the burst max abs err {diff.max().item():.3g} (tol 2 lr), "
+          f"share beyond 1e-6 {share:.3g} (tol {CPU_TABLE_SHARE}); "
+          f"launches {g['launches']}")
+    check(row_err <= CDC_ROW_TOL, f"{name}: row max err {row_err}")
+    check(loss_rel <= CPU_LOSS_RTOL, f"{name}: loss rel err {loss_rel}")
+    check(diff.max().item() <= 2 * tcfg.lr + 1e-6
+          and share <= CPU_TABLE_SHARE, f"{name}: table max abs err "
+          f"{diff.max().item()}, share beyond 1e-6 {share}")
+    return {"row_err": row_err, "loss_rel_err": loss_rel,
+            "table_max_abs_err": diff.max().item(),
+            "table_share_beyond_1e-6": share, "launches": g["launches"],
+            "flips": branches.flips}
+
+
+def stream_at_scale(tag, rows=STREAM_ROWS):
+    """Phase 25 (b), ``--phase 25 [--rows N]``: CDC on PLE at CDCConfig()'s
+    defaults with the train split over the card's budget.
+    make_synthetic(``rows``) at the flagship schema (50 domains, 4
+    antipodal clusters); CDCTrainer's "auto" placement must choose
+    "stream".  Driven in train_cdc_epoch's own order through its first
+    interval: the warmup, the update before step 0, steps 0-1998, the
+    update before step 1999 serially, then the same update in LANES lanes
+    from the same state; then in turns STREAM_RESIDENT_SPAN steps with
+    the split moved onto the card (the "resident" placement, 4.49 GB of
+    80) and as many with it back in host memory.  Each update's seconds, its host window's share, peak device
+    memory and launches against its schedule; finite matrices; the valid
+    AUC after the second update; one of its mask rows against the CPU
+    (:func:`populate_row_vs_cpu`); the spans' ms a step; host peak RSS.
+    -> summary."""
+    import dataclasses
+    import resource
+
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.data import make_synthetic
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = make_synthetic(
+        n_rows=rows, n_fields=len(FIELD_DIMS), n_domain=N_DOMAIN,
+        field_dims=FIELD_DIMS, domain_idx=DOMAIN_IDX, seed=1,
+        domain_cluster_k=N_TOWER, domain_cluster_conflict=True)
+    train, valid = data.train, data.valid
+    del data
+    data_s = time.perf_counter() - t0
+    nbytes = train[0].nbytes + train[1].nbytes
+    tr = CDCTrainer(stream_config(cut=False), FIELD_DIMS, N_DOMAIN,
+                    DOMAIN_IDX)
+    t0 = time.perf_counter()
+    tr.setup_data(train, valid)
+    setup_s = time.perf_counter() - t0
+    check(tr._resident is False, f"(b) a {nbytes / 1e9:.2f} GB train split "
+          f"stayed resident (budget {tr.RESIDENT_BUDGET / 2**30:.3g} GiB)")
+    print(f"{tag} stream (b) make_synthetic({rows} rows) {data_s:.1f} s; "
+          f"train split {len(train[1])} rows = {nbytes / 1e9:.3f} GB, over "
+          f"the {tr.RESIDENT_BUDGET / 2**30:.3g} GiB budget: \"auto\" chose "
+          f"\"stream\"; setup_data {setup_s:.1f} s")
+    counters = train_counters("ple")
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rec, undo = _observe_updates(tr, train[0], counters, keep=(1,))
+    k = tr._scaled_update_matrix_step()
+    try:
+        # train_cdc_epoch(0)'s order (tpurec_torch/cdc/engine.py)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._run_steps("warmup", *tr._warmup_sched())
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        seq = tr.train_batcher.epoch_seq()
+        interval = (tr.cfg.cdc.update_interval * 1024) // tr.cfg.train.bs
+        check((STREAM_SPAN + 1) % interval == 0
+              and len(seq) >= STREAM_SPAN + 2 * STREAM_RESIDENT_SPAN,
+              f"(b) step {STREAM_SPAN} is no boundary of {interval} or the "
+              f"epoch has {len(seq)} steps")
+        tr.update_matrix_cdc(k)
+        tr._train_span(seq, 0, 1)
+        tr._train_span(seq, 1, STREAM_SPAN)
+        kept = _keep_schedule(tr)
+        tr.update_matrix_cdc(k)                   # serial
+        t0 = time.perf_counter()
+        ev = tr.evaluate(tr.valid_batcher)
+        eval_s = time.perf_counter() - t0
+        n_eval = tr._padded_split(tr.valid_batcher)[6]
+        _put_schedule(tr, kept)
+        tr.restore_bytes(rec["updates"][1]["entry"])
+        tr.cfg = dataclasses.replace(tr.cfg, cdc=dataclasses.replace(
+            tr.cfg.cdc, parallel_rows=LANES))
+        tr.update_matrix_cdc(k)                   # the same, in lanes
+        # in turns, the split on the card, then in host memory again
+        span_s, span_n = rec["span_seconds"], rec["span_steps"]
+        tr.Xdev, tr.ydev = tr._dev(train[0]), tr._dev(train[1])
+        tr._resident = True
+        lo = STREAM_SPAN
+        tr._train_span(seq, lo, lo + STREAM_RESIDENT_SPAN)
+        res_s = rec["span_seconds"] - span_s
+        tr.Xdev = tr.ydev = None
+        tr._resident = False
+        lo += STREAM_RESIDENT_SPAN
+        tr._train_span(seq, lo, lo + STREAM_RESIDENT_SPAN)
+        again_s = rec["span_seconds"] - span_s - res_s
+    finally:
+        undo()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    u1, u2, u2l = rec["updates"]
+    for u, what in ((u1, "update 1"), (u2, "update 2 serial"),
+                    (u2l, f"update 2 in {LANES} lanes")):
+        _check_update_launches(u, f"(b) {what}")
+    check(u2l["valid_steps"] == u2["valid_steps"]
+          and u2l["blocks"] == u2["blocks"],
+          f"(b) the lane update ran {u2l['blocks']}, the serial {u2['blocks']}")
+    n_steps = (rec["warmup_steps"] + rec["span_steps"]
+               + sum(u["valid_steps"] for u in rec["updates"]))
+    check(rec["warmup_steps"] == 400 and span_n == STREAM_SPAN,
+          f"(b) {rec['warmup_steps']} warmup and {span_n} span steps")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = schedule_launches(n_steps, n_steps + n_eval + sum(
+        u["probe_forwards"] for u in rec["updates"]))
+    check(launches == want, f"(b) launches {launches}, the schedule {want}")
+    auc = ev["total_auc"]
+    check(np.isfinite(auc), f"(b) valid total_auc {auc}")
+    span_ms = span_s / span_n * 1e3
+    resident_ms = res_s / STREAM_RESIDENT_SPAN * 1e3
+    again_ms = again_s / STREAM_RESIDENT_SPAN * 1e3
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"{tag} stream (b) warmup {rec['warmup_steps']} steps "
+          f"{warm_s:.2f} s; update 1 {_update_line(u1)}; steps 0-"
+          f"{STREAM_SPAN - 1}: {span_ms:.3f} ms a step (host clock); in "
+          f"turns, {STREAM_RESIDENT_SPAN} steps with the split moved onto "
+          f"the card {resident_ms:.3f}, then {STREAM_RESIDENT_SPAN} back in "
+          f"host memory {again_ms:.3f}; update 2 serial {_update_line(u2)}; update 2 in {LANES} "
+          f"lanes {_update_line(u2l)}; valid total_auc after update 2 "
+          f"{auc:.5f} ({len(valid[1])} rows, {eval_s:.1f} s); device peak "
+          f"{peak_gb:.2f} GiB; host peak RSS {rss_gb:.2f} GiB; "
+          f"{n_steps} hybrid steps, launches {launches} against the "
+          "schedule, update by update too")
+    r, row = u2["mask_row"]
+    row_check = populate_row_vs_cpu(
+        stream_config(cut=False, dropout=0.0, wd=CDC_CHECK_WD,
+                      embedding_moments_dtype="float32"),
+        train[0], train[1], FIELD_DIMS, N_DOMAIN, u2["entry"],
+        u2["entry_d2g"], row, 0, tag, f"cdc ple (b) update 2 mask row {r}")
+    summary = {
+        "rows": rows, "train_rows": len(train[1]), "train_gb": nbytes / 1e9,
+        "data_seconds": data_s, "setup_seconds": setup_s,
+        "warmup_seconds": warm_s, "span_ms_a_step": span_ms,
+        "resident_ms_a_step": resident_ms, "stream_again_ms_a_step":
+        again_ms, "launches": launches,
+        "valid_total_auc": auc,
+        "valid_rows": len(valid[1]), "eval_seconds": eval_s,
+        "device_peak_gb": peak_gb, "host_peak_rss_gb": rss_gb,
+        "updates": {w: {x: u[x] for x in (
+            "seconds", "feed_seconds", "peak_gb", "valid_steps",
+            "probe_forwards", "blocks", "d2g", "launches")}
+            for w, u in (("1", u1), ("2_serial", u2), ("2_lanes", u2l))},
+        "row_vs_cpu": row_check}
+    del tr, rec, train, valid
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"stream (b): {summary['phase_seconds']:.1f} s")
+    return summary
+
+
+def stream_main_path(dev, tag):
+    """Phase 25: CDC as its users run it, on CDCConfig()'s default base
+    PLE.  (a) phase 23 (b)'s data (32,768 rows, 6 domains, 4 antipodal
+    clusters) through five CDCTrainer.fit runs from one initial state at
+    CDCConfig()'s defaults but STREAM_CAUSAL mask rows, STREAM_WARMUP and
+    STREAM_INTERVAL (at least three matrix updates a fit): (i)
+    "resident" serial, (ii) "stream" serial, (iii) "resident" in LANES
+    lanes, (iv) "stream" in lanes, (v) (iv) in bf16 compute.  (ii) holds
+    (i) and (iv) holds (iii) bitwise: every loss, each update's matrices,
+    k-means seed and clustering, and the final state; #1, #2, #3 and
+    #6/7's pass against the schedule, update by update; at the entry of
+    updates 2 and 3 a serial mask row and a lane B row against the CPU
+    (:func:`populate_row_vs_cpu`); (v) finite.  Each update's seconds,
+    its _feed seconds and peak memory, each clustering and the domains
+    each B row trained print.  (b), the split over the card's budget, is
+    :func:`stream_at_scale`, run alone.  -> (launches by fit, summary)."""
+    t_phase = time.perf_counter()
+    launches, summary = stream_fits(tag)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"stream phase: {summary['phase_seconds']:.1f} s")
+    return launches, summary
 
 
 def main() -> int:
@@ -6704,8 +7506,10 @@ def main() -> int:
     t18 = time.perf_counter()
     bases = bases_main_path(dev, rng, tag)
     ple_launches, ple_cdc = cdc_main_path(dev, tag, base="ple", phase=18,
-                                          profile=False)
+                                          profile=False,
+                                          n_causal_mask=PLE_CDC_CAUSAL)
     star_row = star_cdc_row(tag)
+    single_rows = {name: single_row_vs_cpu(name, tag) for name in SINGLES}
     bases_s = time.perf_counter() - t18
     print(f"bases phase: {bases_s:.1f} s")
 
@@ -6737,6 +7541,9 @@ def main() -> int:
 
     # -- 24. CDC's row lanes ----------------------------------------------------
     lanes_launches, lanes = lanes_main_path(dev, tag)
+
+    # -- 25. CDC as its users run it: "stream", three updates a fit ----------
+    stream_launches, stream = stream_main_path(dev, tag)
 
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
@@ -6875,10 +7682,13 @@ def main() -> int:
         k["launches_ep"] = {run: n.get(key)
                             for run, n in ep_launches.items()}
         k["launches_lanes"] = lanes_launches.get(key)
+        k["launches_stream"] = {fit: n.get(key)
+                                for fit, n in stream_launches.items()}
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
-                      "cdc_star_row": star_row, "phase_seconds": bases_s}))
+                      "cdc_star_row": star_row, "single_rows": single_rows,
+                      "phase_seconds": bases_s}))
     print(json.dumps({"routed": routed, "bf16": bf16,
                       "phase_seconds": routed_s}))
     print(json.dumps({"zoo": zoo, "updates": updates,
@@ -6887,6 +7697,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"expert": ep}))
     print(json.dumps({"lanes": lanes}))
+    print(json.dumps({"stream": stream}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
@@ -6987,16 +7798,30 @@ def phase24_main() -> int:
 
 
 def phase23_main() -> int:
-    """Phase 23 alone, after the build.  Phase 21 does not run, so (c)
-    prints its AUC uncompared."""
+    """Phase 23 alone, after the build, with (b)'s model-axis witness.
+    Phase 21 does not run, so (c) prints its AUC uncompared."""
     start = _phase_alone("phase 23")
     if start is None:
         return 1
     dev, tag = start
     t0 = time.perf_counter()
-    launches, summary = ep_main_path(dev, tag, None)
+    launches, summary = ep_main_path(dev, tag, None, witness=True)
     print(json.dumps({"launches_ep": launches}))
     print(json.dumps({"expert": summary}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def phase25_main(rows: int) -> int:
+    """Phase 25 (b) alone, after the build: CDC with ``rows`` synthetic
+    rows, the train split in host memory (:func:`stream_at_scale`)."""
+    start = _phase_alone("phase 25")
+    if start is None:
+        return 1
+    dev, tag = start
+    t0 = time.perf_counter()
+    summary = stream_at_scale(tag, rows)
+    print(json.dumps({"stream_b": summary}))
     print(f"total {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -7006,13 +7831,16 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
-    ap.add_argument("--phase", type=int, choices=[19, 22, 23, 24],
+    ap.add_argument("--phase", type=int, choices=[19, 22, 23, 24, 25],
                     help="run this phase alone (after the build; 19: its "
-                    "routed models)")
+                    "routed models; 23: with (b)'s model-axis witness; 25: "
+                    "its part (b), the split over the card's budget)")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
                     help="phase 22 (b)'s batch draws at each wd")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="phase 19's batch draw (with --phase 19)")
+    ap.add_argument("--rows", type=int, default=STREAM_ROWS,
+                    help="phase 25 (b)'s synthetic rows (with --phase 25)")
     ap.add_argument("--mesh-rank", metavar="DIR",
                     help="one rank of phase 22 (b)/(c), started by the "
                     "phase itself")
@@ -7038,6 +7866,8 @@ if __name__ == "__main__":
             sys.exit(phase23_main())
         if opts.phase == 24:
             sys.exit(phase24_main())
+        if opts.phase == 25:
+            sys.exit(phase25_main(opts.rows))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -108,6 +108,7 @@ import io
 import os
 import pickle
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -181,10 +182,13 @@ class RowLanes:
     model's ``embedding.table`` is a view of it).  :meth:`start` copies
     the trainer's state into the first lanes in place; :meth:`step` takes
     one step of some lanes.  Tensors are matched by name
-    (``state_dict`` keys; the table is ``embedding.table``)."""
+    (``state_dict`` keys; the table is ``embedding.table``).  The lanes
+    hold their trainer by a weak reference: the trainer holds them, and a
+    cycle would keep both, and their device memory, after the last
+    reference to the trainer is gone, until the garbage collector ran."""
 
     def __init__(self, tr: "CDCTrainer", n: int):
-        self.tr, self.n = tr, n
+        self.tr, self.n = weakref.proxy(tr), n
         entry = tr.model.get_parameter(TABLE)
         V, D = entry.shape
         self.V = V
