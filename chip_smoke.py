@@ -5,6 +5,7 @@ model it ports, in float32 and in bf16 compute, and check them.
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --phase 22 --draws 3   # the mesh alone
     python3 chip_smoke.py --phase 25 --rows 52000000   # CDC, split streamed
+    python3 chip_smoke.py --phase 26 [--rows 4000000]  # CDC's mesh cadence
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -207,21 +208,25 @@ Phases (any failure exits non-zero and prints no result line):
     within 0.01 of phase 16's, ms a step and the collectives' share, the
     async backend's save beside the pickle's, its checkpoint restored
     onto one device evaluating within 1e-6; (d) ``python -m
-    torch.distributed.run --nproc_per_node 2 -m tpurec_torch.cli`` at
-    21 (a)'s configuration for one epoch: exit 0, one result line, the
-    valid AUC within 0.01 of 21 (a)'s first epoch.  Every rank's exit
-    code is checked.
+    torch.distributed.run --nproc_per_node 2 -m tpurec_torch.cli`` at 21
+    (a)'s configuration for one epoch: exit 0, one result line, its valid
+    AUC within 0.01 of 21 (a)'s first epoch's.  Every rank's exit code is
+    checked.
 23. CDC on the mesh and expert parallelism: (a) 4 ranks on (2, 2) over
     gloo, the flagship MMoE's 4 experts split 2 a rank, 3 hybrid steps
     against one device (losses rtol 2e-5; at wd 1e-3 the gathered
     experts and table within 2e-5; at the default wd the parting
     printed); (b) CDCTrainer.fit on (2, 2) with the experts split,
-    against the one-device fit whole and from the mesh's state at each
-    populate block's entry (the matrices within 5e-5 and the same
-    clustering unless it ties within 5e-5), each also with its rows in
-    another order (the parting of a summation order), the loss parting by
-    step and the AUCs printed,
-    the async checkpoint restored onto one device within 1e-6;
+    against the one-device fit from the mesh's state at each populate
+    block's entry (the matrices within 5e-5 and the same clustering
+    unless it ties within 5e-5), also with its rows in another order
+    (the parting of a summation order), the loss parting by step and the
+    AUCs printed (``--phase 23`` adds the whole one-device fits),
+    the async checkpoint restored onto one device within 1e-6; the same
+    fit with ``data_placement="stream"`` bitwise the resident one on
+    every rank (every step's loss, the matrices, the clustering, the
+    gathered table and experts), its ``_feed`` share and each rank's
+    peak memory printed;
     (c) the CLI's CDC on PLE on 2 ranks with ``--mesh_expert_parallel``.
 24. CDC's row lanes (``cdc.parallel_rows``): (a)
     ``EmbeddingUpdater.update_stacked`` at the flagship table, 4 lanes
@@ -229,17 +234,17 @@ Phases (any failure exits non-zero and prints no result line):
     ids in the small-field prefix and ids outside the table, against 4
     plain-version updates on the CPU (phase 7's limits), bitwise
     repeatable, a lane left out keeping its block; (b) phase 17's
-    configuration through its warmup, then update_matrix_cdc in 4 lanes,
-    then serially, from one state: each update's seconds and peak memory
-    printed, the trainer's state bitwise unchanged by the lanes (phase 25
-    (a) holds the lane updates bitwise repeatable), #1, #2, #3 and #6/7's pass
-    counted against the schedule; one lane row against the CPU's plain
-    path and, on the card, against the serial row 0 (1e-6, bitwise
-    expected); (c) phase 23 (b)'s configuration on (2, 2) over gloo with
-    the experts split (this script with ``--lanes-rank``): one lane
-    update against one device's lanes from the mesh's state (matrices
-    within 5e-5, the clustering unless it ties).  ``--phase 24`` runs
-    this phase alone.
+    configuration through its warmup, then one lane row against the
+    CPU's plain path and, on the card, against the serial row 0 (1e-6,
+    bitwise expected).  ``--phase 24`` alone also runs (b)'s
+    update_matrix_cdc in 4 lanes, then serially, from one state before
+    that row (each update's seconds and peak memory, the trainer's state
+    bitwise unchanged by the lanes, #1, #2, #3 and #6/7's pass against
+    the schedule).  (c) phase 23 (b)'s configuration on (2, 2) over gloo
+    with the experts split and the split streamed (this script with
+    ``--lanes-rank``): one lane update against one device's lanes from
+    the mesh's state (matrices within 5e-5, the clustering unless it
+    ties), #1, #2, #3 and #6/7's pass against the schedule a rank.
 25. CDC as its users run it, on CDCConfig()'s default base PLE: (a)
     phase 23 (b)'s data (32,768 rows, 6 domains) through five
     CDCTrainer.fit runs from one state at CDCConfig()'s defaults but 4
@@ -259,11 +264,36 @@ Phases (any failure exits non-zero and prints no result line):
     it back in host memory: seconds, the host
     window's share, host and device peak memory, launches against the
     schedule, the valid AUC, one populate row against the CPU.
-    ``--phase 23`` also runs phase 23 (b)'s two witnesses: the one-device
-    fits with the batch sums made in the data ranks' row blocks
-    (``mesh_split_sums``: the BatchNorm statistics and the dense
-    gradients, two 256-row partial sums then their sum), and the fit on
-    (2, 2) with the experts whole, each from each block's state.
+    ``--phase 23`` also runs phase 23 (b)'s witness: (b)'s fit on (2, 1)
+    (the data split alone), (1, 2) with the experts whole (the table's
+    row shards alone) and (2, 2), 4 row orders each (this script with
+    ``--witness-rank``), against one device from the mesh's state at
+    each block's entry in the same row order and in another, and on the
+    meshes with a data split against one device making its batch sums
+    in the data ranks' row blocks (``mesh_split_sums``), with and
+    without its products and normalisation in those blocks too: each
+    block's parting as min / median / max over the draws.
+26. ``--phase 26`` alone, CDC's cadence on the mesh: (b) 4 ranks on (2,
+    2) over gloo with the experts split (this script with
+    ``--cadence-rank``), phase 25 (a)'s configuration at dropout 0 and wd
+    1e-3, four fits from one state ("resident" and "stream", serially and
+    in 4 lanes), each with 4 matrix updates: "stream" bitwise "resident",
+    lane row 0 bitwise the serial row 0 at each update, #1, #2, #3 and
+    #6/7's pass against the schedule update by update on every rank,
+    every rank holding rank 0's clustering; update 1 against one device
+    from the mesh's state at each block's entry (5e-5); each update's
+    seconds, ``_feed`` and collectives' shares, peak memory a rank.  (c)
+    ``--phase 26 --rows N``: N synthetic rows at the flagship schema,
+    CDCConfig() on PLE: "auto" must stream on every rank, the warmup and
+    the first update (the epoch after it cut), one clustering on every
+    rank, two mask rows (row 0 and the fewest steps') against one
+    device from the mesh's state at each row's start, beside one device
+    in two other row orders (5e-5, or twice one device's own parting
+    where that is larger), and row 0's first two step losses within 1e-6
+    of one device's, which a planted fault (the last data rank's rows
+    left out of step 1) must exceed; each rank's data and set-up seconds,
+    the update's seconds, ``_feed`` and collectives' shares, host and
+    device peak memory, the valid AUC.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -4918,14 +4948,14 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
     beside phase 16's, ms a step, the collectives' share, the async
     backend's save against the pickle write, its checkpoint restored onto
     one device; (d) the CLI under torch.distributed.run, 2 ranks on the
-    card, phase 21 (a)'s configuration for one epoch.  ``fit_auc`` and
+    card, phase 21 (a)'s configuration for one epoch
+    (:func:`mesh_cli_ranks`).  ``fit_auc`` and
     ``cli_auc0`` (phase 16's AUC, phase 21 (a)'s first epoch's) may be
     None when the phase runs alone: (c) and (d) then print their AUC
     uncompared.  ``draws``: (b)'s batch draws at each wd.  ->
     (launches, summary)."""
     import os
     import shutil
-    import subprocess as sp
     import tempfile
 
     from tpurec_torch.parallel import init_distributed, make_mesh
@@ -5158,7 +5188,19 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
         "restore_eval_err": ev_err, "launches": launches["c_fit"],
         "ranks_seconds": ranks_s}
 
-    # (d) the CLI under torch.distributed.run, 2 ranks on the card
+    summary["d"] = mesh_cli_ranks(tag, tmp, root, cli_auc0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.distributed.destroy_process_group()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {summary['phase_seconds']:.1f} s")
+    return launches, summary
+
+
+def mesh_cli_ranks(tag, tmp, root, cli_auc0):
+    """Phase 22 (d) (see :func:`mesh_main_path`).  -> summary."""
+    import os
+    import subprocess as sp
+
     argv = ["--model", "mmoe", "--dataset_name", "synthetic", "--n_rows",
             str(CLI_ROWS), "--n_domain", "6", "--bs", "512", "--epoch", "1",
             "--mesh_data", "2", "--is_set_seed", "1", "--seed",
@@ -5192,13 +5234,8 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
           f"{MESH_AUC_TOL})")
     check(cli_auc0 is None or abs(cli_auc - cli_auc0) <= MESH_AUC_TOL,
           f"(d) valid AUC {cli_auc} vs phase 21 (a)'s {cli_auc0}")
-    summary["d"] = {"valid_total_auc": cli_auc, "phase21_epoch0": cli_auc0,
-                    "seconds": cli_s, "backend": mrec[0]["backend"]}
-    shutil.rmtree(tmp, ignore_errors=True)
-    torch.distributed.destroy_process_group()
-    summary["phase_seconds"] = time.perf_counter() - t_phase
-    print(f"mesh phase: {summary['phase_seconds']:.1f} s")
-    return launches, summary
+    return {"valid_total_auc": cli_auc, "phase21_epoch0": cli_auc0,
+            "seconds": cli_s, "backend": mrec[0]["backend"]}
 
 
 # -- CDC on the mesh and expert parallelism (phase 23) ------------------------
@@ -5218,6 +5255,12 @@ EP_CDC_DIMS = FIELD_DIMS[:DOMAIN_IDX] + (EP_CDC_DOMAINS,) \
     + FIELD_DIMS[DOMAIN_IDX + 1:]
 EP_CDC_CAUSAL = 4
 EP_CDC_ATOL = 5e-5              # tests/test_cdc_e2e.py:213-244's limit
+# 23 (b), 24 (c) and 26 (b) hold one fixed draw, the schedule's row order,
+# at EP_CDC_ATOL.  It reads below the median: over 4 row orders (2, 2)'s
+# A block parted from one device by 1.0e-5 / 5.4e-5 / 1.8e-4 (min /
+# median / max, --phase 23's witness on an H100 80GB HBM3, 700 W), so a
+# change of the data or of its order is expected to fail these checks
+# with no fault in the port.
 EP_CDC_STAGES = ("warmup", "mask", "A", "B", "span")
 EP_TIE_DRAWS = 32               # matrices moved by +-EP_CDC_ATOL, reclustered
 
@@ -5244,29 +5287,34 @@ def ep_cdc_data():
         domain_cluster_conflict=True)
 
 
-def _trace_cdc(tr, on_block=None, reorder=False):
+def _trace_cdc(tr, on_block=None, reorder=None):
     """Record each hybrid step's loss of ``tr.fit`` by stage
     (EP_CDC_STAGES: the warmup, the update's three populate blocks, the
-    split-mode spans; a later update's stages numbered) and the k-means
-    seed of each clustering; call
+    split-mode spans; a later update's stages numbered), the k-means
+    seed of each clustering and the raw matrices it was given; call
     ``on_block(i)`` at the entry of populate block i.  With ``reorder``
-    each step takes its rows in a seeded permutation (one a width): the
-    same sums in another order.  -> {stage: [loss tensors], "seeds":
-    [k-means seeds]}; ``undo()`` of the second value puts the engine's
-    update_group back."""
+    (a seed) each step takes its rows in a permutation drawn from it (one
+    a width): the same sums in another order; on a mesh the data ranks
+    then take their columns of the permuted rows.  -> {stage: [loss
+    tensors], "seeds": [k-means seeds], "updates": [{mask, A, B, seed}]};
+    ``undo()`` of the second value
+    takes the wrappers off ``tr`` (they hold it: left on, they would keep
+    a dropped trainer on the card until a collection) and puts the
+    engine's update_group back."""
     import tpurec_torch.cdc.engine as eng
 
-    trace = {"warmup": [], "seeds": []}
+    trace = {"warmup": [], "seeds": [], "updates": []}
     stage, n_block, perms = ["warmup"], [0], {}
     steps, populate, span = tr._steps, tr._run_populate_async, tr._train_span
     update_group = eng.update_group
 
     def steps_(mode, Xsrc, ysrc, idxs, masks, valids=None):
-        if reorder:
+        if reorder is not None:
             W = idxs.shape[1]
             if W not in perms:
                 perms[W] = torch.randperm(W, generator=torch.Generator()
-                                          .manual_seed(SEED)).to(idxs.device)
+                                          .manual_seed(reorder)).to(
+                                              idxs.device)
             idxs, masks = idxs[:, perms[W]], masks[:, perms[W]]
         out = steps(mode, Xsrc, ysrc, idxs, masks, valids)
         trace[stage[0]].extend(out)
@@ -5292,25 +5340,42 @@ def _trace_cdc(tr, on_block=None, reorder=False):
 
     def update_group_(st, cfg, w, kmeans_seed=None):
         trace["seeds"].append(kmeans_seed)
+        trace["updates"].append({"mask": st.matrix_mask.copy(),
+                                 "A": st.matrix_A.copy(),
+                                 "B": st.matrix_B.copy(),
+                                 "seed": kmeans_seed})
         return update_group(st, cfg, w, kmeans_seed=kmeans_seed)
 
     tr._steps, tr._run_populate_async, tr._train_span = (steps_, populate_,
                                                           span_)
     eng.update_group = update_group_
-    return trace, lambda: setattr(eng, "update_group", update_group)
+
+    def undo():
+        for name in ("_steps", "_run_populate_async", "_train_span"):
+            delattr(tr, name)
+        eng.update_group = update_group
+
+    return trace, undo
 
 
 class _SplitLinear(torch.autograd.Function):
     """``x @ w (+ b)`` (a Linear: ``eq`` None) or ``einsum(eq, x, w) (+
     b[None])`` (a StackedLinear), computed as the layer computes it; the
     backward sums w's and b's gradients over ``n`` row blocks apart, then
-    the blocks' sums in order, as ``n`` data ranks sum theirs."""
+    the blocks' sums in order, as ``n`` data ranks sum theirs.  With
+    ``rows`` the products themselves (forward, and the input's gradient)
+    run a row block at a time, at a data rank's row count."""
 
     @staticmethod
-    def forward(ctx, x, w, b, n, eq):
+    def forward(ctx, x, w, b, n, eq, rows=False):
         ctx.save_for_backward(x, w)
-        ctx.n, ctx.eq, ctx.has_b = n, eq, b is not None
-        y = torch.matmul(x, w) if eq is None else torch.einsum(eq, x, w)
+        ctx.n, ctx.eq, ctx.has_b, ctx.rows = n, eq, b is not None, rows
+
+        def prod(xi):
+            return (torch.matmul(xi, w) if eq is None
+                    else torch.einsum(eq, xi, w))
+
+        y = torch.cat([prod(xi) for xi in x.chunk(n)]) if rows else prod(x)
         if b is None:
             return y
         return y + (b if eq is None else b[None])
@@ -5321,19 +5386,23 @@ class _SplitLinear(torch.autograd.Function):
         n, eq = ctx.n, ctx.eq
         xs, dys = x.chunk(n), dy.chunk(n)
         if eq is None:
-            dx = torch.matmul(dy, w.transpose(-1, -2))
+            def dprod(d):
+                return torch.matmul(d, w.transpose(-1, -2))
             dw = sum(xi.reshape(-1, xi.shape[-1]).T
                      @ di.reshape(-1, di.shape[-1])
                      for xi, di in zip(xs, dys))
             dims = tuple(range(dy.dim() - 1))
         else:
             src, out = eq.split("->")[0].split(",")[0], eq.split("->")[1]
-            dx = torch.einsum(f"{out},tio->{src}", dy, w)
+
+            def dprod(d):
+                return torch.einsum(f"{out},tio->{src}", d, w)
             dw = sum(torch.einsum(f"{src},{out}->tio", xi, di)
                      for xi, di in zip(xs, dys))
             dims = (0,)
+        dx = torch.cat([dprod(d) for d in dys]) if ctx.rows else dprod(dy)
         db = (sum(di.sum(dim=dims) for di in dys) if ctx.has_b else None)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 class _SplitAffine(torch.autograd.Function):
@@ -5364,12 +5433,17 @@ class mesh_split_sums:
     parameters' gradients: the Linears' and StackedLinears' weights and
     biases, the BatchNorms' scale and bias, and the attention stack's
     weights (kernel #3 run on each block, its weight gradients summed).
-    The rest computes as on one device (the reductions of activation
-    gradients inside a backward, the loss's sum, the model axis' split).
-    float32 compute only (no bf16 casts)."""
+    With ``rows`` the Linears' and StackedLinears' products (forward and
+    the input's gradient, in training and in the probe evals) and
+    BatchNorm's normalisation run a row block at a time too, at a data
+    rank's row count, where a library product may take another algorithm
+    than at the whole batch's.  The rest computes as on one device (the
+    other reductions of activation gradients inside a backward, the
+    loss's sum, the model axis' split).  float32 compute only (no bf16
+    casts)."""
 
-    def __init__(self, n):
-        self.n = n
+    def __init__(self, n, rows=False):
+        self.n, self.rows = n, rows
 
     def __enter__(self):
         import tpurec_torch.nn.core as core
@@ -5402,12 +5476,14 @@ class mesh_split_sums:
                                             for xi in xs)))
             return mean, q / n_safe, n_l.detach()
 
+        rows = self.rows
+
         def linear(mod, x):
-            return _SplitLinear.apply(x, mod.weight, mod.bias, n, None)
+            return _SplitLinear.apply(x, mod.weight, mod.bias, n, None, rows)
 
         def stacked(mod, x):
             eq = {2: "bi,tio->bto", 3: "bti,tio->bto"}[x.dim()]
-            return _SplitLinear.apply(x, mod.weight, mod.bias, n, eq)
+            return _SplitLinear.apply(x, mod.weight, mod.bias, n, eq, rows)
 
         def batch_norm(mod, x, train=False, mask=None):
             if not train or (x.shape[0] * n == 1 and mask is None):
@@ -5424,7 +5500,9 @@ class mesh_split_sums:
                     mod.mean.add_(mo * has_rows * (mean - mod.mean))
                     mod.var.add_(mo * has_rows * (unbiased - mod.var))
                 mod.num_batches_tracked.add_(1)
-            xhat = (x - mean) * torch.rsqrt(var + mod.eps)
+            inv = torch.rsqrt(var + mod.eps)
+            xhat = (torch.cat([(xi - mean) * inv for xi in x.chunk(n)])
+                    if rows else (x - mean) * inv)
             return _SplitAffine.apply(xhat, mod.scale, mod.bias, n)
 
         def attention_bwd(emb, dy, saved, y, flat_w, *args):
@@ -5458,7 +5536,7 @@ class mesh_split_sums:
 def _trace_floats(trace):
     """A trace's losses, as floats, stage by stage in their order."""
     return {k: [float(x) for x in v] for k, v in trace.items()
-            if k != "seeds"}
+            if k not in ("seeds", "updates")}
 
 
 def _parting(a, b):
@@ -5525,8 +5603,10 @@ def ep_rank(out_dir):
     flagship MMoE (dropout 0) at each of EP_WDS, the table and the
     experts gathered to rank 0; (b) CDCTrainer.fit of (b)'s configuration
     (its losses traced, rank 0 writing the state at each populate block's
-    entry), the exact valid eval and the async backend's save.  Writes
-    ``ep_rank_<r>.json`` (and rank 0 the gathered values)."""
+    entry), the exact valid eval and the async backend's save, then the
+    fit again with the split streamed.  Writes ``ep_rank_<r>.json`` (and
+    rank 0 the gathered values)."""
+    import dataclasses
     import os
 
     from tpurec_torch.cdc import CDCTrainer
@@ -5604,10 +5684,12 @@ def ep_rank(out_dir):
         fn.launches = 0
     reset_stats()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = tr.fit(data.train, data.valid)
     torch.cuda.synchronize()
     rec["b_fit_s"] = time.perf_counter() - t0
+    rec["b_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
     undo()
     rec["b_trace"], rec["b_seeds"] = _trace_floats(trace), trace["seeds"]
     rec["b_fit_collectives"] = dict(STATS)
@@ -5630,40 +5712,35 @@ def ep_rank(out_dir):
                         "d2g": [int(g) for g in st.domain2group_list]}
     rec["b_valid"] = {k: out["valid"][k] for k in
                       ("total_auc", "mean_auc", "total_loss", "train_loss")}
+    # the resident fit as a :func:`stream_fit` record, for _fits_bitwise
+    resident = {"losses": [x for v in rec["b_trace"].values() for x in v],
+                "updates": [dict(u, d2g=rec["b_cluster"]["d2g"])
+                            for u in trace["updates"]],
+                "state": tr.snapshot_bytes()}
     exact = tr.evaluate(tr.valid_batcher)
     rec["b_exact"] = {k: exact[k] for k in ("total_auc", "total_loss")}
     be = tr.make_checkpointer(os.path.join(out_dir, "cdc_ck"))
     tr.save_versioned(be, 1, extra={"phase": 23})
     be.wait_until_finished()
-    del tr
+    del tr, st, trace
     torch.cuda.empty_cache()
-    if os.path.exists(os.path.join(out_dir, "witness")):
-        # the model-axis witness: (b) again with the experts whole on every
-        # rank (the table still split over the model axis)
-        tr = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS,
-                        DOMAIN_IDX, shardings=Shardings(mesh))
-        check(tr.model.experts.expert_shard is None,
-              f"rank {j.rank}: the witness' experts are split")
-
-        def whole_block(i):
-            blob = tr.snapshot_bytes()
-            if j.rank == 0:
-                with open(os.path.join(out_dir, f"whole_block_{i}.msgpack"),
-                          "wb") as f:
-                    f.write(blob)
-
-        trace, undo = _trace_cdc(tr, on_block=whole_block)
-        try:
-            tr.fit(data.train, data.valid)
-        finally:
-            undo()
-        st = tr.cluster
-        rec["w_trace"], rec["w_seeds"] = _trace_floats(trace), trace["seeds"]
-        rec["w_cluster"] = {"mask": st.matrix_mask.tolist(),
-                            "A": st.matrix_A.tolist(),
-                            "B": st.matrix_B.tolist(),
-                            "d2g": [int(g) for g in st.domain2group_list]}
-        del tr
+    # (b)'s fit again with the split in host memory (every rank holds the
+    # split; "auto" would keep 32,768 rows on the card): bitwise the
+    # resident fit, launches against the schedule
+    cfg = ep_cdc_config()
+    cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, data_placement="stream"))
+    stream = stream_fit(data, counters, cfg, shardings=sh, min_updates=1,
+                        what=f"(b) rank {j.rank}")
+    u, = stream["updates"]
+    rec["b_stream"] = {
+        "bitwise": _fits_bitwise(resident, stream), "d2g": u["d2g"],
+        "launches": stream["launches"], "fit_seconds": stream["fit_seconds"],
+        "peak_gb": stream["peak_gb"],
+        "update": {k: u[k] for k in ("seconds", "feed_seconds",
+                                     "coll_seconds", "peak_gb",
+                                     "valid_steps")}}
+    del stream
     with open(os.path.join(out_dir, f"ep_rank_{j.rank}.json"), "w") as f:
         json.dump(rec, f)
     torch.distributed.destroy_process_group()
@@ -5679,28 +5756,24 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     BatchNorm statistics) and the table at MESH_TABLE_ATOL at
     CDC_CHECK_WD, the parting printed at the default wd; each rank's bank
     shapes and launches of #1, #2, #3 and #6/#7 a step.  (b)
-    CDCTrainer.fit on MESH_SHAPE with expert parallelism against four
+    CDCTrainer.fit on MESH_SHAPE with expert parallelism against
     one-device CDCTrainer.fit runs on the card, each step's loss traced:
-    the whole fit, the fit that takes the mesh's state at the entry of
-    each populate block, and each of these with every step's rows in
-    another order (the parting of a summation order alone).  The
+    the fit that takes the mesh's state at the entry of each populate
+    block and, ``witness`` only, the whole fit, each of these also with
+    every step's rows in another order (a summation order alone).  The
     matrices are printed against each and held at EP_CDC_ATOL against
     the mesh's-state fit, with its domain2group unless the clustering
     ties within that tolerance (:func:`clustering_tie`); the loss
     parting by step and the valid AUCs printed; the async checkpoint
     restored onto one device (exact eval within MESH_EVAL_TOL), ms a
-    step and the collectives' share.  (c) the CLI under torch.distributed.run
-    on 2 ranks: CDC on PLE with --mesh_model 2 --mesh_expert_parallel for
-    one epoch; its AUC beside ``cli_cdc_aucs`` (phase 21 (b)'s, None when
-    the phase runs alone).  ``witness`` (``--phase 23`` only) adds (b)'s
-    model-axis witness: the ranks fit (b) again on MESH_SHAPE with the
-    experts whole (``Shardings(mesh)``), and a one-device fit from that
-    run's state at each block's entry gives its parting beside the split
-    run's: where the A rows part as far without the split banks, the
-    model axis' bank sums do not explain A's excess; and (b)'s data-split
-    witness (``mesh_split_sums``): the one-device fits whole and
-    from each block's state with the batch sums made in the data ranks'
-    row blocks.  -> (launches, summary)."""
+    step and the collectives' share; the ranks' fit again with the split
+    streamed (:func:`stream_fit`) bitwise the resident one
+    (:func:`_fits_bitwise`).  (c) the
+    CLI under torch.distributed.run on 2 ranks: CDC on PLE with
+    --mesh_model 2 --mesh_expert_parallel for one epoch; its AUC beside
+    ``cli_cdc_aucs`` (phase 21 (b)'s, None when the phase runs alone).
+    ``witness`` (``--phase 23`` only) adds (b)'s witness on three meshes
+    (:func:`ep_witness_draws`).  -> (launches, summary)."""
     import os
     import shutil
     import subprocess as sp
@@ -5714,8 +5787,6 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     summary, launches = {}, {}
     tmp = tempfile.mkdtemp(prefix="ep_")
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
-    if witness:
-        open(os.path.join(tmp, "witness"), "w").close()
     t0 = time.perf_counter()
     rcs, tails = _spawn_ranks(world, tmp, flag="--ep-rank")
     ranks_s = time.perf_counter() - t0
@@ -5747,6 +5818,14 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
         check(r["b_cluster"]["d2g"] == recs[0]["b_cluster"]["d2g"]
               and r["a_losses"] == recs[0]["a_losses"],
               f"rank {r['rank']} disagrees with rank 0")
+        bs = r["b_stream"]
+        check(all(bs["bitwise"].values())
+              and bs["d2g"] == recs[0]["b_cluster"]["d2g"]
+              and bs["launches"] == r["b_launches"],
+              f"(b) rank {r['rank']}: the fit with the split streamed "
+              f"against the resident fit: bitwise {bs['bitwise']}, "
+              f"clustering {bs['d2g']}, launches {bs['launches']} "
+              f"(resident {r['b_launches']})")
     print(f"{tag} ep: {world} ranks on the card over gloo, mesh "
           f"{MESH_SHAPE}, Shardings(expert_parallel=True), ran in "
           f"{ranks_s:.1f} s (start-up included); every rank exited 0; "
@@ -5798,18 +5877,13 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
                               "table_values_beyond_atol": beyond,
                               "bank_abs_err": b_err}
 
-    # (b) against four (with ``witness`` six) one-device CDCTrainer.fit
-    # runs on the card, each traced step by step: "whole" from the seeded
-    # start, as the mesh; "reordered", the same with each step's rows in another order (the
-    # parting a summation order alone makes over a fit); "blocks", which
-    # takes the mesh's state (gathered) at the entry of each populate
-    # block, so that each block compares from one state;
-    # "blocks_reordered", that with the rows in another order (the
-    # parting of a summation order from one state); and, with
-    # ``witness``, "split" and "blocks_split", "whole" and "blocks" with
-    # the batch sums made in the data ranks' row blocks
-    # (:class:`mesh_split_sums`): where the mesh parts from "blocks" as
-    # "blocks_split" does, the data split's sums explain it
+    # (b) against one-device CDCTrainer.fit runs on the card, each traced
+    # step by step: "blocks", which takes the mesh's state (gathered) at
+    # the entry of each populate block, so that each block compares from
+    # one state; "blocks_reordered", that with the rows in another order
+    # (the parting of a summation order from one state); with ``witness``
+    # also "whole" from the seeded start, as the mesh, and "reordered",
+    # that in another order (the parting over a whole fit)
     r0 = recs[0]
     data = ep_cdc_data()
     n_cluster = ep_cdc_config().cdc.n_cluster
@@ -5817,8 +5891,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
                 "d2g": r0["b_cluster"]["d2g"],
                 **{m: r0["b_cluster"][m] for m in ("mask", "A", "B")}}
     runs = {}
-    for name in ("whole", "reordered", "blocks", "blocks_reordered") + (
-            ("split", "blocks_split") if witness else ()):
+    for name in ("blocks", "blocks_reordered") + (
+            ("whole", "reordered") if witness else ()):
         one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS,
                          DOMAIN_IDX)
 
@@ -5828,12 +5902,10 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
 
         trace, undo = _trace_cdc(
             one, on_block=from_mesh if name.startswith("blocks") else None,
-            reorder=name.endswith("reordered"))
+            reorder=SEED if name.endswith("reordered") else None)
         t0 = time.perf_counter()
         try:
-            with (mesh_split_sums(MESH_SHAPE[0]) if name.endswith("split")
-                  else contextlib.nullcontext()):
-                out1 = one.fit(data.train, data.valid)
+            out1 = one.fit(data.train, data.valid)
             torch.cuda.synchronize()
         finally:
             undo()
@@ -5856,16 +5928,13 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
         for r in runs.values()), f"(b) steps by stage: mesh {counts}, "
           + ", ".join(f"{k} {[len(v) for v in r['trace'].values()]}"
                       for k, r in runs.items()))
-    pairs = {"mesh_vs_whole": (mesh_run, runs["whole"]),
-             "reordered_vs_whole": (runs["reordered"], runs["whole"]),
-             "mesh_vs_blocks": (mesh_run, runs["blocks"]),
+    pairs = {"mesh_vs_blocks": (mesh_run, runs["blocks"]),
              "blocks_reordered_vs_blocks": (runs["blocks_reordered"],
                                             runs["blocks"])}
     if witness:
-        pairs.update({
-            "split_vs_whole": (runs["split"], runs["whole"]),
-            "blocks_split_vs_blocks": (runs["blocks_split"], runs["blocks"]),
-            "mesh_vs_blocks_split": (mesh_run, runs["blocks_split"])})
+        pairs.update({"mesh_vs_whole": (mesh_run, runs["whole"]),
+                      "reordered_vs_whole": (runs["reordered"],
+                                             runs["whole"])})
     errs = {k: m_err(a, b) for k, (a, b) in pairs.items()}
     parts = {k: _parting(a["trace"], b["trace"])
              for k, (a, b) in pairs.items()}
@@ -5889,27 +5958,18 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
               f"{_parting_line(v)}")
     mx = {k: max(v.values()) for k, v in errs.items()}
     aucs = [r["auc"] for r in runs.values()]
-    within = "within" if mx["mesh_vs_whole"] <= EP_CDC_ATOL else "NOT within"
-    print(f"{tag} ep (b) over the whole fit the mesh parts from one device "
-          f"by {mx['mesh_vs_whole']:.3g} in the matrices ({within} "
-          f"{EP_CDC_ATOL}), one device from itself by "
-          f"{mx['reordered_vs_whole']:.3g} when only each step's row order "
-          f"changes; from each block's state {mx['mesh_vs_blocks']:.3g} and "
+    print(f"{tag} ep (b) "
+          + (f"over the whole fit the mesh parts from one device by "
+             f"{mx['mesh_vs_whole']:.3g} in the matrices, one device from "
+             f"itself by {mx['reordered_vs_whole']:.3g} when only each "
+             f"step's row order changes; " if witness else "")
+          + f"from each block's state {mx['mesh_vs_blocks']:.3g} and "
           f"{mx['blocks_reordered_vs_blocks']:.3g}; by matrix (mask, A, B) "
           f"the mesh {errs['mesh_vs_blocks']}, the reordered rows "
           f"{errs['blocks_reordered_vs_blocks']}.  "
-          + (f"The witness of the data split's sums (mesh_split_sums, "
-             f"{MESH_SHAPE[0]} row blocks): {mx['split_vs_whole']:.3g} over "
-             f"the whole fit, {mx['blocks_split_vs_blocks']:.3g} from each "
-             f"block's state ({errs['blocks_split_vs_blocks']}), and the mesh "
-             f"from it {mx['mesh_vs_blocks_split']:.3g}.  " if witness
-             else "")
-          + "The valid AUC after the split-mode steps is printed, not held: "
+          "The valid AUC after the split-mode steps is printed, not held: "
           "the one-device fits that differ by rounding alone spread by "
           f"{max(aucs) - min(aucs):.4f}")
-    if witness:
-        summary["b_witness"] = ep_model_axis_witness(
-            tag, tmp, r0, mesh_run, runs, errs, m_err)
     # the clustering of the held comparison: its domain2group is held
     # unless matrices within the tolerance of one device's cluster
     # otherwise (a tie), and each side's is its own matrices' clustering
@@ -5943,7 +6003,24 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
           + f" of the span ({r0['b_span_collectives']['calls']} calls, "
           f"{r0['b_span_collectives']['bytes'] / 1e6:.1f} MB on rank 0; host "
           f"time inside torch.distributed, gloo); the fit {r0['b_fit_s']:.1f}"
-          f" s on the mesh, {runs['whole']['seconds']:.1f} s on one device")
+          f" s on the mesh, {runs['blocks']['seconds']:.1f} s on one device")
+    ups = [r["b_stream"]["update"] for r in recs]
+    print(f"{tag} ep (b) the same fit with data_placement=\"stream\" (each "
+          f"rank gathers the whole window of a block or span from its own "
+          f"copy of the split and copies it to the card): bitwise the "
+          f"resident fit on every rank (every step's loss, the matrices, "
+          f"the k-means seed, the clustering, the whole gathered state) "
+          f"and its launches ({r0['b_stream']['launches']} on "
+          f"rank 0); fit {r0['b_stream']['fit_seconds']:.1f} s beside "
+          f"{r0['b_fit_s']:.1f} s resident; the update "
+          + ", ".join(f"rank {r['rank']} {u['seconds']:.3f} s (_feed "
+                      f"{u['feed_seconds']:.3f} s, "
+                      f"{100 * u['feed_seconds'] / u['seconds']:.1f}%; "
+                      f"collectives {100 * u['coll_seconds'] / u['seconds']:.1f}%)"
+                      for r, u in zip(recs, ups))
+          + "; peak device memory a rank, resident / stream: "
+          + ", ".join(f"{r['b_peak_gb']:.2f} / "
+                      f"{r['b_stream']['peak_gb']:.2f} GiB" for r in recs))
     one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
     one.setup_data(data.train, data.valid)
     meta = one.load_versioned(one.make_checkpointer(os.path.join(tmp,
@@ -5971,7 +6048,15 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
         "span_collectives_rank0": r0["b_span_collectives"],
         "fit_seconds": r0["b_fit_s"],
         "one_device_fit_seconds": {k: r["seconds"] for k, r in runs.items()},
-        "restore_eval_err": ev_err, "launches": launches["b_cdc_fit"]}
+        "restore_eval_err": ev_err, "launches": launches["b_cdc_fit"],
+        "stream": {"bitwise": r0["b_stream"]["bitwise"],
+                   "launches": r0["b_stream"]["launches"],
+                   "fit_seconds": r0["b_stream"]["fit_seconds"],
+                   "update": ups, "peak_gb": {
+                       "resident": [r["b_peak_gb"] for r in recs],
+                       "stream": [r["b_stream"]["peak_gb"] for r in recs]}}}
+    if witness:
+        summary["b_witness"] = ep_witness_draws(tag)
 
     # (c) the CLI: CDC on PLE with the experts split, 2 ranks
     argv = ["--model", "cdc", "--base_model", "ple", "--mesh_model", "2",
@@ -6023,59 +6108,207 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     return launches, summary
 
 
-def ep_model_axis_witness(tag, tmp, r0, mesh_run, runs, errs, m_err):
-    """Phase 23 (b)'s model-axis witness (``--phase 23``): the ranks' fit
-    of (b) on MESH_SHAPE with the experts whole (rank 0's record ``r0``,
-    its state at each block's entry in ``whole_block_<i>.msgpack``) against
-    a one-device fit from those states, beside the split run's parting
-    from its own block states (``errs["mesh_vs_blocks"]``) and a summation
-    order's (``errs["blocks_reordered_vs_blocks"]``).  -> summary."""
+# (b)'s witness (``--phase 23``): the fit on three meshes, each over
+# WITNESS_DRAWS row orders, against one device from each block's state
+WITNESS_MESHES = (((2, 1), False),   # the data split alone
+                  ((1, 2), False),   # the table's row shards alone
+                  ((2, 2), True))    # (b) itself, the experts split
+WITNESS_DRAWS = 4
+WITNESS_ORDER = 1000            # one device's own row orders: this + draw
+
+
+def witness_order(draw):
+    """The row order of a witness draw: draw 0 takes the schedule's own
+    (as (b)), draw d a permutation seeded SEED + d."""
+    return None if draw == 0 else SEED + draw
+
+
+def witness_rank(out_dir):
+    """One rank of phase 23 (b)'s witness, started by :func:`ep_witness_
+    draws` with ``witness.json`` in ``out_dir`` (the mesh's shape,
+    expert parallelism, the draws): (b)'s CDCTrainer.fit once a draw,
+    each step's rows in the draw's order (:func:`witness_order`), every
+    step's loss traced, rank 0 writing the gathered state at each
+    populate block's entry (``draw_<d>_block_<i>.msgpack``).  Writes
+    ``witness_rank_<r>.json``."""
     import os
 
     from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
 
-    whole = {"trace": r0["w_trace"], "seeds": r0["w_seeds"],
-             **r0["w_cluster"]}
-    one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "witness.json")) as f:
+        w = json.load(f)
+    j = init_distributed()
+    mesh = make_mesh(*w["shape"])
+    sh = Shardings(mesh, expert_parallel=w["expert_parallel"])
+    data = ep_cdc_data()
+    rec = {"rank": j.rank, "draws": []}
+    for d in range(w["draws"]):
+        tr = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS, EP_CDC_DOMAINS,
+                        DOMAIN_IDX, shardings=sh)
 
-    def from_mesh(i):
-        with open(os.path.join(tmp, f"whole_block_{i}.msgpack"), "rb") as f:
-            one.restore_bytes(f.read())
+        def block(i, d=d, tr=tr):
+            blob = tr.snapshot_bytes()
+            if j.rank == 0:
+                with open(os.path.join(out_dir, f"draw_{d}_block_{i}"
+                                       ".msgpack"), "wb") as f:
+                    f.write(blob)
 
-    trace, undo = _trace_cdc(one, on_block=from_mesh)
-    try:
-        data = ep_cdc_data()
-        one.fit(data.train, data.valid)
-        torch.cuda.synchronize()
-    finally:
-        undo()
-    st = one.cluster
-    ref = {"trace": _trace_floats(trace), "mask": st.matrix_mask,
-           "A": st.matrix_A, "B": st.matrix_B,
-           "d2g": [int(g) for g in st.domain2group_list]}
-    del one, st
-    torch.cuda.empty_cache()
-    w_err = m_err(whole, ref)
-    part = _parting(whole["trace"], ref["trace"])
-    split_a = errs["mesh_vs_blocks"]["A"]
-    order_a = errs["blocks_reordered_vs_blocks"]["A"]
-    explained = w_err["A"] <= 2 * order_a < split_a
-    print(f"{tag} ep (b) model-axis witness: (b) on {MESH_SHAPE} with the "
-          f"experts whole parts from one device, each block from its state, "
-          f"by {w_err} (mask, A, B); the split run by "
-          f"{errs['mesh_vs_blocks']}, a summation order by "
-          f"{errs['blocks_reordered_vs_blocks']}.  A without the split "
-          f"banks {w_err['A']:.3g}, with them {split_a:.3g}, a summation "
-          f"order {order_a:.3g}: "
-          + ("the split banks' sums explain A's excess" if explained else
-             "the split banks' sums do not explain A's excess")
-          + f"; clustering whole {whole['d2g']}, one device {ref['d2g']}; "
-          f"|loss difference| by step: {_parting_line(part)}")
-    return {"matrix_abs_err": w_err, "split_matrix_abs_err":
-            errs["mesh_vs_blocks"], "order_matrix_abs_err":
-            errs["blocks_reordered_vs_blocks"], "banks_explain_A": explained,
-            "domain2group": whole["d2g"], "one_device_domain2group":
-            ref["d2g"], "loss_parting_by_step": part}
+        trace, undo = _trace_cdc(tr, on_block=block,
+                                 reorder=witness_order(d))
+        t0 = time.perf_counter()
+        try:
+            tr.fit(data.train, data.valid)
+        finally:
+            undo()
+        st = tr.cluster
+        rec["draws"].append({
+            "seconds": time.perf_counter() - t0,
+            "trace": _trace_floats(trace), "seeds": trace["seeds"],
+            "mask": st.matrix_mask.tolist(), "A": st.matrix_A.tolist(),
+            "B": st.matrix_B.tolist(),
+            "d2g": [int(g) for g in st.domain2group_list]})
+        del tr, st
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"witness_rank_{j.rank}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spread(xs):
+    """min / median / max of ``xs``, as text."""
+    return (f"{min(xs):.3g} / {float(np.median(xs)):.3g} / "
+            f"{max(xs):.3g}")
+
+
+def ep_witness_draws(tag):
+    """Phase 23 (b)'s witness (``--phase 23``): where does the mesh's A
+    block part from one device more than a summation order does?  For
+    each mesh of WITNESS_MESHES, ranks on the card (:func:`witness_rank`)
+    fit (b) WITNESS_DRAWS times, each draw in its own row order; for each
+    draw, one-device fits that take the mesh's state at each populate
+    block's entry: "one" in the draw's row order (the mesh's parting),
+    "order" in another (a summation order's parting), and on a mesh with
+    a data split "sums", "one" with the batch sums made in the data ranks'
+    row blocks (:class:`mesh_split_sums`), and "rows", that with the
+    products and BatchNorm's normalisation in the row blocks too.  Each
+    block's matrix (mask, A, B) and A's loss parting print as min /
+    median / max over the draws.  -> summary."""
+    import os
+    import shutil
+    import tempfile
+
+    from tpurec_torch.cdc import CDCTrainer
+
+    t_phase = time.perf_counter()
+    data = ep_cdc_data()
+    out = {}
+    mats = ("mask", "A", "B")
+    for shape, ep in WITNESS_MESHES:
+        key = f"{shape[0]}x{shape[1]}" + (" ep" if ep else "")
+        tmp = tempfile.mkdtemp(prefix="witness_")
+        with open(os.path.join(tmp, "witness.json"), "w") as f:
+            json.dump({"shape": list(shape), "expert_parallel": ep,
+                       "draws": WITNESS_DRAWS}, f)
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        rcs, tails = _spawn_ranks(world, tmp, timeout=2 * MESH_TIMEOUT,
+                                  flag="--witness-rank")
+        ranks_s = time.perf_counter() - t0
+        check(rcs == [0] * world, f"witness {key} ranks exited {rcs}:\n"
+              f"{tails}")
+        recs = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"witness_rank_{r}.json")) as f:
+                recs.append(json.load(f))
+        check(all([d["d2g"] for d in r["draws"]]
+                  == [d["d2g"] for d in recs[0]["draws"]] for r in recs),
+              f"witness {key}: the ranks' clusterings differ")
+        kinds = ("one", "order") + (("sums", "rows") if shape[0] > 1
+                                    else ())
+        errs = {k: [] for k in kinds}
+        a_loss = {k: [] for k in kinds}
+        for d, mesh_run in enumerate(recs[0]["draws"]):
+            runs = {}
+            for kind in kinds:
+                one = CDCTrainer(ep_cdc_config(), EP_CDC_DIMS,
+                                 EP_CDC_DOMAINS, DOMAIN_IDX)
+
+                def from_mesh(i, one=one, d=d):
+                    with open(os.path.join(tmp, f"draw_{d}_block_{i}"
+                                           ".msgpack"), "rb") as f:
+                        one.restore_bytes(f.read())
+
+                order = (WITNESS_ORDER + d if kind == "order"
+                         else witness_order(d))
+                trace, undo = _trace_cdc(one, on_block=from_mesh,
+                                         reorder=order)
+                split = (mesh_split_sums(shape[0], rows=kind == "rows")
+                         if kind in ("sums", "rows")
+                         else contextlib.nullcontext())
+                try:
+                    with split:
+                        one.fit(data.train, data.valid)
+                    torch.cuda.synchronize()
+                finally:
+                    undo()
+                st = one.cluster
+                runs[kind] = {"trace": _trace_floats(trace),
+                              **{m: getattr(st, f"matrix_{m}") for m in mats}}
+                del one, st
+                torch.cuda.empty_cache()
+            one_run = runs["one"]
+            for kind in kinds:
+                other = one_run if kind == "order" else mesh_run
+                ref = runs["order"] if kind == "order" else runs[kind]
+                errs[kind].append({m: float(np.abs(
+                    np.asarray(other[m]) - np.asarray(ref[m])).max())
+                    for m in mats})
+                a_loss[kind].append(max(
+                    abs(x - y) for x, y in zip(other["trace"]["A"],
+                                               ref["trace"]["A"])))
+        shutil.rmtree(tmp, ignore_errors=True)
+        names = {"one": "the mesh vs one device",
+                 "order": "one device vs itself in another row order",
+                 "sums": "the mesh vs one device summing in the data "
+                 "ranks' row blocks",
+                 "rows": "the mesh vs one device with its sums, products "
+                 "and normalisation in the row blocks"}
+        print(f"{tag} ep (b) witness on {shape}"
+              + (" with the experts split" if ep else ", experts whole")
+              + f" ({world} ranks, {WITNESS_DRAWS} row orders, "
+              f"{ranks_s:.1f} s), each block from the mesh's state at its "
+              "entry, max abs err min / median / max over the draws: "
+              + "; ".join(f"{names[k]}: " + ", ".join(
+                  f"{m} {_spread([e[m] for e in errs[k]])}" for m in mats)
+                  + f", A's step loss {_spread(a_loss[k])}" for k in kinds))
+        out[key] = {"matrix_abs_err": errs, "a_loss_parting": a_loss,
+                    "ranks_seconds": ranks_s,
+                    "mesh_fit_seconds": [d["seconds"]
+                                         for d in recs[0]["draws"]]}
+    order_a = [e["A"] for v in out.values() for e in v["matrix_abs_err"][
+        "order"]]
+    verdict = {k: {"A_median": float(np.median(
+        [e["A"] for e in v["matrix_abs_err"]["one"]])),
+        "beyond_order_max": float(np.median(
+            [e["A"] for e in v["matrix_abs_err"]["one"]])) > max(order_a)}
+        for k, v in out.items()}
+    print(f"{tag} ep (b) witness: A's parting from one device, median over "
+          "the draws, "
+          + ", ".join(f"{k} {v['A_median']:.3g}" for k, v in verdict.items())
+          + f"; a summation order's over all {len(order_a)} draws "
+          f"{_spread(order_a)}; beyond its largest: "
+          + ", ".join(f"{k} {v['beyond_order_max']}"
+                      for k, v in verdict.items()))
+    out["verdict"] = verdict
+    out["order_A"] = order_a
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"ep (b) witness: {out['seconds']:.1f} s")
+    return out
 
 
 # -- CDC's row lanes (phase 24) ----------------------------------------------
@@ -6089,9 +6322,11 @@ LANE_ROW_GAP = 1e-6             # (b): lane row 0 vs serial row 0
 LANES_CAUSAL = 4                # (b): mask rows, cut from phase 17's 50
 #                                 (phases 21 and 23 run 4) to keep the
 #                                 script inside its time limit
-LANES_TURNS = (LANES, 0)        # (b): the lanes, then the serial rows;
-#                                 phase 25 (a) holds lane updates bitwise
-#                                 repeatable, fit against fit
+LANES_TURNS = (LANES, 0)        # (b): the lanes, then the serial rows
+#                                 (the updates, and (c), with --phase 24
+#                                 alone: phase 25 (a) holds lane updates
+#                                 bitwise repeatable, fit against fit, and
+#                                 phase 26 (b) the lanes on the mesh)
 
 
 def lanes_update_checks(dev):
@@ -6353,9 +6588,10 @@ def lanes_cdc_config(**train):
 def lanes_rank(out_dir):
     """One rank of phase 24 (c), started by :func:`lanes_main_path` as
     phase 23 starts its ranks: phase 23 (b)'s CDCTrainer on MESH_SHAPE
-    with the experts split, LANES row lanes; its warmup, the gathered
-    state (rank 0 writes it), one update_matrix_cdc with the launches
-    counted.  Writes ``lanes_rank_<r>.json``."""
+    with the experts split, LANES row lanes, the split in "stream" (as a
+    mesh places a train split over MESH_RESIDENT_BUDGET); its warmup, the
+    gathered state (rank 0 writes it), one update_matrix_cdc with the
+    launches counted.  Writes ``lanes_rank_<r>.json``."""
     import dataclasses
     import os
 
@@ -6369,7 +6605,7 @@ def lanes_rank(out_dir):
     mesh = make_mesh(*MESH_SHAPE)
     cfg = ep_cdc_config()
     cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
-        cfg.cdc, parallel_rows=LANES))
+        cfg.cdc, parallel_rows=LANES, data_placement="stream"))
     data = ep_cdc_data()
     tr = CDCTrainer(cfg, EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX,
                     shardings=Shardings(mesh, expert_parallel=True))
@@ -6392,6 +6628,7 @@ def lanes_rank(out_dir):
     finally:
         eng.update_group = update_group
     rec = {"rank": j.rank, "seeds": seeds, "step": tr.state.step,
+           "resident": tr._resident,
            **{k: (v.tolist() if isinstance(v, np.ndarray) else v)
               for k, v in up.items()}}
     with open(os.path.join(out_dir, f"lanes_rank_{j.rank}.json"), "w") as f:
@@ -6400,31 +6637,34 @@ def lanes_rank(out_dir):
     return 0
 
 
-def lanes_main_path(dev, tag):
+def lanes_main_path(dev, tag, alone=False):
     """Phase 24: CDC's row lanes.  (a) :func:`lanes_update_checks`.  (b)
     phase 17's configuration (the flagship MMoE as CDC's base, 4
     antipodal domain clusters, B=512, dropout 0.2, bf16 moments) through
-    its warmup, then update_matrix_cdc from that state in turns
-    (LANES_TURNS): LANES lanes, then serial; each update's seconds and peak
-    memory printed; finite matrices, the trainer's state bitwise
-    unchanged by the lane update, and the kernels' launches
-    against the schedule (#1, #2 a valid step and a probe eval, #3 and
-    #6/#7's pass a valid step); then :func:`lanes_row_vs_cpu`.  (c)
-    phase 23 (b)'s configuration on MESH_SHAPE over gloo with the experts
-    split (:func:`lanes_rank`): one lane update against one device's lanes
+    its warmup; ``alone`` (``--phase 24``), update_matrix_cdc from that
+    state in LANES lanes, then serially (LANES_TURNS): each update's
+    seconds and peak memory printed, finite matrices, the trainer's
+    state bitwise unchanged by the lane update, and the kernels'
+    launches against the schedule (#1, #2 a valid step and a probe eval,
+    #3 and #6/#7's pass a valid step); then :func:`lanes_row_vs_cpu`
+    from the state reached.  (c) phase 23 (b)'s configuration on
+    MESH_SHAPE over gloo with the experts split and the split streamed
+    (:func:`lanes_rank`): one lane update against one device's lanes
     from the mesh's state, matrices at EP_CDC_ATOL, the clustering held
-    unless it ties.  -> (launches of (b)'s lane update, summary)."""
+    unless it ties.  -> (launches a rank of (c)'s lane update, summary)."""
     t_phase = time.perf_counter()
     summary = {"a_max_abs_err": lanes_update_checks(dev)}
-    summary["b"] = lanes_updates(tag)
+    summary["b"] = lanes_updates(tag, LANES_TURNS if alone else ())
     summary["c"] = lanes_on_mesh(tag)
     summary["phase_seconds"] = time.perf_counter() - t_phase
     print(f"lanes phase: {summary['phase_seconds']:.1f} s")
-    return summary["b"]["launches"], summary
+    return summary["c"]["launches"], summary
 
 
-def lanes_updates(tag):
-    """Phase 24 (b) (see :func:`lanes_main_path`).  -> summary."""
+def lanes_updates(tag, turns=LANES_TURNS):
+    """Phase 24 (b) (see :func:`lanes_main_path`): the update in each of
+    ``turns`` (lanes, 0 = serial; none: the row check from the warmed
+    state).  -> summary."""
     from tpurec_torch.cdc import CDCTrainer
 
     data = cdc_data()
@@ -6434,7 +6674,7 @@ def lanes_updates(tag):
     torch.cuda.synchronize()
     counters = train_counters("mmoe")
     runs = []
-    for lanes in LANES_TURNS:
+    for lanes in turns:
         before, step0 = _cdc_state(tr)
         runs.append(_lanes_update(tr, lanes, counters))
         if lanes:
@@ -6446,7 +6686,14 @@ def lanes_updates(tag):
                   f"state: step {step0} -> {step1}, {moved[:5]}")
             del after
         del before
-    for lanes, r in zip(LANES_TURNS, runs):
+    summary = {"mask_rows": LANES_CAUSAL}
+    if not runs:
+        blob, d2g = tr.snapshot_bytes(), list(tr.cluster.domain2group_list)
+        del tr
+        torch.cuda.empty_cache()
+        summary["row"] = lanes_row_vs_cpu(data, blob, d2g, tag)
+        return summary
+    for lanes, r in zip(turns, runs):
         want = schedule_launches(r["valid_steps"],
                                  r["valid_steps"] + r["probe_forwards"])
         what = f"{lanes} lanes" if lanes else "serial"
@@ -6454,27 +6701,31 @@ def lanes_updates(tag):
               f"{r['launches']}, expected {want}")
         check(all(np.all(np.isfinite(r[m])) for m in ("mask", "A", "B")),
               f"(b) {what}: a matrix is not finite")
-    l1, ser = runs
-    gaps = {m: float(np.abs(l1[m] - ser[m]).max()) for m in ("mask", "A",
-                                                             "B")}
+    l1, ser = runs[0], (runs[1] if len(runs) > 1 else None)
+    gaps = None if ser is None else {
+        m: float(np.abs(l1[m] - ser[m]).max()) for m in ("mask", "A", "B")}
     print(f"{tag} lanes (b) update_matrix_cdc of phase 17's configuration "
           f"({LANES_CAUSAL} mask rows; {l1['valid_steps']} valid steps, "
           f"{l1['probe_forwards']} probe evals), in turns (host clock, "
           f"synchronized): " + ", ".join(
               f"{'lanes' if n else 'serial'} {r['seconds']:.3f} s (peak "
-              f"{r['peak_gb']:.2f} GiB)" for n, r in zip(LANES_TURNS, runs))
+              f"{r['peak_gb']:.2f} GiB)" for n, r in zip(turns, runs))
           + f"; the trainer's state bitwise unchanged by the lanes; "
-          f"launches {l1['launches']} (= the schedule); "
-          f"lanes vs serial (the documented divergence: each row its own "
-          f"moments) max abs {gaps}; domain2group lanes {l1['d2g']}, serial "
-          f"{ser['d2g']}")
-    summary = {
-        "mask_rows": LANES_CAUSAL, "valid_steps": l1["valid_steps"],
+          f"launches {l1['launches']} (= the schedule); domain2group lanes "
+          f"{l1['d2g']}"
+          + ("" if ser is None else
+             f", serial {ser['d2g']}; lanes vs serial (the documented "
+             f"divergence: each row its own moments) max abs {gaps}"))
+    summary.update({
+        "valid_steps": l1["valid_steps"],
         "probe_forwards": l1["probe_forwards"],
-        "seconds": {"lanes": l1["seconds"], "serial": ser["seconds"]},
-        "peak_gb": {"lanes": l1["peak_gb"], "serial": ser["peak_gb"]},
+        "seconds": {"lanes" if n else "serial": r["seconds"]
+                    for n, r in zip(turns, runs)},
+        "peak_gb": {"lanes" if n else "serial": r["peak_gb"]
+                    for n, r in zip(turns, runs)},
         "launches": l1["launches"], "lanes_vs_serial": gaps,
-        "domain2group": {"lanes": l1["d2g"], "serial": ser["d2g"]}}
+        "domain2group": {"lanes" if n else "serial": r["d2g"]
+                         for n, r in zip(turns, runs)}})
     blob, d2g = tr.snapshot_bytes(), list(tr.cluster.domain2group_list)
     del tr, runs, l1, ser
     torch.cuda.empty_cache()
@@ -6515,6 +6766,7 @@ def lanes_on_mesh(tag):
     for r in recs:
         want = schedule_launches(r["valid_steps"],
                                  r["valid_steps"] + r["probe_forwards"])
+        check(not r["resident"], f"(c) rank {r['rank']}: the split resident")
         check(r["launches"] == want and r["d2g"] == r0["d2g"],
               f"(c) rank {r['rank']}: launches {r['launches']} (expected "
               f"{want}), clustering {r['d2g']} (rank 0's {r0['d2g']})")
@@ -6526,7 +6778,8 @@ def lanes_on_mesh(tag):
     own, moved = clustering_tie(ref["mask"], n_cluster, seed[0], EP_CDC_ATOL)
     tied = len(moved) > 1
     print(f"{tag} lanes (c) update_matrix_cdc in {LANES} lanes on "
-          f"{MESH_SHAPE} over gloo with the experts split ({world} ranks in "
+          f"{MESH_SHAPE} over gloo with the experts split and the split "
+          f"streamed on every rank ({world} ranks in "
           f"{ranks_s:.1f} s, start-up included; {r0['valid_steps']} valid "
           f"lane-steps, {r0['seconds']:.3f} s) against one device's lanes "
           f"from the mesh's state ({ref['seconds']:.3f} s): matrices max abs "
@@ -6592,24 +6845,31 @@ def stream_config(placement="auto", lanes=0, cut=True, **train):
         cfg.cdc, data_placement=placement, parallel_rows=lanes, **cut_kw))
 
 
-def _observe_updates(tr, X, counters, keep=()):
-    """Wrap ``tr``'s entry points for phase 25 -> (record, undo).  The
-    record holds every hybrid step's loss (tensors; the lanes' steps
+def _observe_updates(tr, X, counters, keep=(), on_block=None):
+    """Wrap ``tr``'s entry points for phases 25 and 26 -> (record, undo).
+    The record holds every hybrid step's loss (tensors; the lanes' steps
     discard theirs), the warmup's and the spans' steps and the spans'
-    seconds, and per matrix update: its seconds (host clock,
-    synchronized), the seconds of its ``_feed`` calls inside (the host
-    window's gather and copy under "stream", the index copies under
-    "resident"; each synchronized), peak device memory, the launches of
-    ``counters`` beside its schedule (valid steps, probe forwards), the
-    raw matrices and k-means seed update_group received and the
-    clustering it gave, and the domains each B row trained (from the
-    host split ``X``).  For an update whose index is in ``keep``: its
-    entry state and clustering, its mask row with the fewest valid steps
-    (the cheapest to replay on the CPU) and its B row with the most."""
+    seconds, the peak device memory over the run, and per matrix update:
+    its seconds (host clock, synchronized), the seconds of its ``_feed``
+    calls inside (the host window's gather and copy under "stream", the
+    index copies under "resident"; each synchronized), the collectives'
+    calls and host seconds inside (``collectives.STATS``; none without a
+    mesh), peak device memory, the launches of ``counters`` beside its
+    schedule (valid steps, probe forwards), the raw matrices and k-means
+    seed update_group received and the clustering it gave, and the
+    domains each B row trained (from the host split ``X``).  For an
+    update whose index is in ``keep``: its entry state (gathered on a
+    mesh: every rank keeps) and clustering, its mask row with the fewest
+    valid steps (the cheapest to replay on the CPU), its mask row 0 and
+    its B row with the most.  ``on_block(tr, u, i, record)`` runs at the
+    entry of update u's populate block i (``record``: the update's so
+    far)."""
     import tpurec_torch.cdc.engine as eng
+    from tpurec_torch.parallel.collectives import STATS
 
     rec = {"losses": [], "updates": [], "feed_seconds": 0.0,
-           "warmup_steps": 0, "span_steps": 0, "span_seconds": 0.0}
+           "warmup_steps": 0, "span_steps": 0, "span_seconds": 0.0,
+           "peak_gb": 0.0}
     steps, populate, baseline, feed = (tr._steps, tr._run_populate_async,
                                        tr.eval_all_domains, tr._feed)
     update, span, warmup = (tr.update_matrix_cdc, tr._train_span,
@@ -6651,9 +6911,12 @@ def _observe_updates(tr, X, counters, keep=()):
         if u["keep"] and block == 0:
             r = int(np.argmin(np.where(n > 0, n, 1 << 30)))
             u["mask_row"] = (r, row(r))
+            u["row0"] = row(0)
         if u["keep"] and block == 2:
             r = int(np.argmax(n))
             u["b_row"] = (r, row(r))
+        if on_block is not None:
+            on_block(tr, len(rec["updates"]), block, u)
         return populate(bidx, bmask, bvalid, eidx, emask)
 
     def baseline_(idx, mask):
@@ -6673,15 +6936,20 @@ def _observe_updates(tr, X, counters, keep=()):
             u["entry_d2g"] = list(tr.cluster.domain2group_list)
         cur["u"] = u
         before = {n: fn.launches for n, fn in counters.items()}
-        f0 = rec["feed_seconds"]
+        f0, c0 = rec["feed_seconds"], dict(STATS)
         torch.cuda.synchronize()
+        rec["peak_gb"] = max(rec["peak_gb"],
+                             torch.cuda.max_memory_allocated() / 2**30)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         update(k)
         torch.cuda.synchronize()
         u["seconds"] = time.perf_counter() - t0
         u["feed_seconds"] = rec["feed_seconds"] - f0
+        u["coll_seconds"] = STATS["seconds"] - c0["seconds"]
+        u["coll_calls"] = STATS["calls"] - c0["calls"]
         u["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["peak_gb"] = max(rec["peak_gb"], u["peak_gb"])
         u["launches"] = {n: fn.launches - before[n]
                          for n, fn in counters.items()}
         u["d2g"] = [int(g) for g in tr.cluster.domain2group_list]
@@ -6711,6 +6979,8 @@ def _observe_updates(tr, X, counters, keep=()):
         for name in names:
             delattr(tr, name)
         eng.update_group = update_group
+        rec["peak_gb"] = max(rec["peak_gb"],
+                             torch.cuda.max_memory_allocated() / 2**30)
 
     return rec, undo
 
@@ -6731,19 +7001,24 @@ def _update_line(u):
             f"{u['probe_forwards']} probe evals) -> {u['d2g']}")
 
 
-def stream_fit(data, counters, placement, lanes, dtype, keep=()):
-    """One of phase 25 (a)'s fits: CDCTrainer.fit(train, valid) of
-    :func:`stream_config` at ``placement``, ``lanes`` row lanes and
-    ``dtype`` compute, observed (:func:`_observe_updates`), the counters
-    read around it against the schedule, fit-wide and update by update.
-    -> record."""
+def stream_fit(data, counters, cfg, keep=(), shardings=None, on_block=None,
+               what="(a)", min_updates=STREAM_MIN_UPDATES):
+    """One of phase 25 (a)'s (or 26 (b)'s, or 23 (b)'s streamed) fits:
+    CDCTrainer.fit(train, valid) at ``cfg`` on phase 23 (b)'s data, on
+    the mesh of ``shardings`` if given, observed
+    (:func:`_observe_updates`, ``keep`` and ``on_block`` passed on), at
+    least ``min_updates`` matrix updates, the counters read around it
+    against the schedule, fit-wide and update by update.  -> record."""
     from tpurec_torch.cdc import CDCTrainer
 
-    tr = CDCTrainer(stream_config(placement, lanes, compute_dtype=dtype),
-                    EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX)
-    rec, undo = _observe_updates(tr, data.train[0], counters, keep)
+    placement, lanes = cfg.cdc.data_placement, cfg.cdc.parallel_rows
+    tr = CDCTrainer(cfg, EP_CDC_DIMS, EP_CDC_DOMAINS, DOMAIN_IDX,
+                    shardings=shardings)
+    rec, undo = _observe_updates(tr, data.train[0], counters, keep,
+                                 on_block)
     for fn in counters.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         out = tr.fit(data.train, data.valid)
@@ -6751,12 +7026,12 @@ def stream_fit(data, counters, placement, lanes, dtype, keep=()):
     finally:
         undo()
     rec["fit_seconds"] = time.perf_counter() - t0
-    what = (f"(a) {placement}, {f'{lanes} lanes' if lanes else 'serial'}, "
-            f"{dtype}")
+    what = (f"{what} {placement}, {f'{lanes} lanes' if lanes else 'serial'}"
+            f", {cfg.train.compute_dtype}")
     check(tr._resident == (placement == "resident"),
           f"{what}: resident {tr._resident}")
     ups = rec["updates"]
-    check(len(ups) >= STREAM_MIN_UPDATES, f"{what}: {len(ups)} updates")
+    check(len(ups) >= min_updates, f"{what}: {len(ups)} updates")
     for i, u in enumerate(ups):
         _check_update_launches(u, f"{what}, update {i + 1}")
     n_steps = (rec["warmup_steps"] + sum(u["valid_steps"] for u in ups)
@@ -6778,6 +7053,22 @@ def stream_fit(data, counters, placement, lanes, dtype, keep=()):
     return rec
 
 
+def _fits_bitwise(A, B):
+    """Which of two :func:`stream_fit` records are bitwise equal: every
+    loss, each update's matrices, the k-means seeds and clusterings, the
+    final state."""
+    return {
+        "losses": A["losses"] == B["losses"],
+        "matrices": len(A["updates"]) == len(B["updates"]) and all(
+            np.array_equal(ua[m], ub[m]) for ua, ub in
+            zip(A["updates"], B["updates"]) for m in ("mask", "A", "B")),
+        "clusterings": [u["d2g"] for u in A["updates"]]
+        == [u["d2g"] for u in B["updates"]]
+        and [u["seed"] for u in A["updates"]]
+        == [u["seed"] for u in B["updates"]],
+        "state": A["state"] == B["state"]}
+
+
 def stream_fits(tag):
     """Phase 25 (a) (see :func:`stream_main_path`).  -> (launches by fit,
     summary)."""
@@ -6787,7 +7078,8 @@ def stream_fits(tag):
     fits = {}
     for key, placement, lanes, dtype in STREAM_FITS:
         fits[key] = f = stream_fit(
-            data, counters, placement, lanes, dtype,
+            data, counters, stream_config(placement, lanes,
+                                          compute_dtype=dtype),
             STREAM_CHECKED if key in ("ii", "iv") else ())
         print(f"{tag} stream (a) ({key}) CDCTrainer.fit of PLE, "
               f"{placement}, {f'{lanes} lanes' if lanes else 'serial'}, "
@@ -6803,17 +7095,7 @@ def stream_fits(tag):
                               if d))
     same = {}
     for a, b in (("i", "ii"), ("iii", "iv")):
-        A, B = fits[a], fits[b]
-        same[f"{b}_vs_{a}"] = s = {
-            "losses": A["losses"] == B["losses"],
-            "matrices": len(A["updates"]) == len(B["updates"]) and all(
-                np.array_equal(ua[m], ub[m]) for ua, ub in
-                zip(A["updates"], B["updates"]) for m in ("mask", "A", "B")),
-            "clusterings": [u["d2g"] for u in A["updates"]]
-            == [u["d2g"] for u in B["updates"]]
-            and [u["seed"] for u in A["updates"]]
-            == [u["seed"] for u in B["updates"]],
-            "state": A["state"] == B["state"]}
+        same[f"{b}_vs_{a}"] = s = _fits_bitwise(fits[a], fits[b])
         check(all(s.values()), f"(a) ({b}) stream vs ({a}) resident: {s}")
     ratio = {k: [fits[b]["updates"][i]["seconds"]
                  / fits[a]["updates"][i]["seconds"]
@@ -7149,6 +7431,600 @@ def stream_main_path(dev, tag):
     summary["phase_seconds"] = time.perf_counter() - t_phase
     print(f"stream phase: {summary['phase_seconds']:.1f} s")
     return launches, summary
+
+
+# -- CDC's cadence on the mesh (phase 26, run alone) --------------------------
+
+# (b): phase 25 (a)'s configuration on MESH_SHAPE with the experts split,
+# dropout 0 and CDC_CHECK_WD (as 23 (b)); four fits from one initial state
+CADENCE_FITS = (("i", "resident", 0), ("ii", "stream", 0),
+                ("iii", "resident", LANES), ("iv", "stream", LANES))
+CADENCE_TIMEOUT = 1100
+# (c): a row's limit against one device where a row order alone parts one
+# device from itself by more than EP_CDC_ATOL: this many times that
+# parting (the mesh also moves each row's products, at a rank's row
+# count, which a row order does not; on an H100 80GB HBM3, 23 (b)'s
+# witness read the mesh at 1.2-1.5x a row order's median parting on (2, 1))
+ORDER_FACTOR = 2
+# (c): row 0's first steps on the mesh against one device from the same
+# state, at a fixed limit: step 1 holds the lookup and the forward, step 2
+# also step 1's backward, the exchange and the update, before training
+# amplifies a summation order.  The limit is 8 float32 ulps of the loss,
+# which the table's L2 term dominates: tpurec's MESH_LOSS_RTOL (2e-5)
+# let a planted fault pass (the last data rank's rows left out of step 1
+# parted steps 1-2 by 1.14e-5 and 3.29e-6 at 4M rows on an H100 80GB
+# HBM3, where the mesh read 0 and 0), so the fault is replayed in every
+# run and must part them by more than the limit
+CADENCE_STEPS_HELD = 2
+CADENCE_STEP_RTOL = 1e-6
+
+
+def cadence_config(placement="auto", lanes=0, cut=True):
+    """Phase 26's configuration: :func:`stream_config` (PLE at
+    CDCConfig()'s defaults; ``cut``: phase 25 (a)'s mask rows, warmup and
+    interval) at dropout 0 and CDC_CHECK_WD, where the mesh is held to
+    one device."""
+    return stream_config(placement, lanes, cut=cut, dropout=0.0,
+                         wd=CDC_CHECK_WD)
+
+
+def cadence_rank(out_dir):
+    """One rank of phase 26 on MESH_SHAPE with the experts split, started
+    by :func:`cadence_main_path` or :func:`cadence_at_scale` with
+    ``cadence.json`` in ``out_dir`` (``rows``: None for (b), the
+    synthetic rows of (c)).  Writes ``cadence_rank_<r>.json``."""
+    import os
+
+    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "cadence.json")) as f:
+        w = json.load(f)
+    j = init_distributed()
+    sh = Shardings(make_mesh(*MESH_SHAPE), expert_parallel=True)
+    rec = (cadence_fits_rank(out_dir, j, sh) if w["rows"] is None
+           else cadence_scale_rank(out_dir, j, sh, w["rows"]))
+    rec.update(rank=j.rank, backend=j.backend, device=str(sh.mesh.device))
+    with open(os.path.join(out_dir, f"cadence_rank_{j.rank}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _update_record(u):
+    return {k: u[k] for k in (
+        "seconds", "feed_seconds", "coll_seconds", "coll_calls", "peak_gb",
+        "valid_steps", "probe_forwards", "blocks", "d2g", "seed",
+        "launches")}
+
+
+def cadence_fits_rank(out_dir, j, sh):
+    """Phase 26 (b) on one rank: the CADENCE_FITS fits of
+    :func:`cadence_config` on phase 23 (b)'s data (:func:`stream_fit`:
+    at least STREAM_MIN_UPDATES updates, launches against the schedule
+    update by update), "stream" against "resident" bitwise serially and
+    in lanes (:func:`_fits_bitwise`), and in fit (iv) at each update the
+    serial row 0 from the update's entry state against lane row 0
+    (bitwise).  Rank 0 writes fit (i)'s state at the entry of each
+    populate block of its first update (``block_<i>.msgpack``).
+    -> record."""
+    import os
+
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.parallel.collectives import reset_stats
+
+    data = ep_cdc_data()
+    counters = train_counters("ple")
+
+    def block(tr, u, i, _):
+        if u == 0:
+            blob = tr.snapshot_bytes()
+            if j.rank == 0:
+                with open(os.path.join(out_dir, f"block_{i}.msgpack"),
+                          "wb") as f:
+                    f.write(blob)
+
+    fits = {}
+    for key, placement, lanes in CADENCE_FITS:
+        reset_stats()
+        fits[key] = stream_fit(
+            data, counters, cadence_config(placement, lanes),
+            keep=range(1 << 10) if key == "iv" else (), shardings=sh,
+            on_block=block if key == "i" else None,
+            what=f"(b) rank {j.rank} ({key})")
+    same = {f"{b}_vs_{a}": _fits_bitwise(fits[a], fits[b])
+            for a, b in (("i", "ii"), ("iii", "iv"))}
+    check(all(all(v.values()) for v in same.values()),
+          f"(b) rank {j.rank}: stream vs resident {same}")
+    # lane row 0 against the serial row 0 from each update's entry state
+    t = CDCTrainer(cadence_config("stream", 0), EP_CDC_DIMS,
+                   EP_CDC_DOMAINS, DOMAIN_IDX, shardings=sh)
+    t.setup_data(data.train, data.valid)
+    gaps = []
+    for u in fits["iv"]["updates"]:
+        t.restore_bytes(u["entry"])
+        t.cluster.domain2group = np.asarray(u["entry_d2g"], np.int64)
+        row = t._run_populate_async(*(a[None] for a in u["row0"]))[0]
+        gaps.append(float(np.abs(row.cpu().double().numpy()
+                                 - u["mask"][0]).max()))
+    del t
+    torch.cuda.empty_cache()
+    check(all(g == 0.0 for g in gaps), f"(b) rank {j.rank}: lane row 0 vs "
+          f"serial row 0 by update {gaps}")
+    u0 = fits["i"]["updates"][0]
+    return {
+        "bitwise": same, "row0_gaps": gaps,
+        "first_update": {m: u0[m].tolist() for m in ("mask", "A", "B")},
+        "fits": {k: {"updates": [_update_record(u) for u in f["updates"]],
+                     "fit_seconds": f["fit_seconds"],
+                     "peak_gb": f["peak_gb"],
+                     "warmup_steps": f["warmup_steps"],
+                     "span_steps": f["span_steps"],
+                     "span_ms_a_step": f["span_seconds"]
+                     / f["span_steps"] * 1e3,
+                     "valid_total_auc": f["auc"],
+                     "launches": f["launches"]}
+                 for k, f in fits.items()}}
+
+
+def _spawn_cadence(rows, timeout):
+    """Start phase 26's ranks -> (their records, the directory)."""
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="cadence_")
+    with open(os.path.join(tmp, "cadence.json"), "w") as f:
+        json.dump({"rows": rows}, f)
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    rcs, tails = _spawn_ranks(world, tmp, timeout=timeout,
+                              flag="--cadence-rank")
+    ranks_s = time.perf_counter() - t0
+    check(rcs == [0] * world, f"phase 26 ranks exited {rcs}:\n{tails}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"cadence_rank_{r}.json")) as f:
+            recs.append(json.load(f))
+    for r in recs:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"rank {r['rank']}: {r['backend']} on {r['device']}")
+    return recs, tmp, ranks_s
+
+
+def cadence_main_path(tag):
+    """Phase 26 (b), ``--phase 26``: CDC's cadence on the mesh.  4 ranks
+    on MESH_SHAPE over gloo with the experts split
+    (:func:`cadence_fits_rank`): four CDCTrainer.fit runs of
+    :func:`cadence_config` from one initial state, "resident" and
+    "stream", serially and in LANES row lanes, each with at least
+    STREAM_MIN_UPDATES matrix updates; on every rank "stream" bitwise
+    "resident", lane row 0 bitwise the serial row 0 at each update, #1,
+    #2, #3 and #6/7's pass against the schedule update by update; every
+    rank holding rank 0's clustering after each update; the first
+    update's matrices against a one-device fit that takes the mesh's
+    state at each of its populate blocks' entry (EP_CDC_ATOL, the
+    clustering held unless it ties).  Per update: seconds, ``_feed``'s
+    seconds and share, the collectives' share, peak device memory a rank.
+    -> summary."""
+    import os
+    import shutil
+
+    from tpurec_torch.cdc import CDCTrainer
+
+    t_phase = time.perf_counter()
+    recs, tmp, ranks_s = _spawn_cadence(None, CADENCE_TIMEOUT)
+    r0 = recs[0]
+    for k, *_ in CADENCE_FITS:
+        d2g = [u["d2g"] for u in r0["fits"][k]["updates"]]
+        check(all([u["d2g"] for u in r["fits"][k]["updates"]] == d2g
+                  for r in recs), f"(b) ({k}): the ranks' clusterings "
+              + "; ".join(str([u["d2g"] for u in r["fits"][k]["updates"]])
+                          for r in recs))
+    print(f"{tag} cadence (b) {len(recs)} ranks on {MESH_SHAPE} over gloo, "
+          f"the experts split, ran in {ranks_s:.1f} s (start-up "
+          "included); every rank exited 0: \"stream\" bitwise \"resident\" "
+          "serially and in lanes (every loss, each update's matrices, "
+          "k-means seed and clustering, the final state), lane row 0 "
+          "bitwise the serial row 0 at each update, launches = the "
+          "schedule update by update, every rank holding rank 0's "
+          "clustering after each update")
+    for key, placement, lanes in CADENCE_FITS:
+        f = r0["fits"][key]
+        print(f"{tag} cadence (b) ({key}) {placement}, "
+              f"{f'{lanes} lanes' if lanes else 'serial'}: "
+              f"{f['warmup_steps']} warmup steps, {len(f['updates'])} "
+              f"updates, {f['span_steps']} split-mode steps "
+              f"({f['span_ms_a_step']:.3f} ms a step), fit "
+              f"{f['fit_seconds']:.2f} s, valid total_auc "
+              f"{f['valid_total_auc']:.5f}; launches {f['launches']}; peak "
+              "a rank " + ", ".join(f"{r['fits'][key]['peak_gb']:.2f}"
+                                    for r in recs) + " GiB")
+        for i, u in enumerate(f["updates"]):
+            print(f"    update {i + 1}: {u['seconds']:.3f} s (_feed "
+                  f"{u['feed_seconds']:.3f} s, "
+                  f"{100 * u['feed_seconds'] / u['seconds']:.1f}%; "
+                  f"collectives {u['coll_calls']} calls, "
+                  f"{100 * u['coll_seconds'] / u['seconds']:.1f}%; "
+                  f"{u['valid_steps']} valid steps, {u['probe_forwards']} "
+                  f"probe evals; peak a rank "
+                  + ", ".join(f"{r['fits'][key]['updates'][i]['peak_gb']:.2f}"
+                              for r in recs)
+                  + f" GiB) -> {u['d2g']}")
+    # update 1 against one device from the mesh's state at each block
+    data = ep_cdc_data()
+    one = CDCTrainer(cadence_config("resident", 0), EP_CDC_DIMS,
+                     EP_CDC_DOMAINS, DOMAIN_IDX)
+
+    def from_mesh(tr, u, i, _):
+        if u == 0:
+            with open(os.path.join(tmp, f"block_{i}.msgpack"), "rb") as fh:
+                tr.restore_bytes(fh.read())
+
+    rec, undo = _observe_updates(one, data.train[0], train_counters("ple"),
+                                 on_block=from_mesh)
+    try:
+        one.fit(data.train, data.valid)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    del one
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    u1 = rec["updates"][0]
+    mine = r0["fits"]["i"]["updates"][0]
+    errs = {m: float(np.abs(np.asarray(r0["first_update"][m])
+                            - u1[m]).max()) for m in ("mask", "A", "B")}
+    check(mine["seed"] == u1["seed"], f"(b) k-means seeds: mesh "
+          f"{mine['seed']}, one device {u1['seed']}")
+    # update_group clusters the mask rows less the warm baseline (A's
+    # last row: affinity "minus", nothing blended at the first update)
+    n_cluster = cadence_config().cdc.n_cluster
+    mesh_m = {m: np.asarray(r0["first_update"][m]) for m in ("mask", "A")}
+    own, moved = clustering_tie(u1["mask"] - u1["A"][-1], n_cluster,
+                                u1["seed"], EP_CDC_ATOL)
+    mesh_own, _ = clustering_tie(mesh_m["mask"] - mesh_m["A"][-1],
+                                 n_cluster, u1["seed"], EP_CDC_ATOL,
+                                 draws=0)
+    tied = len(moved) > 1
+    print(f"{tag} cadence (b) update 1 of (i) against one device from the "
+          f"mesh's state at each block's entry: matrices max abs err "
+          f"{errs} (tol {EP_CDC_ATOL}); clustering mesh {mine['d2g']}, one "
+          f"device {u1['d2g']}; one device's matrices moved by "
+          f"+-{EP_CDC_ATOL} ({EP_TIE_DRAWS} draws) cluster {moved} ("
+          + ("a tie: compared, not held" if tied else "decided: held") + ")")
+    check(all(v <= EP_CDC_ATOL for v in errs.values()),
+          f"(b) update 1 vs one device: {errs}")
+    check(own == tuple(u1["d2g"]) and mesh_own == tuple(mine["d2g"]),
+          f"(b) reclustering gives {own} (one device's {u1['d2g']}), "
+          f"{mesh_own} (the mesh's {mine['d2g']})")
+    check(tied or mine["d2g"] == u1["d2g"], f"(b) clustering "
+          f"{mine['d2g']} vs one device's {u1['d2g']}")
+    summary = {"ranks_seconds": ranks_s,
+               "bitwise": r0["bitwise"], "row0_gaps": r0["row0_gaps"],
+               "update1_vs_one_device": errs,
+               "clustering_moved": {str(list(k)): n for k, n in
+                                    moved.items()},
+               "fits": {k: {**r0["fits"][k], "peak_gb_by_rank": [
+                   r["fits"][k]["peak_gb"] for r in recs],
+                   "update_peak_gb_by_rank": [
+                       [u["peak_gb"] for u in r["fits"][k]["updates"]]
+                       for r in recs]}
+                   for k, *_ in CADENCE_FITS}}
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"cadence (b): {summary['phase_seconds']:.1f} s")
+    return summary
+
+
+def cadence_scale_rank(out_dir, j, sh, rows):
+    """Phase 26 (c) on one rank: make_synthetic(``rows``) at the
+    flagship schema (phase 25 (b)'s draw), CDCTrainer on the mesh of
+    ``sh`` at :func:`cadence_config` uncut ("auto" placement), which must
+    stream the split; the warmup and the first matrix update (the epoch
+    after it cut), observed (:func:`_observe_updates`), launches against
+    the schedule, the exact valid eval.  Rank 0 writes what one-device
+    replays of two of the update's mask rows need, row 0 and the row with
+    the fewest valid steps (``rows.npz``: the state at each row's start,
+    the clustering, each row's schedule, its window of the split, the
+    mesh's row, and row 0's step losses).  -> record."""
+    import os
+    import resource
+
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.data import make_synthetic
+    from tpurec_torch.parallel.collectives import reset_stats
+
+    t0 = time.perf_counter()
+    data = make_synthetic(
+        n_rows=rows, n_fields=len(FIELD_DIMS), n_domain=N_DOMAIN,
+        field_dims=FIELD_DIMS, domain_idx=DOMAIN_IDX, seed=1,
+        domain_cluster_k=N_TOWER, domain_cluster_conflict=True)
+    train, valid = data.train, data.valid
+    del data
+    data_s = time.perf_counter() - t0
+    tr = CDCTrainer(cadence_config(cut=False), FIELD_DIMS, N_DOMAIN,
+                    DOMAIN_IDX, shardings=sh)
+    t0 = time.perf_counter()
+    tr.setup_data(train, valid)
+    setup_s = time.perf_counter() - t0
+    nbytes = train[0].nbytes + train[1].nbytes
+    check(tr._resident is False, f"(c) rank {j.rank}: a {nbytes / 1e9:.3f}"
+          f" GB split stayed resident (mesh budget "
+          f"{tr.MESH_RESIDENT_BUDGET / 2**20:.0f} MiB)")
+    counters = train_counters("ple")
+    for fn in counters.values():
+        fn.launches = 0
+    # a serial block's row r starts from the block's entry parameters and
+    # the moments rows 0..r-1 left: the state at the fewest-steps mask
+    # row's start is taken there (the r-th row's steps of block 0)
+    arm, starts = {"row": -1, "calls": -1}, {}
+
+    def on_block(tr_, u, i, urec):
+        arm["calls"] = 0 if (u, i) == (0, 0) else -1
+        if arm["calls"] == 0:
+            arm["row"] = urec["mask_row"][0]
+
+    rec, undo = _observe_updates(tr, train[0], counters, keep=(0,),
+                                 on_block=on_block)
+    steps = tr._steps
+
+    def steps_(mode, *args):
+        row0 = arm["calls"] == 0
+        if arm["calls"] >= 0:
+            if arm["calls"] == arm["row"]:
+                starts["few"] = tr.snapshot_bytes()
+            arm["calls"] += 1
+        out = steps(mode, *args)
+        if row0:
+            starts["row0_losses"] = [float(x) for x in out]
+        return out
+
+    tr._steps = steps_
+    reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._run_steps("warmup", *tr._warmup_sched())
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        tr.update_matrix_cdc(tr._scaled_update_matrix_step())
+        t0 = time.perf_counter()
+        ev = tr.evaluate(tr.valid_batcher)
+        eval_s = time.perf_counter() - t0
+    finally:
+        undo()
+    u, = rec["updates"]
+    _check_update_launches(u, f"(c) rank {j.rank} update 1")
+    n_eval = tr._padded_split(tr.valid_batcher)[6]
+    n_steps = rec["warmup_steps"] + u["valid_steps"]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = schedule_launches(n_steps, n_steps + u["probe_forwards"] + n_eval)
+    check(launches == want, f"(c) rank {j.rank}: launches {launches}, the "
+          f"schedule {want}")
+    check(np.isfinite(ev["total_auc"]), f"(c) valid AUC {ev['total_auc']}")
+    if j.rank == 0:
+        rows_out = {"row0_entry": np.frombuffer(u["entry"], np.uint8),
+                    "few_entry": np.frombuffer(starts["few"], np.uint8),
+                    "d2g": np.asarray(u["entry_d2g"]),
+                    "row0_losses": np.asarray(starts["row0_losses"])}
+        r_few, few = u["mask_row"]
+        for key, r, row in (("row0", 0, u["row0"]), ("few", r_few, few)):
+            bidx, bmask, bvalid, eidx, emask = row
+            flat = np.concatenate([bidx.ravel(), eidx.ravel()]).astype(
+                np.int64)
+            rows_out.update({f"{key}_{k}": v for k, v in (
+                ("index", r), ("bmask", bmask), ("bvalid", bvalid),
+                ("emask", emask), ("bshape", bidx.shape),
+                ("eshape", eidx.shape), ("X", train[0][flat]),
+                ("y", train[1][flat]), ("row", u["mask"][r]))})
+        np.savez(os.path.join(out_dir, "rows.npz"), **rows_out)
+    out = {"rows": rows, "train_rows": len(train[1]),
+           "train_gb": nbytes / 1e9, "resident": tr._resident,
+           "data_seconds": data_s, "setup_seconds": setup_s,
+           "warmup_steps": rec["warmup_steps"], "warmup_seconds": warm_s,
+           "update": _update_record(u), "launches": launches,
+           "valid_total_auc": ev["total_auc"], "valid_rows": len(valid[1]),
+           "eval_seconds": eval_s,
+           "device_peak_gb": max(rec["peak_gb"],
+                                 torch.cuda.max_memory_allocated() / 2**30),
+           "host_peak_rss_gb": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss / 2**20}
+    del tr, rec, train, valid
+    torch.cuda.empty_cache()
+    return out
+
+
+def _replay_row(rows, key, order=None, split=False, drop=False):
+    """One of phase 26 (c)'s mask rows (``key`` "row0" or "few" in
+    ``rows``, :func:`cadence_scale_rank`'s) on one device from the mesh's
+    state at the row's start: its treatment steps, each step's rows in
+    the order drawn from seed ``order`` (None: the schedule's), then its
+    probe eval; ``split`` makes the sums and products in MESH_SHAPE's
+    data ranks' row blocks (:class:`mesh_split_sums`); ``drop`` (a
+    planted fault) leaves the last data rank's columns out of the first
+    step, as a mesh that lost that rank's rows there would.  -> (the [D]
+    row, the steps' losses)."""
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.cdc.algorithm import CDCClusterState
+
+    def a(name):
+        return rows[f"{key}_{name}"]
+
+    cfg = cadence_config(cut=False)
+    t = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
+    t.restore_bytes(a("entry").tobytes())
+    t.cluster = CDCClusterState.create(N_DOMAIN, cfg.cdc.n_cluster, cfg.cdc)
+    t.cluster.domain2group = np.asarray(rows["d2g"], np.int64)
+    dev = t.device
+    nb = int(np.prod(a("bshape")))
+    pos = torch.arange(len(a("y")), dtype=torch.int32, device=dev)
+    Xs = torch.from_numpy(a("X")).to(dev)
+    ys = torch.from_numpy(a("y")).to(dev)
+    bi = pos[:nb].reshape(tuple(a("bshape")))
+    bm = torch.from_numpy(a("bmask")).to(dev)
+    if order is not None:
+        perm = torch.randperm(bi.shape[1], generator=torch.Generator()
+                              .manual_seed(order)).to(dev)
+        bi, bm = bi[:, perm], bm[:, perm]
+    if drop:
+        s0 = int(np.flatnonzero(a("bvalid"))[0])
+        bm = bm.clone()
+        bm[s0, bm.shape[1] - bm.shape[1] // MESH_SHAPE[0]:] = 0
+    ei = pos[nb:].reshape(tuple(a("eshape")))
+    with (mesh_split_sums(MESH_SHAPE[0], rows=True) if split
+          else contextlib.nullcontext()):
+        losses = [float(x) for x in t._steps("split", Xs, ys, bi, bm,
+                                             a("bvalid"))]
+        row = t._eval_rows(Xs, ys, ei, torch.from_numpy(a("emask"))
+                           .to(dev)).cpu().double().numpy()
+    del t, Xs, ys
+    torch.cuda.empty_cache()
+    return row, losses
+
+
+def row0_steps(rows_in, losses, tag):
+    """Phase 26 (c): row 0's step losses on the mesh (``rows_in``)
+    against one device's replay (``losses``), relative; the first
+    CADENCE_STEPS_HELD held at CADENCE_STEP_RTOL; beside them the replay
+    with a planted fault (:func:`_replay_row`'s ``drop``), which the
+    limit must see.  -> summary."""
+    mesh = rows_in["row0_losses"]
+
+    def parting(xs):
+        check(len(xs) == len(mesh), f"(c) row 0: {len(xs)} steps on one "
+              f"device, {len(mesh)} on the mesh")
+        return [abs(x - m) / abs(m) for x, m in zip(xs, mesh)]
+
+    err = parting(losses)
+    fault = parting(_replay_row(rows_in, "row0", drop=True)[1])
+    n, tol = CADENCE_STEPS_HELD, CADENCE_STEP_RTOL
+    print(f"{tag} cadence (c) mask row 0's step losses, the mesh against "
+          f"one device from the same state (relative): steps 1-{n} "
+          + ", ".join(f"{x:.3g}" for x in err[:n])
+          + f" (tol {tol}), all {len(err)} steps max {max(err):.3g}; "
+          f"with a planted fault (the last data rank's rows left out of "
+          f"step 1) steps 1-{n} " + ", ".join(f"{x:.3g}" for x in fault[:n])
+          + " (must exceed the tol)")
+    check(max(err[:n]) <= tol, f"(c) row 0's first {n} step losses vs "
+          f"one device: {err[:n]} (tol {tol})")
+    check(max(fault[:n]) > tol, f"(c) the planted fault parts row 0's "
+          f"first {n} step losses by {fault[:n]}, within the tol {tol}")
+    return {"held": err[:n], "tol": tol, "max": max(err),
+            "planted_fault": fault[:n]}
+
+
+def cadence_at_scale(tag, rows):
+    """Phase 26 (c), ``--phase 26 --rows N``: CDC on the mesh at a size
+    its users run, 4 ranks on MESH_SHAPE with the experts split
+    (:func:`cadence_scale_rank`): every rank's "auto" must stream the
+    split, the warmup and the first update run to their end with finite
+    matrices and one clustering on every rank; two mask rows of that
+    update replayed on one device from the mesh's state at the row's
+    start (row 0 and the fewest steps'), beside one device in two other
+    row orders: each within EP_CDC_ATOL or, where one device parts from
+    itself by more under a row order, within ORDER_FACTOR times that
+    parting; row 0's first step losses at a fixed limit
+    (:func:`row0_steps`).  Each rank's data and set-up seconds, the update's seconds,
+    valid steps, ``_feed``'s and the collectives' shares, host peak RSS
+    and device peak memory, the valid AUC.
+    -> summary."""
+    import os
+    import shutil
+
+    t_phase = time.perf_counter()
+    recs, tmp, ranks_s = _spawn_cadence(rows, CADENCE_TIMEOUT)
+    r0 = recs[0]
+    check(all(r["update"]["d2g"] == r0["update"]["d2g"] for r in recs),
+          "(c) the ranks' clusterings: "
+          + "; ".join(str(r["update"]["d2g"]) for r in recs))
+    for r in recs:
+        u = r["update"]
+        print(f"{tag} cadence (c) rank {r['rank']}: make_synthetic({rows} "
+              f"rows) {r['data_seconds']:.1f} s, a {r['train_rows']}-row "
+              f"split of {r['train_gb']:.3f} GB: \"auto\" streams it; "
+              f"setup_data {r['setup_seconds']:.1f} s; warmup "
+              f"{r['warmup_steps']} steps {r['warmup_seconds']:.1f} s; "
+              f"update {u['seconds']:.1f} s ({u['valid_steps']} valid "
+              f"steps, {u['probe_forwards']} probe evals; _feed "
+              f"{u['feed_seconds']:.2f} s, "
+              f"{100 * u['feed_seconds'] / u['seconds']:.1f}%; collectives "
+              f"{u['coll_calls']} calls, "
+              f"{100 * u['coll_seconds'] / u['seconds']:.1f}%) -> "
+              f"{u['d2g']}; valid total_auc {r['valid_total_auc']:.5f} "
+              f"({r['valid_rows']} rows, {r['eval_seconds']:.1f} s); host "
+              f"peak RSS {r['host_peak_rss_gb']:.2f} GiB, device peak "
+              f"{r['device_peak_gb']:.2f} GiB; launches {r['launches']}")
+    with np.load(os.path.join(tmp, "rows.npz")) as z:
+        rows_in = {k: z[k] for k in z.files}
+    shutil.rmtree(tmp, ignore_errors=True)
+    # each row against one device; the parting a summation order alone
+    # makes on one device (two other row orders); one device with its
+    # sums, products and normalisation in the data ranks' row blocks
+    checked = {}
+    for key in ("row0", "few"):
+        t0 = time.perf_counter()
+        want = rows_in[f"{key}_row"]
+        row, losses = _replay_row(rows_in, key)
+        err = float(np.abs(row - want).max())
+        order = [float(np.abs(_replay_row(rows_in, key, SEED + d)[0]
+                              - row).max()) for d in range(1, 3)]
+        split = float(np.abs(_replay_row(rows_in, key, split=True)[0]
+                             - want).max())
+        if key == "row0":
+            steps_held = row0_steps(rows_in, losses, tag)
+        steps = int((rows_in[f"{key}_bvalid"] > 0).sum())
+        checked[key] = {"row": int(rows_in[f"{key}_index"]), "steps": steps,
+                        "vs_one_device": err, "order_partings": order,
+                        "vs_split_rows": split}
+        print(f"{tag} cadence (c) mask row {checked[key]['row']} of the "
+              f"update ({steps} steps of {int(rows_in[f'{key}_bshape'][1])}"
+              f" rows, a probe eval of "
+              f"{int(np.prod(rows_in[f'{key}_eshape']))} rows), replayed "
+              f"on one device from the mesh's state at the row's start: "
+              f"max abs err {err:.3g}; one device against itself with each "
+              f"step's rows in another order "
+              + ", ".join(f"{x:.3g}" for x in order)
+              + f"; the mesh against one device with its sums, products and "
+              f"normalisation in the data ranks' row blocks {split:.3g} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    # each row at EP_CDC_ATOL, unless a row order alone parts one device
+    # from itself by more on that row (at 4M rows it does, 4.8e-4 to 9.1e-3
+    # on an H100 80GB HBM3), where EP_CDC_ATOL cannot tell a
+    # fault from rounding; then within ORDER_FACTOR of that spread
+    for c in checked.values():
+        c["tol"] = max(EP_CDC_ATOL, ORDER_FACTOR * max(c["order_partings"]))
+        check(c["vs_one_device"] <= c["tol"], f"(c) mask row {c['row']} "
+              f"({c['steps']} steps) vs one device: {c['vs_one_device']} "
+              f"(tol {c['tol']}; one device's own row orders "
+              f"{c['order_partings']})")
+    print(f"{tag} cadence (c) the rows held at "
+          + ", ".join(f"{c['tol']:.3g} (row {c['row']})"
+                      for c in checked.values())
+          + f": EP_CDC_ATOL, or {ORDER_FACTOR}x one device's parting from "
+          "itself under a row order where that is larger")
+    summary = {"ranks_seconds": ranks_s, "rows_vs_one_device": checked,
+               "row0_steps": steps_held, "ranks": recs}
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"cadence (c): {summary['phase_seconds']:.1f} s")
+    return summary
+
+
+def phase26_main(rows) -> int:
+    """Phase 26 alone, after the build: (b) CDC's cadence on the mesh, or
+    with ``rows`` (c) the mesh at that many synthetic rows."""
+    start = _phase_alone("phase 26")
+    if start is None:
+        return 1
+    _, tag = start
+    t0 = time.perf_counter()
+    if rows is None:
+        print(json.dumps({"cadence_b": cadence_main_path(tag)}))
+    else:
+        print(json.dumps({"cadence_c": cadence_at_scale(tag, rows)}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
 
 
 def main() -> int:
@@ -7790,7 +8666,7 @@ def phase24_main() -> int:
         return 1
     dev, tag = start
     t0 = time.perf_counter()
-    launches, summary = lanes_main_path(dev, tag)
+    launches, summary = lanes_main_path(dev, tag, alone=True)
     print(json.dumps({"launches_lanes": launches}))
     print(json.dumps({"lanes": summary}))
     print(f"total {time.perf_counter() - t0:.1f} s")
@@ -7798,8 +8674,8 @@ def phase24_main() -> int:
 
 
 def phase23_main() -> int:
-    """Phase 23 alone, after the build, with (b)'s model-axis witness.
-    Phase 21 does not run, so (c) prints its AUC uncompared."""
+    """Phase 23 alone, after the build, with (b)'s witness on three
+    meshes.  Phase 21 does not run, so (c) prints its AUC uncompared."""
     start = _phase_alone("phase 23")
     if start is None:
         return 1
@@ -7831,16 +8707,19 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
-    ap.add_argument("--phase", type=int, choices=[19, 22, 23, 24, 25],
+    ap.add_argument("--phase", type=int, choices=[19, 22, 23, 24, 25, 26],
                     help="run this phase alone (after the build; 19: its "
-                    "routed models; 23: with (b)'s model-axis witness; 25: "
-                    "its part (b), the split over the card's budget)")
+                    "routed models; 23: with (b)'s witness on three "
+                    "meshes; 25: its part (b), the split over the card's "
+                    "budget; 26: CDC's cadence on the mesh, (b), or with "
+                    "--rows (c))")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
                     help="phase 22 (b)'s batch draws at each wd")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="phase 19's batch draw (with --phase 19)")
-    ap.add_argument("--rows", type=int, default=STREAM_ROWS,
-                    help="phase 25 (b)'s synthetic rows (with --phase 25)")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="synthetic rows of phase 25 (b) (default "
+                    f"{STREAM_ROWS}) or phase 26 (c)")
     ap.add_argument("--mesh-rank", metavar="DIR",
                     help="one rank of phase 22 (b)/(c), started by the "
                     "phase itself")
@@ -7850,6 +8729,12 @@ if __name__ == "__main__":
     ap.add_argument("--lanes-rank", metavar="DIR",
                     help="one rank of phase 24 (c), started by the phase "
                     "itself")
+    ap.add_argument("--witness-rank", metavar="DIR",
+                    help="one rank of phase 23 (b)'s witness, started by "
+                    "the phase itself")
+    ap.add_argument("--cadence-rank", metavar="DIR",
+                    help="one rank of phase 26, started by the phase "
+                    "itself")
     opts = ap.parse_args()
     try:
         if opts.mesh_rank:
@@ -7858,6 +8743,10 @@ if __name__ == "__main__":
             sys.exit(ep_rank(opts.ep_rank))
         if opts.lanes_rank:
             sys.exit(lanes_rank(opts.lanes_rank))
+        if opts.witness_rank:
+            sys.exit(witness_rank(opts.witness_rank))
+        if opts.cadence_rank:
+            sys.exit(cadence_rank(opts.cadence_rank))
         if opts.phase == 19:
             sys.exit(phase19_main(opts.seed))
         if opts.phase == 22:
@@ -7867,7 +8756,9 @@ if __name__ == "__main__":
         if opts.phase == 24:
             sys.exit(phase24_main())
         if opts.phase == 25:
-            sys.exit(phase25_main(opts.rows))
+            sys.exit(phase25_main(opts.rows or STREAM_ROWS))
+        if opts.phase == 26:
+            sys.exit(phase26_main(opts.rows))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

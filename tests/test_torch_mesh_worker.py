@@ -1,5 +1,5 @@
 """Rank process of the port's mesh tests (tests/test_torch_parallel_*.py,
-tests/test_torch_cdc_mesh.py, tests/test_torch_cli_mesh*.py), and the
+tests/test_torch_cdc_mesh*.py, tests/test_torch_cli_mesh*.py), and the
 launcher that starts the ranks.
 
 :func:`spawn` starts ``world`` copies of this script on the CPU, joined
@@ -816,9 +816,108 @@ def task_cdc(out_dir):
         np.savez(os.path.join(out_dir, f"cdc_{j.world}.npz"), **res)
 
 
+# ------------------------------------------- CDC's cadence on the mesh
+
+CADENCE_BS = 512        # 2-step bursts, a boundary every 2 steps
+CADENCE_INTERVAL = 1    # update_interval (units of 1,024 rows)
+CADENCE_UPDATES = 3     # freeze_after_updates: the epoch's first three
+CADENCE_LANES = 2       # cdc.parallel_rows of the lane fits
+CADENCE_BUDGET = 1 << 16  # a mesh budget below the 3,130-row split's 88 kB
+CADENCE_FITS = (("resident", 0), ("stream", 0),
+                ("resident", CADENCE_LANES), ("stream", CADENCE_LANES))
+PARTING_MESHES = ((2, 1), (1, 2))
+CADENCE_INIT = "init.msgpack"  # the fits' initial state, flax bytes
+
+
+def cadence_config(placement="resident", lanes=0):
+    """:func:`cdc_config` with CDC_FEW_MASK_ROWS mask rows, bs 512 and an
+    update every 2 steps, the first CADENCE_UPDATES of the 7-step
+    epoch."""
+    cfg = cdc_config(placement, mask_rows=CDC_FEW_MASK_ROWS, lanes=lanes,
+                     bs=CADENCE_BS)
+    return dataclasses.replace(cfg, cdc=dataclasses.replace(
+        cfg.cdc, update_interval=CADENCE_INTERVAL,
+        freeze_after_updates=CADENCE_UPDATES))
+
+
+def cadence_fit(tr, data):
+    """``tr.fit`` recording every hybrid step's loss, and after each
+    matrix update its matrices, k-means seed and clustering; then the
+    gathered final state.  -> record."""
+    rec = {"losses": [], "d2g": [], "mask": [], "A": [], "B": []}
+    steps, update = tr._steps, tr.update_matrix_cdc
+
+    def steps_(mode, *args):
+        out = steps(mode, *args)
+        rec["losses"].extend(float(x) for x in out)
+        return out
+
+    def update_(k):
+        update(k)
+        st = tr.cluster
+        for m, v in (("mask", st.matrix_mask), ("A", st.matrix_A),
+                     ("B", st.matrix_B)):
+            rec[m].append(v.copy())
+        rec["d2g"].append(list(st.domain2group_list))
+
+    tr._steps, tr.update_matrix_cdc = steps_, update_
+    with kmeans_seeds() as seeds:
+        tr.fit(data.train, data.valid)
+    rec["seeds"] = list(seeds)
+    rec["state"] = np.frombuffer(tr.snapshot_bytes(), np.uint8)
+    rec["resident"] = tr._resident
+    return {k: np.asarray(v) for k, v in rec.items()}
+
+
+def task_cadence(out_dir):
+    """4 ranks, (2, 2), the experts whole (split, they add half again to
+    the fits' time on the CPU; ``cdc`` runs one update with them split):
+    CDCTrainer.fit with CADENCE_UPDATES matrix updates of
+    :func:`cadence_config`, "resident" and "stream", serially and in
+    CADENCE_LANES lanes, from the initial state in ``CADENCE_INIT``
+    (tpurec's, written by the test), and the placement "auto"
+    chooses with the instance's mesh budget lowered below the split and
+    at its default.  Every rank writes its records, ``cadence_<r>.npz``.
+    2 ranks, (2, 1) then (1, 2), the experts whole: one
+    update_matrix_cdc of :func:`cdc_config` from the initial state; rank
+    0 writes ``parting.npz``."""
+    from tpurec_torch.parallel import make_mesh
+
+    j = _join()
+    data = cdc_data()
+    res = {}
+    if j.world == 4:
+        mesh = make_mesh(2, 2)
+        with open(os.path.join(out_dir, CADENCE_INIT), "rb") as f:
+            init = f.read()
+        for placement, lanes in CADENCE_FITS:
+            tr = cdc_trainer(cadence_config(placement, lanes), data, mesh)
+            tr.restore_bytes(init)
+            rec = cadence_fit(tr, data)
+            res.update({f"{placement}_{lanes}/{k}": v
+                        for k, v in rec.items()})
+        for budget in ("default", "lowered"):
+            tr = cdc_trainer(cadence_config("auto"), data, mesh)
+            if budget == "lowered":
+                tr.MESH_RESIDENT_BUDGET = CADENCE_BUDGET
+            tr.setup_data(data.train, data.valid)
+            res[f"auto_{budget}/resident"] = tr._resident
+        np.savez(os.path.join(out_dir, f"cadence_{j.rank}.npz"), **res)
+        return
+    for shape in PARTING_MESHES:
+        mesh = make_mesh(*shape)
+        tr = cdc_trainer(cdc_config(), data, mesh)
+        tr.setup_data(data.train, data.valid)
+        tr.update_matrix_cdc(1)
+        key = "x".join(map(str, shape))
+        res.update({f"{key}/{k}": v for k, v in cluster_of(tr).items()})
+    if j.rank == 0:
+        np.savez(os.path.join(out_dir, "parting.npz"), **res)
+
+
 TASKS = {"cli": task_cli, "steps": task_steps, "lookup": task_lookup,
          "trainer": task_trainer, "ckpt": task_ckpt, "expert": task_expert,
-         "cdc": task_cdc}
+         "cdc": task_cdc, "cadence": task_cadence}
 
 
 if __name__ == "__main__":

@@ -12,6 +12,9 @@ parameter tree maps onto a ``state_dict`` by joining its path with dots
   (:func:`tpurec_torch.nn.precision.cast_operands`), as the JAX
   package's do (``tpurec/nn/core.py:58,83``); nothing else here casts.
 - :class:`GateNN` is PEPNet's ``2 * sigmoid`` gate.
+- :class:`FeaturesLinear` is the first-order term, a ``Linear(in, 1)``
+  named ``fc`` on the flattened embeddings; :func:`activation` maps an
+  activation's name to its function.
 - :class:`BatchNorm` holds ``scale``/``bias`` parameters and ``mean``/
   ``var``/``num_batches_tracked`` buffers of the JAX module's shapes; it
   normalises with the running statistics in eval and with masked batch
@@ -52,6 +55,20 @@ from tpurec_torch.parallel.collectives import (copy_to_model, current_mesh,
                                                gather_from_model,
                                                scatter_to_model)
 from tpurec_torch.parallel.embedding import sharded_embedding_lookup
+
+
+def activation(name: str):
+    """str -> activation function (``tpurec/nn/core.py:34-45``)."""
+    name = name.lower()
+    if name == "relu":
+        return torch.relu
+    if name == "sigmoid":
+        return torch.sigmoid
+    if name == "linear":
+        return lambda x: x
+    if name == "tanh":
+        return torch.tanh
+    raise NotImplementedError(f"activation {name!r}")
 
 
 class Linear(nn.Module):
@@ -338,6 +355,18 @@ class GateNN(nn.Module):
         if train:
             h = dropout(h, self.dropout, generator)
         return 2.0 * torch.sigmoid(self.fc2(h))
+
+
+class FeaturesLinear(nn.Module):
+    """First-order term (``tpurec/nn/core.py:335-341``): ``fc``, a
+    Linear(in_dim -> 1), on the flattened embeddings [B, in_dim]."""
+
+    def __init__(self, in_dim: int, device=None):
+        super().__init__()
+        self.fc = Linear(in_dim, 1, device=device)
+
+    def forward(self, flat_embed):
+        return self.fc(flat_embed)
 
 
 SMALL_VOCAB_THRESHOLD = 8192
