@@ -6,6 +6,7 @@ model it ports, in float32 and in bf16 compute, and check them.
     python3 chip_smoke.py --phase 22 --draws 3   # the mesh alone
     python3 chip_smoke.py --phase 25 --rows 52000000   # CDC, split streamed
     python3 chip_smoke.py --phase 26 [--rows 4000000]  # CDC's mesh cadence
+    python3 chip_smoke.py --phase 27 [--rows 52000000] # harness over budget
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -107,9 +108,8 @@ Phases (any failure exits non-zero and prints no result line):
     flagship MMoE (B=512, 1 epoch, dropout 0.2, bf16 table moments)
     through the device-resident (indexed) epoch, with the counters of
     kernels 1, 2, 3 and 6/7 read around the fit (a step each, and a
-    forward per eval batch); valid AUC at least 0.65; the same epoch
-    through the host-batching path from the same initial state (per-step
-    losses within 1e-5, valid AUC within 1e-4); streaming against exact
+    forward per eval batch); valid AUC at least 0.65 (phase 27 (a) holds
+    the host-batching epoch against this one); streaming against exact
     eval; Predictor.load_from_trainer against predict (1e-5); a
     checkpoint served by predictor_from_checkpoint and loaded by a fresh
     Trainer, both bitwise equal to predict; the small drive recipe (MMoE,
@@ -118,10 +118,11 @@ Phases (any failure exits non-zero and prints no result line):
 17. the CDC engine at full width: make_synthetic(131,072 rows) at the
     flagship schema with 4 antipodal domain clusters ->
     CDCTrainer(...).fit(train, valid, test) on the flagship MMoE as CDC's
-    base (4 clusters, the reference's CDC defaults, B=512, 3 epochs,
-    dropout 0.2, bf16 table moments): the warmup (400 steps), one matrix
-    update (50 mask rows at W = 3,584, the baseline and 50 A rows at 512,
-    54 B rows, 155 probe evals of 25,600 rows, the clustering) and the
+    base (4 clusters, the reference's CDC defaults but 4 mask rows (not
+    50), B=512, 2 epochs, dropout 0.2, bf16 table moments): the warmup
+    (400 steps), one matrix update (4 mask rows at W = 3,584, the
+    baseline and 50 A rows at 512, 54 B rows, 109 probe evals of 25,600
+    rows, the clustering) and the
     split-mode epochs; the counters of kernels 1, 2, 3 and 6/7 read around
     the fit against the schedule the trainer built (a step each, a forward
     per probe eval and eval batch); valid AUC at least 0.65 with 4 groups
@@ -172,7 +173,12 @@ Phases (any failure exits non-zero and prints no result line):
     "dense" table against the "hybrid" one after 3 steps and "sparse"'s
     untouched rows and moments bitwise unchanged; one Trainer.fit epoch
     of DeepFM (table init N(0, 0.01**2)) under each of the three updates
-    at phase 16's settings, valid AUC at least 0.65 and ms a step.
+    at phase 16's settings, valid AUC at least 0.65 and ms a step; the
+    flagship MMoE's "sparse" 8 steps from one state again with
+    LazyAdamRows' "sort" dedup: each table update replayed from
+    "scatter"'s entry under both (table within 2 lr, at most 1e-6 of it
+    beyond 1e-6, moments as phase 7's), untouched rows bitwise, ms a step
+    of each.
 21. the CLI (``tpurec_torch.cli.main``, in-process, the kernel counters
     read around each run; every argv with --mesh_data -1 and a seed):
     (a) MMoE at ModelConfig's widths, 2 epochs of 131,072 synthetic rows:
@@ -294,6 +300,28 @@ Phases (any failure exits non-zero and prints no result line):
     left out of step 1) must exceed; each rank's data and set-up seconds,
     the update's seconds, ``_feed`` and collectives' shares, host and
     device peak memory, the valid AUC.
+27. the training harness as its users run it: (a) phase 16's data and
+    settings with TrainConfig's own epoch 10 and early_stop 2, two fits
+    from one state at once, resident and (this script with
+    ``--fit-over``) with every split over the instance's
+    DEVICE_RESIDENT_BYTES (the host-batching epoch, predict's batch
+    path): a stop before epoch 10 at an earlier best epoch, every step
+    loss, each epoch's valid result, the stop and best epoch, the
+    restored state (the best epoch's snapshot) and the test result
+    bitwise across the two, evaluate(valid) after the fit the stopper's
+    best result, launches against the schedule; on the restored state
+    the streaming eval through 4 windows (the tail padded) within 1e-6 of
+    the resident one and STREAM_TOL of the exact one; each placement's
+    epoch seconds, the snapshots' and the restore's seconds and bytes.
+    (b) ``--phase 27 [--rows N]`` alone: phase 25 (b)'s 52,000,000 rows,
+    a 4.49 GB train split the Trainer's "auto" must batch on the host:
+    the epoch cut by a raising log_fn after 4,096 steps (the prefetch
+    worker ended, the batch stream let go, host RSS), the same cut epoch
+    with the split on the card bitwise (losses and state), the valid AUC,
+    1,024 steps of each placement twice in turns (examples/s), a 16-step
+    profile of each, and the exact and streaming evals of the 46.8M-row
+    split (seconds, rows/s, the window copies, streaming within
+    STREAM_TOL of exact), host and device peak memory.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -1098,14 +1126,13 @@ def update_port_kernels(fn, table):
             torch.cuda.synchronize()
         moved = (table.detach() != before).any(dim=1).float().mean().item()
         del before
-        evs = prof.key_averages()
-        ran = device_kernels(evs)
+        card = capture_records(prof)[0]
+        ran = device_kernels(card)
         out = {}
-        for e in evs:
+        for key, (count, _) in card.items():
             for name in names:
-                if str(e.device_type).endswith("CUDA") and port_kernel(
-                        e.key, name):
-                    out[name] = out.get(name, 0) + e.count
+                if port_kernel(key, name):
+                    out[name] = out.get(name, 0) + count
         lost = ran == 0 or (out != want and moved > 0.5 and all(
             n <= want.get(k, 0) for k, n in out.items()))
         if not lost:
@@ -1548,13 +1575,15 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
             "table_share_beyond_1e-6": share}
 
 
-def step_profile(dev, ts, single, batches, gen, tag, step_ms, syms=()):
+def step_profile(dev, ts, single, batches, gen, tag, step_ms, syms=(),
+                 by_op=True):
     """Where a training step's time goes: host-clock phases (each ended by
     a synchronize), peak memory, and a profile of single steps (device busy
-    share, launches per step, device time by kernel and by launching op,
-    host time by op).  ``syms``: the model's own port kernels, each
-    launched once a step, beside the gather and #6's pass.  -> (device us
-    by kernel name, summary)."""
+    share, launches per step, device time by kernel; with ``by_op``, by
+    launching op and host time by op, which need torch.profiler's event
+    tree, seconds a capture: phases 18-20 leave them out).  ``syms``: the
+    model's own port kernels, each launched once a step, beside the
+    gather and #6's pass.  -> (device us by kernel name, summary)."""
     upd = single.upd
     table = ts.model.embedding.table.detach()
     b0 = {k: v[0] for k, v in batches.items()}
@@ -1595,19 +1624,22 @@ def step_profile(dev, ts, single, batches, gen, tag, step_ms, syms=()):
 
     prof, dev_us, _, launches = profile_calls(
         run, n_prof, f"{tag} step profile",
-        ("gather_kernel",) + SWEEP_SYMS + tuple(syms), record_shapes=True)
-    evs = prof.key_averages()
-    # which host op launched the device time (by op and input shapes)
-    op_top = sorted(((f"{e.key} {e.input_shapes}",
-                      e.self_device_time_total / n_prof)
-                     for e in prof.key_averages(group_by_input_shape=True)
-                     if not str(e.device_type).endswith("CUDA")
-                     and not getattr(e, "is_user_annotation", False)
-                     and e.self_device_time_total > 0),
-                    key=lambda kv: -kv[1])[:8]
-    host_top = sorted(((e.key, e.self_cpu_time_total / n_prof) for e in evs
-                       if not str(e.device_type).endswith("CUDA")),
-                      key=lambda kv: -kv[1])[:10]
+        ("gather_kernel",) + SWEEP_SYMS + tuple(syms), record_shapes=by_op)
+    op_top, host_top = [], []
+    if by_op:
+        evs = prof.key_averages()
+        # which host op launched the device time (by op and input shapes)
+        op_top = sorted(((f"{e.key} {e.input_shapes}",
+                          e.self_device_time_total / n_prof)
+                         for e in prof.key_averages(group_by_input_shape=True)
+                         if not str(e.device_type).endswith("CUDA")
+                         and not getattr(e, "is_user_annotation", False)
+                         and e.self_device_time_total > 0),
+                        key=lambda kv: -kv[1])[:8]
+        host_top = sorted(((e.key, e.self_cpu_time_total / n_prof)
+                           for e in evs
+                           if not str(e.device_type).endswith("CUDA")),
+                          key=lambda kv: -kv[1])[:10]
     busy = sum(dev_us.values())
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:14]
     print(f"{tag} profile of one train step: device busy {busy:.1f} us, "
@@ -1616,12 +1648,12 @@ def step_profile(dev, ts, single, batches, gen, tag, step_ms, syms=()):
           f"kernel launches"
           + "".join(f"\n    {us:9.1f} us  {name[:90]}"
                     for name, us in top)
-          + "\n  device time by the host op that launched it:"
-          + "".join(f"\n    {us:9.1f} us  {name[:160]}"
-                    for name, us in op_top)
-          + "\n  host, self CPU time per step (profiled):"
-          + "".join(f"\n    {us:9.1f} us  {name[:90]}"
-                    for name, us in host_top))
+          + ("\n  device time by the host op that launched it:"
+             + "".join(f"\n    {us:9.1f} us  {name[:160]}"
+                       for name, us in op_top)
+             + "\n  host, self CPU time per step (profiled):"
+             + "".join(f"\n    {us:9.1f} us  {name[:90]}"
+                       for name, us in host_top) if by_op else ""))
     profile_summary = {"busy_us": busy, "step_us": step_ms * 1e3,
                        "busy_share": busy / (step_ms * 1e3),
                        "launches_per_step": launches,
@@ -1654,7 +1686,7 @@ def update_profile(upd, table, st, x, g_rows, t, tag, n=5):
     torch.cuda.synchronize()
     prof, dev_us, _, launches = profile_calls(run, n, f"{tag} table update",
                                               SWEEP_SYMS)
-    recorded = device_kernels(prof.key_averages()) / n
+    recorded = device_kernels(capture_records(prof)[0]) / n
     kernels = update_port_kernels(update, table)
     check(kernels == dict.fromkeys(SWEEP_SYMS, 1),
           f"{tag} table update: port kernels {kernels}")
@@ -2645,13 +2677,39 @@ def is_marker(key):
     return MARKER_KERNEL in key
 
 
-def device_kernels(evs):
-    """Kernel records in a capture's key_averages, the markers' left out
+def capture_records(prof):
+    """A capture's records summed by name from its raw events -> (card:
+    {name: [count, device us]}, host: {name: count}), user annotations
+    left out.  These are ``prof.key_averages()``'s names, counts and
+    device times (``scripts/profile_capture_cost.py`` holds them equal on
+    the card), without the event tree that key_averages builds, which
+    takes most of a capture's seconds."""
+    from torch.autograd import DeviceType
+
+    card, host, names = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = (torch._C._demangle(raw) if len(raw) > 1
+                                 else raw)
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation():
+                continue
+            r = card.setdefault(name, [0, 0.0])
+            r[0] += 1
+            r[1] += e.duration_ns() / 1e3
+        else:
+            host[name] = host.get(name, 0) + 1
+    return card, host
+
+
+def device_kernels(card):
+    """Kernel records in a capture's card records, the markers' left out
     (copies and memsets are not kernels)."""
-    return sum(e.count for e in evs if str(e.device_type).endswith("CUDA")
-               and not e.key.startswith(("Memcpy", "Memset"))
-               and not getattr(e, "is_user_annotation", False)
-               and not is_marker(e.key))
+    return sum(c for name, (c, _) in card.items()
+               if not name.startswith(("Memcpy", "Memset"))
+               and not is_marker(name))
 
 
 def profile_calls(run, n, what, syms=(), per=1, cpu=True,
@@ -2686,17 +2744,14 @@ def profile_calls(run, n, what, syms=(), per=1, cpu=True,
             torch.cuda.synchronize()
             window_s = time.perf_counter() - t0
         CAPTURES["taken" if attempt == 0 else "retaken"] += 1
-        all_evs = prof.key_averages()
-        evs = [e for e in all_evs
-               if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)
-               and not is_marker(e.key)]
-        got = {s: sum(e.count for e in evs if port_kernel(e.key, s))
+        card, host = capture_records(prof)
+        evs = {k: r for k, r in card.items()
+               if r[1] > 0 and not is_marker(k)}
+        got = {s: sum(c for k, (c, _) in evs.items() if port_kernel(k, s))
                for s in syms}
-        launched = (sum(e.count for e in all_evs if e.key in LAUNCH_KEYS)
-                    - MARKERS if cpu else None)
-        unrecorded = (max(0, launched - device_kernels(all_evs)) if cpu
+        launched = (sum(host.get(k, 0) for k in LAUNCH_KEYS) - MARKERS
+                    if cpu else None)
+        unrecorded = (max(0, launched - device_kernels(card)) if cpu
                       else 0)
         score = (bool(evs), sum(min(c, want) for c in got.values()),
                  -unrecorded)
@@ -2717,11 +2772,10 @@ def profile_calls(run, n, what, syms=(), per=1, cpu=True,
         print(f"{what}: the fullest capture recorded {short} of {want} "
               f"launches; their time is averaged over those recorded")
     dev_us = {}
-    for e in evs:
-        s = next((s for s in syms if port_kernel(e.key, s)), None)
+    for k, (_, us) in evs.items():
+        s = next((s for s in syms if port_kernel(k, s)), None)
         scale = want / got[s] if s in short else 1
-        dev_us[e.key] = dev_us.get(e.key, 0.0) + (
-            e.self_device_time_total * scale / n)
+        dev_us[k] = us * scale / n
     return prof, dev_us, window_s, None if launched is None else launched / n
 
 
@@ -2775,8 +2829,6 @@ def chunk_timings(pred, rng, tag, syms):
 
 FIT_ROWS = 131072               # make_synthetic rows; ~118k train, ~6.5k valid
 FIT_AUC_MIN = 0.65              # a model that learns nothing reads ~0.5
-FIT_STEP_TOL = 1e-5             # indexed vs host epoch, per-step loss
-FIT_PATH_AUC_TOL = 1e-4         # indexed vs host epoch, valid AUC
 STREAM_TOL = {"total_auc": 2e-4, "total_loss": 1e-5, "mean_auc": 5e-4}
 LOAD_TOL = 1e-5                 # Predictor.load_from_trainer vs predict
 RECIPE_AUC_MIN = 0.7            # the small recipe, 2 epochs
@@ -2784,27 +2836,33 @@ PROFILE_STEPS = 16
 
 
 def _record_steps(tr):
-    """Wrap a Trainer's step callables to keep each step's loss (on the
-    device) in order; -> the list they fill."""
+    """Wrap a Trainer's step callables -> the list they fill, in call
+    order, with (the callable's name, its losses on the device)."""
     out = []
     for attr in ("scan_steps_idx", "scan_steps", "train_step"):
         orig = getattr(tr, attr)
 
-        def wrapped(*a, _orig=orig):
+        def wrapped(*a, _orig=orig, _attr=attr):
             r = _orig(*a)
-            out.append(r.detach().reshape(-1).clone())
+            out.append((_attr, r.detach().reshape(-1).clone()))
             return r
 
         setattr(tr, attr, wrapped)
     return out
 
 
+def _losses(rec, lo=0):
+    """The step losses of :func:`_record_steps`' ``rec[lo:]`` on the
+    host."""
+    return torch.cat([l for _, l in rec[lo:]]).cpu()
+
+
 def harness_main_path(dev, tag):
     """Phase 16: the training harness at full width.  make_synthetic at
     the flagship schema -> Trainer(...).fit(train, valid, test) through
     the device-resident (indexed) epoch, with the kernel counters read
-    around the fit; then the host-batching epoch from the same initial
-    state, streaming against exact eval, Predictor.load_from_trainer, a
+    around the fit; then a profile of 16 indexed steps from the same
+    initial state, streaming against exact eval, Predictor.load_from_trainer, a
     checkpoint through predictor_from_checkpoint and a fresh Trainer, and
     the small drive recipe.  -> (launches, summary)."""
     import os
@@ -2885,7 +2943,7 @@ def harness_main_path(dev, tag):
     check(auc >= FIT_AUC_MIN, f"valid total_auc {auc} < {FIT_AUC_MIN}")
     check(np.isfinite(mean_auc) and np.isfinite(loss),
           f"valid mean_auc {mean_auc}, total_loss {loss} not finite")
-    step_loss_idx = torch.cat(steps_idx).cpu()
+    step_loss_idx = _losses(steps_idx)
     check(step_loss_idx.numel() == n_steps and
           bool(torch.isfinite(step_loss_idx).all()),
           f"indexed epoch: {step_loss_idx.numel()} step losses, finite "
@@ -2897,35 +2955,10 @@ def harness_main_path(dev, tag):
           f"(snapshot, best-state restore and test eval included); Trainer "
           f"built in {build_s:.2f} s")
 
-    # the same epoch through the host path, from the same initial state
-    t0 = time.perf_counter()
+    # a second trainer from the same initial state for the profile (phase
+    # 27 (a) holds the host-batching epoch against the indexed one)
     tr2 = trainer()
     tr2.restore(snap0)
-    tr2.DEVICE_RESIDENT_BYTES = 0               # the host-batching path
-    steps_host = _record_steps(tr2)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    host_loss = tr2.train_epoch(Xtr, ytr, 0)
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t1
-    step_loss_host = torch.cat(steps_host).cpu()
-    check(step_loss_host.shape == step_loss_idx.shape,
-          f"host epoch took {step_loss_host.numel()} steps")
-    path_err = (step_loss_host - step_loss_idx).abs().max().item()
-    ev_host = tr2.evaluate(Xva, yva, w)
-    path_auc = abs(ev_host["total_auc"] - auc)
-    print(f"{tag} harness epoch (host batching, ArrayBatcher + prefetch, "
-          f"K={cfg.train.steps_per_dispatch}): {host_s:.3f} s = "
-          f"{len(ytr) / host_s:.0f} examples/s; vs indexed: per-step loss "
-          f"max abs err {path_err:.3g} (tol {FIT_STEP_TOL}), valid AUC "
-          f"{ev_host['total_auc']:.5f} (diff {path_auc:.3g}, tol "
-          f"{FIT_PATH_AUC_TOL}); bitwise equal losses "
-          f"{torch.equal(step_loss_host, step_loss_idx)}; epoch loss "
-          f"{host_loss:.5f} vs {valid['train_loss']:.5f}")
-    check(path_err <= FIT_STEP_TOL, f"host vs indexed epoch: step loss err "
-          f"{path_err}")
-    check(path_auc <= FIT_PATH_AUC_TOL,
-          f"host vs indexed epoch: valid AUC diff {path_auc}")
 
     # where the epoch's time goes: a profile of 16 indexed steps
     Xdev, ydev, d2g_dev = tr2._device_dataset(Xtr, ytr)
@@ -3045,10 +3078,6 @@ def harness_main_path(dev, tag):
         "test_total_auc": out["test"]["total_auc"],
         "train_seconds": train_s, "examples_per_s": len(ytr) / train_s,
         "fit_seconds": fit_s, "build_seconds": build_s,
-        "host_path_seconds": host_s,
-        "host_path_examples_per_s": len(ytr) / host_s,
-        "host_vs_indexed_step_loss_err": path_err,
-        "host_vs_indexed_valid_auc_diff": path_auc,
         "busy_us_per_step": busy_us / PROFILE_STEPS,
         "busy_share_window": busy_share, "busy_share_epoch": epoch_share,
         "launches_per_step": step_launches,
@@ -3076,7 +3105,10 @@ CDC_TREAT = 14                  # the checked mask row: 14 domains, 2 steps
 # interval is longer than an epoch).  One epoch read valid AUC 0.634 on
 # these conflicting clusters on an H100 (PERF.md §4): the check that the
 # fit learns needs more than one epoch's 252 steps; each epoch's AUC prints
-CDC_EPOCHS = 3
+CDC_EPOCHS = 2
+# causal-mask rows of phases 17 and 18's fits, cut from CDCConfig()'s 50
+# to keep the script inside its time limit (phase 25 (b) runs the 50)
+CDC_CAUSAL = 4
 
 
 def adjusted_rand_index(a, b) -> float:
@@ -3589,9 +3621,6 @@ def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True,
 # -- CDC's other base models through every entry point (phase 18) ------------
 
 BASES = ("ple", "pepnet", "epnet", "star")
-# (b)'s causal-mask rows, cut from CDCConfig()'s 50 (as phase 24's) to keep
-# the script inside its time limit; phase 25 (b) runs the 50 at scale
-PLE_CDC_CAUSAL = 4
 # PLE's table scale and wd in the 3 steps against the CPU (train_vs_cpu)
 PLE_VS_CPU = (1.0, 1e-3)
 
@@ -3650,7 +3679,8 @@ def bases_main_path(dev, rng, tag):
         ts, single, batches, tgen, train_launches, timing = \
             train_main_path(dev, rng, tag, name, kw)
         _, profile = step_profile(dev, ts, single, batches, tgen,
-                                  f"{tag} {name}", timing["step_ms_host"])
+                                  f"{tag} {name}", timing["step_ms_host"],
+                                  by_op=False)
         del ts, single, batches
         torch.cuda.empty_cache()
         vs_cpu = train_vs_cpu(dev, rng, name, kw,
@@ -3794,7 +3824,8 @@ def routed_main_path(dev, rng, tag):
         ts, single, batches, tgen, train_launches, timing = \
             train_main_path(dev, rng, tag, name, kw)
         _, profile = step_profile(dev, ts, single, batches, tgen,
-                                  f"{tag} {name}", timing["step_ms_host"])
+                                  f"{tag} {name}", timing["step_ms_host"],
+                                  by_op=False)
         del ts, single, batches
         torch.cuda.empty_cache()
         vs_cpu = train_vs_cpu(dev, rng, name, kw,
@@ -4027,7 +4058,8 @@ def zoo_main_path(dev, rng, tag):
         ts, single, batches, tgen, train_launches, timing = \
             train_main_path(dev, rng, tag, name, kw)
         _, profile = step_profile(dev, ts, single, batches, tgen,
-                                  f"{tag} {name}", timing["step_ms_host"])
+                                  f"{tag} {name}", timing["step_ms_host"],
+                                  by_op=False)
         del ts, single, batches
         torch.cuda.empty_cache()
         vs_cpu = train_vs_cpu(dev, rng, name, kw, ZOO_SCALE[name],
@@ -4149,6 +4181,151 @@ def three_updates_on_card(dev, rng, name, kw, scale):
     return out
 
 
+SORT_DEDUP_SHARE = CPU_TABLE_SHARE     # table values beyond 1e-6 a step
+
+
+def sort_dedup_on_card(dev, rng, tag):
+    """Phase 20 (b)'s "sparse" leg on the flagship MMoE again under
+    LazyAdamRows' "sort" dedup (set on the step's updater, which picks
+    "scatter" at this table's 1.6M rows): from one seeded state, the same
+    8 steps (one call of the K=8 loop, dropout 0.2, bf16 moments) under
+    "scatter" and then "sort".  Both sum a row's gradients with
+    ``index_add_``, in another order (the atomics' on the card, the
+    sorted order), so each of scatter's 8 table updates is replayed from
+    its recorded entry under both dedups and held: the table within 2 lr
+    (a sum near 0 whose sign the order sets takes Adam's step either way,
+    as train_vs_cpu's table), at most SORT_DEDUP_SHARE of it beyond
+    1e-6, the moments as :func:`check_moments`.  After the 8 whole steps:
+    step 1's loss bitwise, every row no batch touched and its moments
+    bitwise the initial state's under both, the tables within 2 lr a
+    step.  Then one more timed call of each: ms a step.  -> summary."""
+    from tpurec_torch.config import ModelConfig, TrainConfig
+    from tpurec_torch.models import build_model
+    from tpurec_torch.nn.core import EmbeddingLayout
+    from tpurec_torch.train.sparse import LazyAdamRows, SparseEmbedState
+
+    tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16")
+    batches = train_batches(rng, TRAIN_K, dev)
+    counters = train_counters("mmoe", "sparse")
+    runs = {}
+    for dedup in ("scatter", "sort"):
+        model = build_model("mmoe", FIELD_DIMS, N_TOWER, DOMAIN_IDX,
+                            ModelConfig(**MODEL, dropout=DROPOUT),
+                            generator=torch.Generator().manual_seed(SEED + 7))
+        ts = train_state(model, tcfg, dev, "sparse")
+        scan = train_step_of(model, tcfg, "mmoe", "sparse", TRAIN_K)
+        check(scan.rows_update.dedup == "scatter", f"the flagship's "
+              f"{scan.rows_update.vocab}-row table took "
+              f"{scan.rows_update.dedup!r}")
+        scan.rows_update.dedup = dedup
+        table = model.embedding.table
+        start = (table.detach().clone(), ts.emb_opt.m.clone(),
+                 ts.emb_opt.v.clone())
+        entries, update = [], scan.rows_update.update
+
+        def recorded(table, emb_opt, x, rows, g_rows, step, shard=None,
+                     _update=update, _out=entries):
+            _out.append((table.clone(), emb_opt.m.clone(), emb_opt.v.clone(),
+                         x.clone(), rows.clone(), g_rows.clone(), step))
+            return _update(table, emb_opt, x, rows, g_rows, step, shard)
+
+        if dedup == "scatter":
+            scan.rows_update.update = recorded
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        for fn in counters.values():
+            fn.launches = 0
+        loss = scan(ts, batches, gen)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        check(all(n == TRAIN_K for n in launches.values()),
+              f"mmoe sparse/{dedup}: launches {launches} in {TRAIN_K} steps")
+        after = (table.detach().clone(), ts.emb_opt.m.clone(),
+                 ts.emb_opt.v.clone())
+        scan.rows_update.update = update
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        ev0.record()
+        scan(ts, batches, gen)
+        ev1.record()
+        torch.cuda.synchronize()
+        runs[dedup] = dict(start=start, after=after, loss=loss.cpu(),
+                           entries=entries, launches=launches,
+                           step_ms_host=(time.perf_counter() - t0)
+                           / TRAIN_K * 1e3,
+                           step_ms_events=ev0.elapsed_time(ev1) / TRAIN_K)
+        del model, ts, scan
+        torch.cuda.empty_cache()
+    sc, so = runs["scatter"], runs["sort"]
+    check(all(torch.equal(a, b) for a, b in zip(sc["start"], so["start"])),
+          "the two sparse runs did not start from one state")
+    check(len(sc["entries"]) == TRAIN_K,
+          f"{len(sc['entries'])} table updates recorded in {TRAIN_K} steps")
+    lr = tcfg.lr
+    replay = {"table_max_abs": 0.0, "table_share_beyond_1e-6": 0.0}
+    for i, (p, m, v, x, rows, g_rows, step) in enumerate(sc["entries"]):
+        got = {}
+        for dedup in ("scatter", "sort"):
+            upd = LazyAdamRows(FIELD_DIMS, tcfg, L2, dedup)
+            st = SparseEmbedState(m=m.clone(), v=v.clone())
+            q = p.clone()
+            upd.update(q, st, x, rows, g_rows, step)
+            got[dedup] = (q, st.m, st.v)
+        diff = (got["sort"][0] - got["scatter"][0]).abs()
+        err, share = diff.max().item(), (diff > 1e-6).float().mean().item()
+        check(err <= 2 * lr + 1e-6 and share <= SORT_DEDUP_SHARE,
+              f"sort vs scatter, table update {i + 1}: max abs {err}, "
+              f"share beyond 1e-6 {share}")
+        check_moments(got["sort"], got["scatter"],
+                      f"sort vs scatter, table update {i + 1}")
+        replay["table_max_abs"] = max(replay["table_max_abs"], err)
+        replay["table_share_beyond_1e-6"] = max(
+            replay["table_share_beyond_1e-6"], share)
+    off = torch.as_tensor(EmbeddingLayout(FIELD_DIMS).offsets,
+                          dtype=torch.int64, device=dev)
+    touched = torch.zeros(sc["start"][0].shape[0], dtype=torch.bool,
+                          device=dev)
+    touched[(batches["x"].long() + off).reshape(-1)] = True
+    for dedup, r in runs.items():
+        check(all(torch.equal(a[~touched], b[~touched])
+                  for a, b in zip(r["after"], r["start"])),
+              f"sparse/{dedup}: an untouched row or its moments changed")
+        moved = (r["after"][0][touched] != r["start"][0][touched]).any(
+            dim=1).float().mean().item()
+        check(moved == 1.0, f"sparse/{dedup}: {moved} of the touched rows "
+              "moved")
+    check(torch.equal(sc["loss"][0], so["loss"][0]),
+          f"step 1's loss {sc['loss'][0].item()} under scatter, "
+          f"{so['loss'][0].item()} under sort")
+    end = (sc["after"][0] - so["after"][0]).abs()
+    end_err = end.max().item()
+    end_share = (end > 1e-6).float().mean().item()
+    loss_rel = ((so["loss"] - sc["loss"]).abs() / sc["loss"].abs()).max()
+    check(end_err <= 2 * lr * TRAIN_K + 1e-6, f"sort vs scatter after "
+          f"{TRAIN_K} steps: table max abs {end_err}")
+    print(f"{tag} mmoe sparse, dedup \"sort\" against \"scatter\" "
+          f"(the flagship's {int(touched.numel())}-row table, B=512, "
+          f"{TRAIN_K} steps from one state): each table update replayed "
+          f"from scatter's entry under both, table max abs "
+          f"{replay['table_max_abs']:.3g} (tol 2 lr), share beyond 1e-6 "
+          f"{replay['table_share_beyond_1e-6']:.3g} (tol "
+          f"{SORT_DEDUP_SHARE}), moments within check_moments; the whole "
+          f"steps: step 1's loss bitwise, losses max rel "
+          f"{loss_rel.item():.3g}, table after {TRAIN_K} steps max abs "
+          f"{end_err:.3g}, share beyond 1e-6 {end_share:.3g}; "
+          f"{int((~touched).sum())} untouched rows and their moments "
+          f"bitwise the start under both; launches {so['launches']}; "
+          f"ms a step scatter {sc['step_ms_host']:.3f} host / "
+          f"{sc['step_ms_events']:.3f} events, sort "
+          f"{so['step_ms_host']:.3f} / {so['step_ms_events']:.3f}")
+    return {"replay": replay, "loss_max_rel": loss_rel.item(),
+            "table_after_max_abs": end_err,
+            "table_after_share_beyond_1e-6": end_share,
+            "untouched_rows": int((~touched).sum()),
+            "launches": so["launches"],
+            **{f"{d}_step_ms_{k}": runs[d][f"step_ms_{k}"]
+               for d in runs for k in ("host", "events")}}
+
+
 def zoo_fit(tag, data, update):
     """One Trainer.fit epoch of DeepFM at phase 16's settings (B=512,
     dropout 0.2, bf16 table moments) under the embedding update
@@ -4208,7 +4385,9 @@ def updates_main_path(dev, rng, tag):
     3 steps of each against the CPU's plain path on the card's branches;
     from one state, the "dense" table against the "hybrid" one and
     "sparse"'s untouched rows; then one Trainer.fit epoch of DeepFM under
-    each of the three updates.  -> summary dict."""
+    each of the three updates; and "sparse"'s "sort" dedup on the
+    flagship MMoE against its "scatter" (:func:`sort_dedup_on_card`).
+    -> summary dict."""
     from tpurec_torch.data import make_synthetic
 
     out = {}
@@ -4225,6 +4404,7 @@ def updates_main_path(dev, rng, tag):
                                        "vs_cpu": vs_cpu}
         out[f"{name}/one state"] = three_updates_on_card(dev, rng, name,
                                                          kw, scale)
+    out["mmoe/sparse sort"] = sort_dedup_on_card(dev, rng, tag)
     t0 = time.perf_counter()
     data = make_synthetic(n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS),
                           n_domain=N_DOMAIN, field_dims=FIELD_DIMS,
@@ -8027,6 +8207,712 @@ def phase26_main(rows) -> int:
     return 0
 
 
+# -- the training harness as its users run it (phase 27) ---------------------
+
+CADENCE_FIT_SEED = 1            # (a): phase 16's data, FIT_ROWS rows
+CADENCE_WINDOW_ROWS = 2048      # (a): the windowed eval's rows a window
+CADENCE_WINDOW_TOL = 1e-6       # (a): windowed vs resident streaming eval
+FIT_OVER_TIMEOUT = 600          # (a): the fit over the budget's process
+HARNESS_CUT_CHUNKS = 8          # (b): the epoch cut after 8 logs of 512 steps
+HARNESS_TURN_CHUNKS = 2         # (b): in turns, 1,024 steps a run
+HARNESS_RESIDENT_BYTES = 5 << 30    # (b): a budget the split fits
+RESULT_KEYS = ("total_auc", "total_loss", "mean_auc", "mean_loss",
+               "domain_auc", "domain_loss")
+
+
+class _Cut(Exception):
+    """Raised by phase 27's log_fn to cut an epoch, as a user's would."""
+
+
+def _cut_after(chunks, marks):
+    """A log_fn that keeps each training log's step count and synchronized
+    host clock in ``marks`` and raises _Cut at the ``chunks``-th."""
+    def log_fn(r):
+        if "it" not in r:
+            return
+        torch.cuda.synchronize()
+        marks.append((r["it"], time.perf_counter()))
+        if len(marks) == chunks:
+            raise _Cut(f"cut after {r['it']} steps")
+    return log_fn
+
+
+def _cut_epoch(tr, X, y, epoch_i, chunks):
+    """``tr.train_epoch`` cut by :func:`_cut_after` -> its marks, the
+    start's synchronized host clock first."""
+    torch.cuda.synchronize()
+    marks = [(0, time.perf_counter())]
+    try:
+        tr.train_epoch(X, y, epoch_i, log_fn=_cut_after(chunks + 1, marks))
+    except _Cut:
+        return marks
+    raise SmokeFailure(f"epoch {epoch_i} ended before its cut")
+
+
+def _host_rss_gb():
+    """This process's resident set now (not its peak), GiB."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def _results_repr(r):
+    """A result's keys as text: equal text, bitwise equal values (NaN
+    too)."""
+    return repr({k: r[k] for k in RESULT_KEYS if k in r})
+
+
+def _timed(fn, out, keep=False):
+    """``fn`` wrapped to append its synchronized host-clock seconds to
+    ``out`` (with ``keep``, (its result, the seconds))."""
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        out.append((r, s) if keep else s)
+        return r
+    return wrapped
+
+
+@contextlib.contextmanager
+def _windows_of(tr):
+    """Inside, the list of the rows each window of ``tr``'s streaming
+    eval runs, in order."""
+    windows, index_batches = [], tr._padded_index_batches
+
+    def counted(n, bs, chunk):
+        windows.append(n)
+        return index_batches(n, bs, chunk)
+
+    tr._padded_index_batches = counted
+    try:
+        yield windows
+    finally:
+        del tr._padded_index_batches
+
+
+def harness_config(epoch=None):
+    """Phase 16's settings: the flagship MMoE, B=512, dropout 0.2, bf16
+    table moments; TrainConfig's own epoch (10) and early_stop (2) unless
+    ``epoch``."""
+    from tpurec_torch.config import Config, ModelConfig, TrainConfig
+
+    train = dict(bs=512, seed=0, embedding_moments_dtype="bfloat16")
+    if epoch is not None:
+        train["epoch"] = epoch
+    return Config(model=ModelConfig(**MODEL, dropout=DROPOUT),
+                  train=TrainConfig(**train))
+
+
+def cadence_data():
+    """Phase 27 (a)'s data: phase 16's make_synthetic at the flagship
+    schema -> (train, valid, test, domain_cnt_weight)."""
+    from tpurec_torch.data import make_synthetic
+
+    data = make_synthetic(n_rows=FIT_ROWS, n_fields=len(FIELD_DIMS),
+                          n_domain=N_DOMAIN, field_dims=FIELD_DIMS,
+                          domain_idx=DOMAIN_IDX, seed=CADENCE_FIT_SEED)
+    return data.train, data.valid, data.test, data.domain_cnt_weight()
+
+
+def cadence_fit(tr, placement, data):
+    """One of phase 27 (a)'s fits: ``tr.fit`` of ``data`` with every step
+    loss, each epoch's training seconds, each snapshot and restore
+    recorded and the kernel counters read around it.  Held here: the
+    launches against the schedule (a step each, a forward per eval batch
+    of this placement), the epoch path ("resident": the indexed epoch,
+    "over": the host-batching one), the state after the fit bitwise the
+    best epoch's snapshot, evaluate(valid) after it the stopper's best
+    result.  -> record: "epochs" (each epoch's valid result), "losses",
+    "after" (the state's bytes), "best", "test", "launches", seconds."""
+    train, valid, test, w = data
+    bs = tr.cfg.train.bs
+    n_batch = -(-len(train[1]) // bs)
+    path = {"resident": "scan_steps_idx", "over": "scan_steps"}[placement]
+    counters = train_counters("mmoe")
+    rec = {"steps": _record_steps(tr), "epoch_seconds": [], "snaps": [],
+           "restores": []}
+    tr.train_epoch = _timed(tr.train_epoch, rec["epoch_seconds"])
+    tr.snapshot = _timed(tr.snapshot, rec["snaps"], keep=True)
+    tr.restore = _timed(tr.restore, rec["restores"])
+    logs = []
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.fit(train, valid, test, domain_cnt_weight=w, log_fn=logs.append)
+    torch.cuda.synchronize()
+    rec["fit_seconds"] = time.perf_counter() - t0
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    for attr in ("train_epoch", "snapshot", "restore"):
+        delattr(tr, attr)              # the class's methods again
+    rec["epochs"] = [r for r in logs if "epoch_seconds" in r]
+    n_ep = len(rec["epochs"])
+    if placement == "resident":
+        def n_eval(n):
+            return tr._padded_index_batches(n, bs, tr.EVAL_CHUNK)[0].shape[0]
+    else:
+        def n_eval(n):
+            return -(-n // bs)
+    steps = n_ep * n_batch
+    want = schedule_launches(steps, steps + n_ep * n_eval(len(valid[1]))
+                             + n_eval(len(test[1])))
+    check(rec["launches"] == want, f"(a) {placement} fit: launches "
+          f"{rec['launches']}, the schedule {want}")
+    called = {a for a, _ in rec["steps"]}
+    check(called == {path}, f"(a) {placement} fit trained through "
+          f"{sorted(called)}, not {path}")
+    rec["losses"] = _losses(rec.pop("steps"))
+    check(rec["losses"].numel() == steps
+          and bool(torch.isfinite(rec["losses"]).all()),
+          f"(a) {placement} fit: {rec['losses'].numel()} step losses for "
+          f"{steps} steps")
+    rec["best"], rec["test"] = out["valid"], out["test"]
+    check(rec["best"] is not None, f"(a) {placement} fit kept no best state")
+    rec["after"] = tr.snapshot()
+    check(rec["after"] == rec["snaps"][-1][0], f"(a) {placement} fit: the "
+          "state after the fit is not the best epoch's snapshot")
+    rec["snaps"] = [(len(b), s) for b, s in rec["snaps"]]
+    ev = tr.evaluate(*valid, w)
+    check(_results_repr(ev) == _results_repr(rec["best"]), f"(a) "
+          f"{placement} fit: evaluate(valid) after the fit "
+          f"{_results_repr(ev)}, the best result {_results_repr(rec['best'])}")
+    return rec
+
+
+def _cadence_line(tag, placement, rec, n_rows):
+    return (f"{tag} fit cadence (a) {placement}: {len(rec['epochs'])} epochs, "
+            f"best epoch {rec['best']['epoch']}; valid mean / total AUC by "
+            "epoch " + ", ".join(f"{r['epoch']}: {r['mean_auc']:.5f} / "
+                                 f"{r['total_auc']:.5f}"
+                                 for r in rec["epochs"])
+            + "; epoch training seconds "
+            + ", ".join(f"{s:.3f}" for s in rec["epoch_seconds"])
+            + f" ({n_rows / np.median(rec['epoch_seconds']):.0f} examples/s "
+            "at the median); snapshots "
+            + ", ".join(f"{n / 1e6:.1f} MB {s:.3f} s" for n, s in rec["snaps"])
+            + "; restore " + ", ".join(f"{s:.3f} s" for s in rec["restores"])
+            + f"; fit {rec['fit_seconds']:.2f} s; launches {rec['launches']} "
+            "(the schedule)")
+
+
+def fit_over_rank(out_dir):
+    """Phase 27 (a)'s fit over the budget, started by
+    :func:`fit_cadence_main_path` in a process of its own: from the
+    initial state in ``out_dir``/init.bin, every split over the
+    instance's DEVICE_RESIDENT_BYTES (:func:`cadence_fit`).  Writes
+    over.json, over_losses.npy and over_after.bin there."""
+    import os
+
+    from tpurec_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = cadence_data()
+    tr = Trainer(harness_config(), FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                 domain2group=np.arange(N_DOMAIN) % N_TOWER)
+    with open(os.path.join(out_dir, "init.bin"), "rb") as f:
+        tr.restore(f.read())
+    tr.DEVICE_RESIDENT_BYTES = min(X.nbytes + y.nbytes
+                                   for X, y in data[:3]) - 1
+    rec = cadence_fit(tr, "over", data)
+    np.save(os.path.join(out_dir, "over_losses.npy"), rec.pop("losses").numpy())
+    with open(os.path.join(out_dir, "over_after.bin"), "wb") as f:
+        f.write(rec.pop("after"))
+    rec["epochs_repr"] = [_results_repr(r) for r in rec["epochs"]]
+    rec["test_repr"] = _results_repr(rec["test"])
+    rec["epochs"] = [{k: r[k] for k in ("epoch", "mean_auc", "total_auc")}
+                     for r in rec["epochs"]]
+    rec["best"] = {"epoch": rec["best"]["epoch"]}
+    rec["test"] = {"total_auc": rec["test"]["total_auc"]}
+    with open(os.path.join(out_dir, "over.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _spawn_fit_over(out_dir):
+    """Start :func:`fit_over_rank` in a process of its own (this script
+    with ``--fit-over``), its output in ``out_dir``/over.log."""
+    import os
+
+    me = os.path.abspath(__file__)
+    log = open(os.path.join(out_dir, "over.log"), "w")
+    try:
+        return subprocess.Popen([sys.executable, me, "--fit-over", out_dir],
+                                cwd=os.path.dirname(me), stdout=log,
+                                stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def fit_cadence_main_path(dev, tag):
+    """Phase 27 (a): Trainer.fit as run.py runs it, at full width:
+    phase 16's data and settings with TrainConfig's own epoch 10 and
+    early_stop 2, two fits from one initial state at once: (i) resident
+    (the indexed epoch, the exact eval by index on the card) in this
+    process, (ii) with the instance's DEVICE_RESIDENT_BYTES below the
+    smallest split, so train, valid and test all go over it (the
+    host-batching epoch, predict's batch path), in a process of its own
+    (:func:`fit_over_rank`; the host, not the card, bounds a step, so the
+    two share the card).  Held (with :func:`cadence_fit`'s checks of each
+    fit): every step loss bitwise across the two, each epoch's valid
+    result bitwise, the same stop and best epoch, a stop before the 10th
+    epoch at a best epoch before the last, the restored states equal,
+    the test results equal.  Then on the restored state: the streaming
+    eval through CADENCE_WINDOW_ROWS-row windows (at least 3, the tail
+    padded) within CADENCE_WINDOW_TOL of the resident streaming eval and
+    within STREAM_TOL of the exact one.  -> (launches by fit, summary)."""
+    import os
+    import tempfile
+
+    from tpurec_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    data = cadence_data()
+    train, valid = data[0], data[1]
+    w = data[3]
+    cfg = harness_config()
+    check(cfg.train.epoch == 10 and cfg.train.early_stop == 2,
+          f"TrainConfig's epoch {cfg.train.epoch}, early_stop "
+          f"{cfg.train.early_stop}")
+    tr = Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                 domain2group=np.arange(N_DOMAIN) % N_TOWER)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        with open(os.path.join(tmp, "init.bin"), "wb") as f:
+            f.write(tr.snapshot())
+        proc = _spawn_fit_over(tmp)
+        try:
+            res = cadence_fit(tr, "resident", data)
+            rc = proc.wait(timeout=FIT_OVER_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(os.path.join(tmp, "over.log")) as f:
+            tail = "".join(f.readlines()[-25:])
+        check(rc == 0, f"(a) the fit over the budget exited {rc}:\n{tail}")
+        with open(os.path.join(tmp, "over.json")) as f:
+            over = json.load(f)
+        over_losses = torch.from_numpy(np.load(os.path.join(
+            tmp, "over_losses.npy")))
+        with open(os.path.join(tmp, "over_after.bin"), "rb") as f:
+            over_after = f.read()
+    print(_cadence_line(tag, "resident", res, len(train[1])))
+    print(_cadence_line(tag, "over", over, len(train[1])))
+    stop = len(res["epochs"]) - 1
+    best_ep = res["best"]["epoch"]
+    check(len(over["epochs"]) - 1 == stop
+          and over["best"]["epoch"] == best_ep,
+          f"(a) the fits stopped at epochs {stop}, {len(over['epochs']) - 1} "
+          f"with best {best_ep}, {over['best']['epoch']}")
+    check(stop < cfg.train.epoch - 1 and best_ep < stop,
+          f"(a) the fit ran {stop + 1} of {cfg.train.epoch} epochs with best "
+          f"epoch {best_ep}: no early stop")
+    check(torch.equal(res["losses"], over_losses),
+          f"(a) step losses part: max abs "
+          f"{(res['losses'] - over_losses).abs().max().item()}")
+    for r, text in zip(res["epochs"], over["epochs_repr"]):
+        check(_results_repr(r) == text, f"(a) epoch {r['epoch']}'s valid "
+              f"result parts: {_results_repr(r)} vs {text}")
+    check(res["after"] == over_after, "(a) the restored states differ")
+    check(_results_repr(res["test"]) == over["test_repr"],
+          "(a) the test results differ")
+
+    # the streaming eval of the restored state, resident and in windows
+    exact = tr.evaluate(*valid, w)
+    stream = tr.evaluate_streaming(*valid, w)
+    tr.DEVICE_RESIDENT_BYTES = CADENCE_WINDOW_ROWS * (4 * len(FIELD_DIMS)
+                                                      + 4)
+    try:
+        with _windows_of(tr) as windows:
+            windowed = tr.evaluate_streaming(*valid, w)
+    finally:
+        tr.DEVICE_RESIDENT_BYTES = Trainer.DEVICE_RESIDENT_BYTES
+    check(len(windows) >= 3 and windows[-1] < CADENCE_WINDOW_ROWS
+          and all(n == CADENCE_WINDOW_ROWS for n in windows[:-1]),
+          f"(a) windows of {windows} rows")
+    keys = ("total_auc", "total_loss", "mean_auc", "mean_loss")
+    win_err = {k: abs(windowed[k] - stream[k]) for k in keys}
+    exact_err = {k: abs(windowed[k] - exact[k]) for k in STREAM_TOL}
+    check(all(v <= CADENCE_WINDOW_TOL for v in win_err.values()),
+          f"(a) windowed vs resident streaming eval {win_err}")
+    check(all(exact_err[k] <= STREAM_TOL[k] for k in STREAM_TOL),
+          f"(a) windowed streaming vs exact eval {exact_err}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"{tag} fit cadence (a): both fits stop after epoch {stop} at "
+          f"best epoch {best_ep}; {res['losses'].numel()} step losses, "
+          f"every epoch's valid result, the restored state and the test "
+          f"result bitwise equal across the placements; valid through "
+          f"{len(windows)} windows of {windows} rows: vs resident streaming "
+          f"{win_err} (tol {CADENCE_WINDOW_TOL}), vs exact {exact_err} (tol "
+          f"{STREAM_TOL}); phase {phase_s:.1f} s (the fits at once)")
+    summary = {
+        "rows": {"train": len(train[1]), "valid": len(valid[1]),
+                 "test": len(data[2][1])},
+        "stop_epoch": stop, "best_epoch": best_ep,
+        "valid_by_epoch": [{k: r[k] for k in ("epoch", "mean_auc",
+                                              "total_auc", "total_loss")}
+                           for r in res["epochs"]],
+        "test_total_auc": res["test"]["total_auc"],
+        "windows": windows, "windowed_vs_resident": win_err,
+        "windowed_vs_exact": exact_err, "phase_seconds": phase_s}
+    for name, rec in (("resident", res), ("over", over)):
+        summary[name] = {
+            "epoch_train_seconds": rec["epoch_seconds"],
+            "examples_per_s_median": len(train[1]) / float(
+                np.median(rec["epoch_seconds"])),
+            "snapshot_mb_seconds": [(n / 1e6, s) for n, s in rec["snaps"]],
+            "restore_seconds": rec["restores"],
+            "fit_seconds": rec["fit_seconds"], "launches": rec["launches"]}
+    launches = {"resident": res["launches"], "over": over["launches"]}
+    del tr, res
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def _window_copy_seconds(tr, X, y, w0, W):
+    """The host side of evaluate_streaming's window at row ``w0``, timed
+    apart: the rows as int32, the tail zero-padded to W rows, both copied
+    to the card (synchronized host clock)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Xw = np.asarray(X[w0:w0 + W], dtype=np.int32)
+    yw = y[w0:w0 + W].astype(np.float32)
+    nw = Xw.shape[0]
+    if nw < W:
+        Xw = np.concatenate([Xw, np.zeros((W - nw, X.shape[1]), np.int32)])
+        yw = np.concatenate([yw, np.zeros(W - nw, np.float32)])
+    Xd = torch.as_tensor(Xw, device=tr.device)
+    yd = torch.as_tensor(yw, device=tr.device)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    del Xd, yd, Xw, yw
+    return s, nw
+
+
+def harness_at_scale(tag, rows=STREAM_ROWS):
+    """Phase 27 (b), ``--phase 27 [--rows N]``: the training harness with
+    the train split over DEVICE_RESIDENT_BYTES.  Phase 25 (b)'s
+    make_synthetic(``rows``) at the flagship schema; a Trainer at phase
+    16's settings, whose "auto" placement must take the host-batching
+    epoch for the train split and keep valid and test resident.  The
+    epoch is cut by a raising log_fn after HARNESS_CUT_CHUNKS chunks of
+    512 steps; then the prefetch worker must have ended and the batch
+    stream been let go (host RSS before, after the cut and after a
+    collection).  The same cut epoch from the same initial state with the
+    instance's budget at HARNESS_RESIDENT_BYTES (the split on the card):
+    every step loss and the state bitwise.  The valid AUC after the cut;
+    then in turns 1,024 steps of each placement twice (host, resident,
+    resident, host; the losses bitwise pairwise); launches against the
+    schedule; the device busy of 16 steps of each.  Eval of the train
+    split as a stand-in for a test split of its size: the exact evaluate
+    (predict's batch path) and evaluate_streaming (its windows), their
+    seconds and rows/s, the first and the tail window's copies, streaming
+    within STREAM_TOL of exact.  -> summary."""
+    import gc
+    import resource
+    import threading
+    import weakref
+
+    import tpurec_torch.train.loop as loop
+    from tpurec_torch.data import make_synthetic
+    from tpurec_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    rss0 = _host_rss_gb()
+    t0 = time.perf_counter()
+    data = make_synthetic(
+        n_rows=rows, n_fields=len(FIELD_DIMS), n_domain=N_DOMAIN,
+        field_dims=FIELD_DIMS, domain_idx=DOMAIN_IDX, seed=1,
+        domain_cluster_k=N_TOWER, domain_cluster_conflict=True)
+    (X, y), valid = data.train, data.valid
+    test_bytes = sum(a.nbytes for a in data.test)
+    w = data.domain_cnt_weight()
+    del data
+    gc.collect()
+    data_s = time.perf_counter() - t0
+    nbytes = X.nbytes + y.nbytes
+    cfg = harness_config(epoch=1)
+    bs = cfg.train.bs
+    d2g = np.arange(N_DOMAIN) % N_TOWER
+    torch.cuda.reset_peak_memory_stats()
+    host = Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, domain2group=d2g)
+    budget = host.DEVICE_RESIDENT_BYTES
+    valid_bytes = valid[0].nbytes + valid[1].nbytes
+    check(nbytes > budget, f"(b) a {nbytes / 1e9:.3f} GB train split is "
+          f"within the {budget / 2**30:.3g} GiB budget")
+    check(max(valid_bytes, test_bytes) <= budget, f"(b) valid "
+          f"{valid_bytes / 1e9:.3f} GB or test {test_bytes / 1e9:.3f} GB is "
+          "over the budget")
+    print(f"{tag} harness (b) make_synthetic({rows} rows) {data_s:.1f} s: "
+          f"train {len(y)} rows = {nbytes / 1e9:.3f} GB, over the "
+          f"{budget / 2**30:.3g} GiB budget (the host-batching epoch); valid "
+          f"{len(valid[1])} rows {valid_bytes / 1e9:.3f} GB and test "
+          f"{test_bytes / 1e9:.3f} GB resident; host RSS "
+          f"{_host_rss_gb():.2f} GiB (at the phase's start {rss0:.2f})")
+    init = host.snapshot()
+    rec = {"host": _record_steps(host)}
+    counters = train_counters("mmoe")
+    for fn in counters.values():
+        fn.launches = 0
+
+    # the cut epoch, "auto": the host-batching path
+    made = []
+    batcher = loop.ArrayBatcher
+
+    class Watched(batcher):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(weakref.ref(self))
+
+    threads0 = threading.active_count()
+    rss_before = _host_rss_gb()
+    loop.ArrayBatcher = Watched
+    try:
+        marks = _cut_epoch(host, X, y, 0, HARNESS_CUT_CHUNKS)
+    finally:
+        loop.ArrayBatcher = batcher
+    rss_cut = _host_rss_gb()
+    threads_cut = threading.active_count()
+    gc.collect()
+    rss_after = _host_rss_gb()
+    threads_after = threading.active_count()
+    held = [r for r in made if r() is not None]
+    n_cut = HARNESS_CUT_CHUNKS * cfg.train.steps_per_dispatch
+    host_loss = _losses(rec["host"])
+    check({a for a, _ in rec["host"]} == {"scan_steps"}
+          and host_loss.numel() == n_cut,
+          f"(b) the cut epoch ran {host_loss.numel()} steps through "
+          f"{sorted({a for a, _ in rec['host']})}")
+    check(len(made) == 1 and not held, f"(b) {len(held)} of the cut "
+          f"epoch's {len(made)} batch streams still alive")
+    check(threads_after == threads0, f"(b) {threads_after - threads0} "
+          "prefetch workers outlived the cut")
+    host_s = marks[-1][1] - marks[0][1]
+    chunk_s = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+    print(f"{tag} harness (b) host-batching epoch cut after {n_cut} steps "
+          f"by log_fn: {host_s:.2f} s = {n_cut * bs / host_s:.0f} examples/s "
+          f"(the epoch's start included); chunks of "
+          f"{cfg.train.steps_per_dispatch} steps "
+          + ", ".join(f"{s:.2f}" for s in chunk_s)
+          + f" s; after the cut {threads_cut} threads ({threads0} before, "
+          f"{threads_after} after a collection), the batch stream let go; "
+          f"host RSS "
+          f"{rss_before:.2f} GiB before the epoch, {rss_cut:.2f} after the "
+          f"cut, {rss_after:.2f} after a collection")
+
+    # the same cut epoch with the split on the card
+    res = Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX, domain2group=d2g)
+    res.restore(init)
+    res.DEVICE_RESIDENT_BYTES = HARNESS_RESIDENT_BYTES
+    check(nbytes <= res.DEVICE_RESIDENT_BYTES, "(b) the split is over "
+          f"{HARNESS_RESIDENT_BYTES / 2**30:.3g} GiB")
+    rec["resident"] = _record_steps(res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res._device_dataset(X, y)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    marks_r = _cut_epoch(res, X, y, 0, HARNESS_CUT_CHUNKS)
+    res_loss = _losses(rec["resident"])
+    check({a for a, _ in rec["resident"]} == {"scan_steps_idx"},
+          f"(b) the resident epoch ran through "
+          f"{sorted({a for a, _ in rec['resident']})}")
+    check(torch.equal(res_loss, host_loss), f"(b) {n_cut} step losses "
+          f"part: resident vs host max abs "
+          f"{(res_loss - host_loss).abs().max().item() if res_loss.shape == host_loss.shape else res_loss.shape}")
+    check(res.snapshot() == host.snapshot(), "(b) the states after the cut "
+          "epochs differ")
+    res_s = marks_r[-1][1] - marks_r[0][1]
+    chunk_r = [b[1] - a[1] for a, b in zip(marks_r, marks_r[1:])]
+    t0 = time.perf_counter()
+    ev = host.evaluate(*valid, w)
+    valid_s = time.perf_counter() - t0
+    n_valid = host._padded_index_batches(len(valid[1]), bs,
+                                         host.EVAL_CHUNK)[0].shape[0]
+    print(f"{tag} harness (b) the same cut epoch resident (budget "
+          f"{HARNESS_RESIDENT_BYTES / 2**30:.3g} GiB; the split copied to the "
+          f"card in {copy_s:.2f} s): {res_s:.2f} s = "
+          f"{n_cut * bs / res_s:.0f} examples/s; chunks "
+          + ", ".join(f"{s:.2f}" for s in chunk_r)
+          + f" s; {n_cut} step losses and the state bitwise the host "
+          f"epoch's; valid total_auc {ev['total_auc']:.5f}, mean_auc "
+          f"{ev['mean_auc']:.5f} ({len(valid[1])} rows, {valid_s:.1f} s)")
+
+    # in turns: host, resident, resident, host; 1,024 steps a run
+    turns = []
+    for name, tr, epoch_i in (("host", host, 1), ("resident", res, 1),
+                              ("resident", res, 2), ("host", host, 2)):
+        lo = len(rec[name])
+        m = _cut_epoch(tr, X, y, epoch_i, HARNESS_TURN_CHUNKS)
+        n = HARNESS_TURN_CHUNKS * cfg.train.steps_per_dispatch
+        turns.append({"placement": name, "epoch": epoch_i,
+                      "seconds": m[-1][1] - m[0][1],
+                      "last_chunk_seconds": m[-1][1] - m[-2][1],
+                      "losses": _losses(rec[name], lo)})
+        turns[-1]["examples_per_s"] = n * bs / turns[-1]["seconds"]
+        turns[-1]["last_chunk_examples_per_s"] = (
+            cfg.train.steps_per_dispatch * bs / turns[-1]["last_chunk_seconds"])
+    for e in (1, 2):
+        a, b = (t["losses"] for t in turns if t["epoch"] == e)
+        check(torch.equal(a, b), f"(b) epoch {e}'s 1,024 steps part between "
+              "the placements")
+    steps = 2 * n_cut + sum(t["losses"].numel() for t in turns)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = schedule_launches(steps, steps + n_valid)
+    check(launches == want, f"(b) launches {launches}, the schedule {want}")
+    print(f"{tag} harness (b) in turns, "
+          f"{HARNESS_TURN_CHUNKS * cfg.train.steps_per_dispatch} steps a run "
+          "(the epoch's start included; then its last chunk alone): "
+          + "; ".join(f"{t['placement']} epoch {t['epoch']} "
+                      f"{t['examples_per_s']:.0f} examples/s, "
+                      f"{t['last_chunk_examples_per_s']:.0f}"
+                      for t in turns)
+          + f"; losses bitwise pairwise; {steps} steps, launches {launches} "
+          "against the schedule")
+
+    # where a step's time goes: 16 steps of each placement
+    busy = {}
+    Xdev, ydev, d2g_dev = res._device_dataset(X, y)
+    rng = np.random.default_rng(SEED + 27)
+    idx = torch.as_tensor(rng.integers(0, len(y), (PROFILE_STEPS, bs),
+                                       dtype=np.int32), device=res.device)
+    ones = torch.ones((PROFILE_STEPS, bs), device=res.device)
+    Xs, ys = X[:PROFILE_STEPS * bs], y[:PROFILE_STEPS * bs]
+
+    def host_steps():
+        host._host_epoch(iter(batcher(
+            Xs, ys, bs, group=host._group_of(Xs), shuffle=True,
+            rng=np.random.default_rng(SEED))), 0, None)
+
+    for name, run in (("resident", lambda: res.scan_steps_idx(
+            res.state, Xdev, ydev, d2g_dev, idx, ones, res.dropout_gen)),
+                      ("host", host_steps)):
+        run()
+        torch.cuda.synchronize()
+        _, dev_us, window_s, per = profile_calls(
+            run, PROFILE_STEPS, f"{tag} harness (b) {name} profile")
+        us = sum(dev_us.values()) * PROFILE_STEPS
+        check(us > 0, f"(b) the {name} profile shows no device time")
+        busy[name] = {"busy_us_per_step": us / PROFILE_STEPS,
+                      "busy_share": us / 1e6 / window_s,
+                      "window_ms_per_step": window_s * 1e3 / PROFILE_STEPS,
+                      "launches_per_step": per}
+    print(f"{tag} harness (b) profiles of {PROFILE_STEPS} steps: "
+          + "; ".join(f"{k} device busy {v['busy_us_per_step']:.1f} us a "
+                      f"step, {100 * v['busy_share']:.1f}% of the window's "
+                      f"{v['window_ms_per_step']:.3f} ms a step"
+                      for k, v in busy.items()))
+    del res, Xdev, ydev, d2g_dev, idx, ones
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # eval at size: the train split as a stand-in for a test split
+    check(X.nbytes + 4 * len(y) > host.DEVICE_RESIDENT_BYTES,
+          "(b) predict would take the resident path")
+    for fn in counters.values():
+        fn.launches = 0
+    predict_s = []
+    host.predict = _timed(host.predict, predict_s)
+    t0 = time.perf_counter()
+    exact = host.evaluate(X, y, w)
+    exact_s = time.perf_counter() - t0
+    del host.predict
+    exact_launches = {k: fn.launches for k, fn in counters.items()}
+    n_exact = -(-len(y) // bs)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _windows_of(host) as windows:
+        stream = host.evaluate_streaming(X, y, w)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_launches = {k: fn.launches for k, fn in counters.items()}
+    n_stream = sum(host._padded_index_batches(n, bs, host.EVAL_CHUNK)[0]
+                   .shape[0] for n in windows)
+    W = max(bs, (host.DEVICE_RESIDENT_BYTES // (4 * X.shape[1] + 4))
+            // bs * bs)
+    check(windows[:-1] == [W] * (len(windows) - 1)
+          and sum(windows) == len(y) and len(windows) == -(-len(y) // W),
+          f"(b) windows of {windows} rows, W = {W}")
+    for what, got, n in (("exact", exact_launches, n_exact),
+                         ("streaming", stream_launches, n_stream)):
+        want = schedule_launches(0, n)
+        check(got == want, f"(b) {what} eval launches {got}, the schedule "
+              f"{want}")
+    copies = {name: _window_copy_seconds(host, X, y, w0, W)
+              for name, w0 in (("first", 0),
+                               ("tail", (len(windows) - 1) * W))}
+    err = {k: abs(stream[k] - exact[k]) for k in STREAM_TOL}
+    check(all(err[k] <= STREAM_TOL[k] for k in STREAM_TOL),
+          f"(b) streaming vs exact eval over {len(y)} rows: {err}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    rss_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"{tag} harness (b) eval of the {len(y)}-row train split: exact "
+          f"{exact_s:.1f} s = {len(y) / exact_s:.0f} rows/s (predict's batch "
+          f"path {predict_s[0]:.1f} s, {n_exact} batches; the metrics "
+          f"{exact_s - predict_s[0]:.1f} s), total_auc "
+          f"{exact['total_auc']:.5f}, mean_auc {exact['mean_auc']:.5f}; "
+          f"streaming {stream_s:.1f} s = {len(y) / stream_s:.0f} rows/s "
+          f"through {len(windows)} windows of {windows} rows ({n_stream} "
+          f"batches); a window's host side and copy, timed apart: first "
+          f"{copies['first'][0]:.2f} s, tail ({copies['tail'][1]} rows "
+          f"padded to {W}) {copies['tail'][0]:.2f} s; streaming vs exact "
+          f"{err} (tol {STREAM_TOL}); device peak {peak_gb:.2f} GiB, host "
+          f"peak RSS {rss_peak:.2f} GiB")
+    summary = {
+        "rows": rows, "train_rows": len(y), "train_gb": nbytes / 1e9,
+        "valid_rows": len(valid[1]), "data_seconds": data_s,
+        "cut_steps": n_cut,
+        "host_cut": {"seconds": host_s, "examples_per_s": n_cut * bs / host_s,
+                     "chunk_seconds": chunk_s},
+        "resident_cut": {"seconds": res_s,
+                         "examples_per_s": n_cut * bs / res_s,
+                         "chunk_seconds": chunk_r, "copy_seconds": copy_s},
+        "rss_gb": {"before_epoch": rss_before, "after_cut": rss_cut,
+                   "after_collect": rss_after},
+        "valid_after_cut": {k: ev[k] for k in ("total_auc", "mean_auc",
+                                               "total_loss")},
+        "turns": [{k: v for k, v in t.items() if k != "losses"}
+                  for t in turns],
+        "launches": launches, "busy": busy,
+        "eval": {"exact_seconds": exact_s, "predict_seconds": predict_s[0],
+                 "exact_rows_per_s": len(y) / exact_s,
+                 "streaming_seconds": stream_s,
+                 "streaming_rows_per_s": len(y) / stream_s,
+                 "windows": windows, "window_copy_seconds": {
+                     k: v[0] for k, v in copies.items()},
+                 "streaming_vs_exact": err,
+                 "exact_total_auc": exact["total_auc"],
+                 "launches_exact": exact_launches,
+                 "launches_streaming": stream_launches},
+        "device_peak_gb": peak_gb, "host_peak_rss_gb": rss_peak}
+    del host
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"harness (b): {summary['phase_seconds']:.1f} s")
+    return summary
+
+
+def phase27_main(rows: int) -> int:
+    """Phase 27 (b) alone, after the build: the harness with ``rows``
+    synthetic rows, the train split over the card's budget
+    (:func:`harness_at_scale`)."""
+    start = _phase_alone("phase 27")
+    if start is None:
+        return 1
+    _, tag = start
+    t0 = time.perf_counter()
+    print(json.dumps({"harness_b": harness_at_scale(tag, rows)}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -8376,14 +9262,15 @@ def main() -> int:
     fit_launches, fit_summary = harness_main_path(dev, tag)
 
     # -- 17. the CDC engine ---------------------------------------------------
-    cdc_launches, cdc_summary = cdc_main_path(dev, tag)
+    cdc_launches, cdc_summary = cdc_main_path(dev, tag,
+                                              n_causal_mask=CDC_CAUSAL)
 
     # -- 18. CDC's other base models ------------------------------------------
     t18 = time.perf_counter()
     bases = bases_main_path(dev, rng, tag)
     ple_launches, ple_cdc = cdc_main_path(dev, tag, base="ple", phase=18,
                                           profile=False,
-                                          n_causal_mask=PLE_CDC_CAUSAL)
+                                          n_causal_mask=CDC_CAUSAL)
     star_row = star_cdc_row(tag)
     single_rows = {name: single_row_vs_cpu(name, tag) for name in SINGLES}
     bases_s = time.perf_counter() - t18
@@ -8420,6 +9307,9 @@ def main() -> int:
 
     # -- 25. CDC as its users run it: "stream", three updates a fit ----------
     stream_launches, stream = stream_main_path(dev, tag)
+
+    # -- 27. the training harness as its users run it: fit to its stop -------
+    cadence_launches, fit_cadence = fit_cadence_main_path(dev, tag)
 
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
@@ -8560,6 +9450,8 @@ def main() -> int:
         k["launches_lanes"] = lanes_launches.get(key)
         k["launches_stream"] = {fit: n.get(key)
                                 for fit, n in stream_launches.items()}
+        k["launches_fit_cadence"] = {fit: n.get(key)
+                                     for fit, n in cadence_launches.items()}
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
@@ -8574,6 +9466,7 @@ def main() -> int:
     print(json.dumps({"expert": ep}))
     print(json.dumps({"lanes": lanes}))
     print(json.dumps({"stream": stream}))
+    print(json.dumps({"fit_cadence": fit_cadence}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
@@ -8707,19 +9600,21 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
-    ap.add_argument("--phase", type=int, choices=[19, 22, 23, 24, 25, 26],
+    ap.add_argument("--phase", type=int,
+                    choices=[19, 22, 23, 24, 25, 26, 27],
                     help="run this phase alone (after the build; 19: its "
                     "routed models; 23: with (b)'s witness on three "
                     "meshes; 25: its part (b), the split over the card's "
                     "budget; 26: CDC's cadence on the mesh, (b), or with "
-                    "--rows (c))")
+                    "--rows (c); 27: its part (b), the harness with the "
+                    "train split over the card's budget)")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
                     help="phase 22 (b)'s batch draws at each wd")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="phase 19's batch draw (with --phase 19)")
     ap.add_argument("--rows", type=int, default=None,
-                    help="synthetic rows of phase 25 (b) (default "
-                    f"{STREAM_ROWS}) or phase 26 (c)")
+                    help="synthetic rows of phase 25 (b) or 27 (b) "
+                    f"(default {STREAM_ROWS}) or phase 26 (c)")
     ap.add_argument("--mesh-rank", metavar="DIR",
                     help="one rank of phase 22 (b)/(c), started by the "
                     "phase itself")
@@ -8731,6 +9626,9 @@ if __name__ == "__main__":
                     "itself")
     ap.add_argument("--witness-rank", metavar="DIR",
                     help="one rank of phase 23 (b)'s witness, started by "
+                    "the phase itself")
+    ap.add_argument("--fit-over", metavar="DIR",
+                    help="phase 27 (a)'s fit over the budget, started by "
                     "the phase itself")
     ap.add_argument("--cadence-rank", metavar="DIR",
                     help="one rank of phase 26, started by the phase "
@@ -8747,6 +9645,8 @@ if __name__ == "__main__":
             sys.exit(witness_rank(opts.witness_rank))
         if opts.cadence_rank:
             sys.exit(cadence_rank(opts.cadence_rank))
+        if opts.fit_over:
+            sys.exit(fit_over_rank(opts.fit_over))
         if opts.phase == 19:
             sys.exit(phase19_main(opts.seed))
         if opts.phase == 22:
@@ -8759,6 +9659,8 @@ if __name__ == "__main__":
             sys.exit(phase25_main(opts.rows or STREAM_ROWS))
         if opts.phase == 26:
             sys.exit(phase26_main(opts.rows))
+        if opts.phase == 27:
+            sys.exit(phase27_main(opts.rows or STREAM_ROWS))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

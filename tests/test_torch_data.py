@@ -114,6 +114,51 @@ def test_prefetch_iter_order_and_errors():
         next(it)
 
 
+class _Held:
+    """An object the source stream holds, to see when it is let go."""
+
+
+@pytest.mark.parametrize("how", ["close", "raise", "drop"])
+def test_prefetch_iter_stops_its_worker_when_the_consumer_ends(how):
+    """A consumer that stops early (closed, left by an exception, or
+    dropped) must not leave the worker blocked on a full queue, holding
+    the source and what it holds."""
+    import gc
+    import threading
+    import weakref
+
+    state = {"closed": False, "made": 0}
+    held = _Held()
+    ref = weakref.ref(held)
+
+    def source(held):
+        try:
+            for i in range(1000):
+                state["made"] += 1
+                yield (i, held)
+        finally:
+            state["closed"] = True
+
+    before = threading.active_count()
+    it = pl.prefetch_iter(source(held), depth=2)
+    del held
+    assert next(it)[0] == 0
+    if how == "close":
+        it.close()
+    elif how == "raise":
+        with pytest.raises(RuntimeError, match="cut"):
+            for item in it:
+                if item[0] == 1:
+                    raise RuntimeError("cut")
+        del item
+    del it
+    gc.collect()
+    assert state["closed"]
+    assert state["made"] <= 5            # 2 consumed at most, 2 queued, 1
+    assert threading.active_count() == before
+    assert ref() is None
+
+
 def test_apply_hash_trick_identical():
     rng = np.random.default_rng(9)
     X = rng.integers(0, 10**9, (500, 4))

@@ -187,27 +187,53 @@ def prefetch_iter(it, depth: int = 2):
 
     Used to overlap host-side batch stacking + H2D transfer start with
     device compute (the reference's DataLoader blocks the train loop on
-    every batch).  Exceptions on the worker re-raise at the consumer."""
+    every batch).  Exceptions on the worker re-raise at the consumer.
+
+    Closing the consumer (``close()``, an exception or a break in the
+    loop that drives it, or its collection) stops the worker after the
+    item it is making, closes ``it`` and joins the thread, so that
+    nothing is left holding ``it`` and the data behind it."""
     import queue
     import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
     _END = object()
+
+    def put(item) -> bool:
+        # a full queue is waited on only while the consumer is open
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def worker():
         try:
             for item in it:
-                q.put(item)
-            q.put(_END)
+                if not put(item):
+                    break
+            else:
+                put(_END)
         except BaseException as e:  # noqa: BLE001 — re-raised at consumer
-            q.put(e)
+            put(e)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
-    while True:
-        item = q.get()
-        if item is _END:
-            break
-        if isinstance(item, BaseException):
-            raise item
-        yield item
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
