@@ -7,6 +7,7 @@ model it ports, in float32 and in bf16 compute, and check them.
     python3 chip_smoke.py --phase 25 --rows 52000000   # CDC, split streamed
     python3 chip_smoke.py --phase 26 [--rows 4000000]  # CDC's mesh cadence
     python3 chip_smoke.py --phase 27 [--rows 52000000] # harness over budget
+    python3 chip_smoke.py --phase 28 [--parent DIR]    # serving under load
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -322,6 +323,32 @@ Phases (any failure exits non-zero and prints no result line):
     profile of each, and the exact and streaming evals of the 46.8M-row
     split (seconds, rows/s, the window copies, streaming within
     STREAM_TOL of exact), host and device peak memory.
+28. serving as its users run it: (a) the checkpoints of phases 16 (the
+    flagship MMoE's fit) and 18 (b) (CDC on PLE, served at n_tower =
+    n_cluster and routed by its domain2group), each served by ``python -m
+    tpurec_torch.server --port 0 --bs 4096 --table_dtype bfloat16`` in a
+    process of its own (through SERVE_WRAPPER, which prints #1 and #2's
+    launches and the device peak when SIGINT ends the host); a card
+    Predictor of the checkpoint in this process takes a 10,000-row
+    predict_async (3 chunks) under set_sync_debug_mode("error") (its host
+    time beside its chunks' device time) and three requests fetched out
+    of order, bitwise; 4 client threads on a keep-alive connection each
+    send 25 1-row and 25 512-row requests interleaved and one of 10,000
+    rows: every reply bitwise that Predictor's, 1,000 rows within 1e-4 of
+    the CPU's plain path, /healthz and /metrics the requests and rows
+    sent, #1 and #2's launches the chunks sent plus warm()'s, rc 0 within
+    10 s of SIGINT; p50 and p99 by request size.  (b) ``--phase 28
+    [--parent DIR]`` alone: phase 16's fit, its checkpoint served at --bs
+    4096 (float32, bfloat16, int8 tables; 1-, 512- and 4,096-row
+    requests) and --bs 512 (1 and 512 rows) to 1, 4 and 16 keep-alive
+    clients (``scripts/serve_load.py``): p50, p99, requests/s, rows/s
+    and the host's device busy share (a profiler window inside the host)
+    a cell; with ``--parent`` (the parent commit's tree, unpacked) the
+    corners (1 and 16 clients x 1 and 4,096 rows) on its host and on
+    this tree's in turns; a soak of 16 clients on a new connection every
+    request for 120 s, every reply bitwise, the host's RSS, threads and
+    memory_reserved at the start, after 10 s and at the end (no growth
+    after 10 s).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -333,6 +360,7 @@ import contextlib
 import functools
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -2857,14 +2885,15 @@ def _losses(rec, lo=0):
     return torch.cat([l for _, l in rec[lo:]]).cpu()
 
 
-def harness_main_path(dev, tag):
+def harness_main_path(dev, tag, keep=None):
     """Phase 16: the training harness at full width.  make_synthetic at
     the flagship schema -> Trainer(...).fit(train, valid, test) through
     the device-resident (indexed) epoch, with the kernel counters read
     around the fit; then a profile of 16 indexed steps from the same
     initial state, streaming against exact eval, Predictor.load_from_trainer, a
     checkpoint through predictor_from_checkpoint and a fresh Trainer, and
-    the small drive recipe.  -> (launches, summary)."""
+    the small drive recipe.  ``keep``: a path the checkpoint is copied to
+    (phase 28 serves it).  -> (launches, summary)."""
     import os
     import tempfile
 
@@ -3019,6 +3048,8 @@ def harness_main_path(dev, tag):
         tr.save_checkpoint(path, extra={"phase": 16})
         write_s = time.perf_counter() - t1
         size_mb = os.path.getsize(path) / 1e6
+        if keep is not None:
+            shutil.copyfile(path, keep)
         t1 = time.perf_counter()
         served = predictor_from_checkpoint(path,
                                            batch_sizes=(cfg.train.bs,))
@@ -3430,7 +3461,7 @@ def cdc_data():
 
 
 def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True,
-                  n_causal_mask=None):
+                  n_causal_mask=None, keep=None):
     """Phase 17: the CDC engine on the flagship MMoE at full width.
     make_synthetic(131,072 rows, the flagship schema, 4 antipodal domain
     clusters) -> CDCTrainer(...).fit(train, valid, test): the warmup, one
@@ -3441,7 +3472,8 @@ def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True,
     through a fresh CDCTrainer and predictor_from_checkpoint, and a
     profile of treatment steps (when ``profile``).  Phase 18 runs it on
     another ``base``, with ``n_causal_mask`` mask rows (None: the
-    reference's 50).  -> (launches, summary)."""
+    reference's 50); ``keep``: a path the checkpoint is copied to (phase
+    28 serves it).  -> (launches, summary)."""
     import os
     import tempfile
 
@@ -3561,6 +3593,8 @@ def cdc_main_path(dev, tag, base="mmoe", phase=17, profile=True,
         tr.save_checkpoint(path, extra={"phase": phase})
         write_s = time.perf_counter() - t1
         size_mb = os.path.getsize(path) / 1e6
+        if keep is not None:
+            shutil.copyfile(path, keep)
         fresh = CDCTrainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX)
         payload = fresh.load_checkpoint(path)
         served = predictor_from_checkpoint(path, batch_sizes=(512,))
@@ -8913,6 +8947,694 @@ def phase27_main(rows: int) -> int:
     return 0
 
 
+# -- serving as its users run it (phase 28) -------------------------------------
+
+SERVE_BS = 4096                 # the host's --bs; it pads as tpurec's does
+#                                 (tpurec/server.py:171-172): a 1-row request
+#                                 is scored as one 4,096-row chunk
+SERVE_DTYPE = "bfloat16"        # (a), the turns and the soak
+SERVE_CLIENTS = 4               # (a): client threads, a keep-alive
+#                                 connection each
+SERVE_SMALL = 25                # (a): a client's 1-row and 512-row requests
+SERVE_BIG = 10_000              # (a): the one large request, 3 chunks
+SERVE_CPU_ROWS = 1000           # (a): rows held against the CPU's plain path
+SERVE_START_S = 300             # a host's start: checkpoint, table, warm()
+SERVE_STOP_S = 10               # SIGINT to the process's end
+SERVE_RECORD_S = 120            # a signal to the wrapper's record
+# (b): (--bs, table dtypes, request rows); every cell at each GRID_CLIENTS
+GRID = ((SERVE_BS, ("float32", "bfloat16", "int8"), (1, 512, 4096)),
+        (512, ("float32", "bfloat16", "int8"), (1, 512)))
+GRID_CLIENTS = (1, 4, 16)
+GRID_REQUESTS = 128             # timed requests a cell, shared by its clients
+GRID_PROFILED = 32              # then timed inside the host's profiler window
+TURNS = ("parent", "change", "change", "parent") * 2
+TURN_CELLS = ((1, 1), (1, 16), (4096, 1), (4096, 16))  # (rows, clients)
+SOAK_CLIENTS = 16               # a new connection every request
+SOAK_SECONDS = 120
+SOAK_SETTLE = 10                # memory_reserved may not grow after this
+SOAK_SIZES = (1, 37, 512, 4096)
+SOAK_POOL = 32                  # distinct requests, their replies known
+
+# The host as ``python -m tpurec_torch.server`` runs it, in a process of
+# its own started with ``python -c SERVE_WRAPPER OUT_DIR <server argv>``
+# from the root of the tree whose package it serves.
+SERVE_WRAPPER = r'''
+import json
+import os
+import signal
+import sys
+import threading
+import time
+
+import torch
+
+import tpurec_torch
+from tpurec_torch import serve, server
+from tpurec_torch.ops.attention import field_attention
+from tpurec_torch.ops.embedding import embedding_gather
+
+# SIGUSR1 opens a CUDA profiler window, SIGUSR2 closes it, SIGHUP takes a
+# snapshot; each writes OUT/rec<k>.json, its k-th record.  At SIGINT the
+# host ends and the last line is "server exit {json}".  Every record
+# holds the host seconds spent so far in Predictor.predict_async (the
+# submission, under the host's lock) and in its fetch.
+OUT, ARGV = sys.argv[1], sys.argv[2:]
+MARKERS = @MARKERS@
+SYMS = {"embedding_gather": "gather_kernel",
+        "field_attention": "field_attention_kernel"}
+state = {"k": 0}
+timing = {"submit_s": 0.0, "fetch_s": 0.0, "fetches": 0}
+timing_lock = threading.Lock()
+submit = serve.Predictor.predict_async
+
+
+def timed_predict_async(self, X):
+    t0 = time.perf_counter()
+    fetch = submit(self, X)
+    t1 = time.perf_counter()
+
+    def timed_fetch():
+        t2 = time.perf_counter()
+        out = fetch()
+        t3 = time.perf_counter()
+        with timing_lock:
+            timing["submit_s"] += t1 - t0
+            timing["fetch_s"] += t3 - t2
+            timing["fetches"] += 1
+        return out
+
+    return timed_fetch
+
+
+serve.Predictor.predict_async = timed_predict_async
+
+
+def launches():
+    return {"embedding_gather": embedding_gather.launches,
+            "field_attention": field_attention.launches}
+
+
+def write(kind, **rec):
+    with open("/proc/self/status") as f:
+        st = dict(line.split(":", 1) for line in f if ":" in line)
+    state["k"] += 1
+    rec.update(kind=kind, rss_bytes=int(st["VmRSS"].split()[0]) * 1024,
+               threads=int(st["Threads"]),
+               memory_reserved=torch.cuda.memory_reserved(),
+               max_memory_reserved=torch.cuda.max_memory_reserved(),
+               launches=launches())
+    with timing_lock:
+        rec.update(timing)
+    path = os.path.join(OUT, "rec%d.json" % state["k"])
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+
+
+def open_window(signum, frame):
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.__enter__()
+    # a capture drops its first kernels' records: spin kernels take that
+    for _ in range(MARKERS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    state["prof"], state["t0"] = prof, time.perf_counter()
+    write("opened")
+
+
+def close_window(signum, frame):
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - state["t0"]
+    prof = state.pop("prof")
+    prof.__exit__(None, None, None)
+    busy_us, n, kernels = 0.0, 0, dict.fromkeys(SYMS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        name = torch._C._demangle(e.name()).removeprefix("void ")
+        if "spin_kernel" in name:
+            continue
+        busy_us += e.duration_ns() / 1e3
+        n += 1
+        for k, sym in SYMS.items():
+            kernels[k] += name.startswith("(anonymous namespace)::" + sym)
+    write("window", window_s=window_s, busy_us=busy_us, records=n,
+          kernel_records=kernels)
+
+
+signal.signal(signal.SIGUSR1, open_window)
+signal.signal(signal.SIGUSR2, close_window)
+signal.signal(signal.SIGHUP, lambda signum, frame: write("state"))
+print("server package "
+      + os.path.realpath(os.path.dirname(tpurec_torch.__file__)), flush=True)
+try:
+    server.main(ARGV)
+except KeyboardInterrupt:
+    pass
+print("server exit " + json.dumps({
+    "launches": launches(), "memory_reserved": torch.cuda.memory_reserved(),
+    "max_memory_reserved": torch.cuda.max_memory_reserved()}), flush=True)
+'''
+
+
+def _here():
+    import os
+
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_load():
+    """scripts/serve_load.py, the clients of phase 28."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_load", os.path.join(_here(), "scripts", "serve_load.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class ServedHost:
+    """``python -m tpurec_torch.server --ckpt CKPT --port 0 --bs BS
+    --table_dtype DTYPE`` through SERVE_WRAPPER, in a process of its own
+    started from ``tree`` (default: this checkout), its output gathered by
+    a thread.  A host that dies fails the phase."""
+
+    def __init__(self, ckpt, bs, dtype, out_dir, what, tree=None):
+        import os
+
+        self.tree = tree or _here()
+        self.out_dir, self.what, self.bs = out_dir, what, bs
+        os.makedirs(out_dir)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             SERVE_WRAPPER.replace("@MARKERS@", str(MARKERS)), out_dir,
+             "--ckpt", ckpt, "--port", "0", "--bs", str(bs),
+             "--table_dtype", dtype],
+            cwd=self.tree, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env={**os.environ, "PYTHONPATH": self.tree})
+        self.lines = []
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        self.records = 0
+        self.url = None
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def _alive(self, doing):
+        if self.proc.poll() is not None:
+            self.reader.join(timeout=10)
+            raise SmokeFailure(
+                f"{self.what}: the host died (rc {self.proc.returncode}) "
+                f"{doing}:\n" + "\n".join(self.lines[-40:]))
+
+    def wait_ready(self):
+        """-> its URL, from the startup line (the port it bound)."""
+        import os
+        import re
+
+        deadline = self.t0 + SERVE_START_S
+        while self.url is None:
+            for line in list(self.lines):
+                m = re.match(r"serving \S+ on (http://[\d.]+:\d+) \(", line)
+                if m:
+                    self.url = m.group(1)
+            if self.url is None:
+                self._alive("before its startup line")
+                check(time.perf_counter() < deadline, f"{self.what}: no "
+                      f"startup line in {SERVE_START_S} s")
+                time.sleep(0.05)
+        self.start_s = time.perf_counter() - self.t0
+        pkg = os.path.realpath(os.path.join(self.tree, "tpurec_torch"))
+        check(f"server package {pkg}" in self.lines,
+              f"{self.what} does not serve {pkg}: {self.lines[:3]}")
+        return self.url
+
+    def record(self, sig):
+        """Send ``sig`` to the wrapper -> the record it writes."""
+        import os
+
+        self._alive("before a signal")
+        self.records += 1
+        path = os.path.join(self.out_dir, f"rec{self.records}.json")
+        self.proc.send_signal(sig)
+        deadline = time.perf_counter() + SERVE_RECORD_S
+        while not os.path.exists(path):
+            self._alive(f"before its record {self.records}")
+            check(time.perf_counter() < deadline,
+                  f"{self.what}: no record {self.records} in "
+                  f"{SERVE_RECORD_S} s")
+            time.sleep(0.01)
+        with open(path) as f:
+            return json.load(f)
+
+    def get(self, route):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + route, timeout=60) as r:
+            return r.read()
+
+    def stop(self):
+        """SIGINT -> (rc, seconds to the end, the wrapper's exit record);
+        the rc must be 0 within SERVE_STOP_S."""
+        import signal
+
+        self._alive("before SIGINT")
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout=SERVE_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure(f"{self.what}: still running {SERVE_STOP_S} s "
+                               "after SIGINT (killed)")
+        stop_s = time.perf_counter() - t0
+        self.reader.join(timeout=30)
+        ends = [line for line in self.lines
+                if line.startswith("server exit ")]
+        check(rc == 0 and len(ends) == 1, f"{self.what}: rc {rc} after "
+              "SIGINT:\n" + "\n".join(self.lines[-40:]))
+        return rc, stop_s, json.loads(ends[0][len("server exit "):])
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.reader.join(timeout=30)
+
+
+def _mb(n):
+    return f"{n / 2**20:.1f} MiB"
+
+
+def served_checkpoint(tag, name, path, host):
+    """Phase 28 (a) on one checkpoint, its host started already: a card
+    Predictor of it in this process (--bs's one size, the host's table
+    dtype) takes a SERVE_BIG-row predict_async under
+    set_sync_debug_mode("error") and three requests fetched out of order;
+    then SERVE_CLIENTS clients on the host, every reply bitwise that
+    Predictor's, SERVE_CPU_ROWS rows within PRED_TOL of the CPU's plain
+    path, the counters exact, #1 and #2's launches the chunks sent plus
+    warm()'s, the end at SIGINT.  -> summary."""
+    import signal
+
+    from tpurec_torch.serve import predictor_from_checkpoint
+
+    sl = _serve_load()
+    t0 = time.perf_counter()
+    pred = predictor_from_checkpoint(path, batch_sizes=(SERVE_BS,),
+                                     table_dtype=SERVE_DTYPE).warm()
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 28)
+    reqs = [[random_ids(rng, n) for _ in range(SERVE_SMALL) for n in (1, 512)]
+            for _ in range(SERVE_CLIENTS)]
+    big = random_ids(rng, SERVE_BIG)
+    reqs[0].insert(SERVE_SMALL, big)
+    want = [[pred(X) for X in r] for r in reqs]
+
+    # the submission waits for nothing: no sync, and its host time
+    chunks = -(-SERVE_BIG // SERVE_BS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t1 = time.perf_counter()
+        fetch = pred.predict_async(big)
+        submit_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t1 = time.perf_counter()
+    p_big = fetch()
+    fetch_ms = (time.perf_counter() - t1) * 1e3
+    check(np.array_equal(p_big, want[0][SERVE_SMALL]),
+          f"{name}: the submission under sync debug differs")
+    _, dev_us, _, n_launch = profile_calls(
+        lambda: pred.predict_async(big)(), 1,
+        f"{tag} serving {name} {SERVE_BIG} rows",
+        ("gather_kernel", "field_attention_kernel"), per=chunks)
+    device_ms = sum(dev_us.values()) / 1e3
+    print(f"{tag} serving {name}: predict_async of {SERVE_BIG} rows "
+          f"({chunks} chunks at B={SERVE_BS}) under set_sync_debug_mode("
+          f"'error'): returned in {submit_ms:.3f} ms of host time, no sync; "
+          f"its chunks {device_ms:.3f} ms of device time over "
+          f"{n_launch:.0f} kernel launches (torch.profiler, copies "
+          f"included); the fetch then waited {fetch_ms:.3f} ms")
+    # three requests fetched in another order than submitted, one twice
+    seq = {"A": want[0][SERVE_SMALL], "B": want[1][0], "C": want[1][1]}
+    fetches = {"A": pred.predict_async(big),
+               "B": pred.predict_async(reqs[1][0]),
+               "C": pred.predict_async(reqs[1][1])}
+    got = {k: fetches[k]() for k in "CAB"}
+    check(all(np.array_equal(got[k], seq[k]) for k in seq)
+          and np.array_equal(fetches["A"](), seq["A"]),
+          f"{name}: requests fetched C, A, B (A twice) differ from their "
+          "sequential results")
+    print(f"{tag} serving {name}: A ({SERVE_BIG} rows), B (1), C (512) "
+          "submitted A, B, C and fetched C, A, B, A again: bitwise their "
+          "sequential results")
+
+    url = host.wait_ready()
+    warm = host.record(signal.SIGHUP)
+    check(warm["launches"] == {"embedding_gather": 1, "field_attention": 1},
+          f"{name}: the host's launches after warm() {warm['launches']}")
+    bodies = [[(sl.body_of(X), len(X)) for X in r] for r in reqs]
+    replies = {}
+
+    def on_reply(i, j, reply):
+        replies[i, j] = np.asarray(reply["predictions"], np.float32)
+
+    n_req = sum(len(r) for r in reqs)
+    n_rows = sum(len(X) for r in reqs for X in r)
+    cell = sl.run_cell(url, bodies.__getitem__, SERVE_CLIENTS,
+                       n_requests=n_req, on_reply=on_reply)
+    differ = sorted(k for k, p in replies.items()
+                    if not np.array_equal(p, want[k[0]][k[1]]))
+    check(len(replies) == n_req and not differ, f"{name}: {len(replies)} "
+          f"replies of {n_req}; not bitwise the Predictor's: {differ[:8]}")
+    health = json.loads(host.get("/healthz"))
+    metrics = host.get("/metrics").decode()
+    check(health["n_requests"] == n_req and health["n_rows"] == n_rows
+          and f"tpurec_requests_total {n_req}\n" in metrics
+          and f"tpurec_rows_total {n_rows}\n" in metrics,
+          f"{name}: /healthz {health}, /metrics {metrics!r}; sent {n_req} "
+          f"requests, {n_rows} rows")
+    cpu = predictor_from_checkpoint(path, batch_sizes=(SERVE_BS,),
+                                    table_dtype=SERVE_DTYPE, device="cpu")
+    cpu_err = float(np.max(np.abs(replies[0, SERVE_SMALL][:SERVE_CPU_ROWS]
+                                  - cpu(big[:SERVE_CPU_ROWS]))))
+    del cpu, pred
+    torch.cuda.empty_cache()
+    check(cpu_err <= PRED_TOL, f"{name}: served vs the CPU's plain path "
+          f"max abs err {cpu_err}")
+    rc, stop_s, end = host.stop()
+    sent = sum(-(-len(X) // SERVE_BS) for r in reqs for X in r)
+    check(end["launches"] == {"embedding_gather": sent + 1,
+                              "field_attention": sent + 1},
+          f"{name}: the host launched {end['launches']}, {sent} chunks sent "
+          "and warm()'s 1 each")
+    lat = {n: sl.summary(cell, rows=n) for n in (1, 512, SERVE_BIG)}
+    print(f"{tag} serving {name} (python -m tpurec_torch.server --bs "
+          f"{SERVE_BS} --table_dtype {SERVE_DTYPE}, up in {host.start_s:.1f} "
+          f"s; this process's Predictor {load_s:.1f} s): {SERVE_CLIENTS} "
+          f"clients, {n_req} requests, {n_rows} rows: every reply bitwise "
+          f"the card Predictor's; {SERVE_CPU_ROWS} rows vs the CPU's plain "
+          f"path {cpu_err:.3g} (tol {PRED_TOL}); /healthz and /metrics "
+          f"{n_req} requests, {n_rows} rows; #1, #2 launched {sent} + 1 "
+          f"(warm); SIGINT: rc {rc} in {stop_s:.2f} s; device peak "
+          f"(max_memory_reserved) {_mb(end['max_memory_reserved'])}")
+    print(f"{tag} serving {name} latency (host clock, keep-alive, "
+          f"{SERVE_CLIENTS} clients at once): "
+          + "; ".join(f"{n} rows p50 {r['p50_ms']:.3f} ms p99 "
+                      f"{r['p99_ms']:.3f} ms ({r['requests']} requests)"
+                      for n, r in lat.items())
+          + f"; a 1-row request is scored as a {SERVE_BS}-row chunk (--bs "
+          f"{SERVE_BS} pads as tpurec/server.py:171-172 does)")
+    return {"requests": n_req, "rows": n_rows, "cpu_err": cpu_err,
+            "launches": end["launches"], "chunks_sent": sent,
+            "rc": rc, "stop_seconds": stop_s, "start_seconds": host.start_s,
+            "max_memory_reserved": end["max_memory_reserved"],
+            "submit_ms": submit_ms, "device_ms": device_ms,
+            "launches_per_request": n_launch,
+            "fetch_ms": fetch_ms, "latency": {str(n): r
+                                              for n, r in lat.items()}}
+
+
+def serving_main_path(tag, ckpts):
+    """Phase 28 (a): each checkpoint of ``ckpts`` ({name: path}) served by
+    its own host (:func:`served_checkpoint`); the hosts start at once."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=_here()) as tmp, \
+            contextlib.ExitStack() as stack:
+        hosts = {}
+        for name, path in ckpts.items():
+            hosts[name] = ServedHost(path, SERVE_BS, SERVE_DTYPE,
+                                     os.path.join(tmp, name), name)
+            stack.callback(hosts[name].kill)
+        for name, path in ckpts.items():
+            out[name] = served_checkpoint(tag, name, path, hosts[name])
+    out["phase_seconds"] = time.perf_counter() - t0
+    print(f"serving phase: {out['phase_seconds']:.1f} s")
+    return out
+
+
+def serving_checkpoint(path, tag):
+    """Phase 16's fit (its data, the flagship MMoE at its settings, one
+    epoch), its checkpoint written to ``path`` (``--phase 28``)."""
+    from tpurec_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    train, valid, _, w = cadence_data()
+    tr = Trainer(harness_config(epoch=1), FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                 domain2group=np.arange(N_DOMAIN) % N_TOWER)
+    out = tr.fit(train, valid, domain_cnt_weight=w)
+    tr.save_checkpoint(path, extra={"phase": 28})
+    del tr
+    torch.cuda.empty_cache()
+    print(f"{tag} serving: phase 16's fit, valid total_auc "
+          f"{out['valid']['total_auc']:.5f}, checkpoint written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def load_cell(tag, host, bodies, rows, clients, what):
+    """One cell on ``host``: ``clients`` keep-alive clients, client i
+    sending ``bodies[i]`` (``rows`` rows), serve_load.WARM untimed
+    requests each, then GRID_REQUESTS timed (p50, p99, requests/s, rows/s; the
+    host's seconds in the submission and in the fetch a request, from
+    snapshots around them); then GRID_PROFILED more inside a profiler
+    window of the host's (its device busy share; #1 and #2 must show in
+    it).  -> summary."""
+    import signal
+
+    sl = _serve_load()
+    marks = {}
+
+    def mark(key, sig):
+        return lambda: marks.update({key: host.record(sig)})
+
+    def requests_of(i):
+        return [(bodies[i], rows)]
+
+    cell = sl.run_cell(host.url, requests_of, clients,
+                       n_requests=GRID_REQUESTS, warm=sl.WARM,
+                       before=mark("a", signal.SIGHUP))
+    mark("b", signal.SIGHUP)()
+    prof = sl.run_cell(host.url, requests_of, clients,
+                       n_requests=GRID_PROFILED, warm=1,
+                       before=mark("opened", signal.SIGUSR1))
+    mark("closed", signal.SIGUSR2)()
+    per = -(-rows // host.bs)
+    for x, y, n in (("a", "b", GRID_REQUESTS),
+                    ("opened", "closed", GRID_PROFILED)):
+        got = {k: marks[y]["launches"][k] - marks[x]["launches"][k]
+               for k in marks[y]["launches"]}
+        check(all(v == n * per for v in got.values())
+              and marks[y]["fetches"] - marks[x]["fetches"] == n,
+              f"{what}: launches {got}, fetches "
+              f"{marks[y]['fetches'] - marks[x]['fetches']}: {n} requests "
+              f"of {per} chunks")
+    a, b, closed = marks["a"], marks["b"], marks["closed"]
+    check(all(v > 0 for v in closed["kernel_records"].values()),
+          f"{what}: the host's profile saw {closed['kernel_records']}")
+    s = sl.summary(cell)
+    p = sl.summary(prof)
+    s.update(submit_ms=(b["submit_s"] - a["submit_s"]) / GRID_REQUESTS * 1e3,
+             fetch_ms=(b["fetch_s"] - a["fetch_s"]) / GRID_REQUESTS * 1e3,
+             busy_share=closed["busy_us"] / 1e6 / closed["window_s"],
+             busy_us_per_request=closed["busy_us"] / GRID_PROFILED,
+             profiled={k: p[k] for k in ("p50_ms", "p99_ms",
+                                         "requests_per_s")},
+             kernel_records=closed["kernel_records"])
+    print(f"{tag} {what} rows={rows} clients={clients}: p50 "
+          f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, "
+          f"{s['requests_per_s']:.1f} requests/s, {s['rows_per_s']:.0f} "
+          f"rows/s; the host's submission {s['submit_ms']:.3f} ms and fetch "
+          f"{s['fetch_ms']:.3f} ms a request; profiled ({GRID_PROFILED} "
+          f"requests): device busy {100 * s['busy_share']:.1f}% "
+          f"({s['busy_us_per_request']:.1f} us a request), p50 "
+          f"{p['p50_ms']:.3f} ms, {p['requests_per_s']:.1f} requests/s")
+    return s
+
+
+def serving_load(tag, parent=None):
+    """Phase 28 (b), ``--phase 28 [--parent DIR]``: phase 16's fit, its
+    checkpoint served by a host per (--bs, table dtype) of GRID, all
+    started at once; every cell of the grid (:func:`load_cell`); with
+    ``parent`` (an unpacked tree of the parent commit) the corners
+    TURN_CELLS on its host and on this tree's in TURNS; the soak: SOAK_CLIENTS
+    clients on a new connection every request for SOAK_SECONDS, every
+    reply bitwise the card Predictor's, the host's RSS, threads and
+    memory_reserved at the start, after SOAK_SETTLE s and at the end
+    (memory_reserved not above its SOAK_SETTLE s value).  -> summary."""
+    import os
+    import signal
+    import tempfile
+
+    from tpurec_torch.serve import predictor_from_checkpoint
+
+    sl = _serve_load()
+    t_phase = time.perf_counter()
+    out = {"grid": [], "turns": []}
+    with tempfile.TemporaryDirectory(dir=_here()) as tmp, \
+            contextlib.ExitStack() as stack:
+        ckpt = os.path.join(tmp, "mmoe.pkl")
+        serving_checkpoint(ckpt, tag)
+        hosts = {}
+
+        def start(key, what, tree=None):
+            bs, dtype = key[-2:]
+            h = ServedHost(ckpt, bs, dtype, os.path.join(tmp, "_".join(
+                map(str, key))), what, tree)
+            stack.callback(h.kill)
+            hosts[key] = h
+
+        for bs, dtypes, _ in GRID:
+            for dtype in dtypes:
+                start(("change", bs, dtype), f"host bs={bs} {dtype}")
+        if parent is not None:      # it builds its kernels at warm()
+            start(("parent", SERVE_BS, SERVE_DTYPE),
+                  f"parent host bs={SERVE_BS} {SERVE_DTYPE}", parent)
+        for h in hosts.values():
+            h.wait_ready()
+        print(f"{tag} serving: {len(hosts)} hosts up in "
+              + ", ".join(f"{h.start_s:.1f}" for h in hosts.values())
+              + " s (started at once)")
+
+        rng = np.random.default_rng(SEED + 280)
+        bodies = {n: [sl.body_of(random_ids(rng, n))
+                      for _ in range(max(GRID_CLIENTS))]
+                  for n in sorted({n for _, _, rows in GRID for n in rows}
+                                  | {n for n, _ in TURN_CELLS})}
+        for bs, dtypes, rows in GRID:
+            for dtype in dtypes:
+                h = hosts["change", bs, dtype]
+                for n in rows:
+                    for c in GRID_CLIENTS:
+                        s = load_cell(tag, h, bodies[n], n, c,
+                                      f"grid bs={bs} {dtype}")
+                        out["grid"].append({"bs": bs, "table_dtype": dtype,
+                                            "rows": n, "clients": c, **s})
+        if parent is not None:
+            for turn, tree in enumerate(TURNS):
+                h = hosts[tree, SERVE_BS, SERVE_DTYPE]
+                for n, c in TURN_CELLS:
+                    s = load_cell(tag, h, bodies[n], n, c,
+                                  f"turn {turn} {tree}")
+                    out["turns"].append({"turn": turn, "tree": tree,
+                                         "rows": n, "clients": c, **s})
+
+        # the soak
+        h = hosts["change", SERVE_BS, SERVE_DTYPE]
+        pred = predictor_from_checkpoint(ckpt, batch_sizes=(SERVE_BS,),
+                                         table_dtype=SERVE_DTYPE)
+        pool = [random_ids(rng, SOAK_SIZES[k % len(SOAK_SIZES)])
+                for k in range(SOAK_POOL)]
+        want = [pred(X) for X in pool]
+        del pred
+        torch.cuda.empty_cache()
+        pool_bodies = [(sl.body_of(X), len(X)) for X in pool]
+        orders = [rng.permutation(SOAK_POOL) for _ in range(SOAK_CLIENTS)]
+        chunks = []
+
+        def on_reply(i, j, reply):
+            k = orders[i][j]
+            p = np.asarray(reply["predictions"], np.float32)
+            check(np.array_equal(p, want[k]), f"soak: a reply to request "
+                  f"{k} ({len(pool[k])} rows) is not the Predictor's")
+            chunks.append(-(-len(pool[k]) // SERVE_BS))
+
+        recs = {"start": h.record(signal.SIGHUP)}
+
+        def settle():
+            time.sleep(SOAK_SETTLE)
+            recs["settled"] = h.record(signal.SIGHUP)
+
+        timer = threading.Thread(target=settle, daemon=True)
+        cell = sl.run_cell(h.url, lambda i: [pool_bodies[k]
+                                             for k in orders[i]],
+                           SOAK_CLIENTS, seconds=SOAK_SECONDS,
+                           keepalive=False, on_reply=on_reply,
+                           before=timer.start)
+        timer.join(timeout=SERVE_RECORD_S)
+        recs["end"] = h.record(signal.SIGHUP)
+        check("settled" in recs, "soak: no record after "
+              f"{SOAK_SETTLE} s")
+        n = {k: recs["end"]["launches"][k] - recs["start"]["launches"][k]
+             for k in recs["end"]["launches"]}
+        check(all(v == sum(chunks) for v in n.values()),
+              f"soak: launches {n}, {sum(chunks)} chunks served")
+        grew = (recs["end"]["memory_reserved"]
+                - recs["settled"]["memory_reserved"])
+        lat = {r: sl.summary(cell, rows=r) for r in SOAK_SIZES}
+        print(f"{tag} soak: {SOAK_CLIENTS} clients, a new connection "
+              f"(urllib) every request, {SOAK_SECONDS} s: {cell['requests']} "
+              f"requests, {cell['rows']} rows, every reply bitwise the card "
+              f"Predictor's; "
+              + "; ".join(f"{r} rows p50 {s['p50_ms']:.3f} ms p99 "
+                          f"{s['p99_ms']:.3f} ms" for r, s in lat.items())
+              + "; the host at the start / after "
+              f"{SOAK_SETTLE} s / at the end: RSS "
+              + " / ".join(_mb(r["rss_bytes"]) for r in recs.values())
+              + ", threads "
+              + " / ".join(str(r["threads"]) for r in recs.values())
+              + ", memory_reserved "
+              + " / ".join(_mb(r["memory_reserved"]) for r in recs.values()))
+        check(grew <= 0, f"soak: memory_reserved grew {grew} B after the "
+              f"first {SOAK_SETTLE} s")
+        out["soak"] = {"requests": cell["requests"], "rows": cell["rows"],
+                       "requests_per_s": cell["requests"] / cell["wall_s"],
+                       "latency": {str(r): s for r, s in lat.items()},
+                       "records": {k: {f: r[f] for f in (
+                           "rss_bytes", "threads", "memory_reserved",
+                           "max_memory_reserved")}
+                           for k, r in recs.items()}}
+        ends = {}
+        for key, h in hosts.items():
+            rc, stop_s, end = h.stop()
+            ends["_".join(map(str, key))] = {
+                "rc": rc, "stop_seconds": stop_s, "start_seconds": h.start_s,
+                "max_memory_reserved": end["max_memory_reserved"]}
+        print(f"{tag} serving hosts: SIGINT, rc 0 each in "
+              + ", ".join(f"{e['stop_seconds']:.2f}" for e in ends.values())
+              + " s; device peak (max_memory_reserved) "
+              + ", ".join(f"{k} {_mb(e['max_memory_reserved'])}"
+                          for k, e in ends.items()))
+        out["hosts"] = ends
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase28_main(parent=None) -> int:
+    """Phase 28 (b) alone, after the build (:func:`serving_load`)."""
+    import os
+
+    if parent is not None and not os.path.isfile(
+            os.path.join(parent, "tpurec_torch", "server.py")):
+        print(f"chip_smoke: --parent {parent} holds no tpurec_torch",
+              file=sys.stderr)
+        return 1
+    start = _phase_alone("phase 28")
+    if start is None:
+        return 1
+    _, tag = start
+    t0 = time.perf_counter()
+    print(json.dumps({"serving_load": serving_load(
+        tag, None if parent is None else os.path.abspath(parent))}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -9259,7 +9981,15 @@ def main() -> int:
           f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
     # -- 16. the training harness ------------------------------------------
-    fit_launches, fit_summary = harness_main_path(dev, tag)
+    # phase 28 serves the checkpoints of phases 16 and 18 (b)
+    import os
+    import tempfile
+
+    kept = tempfile.TemporaryDirectory(dir=_here())
+    ckpts = {"mmoe": os.path.join(kept.name, "mmoe.pkl"),
+             "cdc_ple": os.path.join(kept.name, "cdc_ple.pkl")}
+    fit_launches, fit_summary = harness_main_path(dev, tag,
+                                                  keep=ckpts["mmoe"])
 
     # -- 17. the CDC engine ---------------------------------------------------
     cdc_launches, cdc_summary = cdc_main_path(dev, tag,
@@ -9270,7 +10000,8 @@ def main() -> int:
     bases = bases_main_path(dev, rng, tag)
     ple_launches, ple_cdc = cdc_main_path(dev, tag, base="ple", phase=18,
                                           profile=False,
-                                          n_causal_mask=CDC_CAUSAL)
+                                          n_causal_mask=CDC_CAUSAL,
+                                          keep=ckpts["cdc_ple"])
     star_row = star_cdc_row(tag)
     single_rows = {name: single_row_vs_cpu(name, tag) for name in SINGLES}
     bases_s = time.perf_counter() - t18
@@ -9310,6 +10041,10 @@ def main() -> int:
 
     # -- 27. the training harness as its users run it: fit to its stop -------
     cadence_launches, fit_cadence = fit_cadence_main_path(dev, tag)
+
+    # -- 28. serving as its users run it: the host under concurrent clients --
+    serving = serving_main_path(tag, ckpts)
+    kept.cleanup()
 
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
@@ -9452,6 +10187,10 @@ def main() -> int:
                                 for fit, n in stream_launches.items()}
         k["launches_fit_cadence"] = {fit: n.get(key)
                                      for fit, n in cadence_launches.items()}
+        if k["name"] in ("embedding_gather", "field_attention"):
+            k["launches_serving"] = {
+                c: r["launches"][k["name"]] for c, r in serving.items()
+                if c != "phase_seconds"}
     print(json.dumps({"harness": fit_summary}))
     print(json.dumps({"cdc": cdc_summary}))
     print(json.dumps({"bases": bases, "cdc_ple": ple_cdc,
@@ -9467,6 +10206,7 @@ def main() -> int:
     print(json.dumps({"lanes": lanes}))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"fit_cadence": fit_cadence}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
@@ -9601,13 +10341,14 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
     ap.add_argument("--phase", type=int,
-                    choices=[19, 22, 23, 24, 25, 26, 27],
+                    choices=[19, 22, 23, 24, 25, 26, 27, 28],
                     help="run this phase alone (after the build; 19: its "
                     "routed models; 23: with (b)'s witness on three "
                     "meshes; 25: its part (b), the split over the card's "
                     "budget; 26: CDC's cadence on the mesh, (b), or with "
                     "--rows (c); 27: its part (b), the harness with the "
-                    "train split over the card's budget)")
+                    "train split over the card's budget; 28: its part (b), "
+                    "serving under load)")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
                     help="phase 22 (b)'s batch draws at each wd")
     ap.add_argument("--seed", type=int, default=SEED,
@@ -9630,6 +10371,9 @@ if __name__ == "__main__":
     ap.add_argument("--fit-over", metavar="DIR",
                     help="phase 27 (a)'s fit over the budget, started by "
                     "the phase itself")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="phase 28 (b): an unpacked tree of the parent "
+                    "commit, its host served in turns with this tree's")
     ap.add_argument("--cadence-rank", metavar="DIR",
                     help="one rank of phase 26, started by the phase "
                     "itself")
@@ -9661,6 +10405,8 @@ if __name__ == "__main__":
             sys.exit(phase26_main(opts.rows))
         if opts.phase == 27:
             sys.exit(phase27_main(opts.rows or STREAM_ROWS))
+        if opts.phase == 28:
+            sys.exit(phase28_main(opts.parent))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

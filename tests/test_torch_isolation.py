@@ -1,7 +1,7 @@
-"""tpurec_torch stands alone: no module of it (nor chip_smoke.py) imports
-JAX, the JAX package or scikit-learn (the port depends on none), its
-entry points refuse to fall back to the CPU when no card is there, and
-its kernel build is keyed by source."""
+"""tpurec_torch stands alone: no module of it (nor chip_smoke.py, nor
+scripts/serve_load.py) imports JAX, the JAX package or scikit-learn (the
+port depends on none), its entry points refuse to fall back to the CPU
+when no card is there, and its kernel build is keyed by source."""
 
 import ast
 import os
@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpurec", "sklearn")
 
 
 def _port_files():
-    return sorted((REPO / "tpurec_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "tpurec_torch").rglob("*.py"))
+            + [REPO / "chip_smoke.py", REPO / "scripts" / "serve_load.py"])
 
 
 def _imported(path: Path):

@@ -1046,3 +1046,47 @@ def test_cross_forward_inf_row(cuda):
             assert bool(torch.isinf(row).all()), what
     others = [i for i in range(513) if not 300 <= i < 303]
     assert torch.equal(y[others], clean[others])
+
+
+def test_predict_async_submits_without_a_sync(cuda):
+    """Predictor.predict_async on the card stages ids in pinned memory and
+    queues the copy back: no synchronizing call under sync debug mode
+    "error"; three requests fetched in another order, one twice, equal
+    their sequential results bitwise, and the CPU's plain path within
+    1e-4."""
+    from tpurec_torch.config import Config, ModelConfig
+    from tpurec_torch.serve import Predictor
+    from tpurec_torch.train import Trainer
+
+    dims, n_domain, domain_idx = (300, 7, 9, 4, 1000), 4, 3
+    cfg = Config(model=ModelConfig(model="mmoe", embed_dim=8,
+                                   mmoe_expert_dims=(16, 8),
+                                   mmoe_tower_dims=(8,), atten_embed_dim=8,
+                                   att_layer_num=2))
+    tr = Trainer(cfg, dims, n_domain, domain_idx,
+                 domain2group=np.arange(n_domain), device=cuda)
+
+    def predictor(device):
+        return Predictor(cfg, dims, n_domain, domain_idx,
+                         domain2group=np.arange(n_domain),
+                         batch_sizes=(16, 64), table_dtype="bfloat16",
+                         device=device).load_from_trainer(tr).warm()
+
+    pred = predictor(cuda)
+    rng = np.random.default_rng(2)
+    reqs = [np.stack([rng.integers(0, d, n) for d in dims], 1)
+            for n in (150, 1, 70)]
+    want = [pred(X) for X in reqs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fetches = [pred.predict_async(X) for X in reqs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k: fetches[k]() for k in (2, 0, 1)}
+    for k, w in enumerate(want):
+        np.testing.assert_array_equal(got[k], w)
+    np.testing.assert_array_equal(fetches[0](), want[0])
+    cpu = predictor("cpu")
+    for X, w in zip(reqs, want):
+        np.testing.assert_allclose(w, cpu(X), atol=1e-4, rtol=0)

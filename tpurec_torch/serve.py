@@ -200,22 +200,32 @@ class Predictor:
         return torch.sigmoid(logit)
 
     def warm(self):
-        """Run every configured batch size once (builds the kernels)."""
+        """Score one chunk of every configured batch size through
+        :meth:`predict_async` (builds the kernels; on the card also the
+        pinned host blocks each size stages through)."""
         if self._qtable is None:
             raise RuntimeError("load_state_dict/load_checkpoint first")
-        for bs in self.batch_sizes:
-            self._forward(torch.zeros((bs, len(self.field_dims)),
-                                      dtype=torch.int32, device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        F = len(self.field_dims)
+        fetches = [self.predict_async(np.zeros((bs, F), np.int32))
+                   for bs in self.batch_sizes]
+        for fetch in fetches:
+            fetch()
         return self
 
     def predict_async(self, X: np.ndarray):
         """Submit the scoring of X [N, F] WITHOUT waiting for the device;
-        returns a zero-arg callable yielding the [N] probabilities.
+        returns a zero-arg callable yielding the [N] probabilities (it may
+        be called more than once).
 
-        CUDA launches are asynchronous, so a server that serialises only
-        the submission lets concurrent requests overlap on the card.
+        On the card each chunk's ids are staged in pinned host memory and
+        copied without blocking, and the copy of its kept probabilities
+        back into pinned host memory is queued right after its forward;
+        one event follows the last chunk.  Every launch goes to the
+        current stream, so the fetch waits for this request and whatever
+        was queued before it, never for a request submitted after it.
+        The caching host allocator keeps a pinned block from reuse until
+        the copies queued on it have run.  On the CPU the chunks are
+        scored before this returns.
         """
         if self._qtable is None:
             raise RuntimeError("load_state_dict/load_checkpoint first")
@@ -227,23 +237,38 @@ class Predictor:
         X = X.astype(np.int32)
         n = X.shape[0]
         bs = self.batch_sizes[-1]
-        parts = []  # (in-flight device tensor, rows to keep)
-        for lo in range(0, n, bs):
-            hi = min(lo + bs, n)
-            xb = X[lo:hi]
-            if hi - lo < bs:
-                # smallest configured size that fits the tail
-                bs_t = next(b for b in self.batch_sizes if b >= hi - lo)
-                xb = np.concatenate(
-                    [xb, np.zeros((bs_t - (hi - lo), X.shape[1]), X.dtype)])
-            x = torch.from_numpy(np.ascontiguousarray(xb)).to(self.device)
-            parts.append((self._forward(x), hi - lo))
+        cuda = self.device.type == "cuda"
+        parts = []  # (the chunk's probabilities on the host, rows to keep)
+        with torch.inference_mode():
+            for lo in range(0, n, bs):
+                take = min(bs, n - lo)
+                # smallest configured size that fits the tail; pad rows
+                # use id 0
+                bs_t = next(b for b in self.batch_sizes if b >= take)
+                xh = torch.empty((bs_t, X.shape[1]), dtype=torch.int32,
+                                 pin_memory=cuda)
+                xa = xh.numpy()
+                xa[:take] = X[lo:lo + take]
+                xa[take:] = 0
+                p = self._forward(xh.to(self.device, non_blocking=True))
+                if cuda:
+                    ph = torch.empty((bs_t,), dtype=torch.float32,
+                                     pin_memory=True)
+                    ph[:take].copy_(p[:take], non_blocking=True)
+                    p = ph
+                parts.append((p, take))
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
 
         def result() -> np.ndarray:
+            if done is not None:
+                done.synchronize()
             out = np.empty((n,), np.float32)
             lo = 0
             for p, take in parts:
-                out[lo:lo + take] = p[:take].cpu().numpy()
+                out[lo:lo + take] = p[:take].numpy()
                 lo += take
             return out
 

@@ -8,8 +8,12 @@
 - ``GET /metrics`` — Prometheus text exposition of the same counters.
 
 Threaded stdlib server: requests are parsed and serialised concurrently;
-the scoring submission goes through one lock (one card), and the fetch of
-the result happens outside it, so concurrent requests overlap on the card.
+the scoring submission goes through one lock (one card) and queues the
+request's copies and kernels without waiting for the card.  The fetch
+happens outside the lock and waits for that request's last copy (and what
+the card had queued before it), not for requests submitted after it, so
+one request's host work overlaps another's device work
+(:meth:`tpurec_torch.serve.Predictor.predict_async`).
 
     python -m tpurec_torch.server --ckpt save/mmoe_synthetic_seed7.pkl \\
         --port 8080 --table_dtype bfloat16 --bs 4096 --device cuda
