@@ -8,6 +8,7 @@ model it ports, in float32 and in bf16 compute, and check them.
     python3 chip_smoke.py --phase 26 [--rows 4000000]  # CDC's mesh cadence
     python3 chip_smoke.py --phase 27 [--rows 52000000] # harness over budget
     python3 chip_smoke.py --phase 28 [--parent DIR]    # serving under load
+    python3 chip_smoke.py --phase 29 [--rows 4000000]  # four cards, NCCL
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -349,6 +350,29 @@ Phases (any failure exits non-zero and prints no result line):
     request for 120 s, every reply bitwise, the host's RSS, threads and
     memory_reserved at the start, after 10 s and at the end (no growth
     after 10 s).
+29. ``--phase 29 [--rows N] [--parts abcd]`` alone, on a host of four
+    cards (it fails on fewer: no gloo, shared-card or CPU fallback): the
+    mesh a rank a card over NCCL, each rank joined with a 300 s group
+    timeout, a failed rank's peers ended 30 s after it.  (a) 4 ranks
+    (this script with ``--group-rank``) NCCL on cuda:0-3, four card
+    UUIDs, every collective of ``parallel.collectives`` (the autograd
+    rules too), ``check_replicas`` and ``data_totals`` exact on known
+    inputs, ``collectives.all_gather`` (an all-reduce of n slots)
+    bitwise ``all_gather_into_tensor`` and both timed at the exchange's
+    and the expert banks' shapes, and in each rank's profiles every
+    record on its own card with #1, #2, #3 and #6/7's pass among them;
+    (b) phase 22 (b)/(c) on
+    (2, 2) and on (4, 1); (c) phase 23 (a)/(b) on (2, 2), the experts
+    split; (d) ``python -m torch.distributed.run --nproc_per_node 4 -m
+    tpurec_torch.cli``, MMoE (resolving to (4, 1)) and CDC on PLE with
+    ``--mesh_model 2 --mesh_expert_parallel``: exit 0, no rank's exit
+    fault, every rank NCCL on its own card, each checkpoint's streaming
+    eval on one device within 1e-6 of the mesh's; (e) (a)'s ranks time
+    the flagship at 512 rows a data rank on one card (no mesh, every card
+    at once), on (4, 1) and on (2, 2), 3 rounds in turns of 64 steps:
+    ms a step, examples/s, each rank's device busy, NCCL's kernels'
+    device share and the bytes reduced a step; with ``--rows N`` phase
+    26 (c) on the cards, a mask row of its update profiled on each rank.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
@@ -4905,6 +4929,45 @@ MESH_PARTED = 1e-6              # a dense value parted after step 1
 MESH_AUC_TOL = 0.01             # (c) vs phase 16, (d) vs phase 21 (a)
 MESH_EVAL_TOL = 1e-6            # (c)'s state restored onto one device
 MESH_TIMEOUT = 600
+RANK_GRACE_S = 30               # a failed rank's peers are ended after this
+PG_TIMEOUT_ENV = "CHIP_SMOKE_PG_TIMEOUT"    # a spawned rank's group timeout
+# what a rank that leaves its process group to interpreter exit can print
+EXIT_FAULTS = ("terminate called", "process group has NOT been destroyed")
+
+
+def expected_placement(local_rank, local_world, n_cards=None):
+    """(backend, device) that ``init_distributed`` gives rank
+    ``local_rank`` of ``local_world`` ranks on a host of ``n_cards`` cards
+    (None: this host's): ``choose_backend``'s pick on card ``local_rank %
+    n_cards``.  4 ranks on one card: gloo on cuda:0; on four: NCCL on
+    cuda:r."""
+    from tpurec_torch.parallel.mesh import choose_backend
+
+    n = torch.cuda.device_count() if n_cards is None else n_cards
+    dev = torch.device("cuda", local_rank % n)
+    return choose_backend(dev, local_world, n)[0], str(dev)
+
+
+def check_placement(recs, world, what):
+    """Each rank record's backend and device are the ones this host
+    gives a rank of ``world`` (:func:`expected_placement`)."""
+    for r in recs:
+        want = expected_placement(r["rank"], world)
+        check((r["backend"], r["device"]) == want,
+              f"{what} rank {r['rank']}: {r['backend']} on {r['device']}, "
+              f"expected {want[0]} on {want[1]}")
+
+
+def _join_rank():
+    """``init_distributed`` for a rank this script started, with the
+    process-group timeout (seconds) its starter put in PG_TIMEOUT_ENV
+    (unset: the backend's default)."""
+    import os
+
+    from tpurec_torch.parallel import init_distributed
+
+    t = os.environ.get(PG_TIMEOUT_ENV)
+    return init_distributed(timeout=None if t is None else float(t))
 
 
 def mesh_config(dropout, wd=TRAIN_WD):
@@ -4949,23 +5012,23 @@ def mesh_fit_data():
                           domain_idx=DOMAIN_IDX, seed=1)
 
 
-def mesh_rank(out_dir, draws=MESH_DRAWS):
-    """One rank of phase 22 (b) and (c), started by :func:`mesh_main_path`
+def mesh_rank(out_dir, draws=MESH_DRAWS, shape=MESH_SHAPE):
+    """One rank of phase 22 (b) and (c), started by :func:`mesh_ranks_path`
     with RANK/WORLD_SIZE/LOCAL_RANK/MASTER_* set: (b) MESH_STEPS hybrid
-    steps of the flagship (dropout 0) on MESH_SHAPE, the table gathered
+    steps of the flagship (dropout 0) on ``shape``, the table gathered
     to rank 0 (``draws`` batch draws at each wd); (c) Trainer.fit
     of one epoch at phase 16's settings, the exact valid eval, the async
     backend's save and the pickle checkpoint.  Writes ``rank_<r>.json``
     (and rank 0 the gathered tables)."""
     import os
 
-    from tpurec_torch.parallel import init_distributed, make_mesh
+    from tpurec_torch.parallel import make_mesh
     from tpurec_torch.parallel.collectives import STATS, reset_stats
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    j = init_distributed()
-    mesh = make_mesh(*MESH_SHAPE)
+    j = _join_rank()
+    mesh = make_mesh(*shape)
     dev = mesh.device
     bl = 512 // mesh.n_data
     rows = slice(mesh.d * bl, (mesh.d + 1) * bl)
@@ -5102,12 +5165,16 @@ def dense_values(trainer):
 
 
 def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS,
-                 flag="--mesh-rank"):
+                 flag="--mesh-rank", args=(), pg_timeout=None):
     """Start ``world`` copies of this script (``flag`` names the rank's
     part: ``--mesh-rank`` phase 22's, ``--ep-rank`` phase 23's,
-    ``--lanes-rank`` phase 24's) as ranks
-    of one process group on localhost and wait for all; -> their exit
-    codes and log tails."""
+    ``--lanes-rank`` phase 24's, ``--group-rank`` phase 29's; ``args``
+    follow it) as ranks of one process group on localhost, each joining
+    with ``pg_timeout`` seconds (None: the backend's default), and wait
+    for all.  Once a rank fails, the others are ended RANK_GRACE_S later
+    (a peer left inside a collective would wait out its timeout).  -> their
+    exit codes (None: ended; "exit fault": 0, but its log shows one of
+    EXIT_FAULTS) and log tails."""
     import os
     import socket
 
@@ -5120,19 +5187,28 @@ def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS,
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                    LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if pg_timeout is not None:
+            env[PG_TIMEOUT_ENV] = str(pg_timeout)
         log = open(os.path.join(out_dir, f"rank_{r}.log"), "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, me, flag, out_dir, "--draws",
-             str(draws)], env=env,
+            [sys.executable, me, flag, out_dir, "--draws", str(draws),
+             *map(str, args)], env=env,
             cwd=os.path.dirname(me), stdout=log, stderr=subprocess.STDOUT))
-    rcs = []
+    rcs = [None] * world
+    deadline, failed = time.monotonic() + timeout, None
     try:
-        for p in procs:
-            try:
-                rcs.append(p.wait(timeout=timeout))
-            except subprocess.TimeoutExpired:
-                rcs.append(None)
+        while True:
+            rcs = [p.poll() for p in procs]
+            if all(rc is not None for rc in rcs):
+                break
+            now = time.monotonic()
+            if failed is None and any(rc not in (None, 0) for rc in rcs):
+                failed = now
+            if now > deadline or (failed is not None
+                                  and now - failed > RANK_GRACE_S):
+                break
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5143,8 +5219,11 @@ def _spawn_ranks(world, out_dir, timeout=MESH_TIMEOUT, draws=MESH_DRAWS,
     tails = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank_{r}.log")) as f:
-            tails.append(f"--- rank {r} (rc={rcs[r]}) ---\n"
-                         + "".join(f.readlines()[-25:]))
+            text = f.read()
+        if rcs[r] == 0 and any(x in text for x in EXIT_FAULTS):
+            rcs[r] = "exit fault"
+        tails.append(f"--- rank {r} (rc={rcs[r]}) ---\n"
+                     + "".join(text.splitlines(True)[-25:]))
     return rcs, "\n".join(tails)
 
 
@@ -5172,7 +5251,8 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
     import shutil
     import tempfile
 
-    from tpurec_torch.parallel import init_distributed, make_mesh
+    from tpurec_torch.parallel import (init_distributed, make_mesh,
+                                       shutdown_distributed)
 
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5215,18 +5295,40 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
 
     # (b) and (c): 4 ranks sharing the card over gloo
     tmp = tempfile.mkdtemp(prefix="mesh_")
-    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    more, parts = mesh_ranks_path(dev, tag, tmp, fit_auc, draws)
+    launches.update(more)
+    summary.update(parts)
+    summary["d"] = mesh_cli_ranks(tag, tmp, root, cli_auc0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutdown_distributed()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {summary['phase_seconds']:.1f} s")
+    return launches, summary
+
+
+def mesh_ranks_path(dev, tag, tmp, fit_auc, draws=MESH_DRAWS,
+                    shape=MESH_SHAPE, pg_timeout=None):
+    """Phase 22 (b) and (c) (see :func:`mesh_main_path`) on ``shape``, a
+    rank a place of the mesh (this script with ``--mesh-rank``), their
+    files in ``tmp``; each rank's backend and card are the ones this host
+    gives (:func:`expected_placement`), and joins with ``pg_timeout``.
+    -> (launches, summary) of (b) and (c)."""
+    import os
+
+    counters = train_counters("mmoe")
+    summary, launches = {}, {}
+    world = shape[0] * shape[1]
     t0 = time.perf_counter()
-    rcs, tails = _spawn_ranks(world, tmp, draws=draws)
+    rcs, tails = _spawn_ranks(world, tmp, draws=draws, args=(
+        "--shape", f"{shape[0]}x{shape[1]}"), pg_timeout=pg_timeout)
     ranks_s = time.perf_counter() - t0
     check(rcs == [0] * world, f"mesh ranks exited {rcs}:\n{tails}")
     recs = []
     for r in range(world):
         with open(os.path.join(tmp, f"rank_{r}.json")) as f:
             recs.append(json.load(f))
+    check_placement(recs, world, "mesh")
     for r in recs:
-        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
-              f"rank {r['rank']}: {r['backend']} on {r['device']}")
         check(r["b_launches"] == {k: MESH_STEPS for k in counters},
               f"(b) rank {r['rank']} launches {r['b_launches']}, expected "
               f"{MESH_STEPS} of each")
@@ -5246,8 +5348,9 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
               and abs(v["total_loss"] - v0["total_loss"]) <= 1e-6,
               f"rank {r['rank']} disagrees with rank 0: (b) losses "
               f"{r['b_losses']} vs {recs[0]['b_losses']}; (c) {v} vs {v0}")
-    print(f"{tag} mesh (b)/(c): {world} ranks on the card over gloo, mesh "
-          f"{MESH_SHAPE}, ran in {ranks_s:.1f} s (start-up included); "
+    print(f"{tag} mesh (b)/(c): {world} ranks, {recs[0]['backend']} on "
+          + ", ".join(sorted({r['device'] for r in recs})) + f", mesh "
+          f"{shape}, ran in {ranks_s:.1f} s (start-up included); "
           f"every rank exited 0")
     launches["b_steps"] = recs[0]["b_launches"]
     launches["c_fit"] = recs[0]["c_launches"]
@@ -5301,7 +5404,7 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
                        or [0.0])
         g_med = float(np.median(np.concatenate(
             [np.abs(g).ravel() for g in grad1.values()])))
-        print(f"{tag} mesh (b) {MESH_STEPS} hybrid steps on {MESH_SHAPE} vs "
+        print(f"{tag} mesh (b) {MESH_STEPS} hybrid steps on {shape} vs "
               f"one device, wd {wd}, batch draw {draw}: losses {l_mesh} vs "
               f"{l_ref} (max rel err {loss_rel:.3g}, tol {MESH_LOSS_RTOL}); "
               f"the table gathered to rank 0 against the one-device update "
@@ -5362,7 +5465,7 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
     auc = r0["c_valid"]["total_auc"]
     coll = r0["c_collectives"]
     shares = [r["c_collectives"]["seconds"] / r["c_train_s"] for r in recs]
-    print(f"{tag} mesh (c) Trainer.fit 1 epoch on {MESH_SHAPE} "
+    print(f"{tag} mesh (c) Trainer.fit 1 epoch on {shape} "
           f"({r0['c_schedule']['steps']} steps of 512, dropout {DROPOUT}): "
           f"valid total_auc {auc:.5f} (streaming) beside phase 16's "
           f"{_auc_text(fit_auc)} (tol {MESH_AUC_TOL}); "
@@ -5371,7 +5474,10 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
           + ", ".join(f"{100 * x:.1f}%" for x in shares)
           + f" of the epoch ({coll['calls']} calls, "
           f"{coll['bytes'] / 1e6:.1f} MB on rank 0; host time inside "
-          f"torch.distributed, gloo)")
+          f"torch.distributed, {r0['backend']}"
+          + ("; NCCL returns once a collective is queued, so this reads "
+             "the enqueue: phase 29 (e) reads the device time"
+             if r0["backend"] == "nccl" else "") + ")")
     print(f"{tag} mesh (c) checkpoints: async save returned in "
           + ", ".join(f"{r['c_save_return_s'] * 1e3:.1f}" for r in recs)
           + " ms, written in "
@@ -5402,11 +5508,6 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
         "restore_eval_err": ev_err, "launches": launches["c_fit"],
         "ranks_seconds": ranks_s}
 
-    summary["d"] = mesh_cli_ranks(tag, tmp, root, cli_auc0)
-    shutil.rmtree(tmp, ignore_errors=True)
-    torch.distributed.destroy_process_group()
-    summary["phase_seconds"] = time.perf_counter() - t_phase
-    print(f"mesh phase: {summary['phase_seconds']:.1f} s")
     return launches, summary
 
 
@@ -5436,7 +5537,8 @@ def mesh_cli_ranks(tag, tmp, root, cli_auc0):
         log = [json.loads(x) for x in f]
     mrec = [r for r in log if "mesh" in r]
     check(len(mrec) == 1 and mrec[0]["mesh"] == [2, 1]
-          and mrec[0]["backend"] == "gloo", f"(d) the mesh record {mrec}")
+          and mrec[0]["backend"] == expected_placement(0, 2)[0],
+          f"(d) the mesh record {mrec}")
     cli_auc = results[0]["valid"]["total_auc"]
     check(os.path.exists(results[0]["checkpoint"]),
           "(d) no checkpoint from rank 0")
@@ -5824,13 +5926,13 @@ def ep_rank(out_dir):
     import os
 
     from tpurec_torch.cdc import CDCTrainer
-    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+    from tpurec_torch.parallel import Shardings, make_mesh
     from tpurec_torch.parallel.collectives import STATS, reset_stats
     from tpurec_torch.train import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    j = init_distributed()
+    j = _join_rank()
     mesh = make_mesh(*MESH_SHAPE)
     sh = Shardings(mesh, expert_parallel=True)
     dev = mesh.device
@@ -5961,7 +6063,8 @@ def ep_rank(out_dir):
     return 0
 
 
-def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
+def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False, cli=True,
+                 pg_timeout=None):
     """Phase 23: CDC on the (data, model) mesh and expert parallelism, 4
     ranks sharing the card over gloo (:func:`ep_rank`).  (a) EP_STEPS
     hybrid steps of the flagship MMoE on MESH_SHAPE with its 4 experts
@@ -5987,7 +6090,11 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     --mesh_model 2 --mesh_expert_parallel for one epoch; its AUC beside
     ``cli_cdc_aucs`` (phase 21 (b)'s, None when the phase runs alone).
     ``witness`` (``--phase 23`` only) adds (b)'s witness on three meshes
-    (:func:`ep_witness_draws`).  -> (launches, summary)."""
+    (:func:`ep_witness_draws`); without ``cli`` (c) does not run.  Each
+    rank's backend and card are the ones this host gives
+    (:func:`expected_placement`: phase 29 runs (a) and (b) a rank a card
+    over NCCL), and it joins with ``pg_timeout``.  -> (launches,
+    summary)."""
     import os
     import shutil
     import subprocess as sp
@@ -6002,7 +6109,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     tmp = tempfile.mkdtemp(prefix="ep_")
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
     t0 = time.perf_counter()
-    rcs, tails = _spawn_ranks(world, tmp, flag="--ep-rank")
+    rcs, tails = _spawn_ranks(world, tmp, flag="--ep-rank",
+                              pg_timeout=pg_timeout)
     ranks_s = time.perf_counter() - t0
     check(rcs == [0] * world, f"phase 23 ranks exited {rcs}:\n{tails}")
     recs = []
@@ -6012,9 +6120,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     from tpurec_torch.config import ModelConfig
 
     E = ModelConfig(**MODEL).mmoe_n_expert
+    check_placement(recs, world, "ep")
     for r in recs:
-        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
-              f"rank {r['rank']}: {r['backend']} on {r['device']}")
         check(r["a_launches"] == {k: EP_STEPS for k in counters},
               f"(a) rank {r['rank']} launches {r['a_launches']}, expected "
               f"{EP_STEPS} of each")
@@ -6040,7 +6147,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
               f"against the resident fit: bitwise {bs['bitwise']}, "
               f"clustering {bs['d2g']}, launches {bs['launches']} "
               f"(resident {r['b_launches']})")
-    print(f"{tag} ep: {world} ranks on the card over gloo, mesh "
+    print(f"{tag} ep: {world} ranks, {recs[0]['backend']} on "
+          + ", ".join(sorted({r['device'] for r in recs})) + ", mesh "
           f"{MESH_SHAPE}, Shardings(expert_parallel=True), ran in "
           f"{ranks_s:.1f} s (start-up included); every rank exited 0; "
           + "; ".join(f"rank {r['rank']} {tuple(r['coords'])} holds "
@@ -6216,7 +6324,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
           + ", ".join(f"{100 * x:.1f}%" for x in shares)
           + f" of the span ({r0['b_span_collectives']['calls']} calls, "
           f"{r0['b_span_collectives']['bytes'] / 1e6:.1f} MB on rank 0; host "
-          f"time inside torch.distributed, gloo); the fit {r0['b_fit_s']:.1f}"
+          f"time inside torch.distributed, {r0['backend']}); the fit "
+          f"{r0['b_fit_s']:.1f}"
           f" s on the mesh, {runs['blocks']['seconds']:.1f} s on one device")
     ups = [r["b_stream"]["update"] for r in recs]
     print(f"{tag} ep (b) the same fit with data_placement=\"stream\" (each "
@@ -6272,6 +6381,12 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     if witness:
         summary["b_witness"] = ep_witness_draws(tag)
 
+    if not cli:
+        shutil.rmtree(tmp, ignore_errors=True)
+        summary["ranks_seconds"] = ranks_s
+        summary["phase_seconds"] = time.perf_counter() - t_phase
+        return launches, summary
+
     # (c) the CLI: CDC on PLE with the experts split, 2 ranks
     argv = ["--model", "cdc", "--base_model", "ple", "--mesh_model", "2",
             "--mesh_expert_parallel", "--dataset_name", "synthetic",
@@ -6298,7 +6413,8 @@ def ep_main_path(dev, tag, cli_cdc_aucs=None, witness=False):
     split = [x for x in proc.stdout.splitlines()
              if "expert parallelism over the model axis" in x]
     check(len(mrec) == 1 and mrec[0]["mesh"] == [1, 2]
-          and mrec[0]["backend"] == "gloo", f"(c) the mesh record {mrec}")
+          and mrec[0]["backend"] == expected_placement(0, 2)[0],
+          f"(c) the mesh record {mrec}")
     check(len(split) == 1 and "experts_specific (8 -> 4 a rank)" in split[0],
           f"(c) the split printed: {split}")
     cli_auc = results[0]["valid"]["total_auc"]
@@ -6348,13 +6464,13 @@ def witness_rank(out_dir):
     import os
 
     from tpurec_torch.cdc import CDCTrainer
-    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+    from tpurec_torch.parallel import Shardings, make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with open(os.path.join(out_dir, "witness.json")) as f:
         w = json.load(f)
-    j = init_distributed()
+    j = _join_rank()
     mesh = make_mesh(*w["shape"])
     sh = Shardings(mesh, expert_parallel=w["expert_parallel"])
     data = ep_cdc_data()
@@ -6811,11 +6927,11 @@ def lanes_rank(out_dir):
 
     import tpurec_torch.cdc.engine as eng
     from tpurec_torch.cdc import CDCTrainer
-    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+    from tpurec_torch.parallel import Shardings, make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    j = init_distributed()
+    j = _join_rank()
     mesh = make_mesh(*MESH_SHAPE)
     cfg = ep_cdc_config()
     cfg = dataclasses.replace(cfg, cdc=dataclasses.replace(
@@ -7689,16 +7805,17 @@ def cadence_rank(out_dir):
     synthetic rows of (c)).  Writes ``cadence_rank_<r>.json``."""
     import os
 
-    from tpurec_torch.parallel import Shardings, init_distributed, make_mesh
+    from tpurec_torch.parallel import Shardings, make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with open(os.path.join(out_dir, "cadence.json")) as f:
         w = json.load(f)
-    j = init_distributed()
+    j = _join_rank()
     sh = Shardings(make_mesh(*MESH_SHAPE), expert_parallel=True)
     rec = (cadence_fits_rank(out_dir, j, sh) if w["rows"] is None
-           else cadence_scale_rank(out_dir, j, sh, w["rows"]))
+           else cadence_scale_rank(out_dir, j, sh, w["rows"],
+                                   w.get("profile", False)))
     rec.update(rank=j.rank, backend=j.backend, device=str(sh.mesh.device))
     with open(os.path.join(out_dir, f"cadence_rank_{j.rank}.json"),
               "w") as f:
@@ -7783,27 +7900,27 @@ def cadence_fits_rank(out_dir, j, sh):
                  for k, f in fits.items()}}
 
 
-def _spawn_cadence(rows, timeout):
-    """Start phase 26's ranks -> (their records, the directory)."""
+def _spawn_cadence(rows, timeout, profile=False, pg_timeout=None):
+    """Start phase 26's ranks (``profile``: (c) profiles a mask row's
+    steps on every rank; ``pg_timeout``: their group timeout) -> (their
+    records, the directory)."""
     import os
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="cadence_")
     with open(os.path.join(tmp, "cadence.json"), "w") as f:
-        json.dump({"rows": rows}, f)
+        json.dump({"rows": rows, "profile": profile}, f)
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
     t0 = time.perf_counter()
     rcs, tails = _spawn_ranks(world, tmp, timeout=timeout,
-                              flag="--cadence-rank")
+                              flag="--cadence-rank", pg_timeout=pg_timeout)
     ranks_s = time.perf_counter() - t0
     check(rcs == [0] * world, f"phase 26 ranks exited {rcs}:\n{tails}")
     recs = []
     for r in range(world):
         with open(os.path.join(tmp, f"cadence_rank_{r}.json")) as f:
             recs.append(json.load(f))
-    for r in recs:
-        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
-              f"rank {r['rank']}: {r['backend']} on {r['device']}")
+    check_placement(recs, world, "cadence")
     return recs, tmp, ranks_s
 
 
@@ -7931,7 +8048,7 @@ def cadence_main_path(tag):
     return summary
 
 
-def cadence_scale_rank(out_dir, j, sh, rows):
+def cadence_scale_rank(out_dir, j, sh, rows, profile=False):
     """Phase 26 (c) on one rank: make_synthetic(``rows``) at the
     flagship schema (phase 25 (b)'s draw), CDCTrainer on the mesh of
     ``sh`` at :func:`cadence_config` uncut ("auto" placement), which must
@@ -7941,7 +8058,9 @@ def cadence_scale_rank(out_dir, j, sh, rows):
     replays of two of the update's mask rows need, row 0 and the row with
     the fewest valid steps (``rows.npz``: the state at each row's start,
     the clustering, each row's schedule, its window of the split, the
-    mesh's row, and row 0's step losses).  -> record."""
+    mesh's row, and row 0's step losses).  ``profile``: the steps of the
+    update's mask row 1 run inside torch.profiler on every rank
+    (:func:`card_window`: busy, NCCL's device share).  -> record."""
     import os
     import resource
 
@@ -7985,11 +8104,25 @@ def cadence_scale_rank(out_dir, j, sh, rows):
 
     def steps_(mode, *args):
         row0 = arm["calls"] == 0
+        row1 = profile and arm["calls"] == 1
         if arm["calls"] >= 0:
             if arm["calls"] == arm["row"]:
                 starts["few"] = tr.snapshot_bytes()
             arm["calls"] += 1
-        out = steps(mode, *args)
+        if not row1:
+            out = steps(mode, *args)
+        else:
+            from torch.profiler import ProfilerActivity, profile as prof_
+
+            torch.cuda.synchronize()
+            with prof_(activities=[ProfilerActivity.CUDA]) as prof:
+                open_capture_window()
+                t0 = time.perf_counter()
+                out = steps(mode, *args)
+                torch.cuda.synchronize()
+                window_s = time.perf_counter() - t0
+            starts["row1_profile"] = card_window(card_intervals(prof),
+                                                 window_s, len(out))
         if row0:
             starts["row0_losses"] = [float(x) for x in out]
         return out
@@ -8041,6 +8174,7 @@ def cadence_scale_rank(out_dir, j, sh, rows):
            "update": _update_record(u), "launches": launches,
            "valid_total_auc": ev["total_auc"], "valid_rows": len(valid[1]),
            "eval_seconds": eval_s,
+           "row1_profile": starts.get("row1_profile"),
            "device_peak_gb": max(rec["peak_gb"],
                                  torch.cuda.max_memory_allocated() / 2**30),
            "host_peak_rss_gb": resource.getrusage(
@@ -8129,7 +8263,7 @@ def row0_steps(rows_in, losses, tag):
             "planted_fault": fault[:n]}
 
 
-def cadence_at_scale(tag, rows):
+def cadence_at_scale(tag, rows, profile=False, pg_timeout=None):
     """Phase 26 (c), ``--phase 26 --rows N``: CDC on the mesh at a size
     its users run, 4 ranks on MESH_SHAPE with the experts split
     (:func:`cadence_scale_rank`): every rank's "auto" must stream the
@@ -8142,13 +8276,15 @@ def cadence_at_scale(tag, rows):
     parting; row 0's first step losses at a fixed limit
     (:func:`row0_steps`).  Each rank's data and set-up seconds, the update's seconds,
     valid steps, ``_feed``'s and the collectives' shares, host peak RSS
-    and device peak memory, the valid AUC.
-    -> summary."""
+    and device peak memory, the valid AUC; with ``profile`` (phase 29) a
+    mask row's steps profiled on every rank: its device busy and NCCL's
+    device share.  -> summary."""
     import os
     import shutil
 
     t_phase = time.perf_counter()
-    recs, tmp, ranks_s = _spawn_cadence(rows, CADENCE_TIMEOUT)
+    recs, tmp, ranks_s = _spawn_cadence(rows, CADENCE_TIMEOUT, profile,
+                                        pg_timeout)
     r0 = recs[0]
     check(all(r["update"]["d2g"] == r0["update"]["d2g"] for r in recs),
           "(c) the ranks' clusterings: "
@@ -8170,6 +8306,17 @@ def cadence_at_scale(tag, rows):
               f"({r['valid_rows']} rows, {r['eval_seconds']:.1f} s); host "
               f"peak RSS {r['host_peak_rss_gb']:.2f} GiB, device peak "
               f"{r['device_peak_gb']:.2f} GiB; launches {r['launches']}")
+        p = r.get("row1_profile")
+        if p is not None:
+            print(f"{tag} cadence (c) rank {r['rank']}: the update's mask "
+                  f"row 1 profiled, {p['step_ms']:.3f} ms a step, device "
+                  f"busy {100 * p['busy_share']:.1f}%, NCCL kernels "
+                  f"{p['nccl_ms']:.3f} ms a step "
+                  f"({100 * p['nccl_share']:.1f}% of the row; "
+                  f"{p['nccl_launches']:.1f} launches a step), records on "
+                  f"cards {p['devices']}")
+            check(set(p["devices"]) <= {int(r["device"].split(":")[1])},
+                  f"(c) rank {r['rank']}: records on cards {p['devices']}")
     with np.load(os.path.join(tmp, "rows.npz")) as z:
         rows_in = {k: z[k] for k in z.files}
     shutil.rmtree(tmp, ignore_errors=True)
@@ -9635,6 +9782,697 @@ def phase28_main(parent=None) -> int:
     return 0
 
 
+# -- the mesh on four cards, a rank a card over NCCL (phase 29) ---------------
+
+P29_CARDS = 4
+P29_SHAPES = ((2, 2), (4, 1))   # (b): the harness on each
+P29_PG_TIMEOUT = 300            # s: every phase-29 rank's group timeout
+# (e): the flagship at 512 rows a data rank on one card (no mesh: phase 22
+# (a) holds a world of one bitwise the mesh-less steps; every card runs
+# its own at once, so the host is shared as in the mesh's turns), on
+# (4, 1) and on (2, 2), P29_TURNS rounds in turns of P29_STEPS steps
+P29_TIMED = (("1x1", (1, 1)), ("4x1", (4, 1)), ("2x2", (2, 2)))
+P29_TURNS = 3
+P29_STEPS = 64                  # (e): timed steps a turn, the fit's K loop
+P29_PROFILED = 8                # (e): steps in each rank's profile
+P29_SYMS = CLI_SYMS + SWEEP_SYMS[:1]    # #1, #2, #3, #6/#7's pass
+P29_GLOO_MS = (65, 121)         # 4 gloo ranks on card 0 (PERF.md §5)
+NCCL_PREFIX = "nccl"            # NCCL's kernels: ncclDevKernel_*, ncclKernel_*
+
+
+def card_intervals(prof):
+    """A capture's records on the card (kernels, copies, memsets) as
+    (name, device index, start ns, end ns) in start order, user
+    annotations and the capture window's markers left out."""
+    from torch.autograd import DeviceType
+
+    out, names = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = (torch._C._demangle(raw) if len(raw) > 1
+                                 else raw)
+        if not is_marker(name):
+            out.append((name, e.device_index(), e.start_ns(),
+                        e.start_ns() + e.duration_ns()))
+    return sorted(out, key=lambda r: r[2])
+
+
+def card_window(recs, window_s, n):
+    """What :func:`card_intervals` of a window of ``n`` steps (``window_s``
+    host seconds, synchronized) shows: the devices its records ran on,
+    the card's busy share (the union of the records' spans), NCCL's
+    kernels' device ms a step and share of the window (a collective's
+    kernel runs from its launch until every peer's data is in: it
+    includes the wait for the slowest rank), launches of P29_SYMS."""
+    busy, end = 0, None
+    for _, _, a, b in recs:
+        if end is None or a >= end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    nccl = [(name, b - a) for name, _, a, b in recs
+            if name.startswith(NCCL_PREFIX)]
+    ns = sum(d for _, d in nccl)
+    return {"devices": sorted({r[1] for r in recs}),
+            "step_ms": window_s / n * 1e3,
+            "busy_share": busy / 1e9 / window_s,
+            "nccl_ms": ns / 1e6 / n, "nccl_share": ns / 1e9 / window_s,
+            "nccl_launches": len(nccl) / n,
+            "nccl_kernels": sorted({name.split("(")[0] for name, _ in nccl}),
+            "records": len(recs),
+            "port": {s: sum(1 for r in recs if port_kernel(r[0], s))
+                     for s in P29_SYMS}}
+
+
+def rank_profile(run, n, dev):
+    """torch.profiler over ``run()`` (``n`` steps) on every rank at once
+    (each rank's capture is its own process's), taken again on every rank
+    while any rank's capture lacks a launch of P29_SYMS (records are lost
+    at random, :func:`profile_calls`), up to CAPTURE_ATTEMPTS.  ->
+    :func:`card_window` of the fullest capture."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurec_torch.parallel import barrier
+
+    best = None
+    for attempt in range(CAPTURE_ATTEMPTS):
+        barrier(dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            open_capture_window()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+        CAPTURES["taken" if attempt == 0 else "retaken"] += 1
+        win = card_window(card_intervals(prof), window_s, n)
+        score = sum(min(c, n) for c in win["port"].values())
+        if best is None or score > best[0]:
+            best = (score, win)
+        short = torch.tensor([int(score < n * len(P29_SYMS))], device=dev)
+        dist.all_reduce(short)
+        if int(short) == 0:
+            break
+    return best[1]
+
+
+def _exact(name, got, want, done):
+    """Hold a collective's result to ``want`` exactly (dtype, shape,
+    values)."""
+    got = torch.as_tensor(got).cpu()
+    want = torch.as_tensor(want).cpu()
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and torch.equal(got, want), f"(a) {name}: {got.tolist()} "
+          f"({got.dtype}) vs {want.tolist()} ({want.dtype})")
+    done.append(name)
+
+
+def group_collectives(meshes, dev):
+    """Phase 29 (a)'s collectives on known inputs, every result held
+    exactly (small integers and eighths: their sums are exact in any
+    order): ``broadcast_`` over the world; on each group of each mesh
+    ``all_reduce_`` and ``all_gather`` (float32 and int64),
+    ``all_reduce_grads`` on the data groups; on (2, 2) the autograd rules
+    (``data_all_reduce``, ``model_all_reduce``, ``copy_to_model``,
+    ``gather_from_model``, ``scatter_to_model``: forward and backward),
+    ``check_replicas`` (the same rows pass, other rows raise) and
+    ``data_totals`` (float64) on both meshes.  -> the names held."""
+    import torch.distributed as dist
+
+    from tpurec_torch.parallel import barrier
+    from tpurec_torch.parallel.collectives import (
+        all_gather, all_reduce_, all_reduce_grads, broadcast_,
+        copy_to_model, data_all_reduce, gather_from_model,
+        model_all_reduce, scatter_to_model)
+    from tpurec_torch.parallel.feed import GlobalBatchFeed
+    from tpurec_torch.train.loop import data_totals
+
+    r = dist.get_rank()
+    done = []
+    for dt in (torch.float32, torch.int64):
+        t = (torch.arange(6, device=dev) * (r + 1)).to(dt)
+        _exact(f"broadcast_ {dt}", broadcast_(t, 0),
+               torch.arange(6).to(dt), done)
+    for key, mesh in meshes.items():
+        for axis, group, ranks, index in (
+                ("data", mesh.data_group, mesh.data_ranks, mesh.d),
+                ("model", mesh.model_group, mesh.model_ranks, mesh.m)):
+            if group is None:
+                continue
+            tot = float(sum(q + 1 for q in ranks))
+            t = torch.full((5,), float(r + 1), device=dev)
+            _exact(f"all_reduce_ {key} {axis}", all_reduce_(t, group),
+                   torch.full((5,), tot), done)
+            for dt in (torch.float32, torch.int64):
+                t = (torch.arange(6, device=dev).reshape(2, 3) + 10 * r
+                     ).to(dt)
+                want = torch.cat([(torch.arange(6).reshape(2, 3) + 10 * q
+                                   ).to(dt) for q in ranks])
+                _exact(f"all_gather {key} {axis} {dt}",
+                       all_gather(t, group, len(ranks), index), want, done)
+        if mesh.data_group is not None:
+            lin = torch.nn.Linear(3, 2).to(dev)
+            for i, p in enumerate(lin.parameters()):
+                p.grad = torch.full_like(p, float(r + 1 + i))
+            s1, s2 = all_reduce_grads(
+                lin.parameters(), mesh.data_group,
+                torch.tensor(0.5 * (r + 1), device=dev),
+                torch.tensor(float(r), device=dev))
+            tot = float(sum(q + 1 for q in mesh.data_ranks))
+            n = len(mesh.data_ranks)
+            for i, p in enumerate(lin.parameters()):
+                _exact(f"all_reduce_grads {key} grad {i}", p.grad,
+                       torch.full(tuple(p.shape), tot + i * n), done)
+            _exact(f"all_reduce_grads {key} scalars",
+                   torch.stack([s1, s2]),
+                   torch.tensor([0.5 * tot, float(sum(mesh.data_ranks))]),
+                   done)
+        totals = (np.arange(4) * 0.125 * (mesh.d + 1),
+                  np.array([0.5 * (r + 1)]))
+        got = data_totals(totals, mesh, dev)
+        qs = mesh.data_ranks
+        want = (np.arange(4) * 0.125 * sum(q // mesh.n_model + 1 for q in qs),
+                np.array([0.5 * sum(q + 1 for q in qs)]))
+        for i, (g, w) in enumerate(zip(got, want)):
+            _exact(f"data_totals {key} {i}", torch.from_numpy(g),
+                   torch.from_numpy(w), done)
+
+    m = meshes["2x2"]
+    d_tot = float(sum(q + 1 for q in m.data_ranks))
+    m_tot = float(sum(q + 1 for q in m.model_ranks))
+    for name, fn, fwd, bwd in (
+            ("data_all_reduce", data_all_reduce, d_tot, d_tot),
+            ("model_all_reduce", model_all_reduce, m_tot, float(r + 1)),
+            ("copy_to_model", copy_to_model, float(r + 1), m_tot)):
+        x = torch.full((3,), float(r + 1), device=dev, requires_grad=True)
+        y = fn(x, m)
+        (y * (r + 1)).sum().backward()
+        _exact(name, y.detach(), torch.full((3,), fwd), done)
+        _exact(f"{name} backward", x.grad, torch.full((3,), bwd), done)
+    cols = slice(2 * m.m, 2 * m.m + 2)
+    x = torch.full((2, 2), float(r), device=dev, requires_grad=True)
+    y = gather_from_model(x, m, axis=1)
+    w = torch.arange(8.0, device=dev).reshape(2, 4)
+    (y * w).sum().backward()
+    _exact("gather_from_model", y.detach(), torch.cat(
+        [torch.full((2, 2), float(q)) for q in m.model_ranks], 1), done)
+    _exact("gather_from_model backward", x.grad, w[:, cols], done)
+    x = torch.arange(8.0, device=dev).reshape(2, 4).requires_grad_()
+    y = scatter_to_model(x, m, axis=1)
+    (y * (r + 1)).sum().backward()
+    _exact("scatter_to_model", y.detach(), x.detach()[:, cols], done)
+    _exact("scatter_to_model backward", x.grad, torch.cat(
+        [torch.full((2, 2), float(q + 1)) for q in m.model_ranks], 1), done)
+
+    feed = GlobalBatchFeed(m)
+    X = np.arange(12, dtype=np.int32).reshape(4, 3) + 100 * m.d
+    feed.check_replicas(X)          # the model replicas' rows agree
+    try:
+        feed.check_replicas(X + m.m)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, f"(a) check_replicas took rank {r}'s other rows")
+    done.append("check_replicas")
+    barrier(dev)
+    done.append("barrier")
+    return done
+
+
+P29_GATHER_CALLS = 50            # (a): calls a timing of an all-gather
+
+
+def gather_timings(meshes, dev):
+    """Phase 29 (a): ``collectives.all_gather`` (an all-reduce of n slots,
+    all zero but this rank's) against ``all_gather_into_tensor`` (n times
+    fewer bytes) on each group of each mesh, at the table update's
+    exchange (the ids [512 / n_data, 23] int32 and their rows' gradients
+    [512 / n_data, 23, 16] float32, the data group) and the expert banks'
+    gather (``gather_from_model`` of the MMoE bank's outputs, 2 stacks a
+    rank: [2, 512 / n_data, 64] float32, the model group): the two
+    bitwise equal, then CUDA events around
+    P29_GATHER_CALLS calls of each in turns (ours, real, real, ours).
+    -> {case: {ours_ms, real_ms, bytes}}."""
+    import torch.distributed as dist
+
+    from tpurec_torch.parallel import barrier
+    from tpurec_torch.parallel.collectives import all_gather
+
+    F, D, H = len(FIELD_DIMS), MODEL["embed_dim"], MODEL[
+        "mmoe_expert_dims"][-1]
+    out = {}
+    for key, mesh in meshes.items():
+        b = 512 // mesh.n_data
+        cases = [("data", mesh.data_group, mesh.n_data, mesh.d,
+                  "ids", torch.arange(b * F, dtype=torch.int32, device=dev
+                                      ).reshape(b, F) + mesh.rank),
+                 ("data", mesh.data_group, mesh.n_data, mesh.d, "rows",
+                  torch.randn(b, F, D, device=dev)),
+                 ("model", mesh.model_group, mesh.n_model, mesh.m, "bank",
+                  torch.randn(2, b, H, device=dev))]
+        for axis, group, n, index, what, t in cases:
+            if group is None:
+                continue
+            full = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                               dtype=t.dtype, device=dev)
+
+            def ours():
+                return all_gather(t, group, n, index)
+
+            def real():
+                dist.all_gather_into_tensor(full, t, group=group)
+                return full
+
+            check(torch.equal(ours(), real()), f"(a) {key} {axis} {what}: "
+                  "the all-gather as an all-reduce is not the all-gather")
+            ms = {"ours": [], "real": []}
+            for name in ("ours", "real", "real", "ours"):
+                fn = ours if name == "ours" else real
+                for _ in range(3):
+                    fn()
+                barrier(dev)
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(P29_GATHER_CALLS):
+                    fn()
+                e1.record()
+                torch.cuda.synchronize()
+                ms[name].append(e0.elapsed_time(e1) / P29_GATHER_CALLS)
+            out[f"{key} {axis} {what}"] = {
+                "ours_ms": ms["ours"], "real_ms": ms["real"],
+                "shape": list(t.shape), "dtype": str(t.dtype),
+                "ours_bytes": n * t.numel() * t.element_size(),
+                "real_bytes": t.numel() * t.element_size()}
+    return out
+
+
+def group_timings(meshes, dev):
+    """Phase 29 (e) on one rank: the trainers of P29_TIMED at phase 16's
+    settings (dropout 0.2, bf16 moments) with 512 rows a data rank, each
+    step through the fit's indexed K-step loop (``scan_steps_idx``) on
+    rows drawn from phase 16's train split; P29_TURNS rounds, the three
+    in turns, of P29_STEPS steps (host clock, synchronized; the bytes
+    the collectives reduced, :data:`collectives.STATS`; #1, #2, #3 and
+    #6/7's pass launched once a step), then a profile of P29_PROFILED
+    steps of each (:func:`rank_profile`).  -> record."""
+    import dataclasses
+
+    from tpurec_torch.parallel import barrier
+    from tpurec_torch.parallel.collectives import STATS, reset_stats
+    from tpurec_torch.train import Trainer
+
+    data = mesh_fit_data()
+    X, y = data.train
+    counters = train_counters("mmoe")
+    rng = np.random.default_rng(SEED + 29)      # every rank draws alike
+    trainers, dsets = {}, {}
+    for key, shape in P29_TIMED:
+        cfg = mesh_config(DROPOUT)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, bs=512 * shape[0]))
+        mesh = meshes.get(key)
+        trainers[key] = (mesh_trainer(cfg, mesh) if mesh is not None else
+                         Trainer(cfg, FIELD_DIMS, N_DOMAIN, DOMAIN_IDX,
+                                 domain2group=np.arange(N_DOMAIN) % N_TOWER,
+                                 device=dev))
+        dsets[key] = trainers[key]._device_dataset(X, y)
+
+    def draw(key, steps):
+        tr = trainers[key]
+        bs = tr.cfg.train.bs
+        cols = tr._local_rows(bs)
+        idx = rng.integers(0, len(y), (steps, bs))[:, cols]
+        return (torch.as_tensor(idx.astype(np.int32), device=dev),
+                torch.ones(idx.shape, device=dev))
+
+    def run(key, idx, mask):
+        tr = trainers[key]
+        return tr.scan_steps_idx(tr.state, *dsets[key], idx, mask,
+                                 tr.dropout_gen)
+
+    for key, _ in P29_TIMED:                    # the first calls' set-up
+        run(key, *draw(key, TRAIN_K))
+    torch.cuda.synchronize()
+    ms = {key: [] for key, _ in P29_TIMED}
+    coll, launches, losses = {}, {}, {}
+    for _ in range(P29_TURNS):
+        for key, _ in P29_TIMED:
+            idx, mask = draw(key, P29_STEPS)
+            barrier(dev)
+            torch.cuda.synchronize()
+            reset_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = run(key, idx, mask)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) / P29_STEPS * 1e3)
+            coll[key] = {"calls": STATS["calls"] / P29_STEPS,
+                         "bytes": STATS["bytes"] / P29_STEPS,
+                         "host_ms": STATS["seconds"] / P29_STEPS * 1e3}
+            launches[key] = {k: fn.launches for k, fn in counters.items()}
+            losses[key] = float(out.float().mean())
+            check(np.isfinite(losses[key]), f"(e) {key}: loss {losses[key]}")
+            check(launches[key] == {k: P29_STEPS for k in counters},
+                  f"(e) {key}: launches {launches[key]} in {P29_STEPS} steps")
+    prof = {}
+    for key, _ in P29_TIMED:
+        idx, mask = draw(key, P29_PROFILED)
+        prof[key] = rank_profile(lambda: run(key, idx, mask), P29_PROFILED,
+                                 dev)
+    return {"ms": ms, "collectives": coll, "launches": launches,
+            "mean_loss": losses, "profile": prof,
+            "rows_a_step": {key: trainers[key].cfg.train.bs
+                            for key, _ in P29_TIMED}}
+
+
+def group_rank(out_dir):
+    """One rank of phase 29 (a) and (e), started by
+    :func:`group_main_path`: its backend, card and the card's UUID, the
+    collectives on known inputs (:func:`group_collectives`) and the
+    timings (:func:`group_timings`).  Writes ``group_rank_<r>.json``."""
+    import os
+
+    from tpurec_torch.parallel import make_mesh, shutdown_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    j = _join_rank()
+    dev = j.device
+    props = torch.cuda.get_device_properties(dev)
+    rec = {"rank": j.rank, "backend": j.backend, "device": str(dev),
+           "reason": j.reason, "uuid": str(props.uuid),
+           "current_device": torch.cuda.current_device()}
+    meshes = {"4x1": make_mesh(4, 1), "2x2": make_mesh(2, 2)}
+    rec["a"] = group_collectives(meshes, dev)
+    rec["gather"] = gather_timings(meshes, dev)
+    rec["e"] = group_timings(meshes, dev)
+    with open(os.path.join(out_dir, f"group_rank_{j.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    shutdown_distributed()
+    return 0
+
+
+def group_main_path(tag):
+    """Phase 29 (a) and (e): P29_CARDS ranks, one a card
+    (:func:`group_rank`).  (a) every rank NCCL on its own card (four
+    distinct UUIDs), every collective exact on known inputs, and in each
+    rank's profiles every record on its own card with #1, #2, #3 and
+    #6/7's pass among them; (e) ms a step, examples/s, each rank's busy
+    share, NCCL's device share and the bytes reduced a step, one card
+    against (4, 1) and (2, 2).  -> summary."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="group_")
+    t0 = time.perf_counter()
+    rcs, tails = _spawn_ranks(P29_CARDS, tmp, flag="--group-rank",
+                              pg_timeout=P29_PG_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    check(rcs == [0] * P29_CARDS, f"(a) ranks exited {rcs}:\n{tails}")
+    recs = []
+    for r in range(P29_CARDS):
+        with open(os.path.join(tmp, f"group_rank_{r}.json")) as f:
+            recs.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    check_placement(recs, P29_CARDS, "(a)")
+    check(all(r["backend"] == "nccl" and r["current_device"] == r["rank"]
+              for r in recs), "(a) backends "
+          + ", ".join(f"{r['backend']} on {r['device']} (current "
+                      f"{r['current_device']})" for r in recs))
+    uuids = [r["uuid"] for r in recs]
+    check(len(set(uuids)) == P29_CARDS, f"(a) card UUIDs {uuids}")
+    check(all(r["a"] == recs[0]["a"] for r in recs),
+          "(a) the ranks held different collectives")
+    for r in recs:
+        for key, p in r["e"]["profile"].items():
+            check(p["devices"] == [r["rank"]], f"(a) rank {r['rank']} "
+                  f"{key}: its profile's records on cards {p['devices']}")
+            check(all(c > 0 for c in p["port"].values()),
+                  f"(a) rank {r['rank']} {key}: the profile's launches of "
+                  f"{P29_SYMS}: {p['port']}")
+    print(f"{tag} (a) {P29_CARDS} ranks, one a card: "
+          + "; ".join(f"rank {r['rank']} {r['backend']} on {r['device']} "
+                      f"({r['uuid'][:13]}...)" for r in recs)
+          + f"; {len(recs[0]['a'])} collectives exact on known inputs on "
+          f"every rank ({', '.join(recs[0]['a'])}); in every rank's "
+          f"profiles each record ran on the rank's own card, #1, #2, #3 "
+          f"and #6/7's pass among them ({ranks_s:.1f} s with start-up)")
+    for case in recs[0]["gather"]:
+        g = [r["gather"][case] for r in recs]
+        print(f"{tag} (a) all_gather {case} {g[0]['shape']} "
+              f"{g[0]['dtype']}: as an all-reduce "
+              f"({g[0]['ours_bytes'] / 1e3:.1f} kB a rank) "
+              + ", ".join(f"{min(x['ours_ms']):.4f}" for x in g)
+              + f" ms a call by rank, all_gather_into_tensor "
+              f"({g[0]['real_bytes'] / 1e3:.1f} kB) "
+              + ", ".join(f"{min(x['real_ms']):.4f}" for x in g)
+              + f" ms (CUDA events, the least of 2 turns of "
+              f"{P29_GATHER_CALLS} calls each; bitwise equal)")
+    out = {"ranks_seconds": ranks_s, "uuids": uuids,
+           "collectives": recs[0]["a"], "by_config": {},
+           "all_gather": {case: [r["gather"][case] for r in recs]
+                          for case in recs[0]["gather"]}}
+    for key, shape in P29_TIMED:
+        rows = recs[0]["e"]["rows_a_step"][key]
+        ms0 = recs[0]["e"]["ms"][key]
+        per_card = key == "1x1"
+        eps = [rows / (x / 1e3) for x in ms0]
+        profs = [r["e"]["profile"][key] for r in recs]
+        coll = recs[0]["e"]["collectives"][key]
+        print(f"{tag} (e) {key}"
+              + (" (no mesh, each card its own, all four at once)"
+                 if per_card else f" {shape}")
+              + f", {rows} rows a step: ms a step (host clock, "
+              f"{P29_TURNS} turns of {P29_STEPS} steps; min / median / "
+              f"max) "
+              + "; ".join(f"rank {r['rank']} {_spread(r['e']['ms'][key])}"
+                          for r in recs)
+              + f"; examples/s {'a card' if per_card else 'the mesh'} "
+              f"(rank 0) {_spread(eps)}; device busy "
+              + ", ".join(f"{100 * p['busy_share']:.1f}%" for p in profs)
+              + "; NCCL kernels "
+              + ", ".join(f"{p['nccl_ms']:.3f} ms ({100 * p['nccl_share']:.1f}%)"
+                          for p in profs)
+              + f" a step by rank ({profs[0]['nccl_launches']:.1f} launches:"
+              f" {profs[0]['nccl_kernels']}); collectives {coll['calls']:.1f}"
+              f" a step, {coll['bytes'] / 1e6:.3f} MB reduced a step on "
+              f"rank 0, host time in their calls {coll['host_ms']:.3f} ms "
+              f"(under NCCL the enqueue); launches of {P29_STEPS} steps "
+              f"{recs[0]['e']['launches'][key]}")
+        out["by_config"][key] = {
+            "rows_a_step": rows,
+            "ms": {r["rank"]: r["e"]["ms"][key] for r in recs},
+            "examples_per_s_rank0": eps,
+            "busy_share": [p["busy_share"] for p in profs],
+            "nccl_ms": [p["nccl_ms"] for p in profs],
+            "nccl_share": [p["nccl_share"] for p in profs],
+            "profile_step_ms": [p["step_ms"] for p in profs],
+            "nccl_kernels": profs[0]["nccl_kernels"],
+            "collectives_rank0": coll,
+            "launches": recs[0]["e"]["launches"][key]}
+    lo, hi = P29_GLOO_MS
+    print(f"{tag} (e) beside 4 gloo ranks sharing card 0: {lo}-{hi} ms a "
+          f"step at 512 rows a step (PERF.md §5)")
+    return out
+
+
+def _torchrun_cli(n, argv, timeout=MESH_TIMEOUT):
+    """``python -m torch.distributed.run --standalone --nproc_per_node n
+    -m tpurec_torch.cli argv``, its whole process group ended at
+    ``timeout``.  -> (exit code, stdout, stderr)."""
+    import os
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), "-m", "tpurec_torch.cli", *argv],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        check(False, f"torch.distributed.run -m tpurec_torch.cli {argv} "
+              f"ran past {timeout} s: {err[-3000:]}")
+    return p.returncode, out, err
+
+
+# (d): phase 22 (d)'s and phase 23 (c)'s CLI configurations on four ranks
+P29_CLI_RUNS = (
+    ("mmoe", (4, 1), ["--model", "mmoe", "--dataset_name", "synthetic",
+                      "--n_rows", str(CLI_ROWS), "--n_domain", "6", "--bs",
+                      "512", "--epoch", "1", "--is_set_seed", "1", "--seed",
+                      str(SEED + 29)]),
+    ("cdc", (2, 2), ["--model", "cdc", "--base_model", "ple",
+                     "--mesh_model", "2", "--mesh_expert_parallel",
+                     "--dataset_name", "synthetic", "--n_rows",
+                     str(CLI_SMALL_ROWS), "--n_domain", "6", "--epoch", "1",
+                     "--bs", "512", "--warmup_step", "10",
+                     "--update_interval", "100000", "--n_causal_mask", "4",
+                     "--is_set_seed", "1", "--seed", str(SEED + 30)]))
+
+
+def cli_checkpoint_eval(argv, seed, ckpt):
+    """The CLI's checkpoint ``ckpt`` of a run with ``argv`` (its config
+    at ``seed``, rank 0's) loaded on one device, its streaming eval of
+    the run's valid split (the CLI's data, remade as ``cli.main`` makes
+    it).  -> the eval's result."""
+    import pickle
+
+    from tpurec_torch import cli
+
+    args = cli.parse_args(argv)
+    args.seed = seed
+    cfg = cli.build_config(args)
+    np.random.seed(cfg.train.seed)
+    train, valid, _, field_dims, n_domain, domain_idx = cli.load_dataset(cfg)
+    if "cdc" in cfg.model.model:
+        from tpurec_torch.cdc import CDCTrainer
+
+        one = CDCTrainer(cfg, field_dims, n_domain, domain_idx)
+        one.setup_data(train, valid)
+        one.load_checkpoint(ckpt)
+        return one.evaluate_streaming(one.valid_batcher)
+    from tpurec_torch.train import Trainer
+
+    with open(ckpt, "rb") as f:
+        d2g = pickle.load(f)["domain2group"]
+    one = Trainer(cfg, field_dims, n_domain, domain_idx, domain2group=d2g)
+    one.load_checkpoint(ckpt)
+    cnt = np.bincount(train[0][:, domain_idx], minlength=n_domain)
+    return one.evaluate_streaming(*valid, cnt / cnt.sum())
+
+
+def p29_cli(tag):
+    """Phase 29 (d): the CLI under torch.distributed.run on P29_CARDS
+    ranks, one a card (P29_CLI_RUNS): exit 0, no rank's exit fault
+    (EXIT_FAULTS), every rank NCCL on its own card, the mesh record the
+    run's shape, one result line; the checkpoint evaluated on one device
+    within MESH_EVAL_TOL of the mesh's valid eval.  -> summary."""
+    import os
+    import shutil
+    import tempfile
+
+    out = {}
+    for name, shape, argv in P29_CLI_RUNS:
+        tmp = tempfile.mkdtemp(prefix="cli29_")
+        argv = argv + ["--save_path", os.path.join(tmp, "ck"),
+                       "--log_path", os.path.join(tmp, "log.jsonl")]
+        t0 = time.perf_counter()
+        rc, so, se = _torchrun_cli(P29_CARDS, argv)
+        secs = time.perf_counter() - t0
+        text = so + se
+        check(rc == 0, f"(d) {name}: torch.distributed.run exited {rc}: "
+              f"{se[-3000:]}")
+        faults = [x for x in EXIT_FAULTS if x in text]
+        check(not faults, f"(d) {name}: a rank printed {faults}: "
+              f"{se[-3000:]}")
+        joins = [f"rank {r} of {P29_CARDS} on cuda:{r}, backend nccl"
+                 for r in range(P29_CARDS)]
+        missing = [x for x in joins if x not in text]
+        check(not missing, f"(d) {name}: no line {missing}")
+        results = [json.loads(x) for x in so.splitlines()
+                   if x.startswith("{") and '"valid"' in x]
+        check(len(results) == 1, f"(d) {name}: {len(results)} result lines")
+        with open(os.path.join(tmp, "log.jsonl")) as f:
+            mrec = [r for r in map(json.loads, f) if "mesh" in r]
+        check(len(mrec) == 1 and mrec[0]["mesh"] == list(shape)
+              and mrec[0]["backend"] == "nccl"
+              and mrec[0]["device"] == "cuda:0", f"(d) {name}: the mesh "
+              f"record {mrec}")
+        res = results[0]
+        t1 = time.perf_counter()
+        ev = cli_checkpoint_eval(argv, mrec[0]["seed"], res["checkpoint"])
+        err = {k: abs(ev[k] - res["valid"][k])
+               for k in ("total_auc", "total_loss")}
+        print(f"{tag} (d) python -m torch.distributed.run --nproc_per_node "
+              f"{P29_CARDS} -m tpurec_torch.cli {' '.join(argv[:8])} ...: "
+              f"mesh {mrec[0]['mesh']}, every rank NCCL on its own card, "
+              f"exit 0 in {secs:.1f} s, no rank printed {EXIT_FAULTS}; "
+              f"valid total_auc {res['valid']['total_auc']:.5f}"
+              + (f", clustering {res['domain2group_list']}"
+                 if "domain2group_list" in res else "")
+              + f"; its checkpoint on one device: streaming valid eval vs "
+              f"the mesh's {err} (tol {MESH_EVAL_TOL}; "
+              f"{time.perf_counter() - t1:.1f} s)")
+        check(all(v <= MESH_EVAL_TOL for v in err.values()),
+              f"(d) {name}: the checkpoint's eval on one device differs: "
+              f"{err}")
+        out[name] = {"mesh": mrec[0]["mesh"], "seconds": secs,
+                     "valid": res["valid"], "one_device_err": err}
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase29_main(rows=None, parts="abcd") -> int:
+    """Phase 29 alone: the mesh on P29_CARDS cards, one rank a card over
+    NCCL.  ``parts``: (a) with (e)'s turns (:func:`group_main_path`), (b)
+    the harness on P29_SHAPES (:func:`mesh_ranks_path`), (c) expert
+    parallelism and CDC on (2, 2) (:func:`ep_main_path`), (d) the CLI
+    (:func:`p29_cli`); ``rows``: also phase 26 (c) on the cards at that
+    many rows, a mask row's steps profiled on every rank.  Fails on a host
+    with fewer cards: it never falls back to gloo, shared cards or the
+    CPU."""
+    import shutil
+    import tempfile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    n = torch.cuda.device_count()
+    if n < P29_CARDS:
+        print(f"chip_smoke: phase 29 runs one rank on each of {P29_CARDS} "
+              f"cards over NCCL, and torch.cuda.device_count() is {n}: it "
+              "does not run on fewer cards", file=sys.stderr)
+        return 1
+    start = _phase_alone("phase 29")
+    if start is None:
+        return 1
+    dev, _ = start
+    gpus = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()
+    print(f"{len(gpus)} cards: " + "; ".join(gpus))
+    shm = (sh(["df", "-h", "/dev/shm"]).splitlines() or ["?"])[-1]
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL "
+          f"{torch.cuda.nccl.version()}; /dev/shm: {shm}")
+    tag = f"[{gpus[0]}, {n} cards]"
+    t0 = time.perf_counter()
+    summary = {"cards": gpus}
+    if "a" in parts or "e" in parts:
+        summary["a_e"] = group_main_path(tag)
+    if "b" in parts:
+        for shape in P29_SHAPES:
+            tmp = tempfile.mkdtemp(prefix="mesh29_")
+            _, summary[f"b_{shape[0]}x{shape[1]}"] = mesh_ranks_path(
+                dev, tag, tmp, None, MESH_DRAWS, shape, P29_PG_TIMEOUT)
+            shutil.rmtree(tmp, ignore_errors=True)
+    if "c" in parts:
+        launches, summary["c"] = ep_main_path(dev, tag, cli=False,
+                                              pg_timeout=P29_PG_TIMEOUT)
+        summary["c"]["launches"] = launches
+    if "d" in parts:
+        summary["d"] = p29_cli(tag)
+    if rows:
+        summary["e_rows"] = cadence_at_scale(tag, rows, profile=True,
+                                             pg_timeout=P29_PG_TIMEOUT)
+    summary["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_cards": summary}))
+    print(f"total {summary['seconds']:.1f} s")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -10341,23 +11179,32 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
     ap.add_argument("--phase", type=int,
-                    choices=[19, 22, 23, 24, 25, 26, 27, 28],
+                    choices=[19, 22, 23, 24, 25, 26, 27, 28, 29],
                     help="run this phase alone (after the build; 19: its "
                     "routed models; 23: with (b)'s witness on three "
                     "meshes; 25: its part (b), the split over the card's "
                     "budget; 26: CDC's cadence on the mesh, (b), or with "
                     "--rows (c); 27: its part (b), the harness with the "
                     "train split over the card's budget; 28: its part (b), "
-                    "serving under load)")
+                    "serving under load; 29: the mesh on four cards, a "
+                    "rank a card over NCCL)")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
                     help="phase 22 (b)'s batch draws at each wd")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="phase 19's batch draw (with --phase 19)")
     ap.add_argument("--rows", type=int, default=None,
                     help="synthetic rows of phase 25 (b) or 27 (b) "
-                    f"(default {STREAM_ROWS}) or phase 26 (c)")
+                    f"(default {STREAM_ROWS}) or phase 26 (c) (with "
+                    "--phase 29: phase 26 (c) on the four cards)")
+    ap.add_argument("--parts", default="abcd",
+                    help="phase 29's parts: a (with e's turns), b, c, d")
     ap.add_argument("--mesh-rank", metavar="DIR",
-                    help="one rank of phase 22 (b)/(c), started by the "
+                    help="one rank of phase 22 (b)/(c) or 29 (b), started "
+                    "by the phase itself")
+    ap.add_argument("--shape", default="x".join(map(str, MESH_SHAPE)),
+                    help="--mesh-rank's mesh, n_data x n_model")
+    ap.add_argument("--group-rank", metavar="DIR",
+                    help="one rank of phase 29 (a)/(e), started by the "
                     "phase itself")
     ap.add_argument("--ep-rank", metavar="DIR",
                     help="one rank of phase 23 (a)/(b), started by the "
@@ -10380,7 +11227,10 @@ if __name__ == "__main__":
     opts = ap.parse_args()
     try:
         if opts.mesh_rank:
-            sys.exit(mesh_rank(opts.mesh_rank, opts.draws))
+            sys.exit(mesh_rank(opts.mesh_rank, opts.draws, tuple(
+                int(x) for x in opts.shape.split("x"))))
+        if opts.group_rank:
+            sys.exit(group_rank(opts.group_rank))
         if opts.ep_rank:
             sys.exit(ep_rank(opts.ep_rank))
         if opts.lanes_rank:
@@ -10407,6 +11257,8 @@ if __name__ == "__main__":
             sys.exit(phase27_main(opts.rows or STREAM_ROWS))
         if opts.phase == 28:
             sys.exit(phase28_main(opts.parent))
+        if opts.phase == 29:
+            sys.exit(phase29_main(opts.rows, opts.parts))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -56,10 +56,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# what a rank that leaves its process group to interpreter exit can print
+EXIT_FAULTS = ("terminate called", "process group has NOT been destroyed")
+
+
 def spawn(task, world, out_dir, *args, timeout=300, torchrun=False):
     """Run ``task`` on ``world`` ranks; raise with every log's tail unless
-    all exit 0.  ``torchrun``: one ``python -m torch.distributed.run``
-    starts them (``args`` then follow the script)."""
+    all exit 0 and no log shows an exit fault (:data:`EXIT_FAULTS`).
+    ``torchrun``: one ``python -m torch.distributed.run`` starts them
+    (``args`` then follow the script)."""
     os.makedirs(out_dir, exist_ok=True)
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     env.pop("PYTHONHASHSEED", None)
@@ -96,14 +101,18 @@ def spawn(task, world, out_dir, *args, timeout=300, torchrun=False):
                 p.wait()
         for log in logs:
             log.close()
-    if any(rcs):
-        tails = []
-        for i in range(len(procs)):
-            with open(os.path.join(out_dir, f"{task}_{i}.log")) as f:
-                tails.append(f"--- {task} {i} (rc={rcs[i]}) ---\n"
-                             + "".join(f.readlines()[-40:]))
-        raise AssertionError(f"{task} failed (rcs={rcs})\n"
-                             + "\n".join(tails))
+    texts = []
+    for i in range(len(procs)):
+        with open(os.path.join(out_dir, f"{task}_{i}.log")) as f:
+            texts.append(f.read())
+    torn = [i for i, t in enumerate(texts)
+            if any(s in t for s in EXIT_FAULTS)]
+    if any(rcs) or torn:
+        tails = [f"--- {task} {i} (rc={rcs[i]}) ---\n"
+                 + "".join(t.splitlines(True)[-40:])
+                 for i, t in enumerate(texts)]
+        raise AssertionError(f"{task} failed (rcs={rcs}; a rank's exit "
+                             f"fault in {torn})\n" + "\n".join(tails))
     return rcs
 
 
@@ -915,10 +924,58 @@ def task_cadence(out_dir):
         np.savez(os.path.join(out_dir, "parting.npz"), **res)
 
 
+def task_timeout(out_dir, seconds):
+    """2 ranks on the CPU joined with a process-group timeout of
+    ``seconds``: a barrier, then rank 1 stays away from rank 0's
+    all-reduce for 4x the timeout.  Rank 0's all-reduce must fail within
+    the timeout; both ranks tear down.  Rank 0 writes ``timeout.json``
+    (the wait, the error, the group after the teardown)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from tpurec_torch.parallel import (barrier, init_distributed,
+                                       shutdown_distributed)
+    from tpurec_torch.parallel.mesh import joined
+
+    torch.set_num_threads(1)
+    j = init_distributed("cpu", timeout=float(seconds))
+    barrier(j.device)
+    if j.rank == 1:
+        time.sleep(4 * float(seconds))
+        return
+    t0 = time.perf_counter()
+    try:
+        dist.all_reduce(torch.ones(1))
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    waited = time.perf_counter() - t0
+    shutdown_distributed()
+    with open(os.path.join(out_dir, "timeout.json"), "w") as f:
+        json.dump({"waited": waited, "error": err,
+                   "joined": joined() is not None,
+                   "initialized": dist.is_initialized()}, f)
+
+
+def task_exit_fault(out_dir):
+    """A rank that exits 0 after printing an exit fault."""
+    print(f"{EXIT_FAULTS[0]} without an active exception", file=sys.stderr)
+
+
 TASKS = {"cli": task_cli, "steps": task_steps, "lookup": task_lookup,
          "trainer": task_trainer, "ckpt": task_ckpt, "expert": task_expert,
-         "cdc": task_cdc, "cadence": task_cadence}
+         "cdc": task_cdc, "cadence": task_cadence,
+         "timeout": task_timeout, "exit_fault": task_exit_fault}
 
 
 if __name__ == "__main__":
-    TASKS[sys.argv[1]](*sys.argv[2:])
+    try:
+        TASKS[sys.argv[1]](*sys.argv[2:])
+    finally:
+        # every task's rank tears down the group it joined
+        if "torch" in sys.modules:
+            from tpurec_torch.parallel import shutdown_distributed
+
+            shutdown_distributed()

@@ -126,7 +126,7 @@ from tpurec_torch.nn.precision import compute_dtype as _precision_scope
 from tpurec_torch.ops.embedding import take_rows
 from tpurec_torch.parallel.collectives import broadcast_
 from tpurec_torch.parallel.embedding import table_shard
-from tpurec_torch.parallel.mesh import Mesh, Shardings
+from tpurec_torch.parallel.mesh import Mesh, Shardings, barrier
 from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
                                            check_embed_layout_version,
                                            make_backend, msgpack_dumps,
@@ -1088,7 +1088,7 @@ class CDCTrainer:
         if writer:
             self._write_checkpoint(path, state, extra)
         if self.mesh is not None and torch.distributed.is_initialized():
-            torch.distributed.barrier()
+            barrier(self.mesh.device)
 
     def _write_checkpoint(self, path: str, state: bytes,
                           extra: Optional[Dict]):

@@ -312,6 +312,19 @@ def _shared_seed(args, device) -> None:
 def main(argv=None):
     args = parse_args(argv)
     shape = resolve_mesh(args)
+    # a mesh's rank tears down the group it joined once it is done (left
+    # to interpreter exit, a rank can abort there, or hang under NCCL)
+    owned = shape is not None and not torch.distributed.is_initialized()
+    try:
+        return _main(args, shape)
+    finally:
+        if owned:
+            from tpurec_torch.parallel import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _main(args, shape):
     mesh = shardings = None
     rank0 = True
     if shape is not None:

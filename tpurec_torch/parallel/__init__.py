@@ -6,7 +6,9 @@ copy, scatter and gather, and their backward rules), :mod:`.embedding`
 the model axis) and :mod:`.feed` (each data rank's rows of the global
 batches)."""
 
-from tpurec_torch.parallel.mesh import (Mesh, Shardings, init_distributed,
-                                        make_mesh)
+from tpurec_torch.parallel.mesh import (Mesh, Shardings, barrier,
+                                        init_distributed, make_mesh,
+                                        shutdown_distributed)
 
-__all__ = ["Mesh", "Shardings", "init_distributed", "make_mesh"]
+__all__ = ["Mesh", "Shardings", "barrier", "init_distributed", "make_mesh",
+           "shutdown_distributed"]

@@ -26,12 +26,19 @@ n_model)``, as the JAX package lays out its devices: rank ``r`` is
 card ``LOCAL_RANK % device_count`` unless the caller asks for the CPU.
 The backend is NCCL when every local rank has a card of its own, and gloo
 when ranks share a card or run on the CPU; the choice is printed and
-returned.
+returned.  Under NCCL the group is bound to the rank's card, and
+:func:`barrier` names it.  ``timeout`` bounds every collective's wait: a
+rank whose peer raised or hung fails after it (NCCL's watchdog ends the
+process) instead of waiting out the backend's default.
+:func:`shutdown_distributed` tears the group down; every rank calls it
+before it exits (a group left to interpreter exit can abort the process
+or hang it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import socket
 from typing import Optional, Sequence, Tuple
@@ -76,12 +83,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def init_distributed(device=None) -> Distributed:
+def init_distributed(device=None, timeout=None) -> Distributed:
     """Join the process group of this launch (once; later calls return
     the first one's choice).  ``device``: "cpu" puts the rank on the CPU;
     else the rank takes card ``LOCAL_RANK % device_count`` (raising when
-    there is none).  Without a launcher's ``MASTER_ADDR`` a world of one
-    joins on a free localhost port."""
+    there is none).  ``timeout`` (seconds or a ``timedelta``; None: the
+    backend's default) bounds each collective's wait.  Without a
+    launcher's ``MASTER_ADDR`` a world of one joins on a free localhost
+    port."""
     global _JOINED
     if _JOINED is not None:
         return _JOINED
@@ -107,12 +116,39 @@ def init_distributed(device=None) -> Distributed:
                     f"WORLD_SIZE {world} without MASTER_ADDR/MASTER_PORT: "
                     "launch with python -m torch.distributed.run")
             init_method = f"tcp://127.0.0.1:{_free_port()}"
+        extra = {}
+        if timeout is not None:
+            extra["timeout"] = (timeout if isinstance(timeout,
+                                                      datetime.timedelta)
+                                else datetime.timedelta(seconds=timeout))
+        if chosen == "nccl":
+            extra["device_id"] = dev
         dist.init_process_group(chosen, init_method=init_method, rank=rank,
-                                world_size=world)
+                                world_size=world, **extra)
     _JOINED = Distributed(rank, world, local_rank, dev, chosen, why)
     print(f"tpurec_torch.parallel: rank {rank} of {world} on {dev}, "
           f"backend {chosen} ({why})", flush=True)
     return _JOINED
+
+
+def shutdown_distributed() -> None:
+    """Tear down this process's group (a no-op when none is joined); a
+    later :func:`init_distributed` joins anew."""
+    global _JOINED
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _JOINED = None
+
+
+def barrier(device: Optional[torch.device] = None) -> None:
+    """``torch.distributed.barrier()`` over the world; under NCCL on
+    ``device``, the rank's card (None: the current one)."""
+    if dist.get_backend() != "nccl":
+        dist.barrier()
+        return
+    index = (device.index if device is not None and device.index is not None
+             else torch.cuda.current_device())
+    dist.barrier(device_ids=[index])
 
 
 def joined() -> Optional[Distributed]:

@@ -322,6 +322,7 @@ class PickleBackend:
     def save(self, step: int, state: Any, extra: Optional[Dict] = None):
         from tpurec_torch.convert import train_state_to_flax
         from tpurec_torch.parallel.embedding import table_shard
+        from tpurec_torch.parallel.mesh import barrier
 
         payload = {
             "state": msgpack_dumps(train_state_to_flax(state)),
@@ -334,7 +335,7 @@ class PickleBackend:
             if shard.mesh.rank == 0:
                 self._write(step, payload)
             if torch.distributed.is_initialized():
-                torch.distributed.barrier()
+                barrier(shard.mesh.device)
             return
         self._write(step, payload)
 

@@ -80,7 +80,7 @@ from tpurec_torch.models import MULTI_TOWER_OUTPUT, build_model
 from tpurec_torch.parallel.collectives import (all_gather, all_reduce_,
                                                broadcast_)
 from tpurec_torch.parallel.feed import GlobalBatchFeed, epoch_plan
-from tpurec_torch.parallel.mesh import Mesh, Shardings
+from tpurec_torch.parallel.mesh import Mesh, Shardings, barrier
 from tpurec_torch.train.checkpoint import (EMBED_LAYOUT_VERSION,
                                            check_embed_layout_version,
                                            make_backend, msgpack_dumps,
@@ -737,7 +737,7 @@ class Trainer:
         together, once the file is complete)."""
         state = self.snapshot()
         if not self._is_writer():
-            torch.distributed.barrier()
+            barrier(self.mesh.device)
             return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         payload = {
@@ -758,7 +758,7 @@ class Trainer:
         with open(path, "wb") as f:
             pickle.dump(payload, f)
         if self.mesh is not None:
-            torch.distributed.barrier()
+            barrier(self.mesh.device)
 
     def load_checkpoint(self, path: str) -> Dict:
         """Load a ``save_checkpoint`` file of either package (on a mesh,
