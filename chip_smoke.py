@@ -218,8 +218,8 @@ Phases (any failure exits non-zero and prints no result line):
     onto one device evaluating within 1e-6; (d) ``python -m
     torch.distributed.run --nproc_per_node 2 -m tpurec_torch.cli`` at 21
     (a)'s configuration for one epoch: exit 0, one result line, its valid
-    AUC within 0.01 of 21 (a)'s first epoch's.  Every rank's exit code is
-    checked.
+    AUC within 0.01 of 21 (a)'s first epoch's (with ``--phase 22`` only,
+    which runs 21 (a) first).  Every rank's exit code is checked.
 23. CDC on the mesh and expert parallelism: (a) 4 ranks on (2, 2) over
     gloo, the flagship MMoE's 4 experts split 2 a rank, 3 hybrid steps
     against one device (losses rtol 2e-5; at wd 1e-3 the gathered
@@ -895,42 +895,27 @@ def bwd_batches(dev):
     return sorted({1, max(1, R - 1), R, R + 1, 512, 513, 4097})
 
 
-def train_kernel_checks(dev, rng, flat, table, emb_of):
-    """Phase 7: the training kernels against their plain versions on the
-    card.  -> max abs errors by kernel name."""
+def attention_train_checks(dev, flat, emb_of, bs, L, H, seed, what=""):
+    """Kernel 2 in training mode and kernel 3 against the plain version
+    (its forward, and autograd through it) at the batch sizes ``bs``,
+    dropout 0 and DROPOUT, and B=513 without the residual: the forward
+    and its saved layer inputs within ATTN_TOL, demb within BWD_TOL and
+    each weight gradient within BWD_TOL of max(1, max|g|), the backward
+    bitwise repeatable; dy zeroed where the pre-ReLU value is within
+    RELU_MARGIN of 0 (:func:`away_from_relu_kink`).  ``emb_of(B)``: the
+    embeddings of B rows.  -> (forward max abs err, backward max err)."""
     from tpurec_torch.ops.attention import (field_attention_bwd,
                                             field_attention_fwd,
-                                            field_attention_reference,
-                                            keep_mask)
-    from tpurec_torch.config import TrainConfig
-    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
-                                             fused_decay_adam_reference,
-                                             fused_sparse_adam,
-                                             fused_sparse_adam_reference)
-    from tpurec_torch.nn.core import EmbeddingLayout
-    from tpurec_torch.train.hybrid import EmbeddingUpdater
-    from tpurec_torch.train.sparse import SparseEmbedState
-
-    L, H = MODEL["att_layer_num"], MODEL["att_head_num"]
-    errs = {}
-    seed = torch.tensor(31337, device=dev)
-    got = decoded_keep_masks(dev, 512, 12, H, seed, DROPOUT)
-    want = keep_mask(seed, 512, 0, H, 12, DROPOUT).cpu()
-    check(torch.equal(got, want), "attention: the kernel's keep mask differs "
-          "from the plain hash")
-    print(f"attention train: the kernel's keep mask equals the plain hash "
-          f"(512 rows x 2 heads x 12 x 12, drop share "
-          f"{1 - want.float().mean().item():.4f} at rate {DROPOUT})")
+                                            field_attention_reference)
 
     err_f = err_b = 0.0
     no_res = flat[:2] + [None, None] + flat[4:]
-    bs = bwd_batches(dev)
     cases = [(B, rate, flat) for rate in (0.0, DROPOUT) for B in bs]
     cases.append((513, DROPOUT, no_res))
     zeroed = 0.0
     for B, rate, fl in cases:
-        what = (f"B={B} dropout {rate}"
-                + ("" if fl[2] is not None else " no residual"))
+        case = (f"B={B} dropout {rate}"
+                + ("" if fl[2] is not None else " no residual") + what)
         emb = emb_of(B)
         saved_p = []
         want = field_attention_reference(emb, fl, L, H, rate, seed,
@@ -939,7 +924,7 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
         torch.cuda.synchronize()
         e = max((y - want).abs().max().item(),
                 (saved - torch.stack(saved_p)).abs().max().item())
-        check(e <= ATTN_TOL, f"attention train fwd {what}: max abs err {e}")
+        check(e <= ATTN_TOL, f"attention train fwd {case}: max abs err {e}")
         err_f = max(err_f, e)
         # backward against autograd of the plain version, same seed
         leaves = [None if w is None else w.clone().requires_grad_(True)
@@ -957,29 +942,244 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
         torch.cuda.synchronize()
         check(torch.equal(demb, demb2) and all(
             a is None or torch.equal(a, b) for a, b in zip(grads, grads2)),
-            f"attention bwd {what}: two calls differ (the partial sums "
+            f"attention bwd {case}: two calls differ (the partial sums "
             f"should be deterministic)")
         e = (demb - e_leaf.grad).abs().max().item()
-        check(e <= BWD_TOL, f"attention bwd {what}: demb max abs err {e}")
+        check(e <= BWD_TOL, f"attention bwd {case}: demb max abs err {e}")
         err_b = max(err_b, e)
         for i, (g, w) in enumerate(zip(grads, leaves)):
             if w is None:
-                check(g is None, f"attention bwd {what}: gradient {i} of a "
+                check(g is None, f"attention bwd {case}: gradient {i} of a "
                       f"missing weight")
                 continue
             e = (g - w.grad).abs().max().item()
             scale = max(1.0, w.grad.abs().max().item())
-            check(e <= BWD_TOL * scale, f"attention bwd {what}: weight {i} "
+            check(e <= BWD_TOL * scale, f"attention bwd {case}: weight {i} "
                   f"max abs err {e} (scale {scale:.3g})")
             err_b = max(err_b, e / scale)
-    errs["field_attention_train"], errs["field_attention_bwd"] = err_f, err_b
     print(f"attention train fwd (dropout 0 and {DROPOUT}): max abs err "
           f"{err_f:.3g} vs plain (tol {ATTN_TOL}); bwd vs autograd of plain: "
           f"max err {err_b:.3g} (tol {BWD_TOL}, weight grads relative to "
           f"max(1, max|g|)) at B={','.join(map(str, bs))}, dropout 0 and "
           f"{DROPOUT}, and B=513 without the residual; bwd bitwise "
           f"repeatable; dy zeroed where |pre-ReLU| < {RELU_MARGIN} (at most "
-          f"{zeroed:.2e} of the elements)")
+          f"{zeroed:.2e} of the elements)" + what)
+    return err_f, err_b
+
+
+def attention_bound(B, F, D, A, H, L, w_bytes, part):
+    """The least time of #2 in eval ("eval") or in training ("train"), or
+    of #3 ("bwd"), on B rows: its operations at the float32 peak and its
+    bytes (each input read once, each output written once) at the memory
+    rate, the larger; the 3xTF32 bound beside.  -> dict."""
+    if part == "bwd":
+        flops = B * attn_bwd_flops_per_row(F, D, A, H, L)
+        nbytes = B * F * (2 * D + 2 * A + L * A) * 4 + 2 * w_bytes
+    else:
+        flops = B * attn_flops_per_row(F, D, A, H, L)
+        saved = L * A if part == "train" else 0
+        nbytes = B * F * (D + A + saved) * 4 + w_bytes
+    t_ops, t_b = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_b) * 1e3, flops=flops, bytes=nbytes,
+                tc_bound_ms=tc_bound_ms(flops, nbytes),
+                bound_by="operations" if t_ops >= t_b else "bytes")
+
+
+def attention_timing_rows(embs, flat, L, H, seed,
+                          parts=("eval", "train", "bwd"), alone=False):
+    """#2 in eval and in training and #3 (``parts``) on the rows of
+    ``embs`` ([B, F, D] batches, which the timed calls take in turn):
+    each kernel's ms (CUDA events) beside its plain version's, the
+    library's SDPA stack's (dropout DROPOUT in training) and its bound
+    (:func:`attention_bound`), and its rows a block; with ``alone``, its
+    device ms launched alone (torch.profiler, 20 launches).  -> {kernel
+    name: row}."""
+    from tpurec_torch.ops.attention import (_sm_count, bwd_config,
+                                            field_attention,
+                                            field_attention_bwd,
+                                            field_attention_bwd_reference,
+                                            field_attention_fwd,
+                                            field_attention_reference,
+                                            fwd_config)
+
+    e = embs[0]
+    B, F, D = e.shape
+    n_sm = _sm_count(e.device)
+    w_bytes = sum(w.numel() * 4 for w in flat)
+    turn = iter(range(10**9))
+
+    def pick():
+        return embs[next(turn) % len(embs)]
+
+    y, saved = field_attention_fwd(e, flat, L, H, DROPOUT, seed, True)
+    A = y.shape[-1]
+    R, stage, _ = fwd_config(B, F, D, A, H, n_sm)
+    rows = {}
+    if "eval" in parts:
+        rows["field_attention"] = dict(
+            ms=cuda_ms(lambda: field_attention(pick(), flat, L, H)),
+            plain_ms=cuda_ms(lambda: field_attention_reference(
+                pick(), flat, L, H)),
+            library_ms=cuda_ms(lambda: sdpa_stack(pick(), flat, L, H)),
+            library="F.scaled_dot_product_attention + addmm stack",
+            rows_per_block=R, weights_staged=stage,
+            **attention_bound(B, F, D, A, H, L, w_bytes, "eval"))
+        if alone:
+            rows["field_attention"]["device_ms"] = kernel_alone_ms(
+                lambda: field_attention(e, flat, L, H),
+                "field_attention_kernel", n=20)
+    if "train" in parts:
+        rows["field_attention_train"] = dict(
+            ms=cuda_ms(lambda: field_attention_fwd(pick(), flat, L, H,
+                                                   DROPOUT, seed, True)),
+            plain_ms=cuda_ms(lambda: field_attention_reference(
+                pick(), flat, L, H, DROPOUT, seed)),
+            library_ms=cuda_ms(lambda: sdpa_stack(pick(), flat, L, H,
+                                                  DROPOUT)),
+            library=f"F.scaled_dot_product_attention(dropout_p={DROPOUT}) "
+                    "+ addmm stack",
+            rows_per_block=R, weights_staged=stage,
+            **attention_bound(B, F, D, A, H, L, w_bytes, "train"))
+        if alone:
+            rows["field_attention_train"]["device_ms"] = kernel_alone_ms(
+                lambda: field_attention_fwd(e, flat, L, H, DROPOUT, seed,
+                                            True),
+                "field_attention_kernel", n=20)
+    if "bwd" in parts:
+        dy = torch.randn(y.shape, device=e.device)
+        leaves = [w.clone().requires_grad_(True) for w in flat]
+        e_leaf = e.clone().requires_grad_(True)
+        y_lib = sdpa_stack(e_leaf, leaves, L, H, DROPOUT)
+
+        def bwd():
+            return field_attention_bwd(e, dy, saved, y, flat, L, H,
+                                       DROPOUT, seed)
+
+        rows["field_attention_bwd"] = dict(
+            ms=cuda_ms(bwd),
+            plain_ms=cuda_ms(lambda: field_attention_bwd_reference(
+                e, dy, saved, y, flat, L, H, DROPOUT, seed), iters=10),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                y_lib, [e_leaf] + leaves, dy, retain_graph=True)),
+            library="torch.autograd.grad through the SDPA + addmm stack "
+                    f"(dropout_p={DROPOUT})",
+            rows_per_block=bwd_config(B, F, D, A, H, n_sm)[0],
+            **attention_bound(B, F, D, A, H, L, w_bytes, "bwd"))
+        if alone:
+            rows["field_attention_bwd"]["device_ms"] = kernel_alone_ms(
+                bwd, "field_attention_bwd_kernel", "reduce_partials_kernel",
+                n=20)
+    return rows
+
+
+def table_pass_timing(p, m, v, ids, g_ids, g_small, plain=False,
+                      iters=50):
+    """The table pass (#7's sweep of ``p``, ``m``, ``v`` carrying #6's
+    rows ``ids``, its sort and searchsorted included): its ms (CUDA
+    events), its device ms launched alone (torch.profiler, 20 launches)
+    and its bound (bytes: the table and both moments read and written,
+    the small fields' gradient, each id, its sorted copy and its row's
+    gradient, the tiles' sums written and read); with ``plain``, its
+    plain version's ms.  -> (row, the pass as a function of the ids)."""
+    from tpurec_torch.ops.fused_adam import (TILE, fused_sparse_adam,
+                                             fused_sparse_adam_reference)
+
+    kw = dict(lr=1e-3, coef=2 * L2 + 1e-8)
+
+    def fused(i=ids):
+        return fused_sparse_adam(p, m, v, i, g_ids, 5, g_small=g_small,
+                                 **kw)
+
+    (V, D), S, N = p.shape, g_small.shape[0], ids.shape[0]
+    nbytes = (V * D * (4 + 2 * m.element_size()) * 2 + S * D * 4
+              + N * (8 + 8 + D * 4) + 2 * -(-V * D // TILE) * 4)
+    row = dict(ms=cuda_ms(fused, iters=iters),
+               device_ms=kernel_alone_ms(fused, *SWEEP_SYMS, n=20),
+               library_ms=None, bytes=nbytes,
+               bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+               n_ids=N)
+    if plain:
+        row["plain_ms"] = cuda_ms(lambda: fused_sparse_adam_reference(
+            p, m, v, ids, g_ids, 5, g_small=g_small, **kw), iters=10,
+            warmup=2)
+    return row, fused
+
+
+def table_update_vs_cpu(dims, table, X, mdt, what):
+    """Kernel 6 as the training step runs it: EmbeddingUpdater.update of
+    ``table`` (one sweep carrying the rows of the batch ``X``'s big-field
+    ids, with the small fields' gradient) from seeded gradients and ``mdt``
+    moments, on the card and on the CPU's plain path: one launch of the
+    pass and its sum's finish, no other port kernel, the result held to
+    the CPU's (:func:`held_to_plain`).  -> (table max abs err, its largest
+    share of the limit's scale, sumsq rel err, the moments m, v it started
+    from)."""
+    from tpurec_torch.config import TrainConfig
+    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
+                                             fused_sparse_adam)
+    from tpurec_torch.train.hybrid import EmbeddingUpdater
+    from tpurec_torch.train.sparse import SparseEmbedState
+
+    V, D = table.shape
+    B = len(X)
+    upd = EmbeddingUpdater(dims, TrainConfig(
+        bs=B, embedding_moments_dtype=str(mdt).removeprefix("torch.")), L2)
+    x = torch.from_numpy(X)
+    gen6 = torch.Generator().manual_seed(SEED + 6)
+    gr = torch.randn(B * len(dims), D, generator=gen6)
+    m0 = (torch.randn(V, D, generator=gen6) * 0.01).to(mdt)
+    v0 = (torch.rand(V, D, generator=gen6) * 1e-4).to(mdt)
+    res = {}
+    for where in ("cuda", "cpu"):
+        st = SparseEmbedState(m=m0.clone().to(where), v=v0.clone().to(where))
+        p = table.clone().to(where)
+        before = (fused_sparse_adam.launches, fused_decay_adam.launches)
+        sq = upd.update(p, st, x.to(where), gr.to(where), 5)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            after = (fused_sparse_adam.launches, fused_decay_adam.launches)
+            check([b - a for a, b in zip(before, after)] == [1, 1],
+                  f"{what}: launches (rows, sweep) {before} -> {after}")
+        res[where] = [p.cpu(), st.m.cpu(), st.v.cpu(), sq.cpu()]
+        if where == "cuda":
+            kernels = update_port_kernels(
+                lambda: upd.update(p, st, x.to(where), gr.to(where), 5), p)
+        del p, st
+    check(kernels == dict.fromkeys(SWEEP_SYMS, 1),
+          f"{what}: port kernels launched {kernels}, want the sweep "
+          f"carrying the rows and its sum's finish once each")
+    got, want = res["cuda"], res["cpu"]
+    tc = upd.tcfg
+    step = sweep_step(table, m0, v0, upd.small_field_grads(
+        x, gr.reshape(B, len(dims), D)), 5, lr=tc.lr,
+        coef=upd.coef, b1=tc.adam_b1, b2=tc.adam_b2, eps=tc.adam_eps)
+    return (*held_to_plain(got, want, step, what), m0, v0)
+
+
+def train_kernel_checks(dev, rng, flat, table, emb_of):
+    """Phase 7: the training kernels against their plain versions on the
+    card.  -> max abs errors by kernel name."""
+    from tpurec_torch.ops.attention import keep_mask
+    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
+                                             fused_decay_adam_reference,
+                                             fused_sparse_adam,
+                                             fused_sparse_adam_reference)
+    from tpurec_torch.nn.core import EmbeddingLayout
+
+    L, H = MODEL["att_layer_num"], MODEL["att_head_num"]
+    errs = {}
+    seed = torch.tensor(31337, device=dev)
+    got = decoded_keep_masks(dev, 512, 12, H, seed, DROPOUT)
+    want = keep_mask(seed, 512, 0, H, 12, DROPOUT).cpu()
+    check(torch.equal(got, want), "attention: the kernel's keep mask differs "
+          "from the plain hash")
+    print(f"attention train: the kernel's keep mask equals the plain hash "
+          f"(512 rows x 2 heads x 12 x 12, drop share "
+          f"{1 - want.float().mean().item():.4f} at rate {DROPOUT})")
+
+    bs = bwd_batches(dev)
+    err_f, err_b = attention_train_checks(dev, flat, emb_of, bs, L, H, seed)
+    errs["field_attention_train"], errs["field_attention_bwd"] = err_f, err_b
 
     layout = EmbeddingLayout(FIELD_DIMS)
     V, D = table.shape
@@ -1016,41 +1216,10 @@ def train_kernel_checks(dev, rng, flat, table, emb_of):
     # kernel 6 as the training step runs it: EmbeddingUpdater.update (one
     # sweep carrying the rows, with the small-field gradient) at a batch's
     # ids with duplicate big-field ids, against the CPU
-    upd = EmbeddingUpdater(FIELD_DIMS, TrainConfig(
-        bs=512, embedding_moments_dtype="bfloat16"), L2)
     X = random_ids(rng, 512)
     X[:256, 0] = X[256:, 0]
-    x = torch.from_numpy(X)
-    gen6 = torch.Generator().manual_seed(SEED + 6)
-    gr = torch.randn(512 * len(FIELD_DIMS), D, generator=gen6)
-    m0 = (torch.randn(V, D, generator=gen6) * 0.01).to(torch.bfloat16)
-    v0 = (torch.rand(V, D, generator=gen6) * 1e-4).to(torch.bfloat16)
-    res = {}
-    for where in ("cuda", "cpu"):
-        st = SparseEmbedState(m=m0.clone().to(where), v=v0.clone().to(where))
-        p = table.clone().to(where)
-        before = (fused_sparse_adam.launches, fused_decay_adam.launches)
-        sq = upd.update(p, st, x.to(where), gr.to(where), 5)
-        if where == "cuda":
-            torch.cuda.synchronize()
-            after = (fused_sparse_adam.launches, fused_decay_adam.launches)
-            check([b - a for a, b in zip(before, after)] == [1, 1],
-                  f"table update: launches (rows, sweep) {before} -> {after}")
-        res[where] = [p.cpu(), st.m.cpu(), st.v.cpu(), sq.cpu()]
-        if where == "cuda":
-            kernels = update_port_kernels(
-                lambda: upd.update(p, st, x.to(where), gr.to(where), 5), p)
-        del p, st
-    check(kernels == dict.fromkeys(SWEEP_SYMS, 1),
-          f"table update: port kernels launched {kernels}, want the sweep "
-          f"carrying the rows and its sum's finish once each")
-    got, want = res["cuda"], res["cpu"]
-    tc = upd.tcfg
-    step = sweep_step(table, m0, v0, upd.small_field_grads(
-        x, gr.reshape(512, len(FIELD_DIMS), D)), 5, lr=tc.lr,
-        coef=upd.coef, b1=tc.adam_b1, b2=tc.adam_b2, eps=tc.adam_eps)
-    err6, worst6, r6 = held_to_plain(got, want, step, "table update")
-    del res, got, want, step
+    err6, worst6, r6, m0, v0 = table_update_vs_cpu(
+        FIELD_DIMS, table, X, torch.bfloat16, "table update")
     # the rows' cases at the flagship table, against the plain version on
     # the CPU: ids inside g_small's prefix (their rows' step replaces
     # g_small's), 1,024 equal ids, ids outside [0, V); bitwise repeatable.
@@ -1499,13 +1668,64 @@ def row_grad_vs_cpu(name, model_kw, table_scale, tcfg, batch,
             "relu_calls": len(masks)}
 
 
+def vs_cpu_config(wd=TRAIN_WD, compute_dtype="float32"):
+    """The TrainConfig of :func:`train_vs_cpu`'s steps."""
+    from tpurec_torch.config import TrainConfig
+
+    return TrainConfig(bs=512, embedding_moments_dtype="bfloat16", wd=wd,
+                       compute_dtype=compute_dtype)
+
+
+def three_steps(where, name, model_kw, table_scale, tcfg, batches,
+                update="hybrid", branches=None):
+    """3 steps of model ``name`` with dropout 0 on ``where`` from the
+    seeded weights, the table scaled by ``table_scale``, over ``batches``,
+    inside ``branches`` (a :class:`relu_branches`) when given.  -> (the
+    losses, the losses before the table's L2 (``loss_and_grads``'), the
+    table after step 1, the cluster centres after step 3 or None)."""
+    from tpurec_torch.config import ModelConfig
+    from tpurec_torch.models import build_model
+
+    model = build_model(name, FIELD_DIMS, towers(name), DOMAIN_IDX,
+                        ModelConfig(**model_kw, **NO_DROPOUT), device=where,
+                        generator=torch.Generator().manual_seed(SEED + 3))
+    with torch.no_grad():
+        model.embedding.table.mul_(table_scale)
+    ts = train_state(model, tcfg, where, update)
+    step = train_step_of(model, tcfg, name, update)
+    losses, data_losses, table1 = [], [], None
+    loss_and_grads = step.loss_and_grads
+
+    def record(*args):
+        out = loss_and_grads(*args)
+        data_losses.append(float(out[0] if isinstance(out, tuple) else out))
+        return out
+
+    step.loss_and_grads = record
+    if branches is not None:
+        branches.__enter__()
+    try:
+        for i in range(3):
+            losses.append(float(step(ts, {k: v[i] for k, v in
+                                          batches.items()}, None)))
+            if i == 0:
+                table1 = model.embedding.table.detach().cpu().clone()
+    finally:
+        if branches is not None:
+            branches.__exit__(None, None, None)
+    centres = (model.cluster_centers.detach().cpu().clone()
+               if hasattr(model, "cluster_centers") else None)
+    return losses, data_losses, table1, centres
+
+
 def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
                  wd=TRAIN_WD, compute_dtype="float32", replay=False,
                  loss_rtol=CPU_LOSS_RTOL, grad_rtol=ROW_GRAD_RTOL,
                  table_share=CPU_TABLE_SHARE, update="hybrid"):
     """Phase 9 (phase 13 for DCN, 18 for CDC's other bases): 3 full-width
     steps of model ``name`` with dropout 0 on the card and on the CPU's
-    plain path, from the same seeded weights and batches.  The table is
+    plain path, from the same seeded weights and batches
+    (:func:`three_steps`).  The table is
     scaled to N(0, table_scale**2), so that the reported loss's L2 term
     (l2 * sum(table**2), 260 at the N(0, 1) init) does not hide the data
     loss; the loss before the table's L2 term (``loss_and_grads``'s) is
@@ -1518,62 +1738,30 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
     land more than 1e-6 apart (two H100 runs) unless wd * p, about 1e-3,
     outweighs that rounding, as CDC_CHECK_WD does for phase 17's row.
     The first step's gradient of the gathered rows is held apart, by
-    :func:`row_grad_vs_cpu`.  ``replay`` (phase 19) runs the 3 steps on
-    the card's branches too (:class:`relu_branches`: the routed models'
-    argmax and pruner edges part the losses themselves) and holds ADL's
-    centres after them to CENTRE_TOL; ``compute_dtype`` runs the steps in
-    that precision, held to ``loss_rtol``, ``grad_rtol`` and
+    :func:`row_grad_vs_cpu`.  ``replay`` (phases 18 and 19) runs the 3
+    steps on the card's branches too (:class:`relu_branches`: a ReLU
+    input within rounding of 0 parts the losses and the table, the routed
+    models' argmax and pruner edges the losses themselves;
+    ``scripts/row_grad_flips.py --phase18`` prints what it removes) and
+    holds ADL's centres after them to CENTRE_TOL; ``compute_dtype`` runs
+    the steps in that precision, held to ``loss_rtol``, ``grad_rtol`` and
     ``table_share``.  ``update`` (phase 20) steps the table under that
     embedding update: the loss held is then the one its step returns (the
     whole loss under "dense", the loss before the table's L2 under
     "sparse"), and the "dense" one's row gradient is the table's
     (:func:`row_grad_vs_cpu`).  -> summary dict."""
-    from tpurec_torch.config import ModelConfig, TrainConfig
-    from tpurec_torch.models import build_model
-
-    tcfg = TrainConfig(bs=512, embedding_moments_dtype="bfloat16", wd=wd,
-                       compute_dtype=compute_dtype)
+    tcfg = vs_cpu_config(wd, compute_dtype)
     batches = train_batches(rng, 3, "cpu")
-    out, masks, centres = {}, [], {}
-    branches = None
+    out, masks, branches = {}, [], None
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        model = build_model(name, FIELD_DIMS, towers(name), DOMAIN_IDX,
-                            ModelConfig(**model_kw, **NO_DROPOUT),
-                            device=where,
-                            generator=torch.Generator().manual_seed(SEED + 3))
-        with torch.no_grad():
-            model.embedding.table.mul_(table_scale)
-        ts = train_state(model, tcfg, where, update)
-        step = train_step_of(model, tcfg, name, update)
-        losses, data_losses, table1 = [], [], None
-        loss_and_grads = step.loss_and_grads
-
-        def record(*args, _f=loss_and_grads, _out=data_losses):
-            out = _f(*args)
-            _out.append(float(out[0] if isinstance(out, tuple) else out))
-            return out
-
-        step.loss_and_grads = record
         if replay:
             branches = relu_branches(masks, record=where == "cuda")
-            branches.__enter__()
-        try:
-            for i in range(3):
-                losses.append(float(step(ts, {k: v[i] for k, v in
-                                              batches.items()}, None)))
-                if i == 0:
-                    table1 = model.embedding.table.detach().cpu().clone()
-        finally:
-            if replay:
-                branches.__exit__(None, None, None)
-        if hasattr(model, "cluster_centers"):
-            centres[where] = model.cluster_centers.detach().cpu().clone()
-        out[where] = (losses, table1, data_losses)
-        print(f"{name}: 3 steps on {where}: losses {losses} "
+        out[where] = three_steps(where, name, model_kw, table_scale, tcfg,
+                                 batches, update, branches)
+        print(f"{name}: 3 steps on {where}: losses {out[where][0]} "
               f"({time.perf_counter() - t0:.1f} s)")
-        del model, ts
-    (lg, tg, dg), (lc, tc, dc) = out["cuda"], out["cpu"]
+    (lg, dg, tg, cg), (lc, dc, tc, cc) = out["cuda"], out["cpu"]
     rel = max(abs(a / b - 1) for a, b in zip(lg, lc))
     data_rel = max(abs(a / b - 1) for a, b in zip(dg, dc))
     check(rel <= loss_rtol,
@@ -1586,8 +1774,8 @@ def train_vs_cpu(dev, rng, name="mmoe", model_kw=MODEL, table_scale=0.01,
               f"{name} 3 steps: the CPU replayed {branches.used} of the "
               f"card's {len(masks)} branch calls")
     centre_err = None
-    if centres:
-        centre_err = (centres["cuda"] - centres["cpu"]).abs().max().item()
+    if cg is not None:
+        centre_err = (cg - cc).abs().max().item()
         check(centre_err <= CENTRE_TOL, f"{name} train cuda vs cpu: "
               f"cluster centres after 3 steps max abs err {centre_err}")
     grad = row_grad_vs_cpu(name, model_kw, table_scale, tcfg,
@@ -1770,15 +1958,10 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
     from tpurec_torch.ops.attention import _SIGNATURES as att_signatures
     from tpurec_torch.ops.attention import _ptrs as att_ptrs
     from tpurec_torch.ops.attention import (_sm_count, bwd_config, bwd_grid,
-                                            field_attention_bwd,
-                                            field_attention_bwd_reference,
                                             field_attention_fwd,
-                                            field_attention_reference,
-                                            fwd_config, keep_threshold)
-    from tpurec_torch.ops.fused_adam import (TILE, fused_decay_adam,
-                                             fused_decay_adam_reference,
-                                             fused_sparse_adam,
-                                             fused_sparse_adam_reference)
+                                            keep_threshold)
+    from tpurec_torch.ops.fused_adam import (fused_decay_adam,
+                                             fused_decay_adam_reference)
 
     L, H = MODEL["att_layer_num"], MODEL["att_head_num"]
     A = MODEL["atten_embed_dim"]
@@ -1791,48 +1974,10 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
     with torch.no_grad():
         emb = upd.gather_rows(table, x).reshape(512, F, D)
     flat = [w.detach() for w in model.aux.atten.flat_weights()]
-    w_bytes = sum(w.numel() * 4 for w in flat)
     seed = torch.tensor(12345, device=dev)
-    rows = {}
-
-    fwd_flops = 512 * attn_flops_per_row(F, D, A, H, L)
-    fwd_bytes = 512 * F * (D + A + L * A) * 4 + w_bytes
-    t_ops, t_b = fwd_flops / PEAK_F32_FLOPS, fwd_bytes / PEAK_BYTES_PER_S
-    R, stage, _ = fwd_config(512, F, D, A, H, _sm_count(dev))
-    rows["field_attention_train"] = dict(
-        rows_per_block=R, weights_staged=stage,
-        tc_bound_ms=tc_bound_ms(fwd_flops, fwd_bytes),
-        ms=cuda_ms(lambda: field_attention_fwd(emb, flat, L, H, DROPOUT,
-                                               seed, True)),
-        plain_ms=cuda_ms(lambda: field_attention_reference(
-            emb, flat, L, H, DROPOUT, seed)),
-        library_ms=cuda_ms(lambda: sdpa_stack(emb, flat, L, H, DROPOUT)),
-        library="F.scaled_dot_product_attention(dropout_p=0.2) + addmm "
-                "stack",
-        bound_ms=max(t_ops, t_b) * 1e3, flops=fwd_flops, bytes=fwd_bytes,
-        bound_by="operations" if t_ops >= t_b else "bytes")
-
+    rows = attention_timing_rows([emb], flat, L, H, seed, ("train", "bwd"))
     y_k, saved = field_attention_fwd(emb, flat, L, H, DROPOUT, seed, True)
     dy = torch.randn(512, F, A, device=dev)
-    leaves = [w.clone().requires_grad_(True) for w in flat]
-    e_leaf = emb.clone().requires_grad_(True)
-    y_lib = sdpa_stack(e_leaf, leaves, L, H, DROPOUT)
-    bwd_flops = 512 * attn_bwd_flops_per_row(F, D, A, H, L)
-    bwd_bytes = 512 * F * (2 * D + 2 * A + L * A) * 4 + 2 * w_bytes
-    t_ops, t_b = bwd_flops / PEAK_F32_FLOPS, bwd_bytes / PEAK_BYTES_PER_S
-    rows["field_attention_bwd"] = dict(
-        ms=cuda_ms(lambda: field_attention_bwd(emb, dy, saved, y_k, flat, L,
-                                               H, DROPOUT, seed)),
-        plain_ms=cuda_ms(lambda: field_attention_bwd_reference(
-            emb, dy, saved, y_k, flat, L, H, DROPOUT, seed)),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            y_lib, [e_leaf] + leaves, dy, retain_graph=True)),
-        library="torch.autograd.grad through the SDPA + addmm stack "
-                "(dropout_p=0.2)",
-        bound_ms=max(t_ops, t_b) * 1e3, flops=bwd_flops, bytes=bwd_bytes,
-        bound_by="operations" if t_ops >= t_b else "bytes",
-        tc_bound_ms=tc_bound_ms(bwd_flops, bwd_bytes))
-    del y_lib, leaves, e_leaf
     # kernel 3 at R rows a group, staged or not, through its C entry point
     R, stage, smem, grid = bwd_config(512, F, D, A, H, _sm_count(dev))
     lib = _build.load("field_attention", att_signatures)
@@ -1904,29 +2049,17 @@ def train_timings(dev, ts, single, batches, gen, tag, step_ms):
     p = table.clone()
     m = torch.zeros(V, D, device=dev, dtype=torch.bfloat16)
     v = torch.zeros_like(m)
-
-    def fused(i=ids):
-        return fused_sparse_adam(p, m, v, i, g_ids, 5, g_small=g_small, **kw)
-
-    nbytes = (V * D * (4 + 2 + 2) * 2 + S * D * 4 + N * (8 + 8 + D * 4)
-              + 2 * -(-V * D // TILE) * 4)
-    rows["fused_sparse_adam"] = dict(
-        ms=cuda_ms(fused),
-        plain_ms=cuda_ms(lambda: fused_sparse_adam_reference(
-            p, m, v, ids, g_ids, 5, g_small=g_small, **kw), iters=10,
-            warmup=2),
-        library_ms=None,
+    r, fused = table_pass_timing(p, m, v, ids, g_ids, g_small, plain=True)
+    r.update(
+        pass_alone_ms=r.pop("device_ms"),
         library="none: torch.optim.SparseAdam steps only the touched rows, "
                 "with no coef * p (L2 / weight decay) term and float32 "
                 "moments, so it computes another function",
-        bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-        bound_by="bytes", n_ids=N,
-        pass_alone_ms=kernel_alone_ms(fused, *SWEEP_SYMS, n=20),
         all_equal_alone_ms=kernel_alone_ms(lambda: fused(same), *SWEEP_SYMS,
                                            n=20),
         sweep_alone_ms=kernel_alone_ms(lambda: fused_decay_adam(
             p, m, v, g_small, 5, **kw), *SWEEP_SYMS, n=20))
-    r = rows["fused_sparse_adam"]
+    rows["fused_sparse_adam"] = r
     print(f"{tag} fused_sparse_adam (kernel 6 in the sweep's pass, {N} ids): "
           f"the pass launched alone (torch.profiler, 20 launches) "
           f"{r['pass_alone_ms']:.4f} ms, with every id on one row "
@@ -3295,7 +3428,7 @@ def _check_rollback(tr, sched, record):
 
 
 def populate_row_vs_cpu(cfg, X, y, dims, n_domain, blob, d2g, row, lanes,
-                        tag, what):
+                        tag, what, domain_idx=DOMAIN_IDX):
     """One populate row of CDC at ``cfg``, from the card's state ``blob``
     (at its update's entry) with the clustering ``d2g``: ``row`` =
     (bidx [K, W], bmask [K, W], bvalid [K], eidx [D, ebs], emask [D,
@@ -3325,7 +3458,7 @@ def populate_row_vs_cpu(cfg, X, y, dims, n_domain, blob, d2g, row, lanes,
     masks, out = [], {}
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        t = CDCTrainer(cfg, dims, n_domain, DOMAIN_IDX, device=where)
+        t = CDCTrainer(cfg, dims, n_domain, domain_idx, device=where)
         t.restore_bytes(blob)
         t.cluster = CDCClusterState.create(n_domain, cfg.cdc.n_cluster,
                                            cfg.cdc)
@@ -3386,7 +3519,7 @@ def populate_row_vs_cpu(cfg, X, y, dims, n_domain, blob, d2g, row, lanes,
     return {"row_err": row_err, "loss_rel_err": loss_rel,
             "table_max_abs_err": diff.max().item(),
             "table_share_beyond_1e-6": share, "steps": n,
-            "flips": branches.flips}
+            "flips": branches.flips, "launches": g["launches"]}
 
 
 def cdc_row_vs_cpu(data, blob, d2g, tag, base="mmoe"):
@@ -3421,7 +3554,7 @@ def cdc_row_vs_cpu(data, blob, d2g, tag, base="mmoe"):
     return {**out, "masked_rows": int((bmask[bvalid > 0] == 0).sum())}
 
 
-def cdc_profile(tr, tag, n=PROFILE_STEPS):
+def cdc_profile(tr, tag, n=PROFILE_STEPS, n_domain=N_DOMAIN):
     """Check 6 of phase 17: where a treatment step's time goes, at W =
     3,584 (7 domains a step) and at 512 (one domain), from the fitted
     trainer: device busy share of the profiled window, launches a step,
@@ -3429,13 +3562,13 @@ def cdc_profile(tr, tag, n=PROFILE_STEPS):
     out = {}
     for width in (7 * 512, 512):
         if width == 512:
-            pairs = [tr._next_idx_padded(d % N_DOMAIN, 512)
+            pairs = [tr._next_idx_padded(d % n_domain, 512)
                      for d in range(n + 2)]
             idxs = np.stack([p[0] for p in pairs])
             masks = np.stack([p[1] for p in pairs])
         else:
             idxs, masks, _ = tr._multi_burst_sched(
-                list(range(N_DOMAIN)), 3, n + 2)
+                list(range(n_domain)), 3, n + 2)
         Xsrc, ysrc, bi = tr._feed(idxs)
         md = tr._dev(masks)
         tr._steps("split", Xsrc, ysrc, bi[:2], md[:2])
@@ -3689,8 +3822,8 @@ def bases_main_path(dev, rng, tag):
     CPU's plain path with #1 and #2 counted, rows/s and a chunk profile at
     each batch size; the hybrid step as phase 8 drives MMoE's (K=8, 8
     warm-up and 16 timed steps, #1, #2, #3 and #6's pass once a step),
-    its profile, and 3 steps against the CPU's plain path.
-    -> {name: summary}."""
+    its profile, and 3 steps against the CPU's plain path on the card's
+    branches.  -> {name: summary}."""
     from tpurec_torch.config import Config, ModelConfig
     from tpurec_torch.ops.attention import field_attention
     from tpurec_torch.ops.embedding import embedding_gather
@@ -3741,8 +3874,16 @@ def bases_main_path(dev, rng, tag):
                                   by_op=False)
         del ts, single, batches
         torch.cuda.empty_cache()
+        # a ReLU input within rounding of 0 can take either side on the
+        # card and the CPU, and a flip in step 1 parts the losses and the
+        # table (phase 18 alone from fresh draws: PLE's loss before the
+        # table's L2 1.41e-4, over CPU_LOSS_RTOL; STAR's table 2 lr apart
+        # in 7e-6 of its values, over CPU_TABLE_SHARE): the steps run on
+        # the card's branches (scripts/row_grad_flips.py --phase18 prints
+        # them on the CPU's own)
         vs_cpu = train_vs_cpu(dev, rng, name, kw,
-                              *PLE_VS_CPU if name == "ple" else ())
+                              *PLE_VS_CPU if name == "ple" else (),
+                              replay=True)
         out[name] = {
             "params": n_params,
             "serve": {"launches": serve_launches, "max_abs_err": err,
@@ -4478,6 +4619,9 @@ def updates_main_path(dev, rng, tag):
 
 CLI_ROWS = 131072               # (a) and (e): phase 16's rows
 CLI_SMALL_ROWS = 32768          # (b)-(d): the CDC fits and the options
+CLI_MMOE = ["--model", "mmoe", "--dataset_name", "synthetic", "--n_rows",
+            str(CLI_ROWS), "--n_domain", "6", "--bs", "512"]   # (a), (c)
+CLI_MMOE_EPOCHS = 2             # (a)
 CLI_AUC_MIN = 0.65              # as phase 16
 CLI_TRACE_STEPS = 8
 CLI_SYMS = ("gather_kernel", "field_attention_kernel",
@@ -4696,9 +4840,9 @@ def cli_main_path(dev, tag):
         return out, rec.trainers[-1], n, _cli_log(tmp, name), secs
 
     # (a) MMoE, 2 epochs, at ModelConfig's widths
-    mmoe = ["--model", "mmoe", "--dataset_name", "synthetic", "--n_rows",
-            str(CLI_ROWS), "--n_domain", "6", "--bs", "512"]
-    out_a, tr_a, n, log, secs = run("mmoe", mmoe + ["--epoch", "2"])
+    mmoe = list(CLI_MMOE)
+    out_a, tr_a, n, log, secs = run(
+        "mmoe", mmoe + ["--epoch", str(CLI_MMOE_EPOCHS)])
     Xtr, ytr = tr_a.cli_split
     summary["a_mmoe"] = a = {**_cli_fit_checks(tr_a, out_a, log, n, 6,
                                                "cli mmoe"), "seconds": secs}
@@ -5231,7 +5375,8 @@ def _auc_text(auc):
     return "(not run: not compared)" if auc is None else f"{auc:.5f}"
 
 
-def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
+def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS,
+                   cli=True):
     """Phase 22: the (data, model) mesh.  (a) a world of 1 over NCCL: the
     mesh Trainer's MESH_STEPS flagship steps against the mesh-less ones,
     bit for bit; (b) 4 ranks on the card over gloo, MESH_SHAPE, dropout 0:
@@ -5242,11 +5387,11 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
     backend's save against the pickle write, its checkpoint restored onto
     one device; (d) the CLI under torch.distributed.run, 2 ranks on the
     card, phase 21 (a)'s configuration for one epoch
-    (:func:`mesh_cli_ranks`).  ``fit_auc`` and
-    ``cli_auc0`` (phase 16's AUC, phase 21 (a)'s first epoch's) may be
-    None when the phase runs alone: (c) and (d) then print their AUC
-    uncompared.  ``draws``: (b)'s batch draws at each wd.  ->
-    (launches, summary)."""
+    (:func:`mesh_cli_ranks`; with ``cli`` only: the default run leaves it
+    to ``--phase 22``).  ``fit_auc`` (phase 16's AUC) is None when the
+    phase runs alone: (c) then prints its AUC uncompared; ``cli_auc0``
+    is phase 21 (a)'s first epoch's AUC, which (d) is held to.
+    ``draws``: (b)'s batch draws at each wd.  -> (launches, summary)."""
     import os
     import shutil
     import tempfile
@@ -5298,7 +5443,8 @@ def mesh_main_path(dev, tag, fit_auc, cli_auc0, draws=MESH_DRAWS):
     more, parts = mesh_ranks_path(dev, tag, tmp, fit_auc, draws)
     launches.update(more)
     summary.update(parts)
-    summary["d"] = mesh_cli_ranks(tag, tmp, root, cli_auc0)
+    if cli:
+        summary["d"] = mesh_cli_ranks(tag, tmp, root, cli_auc0)
     shutil.rmtree(tmp, ignore_errors=True)
     shutdown_distributed()
     summary["phase_seconds"] = time.perf_counter() - t_phase
@@ -7175,7 +7321,8 @@ def stream_config(placement="auto", lanes=0, cut=True, **train):
         cfg.cdc, data_placement=placement, parallel_rows=lanes, **cut_kw))
 
 
-def _observe_updates(tr, X, counters, keep=(), on_block=None):
+def _observe_updates(tr, X, counters, keep=(), on_block=None,
+                     domain_idx=DOMAIN_IDX):
     """Wrap ``tr``'s entry points for phases 25 and 26 -> (record, undo).
     The record holds every hybrid step's loss (tensors; the lanes' steps
     discard theirs), the warmup's and the spans' steps and the spans'
@@ -7236,7 +7383,7 @@ def _observe_updates(tr, X, counters, keep=(), on_block=None):
 
         if block == 2:
             u["b_rows"] = [sorted({int(d) for d in X[bidx[r][valid[r]][
-                bmask[r][valid[r]] > 0], DOMAIN_IDX]})
+                bmask[r][valid[r]] > 0], domain_idx]})
                 for r in range(bidx.shape[0])]
         if u["keep"] and block == 0:
             r = int(np.argmin(np.where(n > 0, n, 1 << 30)))
@@ -10473,6 +10620,706 @@ def phase29_main(rows=None, parts="abcd") -> int:
     return 0
 
 
+# -- Amazon as its users run it (phase 30) ------------------------------------
+
+AMAZON_FIELDS = ("userid", "itemid", "weekday", "domain", "sales_chart",
+                 "sales_rank", "brand", "price")
+AMAZON_DOMAIN_IDX = 3
+AMAZON_N_DOMAIN = 25
+AMAZON_ROWS = 1_000_000         # (b): raw ratings, the JAX package's Amazon
+#                                 "at real shape" (README)
+AMAZON_SCALE_ROWS = 60_000_000  # (c): scripts/bench_amazon_scale.py's size
+# (a): the dims (b)'s preprocessing of AMAZON_ROWS raw ratings drawn from
+# SEED gives (809,117 rows in 25 domains; (b) holds them)
+AMAZON_DIMS = (106071, 49845, 7, 25, 28, 11, 2, 10)
+AMAZON_TREAT = 14               # (a): the checked burst's domains, 2 steps
+AMAZON_UPDATES = 3              # (b), (c): matrix updates of the fit
+AMAZON_WARMUP = 100             # (b): --warmup_step, 200 steps of 512
+AMAZON_REQUESTS = (1,) * 8 + (SERVE_BS,) * 2    # (b): the served requests
+AMAZON_TIMEOUT = 1800           # (b), (c): a user command's subprocess
+# the user's command, as SURVEY.md and docs/MIGRATION.md give it
+AMAZON_ARGV = ("--model", "cdc", "--dataset_name", "amazon", "--base_model",
+               "ple", "--epoch", "1")
+
+# (b), (c): AmazonPreprocessor in a process of its own, ``python -c
+# AMAZON_PREPROCESS ROOT RATINGS META MODE``: MODE "main" makes the user's
+# call, "stages" the same stages one by one; a line "stage" and a JSON
+# [stage, seconds, rows] as each ends
+AMAZON_PREPROCESS = r'''
+import json
+import os
+import sys
+import time
+
+from tpurec_torch.data.preprocess import AmazonPreprocessor
+
+root, ratings, meta, mode = sys.argv[1:5]
+pre = AmazonPreprocessor(root)
+t0 = time.perf_counter()
+
+
+def done(stage, n):
+    global t0
+    print("stage " + json.dumps([stage, time.perf_counter() - t0, n]),
+          flush=True)
+    t0 = time.perf_counter()
+
+
+if mode == "main":
+    done("main", len(pre.main(ratings, meta)))
+else:
+    df = pre.load_ratings(ratings)
+    done("load_ratings", len(df))
+    df = pre.merge_metadata(df, meta)
+    done("k-core + merge_metadata", len(df))
+    out = pre.finalize(df)
+    del df
+    done("finalize", len(out))
+    out.to_csv(pre.preprocess_path, index=False)
+    done("write csv", os.path.getsize(pre.preprocess_path))
+'''
+
+# (b): ``python -m tpurec_torch.cli`` with the kernels' launch counters
+# printed at exit ("launches" and a JSON object)
+CLI_WRAPPER = r'''
+import atexit
+import json
+import runpy
+
+from tpurec_torch.ops.attention import field_attention, field_attention_bwd
+from tpurec_torch.ops.embedding import embedding_gather
+from tpurec_torch.ops.fused_adam import fused_decay_adam, fused_sparse_adam
+
+COUNTERS = {"embedding_gather": embedding_gather,
+            "field_attention_train": field_attention,
+            "field_attention_bwd": field_attention_bwd,
+            "fused_decay_adam": fused_decay_adam,
+            "fused_sparse_adam": fused_sparse_adam}
+atexit.register(lambda: print("launches " + json.dumps(
+    {k: f.launches for k, f in COUNTERS.items()}), flush=True))
+runpy.run_module("tpurec_torch.cli", run_name="__main__", alter_sys=True)
+'''
+
+
+def _digits(a, n):
+    """The n decimal digits of each of ``a`` (int64, < 10**n) as ASCII."""
+    p = 10 ** np.arange(n - 1, -1, -1, dtype=np.int64)
+    return (a[:, None] // p % 10 + 48).astype(np.uint8)
+
+
+def _power_law_ids(rng, n, vocab):
+    """scripts/bench_amazon_scale.py's heavy-tailed id draw."""
+    return np.minimum(np.floor(vocab * rng.random(n) ** 2.2).astype(np.int64),
+                      vocab - 1)
+
+
+def amazon_raw(root, rows, seed=SEED, chunk=5_000_000):
+    """Raw Amazon input in ``root`` from ``default_rng(seed)``, in
+    scripts/bench_amazon_scale.py's schema and distributions (that script
+    imports the JAX package): a headerless ``itemid,userid,rating,
+    timestamp`` CSV of ``rows`` ratings over rows / 20 items and 2 rows /
+    15 users (its 60M, 3M, 8M), power-law ids, 85% of the timestamps in
+    the 12 months before the dataset's end and the rest in the year
+    before them, ratings 1-5 at .05/.07/.13/.25/.5; and a JSON-lines
+    metadata file, one line an item: its domain of 25, a brand of 30,000
+    (0 none), price and sales rank (in one of the 25 charts or 2 more)
+    missing for 25% and 20%.  The ratings are written as bytes from
+    digits (35 a line).  -> (ratings path, meta path, seconds)."""
+    import os
+    from datetime import timedelta
+
+    from tpurec_torch.data.preprocess import (AMAZON_DOMAIN2ENCODER,
+                                              AmazonPreprocessor)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    n_items, n_users = rows // 20, rows * 2 // 15
+    end = AmazonPreprocessor(root).end_date
+    start = end - int(timedelta(days=365).total_seconds())
+    ratings = os.path.join(root, "ratings.csv")
+    with open(ratings, "wb") as f:
+        for lo in range(0, rows, chunk):
+            m = min(chunk, rows - lo)
+            ts = np.where(rng.random(m) < 0.85, rng.integers(start, end, m),
+                          rng.integers(start - 3 * 10**7, start, m))
+            item = _power_law_ids(rng, m, n_items)
+            user = _power_law_ids(rng, m, n_users)
+            r = rng.choice(np.arange(1, 6), m, p=[.05, .07, .13, .25, .5])
+            line = np.empty((m, 35), np.uint8)
+            line[:, [0, 10, 9, 19, 21, 22, 23, 34]] = np.frombuffer(
+                b"AU,,.0,\n", np.uint8)
+            line[:, 1:9] = _digits(item, 8)
+            line[:, 11:19] = _digits(user, 8)
+            line[:, 20] = 48 + r
+            line[:, 24:34] = _digits(ts, 10)
+            f.write(line.tobytes())
+    domains = list(AMAZON_DOMAIN2ENCODER)
+    charts = domains + ["Beauty & Personal Care", "Health & Household"]
+    meta = os.path.join(root, "meta.json")
+    with open(meta, "w") as f:
+        for lo in range(0, n_items, 250_000):
+            m = min(250_000, n_items - lo)
+            dom = rng.integers(0, len(domains), m)
+            chart = rng.integers(0, len(charts), m)
+            brand = rng.integers(0, 30000, m)
+            price = np.round(rng.lognormal(2.5, 1.0, m), 2)
+            rank = rng.integers(1, 3_000_000, m)
+            has_price, has_rank = rng.random(m) > 0.25, rng.random(m) > 0.2
+            lines = []
+            for j in range(m):
+                rec = ('{"asin": "A%08d", "brand": "%s", "category": '
+                       '["%s", "sub", "subsub"]' % (
+                           lo + j, f"brand_{brand[j]}" if brand[j] else "",
+                           domains[dom[j]]))
+                if has_price[j]:
+                    rec += ', "price": "$%.2f"' % price[j]
+                if has_rank[j]:
+                    rec += (f', "rank": "#{rank[j]:,} in {charts[chart[j]]} '
+                            '(See Top 100)"')
+                lines.append(rec + "}")
+            f.write("\n".join(lines) + "\n")
+    return ratings, meta, time.perf_counter() - t0
+
+
+def _amazon_preprocess(root, ratings, meta, mode):
+    """AMAZON_PREPROCESS in a process of its own, its resident memory read
+    from /proc every 20 ms (the child's own ru_maxrss starts from this
+    process's, whose image it is spawned from, and the card's machine
+    shows no VmHWM) -> [stage, seconds, rows, peak RSS GiB so far] a
+    stage."""
+    import os
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c", AMAZON_PREPROCESS, root, ratings, meta, mode],
+        cwd=_here(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": _here()})
+    lines, err = [], []
+    readers = [threading.Thread(target=lambda f=f, to=to: to.extend(f),
+                                daemon=True)
+               for f, to in ((proc.stdout, lines), (proc.stderr, err))]
+    for r in readers:
+        r.start()
+    peak_kb, stages = 0, []
+    deadline = time.perf_counter() + AMAZON_TIMEOUT
+    while True:
+        done = proc.poll() is not None
+        try:
+            with open(f"/proc/{proc.pid}/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        peak_kb = max(peak_kb, int(line.split()[1]))
+        except (OSError, ValueError):
+            pass
+        if done:
+            for r in readers:
+                r.join(timeout=30)
+        for line in lines[len(stages):]:
+            check(line.startswith("stage "), f"AmazonPreprocessor: {line}")
+            stages.append(json.loads(line[6:]) + [peak_kb / 2**20])
+        if done:
+            break
+        if time.perf_counter() > deadline:
+            proc.kill()
+            raise SmokeFailure(f"AmazonPreprocessor ({mode}) ran over "
+                               f"{AMAZON_TIMEOUT} s")
+        time.sleep(0.02)
+    check(proc.returncode == 0 and stages, f"AmazonPreprocessor ({mode}) "
+          f"exited {proc.returncode}: {''.join(err)[-3000:]}")
+    return stages
+
+
+def amazon_ids(rng, n, dims=AMAZON_DIMS):
+    return np.stack([rng.integers(0, d, n) for d in dims], 1).astype(np.int32)
+
+
+def amazon_kernels(dev, tag):
+    """Phase 30 (a), the kernels at Amazon's shapes (8 fields, domain at
+    field 3, AMAZON_DIMS' table, the flagship's D=16, A=64, H=2, L=3):
+    #1 bitwise its plain version at B = 1, 512, 4096, 4097 with ids out
+    of range; #2 in eval within ATTN_TOL at B = 1, R - 1, R, R + 1 (R=12
+    at 4096: 96 stacked rows), 512, 513, 4096, 4097, bitwise repeatable;
+    #2 in training and #3 (:func:`attention_train_checks`); #7's pass
+    carrying #6 on a batch's ids with duplicates, f32 moments (the CLI's
+    default) against the CPU (:func:`table_update_vs_cpu`).  Then each
+    kernel's time at B = 512 and 4096 beside its plain version, the
+    library call and its bound, recomputed for F=8.  -> (max errors by
+    kernel name, timings by kernel name and batch)."""
+    from tpurec_torch.nn.core import EmbeddingLayout
+    from tpurec_torch.nn.initializers import init_module
+    from tpurec_torch.nn.interactions import FieldAttention
+    from tpurec_torch.ops.attention import (_sm_count, bwd_config,
+                                            field_attention,
+                                            field_attention_reference,
+                                            fwd_config)
+    from tpurec_torch.ops.embedding import embedding_gather_reference
+    from tpurec_torch.train.hybrid import EmbeddingUpdater
+    from tpurec_torch.config import TrainConfig
+
+    rng = np.random.default_rng(SEED + 30)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    layout = EmbeddingLayout(AMAZON_DIMS)
+    F, D = len(AMAZON_DIMS), MODEL["embed_dim"]
+    A, H, L = (MODEL["atten_embed_dim"], MODEL["att_head_num"],
+               MODEL["att_layer_num"])
+    table = torch.randn(layout.vocab, D, generator=gen)
+    table[layout.n_rows:] = 0.0
+    q = table.to(dev)
+    offsets, limits = layout.device_arrays(dev, layout.vocab)
+    g = layout.gather(q)
+    errs = {"embedding_gather": 0.0}
+    for B in (1, 512, 4096, 4097):
+        X = amazon_ids(rng, B)
+        X[0, 2] = -1                     # wraps inside the small prefix
+        X[-1, 0] = 10**8                 # past the table -> fill
+        ids = torch.from_numpy(X).to(dev)
+        got, want = g(ids), embedding_gather_reference(q, ids, offsets,
+                                                       limits)
+        torch.cuda.synchronize()
+        check(got.shape == (B, F, D) and nan_equal(got, want),
+              f"amazon gather B={B} differs")
+
+    def emb_of(B):
+        return g(torch.from_numpy(amazon_ids(rng, B)).to(dev))
+
+    head = init_module(FieldAttention(D, A, L, H), gen).to(dev)
+    flat = [w.detach() for w in head.flat_weights()]
+    n_sm = _sm_count(dev)
+    R = fwd_config(4096, F, D, A, H, n_sm)[0]
+    check((R, fwd_config(512, F, D, A, H, n_sm)[0],
+           bwd_config(512, F, D, A, H, n_sm)[0]) == (12, 4, 2),
+          f"amazon attention: rows a block {R} at 4096")
+    err = 0.0
+    bs = sorted({1, R - 1, R, R + 1, 512, 513, 4096, 4097})
+    for B in bs:
+        emb = emb_of(B)
+        got = field_attention(emb, flat, L, H)
+        again = field_attention(emb, flat, L, H)
+        want = field_attention_reference(emb, flat, L, H)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"amazon attention B={B}: two calls "
+              "differ")
+        e = (got - want).abs().max().item()
+        check(e <= ATTN_TOL, f"amazon attention B={B}: max abs err {e}")
+        err = max(err, e)
+    errs["field_attention"] = err
+    print(f"{tag} amazon #1 bitwise its plain version at B=1,512,4096,4097 "
+          f"(ids out of range included); #2 eval max abs err {err:.3g} (tol "
+          f"{ATTN_TOL}) at B={','.join(map(str, bs))}, F={F}: {R} rows a "
+          f"block at 4096 ({R * F} stacked), 4 at 512; bitwise repeatable")
+    seed = torch.tensor(4242, device=dev)
+    errs["field_attention_train"], errs["field_attention_bwd"] = \
+        attention_train_checks(dev, flat, emb_of, sorted({1, 2, 3, 512, 4096,
+                                                          4097}), L, H, seed,
+                               f" (amazon, F={F})")
+    X = amazon_ids(rng, 512)
+    X[:256, 0] = X[256:, 0]              # duplicate user ids
+    err6, worst6, r6, _, _ = table_update_vs_cpu(
+        AMAZON_DIMS, table, X, torch.float32, "amazon table update")
+    errs["fused_sparse_adam"] = errs["fused_decay_adam"] = err6
+    print(f"{tag} amazon table update ({layout.vocab} x {D}, f32 moments, "
+          f"{len(layout.big_fields)} big fields after "
+          f"{len(layout.small_fields)} small ones, {layout.small_rows} small "
+          f"rows): one launch of the pass carrying the rows and its sum's "
+          f"finish; {worst6:.3g} x max(1, |p'|, step) vs the CPU (tol "
+          f"{ROWS_TOL}), sumsq rel err {r6:.3g}")
+
+    # times at F=8 (CUDA events; device: torch.profiler, launched alone)
+    rows = {k: {} for k in ("field_attention", "field_attention_train",
+                            "field_attention_bwd", "fused_sparse_adam")}
+    for B in BATCH_SIZES:
+        by_name = attention_timing_rows([emb_of(B) for _ in range(4)], flat,
+                                        L, H, seed, alone=True)
+        for name, r in by_name.items():
+            rows[name][B] = r
+        # the table pass with the batch's big-field ids, f32 moments
+        upd = EmbeddingUpdater(AMAZON_DIMS, TrainConfig(bs=B), L2)
+        x = torch.from_numpy(amazon_ids(rng, B)).to(dev)
+        ids, g_ids = upd.big_rows(x, torch.randn(B, F, D, device=dev))
+        p = q.clone()
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        rows["fused_sparse_adam"][B] = table_pass_timing(
+            p, m, v, ids, g_ids, torch.randn(upd.S, D, device=dev),
+            plain=True)[0]
+        del p, m, v
+    for name, by_b in rows.items():
+        for B, r in by_b.items():
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+            print(f"{tag} amazon {name} B={B}, F={F}: kernel {r['ms']:.4f} ms"
+                  f" (device {r['device_ms']:.4f} ms launched alone), plain "
+                  f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return errs, {k: {str(b): r for b, r in v.items()}
+                  for k, v in rows.items()}
+
+
+def amazon_steps(tag):
+    """Phase 30 (a), the steps: CDC on PLE at full width
+    (:func:`cdc_config` with base "ple") on Amazon's schema, make_synthetic
+    rows at AMAZON_DIMS with 25 domains at field 3: a fresh trainer's
+    treatment burst of AMAZON_TREAT domains (2 hybrid steps at W = 3,584)
+    and its 25-domain probe eval, on the card and on the CPU's plain path
+    on the card's branches from step 0 (:func:`populate_row_vs_cpu`: the
+    losses within CPU_LOSS_RTOL).  -> summary, its launches included."""
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.data import make_synthetic
+
+    data = make_synthetic(
+        n_rows=65536, n_fields=len(AMAZON_DIMS), n_domain=AMAZON_N_DOMAIN,
+        field_dims=AMAZON_DIMS, domain_idx=AMAZON_DOMAIN_IDX, seed=1)
+    cfg = cdc_config(dropout=0.0, wd=CDC_CHECK_WD, base="ple",
+                     embedding_moments_dtype="float32")
+    tr = CDCTrainer(cfg, AMAZON_DIMS, AMAZON_N_DOMAIN, AMAZON_DOMAIN_IDX)
+    blob = tr.snapshot_bytes()
+    del tr
+    torch.cuda.empty_cache()
+    t = CDCTrainer(cfg, AMAZON_DIMS, AMAZON_N_DOMAIN, AMAZON_DOMAIN_IDX,
+                   device="cpu")
+    t.setup_data(data.train)
+    bidx, bmask, bvalid = t._multi_burst_sched(list(range(AMAZON_TREAT)), 1,
+                                               2)
+    eidx, emask = t._eval_sched()
+    del t
+    check(int(bvalid.sum()) == 2 and bidx.shape[1] == 7 * 512,
+          f"amazon: the checked burst runs {int(bvalid.sum())} steps of "
+          f"{bidx.shape[1]} rows")
+    X, y = data.train
+    return populate_row_vs_cpu(
+        cfg, X, y, AMAZON_DIMS, AMAZON_N_DOMAIN, blob,
+        np.arange(AMAZON_N_DOMAIN) % N_TOWER,
+        (bidx, bmask, bvalid, eidx, emask), 0, tag,
+        "amazon cdc ple burst", domain_idx=AMAZON_DOMAIN_IDX)
+
+
+def amazon_main_path(dev, tag):
+    """Phase 30 (a), in the default run: :func:`amazon_kernels` and
+    :func:`amazon_steps`.  -> (launches of the steps, summary)."""
+    t_phase = time.perf_counter()
+    errs, timings = amazon_kernels(dev, tag)
+    steps = amazon_steps(tag)
+    summary = {"errors": errs, "timings": timings, "steps": steps,
+               "phase_seconds": time.perf_counter() - t_phase}
+    print(f"amazon phase: {summary['phase_seconds']:.1f} s")
+    return steps["launches"], summary
+
+
+def _amazon_split_steps(train, bs=512):
+    """A CDC epoch's steps: each domain's train rows in batches of bs."""
+    counts = np.bincount(train[0][:, AMAZON_DOMAIN_IDX],
+                         minlength=AMAZON_N_DOMAIN)
+    return int(np.sum(-(-counts // bs)))
+
+
+def _post(url, X):
+    """POST ``X``'s rows to a host's /predict -> its predictions."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/predict",
+                                 data=_serve_load().body_of(X))
+    with urllib.request.urlopen(req, timeout=120) as r:
+        check(r.status == 200, f"/predict {r.status}")
+        return np.asarray(json.loads(r.read())["predictions"], np.float32)
+
+
+def amazon_cli_path(tag, rows=AMAZON_ROWS):
+    """Phase 30 (b), ``--phase 30``: the user's commands, each in a process
+    of its own.  Raw ratings and metadata (:func:`amazon_raw`, ``rows``
+    ratings); ``AmazonPreprocessor(root).main(ratings, meta)``; then
+    ``python -m tpurec_torch.cli --model cdc --dataset_name amazon
+    --base_model ple --epoch 1`` (through CLI_WRAPPER, which prints the
+    kernels' launches at exit) with --warmup_step AMAZON_WARMUP and the
+    --update_interval that gives the epoch AMAZON_UPDATES matrix updates:
+    rc 0 and no exit fault, 25 domains at field 3 and AMAZON_DIMS, a
+    finite valid AUC for every domain, the clustering decided (in the
+    log, once an update) and saved in the checkpoint, #1 = #2 and #3 =
+    #6 = #7 launched; then ``python -m tpurec_torch.server --ckpt`` that
+    checkpoint, its replies to 1-row and SERVE_BS-row requests within
+    PRED_TOL of the checkpoint's Predictor on the CPU, #1 and #2 launched
+    once a chunk.  -> summary."""
+    import os
+    import pickle
+    import tempfile
+
+    from tpurec_torch import cli
+    from tpurec_torch.serve import predictor_from_checkpoint
+
+    t_phase = time.perf_counter()
+    out = {"raw_ratings": rows}
+    with tempfile.TemporaryDirectory(dir=_here()) as root, \
+            contextlib.ExitStack() as stack:
+        ratings, meta, out["raw_seconds"] = amazon_raw(root, rows)
+        t0 = time.perf_counter()
+        out["preprocess"] = _amazon_preprocess(root, ratings, meta, "main")
+        out["preprocess_seconds"] = time.perf_counter() - t0
+        argv = list(AMAZON_ARGV) + ["--data_path", root]
+        train, valid, test, dims, n_domain, di = cli.load_dataset(
+            cli.build_config(cli.parse_args(argv)))
+        check((dims, n_domain, di) == (AMAZON_DIMS, AMAZON_N_DOMAIN,
+                                       AMAZON_DOMAIN_IDX),
+              f"amazon (b): field_dims {dims}, {n_domain} domains, domain at "
+              f"field {di}; (a) ran at {AMAZON_DIMS}")
+        n_steps = _amazon_split_steps(train)
+        interval = -(-n_steps // 5)      # 2 x 1024 / 512 x this steps apart
+        save, log = os.path.join(root, "save"), os.path.join(root, "log.jsonl")
+        argv += ["--warmup_step", str(AMAZON_WARMUP), "--update_interval",
+                 str(interval), "--save_path", save, "--log_path", log]
+        split = [len(s[1]) for s in (train, valid, test)]
+        del train, valid, test
+        print(f"{tag} amazon (b) {rows} raw ratings written in "
+              f"{out['raw_seconds']:.1f} s; AmazonPreprocessor.main in "
+              f"{out['preprocess_seconds']:.1f} s -> "
+              f"{out['preprocess'][0][2]} rows (peak RSS "
+              f"{out['preprocess'][0][3]:.2f} GiB); the timestamp split "
+              f"{split} rows, field_dims {dims}, an epoch of {n_steps} steps")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_WRAPPER] + argv, cwd=_here(),
+            capture_output=True, text=True, timeout=AMAZON_TIMEOUT,
+            env={**os.environ, "PYTHONPATH": _here()})
+        out["cli_seconds"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"amazon (b): python -m tpurec_torch.cli "
+              f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+        faults = [f for f in EXIT_FAULTS if f in proc.stderr + proc.stdout]
+        check(not faults, f"amazon (b): exit fault {faults}")
+        lines = proc.stdout.splitlines()
+        res = json.loads([x for x in lines if x.startswith("{")][-1])
+        launches = json.loads([x for x in lines
+                               if x.startswith("launches ")][-1][9:])
+        with open(log) as f:
+            recs = [json.loads(x) for x in f if x.strip()]
+        ups = [r for r in recs if "cdc_update_seconds" in r]
+        aucs = res["valid"]["domain_auc"] if res.get("valid") else {}
+        check(len(aucs) == AMAZON_N_DOMAIN
+              and all(np.isfinite(float(a)) for a in aucs.values()),
+              f"amazon (b): valid per-domain AUC {aucs}")
+        check(len(ups) == AMAZON_UPDATES, f"amazon (b): {len(ups)} matrix "
+              f"updates, want {AMAZON_UPDATES}")
+        with open(res["checkpoint"], "rb") as f:
+            payload = pickle.load(f)
+        check(tuple(payload["field_dims"]) == AMAZON_DIMS
+              and payload["n_domain"] == AMAZON_N_DOMAIN
+              and payload["domain_idx"] == AMAZON_DOMAIN_IDX
+              and len(res["domain2group_list"]) == AMAZON_N_DOMAIN
+              and payload["domain2group_list"] == res["domain2group_list"],
+              f"amazon (b): the checkpoint's schema and clustering "
+              f"{payload['field_dims']}, {payload['domain2group_list']}; "
+              f"the run's {res['domain2group_list']}")
+        n = launches
+        check(n["embedding_gather"] == n["field_attention_train"]
+              > n["field_attention_bwd"] == n["fused_decay_adam"]
+              == n["fused_sparse_adam"] > 0, f"amazon (b): launches {n}")
+        out.update(
+            split_rows=split, epoch_steps=n_steps, update_interval=interval,
+            launches=launches, update_seconds=[r["cdc_update_seconds"]
+                                               for r in ups],
+            clusterings=[r["domain2group"] for r in ups],
+            valid=res["valid"], test=res.get("test"),
+            domain2group=res["domain2group_list"])
+        epoch = [r for r in recs if "epoch_seconds" in r][-1]
+        print(f"{tag} amazon (b) python -m tpurec_torch.cli "
+              f"{' '.join(AMAZON_ARGV)} --warmup_step {AMAZON_WARMUP} "
+              f"--update_interval {interval}: rc 0 in {out['cli_seconds']:.1f}"
+              f" s (the epoch {epoch['epoch_seconds']:.1f} s, "
+              f"{AMAZON_UPDATES} updates "
+              + ", ".join(f"{s:.1f}" for s in out["update_seconds"])
+              + f" s); valid total_auc {res['valid']['total_auc']:.5f}, "
+              f"mean_auc {res['valid']['mean_auc']:.5f}, per-domain "
+              f"{min(map(float, aucs.values())):.4f}-"
+              f"{max(map(float, aucs.values())):.4f}; test total_auc "
+              f"{res['test']['total_auc']:.5f}; clustering "
+              f"{res['domain2group_list']} saved; launches {launches}")
+
+        ckpt = res["checkpoint"]
+        host = ServedHost(ckpt, SERVE_BS, "float32",
+                          os.path.join(root, "host"), "amazon")
+        stack.callback(host.kill)
+        cpu = predictor_from_checkpoint(ckpt, batch_sizes=(SERVE_BS,),
+                                        device="cpu")
+        url = host.wait_ready()
+        rng = np.random.default_rng(SEED + 31)
+        err = 0.0
+        for n_rows in AMAZON_REQUESTS:
+            X = amazon_ids(rng, n_rows, dims)
+            got = _post(url, X)
+            check(got.shape == (n_rows,) and np.all(np.isfinite(got)),
+                  f"amazon (b): a {n_rows}-row reply {got.shape}")
+            err = max(err, float(np.max(np.abs(got - cpu(X)))))
+        check(err <= PRED_TOL, f"amazon (b): served vs the CPU's Predictor "
+              f"max abs err {err}")
+        rc, stop_s, end = host.stop()
+        sent = len(AMAZON_REQUESTS)
+        check(end["launches"] == {"embedding_gather": sent + 1,
+                                  "field_attention": sent + 1},
+              f"amazon (b): the host launched {end['launches']} for {sent} "
+              "chunks and warm()'s")
+        out["served"] = {"requests": sent, "cpu_err": err,
+                         "launches": end["launches"], "rc": rc,
+                         "start_seconds": host.start_s,
+                         "stop_seconds": stop_s}
+        print(f"{tag} amazon (b) python -m tpurec_torch.server --ckpt "
+              f"{os.path.basename(ckpt)} (up in {host.start_s:.1f} s): "
+              f"{AMAZON_REQUESTS.count(1)} 1-row and "
+              f"{AMAZON_REQUESTS.count(SERVE_BS)} {SERVE_BS}-row requests "
+              f"within {err:.3g} of the CPU's Predictor (tol {PRED_TOL}); "
+              f"#1, #2 launched {end['launches']}; SIGINT rc {rc}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"amazon (b): {out['phase_seconds']:.1f} s")
+    return out
+
+
+def amazon_at_scale(tag, rows):
+    """Phase 30 (c), ``--phase 30 --rows N``: the JAX package's scale proof
+    (scripts/bench_amazon_scale.py, 60M raw ratings) on the card's host.
+    The raw pair; AmazonPreprocessor's stages one by one in a process of
+    its own, each stage's seconds and the peak RSS after it; the CLI's
+    load_dataset in this process; then CDCTrainer.fit as the CLI builds it
+    (the user's argv, --update_interval at its default, 1,000) with the
+    epoch cut by a log_fn that raises after the AMAZON_UPDATES-th matrix
+    update, as phase 27 (b) cuts its epoch: the train split resident,
+    each update's seconds and launches against its schedule, ms a step
+    of the spans between updates; then where a step's time goes at W =
+    3,584 and 512 (:func:`cdc_profile`: device busy, the top device
+    operations) and the table pass at this table against its bound.  ->
+    summary."""
+    import os
+    import resource
+    import tempfile
+
+    from tpurec_torch import cli
+    from tpurec_torch.cdc import CDCTrainer
+    from tpurec_torch.nn.core import EmbeddingLayout
+    from tpurec_torch.train.hybrid import EmbeddingUpdater
+
+    t_phase = time.perf_counter()
+    out = {"raw_ratings": rows}
+    with tempfile.TemporaryDirectory(dir=_here()) as root:
+        ratings, meta, out["raw_seconds"] = amazon_raw(root, rows)
+        out["raw_bytes"] = [os.path.getsize(ratings), os.path.getsize(meta)]
+        print(f"{tag} amazon (c) {rows} raw ratings ({out['raw_bytes'][0]} "
+              f"B) and {rows // 20} items' metadata ({out['raw_bytes'][1]} "
+              f"B) written in {out['raw_seconds']:.1f} s", flush=True)
+        out["stages"] = _amazon_preprocess(root, ratings, meta, "stages")
+        for stage, s, n, rss in out["stages"]:
+            print(f"{tag} amazon (c) {stage}: {s:.1f} s -> {n} "
+                  f"{'B' if stage == 'write csv' else 'rows'} (peak RSS "
+                  f"{rss:.2f} GiB)", flush=True)
+        os.remove(ratings)
+        os.remove(meta)
+        argv = list(AMAZON_ARGV) + ["--data_path", root]
+        cfg = cli.build_config(cli.parse_args(argv))
+        t0 = time.perf_counter()
+        train, valid, test, dims, n_domain, di = cli.load_dataset(cfg)
+        out["load_seconds"] = time.perf_counter() - t0
+    del test
+    layout = EmbeddingLayout(dims)
+    out.update(field_dims=dims, n_domain=n_domain, table_rows=layout.vocab,
+               split_rows=[len(train[1]), len(valid[1])],
+               resident_bytes=train[0].nbytes + train[1].nbytes,
+               host_rss_gb=resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 2**20)
+    print(f"{tag} amazon (c) load_dataset {out['load_seconds']:.1f} s: "
+          f"field_dims {dims}, {n_domain} domains; the table {layout.vocab} "
+          f"x {MODEL['embed_dim']}; train {len(train[1])} rows = "
+          f"{out['resident_bytes'] / 1e9:.3f} GB of ids and labels, valid "
+          f"{len(valid[1])}; host peak RSS {out['host_rss_gb']:.2f} GiB",
+          flush=True)
+    check(n_domain == AMAZON_N_DOMAIN and di == AMAZON_DOMAIN_IDX,
+          f"amazon (c): {n_domain} domains, domain at field {di}")
+
+    tr = CDCTrainer(cfg, dims, n_domain, di)
+    counters = train_counters("ple")
+    rec, undo = _observe_updates(tr, train[0], counters,
+                                 domain_idx=AMAZON_DOMAIN_IDX)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    def cut(r):
+        if "cdc_update_seconds" in r and len(rec["updates"]) \
+                == AMAZON_UPDATES:
+            raise _Cut(f"cut after update {AMAZON_UPDATES}")
+
+    t0 = time.perf_counter()
+    try:
+        tr.fit(train, valid, log_fn=cut)
+        raise SmokeFailure("amazon (c): the epoch ended before its cut")
+    except _Cut:
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    out["fit_seconds"] = time.perf_counter() - t0
+    check(tr._resident, "amazon (c): the train split did not stay resident")
+    ups = rec["updates"]
+    for i, u in enumerate(ups):
+        _check_update_launches(u, f"amazon (c) update {i + 1}")
+    n_steps = (rec["warmup_steps"] + rec["span_steps"]
+               + sum(u["valid_steps"] for u in ups))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = schedule_launches(n_steps, n_steps + sum(u["probe_forwards"]
+                                                    for u in ups))
+    check(launches == want, f"amazon (c): launches {launches}, the "
+          f"schedule {want}")
+    step_ms = rec["span_seconds"] / rec["span_steps"] * 1e3
+    out.update(fit_launches=launches, warmup_steps=rec["warmup_steps"],
+               span_steps=rec["span_steps"], span_ms_a_step=step_ms,
+               device_peak_gb=rec["peak_gb"],
+               updates=[{x: u[x] for x in ("seconds", "peak_gb",
+                                            "valid_steps", "probe_forwards",
+                                            "blocks", "d2g", "launches")}
+                        for u in ups])
+    print(f"{tag} amazon (c) CDCTrainer.fit cut after update "
+          f"{AMAZON_UPDATES} ({out['fit_seconds']:.1f} s, the split "
+          f"resident): warmup {rec['warmup_steps']} steps; "
+          f"{rec['span_steps']} steps between updates at {step_ms:.3f} ms a "
+          f"step (host clock); updates "
+          + "; ".join(_update_line(u) for u in ups)
+          + f"; device peak {rec['peak_gb']:.2f} GiB; launches {launches} "
+          "against the schedule", flush=True)
+    out["profile"] = cdc_profile(tr, f"{tag} amazon (c)",
+                                 n_domain=AMAZON_N_DOMAIN)
+
+    # the table pass at this table (f32 moments, the CLI's), a step's ids
+    upd = EmbeddingUpdater(dims, cfg.train, L2)
+    F, D = len(dims), MODEL["embed_dim"]
+    p = tr.model.embedding.table.detach()
+    V, S = p.shape[0], upd.S
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    x = torch.from_numpy(train[0][:512]).to(p.device)
+    ids, g_ids = upd.big_rows(x, torch.randn(512, F, D, device=p.device))
+    row, _ = table_pass_timing(p, m, v, ids, g_ids,
+                               torch.randn(S, D, device=p.device), iters=20)
+    out["table_pass"] = dict(row, rows=V)
+    r = out["table_pass"]
+    print(f"{tag} amazon (c) table pass (#7 carrying #6, {V} x {D}, f32 "
+          f"moments, {ids.shape[0]} ids): {r['ms']:.4f} ms (CUDA events), "
+          f"device {r['device_ms']:.4f} ms launched alone, bound "
+          f"{r['bound_ms']:.4f} ms (bytes)")
+    del tr, m, v, train, valid
+    torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"amazon (c): {out['phase_seconds']:.1f} s")
+    return out
+
+
+def phase30_main(rows=None) -> int:
+    """Phase 30 alone, after the build: (a), then (b), or with ``rows``
+    (c) at that many raw ratings."""
+    start = _phase_alone("phase 30")
+    if start is None:
+        return 1
+    dev, tag = start
+    t0 = time.perf_counter()
+    launches, summary = amazon_main_path(dev, tag)
+    print(json.dumps({"launches_amazon": launches}))
+    if rows is None:
+        summary["b"] = amazon_cli_path(tag)
+    else:
+        summary["c"] = amazon_at_scale(tag, rows)
+    print(json.dumps({"amazon": summary}, default=str))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -10863,9 +11710,10 @@ def main() -> int:
     cli_launches, cli = cli_main_path(dev, tag)
 
     # -- 22. the (data, model) mesh --------------------------------------------
+    # (d), the CLI under torch.distributed.run, runs with --phase 22
     mesh_launches, mesh = mesh_main_path(
         dev, tag, fit_summary["valid"]["total_auc"],
-        cli["a_mmoe"]["valid_auc_by_epoch"][0])
+        cli["a_mmoe"]["valid_auc_by_epoch"][0], cli=False)
 
     # -- 23. CDC on the mesh and expert parallelism ---------------------------
     ep_launches, ep = ep_main_path(
@@ -10883,6 +11731,9 @@ def main() -> int:
     # -- 28. serving as its users run it: the host under concurrent clients --
     serving = serving_main_path(tag, ckpts)
     kept.cleanup()
+
+    # -- 30. Amazon as its users run it: (a), the kernels at its shapes ------
+    amazon_launches, amazon = amazon_main_path(dev, tag)
 
     replaces = {
         "embedding_gather": "tpurec/ops/embedding_pallas.py:61",
@@ -11025,6 +11876,7 @@ def main() -> int:
                                 for fit, n in stream_launches.items()}
         k["launches_fit_cadence"] = {fit: n.get(key)
                                      for fit, n in cadence_launches.items()}
+        k["launches_amazon"] = amazon_launches.get(key)
         if k["name"] in ("embedding_gather", "field_attention"):
             k["launches_serving"] = {
                 c: r["launches"][k["name"]] for c, r in serving.items()
@@ -11045,6 +11897,7 @@ def main() -> int:
     print(json.dumps({"stream": stream}))
     print(json.dumps({"fit_cadence": fit_cadence}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"amazon": amazon}))
     print(json.dumps({"profiler_captures": CAPTURES}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
@@ -11055,10 +11908,34 @@ def main() -> int:
     return 0
 
 
+def cli_epoch0_auc(tag):
+    """Phase 21 (a) alone, in this process, with its checks: the CLI's
+    MMoE at CLI_MMOE for CLI_MMOE_EPOCHS epochs from phase 21's seed.
+    -> its first epoch's valid total_auc, the one phase 22 (d) is held
+    to."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="cli_")
+    rec = _CliRecorder(cli_counters())
+    out, n, _, secs = rec.run(_cli_argv(
+        tmp, "mmoe", SEED + 21,
+        CLI_MMOE + ["--epoch", str(CLI_MMOE_EPOCHS)]))
+    a = _cli_fit_checks(rec.trainers[-1], out, _cli_log(tmp, "mmoe"), n, 6,
+                        "cli mmoe")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{tag} cli (a) mmoe, (d)'s baseline: valid total_auc by epoch "
+          + ", ".join(f"{v:.5f}" for v in a["valid_auc_by_epoch"])
+          + f"; main {secs:.2f} s")
+    return a["valid_auc_by_epoch"][0]
+
+
 def phase22_main(draws: int) -> int:
     """Phase 22 alone, after the build and phase 3's check of kernel 1's
-    row window; (b) at each wd over ``draws`` batch draws.  Phases
-    16 and 21 do not run, so (c) and (d) print their AUC uncompared."""
+    row window; (b) at each wd over ``draws`` batch draws.  Phase 16
+    does not run, so (c) prints its AUC uncompared; phase 21 (a) runs
+    first (:func:`cli_epoch0_auc`) and (d) is held to its first
+    epoch."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -11087,7 +11964,9 @@ def phase22_main(draws: int) -> int:
         tables[dtype] = (q.to(dev), None if sc is None else sc.to(dev))
     gather_window_checks(dev, layout, tables)
     del tables, table
-    launches, summary = mesh_main_path(dev, f"[{gpu}]", None, None, draws)
+    tag = f"[{gpu}]"
+    launches, summary = mesh_main_path(dev, tag, None, cli_epoch0_auc(tag),
+                                       draws)
     print(json.dumps({"launches_mesh": launches}))
     print(json.dumps({"mesh": summary}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -11113,6 +11992,21 @@ def _phase_alone(name):
     print(f"{name}: built {sorted(built)} in {time.perf_counter() - t0:.1f} "
           "s")
     return torch.device("cuda"), f"[{gpu}]"
+
+
+def phase18_main(seed: int) -> int:
+    """Phase 18 (a) alone, after the build: CDC's other bases with their
+    batches drawn from ``default_rng(seed)`` (in the whole run the draw
+    follows the earlier phases')."""
+    start = _phase_alone("phase 18")
+    if start is None:
+        return 1
+    dev, tag = start
+    t0 = time.perf_counter()
+    bases = bases_main_path(dev, np.random.default_rng(seed), tag)
+    print(json.dumps({"bases": bases, "seed": seed}))
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    return 0
 
 
 def phase19_main(seed: int) -> int:
@@ -11179,23 +12073,28 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="The port on the card: every "
                                  "phase, with no arguments.")
     ap.add_argument("--phase", type=int,
-                    choices=[19, 22, 23, 24, 25, 26, 27, 28, 29],
-                    help="run this phase alone (after the build; 19: its "
+                    choices=[18, 19, 22, 23, 24, 25, 26, 27, 28, 29, 30],
+                    help="run this phase alone (after the build; 18: its "
+                    "part (a), CDC's other bases; 19: its "
                     "routed models; 23: with (b)'s witness on three "
                     "meshes; 25: its part (b), the split over the card's "
                     "budget; 26: CDC's cadence on the mesh, (b), or with "
                     "--rows (c); 27: its part (b), the harness with the "
                     "train split over the card's budget; 28: its part (b), "
                     "serving under load; 29: the mesh on four cards, a "
-                    "rank a card over NCCL)")
+                    "rank a card over NCCL; 30: Amazon, (a) and the user's "
+                    "commands (b), or with --rows the scale proof (c))")
     ap.add_argument("--draws", type=int, default=MESH_DRAWS,
                     help="phase 22 (b)'s batch draws at each wd")
     ap.add_argument("--seed", type=int, default=SEED,
-                    help="phase 19's batch draw (with --phase 19)")
+                    help="phase 18 (a)'s or 19's batch draw (with --phase "
+                    "18 or 19)")
     ap.add_argument("--rows", type=int, default=None,
                     help="synthetic rows of phase 25 (b) or 27 (b) "
                     f"(default {STREAM_ROWS}) or phase 26 (c) (with "
-                    "--phase 29: phase 26 (c) on the four cards)")
+                    "--phase 29: phase 26 (c) on the four cards); with "
+                    "--phase 30, the raw ratings of its part (c) "
+                    f"(scripts/bench_amazon_scale.py's {AMAZON_SCALE_ROWS})")
     ap.add_argument("--parts", default="abcd",
                     help="phase 29's parts: a (with e's turns), b, c, d")
     ap.add_argument("--mesh-rank", metavar="DIR",
@@ -11241,6 +12140,8 @@ if __name__ == "__main__":
             sys.exit(cadence_rank(opts.cadence_rank))
         if opts.fit_over:
             sys.exit(fit_over_rank(opts.fit_over))
+        if opts.phase == 18:
+            sys.exit(phase18_main(opts.seed))
         if opts.phase == 19:
             sys.exit(phase19_main(opts.seed))
         if opts.phase == 22:
@@ -11259,6 +12160,8 @@ if __name__ == "__main__":
             sys.exit(phase28_main(opts.parent))
         if opts.phase == 29:
             sys.exit(phase29_main(opts.rows, opts.parts))
+        if opts.phase == 30:
+            sys.exit(phase30_main(opts.rows))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

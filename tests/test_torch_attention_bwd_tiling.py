@@ -24,7 +24,8 @@ N_SM = 132                       # the H100's streaming multiprocessors
 L2_BYTES = 50 * 1024 * 1024      # the H100's L2
 FLAGSHIP = (23, 16, 64, 2)       # F, D, A, H of the flagship attention head
 TEST = (12, 4, 8, 2)             # the card tests' dropout-decoding shapes
-SHAPES = [FLAGSHIP, TEST, (23, 16, 64, 8), (39, 16, 32, 4), (23, 16, 128, 2),
+AMAZON = (8, 16, 64, 2)          # the flagship head on Amazon's 8 fields
+SHAPES = [FLAGSHIP, TEST, AMAZON, (23, 16, 64, 8), (39, 16, 32, 4), (23, 16, 128, 2),
           (49, 16, 64, 2), (60, 16, 64, 1)]
 BATCHES = [1, 3, 512, 513, 4097]
 
@@ -66,6 +67,24 @@ def test_flagship_launches():
     assert smem == want == 225408
     assert layer_bwd_config(512, 23, 64, 2, n_sm=N_SM) == (
         2, True, want - 4 * 2 * 48 * 20, 128)
+
+
+@pytest.mark.parametrize("B", [1, 512, 4096, 4097])
+def test_amazon_launches(B):
+    """At F=8 a block stacks BWD_ROWS = 2 batch rows, 16 field rows: one
+    m16 tile, no padding; the weights staged; the persistent grid at most
+    one block per SM, each walking its groups, every batch row once."""
+    R, stage, smem, grid = bwd_config(B, *AMAZON, n_sm=N_SM)
+    F, D, A, H = AMAZON
+    assert (R, stage) == (BWD_ROWS, True) and R * F == 16
+    assert smem == bwd_smem_bytes(F, D, A, H, R, True) == 117760
+    assert grid == bwd_grid(B, R, N_SM) == {1: 1, 512: 128, 4096: 128,
+                                            4097: 129}[B] <= N_SM
+    groups = -(-B // R)
+    rows = sorted(q * R + r for b in range(grid)
+                  for q in range(b, groups, grid) for r in range(R)
+                  if q * R + r < B)
+    assert rows == list(range(B))
 
 
 @pytest.mark.parametrize("R", [1, 2, 3])

@@ -9,14 +9,15 @@ shape over the budget refused with ValueError."""
 import pytest
 import torch
 
-from tpurec_torch.ops.attention import (FWD_FILL, SMEM_LIMIT,
+from tpurec_torch.ops.attention import (FWD_FILL, FWD_ROWS, SMEM_LIMIT,
                                         field_attention_fwd, fwd_config,
                                         rows_per_block, smem_bytes)
 
 N_SM = 132                       # the H100's streaming multiprocessors
 FLAGSHIP = (23, 16, 64, 2)       # F, D, A, H of the flagship attention head
 TEST = (12, 4, 8, 2)             # the card tests' dropout-decoding shapes
-SHAPES = [FLAGSHIP, TEST, (23, 16, 64, 8), (50, 16, 64, 8), (96, 16, 64, 2),
+AMAZON = (8, 16, 64, 2)          # the flagship head on Amazon's 8 fields
+SHAPES = [FLAGSHIP, TEST, AMAZON, (23, 16, 64, 8), (50, 16, 64, 8), (96, 16, 64, 2),
           (106, 16, 64, 2), (39, 16, 32, 4)]
 
 
@@ -42,14 +43,26 @@ def test_flagship_fills_the_card_at_512():
     assert -(-512 // (R + 1)) < FWD_FILL * N_SM
 
 
-@pytest.mark.parametrize("shape", [FLAGSHIP, TEST])
+def test_amazon_fills_the_card_and_stacks_96_rows_at_4096():
+    """At F=8 a block stacks R=12 batch rows (96 field rows, two warp
+    units of 48) at B=4096, and R=4 (4 padded to one unit) at 512, where
+    128 blocks fill the card; the shared memory is the flagship's at
+    4096 (the same 96 x . buffers) and one unit's at 512."""
+    assert fwd_config(4096, *AMAZON, n_sm=N_SM) == (12, True, 171008)
+    assert fwd_config(4097, *AMAZON, n_sm=N_SM) == (12, True, 171008)
+    assert fwd_config(512, *AMAZON, n_sm=N_SM) == (4, True, 120320)
+    assert fwd_config(1, *AMAZON, n_sm=N_SM) == (1, True, 120320)
+    assert rows_per_block(4096, *AMAZON, n_sm=N_SM) * AMAZON[0] == FWD_ROWS
+
+
+@pytest.mark.parametrize("shape", [FLAGSHIP, TEST, AMAZON])
 def test_batch_sizes_fill_the_card_or_take_one_row(shape):
     for B in range(1, 1200, 7):
         R = rows_per_block(B, *shape, n_sm=N_SM)
         assert R == 1 or -(-B // R) >= FWD_FILL * N_SM
 
 
-@pytest.mark.parametrize("shape", [FLAGSHIP, TEST])
+@pytest.mark.parametrize("shape", [FLAGSHIP, TEST, AMAZON])
 @pytest.mark.parametrize("B", [1, 3, 4, 5, 511, 512, 513, 4095, 4096,
                                4097])
 def test_blocks_cover_every_batch_row_once(shape, B):
